@@ -1,0 +1,54 @@
+"""Blocked matmul — counterpart of ``netsdb_tpu/ops/matmul.py``.
+
+netsDB computes C = A·Bᵀ as a join of blocks on the contraction index
+plus an aggregation of the block products; on one card the whole
+join + aggregate is one dense product on the padded tensors. Zero
+padding is safe under contraction, so nothing is masked here; the output
+metadata keeps the logical shape. (The reference's ``distributed=``
+SUMMA branch belongs to the multi-GPU slice, ROADMAP.md A4.)
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from netsdb_tpu_torch.core.blocked import BlockMeta, BlockedTensor
+from netsdb_tpu_torch.ops.common import mxu_dot
+
+
+def _contract(ad, bd, a_pad_k, b_pad_k, k, compute_dtype, accum_dtype=None):
+    # align contraction extents when block granularities differ
+    if a_pad_k != b_pad_k:
+        ad = ad[..., :k]
+        bd = bd[:k, :]
+    return mxu_dot(ad, bd, compute_dtype,
+                   accum_dtype=accum_dtype or torch.float32)
+
+
+def matmul(a: BlockedTensor, b: BlockedTensor,
+           compute_dtype: Optional[str] = None,
+           accum_dtype: Optional[str] = None) -> BlockedTensor:
+    """C = A·B (reference ``FFInputLayerJoin`` + ``FFAggMatrix``).
+    ``accum_dtype`` sets the output dtype (default f32)."""
+    (m, ka), (kb, n) = a.shape, b.shape
+    if ka != kb:
+        raise ValueError(f"matmul contraction mismatch {a.shape} x {b.shape}")
+    out = _contract(a.data, b.data, a.meta.padded_shape[1],
+                    b.meta.padded_shape[0], ka, compute_dtype, accum_dtype)
+    meta = BlockMeta((m, n), (a.meta.block_shape[0], b.meta.block_shape[1]))
+    return BlockedTensor(out, meta)
+
+
+def matmul_t(a: BlockedTensor, b: BlockedTensor,
+             compute_dtype: Optional[str] = None,
+             accum_dtype: Optional[str] = None) -> BlockedTensor:
+    """C = A·Bᵀ (reference ``FFTransposeMult``)."""
+    (m, ka), (n, kb) = a.shape, b.shape
+    if ka != kb:
+        raise ValueError(f"matmul_t contraction mismatch {a.shape} x {b.shape}")
+    out = _contract(a.data, b.data.t(), a.meta.padded_shape[1],
+                    b.meta.padded_shape[1], ka, compute_dtype, accum_dtype)
+    meta = BlockMeta((m, n), (a.meta.block_shape[0], b.meta.block_shape[0]))
+    return BlockedTensor(out, meta)

@@ -1,0 +1,75 @@
+"""NN elementwise ops — the FF UDF family; counterpart of
+``netsdb_tpu/ops/nn.py``.
+
+All ops keep the zero-margin invariant (``ops.common``). Layout follows
+the reference's FF inference: activations are (features x batch).
+Dropout draws from a caller-owned ``torch.Generator`` where the
+reference takes a ``jax.random`` key.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from netsdb_tpu_torch.core.blocked import BlockedTensor
+from netsdb_tpu_torch.ops.common import neutral_fill, remask
+
+
+def _broadcast_bias(x: BlockedTensor, bias: BlockedTensor) -> torch.Tensor:
+    """Bias (n,) or (n,1) broadcast along x's columns, on padded data."""
+    b = bias.data
+    if b.ndim == 1:
+        b = b[:, None]
+    if b.shape[0] != x.data.shape[0]:
+        raise ValueError(
+            f"bias rows {b.shape[0]} != x padded rows {x.data.shape[0]} "
+            f"(bias must share x's row blocking)")
+    # compute in the activation's dtype: a f32 bias must not promote a
+    # bf16 activation chain back to f32
+    return b.to(x.data.dtype)
+
+
+def bias_relu(x: BlockedTensor, bias: BlockedTensor,
+              dropout_rate: float = 0.0,
+              generator: Optional[torch.Generator] = None) -> BlockedTensor:
+    """relu(x + bias) with optional inverted dropout — reference
+    ``FFReluBiasSum``."""
+    y = torch.relu(x.data + _broadcast_bias(x, bias))
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("dropout requires a torch.Generator")
+        keep = torch.rand(y.shape, generator=generator,
+                          device=y.device) < (1.0 - dropout_rate)
+        y = torch.where(keep, y / (1.0 - dropout_rate),
+                        torch.zeros((), dtype=y.dtype, device=y.device))
+    # the bias broadcasts into padded batch columns: re-mask
+    return remask(x.with_data(y))
+
+
+def bias_sigmoid(x: BlockedTensor, bias: BlockedTensor) -> BlockedTensor:
+    """sigmoid(x + bias) — reference ``FFTransposeBiasSumSigmoid``."""
+    y = torch.sigmoid(x.data + _broadcast_bias(x, bias))
+    return remask(x.with_data(y))
+
+
+def _masked_softmax(x: BlockedTensor, z: torch.Tensor,
+                    axis: int) -> BlockedTensor:
+    y = torch.softmax(neutral_fill(x.with_data(z), float("-inf")), dim=axis)
+    # rows/cols that are ALL padding give NaN (softmax of all -inf)
+    y = torch.nan_to_num(y, nan=0.0, posinf=0.0, neginf=0.0)
+    return remask(x.with_data(y.to(x.data.dtype)))
+
+
+def softmax(x: BlockedTensor, axis: int = 0) -> BlockedTensor:
+    """Masked softmax along ``axis`` — reference ``FFOutputLayer``."""
+    return _masked_softmax(x, x.data, axis)
+
+
+def ff_output_layer(y: BlockedTensor, bias: BlockedTensor,
+                    axis: int = 0) -> BlockedTensor:
+    """exp(y+b) normalised along ``axis`` — the reference inference
+    tail (``FFTransposeBiasSum`` → ``FFRowAggregate`` →
+    ``FFOutputLayer``) as one op, in the max-subtracted stable form."""
+    return _masked_softmax(y, y.data + _broadcast_bias(y, bias), axis)
