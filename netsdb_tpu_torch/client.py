@@ -45,9 +45,7 @@ class Client:
                 "Client(address=...) — the served RemoteClient — is not "
                 "ported yet: ROADMAP.md A7")
         self.config = config if config is not None else Configuration()
-        self.device = resolve_device(device if device is not None
-                                     else self.config.device)
-        self.config.ensure_dirs()
+        self.device = resolve_device(device)
         self.catalog = Catalog(catalog_path or ":memory:")
         self.store = SetStore()
 

@@ -1,12 +1,12 @@
 """Configuration — the subset of ``netsdb_tpu.config.Configuration``
-that the ported path reads, plus the device the client runs on."""
+that the ported path reads — and the rule that picks the device."""
 
 from __future__ import annotations
 
 import dataclasses
 import os
 import tempfile
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -15,22 +15,13 @@ import torch
 class Configuration:
     """``default_block_shape`` is the block a matrix set gets when
     ``send_matrix`` is given none (as in the reference package).
-
-    ``device``: where the client keeps every set and runs every job.
-    None means ``"cuda"``; the CPU is used only when asked for."""
+    ``root_dir`` is where durable sets will live; nothing is written
+    there until persistence is ported (ROADMAP.md A2)."""
 
     default_block_shape: Tuple[int, int] = (512, 512)
     root_dir: str = dataclasses.field(
         default_factory=lambda: os.path.join(tempfile.gettempdir(),
                                              "netsdb_tpu_torch"))
-    device: Optional[str] = None
-
-    @property
-    def data_dir(self) -> str:
-        return os.path.join(self.root_dir, "data")
-
-    def ensure_dirs(self) -> None:
-        os.makedirs(self.data_dir, exist_ok=True)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from netsdb_tpu_torch.ops.common import full_f32_precision, hi_einsum, on_sm90
+from netsdb_tpu_torch.ops.common import full_f32_precision, hi_einsum
 from netsdb_tpu_torch.ops.cuda_kernels import flash_attention
 
 NEG_INF = -1e30
@@ -97,26 +97,28 @@ def merge_project(out: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
     return hi_einsum("bse,ef->bsf", merge_heads(out), w_out)
 
 
+def auto_impl(device: torch.device, block_size: Optional[int]) -> str:
+    """The implementation ``attention_dispatch`` picks when none is
+    asked for. CUDA tensors always take 'flash', the hand-written kernel,
+    which masks a ragged sequence itself and raises on operands or a card
+    it cannot take; the reference's extra rule (a whole number of
+    256-blocks) is its TPU's tiling limit and does not apply here. CPU
+    tensors take 'blockwise' when a block_size is given, else 'full', as
+    the reference does off its TPU."""
+    if device.type == "cuda":
+        return "flash"
+    return "blockwise" if block_size else "full"
+
+
 def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        causal: bool = True, scale: Optional[float] = None,
                        impl: Optional[str] = None,
                        block_size: Optional[int] = None) -> torch.Tensor:
-    """Pick the implementation: 'full', 'blockwise' or 'flash' (the CUDA
-    kernel). ``impl=None`` auto-selects flash on a Hopper card when the
-    sequence is a whole number of 256-blocks and the head dim fits the
-    kernel (the reference selects its Pallas kernel on a TPU under the
-    same sequence rule), else blockwise when a block_size is given,
-    else full."""
-    s, d = q.shape[2], q.shape[3]
+    """Run 'full', 'blockwise' or 'flash' (the CUDA kernel) attention;
+    ``impl=None`` picks one with :func:`auto_impl`."""
+    s = q.shape[2]
     if impl is None:
-        blk = block_size or min(256, s)
-        if (on_sm90(q.device) and s % 256 == 0 and blk % 128 == 0
-                and s % blk == 0 and d <= 128):
-            impl = "flash"
-        elif block_size:
-            impl = "blockwise"
-        else:
-            impl = "full"
+        impl = auto_impl(q.device, block_size)
     if impl == "flash":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if block_size:

@@ -11,7 +11,6 @@ the package on machines that have no ``nvcc``.
 
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -76,14 +75,6 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
-
-
-def build_all() -> dict:
-    """Build every ``csrc/*.cu`` at once, one ``nvcc`` per source, all
-    started together; returns ``{name: library path}``."""
-    names = sorted(p.stem for p in SRC_DIR.glob("*.cu"))
-    with concurrent.futures.ThreadPoolExecutor(len(names) or 1) as pool:
-        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

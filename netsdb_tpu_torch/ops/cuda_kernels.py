@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from netsdb_tpu_torch.ops.common import full_f32_precision
+from netsdb_tpu_torch.ops.common import full_f32_precision, on_sm90
 
 NEG_INF = -1e30
 _LOG2E = 1.4426950408889634  # the softmax runs in the exp2 domain
@@ -150,8 +150,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Fused attention: q/k/v (B, H, S, D) → (B, H, S, D) in q's dtype,
     never writing the (S, S) score matrix to device memory.
 
-    CUDA tensors (float32 or bfloat16, contiguous, D <= 128) run the
-    hand-written kernel on the current stream; CPU tensors run
+    CUDA tensors (float32 or bfloat16, contiguous, D <= 128, on an
+    sm_90 card) run the hand-written kernel on the current stream, and
+    any other CUDA operands raise; CPU tensors run
     :func:`flash_attention_plain`. ``flash_attention.launches`` counts
     kernel launches."""
     b, h, s, d = q.shape
@@ -162,6 +163,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check_cuda_operands(q, k, v)
+    if not on_sm90(q.device):
+        raise RuntimeError(
+            f"flash_attention kernel is built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(q.device)} is sm_"
+            f"{''.join(map(str, torch.cuda.get_device_capability(q.device)))}")
     lib = _kernel_lib()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -3,7 +3,9 @@
 The port never sees an object of the JAX package: a caller holding that
 package's parameters converts them to numpy (``np.asarray``) together
 with their block metadata, and these functions build the port's
-parameter objects or fill a port client's sets from them.
+parameter objects or fill a port client's sets from them. Like the
+client, they put the parameters on CUDA unless given ``device=``, and
+raise where there is no card.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from netsdb_tpu_torch.config import resolve_device
 from netsdb_tpu_torch.core.blocked import BlockMeta, BlockedTensor, owned_tensor
 from netsdb_tpu_torch.models.ff import FFParams
 from netsdb_tpu_torch.models.transformer import TransformerLayerParams
@@ -23,11 +26,12 @@ PaddedMatrix = Tuple[np.ndarray, Sequence[int], Sequence[int]]
 
 def blocked_from_numpy(padded: np.ndarray, shape: Sequence[int],
                        block_shape: Sequence[int],
-                       device="cpu") -> BlockedTensor:
-    """A ``BlockedTensor`` from its padded data and metadata. Raises
+                       device=None) -> BlockedTensor:
+    """A ``BlockedTensor`` from its padded data and metadata, on
+    ``device`` (CUDA unless the caller asks for another). Raises
     ``ValueError`` if the padded margin is not exactly zero, the
     invariant every op of the port relies on."""
-    bt = BlockedTensor(owned_tensor(padded, device=device),
+    bt = BlockedTensor(owned_tensor(padded, device=resolve_device(device)),
                        BlockMeta(tuple(shape), tuple(block_shape)))
     if bt.is_padded and bool((bt.data * (1 - bt.mask(bt.dtype))).ne(0).any()):
         raise ValueError(f"padded margin of {bt!r} is not zero")
@@ -35,7 +39,7 @@ def blocked_from_numpy(padded: np.ndarray, shape: Sequence[int],
 
 
 def ff_params_from_numpy(arrays: Mapping[str, PaddedMatrix],
-                         device="cpu") -> FFParams:
+                         device=None) -> FFParams:
     """``FFParams`` from ``{w1, b1, wo, bo}``, each given as
     ``(padded array, logical shape, block shape)``."""
     return FFParams(**{name: blocked_from_numpy(*arrays[name], device=device)
@@ -43,9 +47,11 @@ def ff_params_from_numpy(arrays: Mapping[str, PaddedMatrix],
 
 
 def transformer_params_from_numpy(arrays: Mapping[str, np.ndarray],
-                                  device="cpu") -> TransformerLayerParams:
+                                  device=None) -> TransformerLayerParams:
     """``TransformerLayerParams`` from dense ``{w_qkv, w_out, w_up,
-    w_down}`` arrays."""
+    w_down}`` arrays, on ``device`` (CUDA unless the caller asks for
+    another)."""
+    device = resolve_device(device)
     return TransformerLayerParams(**{
         name: owned_tensor(arrays[name], dtype=torch.float32, device=device)
         for name in ("w_qkv", "w_out", "w_up", "w_down")})

@@ -134,20 +134,30 @@ def test_attention_dispatch_rejects_unknown_impl():
 
 
 def test_auto_select_picks_flash_on_hopper(monkeypatch):
-    """The auto rule mirrors the reference's on-TPU rule: flash when the
-    card is sm_90 and the sequence is a whole number of 256-blocks."""
+    """CUDA tensors always auto-select the kernel, whatever the sequence
+    length or block size (the kernel masks a ragged sequence); CPU
+    tensors keep the reference's off-TPU rule. With the rule forced to
+    flash, s=128 (not a whole number of 256-blocks) runs the flash path
+    and matches plain attention."""
+    for device in ("cuda", "cuda:0"):
+        assert attn.auto_impl(torch.device(device), None) == "flash"
+        assert attn.auto_impl(torch.device(device), 96) == "flash"
+    assert attn.auto_impl(torch.device("cpu"), None) == "full"
+    assert attn.auto_impl(torch.device("cpu"), 32) == "blockwise"
+
     called = []
-    monkeypatch.setattr(attn, "on_sm90", lambda device=None: True)
 
     def spy(*a, **kw):
         called.append(a[0].shape[2])
         return flash_attention(*a, **kw)
 
     monkeypatch.setattr(attn, "flash_attention", spy)
-    arrays = qkv(b=1, h=2, s=256, d=16)
+    attn.attention_dispatch(*ours(qkv(b=1, h=2, s=128, d=16)))  # CPU: full
+    assert called == []
+    monkeypatch.setattr(attn, "auto_impl", lambda device, block_size: "flash")
+    arrays = qkv(b=1, h=2, s=128, d=16)
     out = attn.attention_dispatch(*ours(arrays))
-    attn.attention_dispatch(*ours(qkv(b=1, h=2, s=128, d=16)))  # not /256
-    assert called == [256]
+    assert called == [128]
     np.testing.assert_allclose(
         out.numpy(), np.asarray(jattn.attention(*theirs(arrays))), **TOL)
 

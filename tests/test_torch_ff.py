@@ -94,7 +94,8 @@ def test_forward_and_logits_match_jax(client, port_client, size):
     # the same params carried across as numpy arrays
     carried = ff_params_from_numpy(
         {n: (np.asarray(getattr(jp, n).data), getattr(jp, n).meta.shape,
-             getattr(jp, n).meta.block_shape) for n in ("w1", "b1", "wo", "bo")})
+             getattr(jp, n).meta.block_shape) for n in ("w1", "b1", "wo", "bo")},
+        device="cpu")
     close(pm.forward(carried, x), jm.forward(jp, jx))
 
 
@@ -152,4 +153,5 @@ def test_carried_params_reject_a_dirty_margin():
     bad = np.ones((4, 4), np.float32)
     with pytest.raises(ValueError, match="margin"):
         ff_params_from_numpy({n: (bad, (3, 3), (2, 2))
-                              for n in ("w1", "b1", "wo", "bo")})
+                              for n in ("w1", "b1", "wo", "bo")},
+                             device="cpu")

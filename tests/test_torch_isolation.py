@@ -51,6 +51,30 @@ def test_client_defaults_to_cuda_and_never_falls_back(tmp_path):
     assert Client(config, device="cpu").device.type == "cpu"
 
 
+def test_carried_weights_default_to_cuda_and_never_fall_back():
+    from netsdb_tpu_torch.weights import (blocked_from_numpy,
+                                          transformer_params_from_numpy)
+
+    eye = np.eye(4, dtype=np.float32)
+    dense = dict(w_qkv=np.zeros((4, 12), np.float32), w_out=eye,
+                 w_up=np.zeros((4, 16), np.float32),
+                 w_down=np.zeros((16, 4), np.float32))
+    calls = [lambda **kw: blocked_from_numpy(eye, (4, 4), (2, 2), **kw),
+             lambda **kw: transformer_params_from_numpy(dense, **kw).w_out]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        assert call(device="cpu").device.type == "cpu"
+
+
+def test_client_writes_nothing_to_its_root_dir(tmp_path):
+    Client(Configuration(root_dir=str(tmp_path / "port")), device="cpu")
+    assert not (tmp_path / "port").exists()
+
+
 @pytest.fixture()
 def port_client(tmp_path):
     c = Client(Configuration(root_dir=str(tmp_path / "port")), device="cpu")

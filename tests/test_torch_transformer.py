@@ -61,7 +61,7 @@ def test_forward_matches_jax_with_carried_params(client, port_client):
                                ref, **TOL)
     carried = transformer_params_from_numpy(
         {n: np.asarray(getattr(jp, n)) for n in
-         ("w_qkv", "w_out", "w_up", "w_down")})
+         ("w_qkv", "w_out", "w_up", "w_down")}, device="cpu")
     np.testing.assert_allclose(
         pm.forward(carried, torch.from_numpy(x)).numpy(), ref, **TOL)
 
@@ -89,10 +89,11 @@ def test_weights_blocked_like_jax_and_padding_never_leaks(client,
 
 def test_flash_path_through_the_layer_matches_jax(client, port_client,
                                                   monkeypatch):
-    """With the sm_90 check forced true, the layer's auto-select takes
-    the flash path (on a CPU tensor: its plain version, no launch)."""
+    """With the auto-select forced to the one CUDA tensors get, the
+    layer takes the flash path (on a CPU tensor: its plain version, no
+    launch)."""
     jm, pm, _ = both(client, port_client, seq=256, seed=5)
-    monkeypatch.setattr(attn, "on_sm90", lambda device=None: True)
+    monkeypatch.setattr(attn, "auto_impl", lambda device, block_size: "flash")
     before = flash_attention.launches
     out = pm.serve_forward(port_client)
     assert flash_attention.launches == before
@@ -114,7 +115,8 @@ def test_ln_is_population_variance_and_gelu_is_tanh():
     w_down = np.eye(64, 16, dtype=np.float32)
     params = transformer_params_from_numpy(
         dict(w_qkv=np.zeros((16, 48), np.float32),
-             w_out=np.zeros((16, 16), np.float32), w_up=w_up, w_down=w_down))
+             w_out=np.zeros((16, 16), np.float32), w_up=w_up, w_down=w_down),
+        device="cpu")
     got = TransformerLayerModel()._mlp(torch.from_numpy(x), params).numpy()
     tanh_gelu = 0.5 * x * (1 + np.tanh(np.sqrt(2 / np.pi)
                                        * (x + 0.044715 * x ** 3)))
