@@ -6,21 +6,33 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failure raises and the exit code is non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
-   CUDA kernel from ``netsdb_tpu_torch/csrc``;
+   CUDA kernel from ``netsdb_tpu_torch/csrc``, one ``nvcc`` per source,
+   all started together, each with its ptxas report;
 2. each kernel against its plain PyTorch version on the card, with its
-   time, the plain version's, the library call's and the bound;
+   time, the plain version's, the library call's and the bound: B1
+   (``flash_attention``) at the transformer layer's shape and edge
+   shapes, B2 (``flash_attention_step``) as the ring's chained fold
+   (bh 16, four chunks of 4096, D 128) and edge cases;
 3. FF inference through ``Client.execute_computations`` at bench.py's
    size (16384 x 1024 -> 4096 -> 1024, 512 x 512 blocks, f32), three
    requests, each checked against an f64 recomputation;
 4. the transformer layer through the same path (embed 1024, 8 heads,
    batch 2, seq 4096, f32), three ``serve_forward`` requests, each
    checked against the layer run with the plain attention;
-5. one more request of each model under ``torch.profiler``: the device
+5. the sequence-parallel transformer layer through placed sets (embed
+   1024, 8 heads, batch 2, seq 16384 sharded over ("sp", 4) virtual
+   positions on card 0): three ``serve_forward`` requests, each
+   launching B2 4 x 4 = 16 times and B1 never, checked against the
+   single-device forward from unplaced sets, and the ring's attention
+   core against the naive ring fold;
+6. one more request of each model under ``torch.profiler``: the device
    time by kernel and the device's busy share.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
-just after phase 4. The last line is the contract's device record.
-Without a CUDA card, or without the package beside it, it exits 2.
+just after phase 4 (the main path of FF and the layer), and set to 0
+again just before phase 5's requests and read just after them. The last
+line is the contract's device record. Without a CUDA card, or without
+the package beside it, it exits 2.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 0
 F32_TOL = 1e-4    # kernel vs plain, f32: summation order differs over 4096 keys
@@ -42,6 +55,8 @@ BF16_ROW_TOL = 2.0 ** -6
 BF16_TOL = 2e-2   # and, as for f32, an absolute limit
 FF_TOL = 1e-4     # FF probabilities vs the f64 recomputation
 LAYER_TOL = 1e-3  # transformer layer: kernel vs plain attention inside it
+SP_TOL = 1e-3     # sequence-parallel layer vs the single-device layer
+SP_POSITIONS = 4  # ring positions of phase 5, all on card 0
 
 # data-sheet peaks (dense) and memory rates; the PCIe card is chosen by name
 PEAKS = {"sxm": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
@@ -92,15 +107,16 @@ def attention_bound_ms(b, h, s, d, causal, dtype_name, pk) -> tuple:
 def phase_build() -> dict:
     from netsdb_tpu_torch.ops import cuda_build
 
-    built = {}
-    for src in sorted(cuda_build.SRC_DIR.glob("*.cu")):
-        t0 = time.perf_counter()
-        built[src.stem] = path = cuda_build.build(src.stem)
-        print(f"[build] {src.stem} built in "
-              f"{time.perf_counter() - t0:.2f} s")
+    names = sorted(src.stem for src in cuda_build.SRC_DIR.glob("*.cu"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        built = dict(zip(names, pool.map(cuda_build.build, names)))
+    print(f"[build] {', '.join(names)} built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, path in built.items():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
-                print(f"[build]   {line.strip()}")
+                print(f"[build]   {name}: {line.strip()}")
     return built
 
 
@@ -176,6 +192,141 @@ def phase_kernels(pk: dict) -> dict:
     if flash_attention.launches != before + 1 or not err <= F32_TOL:
         raise RuntimeError("attention_dispatch did not run the kernel "
                            f"correctly at seq 1000 (err {err})")
+    return path_row
+
+
+def step_chain_bound_ms(bh, s_q, chunks, d, causal, dtype_name, pk) -> tuple:
+    """The least time for a chain of ring steps (one kernel launch per
+    chunk): q read once, each k/v chunk read once, and the f32 carry
+    (acc, l, m) read and written by every step, against the score and
+    P.V products over the (q, k) pairs these chunks' positions keep.
+    ``chunks`` holds (s_k, q_offset, k_offset) per step."""
+    import numpy as np
+
+    elem = 2 if dtype_name == "bfloat16" else 4
+    pairs = 0
+    for s_k, q_off, k_off in chunks:
+        if causal:
+            q_pos = np.arange(q_off, q_off + s_q, dtype=np.int64)
+            pairs += int(np.clip(q_pos - k_off + 1, 0, s_k).sum())
+        else:
+            pairs += s_q * s_k
+    flops = 4.0 * bh * pairs * d
+    nbytes = (bh * s_q * d * elem
+              + sum(2.0 * bh * s_k * d * elem for s_k, _, _ in chunks)
+              + len(chunks) * 2.0 * bh * s_q * (d + 2) * 4)
+    t_ops = flops / pk[dtype_name] * 1e3
+    t_bytes = nbytes / pk["bytes"] * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+
+
+def fold_chain(step, q, chunks, causal):
+    """Fold (k, v, q_offset, k_offset) chunks into a fresh carry with
+    ``step`` and finish: (output in q's dtype, (acc, l, m))."""
+    import torch
+
+    from netsdb_tpu_torch.ops.cuda_kernels import NEG_INF
+
+    bh, s_q, d = q.shape
+    acc = torch.zeros((bh, s_q, d), dtype=torch.float32, device=q.device)
+    l = torch.zeros((bh, s_q, 1), dtype=torch.float32, device=q.device)
+    m = torch.full((bh, s_q, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    for k, v, q_off, k_off in chunks:
+        acc, l, m = step(q, k, v, acc, l, m, q_off, k_off, causal)
+    return (acc / l.clamp_min(1e-30)).to(q.dtype), (acc, l, m)
+
+
+def phase_step_kernel(pk: dict) -> dict:
+    """B2 against its plain version on the card: the ring's chained fold
+    at the SP path's shape (f32 and bf16, causal and not), a chunk
+    wholly in the future (the carry must come back bit-identical), and
+    a ragged chain with unaligned offsets and s_q != s_k. Returns the
+    timings of the f32 causal chain (the path's case)."""
+    import torch
+
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention_step,
+                                                   flash_attention_step_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    bh, s, d, n = 16, 4096, 128, SP_POSITIONS
+    # (label, dtype, causal, s_q, q_offset, [(s_k, k_offset), ...]):
+    # the chain of bench_ring_fold (q at the last position, chunks in
+    # order), and a ragged chain in ring order (its diagonal chunk first)
+    cases = [("chain", torch.float32, True, s, (n - 1) * s,
+              [(s, i * s) for i in range(n)]),
+             ("chain", torch.bfloat16, True, s, (n - 1) * s,
+              [(s, i * s) for i in range(n)]),
+             ("chain", torch.float32, False, s, (n - 1) * s,
+              [(s, i * s) for i in range(n)]),
+             ("ragged", torch.float32, True, 1000, 2600,
+              [(900, o) for o in (2700, 1800, 900, 0)])]
+    path_row = None
+    for label, dtype, causal, s_q, q_off, spec in cases:
+        q = randn(bh, s_q, d, dtype=dtype)
+        chunks = [(randn(bh, s_k, d, dtype=dtype),
+                   randn(bh, s_k, d, dtype=dtype), q_off, k_off)
+                  for s_k, k_off in spec]
+        out, _ = fold_chain(flash_attention_step, q, chunks, causal)
+        ref, _ = fold_chain(flash_attention_step_plain, q, chunks, causal)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            raise RuntimeError(f"flash_attention_step {label}: non-finite")
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        row_err = (diff.amax(-1) / ref.float().abs().amax(-1)
+                   .clamp_min(1e-30)).max().item()
+        bf16 = dtype == torch.bfloat16
+        tol = BF16_TOL if bf16 else F32_TOL
+        dname = str(dtype).replace("torch.", "")
+        ms = time_ms(lambda: fold_chain(flash_attention_step, q, chunks,
+                                        causal))
+        plain_ms = time_ms(lambda: fold_chain(flash_attention_step_plain, q,
+                                              chunks, causal),
+                           iters=1 if label == "ragged" else 3,
+                           warmup=0 if label == "ragged" else 1)
+        bound, bound_by = step_chain_bound_ms(
+            bh, s_q, [(s_k, q_off, k_off) for s_k, k_off in spec], d,
+            causal, dname, pk)
+        row = {"case": label, "bh": bh, "s_q": s_q, "d": d,
+               "chunks": [[s_k, q_off, k_off] for s_k, k_off in spec],
+               "causal": causal, "dtype": dname, "max_abs_err": err,
+               "max_row_rel_err": row_err, "tol": tol,
+               "row_rel_tol": BF16_ROW_TOL if bf16 else None,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "bound_ms": bound, "bound_by": bound_by}
+        print(f"[kernel] flash_attention_step {json.dumps(row)}")
+        if not err <= tol or (bf16 and not row_err <= BF16_ROW_TOL):
+            raise RuntimeError(f"flash_attention_step {label} {dname} "
+                               f"causal={causal}: max abs err {err} "
+                               f"(limit {tol}), max row-relative err "
+                               f"{row_err}")
+        if path_row is None:
+            path_row = row
+
+    # a chunk wholly in the queries' future leaves a live carry exactly
+    # as it was, in the kernel and in the plain version
+    q, k, v = randn(bh, s, d), randn(bh, s, d), randn(bh, s, d)
+    _, carry = fold_chain(flash_attention_step, q, [(k, v, s, s)], True)
+    before = [t.clone() for t in carry]
+    before_launches = flash_attention_step.launches
+    flash_attention_step(q, k, v, *carry, q_offset=s, k_offset=2 * s,
+                         causal=True)
+    plain = flash_attention_step_plain(q, k, v, *before, q_offset=s,
+                                       k_offset=2 * s, causal=True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(carry, before))
+    same_plain = all(torch.equal(a, b) for a, b in zip(plain, before))
+    print(f"[kernel] flash_attention_step future chunk: "
+          f"{flash_attention_step.launches - before_launches} launch, "
+          f"carry bit-identical {same} (plain {same_plain})")
+    if not (same and same_plain) or \
+            flash_attention_step.launches != before_launches + 1:
+        raise RuntimeError("a chunk wholly in the future changed the carry")
     return path_row
 
 
@@ -278,23 +429,122 @@ def phase_transformer(client) -> dict:
 
 
 # --- phase 5 -------------------------------------------------------------
-def phase_profile(client, request_ms: dict) -> None:
-    """Where one request's device time goes: one FF inference and one
-    transformer serve_forward under torch.profiler, after the counts of
-    the main path were read. Prints the kernels by device time and the
-    device's busy share of the last unprofiled request of the same kind
-    (``request_ms``), since the profiler itself slows the host."""
+def sp_model(client):
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.parallel.placement import Placement
+
+    model = TransformerLayerModel(db="transformer_sp", num_heads=8)
+    axes = (("sp", SP_POSITIONS),)
+    return model, Placement(axes, (None, None)), Placement(
+        axes, (None, "sp", None))
+
+
+def phase_sp(client) -> dict:
+    """Three serve_forward requests of the layer over placed sets: the
+    weights replicated over ("sp", 4), x (2, 16384, 1024) sharded on the
+    sequence. Run inside ``virtual_devices(4, "cuda:0")``. The launch
+    counters are set to 0 just before the requests and read just after;
+    the checks against the single-device forward and the naive ring run
+    after that read."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.ops.attention import qkv_project
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+    from netsdb_tpu_torch.parallel.mesh import ShardedTensor, visible_devices
+    from netsdb_tpu_torch.parallel.ring import ring_attention
+
+    embed, heads, batch, seq = 1024, 8, 2, 16384
+    model, replicated, seq_sharded = sp_model(client)
+    model.setup(client, placements={s: replicated
+                                    for s in TransformerLayerModel.SETS})
+    model.load_random_weights(client, embed=embed, seed=SEED)
+    rng = np.random.default_rng(SEED + 4)
+    xs = [rng.standard_normal((batch, seq, embed), dtype=np.float32)
+          for _ in range(3)]
+    per_request = SP_POSITIONS * SP_POSITIONS
+    outs, rates = [], []
+    flash_attention.launches = flash_attention_step.launches = 0
+    for x in xs:
+        model.load_inputs(client, x, placement=seq_sharded)
+        before = flash_attention_step.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = model.serve_forward(client)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = flash_attention_step.launches - before
+        if got != per_request or flash_attention.launches != 0:
+            raise RuntimeError(
+                f"SP serve_forward launched flash_attention_step {got} "
+                f"times (want {per_request}) and flash_attention "
+                f"{flash_attention.launches} times (want 0)")
+        if not isinstance(y, ShardedTensor) or y.shape != (
+                batch, seq, embed) or y.mesh.shape != {"sp": SP_POSITIONS}:
+            raise RuntimeError(f"SP output {y!r} is not sharded over the "
+                               f"ring")
+        outs.append(y)
+        rates.append(batch * seq / dt)
+        print(f"[sp] {dt * 1e3:.3f} ms {batch * seq / dt:.1f} tokens/s "
+              f"{got} flash_attention_step launches")
+    launches = flash_attention_step.launches
+
+    # the same x and weights through unplaced sets: the single-device
+    # forward, B1 at S = 16384
+    ref_model = TransformerLayerModel(db="transformer_sp_ref",
+                                      num_heads=heads)
+    ref_model.setup(client)
+    ref_model.load_random_weights(client, embed=embed, seed=SEED)
+    errs = []
+    for x, y in zip(xs, outs):
+        ref_model.load_inputs(client, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = ref_model.serve_forward(client)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        dense = y.to_dense()
+        if dense.device.type != "cuda" or not torch.isfinite(dense).all():
+            raise RuntimeError("SP output is off the card or non-finite")
+        err = (dense - ref).abs().max().item()
+        errs.append(err)
+        print(f"[sp] vs single-device forward ({dt * 1e3:.3f} ms, "
+              f"{batch * seq / dt:.1f} tokens/s): max abs err {err:.3e}")
+        if not err <= SP_TOL:
+            raise RuntimeError(f"SP layer: max abs err {err} > {SP_TOL}")
+
+    # the ring's attention core, B2's fold against the naive fold
+    with torch.inference_mode():
+        w_qkv = ref_model.params_from_store(client).w_qkv
+        xt = torch.as_tensor(xs[0], device="cuda")
+        q, k, v = qkv_project(ref_model._ln(xt), w_qkv, heads)
+        mesh = seq_sharded.mesh(visible_devices("cuda"))
+        flash = ring_attention(q, k, v, mesh, "sp", impl="flash")
+        naive = ring_attention(q, k, v, mesh, "sp", impl="naive")
+        ring_err = (flash.to_dense() - naive.to_dense()).abs().max().item()
+    print(f"[sp] ring attention core, flash vs naive fold: max abs err "
+          f"{ring_err:.3e}")
+    if not ring_err <= F32_TOL:
+        raise RuntimeError(f"ring attention: flash vs naive {ring_err}")
+    return {"tokens_per_s": rates, "max_abs_err": max(errs),
+            "ring_err": ring_err, "ms": batch * seq / rates[-1] * 1e3,
+            "launches": launches}
+
+
+# --- phase 6 -------------------------------------------------------------
+def phase_profile(requests: dict) -> None:
+    """Where one request's device time goes: each of ``requests`` (name
+    → (run, unprofiled request ms)) once under torch.profiler, after the
+    counts of the main paths were read. Prints the kernels by device
+    time and the device's busy share of the last unprofiled request of
+    the same kind, since the profiler itself slows the host."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from netsdb_tpu_torch.models.ff import FFModel
-    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
-
-    requests = {"ff": lambda: FFModel(block=(512, 512)).inference(client),
-                "transformer": lambda: TransformerLayerModel(
-                    num_heads=8).serve_forward(client)}
-    for name, run in requests.items():
+    for name, (run, request_ms) in requests.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -316,9 +566,9 @@ def phase_profile(client, request_ms: dict) -> None:
                   f"profiler saw no CUDA activity)")
             continue
         print(f"[profile] {name}: device busy {busy_ms:.3f} ms; request "
-              f"{request_ms[name]:.3f} ms unprofiled ({wall_ms:.3f} ms "
+              f"{request_ms:.3f} ms unprofiled ({wall_ms:.3f} ms "
               f"profiled); busy share "
-              f"{100 * busy_ms / request_ms[name]:.1f}%")
+              f"{100 * busy_ms / request_ms:.1f}%")
         for ms, key in rows[:8]:
             print(f"[profile]   {ms:9.3f} ms  {key[:90]}")
 
@@ -339,7 +589,11 @@ def main() -> int:
               f"run from the repository root", file=sys.stderr)
         return 2
     from netsdb_tpu_torch import Client
-    from netsdb_tpu_torch.ops.cuda_kernels import flash_attention
+    from netsdb_tpu_torch.models.ff import FFModel
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+    from netsdb_tpu_torch.parallel.mesh import virtual_devices
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
@@ -349,34 +603,53 @@ def main() -> int:
     pk = peaks(name)
 
     phase_build()
-    path = phase_kernels(pk)
+    b1 = phase_kernels(pk)
+    b2 = phase_step_kernel(pk)
 
     client = Client()
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention_step.launches = 0
     ff = phase_ff(client)
     tf = phase_transformer(client)
-    launches = flash_attention.launches
-    if launches == 0:
+    b1_launches = flash_attention.launches
+    if b1_launches == 0:
         raise RuntimeError("the main path never launched flash_attention")
 
-    phase_profile(client, {"ff": ff["ms"], "transformer": tf["ms"]})
+    with virtual_devices(SP_POSITIONS, "cuda:0"):
+        sp_client = Client()
+        sp = phase_sp(sp_client)
+        if sp["launches"] == 0:
+            raise RuntimeError("the SP path never launched "
+                               "flash_attention_step")
+        phase_profile({
+            "ff": (lambda: FFModel(block=(512, 512)).inference(client),
+                   ff["ms"]),
+            "transformer": (lambda: TransformerLayerModel(
+                num_heads=8).serve_forward(client), tf["ms"]),
+            "sp": (lambda: sp_model(sp_client)[0].serve_forward(sp_client),
+                   sp["ms"])})
 
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
+                      "sp_tokens_per_s": sp["tokens_per_s"],
+                      "sp_max_abs_err": sp["max_abs_err"],
                       "card": smi}))
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "netsdb_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "netsdb_tpu/ops/pallas_kernels.py:135",
-        "launches": launches,
-        "max_abs_err": path["max_abs_err"],
-        "ms": path["ms"],
-        "plain_ms": path["plain_ms"],
-        "bound_ms": path["bound_ms"],
-        "bound_by": path["bound_by"],
-        "library_ms": path["library_ms"],
-    }]}))
+
+    def kernel_row(kname, source, replaces, launches, row):
+        return {"name": kname, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+
+    print(json.dumps({"kernels": [
+        kernel_row("flash_attention",
+                   "netsdb_tpu_torch/csrc/flash_attention.cu",
+                   "netsdb_tpu/ops/pallas_kernels.py:135", b1_launches, b1),
+        kernel_row("flash_attention_step",
+                   "netsdb_tpu_torch/csrc/flash_attention_step.cu",
+                   "netsdb_tpu/ops/pallas_kernels.py:286", sp["launches"],
+                   b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -4,8 +4,11 @@ object, in-process.
 
 The client owns a device. Every set it stores, every scan value and
 every result lives there: ``"cuda"`` unless the caller passes
-``device="cpu"``. Arguments of the reference that belong to later
-slices raise ``NotImplementedError`` naming the ROADMAP.md item.
+``device="cpu"``. A placed set spreads over the visible positions of
+that device type (every card, or the virtual positions of
+:func:`~netsdb_tpu_torch.parallel.mesh.virtual_devices`). Arguments of
+the reference that belong to later slices raise ``NotImplementedError``
+naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import torch
 from netsdb_tpu_torch.catalog.catalog import Catalog
 from netsdb_tpu_torch.config import Configuration, resolve_device
 from netsdb_tpu_torch.core.blocked import BlockedTensor, owned_tensor
+from netsdb_tpu_torch.parallel.mesh import visible_devices
+from netsdb_tpu_torch.parallel.placement import Placement
 from netsdb_tpu_torch.storage.store import SetIdentifier, SetStore
 
 
@@ -56,10 +61,16 @@ class Client:
     def create_set(self, db: str, set_name: str, type_name: str = "tensor",
                    persistence: str = "transient", placement=None,
                    storage: str = "memory") -> SetIdentifier:
-        if placement is not None:
-            raise NotImplementedError(
-                "create_set(placement=...) — sets sharded over several "
-                "GPUs — is not ported yet: ROADMAP.md A4")
+        """Create a set. ``placement`` (a :class:`~netsdb_tpu_torch.
+        parallel.placement.Placement` or its ``to_meta`` dict) declares
+        how the set is sharded over the mesh of the client's device
+        positions: every tensor stored into the set is placed with it,
+        and the catalog keeps it under ``"sharding"``."""
+        if isinstance(placement, dict):
+            placement = Placement.from_meta(placement)
+        if placement is not None and not isinstance(placement, Placement):
+            raise TypeError(f"placement must be a Placement or its meta "
+                            f"dict, got {type(placement).__name__}")
         if storage == "paged":
             raise NotImplementedError(
                 "create_set(storage='paged') — arena-backed streamed sets "
@@ -74,9 +85,15 @@ class Client:
         if not self.catalog.database_exists(db):
             raise KeyError(f"database {db!r} does not exist; "
                            f"create_database first")
-        self.catalog.create_set(db, set_name, type_name, {}, persistence)
+        meta = {}
+        if placement is not None:
+            # resolves the axes now: two size-0 axes raise before the
+            # catalog row is written
+            placement.mesh(visible_devices(self.device.type))
+            meta["sharding"] = placement.to_meta()
+        self.catalog.create_set(db, set_name, type_name, meta, persistence)
         ident = SetIdentifier(db, set_name)
-        self.store.create_set(ident)
+        self.store.create_set(ident, placement=placement)
         return ident
 
     def clear_set(self, db: str, set_name: str) -> None:

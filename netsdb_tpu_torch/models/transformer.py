@@ -3,23 +3,36 @@
 
 A transformer block whose weights live in database sets like every
 other model's, run through the same Computation DAG. Layer = pre-LN MHA
-+ residual, pre-LN MLP (gelu) + residual; x is (batch, seq, embed). On a
-Hopper card the attention core is the hand-written CUDA flash kernel
-(``ops.attention.attention_dispatch``). The sequence-parallel forward,
-the staged (paged-weight) DAG and training are ROADMAP.md A4, A2, A3.
++ residual, pre-LN MLP (gelu) + residual; x is (batch, seq, embed).
+
+Two forwards, chosen by how the sets were created: unplaced sets run
+the single-device :meth:`TransformerLayerModel.forward`, whose attention
+core on a Hopper card is the CUDA flash kernel (B1,
+``ops.attention.attention_dispatch``); an input set placed with its
+sequence axis sharded runs :meth:`TransformerLayerModel.forward_sp`
+over the placement's mesh, whose attention core is ring attention
+folded by the CUDA ring-step kernel (B2, ``parallel.ring``). The staged
+(paged-weight) DAG and training are ROADMAP.md A2 and A3.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from netsdb_tpu_torch.ops.attention import mha_forward
+from netsdb_tpu_torch.ops.attention import (merge_project, mha_forward,
+                                            qkv_project)
 from netsdb_tpu_torch.ops.common import hi_einsum
+from netsdb_tpu_torch.parallel.mesh import (Mesh, ShardedTensor, as_sharded,
+                                            visible_devices)
+from netsdb_tpu_torch.parallel.placement import Placement
+from netsdb_tpu_torch.parallel.ring import ring_attention
 from netsdb_tpu_torch.plan.computations import Join, ScanSet, WriteSet
+from netsdb_tpu_torch.storage.store import SetIdentifier
 
 
 @dataclasses.dataclass
@@ -30,11 +43,35 @@ class TransformerLayerParams:
     w_down: torch.Tensor  # (4E, E)
 
 
-def _no_placement(placement) -> None:
-    if placement is not None:
-        raise NotImplementedError(
-            "placed (sequence-sharded) transformer inputs and the "
-            "ring-attention forward are not ported yet: ROADMAP.md A4")
+def _dense(t):
+    """A tensor from a tensor or a sharded value (gathered)."""
+    return t.to_dense() if isinstance(t, ShardedTensor) else t
+
+
+class _LocalWeights:
+    """Each mesh position's copy of a weight: a replicated sharded
+    weight on the same mesh gives its own shard; anything else is
+    gathered once and copied once to each device that needs it."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self._copies: Dict[tuple, torch.Tensor] = {}
+
+    def at(self, w, pos) -> torch.Tensor:
+        if isinstance(w, ShardedTensor) and w.mesh is self.mesh \
+                and w.is_replicated:
+            return w.shards[pos]
+        dev = self.mesh.devices[pos]
+        key = (id(w), dev)
+        if key not in self._copies:
+            self._copies[key] = _dense(w).to(dev)
+        return self._copies[key]
+
+    def params(self, p: "TransformerLayerParams", pos
+               ) -> "TransformerLayerParams":
+        return TransformerLayerParams(
+            **{f.name: self.at(getattr(p, f.name), pos)
+               for f in dataclasses.fields(p)})
 
 
 class TransformerLayerModel:
@@ -45,9 +82,10 @@ class TransformerLayerModel:
         self.num_heads = num_heads
 
     def setup(self, client, placements=None, storages=None) -> None:
-        """Create the weight sets. ``placements`` and ``storages="paged"``
-        entries reach ``create_set``, which raises
-        ``NotImplementedError`` for them in this slice."""
+        """Create the weight sets. ``placements`` maps set name →
+        Placement (weights typically replicated); ``storages`` entries
+        reach ``create_set``, which raises ``NotImplementedError`` for
+        ``"paged"`` in this slice (ROADMAP.md A2)."""
         client.create_database(self.db)
         for s in self.SETS:
             client.create_set(self.db, s,
@@ -98,31 +136,86 @@ class TransformerLayerModel:
         x = x + a
         return x + self._mlp(self._ln(x), p)
 
+    def forward_sp(self, p: TransformerLayerParams, x, mesh: Mesh,
+                   axis: str = "data", causal: bool = True) -> ShardedTensor:
+        """Sequence-parallel forward: x (batch, seq, embed) sharded
+        (None, axis, None) over ``mesh`` (a dense x is sharded first).
+        Layer norm, the projections and the MLP run per position on that
+        position's shard, with that position's copy of the weights; the
+        attention core rotates k/v around the ring
+        (:func:`~netsdb_tpu_torch.parallel.ring.ring_attention`).
+        Returns y with x's sharding."""
+        spec = (None, axis, None)
+        xs = as_sharded(x, mesh, spec)
+        weights = _LocalWeights(mesh)
+        qkv = {name: np.empty(mesh.devices.shape, dtype=object)
+               for name in "qkv"}
+        for pos in mesh.positions():
+            w = weights.at(p.w_qkv, pos)
+            for name, t in zip("qkv", qkv_project(self._ln(xs.shards[pos]),
+                                                  w, self.num_heads)):
+                qkv[name][pos] = t
+        b, s, e = xs.shape
+        head_shape = (b, self.num_heads, s, e // self.num_heads)
+        q, k, v = (ShardedTensor(qkv[name], mesh, (None, None, axis, None),
+                                 head_shape) for name in "qkv")
+        out = ring_attention(q, k, v, mesh, axis=axis, causal=causal)
+        ys = np.empty(mesh.devices.shape, dtype=object)
+        for pos in mesh.positions():
+            lp = weights.params(p, pos)
+            x1 = xs.shards[pos] + merge_project(out.shards[pos], lp.w_out)
+            ys[pos] = x1 + self._mlp(self._ln(x1), lp)
+        return ShardedTensor(ys, mesh, spec, xs.shape)
+
     # --- set-API serving ----------------------------------------------
     def load_inputs(self, client, x, input_set: str = "x",
                     placement=None) -> None:
         """Store an activation batch (batch, seq, embed) as a one-tensor
-        set on the client's device."""
-        _no_placement(placement)
-        client.create_set(self.db, input_set)
+        set on the client's device. With a placement whose spec shards
+        dim 1, the sequence is stored sharded over the mesh; unplaced
+        inputs get a trivial one-position placement, as in the
+        reference, so a set placed before is re-placed."""
+        if placement is None:
+            placement = Placement((("data", 1),), (None,) * np.ndim(x))
+        client.create_set(self.db, input_set, placement=placement)
         client.clear_set(self.db, input_set)
         client.send_data(self.db, input_set, [np.asarray(x, np.float32)])
 
     def build_forward_dag(self, client, input_set: str = "x",
                           output_set: str = "y", causal: bool = True,
                           placement=None) -> WriteSet:
-        """SCAN(x) ⋈ SCAN(weights...) → forward → OUTPUT, on one device.
-        ``client`` is taken for the reference's signature (it looks the
-        input set's placement up there); every set is unplaced here."""
-        del client
-        _no_placement(placement)
+        """SCAN(x) ⋈ SCAN(weights...) → forward → OUTPUT. When the
+        input set's placement shards an axis of size > 1, the body runs
+        :meth:`forward_sp` over that placement's mesh; otherwise (no
+        placement, or a mesh of size 1 on the sharded axis, as the
+        degraded-hardware rule gives) the single-device forward. The
+        same DAG either way: distribution is decided by how the sets
+        were created. ``placement`` defaults to the input set's."""
+        if placement is None:
+            placement = client.store.placement_of(
+                SetIdentifier(self.db, input_set))
+        mesh: Optional[Mesh] = None
+        axis = None
+        sharded_axes = [a for a in (placement.spec if placement else ())
+                        if a is not None]
+        if sharded_axes:
+            mesh = placement.mesh(visible_devices(client.device.type))
+            ax = sharded_axes[0]
+            axis = ax[0] if isinstance(ax, tuple) else ax
+            if mesh.shape[axis] == 1:
+                mesh = axis = None  # degraded single-device mesh
 
         def fwd(gathered, w_down_bt):
             x, wq, wo, wu = gathered
             p = TransformerLayerParams(
                 w_qkv=wq.to_dense(), w_out=wo.to_dense(),
                 w_up=wu.to_dense(), w_down=w_down_bt.to_dense())
-            return self.forward(p, x, causal=causal)
+            if mesh is not None:
+                return self.forward_sp(p, x, mesh, axis, causal=causal)
+            p = TransformerLayerParams(
+                **{f.name: _dense(getattr(p, f.name))
+                   for f in dataclasses.fields(p)})
+            return self.forward(p, _dense(x), causal=causal)
 
         g1 = Join(ScanSet(self.db, input_set), ScanSet(self.db, "w_qkv"),
                   fn=lambda a, b: (a, b), label="gather:w_qkv",
@@ -134,12 +227,15 @@ class TransformerLayerModel:
                   fn=lambda a, b: a + (b,), label="gather:w_up",
                   passthrough=True)
         out = Join(g3, ScanSet(self.db, "w_down"), fn=fwd,
-                   label=f"transformer-fwd:{self.num_heads}:{causal}")
+                   label=f"transformer-fwd:{self.num_heads}:{causal}:"
+                         f"{axis}")
         return WriteSet(out, self.db, output_set)
 
     def serve_forward(self, client, input_set: str = "x",
                       output_set: str = "y", causal: bool = True,
-                      placement=None) -> torch.Tensor:
+                      placement=None):
+        """Run the forward DAG; returns y, a tensor or (over a placed
+        input set) a :class:`ShardedTensor`."""
         sink = self.build_forward_dag(client, input_set, output_set,
                                       causal, placement=placement)
         results = client.execute_computations(

@@ -35,6 +35,22 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return hi_einsum("bhqk,bhkd->bhqd", probs, v)
 
 
+def _block_attn(q, k, v, carry_num, carry_den, carry_max, mask):
+    """One online-softmax step of the naive ring fold: combine the
+    running (num, den, max) with a new k/v block. Natural ``exp``; q
+    arrives pre-multiplied by the softmax scale."""
+    logits = hi_einsum("bhqd,bhkd->bhqk", q, k)
+    logits = torch.where(mask, logits,
+                         torch.full((), NEG_INF, dtype=logits.dtype,
+                                    device=logits.device))
+    new_max = torch.maximum(carry_max, logits.amax(-1, keepdim=True))
+    correction = torch.exp(carry_max - new_max)
+    p = torch.exp(logits - new_max)
+    new_den = carry_den * correction + p.sum(-1, keepdim=True)
+    new_num = carry_num * correction + hi_einsum("bhqk,bhkd->bhqd", p, v)
+    return new_num, new_den, new_max
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block_size: int, causal: bool = True,
                         scale: Optional[float] = None) -> torch.Tensor:

@@ -1,12 +1,22 @@
 """Hand-written CUDA kernels and their plain PyTorch versions.
 
-``flash_attention`` replaces the Pallas TPU kernel
-``netsdb_tpu/ops/pallas_kernels.py::flash_attention``; its CUDA source is
-``netsdb_tpu_torch/csrc/flash_attention.cu`` (built by
-:mod:`netsdb_tpu_torch.ops.cuda_build`). On a CUDA tensor the wrapper
-launches that kernel or raises; on a CPU tensor it runs
-:func:`flash_attention_plain`, which repeats the reference kernel's
-blocking and exp2-domain online-softmax carry in plain PyTorch.
+=========================  ==============================================
+wrapper                    replaces (``netsdb_tpu/ops/pallas_kernels.py``)
+=========================  ==============================================
+``flash_attention``        ``flash_attention`` (B1),
+                           source ``csrc/flash_attention.cu``
+``flash_attention_step``   ``flash_attention_step`` (B2, the ring step),
+                           source ``csrc/flash_attention_step.cu``
+=========================  ==============================================
+
+Both are built by :mod:`netsdb_tpu_torch.ops.cuda_build`, and B2's
+fold is B1's with the carry read and written (the reference shares one
+``_fold_block``; a shared header cost B1 time, ``PERF.md``). On a CUDA
+tensor a wrapper
+launches its kernel or raises; on a CPU tensor it runs its plain
+version, which repeats the reference kernel's blocking and exp2-domain
+online-softmax carry in plain PyTorch. Each wrapper counts its kernel
+launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -129,18 +139,47 @@ def _check_cuda_operands(q, k, v) -> None:
                              f"{name}")
 
 
+# each library's entry point: (symbol, argtypes)
+_ENTRY = {
+    "flash_attention": ("netsdb_flash_attention_fwd",
+                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]),
+    "flash_attention_step": ("netsdb_flash_attention_step",
+                             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                             + [ctypes.c_float] + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p]),
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_lib() -> ctypes.CDLL:
+def _kernel(name: str):
+    """The entry point of ``csrc/<name>.cu``, built and loaded on first
+    use, with its library's error-string function."""
     from netsdb_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load("flash_attention")
-    fn = lib.netsdb_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib = cuda_build.load(name)
+    symbol, argtypes = _ENTRY[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     lib.netsdb_cuda_error_string.argtypes = [ctypes.c_int]
     lib.netsdb_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return fn, lib.netsdb_cuda_error_string
+
+
+def _require_sm90(name: str, device: torch.device) -> None:
+    if not on_sm90(device):
+        raise RuntimeError(
+            f"{name} kernel is built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(device)} is sm_"
+            f"{''.join(map(str, torch.cuda.get_device_capability(device)))}")
+
+
+def _raise_on_error(name: str, rc: int, error_string) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{error_string(rc).decode()} (cuda error {rc})")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,25 +202,152 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     _check_cuda_operands(q, k, v)
-    if not on_sm90(q.device):
-        raise RuntimeError(
-            f"flash_attention kernel is built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(q.device)} is sm_"
-            f"{''.join(map(str, torch.cuda.get_device_capability(q.device)))}")
-    lib = _kernel_lib()
+    _require_sm90("flash_attention", q.device)
+    fn, error_string = _kernel("flash_attention")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.netsdb_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, s, d, scale * _LOG2E, int(causal),
-            int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed: "
-            f"{lib.netsdb_cuda_error_string(rc).decode()} (cuda error {rc})")
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b * h, s, d, scale * _LOG2E, int(causal),
+                int(q.dtype == torch.bfloat16), stream)
+    _raise_on_error("flash_attention", rc, error_string)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+# ------------------------------------------------------- ring-step kernel
+
+def flash_attention_step_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, acc: torch.Tensor,
+                               l: torch.Tensor, m: torch.Tensor,
+                               q_offset: int, k_offset: int,
+                               causal: bool = True,
+                               scale: Optional[float] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Plain PyTorch ring step with the reference kernel's k blocking,
+    gcd(1024, s_k): each k-block in order folds into the f32 carry in
+    the exp2 domain, with global positions ``q_offset + row`` and
+    ``k_offset + col``. Returns new (acc, l, m) and leaves its inputs
+    alone. Rows are independent, so all query rows fold at once: a
+    block that the reference skips as fully masked for a query block
+    changes none of that block's rows here either, since a masked logit
+    contributes p = 0 exactly. (The reference's masked logits give
+    exp2(NEG_INF - NEG_INF) = 1 in a row whose carry is still empty; the
+    ring never meets that case, and here such a row keeps its empty
+    carry.) bf16 inputs multiply exactly in f32 and round P to bf16
+    before P·V."""
+    bh, s_q, d = q.shape
+    s_k = k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    full_f32_precision()
+    block_k = math.gcd(1024, s_k)
+    qf = _prescale_q(q, scale).float()
+    kf, vf = k.float(), v.float()
+    round_p = v.dtype == torch.bfloat16
+    q_pos = q_offset + torch.arange(s_q, device=q.device)[:, None]
+    for k_start in range(0, s_k, block_k):
+        if causal and q_offset + s_q - 1 < k_offset + k_start:
+            break  # this and every later block is masked for every row
+        logits = qf @ kf[:, k_start:k_start + block_k].transpose(1, 2)
+        if causal:
+            k_pos = k_offset + k_start + torch.arange(
+                block_k, device=q.device)[None, :]
+            live = q_pos >= k_pos
+            logits = torch.where(live, logits,
+                                 torch.full((), NEG_INF, device=q.device))
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        p = torch.exp2(logits - m_new)
+        if causal:
+            p = torch.where(live, p, torch.zeros((), device=q.device))
+        correction = torch.exp2(m - m_new)
+        l = l * correction + p.sum(-1, keepdim=True)
+        pv = p.to(torch.bfloat16).float() if round_p else p
+        acc = acc * correction + pv @ vf[:, k_start:k_start + block_k]
+        m = m_new
+    return acc, l, m
+
+
+def _check_step_operands(q, k, v, acc, l, m) -> None:
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError(f"flash_attention_step wants q (bh, s_q, d) and "
+                         f"k, v (bh, s_k, d); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    bh, s_q, d = q.shape
+    if v.shape != k.shape or k.shape[0] != bh or k.shape[2] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do "
+                         f"not fit q {tuple(q.shape)}")
+    for name, t, shape in (("acc", acc, (bh, s_q, d)),
+                           ("l", l, (bh, s_q, 1)), ("m", m, (bh, s_q, 1))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"carry {name} must be float32 {shape}; got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
+
+
+def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         acc: torch.Tensor, l: torch.Tensor, m: torch.Tensor,
+                         q_offset: int, k_offset: int, causal: bool = True,
+                         scale: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Fold one k/v chunk into a running flash-attention carry — the
+    ring-attention step.
+
+    q (bh, s_q, d); k, v (bh, s_k, d); the carry acc (bh, s_q, d) and
+    l, m (bh, s_q, 1) is float32, starts at (0, 0, NEG_INF) and is
+    finished with ``acc / max(l, 1e-30)`` after the last chunk.
+    ``q_offset`` and ``k_offset`` are the global positions of the first
+    query row and the first key. The carry is CONSUMED: it is updated in
+    place and returned; q, k and v are only read.
+
+    CUDA tensors (q, k, v float32 or bfloat16, everything contiguous,
+    d <= 128, on an sm_90 card) run the hand-written kernel on the
+    current stream, and any other CUDA operands raise; CPU tensors run
+    :func:`flash_attention_step_plain`. ``flash_attention_step.launches``
+    counts kernel launches."""
+    _check_step_operands(q, k, v, acc, l, m)
+    bh, s_q, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    if q.device.type == "cpu":
+        new = flash_attention_step_plain(q, k, v, acc, l, m, q_offset,
+                                         k_offset, causal, scale)
+        for carry, value in zip((acc, l, m), new):
+            carry.copy_(value)
+        return acc, l, m
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_step runs on cuda or cpu, not "
+                         f"{q.device}")
+    for name, t in (("k", k), ("v", v), ("acc", acc), ("l", l), ("m", m)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("acc", acc), ("l", l),
+                    ("m", m)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_step kernel needs "
+                             f"contiguous {name}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention_step kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    if d > _MAX_D:
+        raise ValueError(f"flash_attention_step kernel takes head dim <= "
+                         f"{_MAX_D}, got {d}")
+    _require_sm90("flash_attention_step", q.device)
+    fn, error_string = _kernel("flash_attention_step")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+                l.data_ptr(), m.data_ptr(), bh, s_q, k.shape[1], d,
+                scale * _LOG2E, int(q_offset), int(k_offset), int(causal),
+                int(q.dtype == torch.bfloat16), stream)
+    _raise_on_error("flash_attention_step", rc, error_string)
+    flash_attention_step.launches += 1
+    return acc, l, m
+
+
+flash_attention_step.launches = 0

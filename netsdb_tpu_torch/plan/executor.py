@@ -5,9 +5,12 @@ The reference composes a resident all-tensor DAG into one jitted program
 (``:1232-1236``). PyTorch runs eagerly, so the two branches are one
 here: scan each set, replay the DAG in topo order under
 ``torch.inference_mode()`` (every op launches on the device the scanned
-tensors live on), then materialise each sink into its output set. There
-is no compiled-program cache to key. Streamed execution over paged sets
-is ROADMAP.md A2.
+tensors live on), then materialise each sink into its output set. A
+placed set's sharded value (:class:`~netsdb_tpu_torch.parallel.mesh.
+ShardedTensor`) reaches the DAG as it is and a sharded sink value is
+stored as it is: nothing is gathered on the way. There is no
+compiled-program cache to key. Streamed execution over paged sets is
+ROADMAP.md A2.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Dict, List
 import torch
 
 from netsdb_tpu_torch.core.blocked import BlockedTensor
+from netsdb_tpu_torch.parallel.mesh import ShardedTensor
 from netsdb_tpu_torch.plan.computations import ScanSet, WriteSet
 from netsdb_tpu_torch.plan.planner import LogicalPlan, plan_from_sinks
 from netsdb_tpu_torch.storage.store import SetIdentifier
@@ -50,7 +54,7 @@ def execute_computations(client, sinks: List[WriteSet],
             # a one-tensor set's value is the tensor itself; any other
             # set is scanned as its item list
             single = len(items) == 1 and isinstance(
-                items[0], (BlockedTensor, torch.Tensor))
+                items[0], (BlockedTensor, torch.Tensor, ShardedTensor))
             scan_values[node.node_id] = items[0] if single else items
     with torch.inference_mode():
         values = _evaluate(plan, scan_values)
@@ -66,7 +70,7 @@ def execute_computations(client, sinks: List[WriteSet],
                 client.store.put_tensor(ident, out)
                 continue
             client.store.clear_set(ident)
-            if isinstance(out, torch.Tensor):
+            if isinstance(out, (torch.Tensor, ShardedTensor)):
                 # one tensor IS the set's content (not its rows)
                 client.store.add_data(ident, [out])
             elif isinstance(out, dict):

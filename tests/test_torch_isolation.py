@@ -1,6 +1,6 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
-package, its client runs on CUDA unless told otherwise, and what this
-slice does not port raises ``NotImplementedError`` instead of being
+package, its client runs on CUDA unless told otherwise, and what the
+port does not cover yet raises ``NotImplementedError`` instead of being
 ignored."""
 
 import os
@@ -13,6 +13,7 @@ import torch
 
 from netsdb_tpu_torch import Client
 from netsdb_tpu_torch.config import Configuration
+from netsdb_tpu_torch.parallel.placement import Placement
 from netsdb_tpu_torch.plan.computations import Apply, Join, ScanSet
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,7 +83,8 @@ def port_client(tmp_path):
     return c
 
 
-@pytest.mark.parametrize("kwargs", [dict(placement=object()),
+@pytest.mark.parametrize("kwargs", [dict(storage="paged",
+                                         placement=Placement.replicated()),
                                     dict(storage="paged"),
                                     dict(persistence="persistent")])
 def test_out_of_slice_set_options_raise(port_client, kwargs):
@@ -116,7 +118,7 @@ def test_model_setup_forwards_out_of_slice_options(port_client):
         FFModel().setup(port_client, storages={"w1": "paged"})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TransformerLayerModel().setup(port_client,
-                                      placements={"w_qkv": object()})
+                                      storages={"w_qkv": "paged"})
 
 
 def test_store_keeps_results_on_the_client_device(port_client):

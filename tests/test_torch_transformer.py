@@ -126,10 +126,30 @@ def test_ln_is_population_variance_and_gelu_is_tanh():
 
 
 def test_placed_inputs_are_not_ported(port_client):
+    """Placed inputs are ported; what the layer still refuses is a paged
+    weight set (the staged DAG, ROADMAP.md A2), Ulysses attention and a
+    placed relational table (ROADMAP.md A4, A6)."""
+    from netsdb_tpu.relational.table import ColumnTable
+    from netsdb_tpu_torch.parallel.mesh import make_mesh
+    from netsdb_tpu_torch.parallel.placement import Placement
+    from netsdb_tpu_torch.parallel.ring import ulysses_attention
+
     pm = TransformerLayerModel(num_heads=HEADS)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
+        pm.setup(port_client, storages={"w_up": "paged"})
+    q = torch.zeros(1, HEADS, 8, EMBED // HEADS)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+        ulysses_attention(q, q, q, make_mesh((1,), ("sp",), [q.device]),
+                          axis="sp")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        Placement.data_parallel().apply(ColumnTable.from_rows([{"a": 1}]))
+    # a placed input with no sharded axis runs the single-device forward
     pm.setup(port_client)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pm.load_inputs(port_client, np.zeros((1, 8, EMBED)),
-                       placement=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pm.build_forward_dag(port_client, placement=object())
+    pm.load_random_weights(port_client, embed=EMBED, seed=0)
+    x = np.random.default_rng(1).standard_normal((1, 8, EMBED))
+    pm.load_inputs(port_client, x,
+                   placement=Placement.replicated(ndim=3, n_devices=1))
+    torch.testing.assert_close(
+        pm.serve_forward(port_client),
+        pm.forward(pm.params_from_store(port_client),
+                   torch.from_numpy(x).float()))
