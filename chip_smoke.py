@@ -7,12 +7,18 @@ Phases (any failure raises and the exit code is non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``netsdb_tpu_torch/csrc``, one ``nvcc`` per source,
-   all started together, each with its ptxas report;
+   all started together, each with its ptxas report (registers, shared
+   memory, spills) and its count of tensor-core instructions (``HMMA``
+   in ``cuobjdump -sass``), which must not be 0 for any kernel;
 2. each kernel against its plain PyTorch version on the card, with its
-   time, the plain version's, the library call's and the bound: B1
+   time, the plain version's, the library call's and the bounds (f32
+   on the CUDA cores, and as three-pass TF32 on the tensor cores): B1
    (``flash_attention``) at the transformer layer's shape and edge
-   shapes, B2 (``flash_attention_step``) as the ring's chained fold
-   (bh 16, four chunks of 4096, D 128) and edge cases;
+   shapes (d 64, d 40, d 18, a gcd block), B2 (``flash_attention_step``) as
+   the ring's chained fold (bh 16, four chunks of 4096, D 128) and edge
+   cases. Every f32 case is also held against an f64 attention over its
+   first two (b, h) slices: the kernel's error there may be at most
+   ``F64_RATIO`` times the plain version's;
 3. FF inference through ``Client.execute_computations`` at bench.py's
    size (16384 x 1024 -> 4096 -> 1024, 512 x 512 blocks, f32), three
    requests, each checked against an f64 recomputation;
@@ -57,10 +63,17 @@ FF_TOL = 1e-4     # FF probabilities vs the f64 recomputation
 LAYER_TOL = 1e-3  # transformer layer: kernel vs plain attention inside it
 SP_TOL = 1e-3     # sequence-parallel layer vs the single-device layer
 SP_POSITIONS = 4  # ring positions of phase 5, all on card 0
+# f32 cases, against an f64 attention: the kernel's max abs error over at
+# most this many times the plain version's. Three-pass TF32 is about as
+# accurate as f32 (PERF.md); one pass would read about 1000 times.
+F64_RATIO = 4.0
 
 # data-sheet peaks (dense) and memory rates; the PCIe card is chosen by name
-PEAKS = {"sxm": {"float32": 67e12, "bfloat16": 989e12, "bytes": 3.35e12},
-         "pcie": {"float32": 51e12, "bfloat16": 756e12, "bytes": 2.0e12}}
+# (float32 on the CUDA cores, tf32 and bfloat16 on the tensor cores)
+PEAKS = {"sxm": {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12,
+                 "bytes": 3.35e12},
+         "pcie": {"float32": 51e12, "tf32": 378e12, "bfloat16": 756e12,
+                  "bytes": 2.0e12}}
 
 
 def nvidia_smi() -> str:
@@ -90,17 +103,53 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bounds_ms(flops, nbytes, dtype_name, pk) -> tuple:
+    """(bound ms, what bounds it, three-pass TF32 bound ms or None): the
+    larger of the bytes over the memory rate and the operations over the
+    peak of their type; for f32 once on the CUDA cores and once as three
+    TF32 products on the tensor cores, the route the kernels take."""
+    t_bytes = nbytes / pk["bytes"] * 1e3
+    t_ops = flops / pk[dtype_name] * 1e3
+    bound = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    tf32 = (max(3 * flops / pk["tf32"] * 1e3, t_bytes)
+            if dtype_name == "float32" else None)
+    return bound + (tf32,)
+
+
 def attention_bound_ms(b, h, s, d, causal, dtype_name, pk) -> tuple:
     """The least time for one attention forward: q, k, v read once and o
     written once, against the score and P.V products over the (q, k)
     pairs this mask keeps."""
     elem = 2 if dtype_name == "bfloat16" else 4
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4.0 * b * h * pairs * d
-    nbytes = 4.0 * b * h * s * d * elem
-    t_ops = flops / pk[dtype_name] * 1e3
-    t_bytes = nbytes / pk["bytes"] * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return bounds_ms(4.0 * b * h * pairs * d, 4.0 * b * h * s * d * elem,
+                     dtype_name, pk)
+
+
+def attention_f64(q, k, v, q_pos, k_pos, causal, scale):
+    """Exact attention in float64: q (n, s_q, d) at global positions
+    ``q_pos``, k and v (n, s_k, d) at ``k_pos``."""
+    import torch
+
+    logits = (q.double() @ k.double().transpose(1, 2)) * scale
+    if causal:
+        logits = logits.masked_fill(k_pos[None, :] > q_pos[:, None],
+                                    float("-inf"))
+    return torch.softmax(logits, dim=-1) @ v.double()
+
+
+def check_f64(name, out, plain, exact) -> dict:
+    """An f32 kernel and its plain version against the f64 attention on
+    the same slices: the kernel's error may be at most F64_RATIO times
+    the plain version's."""
+    err = (out.double() - exact).abs().max().item()
+    plain_err = (plain.double() - exact).abs().max().item()
+    print(f"[kernel] {name} vs f64: kernel {err:.3e}, plain {plain_err:.3e}, "
+          f"ratio {err / max(plain_err, 1e-300):.3f}")
+    if not err <= F64_RATIO * plain_err:
+        raise RuntimeError(f"{name}: error against f64 {err} is over "
+                           f"{F64_RATIO} x the plain version's {plain_err}")
+    return {"f64_err": err, "plain_f64_err": plain_err}
 
 
 # --- phase 1 -------------------------------------------------------------
@@ -113,11 +162,60 @@ def phase_build() -> dict:
         built = dict(zip(names, pool.map(cuda_build.build, names)))
     print(f"[build] {', '.join(names)} built in "
           f"{time.perf_counter() - t0:.2f} s")
+    tool = cuobjdump_path()
     for name, path in built.items():
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line or "smem" in line):
                 print(f"[build]   {name}: {line.strip()}")
+        hmma = hmma_counts(tool, path)
+        for func, count in hmma.items():
+            print(f"[build]   {name}: {count} HMMA in {func}")
+        if not hmma or min(hmma.values()) == 0:
+            raise RuntimeError(f"{name}: a kernel without tensor-core "
+                               f"instructions ({hmma})")
     return built
+
+
+def cuobjdump_path() -> str:
+    """``cuobjdump`` from the CUDA toolkit beside ``nvcc``, else from
+    Triton's package (``triton/backends/nvidia/bin``)."""
+    import importlib.util
+    import os
+    import shutil
+
+    from netsdb_tpu_torch.ops import cuda_build
+
+    candidates = [shutil.which("cuobjdump") or "",
+                  os.path.join(os.path.dirname(cuda_build.nvcc_path()),
+                               "cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    for root in (spec.submodule_search_locations or []) if spec else []:
+        candidates.append(os.path.join(root, "backends", "nvidia", "bin",
+                                       "cuobjdump"))
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError("cuobjdump is in neither the CUDA toolkit nor "
+                       "Triton's backends/nvidia/bin")
+
+
+def hmma_counts(tool: str, library) -> dict:
+    """Tensor-core instructions (``HMMA``) in each kernel of a built
+    library, from its SASS."""
+    import re
+
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            func = found.group(1)
+            counts[func] = 0
+        elif func and re.search(r"\bHMMA\.", line):
+            counts[func] += 1
+    return counts
 
 
 # --- phase 2 -------------------------------------------------------------
@@ -137,7 +235,14 @@ def phase_kernels(pk: dict) -> dict:
              ((2, 8, 4096, 128), True, torch.bfloat16, None),
              ((2, 8, 4096, 128), False, torch.float32, None),
              ((1, 3, 96, 32), True, torch.float32, 64),   # gcd -> 32
-             ((2, 8, 4096, 64), True, torch.float32, None)]
+             ((2, 8, 4096, 64), True, torch.float32, None),
+             # d 40 is no multiple of bf16's mma depth (16), S no
+             # multiple of the 64-row tiles
+             ((1, 4, 1000, 40), True, torch.float32, None),
+             ((1, 4, 1000, 40), True, torch.bfloat16, None),
+             # rows of 72 and 36 bytes: no 16-byte copies, plain loads
+             ((1, 2, 300, 18), True, torch.float32, None),
+             ((1, 2, 300, 18), True, torch.bfloat16, None)]
     path_row = None
     for shape, causal, dtype, blk in cases:
         b, h, s, d = shape
@@ -166,12 +271,21 @@ def phase_kernels(pk: dict) -> dict:
             q, k, v, causal=causal, block_q=bq, block_k=bk), iters=3)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal))
-        bound, bound_by = attention_bound_ms(b, h, s, d, causal, dname, pk)
+        bound, bound_by, bound3 = attention_bound_ms(b, h, s, d, causal,
+                                                     dname, pk)
         row = {"shape": list(shape), "causal": causal, "dtype": dname,
                "max_abs_err": err, "max_row_rel_err": row_err,
                "tol": tol, "row_rel_tol": BF16_ROW_TOL if bf16 else None,
                "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by}
+               "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
+               "bound_3xtf32_ms": bound3}
+        if not bf16:
+            pos = torch.arange(s, device="cuda")
+            row.update(check_f64(
+                f"flash_attention {shape} causal={causal}",
+                out.reshape(b * h, s, d)[:2], ref.reshape(b * h, s, d)[:2],
+                attention_f64(*(t.reshape(b * h, s, d)[:2] for t in (q, k, v)),
+                              pos, pos, causal, d ** -0.5)))
         print(f"[kernel] flash_attention {json.dumps(row)}")
         if not err <= tol or (bf16 and not row_err <= BF16_ROW_TOL):
             raise RuntimeError(f"flash_attention {shape} {dname} "
@@ -211,13 +325,10 @@ def step_chain_bound_ms(bh, s_q, chunks, d, causal, dtype_name, pk) -> tuple:
             pairs += int(np.clip(q_pos - k_off + 1, 0, s_k).sum())
         else:
             pairs += s_q * s_k
-    flops = 4.0 * bh * pairs * d
     nbytes = (bh * s_q * d * elem
               + sum(2.0 * bh * s_k * d * elem for s_k, _, _ in chunks)
               + len(chunks) * 2.0 * bh * s_q * (d + 2) * 4)
-    t_ops = flops / pk[dtype_name] * 1e3
-    t_bytes = nbytes / pk["bytes"] * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+    return bounds_ms(4.0 * bh * pairs * d, nbytes, dtype_name, pk)
 
 
 def fold_chain(step, q, chunks, causal):
@@ -241,9 +352,13 @@ def phase_step_kernel(pk: dict) -> dict:
     """B2 against its plain version on the card: the ring's chained fold
     at the SP path's shape (f32 and bf16, causal and not), a chunk
     wholly in the future (the carry must come back bit-identical), and
-    a ragged chain with unaligned offsets and s_q != s_k. Returns the
-    timings of the f32 causal chain (the path's case)."""
+    a ragged chain with unaligned offsets and s_q != s_k. The library
+    yardstick of a chain is one SDPA call of q against the chain's
+    concatenated k/v under the chain's mask (timed only: the port never
+    calls it). Returns the timings of the f32 causal chain (the path's
+    case)."""
     import torch
+    import torch.nn.functional as F
 
     from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention_step,
                                                    flash_attention_step_plain)
@@ -289,16 +404,32 @@ def phase_step_kernel(pk: dict) -> dict:
                                               chunks, causal),
                            iters=1 if label == "ragged" else 3,
                            warmup=0 if label == "ragged" else 1)
-        bound, bound_by = step_chain_bound_ms(
+        bound, bound_by, bound3 = step_chain_bound_ms(
             bh, s_q, [(s_k, q_off, k_off) for s_k, k_off in spec], d,
             causal, dname, pk)
+        # the chain as one attention: q against the concatenated chunks
+        q_pos = q_off + torch.arange(s_q, device="cuda")
+        k_pos = torch.cat([k_off + torch.arange(s_k, device="cuda")
+                           for s_k, k_off in spec])
+        k_cat = torch.cat([c[0] for c in chunks], dim=1)
+        v_cat = torch.cat([c[1] for c in chunks], dim=1)
+        mask = (k_pos[None, :] <= q_pos[:, None]) if causal else None
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k_cat[None], v_cat[None], attn_mask=mask))
         row = {"case": label, "bh": bh, "s_q": s_q, "d": d,
                "chunks": [[s_k, q_off, k_off] for s_k, k_off in spec],
                "causal": causal, "dtype": dname, "max_abs_err": err,
                "max_row_rel_err": row_err, "tol": tol,
                "row_rel_tol": BF16_ROW_TOL if bf16 else None,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-               "bound_ms": bound, "bound_by": bound_by}
+               "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": bound, "bound_by": bound_by,
+               "bound_3xtf32_ms": bound3}
+        if not bf16:
+            row.update(check_f64(
+                f"flash_attention_step {label} causal={causal}", out[:2],
+                ref[:2], attention_f64(q[:2], k_cat[:2], v_cat[:2], q_pos,
+                                       k_pos, causal, d ** -0.5)))
+        del k_cat, v_cat, mask
         print(f"[kernel] flash_attention_step {json.dumps(row)}")
         if not err <= tol or (bf16 and not row_err <= BF16_ROW_TOL):
             raise RuntimeError(f"flash_attention_step {label} {dname} "
@@ -640,6 +771,7 @@ def main() -> int:
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
+                "bound_3xtf32_ms": row["bound_3xtf32_ms"],
                 "library_ms": row["library_ms"]}
 
     print(json.dumps({"kernels": [

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, under
 ``netsdb_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``. The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``ctypes``. The library's file name carries a hash of its source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 Nothing is built at import time: the CPU tests import every module of
 the package on machines that have no ``nvcc``.
 """
@@ -41,10 +42,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (keyed by source + flags)."""
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by its source, every
+    header of ``csrc`` (name and bytes) and the flags, so an edited
+    shared header rebuilds every library."""
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -9,10 +9,12 @@ wrapper                    replaces (``netsdb_tpu/ops/pallas_kernels.py``)
                            source ``csrc/flash_attention_step.cu``
 =========================  ==============================================
 
-Both are built by :mod:`netsdb_tpu_torch.ops.cuda_build`, and B2's
-fold is B1's with the carry read and written (the reference shares one
-``_fold_block``; a shared header cost B1 time, ``PERF.md``). On a CUDA
-tensor a wrapper
+Both are built by :mod:`netsdb_tpu_torch.ops.cuda_build` and
+instantiate one fold, ``csrc/flash_fold_mma.cuh``, as the reference's
+two kernels share ``_fold_block``: B2's is B1's with the carry read and
+written. The fold runs its products on the tensor cores (``mma.sync``):
+bf16 natively, float32 as three-pass TF32, which keeps float32's
+accuracy. On a CUDA tensor a wrapper
 launches its kernel or raises; on a CPU tensor it runs its plain
 version, which repeats the reference kernel's blocking and exp2-domain
 online-softmax carry in plain PyTorch. Each wrapper counts its kernel
