@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (``netsdb_tpu_torch``) on one CUDA card.
 
 Run from the repository root:  python3 chip_smoke.py
+(``--paged-only``: phases 1 and 7 alone, without the contract's last
+line, to compare the paged path of two trees.)
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -32,11 +34,22 @@ Phases (any failure raises and the exit code is non-zero):
    single-device forward from unplaced sets, and the ring's attention
    core against the naive ring fold;
 6. one more request of each model under ``torch.profiler``: the device
-   time by kernel and the device's busy share.
+   time by kernel and the device's busy share;
+7. the paged path: FF (w1 and wo paged) and the staged transformer layer
+   (all four weights paged) at the sizes of phases 3 and 4, their
+   weights streamed from a spilling page arena through pinned buffers
+   and a copy stream. Per model a first, a cold (device cache cleared),
+   three warm and one resident request: the paged outputs are held to
+   the resident one, warm requests must read no page and stage no byte,
+   and the staged layer must launch B1. Then a 12-page matrix through
+   the pinned ring, bit for bit, and one cold request of each model under
+   the profiler: the uploads' streams and source memory (pinned, or the
+   phase fails), their rate and how much of their time kernels ran.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
-just after phase 4 (the main path of FF and the layer), and set to 0
-again just before phase 5's requests and read just after them. The last
+just after phase 4 (the main path of FF and the layer), set to 0 again
+just before phase 5's requests and read just after them, and again
+around each model's paged requests in phase 7. The last
 line is the contract's device record. Without a CUDA card, or without
 the package beside it, it exits 2.
 """
@@ -63,6 +76,14 @@ FF_TOL = 1e-4     # FF probabilities vs the f64 recomputation
 LAYER_TOL = 1e-3  # transformer layer: kernel vs plain attention inside it
 SP_TOL = 1e-3     # sequence-parallel layer vs the single-device layer
 SP_POSITIONS = 4  # ring positions of phase 5, all on card 0
+# phase 7: 3 MiB pages make every weight's row block a multiple of 64 rows
+# (w1 768, wo 192, w_qkv 256, ...); a 24 MiB arena holds less than either
+# model's weights (32 and 48 MiB), so it spills
+PAGE_BYTES = 3 << 20
+POOL_BYTES = 24 << 20
+PAGED_FF_TOL = FF_TOL        # paged FF vs the resident request
+PAGED_LAYER_TOL = LAYER_TOL  # staged paged layer vs the resident layer
+PCIE_GBPS = 64.0  # PCIe Gen5 x16, nominal per direction
 # f32 cases, against an f64 attention: the kernel's max abs error over at
 # most this many times the plain version's. Three-pass TF32 is about as
 # accurate as f32 (PERF.md); one pass would read about 1000 times.
@@ -704,6 +725,314 @@ def phase_profile(requests: dict) -> None:
             print(f"[profile]   {ms:9.3f} ms  {key[:90]}")
 
 
+# --- phase 7 -------------------------------------------------------------
+def staged_request(client, run) -> tuple:
+    """Run one request and read what it staged: (output, record) with the
+    request's ms, the staging counters' deltas (bytes and copies to the
+    card, chunks handed to the consumer, streams served wholly from the
+    device cache), the pages read out of the arena and the cache's hits."""
+    import torch
+
+    from netsdb_tpu_torch.plan import staging
+
+    ps, cache = client.store.page_store(), client.store.device_cache()
+    p0, hits0 = ps.stats(), cache.stats()["hits"]
+    c0 = staging.counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    c1, p1 = staging.counters(), ps.stats()
+    rec = {"ms": ms, "staged_bytes": c1["bytes"] - c0["bytes"],
+           "copies": c1["copies"] - c0["copies"],
+           "chunks": c1["chunks"] - c0["chunks"],
+           "cached_runs": c1["cached_runs"] - c0["cached_runs"],
+           "wait_ms": (c1["wait_s"] - c0["wait_s"]) * 1e3,
+           "place_ms": (c1["place_s"] - c0["place_s"]) * 1e3,
+           "pin_ms": (c1["pin_s"] - c0["pin_s"]) * 1e3,
+           "page_reads": p1["page_reads"] - p0["page_reads"],
+           "page_read_ms": (p1["page_read_s"] - p0["page_read_s"]) * 1e3,
+           "arena_loads": p1["loads"] - p0["loads"],
+           "cache_hits": cache.stats()["hits"] - hits0}
+    return out, rec
+
+
+def _union(intervals) -> list:
+    merged = []
+    for s, e in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
+def _overlap(intervals, union) -> float:
+    total = 0.0
+    for s, e in intervals:
+        for us, ue in union:
+            total += max(0.0, min(e, ue) - max(s, us))
+    return total
+
+
+def profile_staged(name: str, run, request_ms: float) -> dict:
+    """One cold staged request under torch.profiler, read from its trace:
+    where the host-to-device copies ran (their streams, pinned or
+    pageable source), how long they took, how much of that time kernels
+    ran on other streams, the device's busy share of the unprofiled
+    request and the kernels by device time. Raises if a copy came from
+    pageable memory or ran on a stream that also ran kernels."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)
+    finally:
+        os.remove(path)
+    events = events.get("traceEvents", events) if isinstance(events, dict) \
+        else events
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        print(f"[paged] {name} profile: device time not measured (the "
+              f"profiler saw no CUDA activity)")
+        return {"measured": False}
+    copies = [e for e in dev if e["cat"] == "gpu_memcpy"
+              and "HtoD" in e["name"]]
+    kernels = [e for e in dev if e["cat"] == "kernel"]
+    copy_streams = {e.get("args", {}).get("stream") for e in copies}
+    kernel_streams = {e.get("args", {}).get("stream") for e in kernels}
+    pageable = [e["name"] for e in copies if "Pinned" not in e["name"]]
+    copy_iv = [(e["ts"], e["ts"] + e["dur"]) for e in copies]
+    copy_us = sum(e - s for s, e in copy_iv)
+    copy_bytes = sum(int(e.get("args", {}).get("bytes", 0)) for e in copies)
+    overlap_us = _overlap(copy_iv, _union(
+        (e["ts"], e["ts"] + e["dur"]) for e in kernels))
+    busy_us = sum(e - s for s, e in _union(
+        (e["ts"], e["ts"] + e["dur"]) for e in dev))
+    by_kernel = {}
+    for e in kernels:
+        by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + e["dur"]
+    rec = {"measured": True, "copies": len(copies),
+           "copy_ms": copy_us / 1e3, "copy_bytes": copy_bytes,
+           "copy_gbps": copy_bytes / (copy_us * 1e3) if copy_us else None,
+           "overlap_share": overlap_us / copy_us if copy_us else None,
+           "copy_streams": sorted(map(str, copy_streams)),
+           "kernel_streams": sorted(map(str, kernel_streams)),
+           "pinned": not pageable, "busy_ms": busy_us / 1e3,
+           "busy_share": busy_us / 1e3 / request_ms,
+           "profiled_ms": wall_ms}
+    print(f"[paged] {name} cold profile: {json.dumps(rec)}")
+    for key, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[paged]   {us / 1e3:9.3f} ms  {key[:100]}")
+    if pageable:
+        raise RuntimeError(f"{name}: host-to-device copies from pageable "
+                           f"memory: {sorted(set(pageable))}")
+    if copies and copy_streams & kernel_streams:
+        raise RuntimeError(f"{name}: the uploads ran on a stream that also "
+                           f"ran kernels ({copy_streams & kernel_streams})")
+    return rec
+
+
+def phase_paged() -> dict:
+    """The paged path on the card: FF at bench.py's width with w1 and wo
+    paged, and the staged transformer layer at transformer_bench.py's
+    width with all four weights paged, in an arena of POOL_BYTES pages of
+    PAGE_BYTES (smaller than either model's weights, so it spills). Per
+    model: a first request, one cold request (device cache cleared),
+    three warm requests (0 pages read, 0 bytes staged) and the resident
+    request on the same weights, which the paged output is held to.
+    Then one cold request of each under the profiler, and a ring check:
+    a matrix of 12 pages streamed through the 3 pinned buffers of a
+    stage depth of 2, against its own bytes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.models.ff import FFModel
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.ops.cuda_kernels import flash_attention
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="netsdb_paged_") as root:
+        client = Client(Configuration(root_dir=root,
+                                      page_size_bytes=PAGE_BYTES,
+                                      page_pool_bytes=POOL_BYTES))
+        store = client.store
+        rng = np.random.default_rng(SEED + 5)
+
+        # FF: 16384 x 1024 -> 4096 -> 1024, f32
+        features, hidden, labels, batch = 1024, 4096, 1024, 16384
+        paged = FFModel(db="ff_paged", block=(512, 512))
+        paged.setup(client, storages={"w1": "paged", "wo": "paged"})
+        resident = FFModel(db="ff_resident", block=(512, 512))
+        resident.setup(client)
+        x = rng.standard_normal((batch, features), dtype=np.float32)
+        for m in (paged, resident):
+            m.load_random_weights(client, features, hidden, labels,
+                                  seed=SEED)
+            m.load_inputs(client, x)
+
+        def ff_paged():
+            return paged.inference(client).to_dense()
+
+        def ff_resident():
+            return resident.inference(client).to_dense()
+
+        out["ff"] = drive_paged(client, "ff", ff_paged, ff_resident,
+                                PAGED_FF_TOL, batch, "rows/s")
+
+        # the staged transformer layer: embed 1024, 8 heads, 2 x 4096
+        embed, heads, tb, seq = 1024, 8, 2, 4096
+        tpaged = TransformerLayerModel(db="tf_paged", num_heads=heads)
+        tpaged.setup(client, storages={w: "paged" for w in
+                                       TransformerLayerModel.SETS})
+        tres = TransformerLayerModel(db="tf_resident", num_heads=heads)
+        tres.setup(client)
+        xt = rng.standard_normal((tb, seq, embed), dtype=np.float32)
+        for m in (tpaged, tres):
+            m.load_random_weights(client, embed=embed, seed=SEED)
+            m.load_inputs(client, xt)
+        dag = tpaged.build_forward_dag_staged()
+
+        def tf_paged():
+            res = client.execute_computations(dag, job_name="tf-paged")
+            return next(iter(res.values()))
+
+        out["transformer"] = drive_paged(
+            client, "transformer", tf_paged, lambda: tres.serve_forward(
+                client), PAGED_LAYER_TOL, tb * seq, "tokens/s")
+        launches = out["transformer"]["launches"]
+        if launches < out["transformer"]["requests"]:
+            raise RuntimeError(f"the staged transformer path launched "
+                               f"flash_attention {launches} times in "
+                               f"{out['transformer']['requests']} requests")
+
+        arena = store.page_store().stats()
+        print(f"[paged] arena after both models: {json.dumps(arena)}")
+        if not arena["spills"] > 0:
+            raise RuntimeError(f"the arena never spilled: {arena}")
+        out["arena"] = arena
+        print(f"[paged] device cache: "
+              f"{json.dumps(store.device_cache().stats())}")
+
+        # the pinned ring: 12 pages through 3 buffers, bit for bit
+        client.create_database("ring")
+        client.create_set("ring", "m", storage="paged")
+        rows = 12 * (PAGE_BYTES // (4 * 1024))
+        mat = rng.standard_normal((rows, 1024), dtype=np.float32)
+        client.send_matrix("ring", "m", mat, (512, 512))
+        eye = torch.eye(1024, device="cuda")
+        want = torch.as_tensor(mat, device="cuda")
+        store.device_cache().clear()
+        same = [torch.equal(client.paged_matmul("ring", "m", eye), want)
+                for _ in range(2)]  # cold (through the ring), then warm
+        print(f"[paged] pinned ring: {rows} rows in 12 pages through "
+              f"{store.config.stage_depth + 1} pinned buffers; cold "
+              f"bit-identical {same[0]}, warm bit-identical {same[1]}")
+        if not all(same):
+            raise RuntimeError("a page streamed through the pinned ring "
+                               "came back changed")
+
+        out["ff"]["profile"] = profile_staged(
+            "ff", cold(client, ff_paged), out["ff"]["cold_ms"])
+        out["transformer"]["profile"] = profile_staged(
+            "transformer", cold(client, tf_paged),
+            out["transformer"]["cold_ms"])
+        store.page_store().close()
+    return out
+
+
+def cold(client, run):
+    """``run`` with the device cache cleared first."""
+    def go():
+        client.store.device_cache().clear()
+        return run()
+    return go
+
+
+def drive_paged(client, name, run_paged, run_resident, tol, units,
+                unit) -> dict:
+    """First, cold, three warm and one resident request of one model;
+    prints each and holds the paged outputs to the resident one. The
+    flash kernel's launch count is set to 0 just before the paged
+    requests and read just after them."""
+    import torch
+
+    from netsdb_tpu_torch.ops.cuda_kernels import flash_attention
+
+    cache = client.store.device_cache()
+    run_resident()  # warms the libraries' handles for both shapes
+    cache.clear()
+    reqs = []
+    flash_attention.launches = 0
+    for kind in ("first", "cold", "warm", "warm", "warm"):
+        if kind == "cold":
+            cache.clear()
+        got, rec = staged_request(client, run_paged)
+        rec["kind"] = kind
+        reqs.append((got, rec))
+    launches = flash_attention.launches
+    print(f"[paged] {name}: flash_attention launched {launches} times in "
+          f"{len(reqs)} paged requests")
+    ref, res = staged_request(client, run_resident)
+    res["kind"] = "resident"
+    errs = []
+    for got, rec in reqs:
+        if tuple(got.shape) != tuple(ref.shape) or \
+                not torch.isfinite(got).all():
+            raise RuntimeError(f"{name} paged output {tuple(got.shape)} is "
+                               f"wrong or non-finite")
+        rec["max_abs_err"] = (got.float() - ref.float()).abs().max().item()
+        errs.append(rec["max_abs_err"])
+    for _, rec in reqs + [(ref, res)]:
+        rate = units / rec["ms"] * 1e3
+        print(f"[paged] {name} {rec['kind']:8s} {rec['ms']:.3f} ms "
+              f"{rate:.1f} {unit} {json.dumps(rec)}")
+    cold_rec = reqs[1][1]
+    gbps = cold_rec["staged_bytes"] / (cold_rec["ms"] * 1e6)
+    print(f"[paged] {name} cold: {cold_rec['staged_bytes']} bytes in "
+          f"{cold_rec['copies']} copies, {gbps:.2f} GB/s over the request "
+          f"(PCIe Gen5 x16 nominal {PCIE_GBPS:.0f} GB/s); max abs err vs "
+          f"resident {max(errs):.3e} (limit {tol})")
+    if not max(errs) <= tol:
+        raise RuntimeError(f"{name}: paged vs resident max abs err "
+                           f"{max(errs)} > {tol}")
+    if not cold_rec["staged_bytes"] > 0 or not cold_rec["page_reads"] > 0:
+        raise RuntimeError(f"{name}: the cold request staged nothing")
+    for _, rec in reqs[2:]:
+        if rec["page_reads"] or rec["staged_bytes"] or not rec["cache_hits"]:
+            raise RuntimeError(f"{name}: a warm request read "
+                               f"{rec['page_reads']} pages and staged "
+                               f"{rec['staged_bytes']} bytes with "
+                               f"{rec['cache_hits']} cache hits")
+    return {"requests": len(reqs), "launches": launches,
+            "cold_ms": cold_rec["ms"],
+            "first_ms": reqs[0][1]["ms"],
+            "warm_ms": [r["ms"] for _, r in reqs[2:]],
+            "resident_ms": res["ms"], "cold_gbps": gbps,
+            "staged_bytes": cold_rec["staged_bytes"],
+            "chunks": cold_rec["chunks"], "max_abs_err": max(errs)}
+
+
 def main() -> int:
     try:
         import torch
@@ -734,6 +1063,10 @@ def main() -> int:
     pk = peaks(name)
 
     phase_build()
+    if "--paged-only" in sys.argv[1:]:
+        # phase 7 alone (for comparing trees); prints no contract line
+        print(json.dumps({"paged": phase_paged(), "card": smi}))
+        return 0
     b1 = phase_kernels(pk)
     b2 = phase_step_kernel(pk)
 
@@ -759,11 +1092,13 @@ def main() -> int:
             "sp": (lambda: sp_model(sp_client)[0].serve_forward(sp_client),
                    sp["ms"])})
 
+    paged = phase_paged()
+
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
                       "sp_tokens_per_s": sp["tokens_per_s"],
                       "sp_max_abs_err": sp["max_abs_err"],
-                      "card": smi}))
+                      "paged": paged, "card": smi}))
 
     def kernel_row(kname, source, replaces, launches, row):
         return {"name": kname, "route": "cuda", "source": source,

@@ -6,9 +6,11 @@ The client owns a device. Every set it stores, every scan value and
 every result lives there: ``"cuda"`` unless the caller passes
 ``device="cpu"``. A placed set spreads over the visible positions of
 that device type (every card, or the virtual positions of
-:func:`~netsdb_tpu_torch.parallel.mesh.virtual_devices`). Arguments of
-the reference that belong to later slices raise ``NotImplementedError``
-naming the ROADMAP.md item.
+:func:`~netsdb_tpu_torch.parallel.mesh.virtual_devices`). A paged set
+(``storage="paged"``) stays in the host page arena and streams through
+the device when a query reads it. Arguments of the reference that
+belong to later slices raise ``NotImplementedError`` naming the
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ class Client:
         self.config = config if config is not None else Configuration()
         self.device = resolve_device(device)
         self.catalog = Catalog(catalog_path or ":memory:")
-        self.store = SetStore()
+        self.store = SetStore(self.config, self.device)
 
     # --- DDL ----------------------------------------------------------
     def create_database(self, db: str) -> None:
@@ -65,23 +67,29 @@ class Client:
         parallel.placement.Placement` or its ``to_meta`` dict) declares
         how the set is sharded over the mesh of the client's device
         positions: every tensor stored into the set is placed with it,
-        and the catalog keeps it under ``"sharding"``."""
+        and the catalog keeps it under ``"sharding"``.
+
+        ``storage="paged"`` keeps the set's matrix as pages of the
+        shared page arena: queries stream it through nodes that carry a
+        ``tensor_fold`` (a placed paged set places each staged block).
+        ``persistence="persistent"`` marks the set for
+        :meth:`flush_data`."""
         if isinstance(placement, dict):
             placement = Placement.from_meta(placement)
         if placement is not None and not isinstance(placement, Placement):
             raise TypeError(f"placement must be a Placement or its meta "
                             f"dict, got {type(placement).__name__}")
-        if storage == "paged":
-            raise NotImplementedError(
-                "create_set(storage='paged') — arena-backed streamed sets "
-                "— is not ported yet: ROADMAP.md A2")
-        if storage != "memory":
+        if storage not in ("memory", "paged"):
             raise ValueError(f"storage must be 'memory' or 'paged', "
                              f"got {storage!r}")
-        if persistence != "transient":
+        if storage == "paged" and type_name not in ("tensor", "matrix"):
             raise NotImplementedError(
-                "persistent sets (flush/reload) are not ported yet: "
-                "ROADMAP.md A2")
+                f"create_set(type_name={type_name!r}, storage='paged'): "
+                f"paged object sets and relations are not ported yet: "
+                f"ROADMAP.md A6")
+        if persistence not in ("transient", "persistent"):
+            raise ValueError(f"persistence must be 'transient' or "
+                             f"'persistent', got {persistence!r}")
         if not self.catalog.database_exists(db):
             raise KeyError(f"database {db!r} does not exist; "
                            f"create_database first")
@@ -93,7 +101,8 @@ class Client:
             meta["sharding"] = placement.to_meta()
         self.catalog.create_set(db, set_name, type_name, meta, persistence)
         ident = SetIdentifier(db, set_name)
-        self.store.create_set(ident, placement=placement)
+        self.store.create_set(ident, placement=placement, storage=storage,
+                              persistence=persistence)
         return ident
 
     def clear_set(self, db: str, set_name: str) -> None:
@@ -112,20 +121,29 @@ class Client:
 
     def send_data(self, db: str, set_name: str, items: Sequence[Any]) -> None:
         """Append items to a set. Arrays and tensors move to the
-        client's device; other objects are stored as they are."""
-        self.store.add_data(SetIdentifier(db, set_name),
-                            [self._on_device(i) for i in items])
+        client's device; other objects are stored as they are. A paged
+        set takes one matrix, which stays on the host."""
+        ident = SetIdentifier(db, set_name)
+        if self.store.storage_of(ident) == "paged":
+            self.store.add_data(ident, list(items))
+            return
+        self.store.add_data(ident, [self._on_device(i) for i in items])
 
     def send_matrix(self, db: str, set_name: str,
                     dense: Union[np.ndarray, torch.Tensor],
                     block_shape: Optional[Tuple[int, int]] = None,
                     dtype=None) -> BlockedTensor:
         """Load a dense matrix as one blocked tensor on the client's
-        device (reference ``FFMatrixUtil::load_matrix`` + sendData)."""
+        device (reference ``FFMatrixUtil::load_matrix`` + sendData). A
+        paged set pages it into the arena from the host instead; the
+        returned tensor is then the host copy."""
         block_shape = tuple(block_shape or self.config.default_block_shape)
-        t = BlockedTensor.from_dense(dense, block_shape, dtype=dtype,
-                                     device=self.device)
-        self.store.put_tensor(SetIdentifier(db, set_name), t)
+        ident = SetIdentifier(db, set_name)
+        paged = self.store.storage_of(ident) == "paged"
+        t = BlockedTensor.from_dense(
+            dense, block_shape, dtype=dtype,
+            device="cpu" if paged else self.device)
+        self.store.put_tensor(ident, t)
         cat = self.catalog.get_set(db, set_name)
         if cat is not None:
             cat["meta"].update(shape=list(t.shape),
@@ -137,9 +155,19 @@ class Client:
     def get_tensor(self, db: str, set_name: str) -> BlockedTensor:
         return self.store.get_tensor(SetIdentifier(db, set_name))
 
+    def paged_matmul(self, db: str, set_name: str, rhs) -> torch.Tensor:
+        """``stored matrix @ rhs`` with the matrix of a paged set streamed
+        page by page through the client's device."""
+        return self.store.paged_matmul(SetIdentifier(db, set_name), rhs)
+
     def flush_data(self) -> None:
-        raise NotImplementedError(
-            "flush_data (durable sets) is not ported yet: ROADMAP.md A2")
+        """Write every persistent set to ``config.data_dir`` (reference
+        ``flushData``); ``store.load_set`` brings a set back in a fresh
+        client over the same ``root_dir``, paged sets as paged sets."""
+        for ident in self.store.list_sets():
+            info = self.catalog.get_set(ident.db, ident.set)
+            if info and info.get("persistence") == "persistent":
+                self.store.flush(ident)
 
     # --- query execution ----------------------------------------------
     def execute_computations(self, *sinks, job_name: str = "job",

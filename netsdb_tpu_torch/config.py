@@ -6,22 +6,89 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+# knobs of the reference that belong to later items of ROADMAP.md A:
+# setting one away from its default raises, naming the item
+_LATER = {"distributed_matmul": (False, "A4"),
+          "summa_grid": (None, "A4"),
+          "plan_fusion": (False, "A2 (plan/fusion.py)"),
+          "fusion_min_region": (None, "A2 (plan/fusion.py)"),
+          "fusion_cost_source": (None, "A2 (plan/fusion.py)"),
+          "fusion_mapper": (None, "A2 (plan/fusion.py)"),
+          "fusion_stage_budget_bytes": (None, "A2 (plan/fusion.py)"),
+          "device_cache_pin_auto": (False, "A7"),
+          # the dirty-range log serves appends to paged relations
+          "device_cache_dirty_log": (64, "A6")}
 
 
 @dataclasses.dataclass
 class Configuration:
     """``default_block_shape`` is the block a matrix set gets when
     ``send_matrix`` is given none (as in the reference package).
-    ``root_dir`` is where durable sets will live; nothing is written
-    there until persistence is ported (ROADMAP.md A2)."""
+    ``root_dir`` is where durable sets and the page arena's spill files
+    live (``data_dir``); nothing is written there until a paged or
+    persistent set asks for it.
+
+    The paged path's knobs keep the reference's defaults
+    (``netsdb_tpu/config.py``): pages of ``page_size_bytes`` in an arena
+    capped at ``page_pool_bytes`` (None: ``shared_mem_bytes``), read
+    ``stream_prefetch_pages`` ahead and uploaded ``stage_depth`` ahead
+    of the consumer; ragged row blocks pad to the ``bucket_rows`` ladder
+    (``shape_bucketing``, ``bucket_density`` buckets per octave); the
+    device block cache holds ``device_cache_bytes`` of staged blocks,
+    block by block when ``device_cache_partial``, with the first
+    ``device_cache_pin_bytes`` of a set's head pinned against eviction.
+    Knobs of later ROADMAP.md items (the distributed matmul, plan fusion,
+    the automatic pin budget, the dirty-range log of appended relations)
+    raise ``NotImplementedError`` when set away from their defaults."""
 
     default_block_shape: Tuple[int, int] = (512, 512)
     root_dir: str = dataclasses.field(
         default_factory=lambda: os.path.join(tempfile.gettempdir(),
                                              "netsdb_tpu_torch"))
+    # --- host page store (native runtime) ---
+    page_size_bytes: int = 64 * 1024 * 1024
+    shared_mem_bytes: int = 4 * 1024 * 1024 * 1024
+    page_pool_bytes: Optional[int] = None
+    # --- staged streaming (plan/staging.py) ---
+    stream_prefetch_pages: int = 2
+    stage_depth: int = 2
+    shape_bucketing: bool = True
+    bucket_density: int = 2
+    # --- device block cache (storage/devcache.py) ---
+    device_cache_bytes: int = 256 * 1024 * 1024
+    device_cache_partial: bool = True
+    device_cache_pin_bytes: int = 0
+    # --- later items (see _LATER) ---
+    distributed_matmul: bool = False
+    summa_grid: Optional[str] = None
+    plan_fusion: bool = False
+    fusion_min_region: Optional[int] = None
+    fusion_cost_source: Optional[str] = None
+    fusion_mapper: Optional[str] = None
+    fusion_stage_budget_bytes: Optional[int] = None
+    device_cache_pin_auto: bool = False
+    device_cache_dirty_log: int = 64
+
+    def __post_init__(self) -> None:
+        for name, (default, item) in _LATER.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"Configuration({name}=...) is not ported yet: "
+                    f"ROADMAP.md {item}")
+        if self.bucket_density not in (2, 4):
+            raise ValueError(f"bucket_density must be 2 or 4, got "
+                             f"{self.bucket_density!r}")
+
+    @property
+    def data_dir(self) -> str:
+        return os.path.join(self.root_dir, "data")
+
+    def ensure_dirs(self) -> None:
+        os.makedirs(self.data_dir, exist_ok=True)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -10,8 +10,9 @@
   y1 = relu(w1·inputsᵀ + b1); yo = wo·y1 + bo; softmax over labels.
 
 Layout follows the reference: inputs are (batch x features), weights
-(out x in), activations flow as (features x batch). Training
-(``train_step``) and paged weight streaming are ROADMAP.md A3 and A2.
+(out x in), activations flow as (features x batch). Weight sets created ``storage="paged"`` stream
+through the same DAG page by page (``TensorFold`` on the two weight
+joins). Training (``train_step``) is ROADMAP.md A3.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from netsdb_tpu_torch.core.blocked import BlockedTensor
 from netsdb_tpu_torch.ops import nn as nn_ops
 from netsdb_tpu_torch.ops.matmul import matmul, matmul_t
 from netsdb_tpu_torch.plan.computations import Apply, Join, ScanSet, WriteSet
+from netsdb_tpu_torch.plan.fold import TensorFold
 
 
 @dataclasses.dataclass
@@ -49,9 +51,11 @@ class FFModel:
 
     def setup(self, client, placements: Optional[Dict[str, object]] = None,
               storages: Optional[Dict[str, str]] = None) -> None:
-        """Create the model's database and sets. ``placements`` and
-        ``storages="paged"`` entries reach ``create_set``, which raises
-        ``NotImplementedError`` for them in this slice."""
+        """Create the model's database and sets. ``placements`` maps a
+        set name to its Placement; ``storages`` maps a set name to
+        "memory" or "paged": a paged weight set lives as arena pages and
+        streams through the inference DAG (the reference's page-fed
+        weight scans, ``SimpleFF.cc:94-290``)."""
         client.create_database(self.db)
         for s in self.SETS:
             client.create_set(self.db, s,
@@ -106,15 +110,21 @@ class FFModel:
         b1 = ScanSet(self.db, "b1")
         wo = ScanSet(self.db, "wo")
         bo = ScanSet(self.db, "bo")
+        # both weight products are row-decomposable in the weight: a
+        # paged weight set streams its row blocks through the same fn and
+        # the output rows are concatenated (out_block gives the result
+        # the resident path's blocks); resident sets ignore the fold
+        fold = TensorFold(mode="rows", out_block=(self.block[0],
+                                                  self.block[0]))
         # FFTransposeMult + FFAggMatrix: w1 · inputsᵀ → (hidden x batch)
         h = Join(w1, inputs, fn=lambda w, x: matmul_t(w, x, cd,
                                                       accum_dtype=cd),
-                 label="FFTransposeMult")
+                 label="FFTransposeMult", tensor_fold=fold)
         y1 = Join(h, b1, fn=lambda hh, bb: nn_ops.bias_relu(
             hh, bb, dropout_rate, generator), label="FFReluBiasSum")
         # FFInputLayerJoin + FFAggMatrix: wo · y1 → (labels x batch)
         yo_lin = Join(wo, y1, fn=lambda w, y: matmul(w, y, cd),
-                      label="FFInputLayerJoin")
+                      label="FFInputLayerJoin", tensor_fold=fold)
         # FFTransposeBiasSum → FFRowAggregate → FFOutputLayer, fused
         out = Join(yo_lin, bo,
                    fn=lambda y, b: nn_ops.ff_output_layer(y, b, axis=0),

@@ -11,8 +11,12 @@ core on a Hopper card is the CUDA flash kernel (B1,
 ``ops.attention.attention_dispatch``); an input set placed with its
 sequence axis sharded runs :meth:`TransformerLayerModel.forward_sp`
 over the placement's mesh, whose attention core is ring attention
-folded by the CUDA ring-step kernel (B2, ``parallel.ring``). The staged
-(paged-weight) DAG and training are ROADMAP.md A2 and A3.
+folded by the CUDA ring-step kernel (B2, ``parallel.ring``).
+
+:meth:`TransformerLayerModel.build_forward_dag_staged` writes the same
+layer as staged nodes, so every weight may live in a ``storage="paged"``
+set and stream through the DAG (reduce-mode ``TensorFold``s, the
+attention core again B1). Training is ROADMAP.md A3.
 """
 
 from __future__ import annotations
@@ -24,14 +28,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from netsdb_tpu_torch.ops.attention import (merge_project, mha_forward,
-                                            qkv_project)
-from netsdb_tpu_torch.ops.common import hi_einsum
+from netsdb_tpu_torch.ops.attention import (attention_dispatch, merge_heads,
+                                            merge_project, mha_forward,
+                                            qkv_project, split_qkv_heads)
+from netsdb_tpu_torch.ops.common import full_f32_precision, hi_einsum
 from netsdb_tpu_torch.parallel.mesh import (Mesh, ShardedTensor, as_sharded,
                                             visible_devices)
 from netsdb_tpu_torch.parallel.placement import Placement
 from netsdb_tpu_torch.parallel.ring import ring_attention
-from netsdb_tpu_torch.plan.computations import Join, ScanSet, WriteSet
+from netsdb_tpu_torch.plan.computations import Apply, Join, ScanSet, WriteSet
+from netsdb_tpu_torch.plan.fold import TensorFold
 from netsdb_tpu_torch.storage.store import SetIdentifier
 
 
@@ -46,6 +52,28 @@ class TransformerLayerParams:
 def _dense(t):
     """A tensor from a tensor or a sharded value (gathered)."""
     return t.to_dense() if isinstance(t, ShardedTensor) else t
+
+
+def _contract_partial(carry, start: int, block, acts: torch.Tensor):
+    """Reduce-mode step of a projection ``acts @ w`` over w's row block
+    ``block`` (rows ``start:start+n`` of w, a contraction slice): the
+    matching columns of ``acts`` times the block, accumulated into the
+    carry in place (a fresh tensor on the first block, never a cached
+    block). ``start`` is a host int, so slicing never syncs."""
+    block = _dense(block)
+    n, f = block.shape
+    # a strided view of the activations (leading dimension E), no copy
+    x = acts.reshape(-1, acts.shape[-1])[:, start:start + n]
+    full_f32_precision()
+    if carry is None:
+        return torch.mm(x, block).view(*acts.shape[:-1], f)
+    carry.view(-1, f).addmm_(x, block)
+    return carry
+
+
+def _weight(w) -> torch.Tensor:
+    """A resident weight set's value as a dense tensor."""
+    return _dense(w.to_dense() if hasattr(w, "to_dense") else w)
 
 
 class _LocalWeights:
@@ -83,9 +111,9 @@ class TransformerLayerModel:
 
     def setup(self, client, placements=None, storages=None) -> None:
         """Create the weight sets. ``placements`` maps set name →
-        Placement (weights typically replicated); ``storages`` entries
-        reach ``create_set``, which raises ``NotImplementedError`` for
-        ``"paged"`` in this slice (ROADMAP.md A2)."""
+        Placement (weights typically replicated); ``storages`` maps set
+        name → "memory" or "paged" (a paged weight streams through
+        :meth:`build_forward_dag_staged`)."""
         client.create_database(self.db)
         for s in self.SETS:
             client.create_set(self.db, s,
@@ -230,6 +258,54 @@ class TransformerLayerModel:
                    label=f"transformer-fwd:{self.num_heads}:{causal}:"
                          f"{axis}")
         return WriteSet(out, self.db, output_set)
+
+    def build_forward_dag_staged(self, input_set: str = "x",
+                                 output_set: str = "y",
+                                 causal: bool = True) -> WriteSet:
+        """The forward as staged nodes (ln → qkv-proj → attention core →
+        out-proj → residual → ln → MLP-up → MLP-down → residual) instead
+        of one fn, so every weight (w_qkv, w_out, w_up, w_down) may live
+        in a ``storage="paged"`` set and stream: each weight's row
+        blocks are contraction slices accumulated by a reduce-mode
+        TensorFold (gelu is ``mlp-up``'s finalize). With resident sets
+        the same DAG runs the plain fns: storage is a property of the
+        set, not of the query. The attention core is
+        ``attention_dispatch``, B1 on a Hopper card."""
+        heads, db = self.num_heads, self.db
+
+        def proj_fold(finalize=None):
+            return TensorFold(mode="reduce", partial=_contract_partial,
+                              finalize=finalize)
+
+        def gelu(t):  # jax.nn.gelu's default is the tanh approximation
+            return F.gelu(t, approximate="tanh")
+
+        def attn_core(q_k_v):
+            q, k, v = split_qkv_heads(q_k_v, heads)
+            return merge_heads(attention_dispatch(q, k, v, causal=causal))
+
+        ln1 = Apply(ScanSet(db, input_set), fn=lambda x: self._ln(_dense(x)),
+                    label="ln1")
+        qkv = Join(ln1, ScanSet(db, "w_qkv"),
+                   fn=lambda xs, w: hi_einsum("bse,ef->bsf", xs, _weight(w)),
+                   tensor_fold=proj_fold(), label="qkv-proj")
+        core = Apply(qkv, fn=attn_core, label=f"attn-core:{heads}:{causal}")
+        proj = Join(core, ScanSet(db, "w_out"),
+                    fn=lambda o, w: hi_einsum("bse,ef->bsf", o, _weight(w)),
+                    tensor_fold=proj_fold(), label="out-proj")
+        a1 = Join(ScanSet(db, input_set), proj,
+                  fn=lambda x, a: _dense(x) + a, label="residual1")
+        ln2 = Apply(a1, fn=self._ln, label="ln2")
+        h = Join(ln2, ScanSet(db, "w_up"),
+                 fn=lambda xs, w: gelu(hi_einsum("bse,ef->bsf", xs,
+                                                 _weight(w))),
+                 tensor_fold=proj_fold(lambda c, xs: gelu(c)),
+                 label="mlp-up")
+        mlp = Join(h, ScanSet(db, "w_down"),
+                   fn=lambda hs, w: hi_einsum("bsf,fe->bse", hs, _weight(w)),
+                   tensor_fold=proj_fold(), label="mlp-down")
+        out = Join(a1, mlp, fn=lambda a, m: a + m, label="residual2")
+        return WriteSet(out, db, output_set)
 
     def serve_forward(self, client, input_set: str = "x",
                       output_set: str = "y", causal: bool = True,

@@ -4,8 +4,10 @@ netsDB computes C = A·Bᵀ as a join of blocks on the contraction index
 plus an aggregation of the block products; on one card the whole
 join + aggregate is one dense product on the padded tensors. Zero
 padding is safe under contraction, so nothing is masked here; the output
-metadata keeps the logical shape. (The reference's ``distributed=``
-SUMMA branch belongs to the multi-GPU slice, ROADMAP.md A4.)
+metadata keeps the logical shape. An operand whose data is sharded over
+a mesh (a staged block of a placed paged set) is gathered first: these
+products run on one device. (The reference's ``distributed=`` SUMMA
+branch belongs to the multi-GPU slice, ROADMAP.md A4.)
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ import torch
 
 from netsdb_tpu_torch.core.blocked import BlockMeta, BlockedTensor
 from netsdb_tpu_torch.ops.common import mxu_dot
+from netsdb_tpu_torch.parallel.mesh import ShardedTensor
+
+
+def _data(t: BlockedTensor) -> torch.Tensor:
+    return t.data.to_dense() if isinstance(t.data, ShardedTensor) else t.data
 
 
 def _contract(ad, bd, a_pad_k, b_pad_k, k, compute_dtype, accum_dtype=None):
@@ -35,7 +42,7 @@ def matmul(a: BlockedTensor, b: BlockedTensor,
     (m, ka), (kb, n) = a.shape, b.shape
     if ka != kb:
         raise ValueError(f"matmul contraction mismatch {a.shape} x {b.shape}")
-    out = _contract(a.data, b.data, a.meta.padded_shape[1],
+    out = _contract(_data(a), _data(b), a.meta.padded_shape[1],
                     b.meta.padded_shape[0], ka, compute_dtype, accum_dtype)
     meta = BlockMeta((m, n), (a.meta.block_shape[0], b.meta.block_shape[1]))
     return BlockedTensor(out, meta)
@@ -48,7 +55,7 @@ def matmul_t(a: BlockedTensor, b: BlockedTensor,
     (m, ka), (n, kb) = a.shape, b.shape
     if ka != kb:
         raise ValueError(f"matmul_t contraction mismatch {a.shape} x {b.shape}")
-    out = _contract(a.data, b.data.t(), a.meta.padded_shape[1],
+    out = _contract(_data(a), _data(b).t(), a.meta.padded_shape[1],
                     b.meta.padded_shape[1], ka, compute_dtype, accum_dtype)
     meta = BlockMeta((m, n), (a.meta.block_shape[0], b.meta.block_shape[0]))
     return BlockedTensor(out, meta)

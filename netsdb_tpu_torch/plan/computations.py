@@ -5,8 +5,9 @@ Each node carries a Python function over set values (``BlockedTensor``s,
 tensors or host objects); the executor replays the DAG in topo order.
 Node kinds keep the reference's names (``ScanSet``/``Apply``/``Join``/
 ``WriteSet`` ≙ ScanUserSet/SelectionComp/JoinComp/SetWriter) and the
-TCAP-like ``plan_atom`` dump. Streaming decompositions over paged sets
-(``TensorFold``) are ROADMAP.md A2.
+TCAP-like ``plan_atom`` dump. A node given a ``tensor_fold``
+(:class:`~netsdb_tpu_torch.plan.fold.TensorFold`) may consume a paged
+tensor set: the executor streams the set's row blocks through it.
 """
 
 from __future__ import annotations
@@ -15,13 +16,6 @@ import itertools
 from typing import Any, Callable, List, Sequence
 
 _ids = itertools.count()
-
-
-def _no_tensor_fold(tensor_fold) -> None:
-    if tensor_fold is not None:
-        raise NotImplementedError(
-            "tensor_fold (streaming a paged tensor set through a node) is "
-            "not ported yet: ROADMAP.md A2")
 
 
 class Computation:
@@ -61,15 +55,16 @@ class ScanSet(Computation):
 
 
 class Apply(Computation):
-    """1-in projection — reference ``SelectionComp``."""
+    """1-in projection — reference ``SelectionComp``. ``tensor_fold``
+    says how the node streams a paged tensor input."""
 
     op_kind = "Apply"
 
     def __init__(self, input_: Computation, fn: Callable[[Any], Any],
                  label: str = "", tensor_fold=None):
-        _no_tensor_fold(tensor_fold)
         super().__init__([input_])
         self.fn = fn
+        self.tensor_fold = tensor_fold
         self.label = label or getattr(fn, "__name__", "fn")
 
     def evaluate(self, x):
@@ -86,16 +81,18 @@ class Join(Computation):
 
     ``passthrough=True`` declares that ``fn`` only re-shapes its inputs
     (the gather-chain tuple append that collects a model's weight sets
-    before the node that uses them)."""
+    before the node that uses them); such a node forwards a paged
+    tensor handle untouched. ``tensor_fold`` says how the node streams a
+    paged tensor input."""
 
     op_kind = "Join"
 
     def __init__(self, left: Computation, right: Computation,
                  fn: Callable[[Any, Any], Any], label: str = "",
                  tensor_fold=None, passthrough: bool = False):
-        _no_tensor_fold(tensor_fold)
         super().__init__([left, right])
         self.fn = fn
+        self.tensor_fold = tensor_fold
         self.passthrough = passthrough
         self.label = label or getattr(fn, "__name__", "join")
 

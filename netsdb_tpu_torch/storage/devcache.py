@@ -1,0 +1,403 @@
+"""Cross-query device block cache — counterpart of the set-scope half of
+``netsdb_tpu/storage/devcache.py`` (the buffer pool for device memory).
+
+netsDB's workers keep the pages of a hot set pinned across jobs
+(``PageCache.h``); here the staged blocks of a paged set stay on the
+device across queries, so a warm query over the same weights reads no
+page and copies nothing to the device.
+
+:class:`DeviceBlockCache` holds two kinds of entries under one byte
+budget and one LRU order:
+
+* **whole-run entries** (``partial=False``): one per complete stream of
+  a set, keyed ``(scope, version, kind, ...)``; a write bumps the set's
+  version, so a stale run never matches again.
+* **block entries** (``partial=True``, the default): one per staged
+  block, keyed ``base_key + ((start, end),)`` with no version; writes
+  drop the blocks they touch (:meth:`invalidate_range`), and a
+  per-scope epoch refuses installs planned before a racing write.
+  Lookups (:meth:`plan_ranges`) return the cached blocks of one
+  stream's layout so the stream stitches them in and stages only the
+  gaps. The contiguous head of a set may be pinned against eviction
+  within ``pin_bytes``.
+
+Byte accounting reads ``nbytes`` (metadata only, never the data).
+Cached blocks are owned by the cache: nothing writes into them (the
+executor's reduce carry is always a fresh tensor). Installs happen only
+after the block's copy to the device has completed
+(``plan/staging``), so a hit never serves a block still being written.
+The session-state entries of the reference belong to ROADMAP.md A7.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def to_device(x, device, placement=None):
+    """The synchronous upload of a host block to ``device`` (with the
+    set's placement applied) — used where no staged stream runs; staged
+    streams upload through :class:`~netsdb_tpu_torch.plan.staging.
+    BlockUploader`, whose CPU branch is this function."""
+    if isinstance(x, np.ndarray):
+        out = torch.from_numpy(np.array(x)).to(device)  # owns its memory
+    else:
+        out = torch.as_tensor(x).to(device)
+    return placement.apply(out) if placement is not None else out
+
+
+def _value_nbytes(value) -> int:
+    """Bytes of a cached value from metadata: tensors, numpy arrays,
+    sharded tensors (each distinct shard once) and (n, block) tuples."""
+    shards = getattr(value, "shards", None)
+    if shards is not None:  # ShardedTensor
+        seen = {id(t): t for t in shards.flat}
+        return sum(int(t.nbytes) for t in seen.values())
+    if isinstance(value, (tuple, list)):
+        return sum(_value_nbytes(v) for v in value)
+    nbytes = getattr(value, "nbytes", None)
+    if nbytes is not None:
+        return int(nbytes)
+    return 64  # ints riding along with blocks
+
+
+def _is_block_key(key: Tuple) -> bool:
+    rng = key[-1]
+    return (isinstance(rng, tuple) and len(rng) == 2
+            and isinstance(rng[0], int))
+
+
+class DeviceBlockCache:
+    """LRU cache of staged set blocks under one byte budget. Thread-safe:
+    lookups run on consumer threads, installs on staging threads and
+    invalidations on writers."""
+
+    def __init__(self, budget_bytes: int = 0, partial: bool = False,
+                 pin_bytes: int = 0):
+        self._mu = threading.Lock()
+        self._budget = int(budget_bytes or 0)
+        self.partial = bool(partial)
+        self._pin_budget = int(pin_bytes or 0)
+        # key -> (blocks, nbytes); insertion order is recency order
+        self._entries: "OrderedDict[Tuple, Tuple[List[Any], int]]" = \
+            OrderedDict()
+        self._by_scope: Dict[str, set] = {}
+        self._bytes = 0
+        self._stats = {"hits": 0, "misses": 0, "installs": 0,
+                       "evictions": 0, "invalidations": 0, "rejected": 0}
+        if self.partial:
+            self._stats.update({"partial_hits": 0, "stitched_ranges": 0,
+                                "dirty_invalidations": 0,
+                                "pinned_bytes": 0})
+        self._epochs: Dict[str, int] = {}
+        self._pinned: set = set()
+        self._pinned_bytes = 0
+        # base key -> end row of the contiguous pinned head
+        self._pin_hw: Dict[Tuple, int] = {}
+        # base key -> total rows of the set at its last plan
+        self._totals: Dict[Tuple, int] = {}
+
+    # --- sizing -------------------------------------------------------
+    @property
+    def enabled(self) -> bool:
+        return self._budget > 0
+
+    @property
+    def budget_bytes(self) -> int:
+        return self._budget
+
+    def resize(self, budget_bytes: int) -> None:
+        """Re-point the budget; shrinking evicts at once (and below the
+        pinned total lifts every pin)."""
+        with self._mu:
+            self._budget = int(budget_bytes or 0)
+            if self._budget < self._pinned_bytes:
+                self._unpin_all_locked()
+            self._evict_to_fit_locked(0)
+
+    def set_pin_budget(self, pin_bytes: int) -> None:
+        """Re-point the head-pin budget (partial mode); shrinking below
+        the pinned total lifts every pin."""
+        with self._mu:
+            if not self.partial:
+                return
+            self._pin_budget = max(int(pin_bytes or 0), 0)
+            if self._pinned_bytes > self._pin_budget:
+                self._unpin_all_locked()
+
+    def _unpin_all_locked(self) -> None:
+        self._pinned.clear()
+        self._pinned_bytes = 0
+        self._pin_hw.clear()
+        if "pinned_bytes" in self._stats:
+            self._stats["pinned_bytes"] = 0
+
+    # --- whole runs ---------------------------------------------------
+    def get(self, key: Tuple) -> Optional[List[Any]]:
+        """The run cached under ``key`` (refreshing its recency), or
+        None, counted as a miss."""
+        with self._mu:
+            if not self.enabled:
+                return None
+            entry = self._entries.get(key)
+            if entry is None:
+                self._stats["misses"] += 1
+                return None
+            self._entries.move_to_end(key)
+            self._stats["hits"] += 1
+            return entry[0]
+
+    def make_room(self, nbytes: int) -> None:
+        """Evict LRU entries until ``nbytes`` fit under the budget — called
+        as a cold run records, so resident entries plus the run in
+        flight stay about one budget."""
+        with self._mu:
+            if self.enabled:
+                self._evict_to_fit_locked(min(int(nbytes), self._budget))
+
+    def reject_oversized(self) -> None:
+        """Count a run that outgrew the whole budget while recording."""
+        with self._mu:
+            if self.enabled:
+                self._stats["rejected"] += 1
+
+    def install(self, key: Tuple, blocks: List[Any], validator=None) -> bool:
+        """Insert one complete run; False when it exceeds the budget or
+        ``validator`` (evaluated under the cache lock) says the key is
+        no longer current."""
+        nbytes = _value_nbytes(blocks)
+        with self._mu:
+            if not self.enabled or nbytes > self._budget:
+                if self.enabled:
+                    self._stats["rejected"] += 1
+                return False
+            if validator is not None and not validator():
+                return False
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._evict_to_fit_locked(nbytes)
+            self._entries[key] = (blocks, nbytes)
+            self._bytes += nbytes
+            self._by_scope.setdefault(str(key[0]), set()).add(key)
+            self._stats["installs"] += 1
+            return True
+
+    def _evict_to_fit_locked(self, incoming: int) -> None:
+        # one pass in LRU order, skipping pinned block entries
+        if self._bytes + incoming <= self._budget:
+            return
+        victims, freed = [], 0
+        for key, (_, nbytes) in self._entries.items():
+            if key in self._pinned:
+                continue
+            victims.append(key)
+            freed += nbytes
+            if self._bytes - freed + incoming <= self._budget:
+                break
+        for key in victims:
+            self._drop_entry_locked(key)
+            self._stats["evictions"] += 1
+
+    def _drop_entry_locked(self, key: Tuple) -> bool:
+        entry = self._entries.pop(key, None)
+        if entry is None:
+            return False
+        self._bytes -= entry[1]
+        scoped = self._by_scope.get(str(key[0]))
+        if scoped is not None:
+            scoped.discard(key)
+            if not scoped:
+                self._by_scope.pop(str(key[0]), None)
+        if key in self._pinned:
+            self._pinned.discard(key)
+            self._pinned_bytes -= entry[1]
+        return True
+
+    # --- partial mode: block entries and stitching -------------------
+    @staticmethod
+    def _block_key(base_key: Tuple, rng: Tuple[int, int]) -> Tuple:
+        return tuple(base_key) + ((int(rng[0]), int(rng[1])),)
+
+    def plan_ranges(self, base_key: Tuple, ranges: List[Tuple[int, int]]
+                    ) -> Tuple[int, Dict[Tuple[int, int], Any]]:
+        """(epoch, {range: block}) for the cached blocks of ``base_key``
+        among one stream's ``ranges``. Full coverage counts one hit, any
+        gap one miss; served blocks tick ``partial_hits`` when the
+        stream yields them."""
+        scope = str(base_key[0])
+        with self._mu:
+            if not (self.enabled and self.partial):
+                return 0, {}
+            epoch = self._epochs.get(scope, 0)
+            if ranges:
+                self._totals[tuple(base_key)] = int(ranges[-1][1])
+            covered: Dict[Tuple[int, int], Any] = {}
+            for rng in ranges:
+                key = self._block_key(base_key, rng)
+                entry = self._entries.get(key)
+                if entry is not None:
+                    self._entries.move_to_end(key)
+                    covered[(int(rng[0]), int(rng[1]))] = entry[0][0]
+            full = bool(ranges) and len(covered) == len(ranges)
+            self._stats["hits" if full else "misses"] += 1
+            return epoch, covered
+
+    def install_block(self, base_key: Tuple, rng: Tuple[int, int],
+                      block: Any, epoch: int) -> bool:
+        """Insert one staged block under ``base_key + (range,)``. Refused
+        when a write moved the scope's epoch past ``epoch``, when the
+        block alone exceeds the budget, or when only pinned entries are
+        left to evict. Blocks of the contiguous head (from row 0, in
+        install order) are pinned while the pin budget lasts."""
+        nbytes = _value_nbytes(block)
+        scope = str(base_key[0])
+        with self._mu:
+            if not (self.enabled and self.partial):
+                return False
+            if self._epochs.get(scope, 0) != int(epoch):
+                return False
+            if nbytes > self._budget:
+                self._stats["rejected"] += 1
+                return False
+            key = self._block_key(base_key, rng)
+            if key in self._entries:  # a concurrent stream installed it
+                self._entries.move_to_end(key)
+                return True
+            self._evict_to_fit_locked(nbytes)
+            if self._bytes + nbytes > self._budget:
+                self._stats["rejected"] += 1
+                return False
+            self._entries[key] = ([block], nbytes)
+            self._bytes += nbytes
+            self._by_scope.setdefault(scope, set()).add(key)
+            base = tuple(base_key)
+            if (self._pin_budget > 0 and int(rng[0]) == self._pin_hw.get(
+                    base, 0)
+                    and self._pinned_bytes + nbytes <= self._pin_budget):
+                self._pinned.add(key)
+                self._pinned_bytes += nbytes
+                self._pin_hw[base] = int(rng[1])
+            self._stats["pinned_bytes"] = self._pinned_bytes
+            return True
+
+    def record_run_install(self) -> None:
+        """Count one run-level install once a stream's installer landed
+        every gap block of its run."""
+        with self._mu:
+            if self.enabled and self.partial:
+                self._stats["installs"] += 1
+
+    def tick_partial(self, blocks_served: int, stitched_ranges: int) -> None:
+        """Count blocks a stitched stream served from the cache."""
+        with self._mu:
+            if "partial_hits" in self._stats:
+                self._stats["partial_hits"] += int(blocks_served)
+                self._stats["stitched_ranges"] += int(stitched_ranges)
+
+    def coverage(self, scope: str) -> Tuple[int, Optional[int]]:
+        """(covered prefix rows, total rows) — the longest contiguous
+        cached prefix from row 0 over the base keys of ``scope``, and
+        that key's last planned total (None if never planned)."""
+        best: Tuple[int, Optional[int]] = (0, None)
+        with self._mu:
+            by_base: Dict[Tuple, List[Tuple[int, int]]] = {}
+            for key in self._by_scope.get(str(scope), ()):
+                if _is_block_key(key):
+                    by_base.setdefault(key[:-1], []).append(key[-1])
+            for base, rngs in by_base.items():
+                covered = 0
+                for s0, e0 in sorted(rngs):
+                    if s0 > covered:
+                        break
+                    covered = max(covered, e0)
+                total = self._totals.get(base)
+                if covered > best[0] or (covered == best[0]
+                                         and best[1] is None):
+                    best = (covered, total)
+        return best
+
+    def invalidate_range(self, scope: str, start: int,
+                         end: Optional[int] = None) -> int:
+        """Drop the block entries overlapping rows ``[start, end)``
+        (``end=None``: to the end) and every whole-run entry of the
+        scope, and bump the scope's epoch. Returns entries dropped."""
+        scope = str(scope)
+        dropped = dirty = 0
+        with self._mu:
+            self._epochs[scope] = self._epochs.get(scope, 0) + 1
+            for base in [b for b in self._totals if str(b[0]) == scope]:
+                self._totals.pop(base, None)
+            for key in list(self._by_scope.get(scope, ())):
+                if _is_block_key(key):
+                    s0, e0 = key[-1]
+                    if e0 <= start or (end is not None and s0 >= end):
+                        continue  # disjoint: the block stays
+                    dirty += 1
+                if self._drop_entry_locked(key):
+                    dropped += 1
+            # the pinned head may be cut: re-derive each high water mark
+            for base in [b for b in self._pin_hw if str(b[0]) == scope]:
+                hw = 0
+                for s0, e0 in sorted(k[-1] for k in self._pinned
+                                     if k[:-1] == base):
+                    if s0 > hw:
+                        break
+                    hw = max(hw, e0)
+                self._pin_hw[base] = hw
+            if "dirty_invalidations" in self._stats:
+                self._stats["dirty_invalidations"] += dirty
+                self._stats["pinned_bytes"] = self._pinned_bytes
+            self._stats["invalidations"] += dropped
+        return dropped
+
+    def invalidate(self, scope: str) -> int:
+        """Drop every entry of one set now, and (partial mode) bump its
+        epoch — the hook of every whole-set write. Returns entries
+        dropped."""
+        scope = str(scope)
+        with self._mu:
+            if self.partial:
+                self._epochs[scope] = self._epochs.get(scope, 0) + 1
+                for table in (self._pin_hw, self._totals):
+                    for base in [b for b in table if str(b[0]) == scope]:
+                        table.pop(base, None)
+            dropped = 0
+            for key in list(self._by_scope.get(scope, ())):
+                if self._drop_entry_locked(key):
+                    dropped += 1
+            self._stats["invalidations"] += dropped
+            if "pinned_bytes" in self._stats:
+                self._stats["pinned_bytes"] = self._pinned_bytes
+            return dropped
+
+    def clear(self) -> int:
+        """Drop everything (bumping every cached scope's epoch)."""
+        with self._mu:
+            dropped = len(self._entries)
+            if self.partial:
+                for scope in {str(k[0]) for k in self._entries}:
+                    self._epochs[scope] = self._epochs.get(scope, 0) + 1
+            self._entries.clear()
+            self._by_scope.clear()
+            self._unpin_all_locked()
+            self._totals.clear()
+            self._bytes = 0
+            self._stats["invalidations"] += dropped
+            return dropped
+
+    def stats(self) -> Dict[str, int]:
+        """Counter snapshot plus live bytes, entries and budgets."""
+        with self._mu:
+            out = dict(self._stats)
+            out["bytes"] = self._bytes
+            out["entries"] = len(self._entries)
+            out["budget_bytes"] = self._budget
+            if self.partial:
+                out["pin_budget_bytes"] = self._pin_budget
+            return out

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
 package, its client runs on CUDA unless told otherwise, and what the
-port does not cover yet raises ``NotImplementedError`` instead of being
-ignored."""
+port does not cover yet raises ``NotImplementedError`` naming its
+ROADMAP.md item instead of being ignored."""
 
 import os
 import subprocess
@@ -15,6 +15,8 @@ from netsdb_tpu_torch import Client
 from netsdb_tpu_torch.config import Configuration
 from netsdb_tpu_torch.parallel.placement import Placement
 from netsdb_tpu_torch.plan.computations import Apply, Join, ScanSet
+from netsdb_tpu_torch.plan.fold import TensorFold
+from netsdb_tpu_torch.storage.store import SetIdentifier
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,42 +85,80 @@ def port_client(tmp_path):
     return c
 
 
-@pytest.mark.parametrize("kwargs", [dict(storage="paged",
-                                         placement=Placement.replicated()),
-                                    dict(storage="paged"),
-                                    dict(persistence="persistent")])
+@pytest.mark.parametrize("kwargs", [dict(type_name="object", storage="paged"),
+                                    dict(type_name="relation",
+                                         storage="paged"),
+                                    dict(type_name="object", storage="paged",
+                                         persistence="persistent",
+                                         placement=Placement.replicated())])
 def test_out_of_slice_set_options_raise(port_client, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Paged object sets and relations are ROADMAP.md A6; a paged or
+    persistent tensor set is ported (``tests/test_torch_paged_weights.py``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
         port_client.create_set("d", "s", **kwargs)
     assert not port_client.catalog.set_exists("d", "s")
+    port_client.create_set("d", "s", storage="paged",
+                           persistence="persistent")
+    assert port_client.store.storage_of(SetIdentifier("d", "s")) == "paged"
 
 
-def test_out_of_slice_client_features_raise(port_client):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_out_of_slice_client_features_raise(port_client, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         Client(address="localhost:1", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_client.flush_data()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+        Configuration(distributed_matmul=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+        Configuration(summa_grid="2d")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+        Configuration(device_cache_pin_auto=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        Configuration(device_cache_dirty_log=8)
+    for knob in (dict(plan_fusion=True), dict(fusion_min_region=2),
+                 dict(fusion_mapper="dp"), dict(fusion_cost_source="ledger"),
+                 dict(fusion_stage_budget_bytes=1 << 20)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
+            Configuration(**knob)
+    with pytest.raises(ValueError, match="bucket_density"):
+        Configuration(bucket_density=3)
     with pytest.raises(ValueError, match="storage"):
         port_client.create_set("d", "s", storage="disk")
+    # flush_data is ported: with no persistent set it writes nothing
+    port_client.flush_data()
+    assert not (tmp_path / "port").exists()
 
 
 def test_tensor_fold_is_not_ported():
+    """``tensor_fold`` is ported; its distributed branch (``summa_rhs``
+    under ``distributed_matmul``, ROADMAP.md A4) is not: the fold keeps
+    ``summa_rhs`` and the configuration that would use it raises."""
     scan = ScanSet("d", "s")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Apply(scan, lambda x: x, tensor_fold=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Join(scan, scan, lambda a, b: a, tensor_fold=object())
+    fold = TensorFold(mode="rows", summa_rhs=lambda x: x)
+    assert Apply(scan, lambda x: x, tensor_fold=fold).tensor_fold is fold
+    assert Join(scan, scan, lambda a, b: a,
+                tensor_fold=fold).tensor_fold is fold
+    with pytest.raises(ValueError, match="mode"):
+        TensorFold(mode="columns")
+    with pytest.raises(ValueError, match="partial"):
+        TensorFold(mode="reduce")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+        Configuration(distributed_matmul=True)
 
 
 def test_model_setup_forwards_out_of_slice_options(port_client):
+    """``storages`` reach ``create_set``: "paged" makes a paged set and an
+    unknown storage raises there."""
     from netsdb_tpu_torch.models.ff import FFModel
     from netsdb_tpu_torch.models.transformer import TransformerLayerModel
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FFModel().setup(port_client, storages={"w1": "paged"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TransformerLayerModel().setup(port_client,
-                                      storages={"w_qkv": "paged"})
+    FFModel().setup(port_client, storages={"w1": "paged"})
+    assert port_client.store.storage_of(SetIdentifier("ff", "w1")) == "paged"
+    assert port_client.store.storage_of(SetIdentifier("ff", "wo")) == "memory"
+    TransformerLayerModel().setup(port_client, storages={"w_qkv": "paged"})
+    assert port_client.store.storage_of(
+        SetIdentifier("transformer", "w_qkv")) == "paged"
+    with pytest.raises(ValueError, match="storage"):
+        TransformerLayerModel(db="t2").setup(port_client,
+                                             storages={"w_up": "disk"})
 
 
 def test_store_keeps_results_on_the_client_device(port_client):

@@ -126,17 +126,22 @@ def test_ln_is_population_variance_and_gelu_is_tanh():
 
 
 def test_placed_inputs_are_not_ported(port_client):
-    """Placed inputs are ported; what the layer still refuses is a paged
-    weight set (the staged DAG, ROADMAP.md A2), Ulysses attention and a
-    placed relational table (ROADMAP.md A4, A6)."""
+    """Placed inputs are ported; what the layer still refuses is the fused
+    ``serve_forward`` over a paged weight set (it streams only through
+    ``build_forward_dag_staged``), Ulysses attention and a placed
+    relational table (ROADMAP.md A4, A6)."""
     from netsdb_tpu.relational.table import ColumnTable
     from netsdb_tpu_torch.parallel.mesh import make_mesh
     from netsdb_tpu_torch.parallel.placement import Placement
     from netsdb_tpu_torch.parallel.ring import ulysses_attention
 
+    paged = TransformerLayerModel(db="paged", num_heads=HEADS)
+    paged.setup(port_client, storages={"w_up": "paged"})
+    paged.load_random_weights(port_client, embed=EMBED, seed=0)
+    paged.load_inputs(port_client, np.ones((1, 8, EMBED), np.float32))
+    with pytest.raises(ValueError, match="paged"):
+        paged.serve_forward(port_client)
     pm = TransformerLayerModel(num_heads=HEADS)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
-        pm.setup(port_client, storages={"w_up": "paged"})
     q = torch.zeros(1, HEADS, 8, EMBED // HEADS)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
         ulysses_attention(q, q, q, make_mesh((1,), ("sp",), [q.device]),
