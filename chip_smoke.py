@@ -3,7 +3,8 @@
 
 Run from the repository root:  python3 chip_smoke.py
 (``--paged-only``: phases 1 and 7 alone, without the contract's last
-line, to compare the paged path of two trees.)
+line, to compare the paged path of two trees; ``--models-only``: phases
+1 and 8 alone, the same way.)
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -44,12 +45,25 @@ Phases (any failure raises and the exit code is non-zero):
    and the staged layer must launch B1. Then a 12-page matrix through
    the pinned ring, bit for bit, and one cold request of each model under
    the profiler: the uploads' streams and source memory (pinned, or the
-   phase fails), their rate and how much of their time kernels ran.
+   phase fails), their rate and how much of their time kernels ran;
+8. the other model families through ``Client()`` at the reference's
+   benchmark widths (``MODEL_SIZES``), data made on the card from the
+   seed: logistic regression (3 requests), word2vec (gather,
+   ``lookup_sparse`` mean and the one-hot DAG, 3 each), the text
+   classifier (the DAG and bag of words, 3 each), the LSTM (one ``step``
+   through the store and 3 ``run_sequence`` of 16 steps, in f32 and in
+   bf16) and conv2d in both modes (``CONV_REQUESTS`` VALID requests with
+   bias and relu, the batch latency p50, and one SAME request at stride
+   2). Each request prints its ms and rate and its max abs error against
+   an f64 recomputation on the card, and fails above ``MODEL_TOLS``; one
+   request of each model runs under the profiler (busy share, top three
+   kernels). No hand-written kernel lies on this path.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
-just before phase 5's requests and read just after them, and again
-around each model's paged requests in phase 7. The last
+just before phase 5's requests and read just after them, again
+around each model's paged requests in phase 7, and around phase 8,
+where both must read 0. The last
 line is the contract's device record. Without a CUDA card, or without
 the package beside it, it exits 2.
 """
@@ -686,12 +700,13 @@ def phase_sp(client) -> dict:
 
 
 # --- phase 6 -------------------------------------------------------------
-def phase_profile(requests: dict) -> None:
+def phase_profile(requests: dict, top: int = 8) -> None:
     """Where one request's device time goes: each of ``requests`` (name
     → (run, unprofiled request ms)) once under torch.profiler, after the
     counts of the main paths were read. Prints the kernels by device
     time and the device's busy share of the last unprofiled request of
-    the same kind, since the profiler itself slows the host."""
+    the same kind, since the profiler itself slows the host. ``top``:
+    the kernels printed per request."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -721,7 +736,7 @@ def phase_profile(requests: dict) -> None:
               f"{request_ms:.3f} ms unprofiled ({wall_ms:.3f} ms "
               f"profiled); busy share "
               f"{100 * busy_ms / request_ms:.1f}%")
-        for ms, key in rows[:8]:
+        for ms, key in rows[:top]:
             print(f"[profile]   {ms:9.3f} ms  {key[:90]}")
 
 
@@ -1033,6 +1048,318 @@ def drive_paged(client, name, run_paged, run_resident, tol, units,
             "chunks": cold_rec["chunks"], "max_abs_err": max(errs)}
 
 
+# --- phase 8 -------------------------------------------------------------
+# each model's request output against its f64 recomputation: a one-hot
+# product with TF32 off and a gather pick table rows exactly; conv
+# outputs are about 12 in magnitude (unit-scale images and filters)
+MODEL_TOLS = {"word2vec": 0.0, "word2vec_sparse": 1e-5, "logreg": 1e-5,
+              "text_classifier": 1e-4, "lstm": 1e-4, "lstm_bf16": 5e-2,
+              "conv2d": 2e-3}
+CONV_REQUESTS = 10
+# the reference's benchmark widths: logreg at bench.py's FF input width
+# and batch (the reference publishes none); word2vec, the text classifier
+# and the LSTM at netsdb_tpu/workloads/model_bench.py's defaults, the
+# one-hot DAGs cut to 4096 rows (65536 would be 26 GB of f32); conv at
+# conv_bench.py's (the reference README's 112 x 112 x 3, 64 7 x 7 filters)
+MODEL_SIZES = {"logreg": dict(features=1024, rows=16384),
+               "word2vec": dict(vocab=100_000, dim=512, ids=65_536,
+                                segments=4096, dag_rows=4096),
+               "text_classifier": dict(vocab=50_000, labels=16,
+                                       docs=16_384),
+               "lstm": dict(hidden=1024, inp=1024, batch=1024, steps=16,
+                            block=512),
+               "conv2d": dict(n=64, c=3, hw=112, o=64, k=7)}
+
+
+def request(run) -> tuple:
+    """(output, ms) of one request, the card synchronised around it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def drive_model(name, run, error, tol, count, units, n=3) -> dict:
+    """``n`` requests of ``run``; ``error(output)`` is the output's max abs
+    error against the f64 recomputation, and the phase fails above
+    ``tol``, on a non-finite output or on one that left the card."""
+    import torch
+
+    rows = []
+    for i in range(n):
+        out, ms = request(run)
+        for t in (out if isinstance(out, (list, tuple)) else [out]):
+            t = getattr(t, "data", t)
+            if t.device.type != "cuda" or (t.is_floating_point()
+                                           and not torch.isfinite(t).all()):
+                raise RuntimeError(f"{name}: output on {t.device} or "
+                                   f"non-finite")
+        err = error(out)
+        print(f"[models] {name} request {i}: {ms:.3f} ms "
+              f"{count / ms * 1e3:.1f} {units} max_abs_err {err:.3e}")
+        if not err <= tol:
+            raise RuntimeError(f"{name}: max abs err {err} > {tol}")
+        rows.append((ms, err))
+    ms = [r[0] for r in rows]
+    p50 = sorted(ms)[len(ms) // 2]
+    return {"ms": ms, "p50_ms": p50, "rate": count / p50 * 1e3,
+            "units": units, "max_abs_err": max(r[1] for r in rows)}
+
+
+def err_of(out, ref) -> float:
+    """Max abs difference of a tensor or a BlockedTensor's logical part."""
+    out = out.to_dense() if hasattr(out, "meta") else out
+    return (out.double() - ref).abs().max().item()
+
+
+def lstm_f64(w, h, c, xs):
+    """The LSTM recurrence in float64 over the steps of ``xs``."""
+    import torch
+
+    w = {k: v.double() for k, v in w.items()}
+    h, c = h.double(), c.double()
+    for x in xs:
+        x = x.double()
+
+        def gate(g, act):
+            return act(w[f"w_{g}"] @ x + w[f"u_{g}"] @ h
+                       + w[f"b_{g}"][:, None])
+
+        i, f, o = (gate(g, torch.sigmoid) for g in "ifo")
+        c = f * c + i * gate("c", torch.tanh)
+        h = o * torch.tanh(c)
+    return h, c
+
+
+def conv_f64(images, kernels, bias, stride, padding):
+    """relu(conv + bias) in float64 as patches times filters, with the
+    SAME pads worked out from their definition (ceil(in / stride)
+    outputs, the odd pixel after)."""
+    import torch
+    import torch.nn.functional as F
+
+    k = kernels.shape[2]
+    pads = []
+    for size, s in zip(images.shape[2:], stride):
+        total = (max((-(-size // s) - 1) * s + k - size, 0)
+                 if padding == "SAME" else 0)
+        pads.append((total // 2, total - total // 2))
+    x = F.pad(images.double(), (*pads[1], *pads[0]))
+    oh, ow = ((x.shape[2] - k) // stride[0] + 1,
+              (x.shape[3] - k) // stride[1] + 1)
+    cols = F.unfold(x, (k, k), stride=stride)
+    out = kernels.double().reshape(kernels.shape[0], -1) @ cols
+    out = torch.relu(out + bias.double()[None, :, None])
+    return out.reshape(images.shape[0], kernels.shape[0], oh, ow)
+
+
+def phase_models() -> dict:
+    """Logistic regression, word2vec, the text classifier, the LSTM and
+    conv2d through ``Client()`` on the card, at ``MODEL_SIZES``, f32 (and
+    the LSTM once more in bf16). Every request is held to an f64
+    recomputation of the same seeded data, made on the card; one request
+    of each model then runs under the profiler."""
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.core.blocked import BlockedTensor
+    from netsdb_tpu_torch.models import (Conv2DModel, LogRegModel,
+                                         LSTMModel, TextClassifierModel,
+                                         Word2VecModel)
+    from netsdb_tpu_torch.ops.embedding import embedding_lookup_sparse
+
+    client = Client()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    def randint(high, n):
+        return torch.randint(0, high, (n,), generator=g, device="cuda")
+
+    out, profiled = {}, {}
+
+    # logistic regression
+    features, rows = MODEL_SIZES["logreg"].values()
+    lr = LogRegModel(block=(512, 512))
+    lr.setup(client)
+    w, x = randn(features, scale=features ** -0.5), randn(rows, features)
+    lr.load_weights(client, w, 0.1)
+    lr.load_inputs(client, x)
+    ref = torch.sigmoid(x.double() @ w.double() + 0.1)[None, :]
+    out["logreg"] = drive_model(
+        "logreg", lambda: lr.inference(client), lambda o: err_of(o, ref),
+        MODEL_TOLS["logreg"], rows, "rows/s")
+    profiled["logreg"] = (lambda: lr.inference(client),
+                          out["logreg"]["p50_ms"])
+
+    # word2vec: gather, sparse mean, the one-hot DAG
+    vocab, dim, n_ids, segs, dag_rows = MODEL_SIZES["word2vec"].values()
+    w2v = Word2VecModel(block=(512, 512))
+    w2v.setup(client)
+    table = randn(vocab, dim)
+    w2v.load_embeddings(client, table)
+    ids = randint(vocab, n_ids)
+    seg = torch.sort(randint(segs, n_ids)).values
+    rows64 = table.double()[ids]
+    counts = torch.zeros(segs, dtype=torch.float64, device="cuda").index_add_(
+        0, seg, torch.ones(n_ids, dtype=torch.float64, device="cuda"))
+    mean = torch.zeros(segs, dim, dtype=torch.float64,
+                       device="cuda").index_add_(0, seg, rows64)
+    mean /= counts.clamp(min=1.0)[:, None]
+    out["word2vec_lookup"] = drive_model(
+        "word2vec lookup", lambda: w2v.lookup(client, ids),
+        lambda o: err_of(o, rows64), MODEL_TOLS["word2vec"], n_ids, "ids/s")
+    out["word2vec_sparse"] = drive_model(
+        "word2vec lookup_sparse(mean)",
+        lambda: w2v.lookup_sparse(client, ids, seg, segs),
+        lambda o: err_of(o, mean), MODEL_TOLS["word2vec_sparse"], n_ids,
+        "ids/s")
+    w2v.load_onehot_inputs(client, ids[:dag_rows], vocab)
+    out["word2vec_dag"] = drive_model(
+        "word2vec one-hot DAG", lambda: w2v.inference(client),
+        lambda o: err_of(o, rows64[:dag_rows]), MODEL_TOLS["word2vec"],
+        dag_rows, "ids/s")
+    profiled["word2vec one-hot DAG"] = (lambda: w2v.inference(client),
+                                        out["word2vec_dag"]["p50_ms"])
+    del rows64
+
+    # text classifier: the DAG, and bag of words over word2vec's count of
+    # tokens
+    vocab, labels, docs = MODEL_SIZES["text_classifier"].values()
+    tc = TextClassifierModel(block=(512, 512))
+    tc.setup(client)
+    emb, fc_w, fc_b = (randn(vocab, dim), randn(labels, dim, scale=dim ** -0.5),
+                       randn(labels, scale=0.1))
+    tc.load_weights(client, emb, fc_w, fc_b)
+    tok = randint(vocab, n_ids)
+    doc = torch.sort(randint(docs, n_ids)).values
+
+    def probs_f64(feats):
+        return torch.softmax(fc_w.double() @ feats.T + fc_b.double()[:, None],
+                             dim=0)
+
+    tc.load_onehot_inputs(client, tok[:dag_rows], vocab)
+    ref = probs_f64(emb.double()[tok[:dag_rows]])
+    out["text_classifier_dag"] = drive_model(
+        "text classifier DAG", lambda: tc.inference(client),
+        lambda o: err_of(o, ref), MODEL_TOLS["text_classifier"], dag_rows,
+        "docs/s")
+    counts = torch.zeros(docs, dtype=torch.float64, device="cuda").index_add_(
+        0, doc, torch.ones(n_ids, dtype=torch.float64, device="cuda"))
+    feats = torch.zeros(docs, dim, dtype=torch.float64,
+                        device="cuda").index_add_(0, doc, emb.double()[tok])
+    ref = probs_f64(feats / counts.clamp(min=1.0)[:, None])
+    top2 = ref.topk(2, dim=0).values
+    clear = (top2[0] - top2[1]) > 1e-4  # labels f32 must not flip
+
+    def bow_error(pred):
+        wrong = int(((pred != ref.argmax(0)) & clear).sum())
+        if wrong:
+            raise RuntimeError(f"bag of words: {wrong} documents with a "
+                               f"clear f64 label were labelled otherwise")
+        # the probabilities behind the labels, by the request's own pieces
+        feats = embedding_lookup_sparse(
+            client.get_tensor(tc.db, "embeddings"), tok, doc, docs, "mean")
+        probs = tc.semantic_classifier(
+            BlockedTensor.from_dense(feats, tc.block),
+            client.get_tensor(tc.db, "fc_w"),
+            client.get_tensor(tc.db, "fc_b"))
+        return err_of(probs, ref)
+
+    out["text_classifier_bow"] = drive_model(
+        "text classifier bag of words",
+        lambda: tc.classify_bag_of_words(client, tok, doc, docs), bow_error,
+        MODEL_TOLS["text_classifier"], docs, "docs/s")
+    profiled["text classifier DAG"] = (lambda: tc.inference(client),
+                                       out["text_classifier_dag"]["p50_ms"])
+
+    # LSTM: one step through the store, then run_sequence; again in bf16
+    hidden, inp, batch, steps, lblock = MODEL_SIZES["lstm"].values()
+    lw = {}
+    for gate in "ifco":
+        lw[f"w_{gate}"] = randn(hidden, inp, scale=inp ** -0.5)
+        lw[f"u_{gate}"] = randn(hidden, hidden, scale=hidden ** -0.5)
+        lw[f"b_{gate}"] = randn(hidden, scale=0.1)
+    h0, c0 = randn(hidden, batch, scale=0.5), randn(hidden, batch, scale=0.5)
+    xs = randn(steps, inp, batch)
+    ref1 = lstm_f64(lw, h0, c0, xs[:1])
+    ref_t = lstm_f64(lw, h0, c0, xs)
+    for cd, tol in ((None, MODEL_TOLS["lstm"]),
+                    ("bfloat16", MODEL_TOLS["lstm_bf16"])):
+        key = "lstm" if cd is None else "lstm_bf16"
+        m = LSTMModel(db=key, block=(lblock, lblock), compute_dtype=cd)
+        m.setup(client)
+        m.load_weights(client, lw)
+        m.load_state(client, h0, c0)
+        out[f"{key}_step"] = drive_model(
+            f"{key} step", lambda m=m: m.step(client, xs[0]),
+            lambda o: max(err_of(o[0], ref1[0]), err_of(o[1], ref1[1])),
+            tol, batch, "cell rows/s", n=1)
+        out[f"{key}_sequence"] = drive_model(
+            f"{key} run_sequence x{steps}",
+            lambda m=m: m.run_sequence(client, xs),
+            lambda o: max(err_of(o[0], ref_t[0]), err_of(o[1], ref_t[1])),
+            tol, batch * steps, "cell rows/s")
+    for key in ("lstm", "lstm_bf16"):
+        m = LSTMModel(db=key, block=(lblock, lblock),
+                      compute_dtype=None if key == "lstm" else "bfloat16")
+        profiled[f"{key} run_sequence"] = (
+            lambda m=m: m.run_sequence(client, xs),
+            out[f"{key}_sequence"]["p50_ms"])
+
+    # conv2d: VALID with bias and relu, both modes; then SAME at stride 2
+    n, c, hw, o, k = MODEL_SIZES["conv2d"].values()
+    images, kernels, bias = randn(n, c, hw, hw), randn(o, c, k, k), randn(o)
+    for stride, padding, n in (((1, 1), "VALID", CONV_REQUESTS),
+                               ((2, 2), "SAME", 1)):
+        ref = conv_f64(images, kernels, bias, stride, padding)
+        for mode in ("direct", "im2col"):
+            m = Conv2DModel(db=f"conv_{mode}_{padding}", mode=mode,
+                            stride=stride, padding=padding,
+                            activation="relu")
+            m.setup(client)
+            m.load(client, images, kernels, bias)
+
+            def conv_error(o, ref=ref):
+                if len(o) != 1 or tuple(o[0].shape) != tuple(ref.shape):
+                    raise RuntimeError(f"conv output {[t.shape for t in o]}")
+                return err_of(o[0], ref)
+
+            key = f"conv2d_{mode}" + ("" if padding == "VALID" else "_same_s2")
+            out[key] = drive_model(
+                f"conv2d {mode} {padding} stride {stride}",
+                lambda m=m: m.inference(client), conv_error,
+                MODEL_TOLS["conv2d"], images.shape[0], "images/s", n=n)
+            if padding == "VALID":
+                print(f"[models] conv2d {mode}: batch latency p50 "
+                      f"{out[key]['p50_ms']:.3f} ms over {n} requests")
+                profiled[f"conv2d {mode}"] = (lambda m=m: m.inference(client),
+                                              out[key]["p50_ms"])
+    phase_profile(profiled, top=3)
+    return out
+
+
+def models_path() -> dict:
+    """Phase 8 between launch counts set to 0 and read: neither kernel
+    lies on the model families' path."""
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+
+    flash_attention.launches = flash_attention_step.launches = 0
+    out = phase_models()
+    launches = (flash_attention.launches, flash_attention_step.launches)
+    print(f"[models] launches on this path: flash_attention {launches[0]}, "
+          f"flash_attention_step {launches[1]}")
+    if launches != (0, 0):
+        raise RuntimeError(f"the model families launched an attention "
+                           f"kernel: {launches}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1067,6 +1394,10 @@ def main() -> int:
         # phase 7 alone (for comparing trees); prints no contract line
         print(json.dumps({"paged": phase_paged(), "card": smi}))
         return 0
+    if "--models-only" in sys.argv[1:]:
+        # phase 8 alone, the same way
+        print(json.dumps({"models": models_path(), "card": smi}))
+        return 0
     b1 = phase_kernels(pk)
     b2 = phase_step_kernel(pk)
 
@@ -1093,12 +1424,13 @@ def main() -> int:
                    sp["ms"])})
 
     paged = phase_paged()
+    models = models_path()
 
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
                       "sp_tokens_per_s": sp["tokens_per_s"],
                       "sp_max_abs_err": sp["max_abs_err"],
-                      "paged": paged, "card": smi}))
+                      "paged": paged, "models": models, "card": smi}))
 
     def kernel_row(kname, source, replaces, launches, row):
         return {"name": kname, "route": "cuda", "source": source,

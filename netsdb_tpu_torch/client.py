@@ -73,7 +73,9 @@ class Client:
         shared page arena: queries stream it through nodes that carry a
         ``tensor_fold`` (a placed paged set places each staged block).
         ``persistence="persistent"`` marks the set for
-        :meth:`flush_data`."""
+        :meth:`flush_data`. ``type_name="tensor4d"`` makes a set that
+        is scanned as its item list even when it holds one tensor (the
+        conv model's image sets)."""
         if isinstance(placement, dict):
             placement = Placement.from_meta(placement)
         if placement is not None and not isinstance(placement, Placement):
@@ -102,7 +104,7 @@ class Client:
         self.catalog.create_set(db, set_name, type_name, meta, persistence)
         ident = SetIdentifier(db, set_name)
         self.store.create_set(ident, placement=placement, storage=storage,
-                              persistence=persistence)
+                              persistence=persistence, type_name=type_name)
         return ident
 
     def clear_set(self, db: str, set_name: str) -> None:

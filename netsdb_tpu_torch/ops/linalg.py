@@ -1,5 +1,6 @@
-"""Row and column sums — the part of ``netsdb_tpu/ops/linalg.py`` that
-the FF ops need (the rest of the LA DSL op set is ROADMAP.md A5)."""
+"""Row and column sums and the transpose — the part of
+``netsdb_tpu/ops/linalg.py`` that the FF ops and the embedding matmul
+need (the rest of the LA DSL op set is ROADMAP.md A5)."""
 
 from __future__ import annotations
 
@@ -31,3 +32,11 @@ def col_sum(a: BlockedTensor) -> BlockedTensor:
                                              device=r.device))
     return BlockedTensor(r.to(a.data.dtype),
                          BlockMeta((1, a.shape[1]), (1, a.meta.block_shape[1])))
+
+
+def transpose(a: BlockedTensor) -> BlockedTensor:
+    """Aᵀ — ref ``LASillyTransposeSelection.h`` (swaps block indices).
+    The data is a transposed view: the margin stays zero and a product
+    that transposes it back reads the original memory."""
+    meta = BlockMeta(a.shape[::-1], a.meta.block_shape[::-1])
+    return BlockedTensor(a.data.t(), meta)

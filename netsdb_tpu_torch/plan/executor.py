@@ -224,9 +224,11 @@ def execute_computations(client, sinks: List[WriteSet],
                 continue
             items = store.get_items(ident)
             # a one-tensor set's value is the tensor itself; any other
-            # set is scanned as its item list
+            # set, and a set of a list-scan type (tensor4d) whatever it
+            # holds, is scanned as its item list
             single = len(items) == 1 and isinstance(
-                items[0], (BlockedTensor, torch.Tensor, ShardedTensor))
+                items[0], (BlockedTensor, torch.Tensor, ShardedTensor)) \
+                and not store.scans_as_list(ident)
             scan_values[node.node_id] = items[0] if single else items
     with torch.inference_mode():
         values = _evaluate(plan, scan_values)

@@ -17,6 +17,12 @@ drops its cached blocks. ``flush``/``load_set`` write a set to
 ``config.data_dir`` and bring it back, paged sets as paged sets; the
 file format is the port's own. Paged object sets and relations belong
 to ROADMAP.md A6.
+
+A set keeps the type it was created with. A ``tensor4d`` set (the conv
+model's image, filter and bias sets) is scanned as its item list even
+when it holds one tensor, as the reference scans a set of numpy arrays
+(:meth:`SetStore.scans_as_list`); any other set holding one tensor is
+scanned as that tensor.
 """
 
 from __future__ import annotations
@@ -37,6 +43,10 @@ from netsdb_tpu_torch.core.blocked import BlockedTensor, BlockMeta
 from netsdb_tpu_torch.parallel.mesh import ShardedTensor
 from netsdb_tpu_torch.parallel.placement import Placement
 from netsdb_tpu_torch.utils.locks import RWLock
+
+
+# set types whose scan is always the item list
+LIST_SCAN_TYPES = frozenset({"tensor4d"})
 
 
 class SetIdentifier(NamedTuple):
@@ -66,6 +76,7 @@ class _StoredSet:
     persistence: str = "transient"
     placement: Optional[Any] = None
     storage: str = "memory"
+    type_name: str = "tensor"
     # monotonic write version (store-wide counter): the freshness token
     # the device cache keys whole runs on
     version: int = 0
@@ -141,9 +152,11 @@ class SetStore:
     # --- set lifecycle ------------------------------------------------
     def create_set(self, ident: SetIdentifier, placement: Optional[Any] = None,
                    storage: str = "memory",
-                   persistence: str = "transient") -> None:
+                   persistence: str = "transient",
+                   type_name: str = "tensor") -> None:
         """Create the set if it is new. A placement given for an existing
-        set replaces its placement and re-places what it holds."""
+        set replaces its placement and re-places what it holds; an
+        existing set keeps its type."""
         if storage not in ("memory", "paged"):
             raise ValueError(f"storage must be 'memory' or 'paged', "
                              f"got {storage!r}")
@@ -152,7 +165,7 @@ class SetStore:
             if s is None:
                 s = self._sets[ident] = _StoredSet(
                     ident, [], persistence=persistence, placement=placement,
-                    storage=storage)
+                    storage=storage, type_name=type_name)
                 self._touch(s)
             elif placement is not None:
                 s.placement = placement
@@ -164,6 +177,12 @@ class SetStore:
     def storage_of(self, ident: SetIdentifier) -> str:
         s = self._sets.get(ident)
         return s.storage if s is not None else "memory"
+
+    def scans_as_list(self, ident: SetIdentifier) -> bool:
+        """True when a scan of the set gives its item list whatever it
+        holds (a type of ``LIST_SCAN_TYPES``)."""
+        s = self._sets.get(ident)
+        return s is not None and s.type_name in LIST_SCAN_TYPES
 
     def placement_of(self, ident: SetIdentifier) -> Optional[Any]:
         with self._lock:
@@ -318,6 +337,7 @@ class SetStore:
                 else:
                     payload.append(("object", item))
             record = {"persistence": s.persistence, "storage": s.storage,
+                      "type_name": s.type_name,
                       "placement": (s.placement.to_meta()
                                     if s.placement is not None else None),
                       "items": payload}
@@ -346,6 +366,7 @@ class SetStore:
             record = pickle.load(f)
         s.storage = record["storage"]
         s.persistence = record["persistence"]
+        s.type_name = record.get("type_name", "tensor")
         if s.placement is None and record["placement"]:
             s.placement = Placement.from_meta(record["placement"])
         s.items = []

@@ -10,7 +10,8 @@ raise where there is no card.
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence, Tuple
+import dataclasses
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,7 +19,9 @@ import torch
 from netsdb_tpu_torch.config import resolve_device
 from netsdb_tpu_torch.core.blocked import BlockMeta, BlockedTensor, owned_tensor
 from netsdb_tpu_torch.models.ff import FFParams
+from netsdb_tpu_torch.models.logreg import LogRegParams
 from netsdb_tpu_torch.models.transformer import TransformerLayerParams
+from netsdb_tpu_torch.ops.lstm import LSTMParams
 
 # (padded array, logical shape, block shape)
 PaddedMatrix = Tuple[np.ndarray, Sequence[int], Sequence[int]]
@@ -44,6 +47,40 @@ def ff_params_from_numpy(arrays: Mapping[str, PaddedMatrix],
     ``(padded array, logical shape, block shape)``."""
     return FFParams(**{name: blocked_from_numpy(*arrays[name], device=device)
                        for name in ("w1", "b1", "wo", "bo")})
+
+
+def logreg_params_from_numpy(arrays: Mapping[str, PaddedMatrix],
+                             device=None) -> LogRegParams:
+    """``LogRegParams`` from ``{w, b}``, each given as ``(padded array,
+    logical shape, block shape)``."""
+    return LogRegParams(**{name: blocked_from_numpy(*arrays[name],
+                                                    device=device)
+                           for name in ("w", "b")})
+
+
+def lstm_params_from_numpy(arrays: Mapping[str, PaddedMatrix],
+                           device=None) -> LSTMParams:
+    """``LSTMParams`` from the 12 gate sets ``{w_i, ..., u_i, ..., b_i,
+    ...}``, each given as ``(padded array, logical shape, block shape)``."""
+    names = [f.name for f in dataclasses.fields(LSTMParams)]
+    return LSTMParams(**{name: blocked_from_numpy(*arrays[name],
+                                                  device=device)
+                         for name in names})
+
+
+def conv_arrays_to_device(images: np.ndarray, kernels: np.ndarray,
+                          bias: Optional[np.ndarray] = None, device=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Optional[torch.Tensor]]:
+    """Images (N, C, H, W), kernels (O, I, KH, KW) and bias (O,) as f32
+    tensors on ``device`` (CUDA unless the caller asks for another), for
+    the ``ops.conv`` functions; ``bias`` stays None when not given."""
+    device = resolve_device(device)
+
+    def put(a):
+        return owned_tensor(a, dtype=torch.float32, device=device)
+
+    return put(images), put(kernels), None if bias is None else put(bias)
 
 
 def transformer_params_from_numpy(arrays: Mapping[str, np.ndarray],

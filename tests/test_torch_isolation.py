@@ -40,7 +40,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 15  # every module of the package was imported
+    assert int(count) >= 46  # every module of the package was imported
     assert bad == "[]", f"the port pulled in {bad}"
 
 
@@ -56,14 +56,24 @@ def test_client_defaults_to_cuda_and_never_falls_back(tmp_path):
 
 def test_carried_weights_default_to_cuda_and_never_fall_back():
     from netsdb_tpu_torch.weights import (blocked_from_numpy,
+                                          conv_arrays_to_device,
+                                          logreg_params_from_numpy,
+                                          lstm_params_from_numpy,
                                           transformer_params_from_numpy)
 
     eye = np.eye(4, dtype=np.float32)
     dense = dict(w_qkv=np.zeros((4, 12), np.float32), w_out=eye,
                  w_up=np.zeros((4, 16), np.float32),
                  w_down=np.zeros((16, 4), np.float32))
+    padded = (eye, (4, 4), (2, 2))
+    gates = {f"{k}_{g}": padded for k in "wub" for g in "ifco"}
     calls = [lambda **kw: blocked_from_numpy(eye, (4, 4), (2, 2), **kw),
-             lambda **kw: transformer_params_from_numpy(dense, **kw).w_out]
+             lambda **kw: transformer_params_from_numpy(dense, **kw).w_out,
+             lambda **kw: logreg_params_from_numpy(
+                 {"w": padded, "b": padded}, **kw).w,
+             lambda **kw: lstm_params_from_numpy(gates, **kw).u_o,
+             lambda **kw: conv_arrays_to_device(
+                 np.zeros((1, 1, 4, 4)), eye[None, None], **kw)[1]]
     for call in calls:
         if torch.cuda.is_available():
             assert call().device.type == "cuda"
