@@ -4,7 +4,7 @@
 Run from the repository root:  python3 chip_smoke.py
 (``--paged-only``: phases 1 and 7 alone, without the contract's last
 line, to compare the paged path of two trees; ``--models-only``: phases
-1 and 8 alone, the same way.)
+1 and 8 alone, the same way; ``--train-la-only``: phases 1, 9 and 10.)
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -57,15 +57,32 @@ Phases (any failure raises and the exit code is non-zero):
    2). Each request prints its ms and rate and its max abs error against
    an f64 recomputation on the card, and fails above ``MODEL_TOLS``; one
    request of each model runs under the profiler (busy share, top three
-   kernels). No hand-written kernel lies on this path.
+   kernels). No hand-written kernel lies on this path;
+9. training through the database (``TRAIN_SIZES``, f32): three chained
+   ``train_step`` s each of FF (after an ``inference()``, on params read
+   back from the store), the transformer layer and logistic regression,
+   each step held to the same step recomputed in f64 on the card
+   (``check_step``: every updated param within ``TRAIN_GRAD_TOL`` x lr x
+   the f64 gradient's max |value| plus one f32 rounding, the loss within
+   ``TRAIN_LOSS_RTOL``), with its ms, peak memory and errors; the layer's
+   steps must launch B1 once each and move ``w_qkv``. Then
+   ``graft_entry.dryrun_multichip(1)`` and one profiled step of each
+   model, with B1's share of the layer's step;
+10. the LA tasks at the reference's scale (X 200 000 x 1000, blocks
+   1000, f32): ``LA_REQUESTS`` requests of each PDML program through
+   ``compile_pdml``, each held to f64 at rtol = atol = 2e-4, their p50
+   beside the reference's cluster seconds; the linreg program through
+   ``LAInterpreter(client=Client())`` read back with
+   ``get_set_iterator``; ``run_all``'s CUDA-event times; one profiled
+   request of each task.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
 just before phase 5's requests and read just after them, again
-around each model's paged requests in phase 7, and around phase 8,
-where both must read 0. The last
-line is the contract's device record. Without a CUDA card, or without
-the package beside it, it exits 2.
+around each model's paged requests in phase 7, around phase 8, where
+both must read 0, around phase 9 (B1 once a layer step, B2 never) and
+around phase 10 (both 0). The last line is the contract's device record.
+Without a CUDA card, or without the package beside it, it exits 2.
 """
 
 from __future__ import annotations
@@ -700,17 +717,19 @@ def phase_sp(client) -> dict:
 
 
 # --- phase 6 -------------------------------------------------------------
-def phase_profile(requests: dict, top: int = 8) -> None:
+def phase_profile(requests: dict, top: int = 8) -> dict:
     """Where one request's device time goes: each of ``requests`` (name
     → (run, unprofiled request ms)) once under torch.profiler, after the
     counts of the main paths were read. Prints the kernels by device
     time and the device's busy share of the last unprofiled request of
     the same kind, since the profiler itself slows the host. ``top``:
-    the kernels printed per request."""
+    the kernels printed per request. Returns each request's (device ms,
+    kernel name) rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    out = {}
     for name, (run, request_ms) in requests.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -728,6 +747,7 @@ def phase_profile(requests: dict, top: int = 8) -> None:
                        and not e.key.startswith("Activity Buffer")),
                       reverse=True)
         busy_ms = sum(ms for ms, _ in rows)
+        out[name] = rows
         if not rows:
             print(f"[profile] {name}: device time not measured (the "
                   f"profiler saw no CUDA activity)")
@@ -738,6 +758,7 @@ def phase_profile(requests: dict, top: int = 8) -> None:
               f"{100 * busy_ms / request_ms:.1f}%")
         for ms, key in rows[:top]:
             print(f"[profile]   {ms:9.3f} ms  {key[:90]}")
+    return out
 
 
 # --- phase 7 -------------------------------------------------------------
@@ -1360,6 +1381,391 @@ def models_path() -> dict:
     return out
 
 
+# --- phase 9 -------------------------------------------------------------
+# each step against the same step recomputed in float64 from the same
+# params, on the card, through the plain path: every updated param within
+# TRAIN_GRAD_TOL x lr x the f64 gradient's max |value| plus one f32
+# rounding of the param (2**-23 x its max |value|); the loss within
+# TRAIN_LOSS_RTOL of the f64 loss
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_STEPS = 3
+# FF at bench.py's size, the layer at transformer_bench.py's, logreg at
+# phase 8's (the reference publishes no training sizes)
+TRAIN_SIZES = {"ff": dict(batch=16384, features=1024, hidden=4096,
+                          labels=1024),
+               "transformer": dict(embed=1024, heads=8, batch=2, seq=4096),
+               "logreg": dict(features=1024, rows=16384)}
+
+
+def ln64(z):
+    import torch
+
+    mu = z.mean(-1, keepdim=True)
+    return (z - mu) * torch.rsqrt(z.var(-1, keepdim=True, unbiased=False)
+                                  + 1e-5)
+
+
+def ff_loss64(p, x, y):
+    """The FF loss in float64 on logical tensors (bo is not read). relu's
+    derivative jumps at 0, and a pre-activation within f32 rounding of 0
+    may take the other sign in f64, which moves a gradient row by
+    |dh · x|, about 1e-5 here, an error of neither. So relu's activation
+    pattern is the f32 one, from the same params by plain ``torch.matmul``
+    (TF32 off); the pre-activations whose sign differs in f64 are
+    counted and printed."""
+    import torch
+
+    z = p["w1"] @ x.T + p["b1"]
+    z32 = (p["w1"].detach().float() @ x.float().T
+           + p["b1"].detach().float())
+    flips = int(((z32 > 0) != (z > 0)).sum())
+    print(f"[train] ff: {flips} of {z.numel()} pre-activations change sign "
+          f"between f32 and f64")
+    h = torch.where(z32 > 0, z, torch.zeros((), dtype=z.dtype,
+                                            device=z.device))
+    return -(y * torch.log_softmax(p["wo"] @ h, dim=0)).sum() / x.shape[0]
+
+
+def logreg_loss64(p, x, y):
+    import torch
+
+    z = (x @ p["w"].T).reshape(-1) + p["b"][0, 0]
+    return torch.mean(torch.clamp_min(z, 0) - z * y
+                      + torch.log1p(torch.exp(-z.abs())))
+
+
+def layer_loss64(p, x, t, heads):
+    """The layer's MSE in float64 with plain causal attention."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, e = x.shape
+    d = e // heads
+    q, k, v = (u.reshape(b, s, heads, d).transpose(1, 2)
+               for u in (ln64(x) @ p["w_qkv"]).chunk(3, -1))
+    logits = (q @ k.transpose(-1, -2)) * d ** -0.5
+    causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+    o = torch.softmax(logits.masked_fill(~causal, float("-inf")), -1) @ v
+    x1 = x + o.transpose(1, 2).reshape(b, s, e) @ p["w_out"]
+    y = x1 + F.gelu(ln64(x1) @ p["w_up"], approximate="tanh") @ p["w_down"]
+    return ((y - t) ** 2).mean()
+
+
+def logical_params(params) -> dict:
+    """A params dataclass as {name: logical tensor}."""
+    import dataclasses
+
+    return {f.name: (v.to_dense() if hasattr(v, "meta") else v)
+            for f in dataclasses.fields(params)
+            for v in [getattr(params, f.name)]}
+
+
+def check_step(name, step, ms, params, new, loss, lr, loss64, *args64):
+    """One training step against its f64 recomputation from the same
+    params; raises above the limits, or on a padded margin that is not
+    zero. Returns the step's errors."""
+    import torch
+
+    leaves = {n: t.double().requires_grad_()
+              for n, t in logical_params(params).items()}
+    with torch.enable_grad():
+        l64 = loss64(leaves, *args64)
+        grads = torch.autograd.grad(l64, list(leaves.values()),
+                                    allow_unused=True)
+    loss_err = abs(float(loss) - l64.item())
+    if not loss_err <= TRAIN_LOSS_RTOL * abs(l64.item()):
+        raise RuntimeError(f"{name} step {step}: loss {float(loss)} vs f64 "
+                           f"{l64.item()}")
+    out = {"ms": ms, "loss": float(loss), "loss_err": loss_err}
+    got = logical_params(new)
+    for (n, p64), g in zip(leaves.items(), grads):
+        g = torch.zeros_like(p64) if g is None else g
+        want = p64.detach() - lr * g
+        err = (got[n].double() - want).abs().max().item()
+        limit = (TRAIN_GRAD_TOL * lr * g.abs().max().item()
+                 + 2.0 ** -23 * p64.abs().max().item())
+        out[n] = {"err": err, "limit": limit,
+                  "max_grad": g.abs().max().item()}
+        if not err <= limit:
+            raise RuntimeError(f"{name} step {step}: {n} max abs err {err} "
+                               f"> {limit}")
+        full = getattr(new, n)
+        if hasattr(full, "meta") and torch.count_nonzero(
+                full.data * (1 - full.mask(full.dtype))):
+            raise RuntimeError(f"{name} step {step}: {n}'s padded margin "
+                               f"is not zero")
+    print(f"[train] {name} step {step}: {ms:.3f} ms loss {float(loss):.6f} "
+          f"(f64 err {loss_err:.3e}); max abs err / limit: "
+          + ", ".join(f"{n} {out[n]['err']:.3e}/{out[n]['limit']:.3e}"
+                      for n in leaves))
+    return out
+
+
+def train_steps(name, model, params, lr, args, loss64, *args64) -> tuple:
+    """TRAIN_STEPS chained ``train_step`` calls, each checked; returns
+    (the last params, the per-step records)."""
+    import torch
+
+    steps = []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        (new, loss), ms = request(lambda: model.train_step(params, *args,
+                                                           lr=lr))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps.append(check_step(name, step, ms, params, new, loss, lr,
+                                loss64, *args64))
+        steps[-1]["peak_gib"] = peak
+        print(f"[train] {name} step {step}: peak device memory {peak:.3f} "
+              f"GiB")
+        params = new
+    return params, steps
+
+
+def phase_train() -> tuple:
+    """Training through the database on the card, f32: FF, the layer and
+    logreg, each after its inference path ran, on params read back from
+    the store; B1's launches are counted around the layer's steps (one
+    launch a step). Then ``graft_entry.dryrun_multichip(1)``. Returns the
+    results and one step of each model to profile."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.graft_entry import dryrun_multichip
+    from netsdb_tpu_torch.models import (FFModel, LogRegModel,
+                                         TransformerLayerModel)
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+
+    client = Client()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    out = {}
+
+    # FF: inference, the one-hot labels sent, three steps at lr 0.1
+    batch, features, hidden, labels = TRAIN_SIZES["ff"].values()
+    ff = FFModel(db="ff_train", block=(512, 512))
+    ff.setup(client)
+    ff.load_random_weights(client, features, hidden, labels, seed=SEED)
+    x = torch.randn(batch, features, generator=g, device="cuda")
+    ff.load_inputs(client, x)
+    ff.inference(client)
+    onehot = F.one_hot(torch.randint(0, labels, (batch,), generator=g,
+                                     device="cuda"), labels).T.float()
+    client.create_set(ff.db, "labels")
+    client.send_matrix(ff.db, "labels", onehot, (512, 512))
+    ff_args = (client.get_tensor(ff.db, "inputs"),
+               client.get_tensor(ff.db, "labels"))
+    _, out["ff"] = train_steps("ff", ff, ff.params_from_store(client), 0.1,
+                               ff_args, ff_loss64, x.double(),
+                               onehot.double())
+
+    # the layer: serve_forward, then three steps at lr 1e-2, B1 counted
+    embed, heads, batch, seq = TRAIN_SIZES["transformer"].values()
+    layer = TransformerLayerModel(db="transformer_train", num_heads=heads)
+    layer.setup(client)
+    layer.load_random_weights(client, embed=embed, seed=SEED)
+    rng = np.random.default_rng(SEED + 21)
+    xn = rng.standard_normal((batch, seq, embed), dtype=np.float32)
+    layer.load_inputs(client, xn)
+    layer.serve_forward(client)
+    xl = torch.as_tensor(xn, device="cuda")
+    tl = torch.randn(batch, seq, embed, generator=g, device="cuda")
+    p0 = layer.params_from_store(client)
+    flash_attention.launches = flash_attention_step.launches = 0
+    p3, out["transformer"] = train_steps(
+        "transformer", layer, p0, 1e-2, (xl, tl),
+        lambda p, a, b: layer_loss64(p, a, b, heads), xl.double(),
+        tl.double())
+    launches = (flash_attention.launches, flash_attention_step.launches)
+    moved = (p3.w_qkv - p0.w_qkv).abs().max().item()
+    print(f"[train] transformer: flash_attention {launches[0]} launches in "
+          f"{TRAIN_STEPS} steps, flash_attention_step {launches[1]}; w_qkv "
+          f"moved by up to {moved:.3e}")
+    if launches != (TRAIN_STEPS, 0):
+        raise RuntimeError(f"the layer's training steps launched "
+                           f"(B1, B2) = {launches}, want ({TRAIN_STEPS}, 0)")
+    if not moved > 0:
+        raise RuntimeError("w_qkv got no gradient through B1")
+    out["transformer_b1_launches"] = launches[0]
+
+    # logreg: inference, then three steps at lr 0.5
+    features, rows = TRAIN_SIZES["logreg"].values()
+    lr_model = LogRegModel(db="logreg_train", block=(512, 512))
+    lr_model.setup(client)
+    w = torch.randn(features, generator=g, device="cuda") * features ** -0.5
+    x = torch.randn(rows, features, generator=g, device="cuda")
+    y = (torch.rand(rows, generator=g, device="cuda") < 0.5).float()
+    lr_model.load_weights(client, w, 0.1)
+    lr_model.load_inputs(client, x)
+    lr_model.inference(client)
+    lr_params = lr_model.params_from_store(client)
+    lr_args = (client.get_tensor(lr_model.db, "inputs"), y)
+    _, out["logreg"] = train_steps("logreg", lr_model, lr_params, 0.5,
+                                   lr_args, logreg_loss64, x.double(),
+                                   y.double())
+
+    # the port's entry point for the reference's dry run
+    loss, ms = request(lambda: dryrun_multichip(1))
+    print(f"[train] graft_entry.dryrun_multichip(1): loss {loss:.6f} in "
+          f"{ms:.3f} ms")
+    out["dryrun_loss"] = loss
+
+    def p50(name):
+        return sorted(s["ms"] for s in out[name])[1]
+
+    ff_params = ff.params_from_store(client)
+    profiled = {
+        "ff train_step": (lambda: ff.train_step(ff_params, *ff_args),
+                          p50("ff")),
+        "transformer train_step": (lambda: layer.train_step(p0, xl, tl),
+                                   p50("transformer")),
+        "logreg train_step": (lambda: lr_model.train_step(lr_params,
+                                                          *lr_args),
+                              p50("logreg"))}
+    return out, profiled
+
+
+def train_path() -> dict:
+    """Phase 9 between launch counts set to 0 and read: the layer's three
+    steps launch B1 three times and B2 never; FF, logreg and the dry run
+    launch neither. One step of each model is profiled after the read,
+    with B1's share of the layer's step."""
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+
+    flash_attention.launches = flash_attention_step.launches = 0
+    out, profiled = phase_train()
+    launches = (flash_attention.launches, flash_attention_step.launches)
+    print(f"[train] launches on this path: flash_attention {launches[0]}, "
+          f"flash_attention_step {launches[1]}")
+    if launches != (TRAIN_STEPS, 0):
+        raise RuntimeError(f"the training path launched (B1, B2) = "
+                           f"{launches}, want ({TRAIN_STEPS}, 0)")
+    rows = phase_profile(profiled, top=5)["transformer train_step"]
+    busy = sum(ms for ms, _ in rows)
+    b1 = sum(ms for ms, key in rows if "fold_kernel" in key)
+    if busy:
+        print(f"[train] B1 in the profiled layer step: {b1:.3f} ms of "
+              f"{busy:.3f} ms device time ({100 * b1 / busy:.1f}%)")
+    return out
+
+
+# --- phase 10 ------------------------------------------------------------
+LA_ROWS, LA_COLS, LA_BLOCK, LA_LAM = 200_000, 1000, 1000, 1.0
+LA_RTOL = LA_ATOL = 2e-4  # tests/test_la_tasks.py's, against f64
+LA_REQUESTS = 3
+
+
+def la_f64(task, env):
+    """The task's result in float64 on the card."""
+    import torch
+
+    x = env["X"].to_dense().double()
+    if task == "gram":
+        return x.T @ x
+    if task == "matmul":
+        return x @ env["W"].to_dense().double()
+    eye = torch.eye(x.shape[1], dtype=torch.float64, device=x.device)
+    return torch.linalg.solve(x.T @ x + LA_LAM * eye,
+                              x.T @ env["y"].to_dense().double())
+
+
+def la_violations(got, want) -> tuple:
+    """(entries outside rtol/atol, max abs err) of ``got`` against f64."""
+    err = (got.to_dense().double() - want).abs()
+    bad = int((err > LA_ATOL + LA_RTOL * want.abs()).sum())
+    return bad, err.max().item()
+
+
+def phase_la() -> tuple:
+    """The headline LA tasks at the reference's scale, f32: each task's
+    PDML program through ``compile_pdml`` over ``make_inputs`` on the
+    card, LA_REQUESTS requests each held to f64; then the linreg program
+    through ``LAInterpreter(client=Client())``, its statement materialised
+    as a set and read back with ``get_set_iterator``; then ``run_all``
+    times the tasks by CUDA events. Returns the results and one request
+    of each task to profile."""
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.dsl import LAInterpreter, parse_program
+    from netsdb_tpu_torch.workloads import la_tasks
+
+    out, profiled = {}, {}
+    for task in la_tasks.TASKS:
+        env = la_tasks.make_inputs(task, LA_ROWS, LA_COLS, LA_BLOCK, LA_LAM,
+                                   seed=SEED + 30)
+        fn = la_tasks.compile_pdml(la_tasks.PROGRAMS[task])
+        want = la_f64(task, env)
+        target = parse_program(la_tasks.PROGRAMS[task])[-1].target
+        rows = []
+        for i in range(LA_REQUESTS):
+            res, ms = request(lambda: fn(env))
+            got = res[target]
+            if got.device.type != "cuda" or got.dtype != torch.float32:
+                raise RuntimeError(f"{task}: result {got!r}")
+            bad, err = la_violations(got, want)
+            print(f"[la] {task} request {i}: {ms:.3f} ms, max abs err "
+                  f"{err:.3e}, entries outside rtol=atol={LA_RTOL}: {bad} "
+                  f"of {want.numel()}")
+            if bad:
+                raise RuntimeError(f"{task}: {bad} entries outside "
+                                   f"rtol = atol = {LA_RTOL} of f64")
+            rows.append((ms, err))
+        ms = sorted(r[0] for r in rows)
+        ref = la_tasks.REFERENCE_SECONDS[task]
+        print(f"[la] {task}: p50 {ms[len(ms) // 2]:.3f} ms on this card; "
+              f"the reference's C++ cluster (selfLearning/documentation.md): "
+              f"{ref['plain']} s plain, {ref['best']} s best")
+        out[task] = {"ms": [r[0] for r in rows], "p50_ms": ms[len(ms) // 2],
+                     "max_abs_err": max(r[1] for r in rows),
+                     "reference_cluster_seconds": ref}
+        profiled[task] = (lambda fn=fn, env=env: fn(env), ms[len(ms) // 2])
+        if task == "linreg":
+            client = Client()
+            interp = LAInterpreter(client=client)
+            interp.env.update(env)
+            _, ms = request(lambda: interp.run(la_tasks.PROGRAMS["linreg"]))
+            (stored,) = list(client.get_set_iterator("la", target))
+            bad, err = la_violations(stored, want)
+            print(f"[la] linreg through LAInterpreter(client=Client()): "
+                  f"{ms:.3f} ms, set la:{target} read back, max abs err "
+                  f"{err:.3e}, {bad} entries outside")
+            if bad or not client.set_exists("la", target):
+                raise RuntimeError("linreg through the client's sets failed")
+            out["linreg_client_ms"] = ms
+        del want
+    # the same tasks through run_all, the workload's own timer (CUDA
+    # events around each request)
+    for task, res in la_tasks.run_all(LA_ROWS, LA_COLS, LA_BLOCK,
+                                      iters=LA_REQUESTS).items():
+        print(f"[la] run_task({task!r}): first {res['first_ms']:.3f} ms, "
+              f"p50 {res['ms_p50']:.3f} ms by {res['timer']} on "
+              f"{res['device']}")
+        out[task]["run_task_p50_ms"] = res["ms_p50"]
+    return out, profiled
+
+
+def la_path() -> dict:
+    """Phase 10 between launch counts set to 0 and read: no attention
+    kernel lies on the LA path."""
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+
+    flash_attention.launches = flash_attention_step.launches = 0
+    out, profiled = phase_la()
+    launches = (flash_attention.launches, flash_attention_step.launches)
+    print(f"[la] launches on this path: flash_attention {launches[0]}, "
+          f"flash_attention_step {launches[1]}")
+    if launches != (0, 0):
+        raise RuntimeError(f"the LA path launched an attention kernel: "
+                           f"{launches}")
+    phase_profile(profiled, top=4)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1398,6 +1804,11 @@ def main() -> int:
         # phase 8 alone, the same way
         print(json.dumps({"models": models_path(), "card": smi}))
         return 0
+    if "--train-la-only" in sys.argv[1:]:
+        # phases 9 and 10 alone, the same way
+        print(json.dumps({"train": train_path(), "la": la_path(),
+                          "card": smi}))
+        return 0
     b1 = phase_kernels(pk)
     b2 = phase_step_kernel(pk)
 
@@ -1425,16 +1836,20 @@ def main() -> int:
 
     paged = phase_paged()
     models = models_path()
+    train = train_path()
+    la = la_path()
 
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
                       "sp_tokens_per_s": sp["tokens_per_s"],
                       "sp_max_abs_err": sp["max_abs_err"],
-                      "paged": paged, "models": models, "card": smi}))
+                      "paged": paged, "models": models, "train": train,
+                      "la": la, "card": smi}))
 
-    def kernel_row(kname, source, replaces, launches, row):
+    def kernel_row(kname, source, replaces, by_path, row):
         return {"name": kname, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
@@ -1444,11 +1859,13 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_row("flash_attention",
                    "netsdb_tpu_torch/csrc/flash_attention.cu",
-                   "netsdb_tpu/ops/pallas_kernels.py:135", b1_launches, b1),
+                   "netsdb_tpu/ops/pallas_kernels.py:135",
+                   {"inference": b1_launches,
+                    "training": train["transformer_b1_launches"]}, b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
-                   "netsdb_tpu/ops/pallas_kernels.py:286", sp["launches"],
-                   b2)]}))
+                   "netsdb_tpu/ops/pallas_kernels.py:286",
+                   {"sequence_parallel": sp["launches"]}, b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

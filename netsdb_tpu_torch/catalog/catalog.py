@@ -93,6 +93,13 @@ class Catalog:
         return {"db": db_name, "set": set_name, "type": row[0],
                 "meta": json.loads(row[1]), "persistence": row[2]}
 
+    def remove_set(self, db_name: str, set_name: str) -> None:
+        with self._lock:
+            self._conn.execute(
+                "DELETE FROM sets WHERE db_name = ? AND set_name = ?",
+                (db_name, set_name))
+            self._conn.commit()
+
     def update_set_meta(self, db_name: str, set_name: str, meta: Dict) -> None:
         with self._lock:
             self._conn.execute(

@@ -15,7 +15,7 @@ ROADMAP.md item.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,7 +36,9 @@ class Client:
     =======================  =====================================
     createDatabase           :meth:`create_database`
     createSet<T>             :meth:`create_set`
+    removeSet                :meth:`remove_set`
     sendData<T>              :meth:`send_data` / :meth:`send_matrix`
+    getSetIterator<T>        :meth:`get_set_iterator`
     registerType(.so)        :meth:`register_type`
     executeComputations      :meth:`execute_computations`
     clearSet                 :meth:`clear_set`
@@ -61,7 +63,8 @@ class Client:
         self.catalog.create_database(db)
 
     def create_set(self, db: str, set_name: str, type_name: str = "tensor",
-                   persistence: str = "transient", placement=None,
+                   persistence: str = "transient", eviction: str = "lru",
+                   partition_lambda: Optional[str] = None, placement=None,
                    storage: str = "memory") -> SetIdentifier:
         """Create a set. ``placement`` (a :class:`~netsdb_tpu_torch.
         parallel.placement.Placement` or its ``to_meta`` dict) declares
@@ -75,7 +78,20 @@ class Client:
         ``persistence="persistent"`` marks the set for
         :meth:`flush_data`. ``type_name="tensor4d"`` makes a set that
         is scanned as its item list even when it holds one tensor (the
-        conv model's image sets)."""
+        conv model's image sets).
+
+        ``eviction`` keeps the reference's default, ``"lru"``: the port
+        never spills a set under a host-memory budget, so another policy
+        raises (ROADMAP.md A2). ``partition_lambda``, the reference's
+        named key function for the dispatcher, raises (ROADMAP.md A6)."""
+        if eviction != "lru":
+            raise NotImplementedError(
+                f"create_set(eviction={eviction!r}): set eviction under a "
+                f"host-memory budget is not ported yet: ROADMAP.md A2")
+        if partition_lambda is not None:
+            raise NotImplementedError(
+                "create_set(partition_lambda=...): the dispatcher's "
+                "partitioning is not ported yet: ROADMAP.md A6")
         if isinstance(placement, dict):
             placement = Placement.from_meta(placement)
         if placement is not None and not isinstance(placement, Placement):
@@ -107,8 +123,15 @@ class Client:
                               persistence=persistence, type_name=type_name)
         return ident
 
+    def remove_set(self, db: str, set_name: str) -> None:
+        self.catalog.remove_set(db, set_name)
+        self.store.remove_set(SetIdentifier(db, set_name))
+
     def clear_set(self, db: str, set_name: str) -> None:
         self.store.clear_set(SetIdentifier(db, set_name))
+
+    def set_exists(self, db: str, set_name: str) -> bool:
+        return self.catalog.set_exists(db, set_name)
 
     def register_type(self, type_name: str, entry_point: str) -> None:
         """Register an op/model implementation by dotted import path
@@ -156,6 +179,10 @@ class Client:
 
     def get_tensor(self, db: str, set_name: str) -> BlockedTensor:
         return self.store.get_tensor(SetIdentifier(db, set_name))
+
+    def get_set_iterator(self, db: str, set_name: str) -> Iterator[Any]:
+        """The set's items, one by one (a paged matrix raises)."""
+        return self.store.scan(SetIdentifier(db, set_name))
 
     def paged_matmul(self, db: str, set_name: str, rhs) -> torch.Tensor:
         """``stored matrix @ rhs`` with the matrix of a paged set streamed

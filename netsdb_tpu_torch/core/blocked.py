@@ -79,6 +79,10 @@ class BlockMeta:
     def is_padded(self) -> bool:
         return self.padded_shape != self.shape
 
+    @property
+    def num_blocks(self) -> int:
+        return int(np.prod(self.grid))
+
     def block_slice(self, index: Sequence[int]) -> Tuple[slice, ...]:
         """Slice of the padded tensor covered by block ``index``."""
         if len(index) != self.rank:
@@ -116,6 +120,14 @@ class BlockedTensor:
                 pad += [0, p - s]
             t = F.pad(t, pad)
         return BlockedTensor(t, meta)
+
+    @staticmethod
+    def zeros(shape: Shape, block_shape: Shape, dtype=torch.float32,
+              device=None) -> "BlockedTensor":
+        meta = BlockMeta(tuple(shape), tuple(block_shape))
+        return BlockedTensor(torch.zeros(meta.padded_shape,
+                                         dtype=as_torch_dtype(dtype),
+                                         device=device), meta)
 
     @staticmethod
     def from_blocks(blocks: dict, shape: Shape, block_shape: Shape,
@@ -157,6 +169,11 @@ class BlockedTensor:
     def block(self, *index: int) -> torch.Tensor:
         return self.data[self.meta.block_slice(index)]
 
+    def blocks(self):
+        """``(index, block)`` pairs in row-major block order."""
+        for index in np.ndindex(*self.meta.grid):
+            yield index, self.block(*index)
+
     def to_dense(self) -> torch.Tensor:
         """Strip padding back to the logical shape (a view)."""
         if not self.meta.is_padded:
@@ -176,6 +193,15 @@ class BlockedTensor:
 
     def with_data(self, data: torch.Tensor) -> "BlockedTensor":
         return BlockedTensor(data, self.meta)
+
+    def astype(self, dtype) -> "BlockedTensor":
+        return self.with_data(self.data.to(as_torch_dtype(dtype)))
+
+    def reblock(self, block_shape: Shape) -> "BlockedTensor":
+        """The same logical tensor under another block shape (re-padded
+        with zeros), on the same device and in the same dtype."""
+        return BlockedTensor.from_dense(self.to_dense(), block_shape,
+                                        dtype=self.dtype, device=self.device)
 
     def __repr__(self) -> str:
         return (f"BlockedTensor(shape={self.meta.shape}, "

@@ -12,7 +12,8 @@
 Layout follows the reference: inputs are (batch x features), weights
 (out x in), activations flow as (features x batch). Weight sets created ``storage="paged"`` stream
 through the same DAG page by page (``TensorFold`` on the two weight
-joins). Training (``train_step``) is ROADMAP.md A3.
+joins). ``loss``/``train_step`` are the reference's training extension
+(masked softmax cross-entropy, SGD), differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from netsdb_tpu_torch.core.blocked import BlockedTensor
+from netsdb_tpu_torch.models._common import sgd_step
 from netsdb_tpu_torch.ops import nn as nn_ops
 from netsdb_tpu_torch.ops.matmul import matmul, matmul_t
 from netsdb_tpu_torch.plan.computations import Apply, Join, ScanSet, WriteSet
@@ -193,3 +195,25 @@ class FFModel:
         h = nn_ops.bias_relu(matmul_t(params.w1, inputs, cd, accum_dtype=cd),
                              params.b1)
         return matmul(params.wo, h, cd)
+
+    # --- training (the reference's extension, models/ff.py:251-267) ----
+    def loss(self, params: FFParams, inputs: BlockedTensor,
+             labels_onehot: BlockedTensor) -> torch.Tensor:
+        """Masked softmax cross-entropy over the labels axis, summed and
+        divided by the logical batch. ``labels_onehot`` is (labels x
+        batch), blocked like the output. Padded batch columns are masked
+        whole: their log-softmax is NaN and reads 0, with no gradient."""
+        lg = self.logits(params, inputs)
+        masked = torch.where(lg.mask(torch.bool), lg.data,
+                             torch.full((), float("-inf"), dtype=lg.dtype,
+                                        device=lg.device))
+        logp = torch.nan_to_num(torch.log_softmax(masked, dim=0), nan=0.0,
+                                neginf=0.0)
+        return -(labels_onehot.data * logp).sum() / inputs.shape[0]
+
+    def train_step(self, params: FFParams, inputs: BlockedTensor,
+                   labels_onehot: BlockedTensor,
+                   lr: float = 0.1) -> Tuple[FFParams, torch.Tensor]:
+        """One SGD step over the whole padded data of every param;
+        returns ``(new params, loss)``."""
+        return sgd_step(self.loss, params, lr, inputs, labels_onehot)

@@ -3,8 +3,9 @@
 ``src/LogReg/headers/Logistic_Regression.h``, test program
 ``src/tests/source/LogisticRegressionTest.cc``), which reuses the FF
 operator family: one ``FFTransposeMult`` product, then
-``FFTransposeBiasSumSigmoid``. Training (``loss``, ``train_step``) is
-ROADMAP.md A3.
+``FFTransposeBiasSumSigmoid``. ``loss``/``train_step`` are the
+reference's training (stable binary cross-entropy, SGD), differentiated
+by autograd.
 """
 
 from __future__ import annotations
@@ -13,9 +14,10 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from netsdb_tpu_torch.core.blocked import BlockedTensor
-from netsdb_tpu_torch.models._common import as_f32, create_sets
+from netsdb_tpu_torch.models._common import as_f32, create_sets, sgd_step
 from netsdb_tpu_torch.ops import nn as nn_ops
 from netsdb_tpu_torch.ops.matmul import matmul_t
 from netsdb_tpu_torch.plan.computations import Join, ScanSet, WriteSet
@@ -75,3 +77,21 @@ class LogRegModel:
     def forward(self, params: LogRegParams, x: BlockedTensor) -> BlockedTensor:
         z = matmul_t(params.w, x, self.compute_dtype)
         return nn_ops.bias_sigmoid(z, params.b)
+
+    # --- training (models/logreg.py:87-100 of the reference) -----------
+    def loss(self, params: LogRegParams, x: BlockedTensor,
+             y) -> torch.Tensor:
+        """Binary cross-entropy in its stable form, ``max(z, 0) - z·y +
+        log1p(exp(-|z|))``, averaged over the batch; ``y`` is (batch,) in
+        {0, 1}."""
+        z = matmul_t(params.w, x, self.compute_dtype)
+        logits = z.to_dense().reshape(-1) + params.b.data[0, 0]
+        y = torch.as_tensor(y, dtype=logits.dtype, device=logits.device)
+        return torch.mean(torch.clamp_min(logits, 0) - logits * y
+                          + torch.log1p(torch.exp(-logits.abs())))
+
+    def train_step(self, params: LogRegParams, x: BlockedTensor, y,
+                   lr: float = 0.5) -> Tuple[LogRegParams, torch.Tensor]:
+        """One SGD step over w's and b's padded data; returns ``(new
+        params, loss)``."""
+        return sgd_step(self.loss, params, lr, x, y)

@@ -16,18 +16,22 @@ folded by the CUDA ring-step kernel (B2, ``parallel.ring``).
 :meth:`TransformerLayerModel.build_forward_dag_staged` writes the same
 layer as staged nodes, so every weight may live in a ``storage="paged"``
 set and stream through the DAG (reduce-mode ``TensorFold``s, the
-attention core again B1). Training is ROADMAP.md A3.
+attention core again B1). :meth:`TransformerLayerModel.train_step` is
+the reference's training dry run (MSE of the single-device forward, SGD
+over the four weights); on the card its attention is B1 under autograd
+(``ops.cuda_kernels.FlashAttentionFunction``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from netsdb_tpu_torch.models._common import sgd_step
 from netsdb_tpu_torch.ops.attention import (attention_dispatch, merge_heads,
                                             merge_project, mha_forward,
                                             qkv_project, split_qkv_heads)
@@ -317,3 +321,16 @@ class TransformerLayerModel:
         results = client.execute_computations(
             sink, job_name=f"{self.db}-forward")
         return next(iter(results.values()))
+
+    # --- training (models/transformer.py:282-290 of the reference) -----
+    def loss(self, p: TransformerLayerParams, x: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+        """Mean squared error of the single-device forward."""
+        return torch.mean((self.forward(p, x) - targets) ** 2)
+
+    def train_step(self, p: TransformerLayerParams, x: torch.Tensor,
+                   targets: torch.Tensor, lr: float = 1e-2
+                   ) -> Tuple[TransformerLayerParams, torch.Tensor]:
+        """One SGD step over the four dense weights; returns ``(new
+        params, loss)``."""
+        return sgd_step(self.loss, p, lr, x, targets)

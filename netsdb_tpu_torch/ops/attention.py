@@ -131,7 +131,10 @@ def attention_dispatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        impl: Optional[str] = None,
                        block_size: Optional[int] = None) -> torch.Tensor:
     """Run 'full', 'blockwise' or 'flash' (the CUDA kernel) attention;
-    ``impl=None`` picks one with :func:`auto_impl`."""
+    ``impl=None`` picks one with :func:`auto_impl`. Under grad mode,
+    CUDA operands that require grad reach the kernel through its
+    autograd node (``cuda_kernels.FlashAttentionFunction``); every other
+    call launches it as it is."""
     s = q.shape[2]
     if impl is None:
         impl = auto_impl(q.device, block_size)

@@ -19,6 +19,14 @@ launches its kernel or raises; on a CPU tensor it runs its plain
 version, which repeats the reference kernel's blocking and exp2-domain
 online-softmax carry in plain PyTorch. Each wrapper counts its kernel
 launches in ``<wrapper>.launches``.
+
+Gradients: neither Pallas kernel of the reference has a backward (JAX
+differentiates the attention it calls). :class:`FlashAttentionFunction`
+is B1's autograd node: its forward is the wrapper (one launch on the
+card), its backward recomputes :func:`flash_attention_plain` on the
+saved q, k, v and differentiates that. B2 writes its carry in place and
+refuses operands that require grad (the reference trains nothing
+sequence-parallel).
 """
 
 from __future__ import annotations
@@ -64,9 +72,11 @@ def resolve_blocks(s: int, block_q: Optional[int],
 
 
 def _prescale_q(q: torch.Tensor, scale: float) -> torch.Tensor:
-    """q * (scale * log2 e) in f32, rounded back to q's dtype — the
-    reference's ``_prescale_q``; bf16 rounds here, before the product."""
-    return (q.float() * (scale * _LOG2E)).to(q.dtype)
+    """q * (scale * log2 e) in f32 (f64 for f64), rounded back to q's
+    dtype — the reference's ``_prescale_q``; bf16 rounds here, before the
+    product."""
+    wide = q if q.dtype == torch.float64 else q.float()
+    return (wide * (scale * _LOG2E)).to(q.dtype)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,26 +87,28 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for each (q-block, k-block) pair the f32 carry (m, l, acc) folds the
     block in the exp2 domain; fully masked causal blocks are skipped and
     only diagonal blocks are masked. bf16 inputs multiply exactly in f32
-    and round P to bf16 before P·V, as the reference does. Blocks must
-    divide S (:func:`resolve_blocks` gives such blocks)."""
+    and round P to bf16 before P·V, as the reference does; float64 inputs
+    keep a float64 carry (the gradient checks use them). Blocks must
+    divide S (:func:`resolve_blocks` gives such blocks). Differentiable:
+    B1's backward runs through it."""
     b, h, s, d = q.shape
     if s % block_q or s % block_k:
         raise ValueError(f"blocks ({block_q}, {block_k}) must divide seq {s}")
     scale = scale if scale is not None else d ** -0.5
     full_f32_precision()
     bh = b * h
-    qf = _prescale_q(q.reshape(bh, s, d), scale).float()
-    kf = k.reshape(bh, s, d).float()
-    vf = v.reshape(bh, s, d).float()
+    carry = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = _prescale_q(q.reshape(bh, s, d), scale).to(carry)
+    kf = k.reshape(bh, s, d).to(carry)
+    vf = v.reshape(bh, s, d).to(carry)
     round_p = v.dtype == torch.bfloat16
     dev = q.device
     out = torch.empty((bh, s, d), dtype=q.dtype, device=dev)
     for q_start in range(0, s, block_q):
         qb = qf[:, q_start:q_start + block_q]
-        m = torch.full((bh, block_q, 1), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((bh, block_q, 1), dtype=torch.float32, device=dev)
-        acc = torch.zeros((bh, block_q, d), dtype=torch.float32, device=dev)
+        m = torch.full((bh, block_q, 1), NEG_INF, dtype=carry, device=dev)
+        l = torch.zeros((bh, block_q, 1), dtype=carry, device=dev)
+        acc = torch.zeros((bh, block_q, d), dtype=carry, device=dev)
         for k_start in range(0, s, block_k):
             if causal and q_start + block_q - 1 < k_start:
                 break  # this and every later k-block is fully masked
@@ -194,11 +206,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors (float32 or bfloat16, contiguous, D <= 128, on an
     sm_90 card) run the hand-written kernel on the current stream, and
     any other CUDA operands raise; CPU tensors run
-    :func:`flash_attention_plain`. ``flash_attention.launches`` counts
-    kernel launches."""
+    :func:`flash_attention_plain`. Under grad mode, CUDA operands that
+    require grad go through :class:`FlashAttentionFunction`, whose
+    forward is this launch. ``flash_attention.launches`` counts kernel
+    launches."""
     b, h, s, d = q.shape
     block_q, block_k = resolve_blocks(s, block_q, block_k)
     scale = scale if scale is not None else d ** -0.5
+    if q.device.type == "cuda" and _needs_grad(q, k, v):
+        return FlashAttentionFunction.apply(q, k, v, causal, scale,
+                                            block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, block_q, block_k)
     if q.device.type != "cuda":
@@ -218,6 +235,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """B1 under autograd: ``apply(q, k, v, causal, scale, block_q,
+    block_k)`` with the blocks :func:`resolve_blocks` gives.
+
+    The forward is :func:`flash_attention` (one kernel launch on the card;
+    the plain version on CPU tensors, which is how the CPU tests reach
+    this node) and saves q, k and v. The backward recomputes
+    :func:`flash_attention_plain` with the same blocks on detached copies
+    and returns ``torch.autograd.grad`` of it: there is no backward
+    kernel, so it costs the plain forward again and holds its per-block
+    probabilities until the gradients are taken."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_q, block_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, scale, block_q, block_k)
+        return flash_attention(q, k, v, causal, scale, block_q, block_k)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in saved]
+            out = flash_attention_plain(*leaves, *ctx.args)
+            grads = torch.autograd.grad(out, leaves, grad_out)
+        return (*grads, None, None, None, None)
 
 
 # ------------------------------------------------------- ring-step kernel
@@ -312,7 +361,14 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d <= 128, on an sm_90 card) run the hand-written kernel on the
     current stream, and any other CUDA operands raise; CPU tensors run
     :func:`flash_attention_step_plain`. ``flash_attention_step.launches``
-    counts kernel launches."""
+    counts kernel launches. Operands that require grad under grad mode
+    raise ``RuntimeError``: the carry is written in place, and this step
+    has no autograd node (sequence-parallel training, ROADMAP.md A4)."""
+    if _needs_grad(q, k, v, acc, l, m):
+        raise RuntimeError(
+            "flash_attention_step (B2) writes its carry in place and has "
+            "no autograd node; sequence-parallel training is not ported "
+            "(ROADMAP.md A4)")
     _check_step_operands(q, k, v, acc, l, m)
     bh, s_q, d = q.shape
     scale = scale if scale is not None else d ** -0.5

@@ -59,3 +59,35 @@ def matmul_t(a: BlockedTensor, b: BlockedTensor,
                     b.meta.padded_shape[1], ka, compute_dtype, accum_dtype)
     meta = BlockMeta((m, n), (a.meta.block_shape[0], b.meta.block_shape[0]))
     return BlockedTensor(out, meta)
+
+
+def t_matmul(a: BlockedTensor, b: BlockedTensor,
+             compute_dtype: Optional[str] = None) -> BlockedTensor:
+    """C = Aᵀ·B (the LA DSL's ``'*``, reference
+    ``LASillyTransposeMultiply1Join.h``): A's transpose is a view, which
+    the product reads as it lies.
+
+    It contracts over the rows of a tall matrix (the Gram matrix's
+    200 000), so float32 operands are multiplied in float64 and the
+    result rounded to float32: an f32 sum of that many products is off by
+    up to about 1 on entries of 2e5, which misses the reference test's
+    atol of 2e-4 on entries near 0 (measured on an H100, PERF.md §6).
+    ``compute_dtype`` keeps its meaning (bf16 operands, f32 sums)."""
+    (ka, m), (kb, n) = a.shape, b.shape
+    if ka != kb:
+        raise ValueError(f"t_matmul contraction mismatch {a.shape} x "
+                         f"{b.shape}")
+    ad, bd = _data(a), _data(b)
+    if compute_dtype is None and ad.dtype == torch.float32:
+        wide = ad.double()
+        ad, bd = wide, (wide if b is a else bd.double())
+    out = _contract(ad.t(), bd, a.meta.padded_shape[0],
+                    b.meta.padded_shape[0], ka, compute_dtype)
+    meta = BlockMeta((m, n), (a.meta.block_shape[1], b.meta.block_shape[1]))
+    return BlockedTensor(out, meta)
+
+
+def gram(x: BlockedTensor,
+         compute_dtype: Optional[str] = None) -> BlockedTensor:
+    """Xᵀ·X, the reference's headline self-learning task."""
+    return t_matmul(x, x, compute_dtype)

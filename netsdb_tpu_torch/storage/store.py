@@ -33,7 +33,7 @@ import itertools
 import os
 import pickle
 import threading
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -193,6 +193,20 @@ class SetStore:
         with self._lock:
             return list(self._sets)
 
+    def remove_set(self, ident: SetIdentifier) -> None:
+        """Drop a set: its items, its cached device blocks, its flushed
+        file, and (outside the lock, once its streams are done) its
+        pages. An unknown set is a no-op."""
+        with self._lock:
+            s = self._sets.pop(ident, None)
+            dead = (s.items or []) if s is not None else []
+            if self._device_cache is not None:
+                self._device_cache.invalidate(str(ident))
+            path = self._spill_path(ident)
+            if os.path.exists(path):
+                os.remove(path)
+        self._drop_pages(dead)
+
     def clear_set(self, ident: SetIdentifier) -> None:
         with self._lock:
             s = self._sets.get(ident)
@@ -261,6 +275,17 @@ class SetStore:
     def get_items(self, ident: SetIdentifier) -> List[Any]:
         with self._lock:
             return list(self._items_locked(self._require(ident)))
+
+    def scan(self, ident: SetIdentifier) -> Iterator[Any]:
+        """A set's items, one by one — reference ``SetScan`` /
+        ``SetIterator``. A paged matrix streams through queries and is
+        never an item here: its scan raises."""
+        items = self.get_items(ident)
+        if any(isinstance(i, _PagedMatrix) for i in items):
+            raise ValueError(
+                f"set {ident} holds a paged matrix: it streams through a "
+                f"node with a tensor_fold, or through paged_matmul")
+        return iter(items)
 
     def get_tensor(self, ident: SetIdentifier) -> BlockedTensor:
         items = self.get_items(ident)

@@ -5,13 +5,15 @@ package's parameters converts them to numpy (``np.asarray``) together
 with their block metadata, and these functions build the port's
 parameter objects or fill a port client's sets from them. Like the
 client, they put the parameters on CUDA unless given ``device=``, and
-raise where there is no card.
+raise where there is no card. :func:`params_to_numpy` goes the other
+way (a trained model's params back to numpy, padded data and metadata),
+and :func:`logical` cuts a padded matrix to its logical view.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -92,6 +94,29 @@ def transformer_params_from_numpy(arrays: Mapping[str, np.ndarray],
     return TransformerLayerParams(**{
         name: owned_tensor(arrays[name], dtype=torch.float32, device=device)
         for name in ("w_qkv", "w_out", "w_up", "w_down")})
+
+
+def blocked_to_numpy(bt: BlockedTensor) -> PaddedMatrix:
+    """``(padded array, logical shape, block shape)`` of a
+    ``BlockedTensor``, the inverse of :func:`blocked_from_numpy`."""
+    return (bt.data.detach().cpu().numpy(), tuple(bt.shape),
+            tuple(bt.meta.block_shape))
+
+
+def logical(matrix: PaddedMatrix) -> np.ndarray:
+    """The logical (unpadded) view of ``(padded array, shape, block)``."""
+    padded, shape, _ = matrix
+    return padded[tuple(slice(0, n) for n in shape)]
+
+
+def params_to_numpy(params) -> Dict[str, Union[PaddedMatrix, np.ndarray]]:
+    """A params dataclass (``FFParams``, ``LogRegParams``,
+    ``TransformerLayerParams``, ...) back to numpy: a ``BlockedTensor``
+    field as its padded matrix, a tensor field as its array."""
+    return {f.name: (blocked_to_numpy(v) if isinstance(v, BlockedTensor)
+                     else v.detach().cpu().numpy())
+            for f in dataclasses.fields(params)
+            for v in [getattr(params, f.name)]}
 
 
 def load_matrices(client, db: str,

@@ -130,7 +130,10 @@ def test_embedding_lookup_sparse_matches_jax(combiner):
 @pytest.mark.parametrize("bad", ["id", "negative_id", "segment"])
 def test_ids_out_of_range_raise(bad):
     """On the card an out-of-range gather or scatter index is a device
-    assert; the port checks first (the reference clamps or drops)."""
+    assert; the port checks first and raises. The reference does not
+    raise: ``jnp.take`` wraps a negative id to count from the end, gives
+    a NaN row for an id >= vocab, and ``segment_sum`` drops out-of-range
+    segment ids."""
     table = BlockedTensor.from_dense(np.ones((29, 11), np.float32), BLOCK)
     ids, seg = np.array([0, 3, 28]), np.array([0, 0, 1])
     if bad == "segment":

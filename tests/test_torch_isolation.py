@@ -40,7 +40,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 46  # every module of the package was imported
+    assert int(count) >= 52  # every module of the package was imported
     assert bad == "[]", f"the port pulled in {bad}"
 
 
@@ -81,6 +81,40 @@ def test_carried_weights_default_to_cuda_and_never_fall_back():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
         assert call(device="cpu").device.type == "cpu"
+
+
+def _la_constructors():
+    from netsdb_tpu_torch.dsl import LAInterpreter, run_pdml
+    from netsdb_tpu_torch.graft_entry import entry
+    from netsdb_tpu_torch.ops import linalg
+    from netsdb_tpu_torch.workloads import make_inputs
+
+    return {
+        "identity": lambda **kw: linalg.identity(4, 2, **kw).device,
+        "zeros": lambda **kw: linalg.zeros(4, 4, 2, 2, **kw).device,
+        "ones": lambda **kw: linalg.ones(4, 4, 2, 2, **kw).device,
+        "make_inputs": lambda **kw: make_inputs("gram", 8, 4, 2,
+                                                **kw)["X"].device,
+        "LAInterpreter": lambda **kw: LAInterpreter(**kw).device,
+        "run_pdml": lambda **kw: run_pdml("A = ones(2,2,1,1)",
+                                          **kw)["A"].device,
+        "entry": lambda **kw: entry(**kw)[1][1].device,
+    }
+
+
+@pytest.mark.parametrize("name", ["identity", "zeros", "ones", "make_inputs",
+                                  "LAInterpreter", "run_pdml", "entry"])
+def test_la_and_entry_constructors_default_to_cuda_and_never_fall_back(name):
+    """The LA op set's constructors, the LA tasks' inputs, the DSL
+    interpreter and the port's ``graft_entry.entry`` put what they make on
+    CUDA unless asked, and raise where there is no card."""
+    call = _la_constructors()[name]
+    if torch.cuda.is_available():
+        assert call().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert call(device="cpu").type == "cpu"
 
 
 def test_client_writes_nothing_to_its_root_dir(tmp_path):
