@@ -4,7 +4,8 @@
 Run from the repository root:  python3 chip_smoke.py
 (``--paged-only``: phases 1 and 7 alone, without the contract's last
 line, to compare the paged path of two trees; ``--models-only``: phases
-1 and 8 alone, the same way; ``--train-la-only``: phases 1, 9 and 10.)
+1 and 8 alone, the same way; ``--train-la-only``: phases 1, 9 and 10;
+``--relational-only``: phases 1 and 11.)
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -74,14 +75,33 @@ Phases (any failure raises and the exit code is non-zero):
    beside the reference's cluster seconds; the linreg program through
    ``LAInterpreter(client=Client())`` read back with
    ``get_set_iterator``; ``run_all``'s CUDA-event times; one profiled
-   request of each task.
+   request of each task;
+11. the columnar relational engine at TPC-H SF ``TPCH_SF`` (10: lineitem
+   60 M rows, orders 15 M, partsupp 8 M, customer 1.5 M, part 2 M,
+   supplier 100 k; about 3.3 GB of columns resident on the card): the
+   engine's crossovers measured on the card (``tuning.autotune(persist=
+   False)``, printed), the tables drawn from the seed on the host
+   (``relational.bench.generate_host``) and sent with ``send_table`` to
+   a card client and a CPU client. Per query, ``TPCH_REQUESTS`` requests
+   of ``suite_sink_for`` through ``run_query`` for each of the ten, then
+   of ``q01_sink``, ``q06_sink`` and ``q03_sink_for``; each request held
+   to the CPU client's same sink (integers, keys, counts, minima and
+   masks exactly; floats within ``TPCH_RTOL``; Q03's top 10 by key set
+   wherever its 10th and 11th revenues differ by more than that), and
+   Q01 and Q06 also to a float64 numpy oracle. Per query the p50 ms,
+   lineitem rows/s, the bytes of the columns it reads over the card's
+   memory rate (its bound), the CPU's ms, and for Q01, Q02 and Q04 the
+   reference's cluster seconds beside them; one profiled request of
+   each (busy share, top three kernels). No hand-written kernel lies on
+   this path.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
 just before phase 5's requests and read just after them, again
 around each model's paged requests in phase 7, around phase 8, where
 both must read 0, around phase 9 (B1 once a layer step, B2 never) and
-around phase 10 (both 0). The last line is the contract's device record.
+around phase 10 and around phase 11 (both 0). The last line is the
+contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -1766,6 +1786,320 @@ def la_path() -> dict:
     return out
 
 
+# --- phase 11 ------------------------------------------------------------
+TPCH_SF = 10           # lineitem 60 M rows, orders 15 M, partsupp 8 M
+TPCH_REQUESTS = 3
+TPCH_RTOL = 1e-3       # float aggregates: card vs CPU, card vs f64
+TPCH_SINKS = ("q01_sink", "q06_sink", "q03_sink_for")
+# the suite queries whose joins the planner plans: each gets one more
+# request with the default LUT factor beside the measured crossover's
+TPCH_LUT_AB = ("q02", "q03", "q04", "q12", "q14", "q17", "q22")
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(run, device) -> tuple:
+    """(output, ms) of one request, the device synchronised around it."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = run()
+    _sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _leaves(out) -> list:
+    """A sink's result as named host arrays: a table's columns and mask,
+    or a core's raw tensors."""
+    if isinstance(out, tuple):
+        return [(f"out{i}", t.detach().cpu().numpy())
+                for i, t in enumerate(out)]
+    return ([(n, c.detach().cpu().numpy()) for n, c in sorted(out.cols.items())]
+            + [("valid", out.mask().detach().cpu().numpy())])
+
+
+def _rel_err(got, want) -> float:
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    fin = np.isfinite(want)
+    if not np.array_equal(np.isfinite(got), fin) or not np.array_equal(
+            got[~fin], want[~fin]):
+        return float("inf")
+    if not fin.any():
+        return 0.0
+    return float((np.abs(got[fin] - want[fin])
+                  / np.maximum(np.abs(want[fin]), 1e-30)).max())
+
+
+def _top10(name, keys, ok, rev, dates, ref_keys, ref_ok, ref_rev,
+           ref_dates) -> float:
+    """Q03's top 10 against the CPU's top 11: revenues within TPCH_RTOL
+    in order, the key set equal wherever the 10th and 11th revenues
+    differ by more than that (below it, only keys above the band must
+    agree), and each shared key's order date exactly. Returns the
+    largest relative revenue error."""
+    import numpy as np
+
+    got = sorted(zip(rev[ok], keys[ok]), key=lambda x: -x[0])
+    want = sorted(zip(ref_rev[ref_ok], ref_keys[ref_ok]),
+                  key=lambda x: -x[0])
+    d_got = dict(zip(keys[ok], dates[ok]))
+    d_ref = dict(zip(ref_keys[ref_ok], ref_dates[ref_ok]))
+    if any(d_got[k] != d_ref[k] for k in set(d_got) & set(d_ref)):
+        raise RuntimeError(f"{name}: order dates differ from the CPU")
+    if len(got) != min(len(want), 10):
+        raise RuntimeError(f"{name}: {len(got)} rows, the CPU has "
+                           f"{len(want)} of 11")
+    err = _rel_err([r for r, _ in got], [r for r, _ in want[:len(got)]])
+    if err > TPCH_RTOL:
+        raise RuntimeError(f"{name}: top revenues off by {err:.3e}")
+    cut = want[10][0] if len(want) > 10 else -np.inf
+    sure = {k for r, k in want[:10] if r > cut * (1 + TPCH_RTOL)}
+    if not sure <= {k for _, k in got}:
+        raise RuntimeError(f"{name}: top-10 keys {sorted(k for _, k in got)}"
+                           f" miss {sorted(sure)}")
+    return err
+
+
+def _q03_parts(q, out) -> tuple:
+    """(keys, valid, revenue, order date) of a Q03 result as host arrays:
+    the suite core's raw tensors or ``q03_sink``'s relation."""
+    if q == "q03":
+        ints, rev = out
+        parts = (ints[0], ints[1] > 0, rev, ints[2])
+    else:
+        parts = (out["okey"], out.mask(), out["revenue"], out["odate"])
+    return tuple(t.detach().cpu().numpy() for t in parts)
+
+
+def _hold(name, got, ref) -> float:
+    """A card result against the CPU's: integer and bool outputs (keys,
+    counts, histograms, minima, join indices, masks) exactly, floats
+    within TPCH_RTOL. Returns the largest relative float error."""
+    import numpy as np
+
+    worst = 0.0
+    for (label, a), (_, b) in zip(_leaves(got), _leaves(ref)):
+        if a.shape != b.shape:
+            raise RuntimeError(f"{name}.{label}: shape {a.shape} vs {b.shape}")
+        if b.dtype.kind in "biu":
+            if not np.array_equal(a, b):
+                bad = int((a != b).sum())
+                raise RuntimeError(f"{name}.{label}: {bad} integer entries "
+                                   f"differ from the CPU")
+            continue
+        err = _rel_err(a, b)
+        if err > TPCH_RTOL:
+            raise RuntimeError(f"{name}.{label}: relative error {err:.3e} "
+                               f"against the CPU")
+        worst = max(worst, err)
+    return worst
+
+
+def tpch_oracle_f64(host, delta=19980902, d0=19940101, d1=19950101,
+                    disc=0.06, qty=24) -> dict:
+    """Q01's group sums and counts and Q06's revenue in float64 numpy
+    over the host columns (the plain oracle)."""
+    import numpy as np
+
+    li = host["lineitem"][0]
+    seg = li["l_returnflag"].astype(np.int64) * 2 + li["l_linestatus"]
+    m = li["l_shipdate"] <= delta
+    price = li["l_extendedprice"].astype(np.float64)
+    d = li["l_discount"].astype(np.float64)
+    dp = price * (1 - d)
+    vals = (li["l_quantity"].astype(np.float64), price, dp,
+            dp * (1 + li["l_tax"].astype(np.float64)), d)
+    sums = np.stack([np.bincount(seg[m], weights=v[m], minlength=6)
+                     for v in vals])
+    counts = np.bincount(seg[m], minlength=6)
+    lo = np.float32(disc) - np.float32(0.011)
+    hi = np.float32(disc) + np.float32(0.011)
+    dd = li["l_discount"]
+    q6 = ((li["l_shipdate"] >= d0) & (li["l_shipdate"] < d1) & (dd >= lo)
+          & (dd <= hi) & (li["l_quantity"] < qty))
+    return {"q01_sums": sums, "q01_counts": counts,
+            "q06": float((price[q6] * d[q6]).sum())}
+
+
+def _hold_f64(name, got, oracle) -> float:
+    """Q01 / Q06 on the card against the f64 oracle: counts exactly,
+    sums within TPCH_RTOL."""
+    import numpy as np
+
+    if name.startswith("q01"):
+        if isinstance(got, tuple):
+            sums, counts = (t.cpu().numpy() for t in got)
+        else:
+            sums = np.stack([got[c].cpu().numpy() for c in (
+                "sum_qty", "sum_base_price", "sum_disc_price", "sum_charge",
+                "sum_disc")])
+            counts = got["count"].cpu().numpy()
+        if not np.array_equal(counts, oracle["q01_counts"]):
+            raise RuntimeError(f"{name}: counts differ from f64")
+        err = _rel_err(sums, oracle["q01_sums"])
+    else:
+        val = got[0] if isinstance(got, tuple) else got["revenue"]
+        err = _rel_err(float(val.reshape(-1)[0]), oracle["q06"])
+    if err > TPCH_RTOL:
+        raise RuntimeError(f"{name}: relative error {err:.3e} against f64")
+    return err
+
+
+def phase_relational(pk: dict, device="cuda", sf=TPCH_SF,
+                     requests=TPCH_REQUESTS) -> tuple:
+    """The columnar relational engine at TPC-H SF ``sf``: the crossovers
+    measured on the card (``tuning.autotune(persist=False)``), the eight
+    tables drawn from the seed on the host and sent to a card client and
+    a CPU client with ``send_table``; per query ``requests`` requests of
+    ``suite_sink_for`` through ``run_query``, then the same of the three
+    hand-built sinks, each held to the CPU client's same sink (and Q01,
+    Q06 to an f64 oracle). Returns the results and one request of each
+    to profile."""
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.relational import dag, tuning
+    from netsdb_tpu_torch.relational.bench import PUBLISHED, generate_host
+    from netsdb_tpu_torch.relational.queries import suite_args_split
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    t0 = time.perf_counter()
+    crossovers = tuning.autotune(device, persist=False)
+    print(f"[tpch] crossovers measured on {tuning.device_kind(device)} "
+          f"({time.perf_counter() - t0:.1f} s): "
+          + ", ".join(f"{k} {v:g}" for k, v in crossovers.items()))
+    t0 = time.perf_counter()
+    host = generate_host(sf, SEED)
+    cpu_tables = {n: ColumnTable.from_columns(cols, dicts, device="cpu")
+                  for n, (cols, dicts) in host.items()}
+    gen_s = time.perf_counter() - t0
+    card, cpu = Client(device=device), Client(device="cpu")
+    for c in (card, cpu):
+        c.create_database("tpch")
+        for n, table in cpu_tables.items():
+            c.create_set("tpch", n, type_name="table")
+    _, up_ms = _timed(lambda: [card.send_table("tpch", n, t)
+                               for n, t in cpu_tables.items()], device)
+    for n, t in cpu_tables.items():
+        cpu.send_table("tpch", n, t)
+    tables = {n: card.get_table("tpch", n) for n in cpu_tables}
+    resident = sum(c.numel() * c.element_size()
+                   for t in tables.values() for c in t.cols.values())
+    n_li = tables["lineitem"].num_rows
+    if tables["lineitem"].device.type != torch.device(device).type:
+        raise RuntimeError("lineitem did not reach the card")
+    print(f"[tpch] SF {sf}: " + ", ".join(f"{n} {t.num_rows}"
+                                          for n, t in tables.items())
+          + f"; drawn and analysed on the host in {gen_s:.1f} s, sent in "
+          f"{up_ms:.0f} ms, {resident / 2**30:.3f} GiB resident")
+    oracle = tpch_oracle_f64(host)
+    _, arrays = suite_args_split(tables)
+
+    def sink_of(client, q):
+        if q in TPCH_SINKS:
+            if q == "q03_sink_for":
+                return dag.q03_sink_for(client, "tpch")
+            return getattr(dag, q)("tpch")
+        return dag.suite_sink_for(client, "tpch", q)
+
+    out, profiled = {}, {}
+    for q in sorted(dag._QUERY_TABLES) + list(TPCH_SINKS):
+        sink = sink_of(card, q)
+        if q in ("q03", "q03_sink_for"):
+            ref_sink = (dag.q03_sink_for(cpu, "tpch", k=11) if q != "q03"
+                        else dag.suite_sink_for(cpu, "tpch", "q03", k=11))
+        else:
+            ref_sink = sink_of(cpu, q)
+        ref, cpu_ms = _timed(lambda: dag.run_query(cpu, ref_sink), "cpu")
+        times, worst = [], 0.0
+        for i in range(requests):
+            got, ms = _timed(lambda: dag.run_query(card, sink), device)
+            leaves = _leaves(got)
+            if any(torch.is_tensor(v) and v.device.type != torch.device(
+                    device).type for v in (got if isinstance(got, tuple)
+                                           else got.cols.values())):
+                raise RuntimeError(f"{q}: the result left the card")
+            if q in ("q03", "q03_sink_for"):
+                err = _top10(q, *_q03_parts(q, got), *_q03_parts(q, ref))
+            else:
+                err = _hold(q, got, ref)
+            if q.startswith(("q01", "q06")):
+                err = max(err, _hold_f64(q, got, oracle))
+            worst = max(worst, err)
+            times.append(ms)
+            print(f"[tpch] {q} request {i}: {ms:.3f} ms, {len(leaves)} "
+                  f"outputs held to the CPU (rel err {err:.3e})")
+        p50 = sorted(times)[len(times) // 2]
+        row = {"ms": times, "p50_ms": p50, "cpu_ms": cpu_ms,
+               "max_rel_err": worst,
+               "lineitem_rows_per_s": n_li / (p50 / 1e3)}
+        core = {"q01_sink": "q01", "q06_sink": "q06",
+                "q03_sink_for": "q03"}.get(q, q)
+        if core in arrays:
+            nbytes = sum(a.numel() * a.element_size() for a in arrays[core])
+            row["bytes_read"] = nbytes
+            row["bound_ms"] = nbytes / pk["bytes"] * 1e3
+        line = (f"[tpch] {q}: p50 {p50:.3f} ms, SF-{sf} lineitem rows/s "
+                f"{row['lineitem_rows_per_s']:.4g}")
+        line += (f", columns read {row['bytes_read'] / 2**20:.1f} MiB, "
+                 f"bound {row['bound_ms']:.3f} ms (bytes)")
+        line += f"; CPU {cpu_ms:.0f} ms"
+        if q in PUBLISHED:
+            row["reference_cluster_s"] = PUBLISHED[q]
+            line += (f"; the reference's cluster {PUBLISHED[q]} s "
+                     f"(BASELINE.md, its scale unrecorded)")
+        if q in TPCH_LUT_AB:
+            # the measured crossover against the default LUT joins, one
+            # request each, held to the CPU like the others
+            kind = tuning.device_kind(device)
+            measured = tuning.get("join_lut_factor", kind)
+            tuning.set_override("join_lut_factor",
+                                tuning._DEFAULTS["join_lut_factor"], kind)
+            try:
+                got, row["lut_ms"] = _timed(
+                    lambda: dag.run_query(card, sink), device)
+            finally:
+                tuning.set_override("join_lut_factor", measured, kind)
+            _hold(q, got, ref) if q != "q03" else _top10(
+                q, *_q03_parts(q, got), *_q03_parts(q, ref))
+            line += (f"; with LUT joins (join_lut_factor "
+                     f"{tuning._DEFAULTS['join_lut_factor']:g}) "
+                     f"{row['lut_ms']:.3f} ms")
+        print(line)
+        out[q] = row
+        profiled[f"tpch {q}"] = (lambda s=sink: dag.run_query(card, s), p50)
+    out["crossovers"] = crossovers
+    out["resident_gib"] = resident / 2**30
+    out["sf"] = sf
+    return out, profiled
+
+
+def relational_path(pk: dict) -> dict:
+    """Phase 11 between launch counts set to 0 and read: neither
+    attention kernel lies on the relational path."""
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+
+    flash_attention.launches = flash_attention_step.launches = 0
+    out, profiled = phase_relational(pk)
+    launches = (flash_attention.launches, flash_attention_step.launches)
+    print(f"[tpch] launches on this path: flash_attention {launches[0]}, "
+          f"flash_attention_step {launches[1]}")
+    if launches != (0, 0):
+        raise RuntimeError(f"the relational path launched an attention "
+                           f"kernel: {launches}")
+    rows = phase_profile(profiled, top=3)
+    out["profile_top3"] = {k: [(ms, key[:60]) for ms, key in v[:3]]
+                           for k, v in rows.items()}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1809,6 +2143,10 @@ def main() -> int:
         print(json.dumps({"train": train_path(), "la": la_path(),
                           "card": smi}))
         return 0
+    if "--relational-only" in sys.argv[1:]:
+        # phase 11 alone, the same way
+        print(json.dumps({"relational": relational_path(pk), "card": smi}))
+        return 0
     b1 = phase_kernels(pk)
     b2 = phase_step_kernel(pk)
 
@@ -1838,13 +2176,14 @@ def main() -> int:
     models = models_path()
     train = train_path()
     la = la_path()
+    relational = relational_path(pk)
 
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
                       "sp_tokens_per_s": sp["tokens_per_s"],
                       "sp_max_abs_err": sp["max_abs_err"],
                       "paged": paged, "models": models, "train": train,
-                      "la": la, "card": smi}))
+                      "la": la, "relational": relational, "card": smi}))
 
     def kernel_row(kname, source, replaces, by_path, row):
         return {"name": kname, "route": "cuda", "source": source,

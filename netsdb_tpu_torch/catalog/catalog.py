@@ -107,6 +107,18 @@ class Catalog:
                 (json.dumps(meta), db_name, set_name))
             self._conn.commit()
 
+    def update_table_meta(self, db_name: str, set_name: str, num_rows: int,
+                          columns) -> None:
+        """Record a relation set's row count and column names in its
+        meta (what ``send_table`` writes after every ingest or append).
+        An unknown set is a no-op."""
+        info = self.get_set(db_name, set_name)
+        if info is None:
+            return
+        info["meta"].update(num_rows=int(num_rows),
+                            columns=sorted(columns))
+        self.update_set_meta(db_name, set_name, info["meta"])
+
     # --- types (Python entry points in place of the reference's .so) --
     def register_type(self, type_name: str, entry_point: str) -> None:
         with self._lock:

@@ -8,14 +8,17 @@ every result lives there: ``"cuda"`` unless the caller passes
 that device type (every card, or the virtual positions of
 :func:`~netsdb_tpu_torch.parallel.mesh.virtual_devices`). A paged set
 (``storage="paged"``) stays in the host page arena and streams through
-the device when a query reads it. Arguments of the reference that
-belong to later slices raise ``NotImplementedError`` naming the
+the device when a query reads it. A relation set
+(``type_name="table"``) holds one column table on the client's device,
+filled by :meth:`Client.send_table`; its planner statistics are
+collected from the host arrays at ingest. Arguments of the reference
+that belong to later slices raise ``NotImplementedError`` naming the
 ROADMAP.md item.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterator, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,6 +31,16 @@ from netsdb_tpu_torch.parallel.placement import Placement
 from netsdb_tpu_torch.storage.store import SetIdentifier, SetStore
 
 
+def table_info(table) -> Dict[str, Any]:
+    """The analyze-set summary of one relation: its column statistics
+    (from the table's cache, filled at ingest), dictionaries and row
+    count."""
+    from netsdb_tpu_torch.relational.stats import analyze_table
+
+    return {"stats": dict(analyze_table(table)),
+            "dicts": dict(table.dicts), "num_rows": table.num_rows}
+
+
 class Client:
     """In-process database client.
 
@@ -37,7 +50,8 @@ class Client:
     createDatabase           :meth:`create_database`
     createSet<T>             :meth:`create_set`
     removeSet                :meth:`remove_set`
-    sendData<T>              :meth:`send_data` / :meth:`send_matrix`
+    sendData<T>              :meth:`send_data` / :meth:`send_matrix` /
+                             :meth:`send_table`
     getSetIterator<T>        :meth:`get_set_iterator`
     registerType(.so)        :meth:`register_type`
     executeComputations      :meth:`execute_computations`
@@ -78,7 +92,9 @@ class Client:
         ``persistence="persistent"`` marks the set for
         :meth:`flush_data`. ``type_name="tensor4d"`` makes a set that
         is scanned as its item list even when it holds one tensor (the
-        conv model's image sets).
+        conv model's image sets); ``type_name="table"`` a relation set
+        for :meth:`send_table` (a paged relation raises, ROADMAP.md A6,
+        and a placed one when data arrives, A4).
 
         ``eviction`` keeps the reference's default, ``"lru"``: the port
         never spills a set under a host-memory budget, so another policy
@@ -176,6 +192,55 @@ class Client:
                                dtype=str(t.dtype).replace("torch.", ""))
             self.catalog.update_set_meta(db, set_name, cat["meta"])
         return t
+
+    def send_table(self, db: str, set_name: str, rows_or_table,
+                   date_cols: Sequence[str] = (), append: bool = False):
+        """Ingest a relation as one column table on the client's device:
+        row dicts are dictionary-encoded and analysed on the host, then
+        uploaded once; a table on another device moves with its
+        statistics. ``append=True`` adds the rows to the stored relation
+        (the reference's addData) instead of replacing it. The catalog
+        records the set's row count and columns. Returns the table as
+        stored (for an append, the batch)."""
+        from netsdb_tpu_torch.relational.stats import analyze_table
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        if isinstance(rows_or_table, ColumnTable):
+            table = rows_or_table
+            if table.device.type == "cpu":
+                analyze_table(table)  # on the host, before any upload
+            table = table.to(self.device)
+        else:
+            table = ColumnTable.from_rows(list(rows_or_table), date_cols,
+                                          device=self.device)
+        ident = SetIdentifier(db, set_name)
+        if append:
+            self.store.append_table(ident, table)
+            num_rows = self.get_table(db, set_name).num_rows
+        else:
+            self.store.clear_set(ident)
+            self.store.add_data(ident, [table])
+            num_rows = table.num_rows
+        self.catalog.update_table_meta(db, set_name, num_rows, table.cols)
+        return table
+
+    def get_table(self, db: str, set_name: str):
+        """The one column table a relation set holds."""
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        items = self.store.get_items(SetIdentifier(db, set_name))
+        tables = [i for i in items if isinstance(i, ColumnTable)]
+        if len(tables) != 1:
+            raise ValueError(f"set {db}:{set_name} holds {len(tables)} "
+                             f"tables; expected 1")
+        return tables[0]
+
+    def analyze_set(self, db: str, set_name: str) -> Dict[str, Any]:
+        """Planner statistics of a stored relation — ``{"stats",
+        "dicts", "num_rows"}`` — from the statistics collected at
+        ingest (the reference's ``StorageCollectStats``); the DAG
+        builders read these summaries, never the table."""
+        return table_info(self.get_table(db, set_name))
 
     def get_tensor(self, db: str, set_name: str) -> BlockedTensor:
         return self.store.get_tensor(SetIdentifier(db, set_name))

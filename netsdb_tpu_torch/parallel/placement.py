@@ -128,9 +128,10 @@ class Placement:
         divide stays replicated); other host objects are stored as they
         are."""
         if type(value).__name__ == "ColumnTable":
+            # row-sharded relations are relational/sharded.py
             raise NotImplementedError(
-                "placing a relational ColumnTable is not ported yet: "
-                "ROADMAP.md A6")
+                "placing a relational ColumnTable (row-sharded relations) "
+                "is not ported yet: ROADMAP.md A4")
         if isinstance(value, BlockedTensor):
             return shard_blocked(value, self.mesh(
                 visible_devices(value.device.type)), self.spec)

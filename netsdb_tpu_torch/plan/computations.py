@@ -7,13 +7,16 @@ Node kinds keep the reference's names (``ScanSet``/``Apply``/``Join``/
 ``WriteSet`` ≙ ScanUserSet/SelectionComp/JoinComp/SetWriter) and the
 TCAP-like ``plan_atom`` dump. A node given a ``tensor_fold``
 (:class:`~netsdb_tpu_torch.plan.fold.TensorFold`) may consume a paged
-tensor set: the executor streams the set's row blocks through it.
+tensor set: the executor streams the set's row blocks through it. A node
+given a relational ``fold`` (:class:`~netsdb_tpu_torch.plan.fold.
+FoldSpec`) and no ``fn`` derives ``fn`` from the fold's whole-relation
+path, so the two cannot diverge.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 _ids = itertools.count()
 
@@ -56,14 +59,22 @@ class ScanSet(Computation):
 
 class Apply(Computation):
     """1-in projection — reference ``SelectionComp``. ``tensor_fold``
-    says how the node streams a paged tensor input."""
+    says how the node streams a paged tensor input; with ``fn=None`` a
+    ``fold`` gives ``fn`` (``fold.whole``). ``label`` should name every
+    parameter ``fn`` closes over, as the reference's builders do."""
 
     op_kind = "Apply"
 
-    def __init__(self, input_: Computation, fn: Callable[[Any], Any],
-                 label: str = "", tensor_fold=None):
+    def __init__(self, input_: Computation,
+                 fn: Optional[Callable[[Any], Any]] = None,
+                 label: str = "", tensor_fold=None, fold=None):
         super().__init__([input_])
+        if fn is None:
+            if fold is None:
+                raise ValueError("Apply needs fn or fold")
+            fn = fold.whole
         self.fn = fn
+        self.fold = fold
         self.tensor_fold = tensor_fold
         self.label = label or getattr(fn, "__name__", "fn")
 
@@ -83,15 +94,32 @@ class Join(Computation):
     (the gather-chain tuple append that collects a model's weight sets
     before the node that uses them); such a node forwards a paged
     tensor handle untouched. ``tensor_fold`` says how the node streams a
-    paged tensor input."""
+    paged tensor input.
+
+    ``fold`` + ``fold_src``: with ``fn=None`` the node evaluates the
+    fold's whole path over input ``fold_src`` (0 left, 1 right, the
+    probe or fact side), the other input passed as resident values
+    (gather tuples flattened)."""
 
     op_kind = "Join"
 
     def __init__(self, left: Computation, right: Computation,
-                 fn: Callable[[Any, Any], Any], label: str = "",
-                 tensor_fold=None, passthrough: bool = False):
+                 fn: Optional[Callable[[Any, Any], Any]] = None,
+                 label: str = "", tensor_fold=None,
+                 passthrough: bool = False, fold=None, fold_src: int = 0):
         super().__init__([left, right])
+        if fn is None:
+            if fold is None:
+                raise ValueError("Join needs fn or fold")
+            from netsdb_tpu_torch.plan.fold import flatten_resident
+
+            if fold_src == 0:
+                fn = lambda a, b: fold.whole(a, *flatten_resident((b,)))
+            else:
+                fn = lambda a, b: fold.whole(b, *flatten_resident((a,)))
         self.fn = fn
+        self.fold = fold
+        self.fold_src = fold_src
         self.tensor_fold = tensor_fold
         self.passthrough = passthrough
         self.label = label or getattr(fn, "__name__", "join")

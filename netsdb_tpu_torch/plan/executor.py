@@ -19,6 +19,12 @@ nodes (``passthrough``) forward the handle; any other node without a
 fold raises ``ValueError`` naming ``tensor_fold`` — a paged set is never
 materialised behind the caller's back. A job whose sinks split into
 paged and resident components runs each component on its own.
+
+A relation set (one :class:`~netsdb_tpu_torch.relational.table.
+ColumnTable`) is scanned as its table, on the client's device; a node
+carrying a relational ``fold`` runs the fold's whole path over it, and a
+sink whose value is a table stores that table as its output set's one
+item (the reference's ``:151-226``, ``:1248``).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from netsdb_tpu_torch.parallel.mesh import ShardedTensor
 from netsdb_tpu_torch.plan import staging
 from netsdb_tpu_torch.plan.computations import ScanSet, WriteSet
 from netsdb_tpu_torch.plan.planner import LogicalPlan, plan_from_sinks
+from netsdb_tpu_torch.relational.table import ColumnTable
 from netsdb_tpu_torch.storage.paged import PagedTensor
 from netsdb_tpu_torch.storage.store import SetIdentifier
 
@@ -223,11 +230,12 @@ def execute_computations(client, sinks: List[WriteSet],
                 scan_values[node.node_id] = store.paged_tensor(ident)
                 continue
             items = store.get_items(ident)
-            # a one-tensor set's value is the tensor itself; any other
-            # set, and a set of a list-scan type (tensor4d) whatever it
-            # holds, is scanned as its item list
+            # a one-tensor or one-table set's value is the item itself;
+            # any other set, and a set of a list-scan type (tensor4d)
+            # whatever it holds, is scanned as its item list
             single = len(items) == 1 and isinstance(
-                items[0], (BlockedTensor, torch.Tensor, ShardedTensor)) \
+                items[0], (BlockedTensor, torch.Tensor, ShardedTensor,
+                           ColumnTable)) \
                 and not store.scans_as_list(ident)
             scan_values[node.node_id] = items[0] if single else items
     with torch.inference_mode():
@@ -244,8 +252,9 @@ def execute_computations(client, sinks: List[WriteSet],
                 store.put_tensor(ident, out)
                 continue
             store.clear_set(ident)
-            if isinstance(out, (torch.Tensor, ShardedTensor)):
-                # one tensor IS the set's content (not its rows)
+            if isinstance(out, (torch.Tensor, ShardedTensor, ColumnTable)):
+                # one tensor or relation IS the set's content (not its
+                # rows)
                 store.add_data(ident, [out])
             elif isinstance(out, dict):
                 store.add_data(ident, list(out.items()))

@@ -1,19 +1,26 @@
-"""Streamable decomposition of a node over a paged tensor set —
-counterpart of ``TensorFold`` in ``netsdb_tpu/plan/fold.py``.
+"""Decomposed forms of a Computation node — counterpart of
+``netsdb_tpu/plan/fold.py``.
 
+:class:`TensorFold` streams a paged tensor set through a node.
 In the reference system FF inference scans its weight sets page by page
 like any other pipeline (``SimpleFF.cc:94-290``, fed by
 ``PageScanner.h``). A ``Join``/``Apply`` carrying a :class:`TensorFold`
 consumes a ``storage="paged"`` matrix the same way: the executor
 streams the matrix's row blocks through the node instead of
 materialising it (which ``SetStore.get_tensor`` refuses for paged
-sets). The relational ``FoldSpec`` belongs to ROADMAP.md A6.
+sets).
+
+:class:`FoldSpec` is the relational (init, step, finalize) form, the
+reference's PageScanner contract (``src/storage/headers/PageScanner.h:
+25-34``): a node carrying one derives its whole-relation path from it,
+so the streamed path of paged relations (ROADMAP.md A6, part 2) will run
+the same math.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,3 +60,77 @@ class TensorFold:
             raise ValueError("TensorFold(mode='reduce') needs a partial "
                              "accumulator")
 
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldSpec:
+    """(init, step)* + finalize decomposition of a relational node —
+    counterpart of the reference's ``FoldSpec``.
+
+    Signatures (``src`` is the scanned relation, read for its schema;
+    ``resident`` are the node's other input values, gather tuples
+    flattened):
+
+    - ``init(prev_state, src, *resident) -> state`` (``prev_state`` None
+      for the first pass);
+    - ``step(state, chunk, *resident) -> state``;
+    - ``finalize(state, src, *resident) -> output``.
+
+    Multi-pass folds thread each pass's state into the next ``init``.
+    ``merge`` combines the outputs of independent build partitions;
+    ``probe_key``, ``build_key`` and ``probe_columns`` name the join's
+    columns; ``state_merge`` combines the final states of two row
+    partitions. The port evaluates a fold over a memory set through
+    :meth:`whole`; streaming it over pages comes with paged relations
+    (ROADMAP.md A6, part 2)."""
+
+    passes: Tuple[Tuple[Callable, Callable], ...]
+    finalize: Callable
+    merge: Optional[Callable] = None
+    probe_key: Optional[str] = None
+    build_key: Optional[str] = None
+    probe_columns: Optional[Tuple[str, ...]] = None
+    state_merge: Optional[Callable] = None
+
+    def whole(self, table: Any, *resident: Any) -> Any:
+        """The whole relation as one chunk: the same init / step /
+        finalize chain the streamed path runs."""
+        state = None
+        for init, step in self.passes:
+            state = step(init(state, table, *resident), table, *resident)
+        return self.finalize(state, table, *resident)
+
+
+def single_pass(init: Callable, step: Callable,
+                finalize: Callable, merge: Optional[Callable] = None,
+                probe_key: Optional[str] = None,
+                build_key: Optional[str] = None,
+                probe_columns: Optional[Tuple[str, ...]] = None,
+                state_merge: Optional[Callable] = None) -> FoldSpec:
+    return FoldSpec(((init, step),), finalize, merge,
+                    probe_key=probe_key, build_key=build_key,
+                    probe_columns=probe_columns, state_merge=state_merge)
+
+
+def tree_add_states(a: Any, b: Any) -> Any:
+    """Elementwise sum of two states of the same structure (tensors in
+    nested tuples, lists and dicts): the ``state_merge`` of folds whose
+    state is additive (sums, counts, histograms)."""
+    if isinstance(a, dict):
+        return {k: tree_add_states(a[k], b[k]) for k in a}
+    if isinstance(a, (tuple, list)):
+        return type(a)(tree_add_states(x, y) for x, y in zip(a, b))
+    return a + b
+
+
+def flatten_resident(values: Tuple[Any, ...]) -> Tuple[Any, ...]:
+    """Gather-chain tuples (the tuple-passing binary Joins of
+    ``relational/dag.py``) flattened, so fold callables see tables
+    positionally."""
+    out = []
+    for v in values:
+        if isinstance(v, tuple):
+            out.extend(v)
+        else:
+            out.append(v)
+    return tuple(out)

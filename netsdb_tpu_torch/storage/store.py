@@ -16,7 +16,12 @@ PagedTensor` handles bound to the device block cache
 drops its cached blocks. ``flush``/``load_set`` write a set to
 ``config.data_dir`` and bring it back, paged sets as paged sets; the
 file format is the port's own. Paged object sets and relations belong
-to ROADMAP.md A6.
+to ROADMAP.md A6 (part 2).
+
+A relation set holds one :class:`~netsdb_tpu_torch.relational.table.
+ColumnTable` on the store's device; :meth:`SetStore.append_table` adds
+a batch of rows to it, remapping the batch's dictionary codes into the
+stored dictionaries, under the store lock.
 
 A set keeps the type it was created with. A ``tensor4d`` set (the conv
 model's image, filter and bias sets) is scanned as its item list even
@@ -271,6 +276,32 @@ class SetStore:
         s.items = [_PagedMatrix(name)]
         return dead
 
+    def append_table(self, ident: SetIdentifier, table) -> None:
+        """Append a batch of rows to a relation set (the reference's
+        addData flow, ``StorageAddData``): the stored table and the
+        batch concatenate on the device with a dictionary remap, under
+        the store lock. An empty set takes the batch as its table."""
+        from netsdb_tpu_torch.relational.table import (ColumnTable,
+                                                       concat_tables)
+
+        with self._lock:
+            s = self._require(ident)
+            if s.storage == "paged":
+                raise NotImplementedError(
+                    f"append_table on paged set {ident}: paged relations "
+                    f"are not ported yet (ROADMAP.md A6)")
+            items = self._items_locked(s)
+            tables = [i for i in items if isinstance(i, ColumnTable)]
+            if len(items) != len(tables) or len(tables) > 1:
+                raise ValueError(
+                    f"append_table needs a single-relation table set; "
+                    f"{ident} holds {len(items)} items ({len(tables)} "
+                    f"tables); appending would drop the rest")
+            table = table.to(self.device)
+            new = concat_tables(tables[0], table) if tables else table
+            s.items = self._placed(s, [new])
+            self._touch(s)
+
     # --- reads --------------------------------------------------------
     def get_items(self, ident: SetIdentifier) -> List[Any]:
         with self._lock:
@@ -359,6 +390,8 @@ class SetStore:
                                     item.meta.shape, item.meta.block_shape))
                 elif isinstance(item, (torch.Tensor, ShardedTensor)):
                     payload.append(("tensor", _host_tensor(item)))
+                elif type(item).__name__ == "ColumnTable":
+                    payload.append(("table", item.__getstate__()))
                 else:
                     payload.append(("object", item))
             record = {"persistence": s.persistence, "storage": s.storage,
@@ -407,6 +440,12 @@ class SetStore:
                                                      tuple(data[2]))))
             elif kind == "tensor":
                 items.append(data[0].to(self.device))
+            elif kind == "table":
+                from netsdb_tpu_torch.relational.table import ColumnTable
+
+                table = ColumnTable.__new__(ColumnTable)
+                table.__setstate__(data[0])
+                items.append(table.to(self.device))
             else:
                 items.append(data[0])
         s.items = self._placed(s, items)

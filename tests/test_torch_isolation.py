@@ -30,7 +30,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "netsdb_tpu" or m.startswith("netsdb_tpu."))
-print(len(names), bad)
+relational = sorted(n for n in names if ".relational." in n)
+print(len(names), relational, bad)
 """
 
 
@@ -39,8 +40,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 52  # every module of the package was imported
+    count, rest = proc.stdout.strip().split(" ", 1)
+    relational, bad = rest.rsplit("] ", 1)
+    assert int(count) >= 61  # every module of the package was imported
+    for mod in ("table", "kernels", "tuning", "stats", "planner", "queries",
+                "folds", "dag", "bench"):
+        assert f"'netsdb_tpu_torch.relational.{mod}'" in relational
     assert bad == "[]", f"the port pulled in {bad}"
 
 

@@ -217,7 +217,8 @@ def test_sharded_tensor_checks_and_gathers():
 
 
 def test_placing_a_column_table_is_not_ported():
+    """Row-sharded relations are ``relational/sharded.py``: ROADMAP.md A4."""
     table = ColumnTable.from_rows([{"a": 1}, {"a": 2}])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
         Placement.data_parallel().apply(table)
     assert Placement.data_parallel().apply("host object") == "host object"

@@ -129,7 +129,7 @@ def test_placed_inputs_are_not_ported(port_client):
     """Placed inputs are ported; what the layer still refuses is the fused
     ``serve_forward`` over a paged weight set (it streams only through
     ``build_forward_dag_staged``), Ulysses attention and a placed
-    relational table (ROADMAP.md A4, A6)."""
+    relational table (ROADMAP.md A4)."""
     from netsdb_tpu.relational.table import ColumnTable
     from netsdb_tpu_torch.parallel.mesh import make_mesh
     from netsdb_tpu_torch.parallel.placement import Placement
@@ -146,7 +146,7 @@ def test_placed_inputs_are_not_ported(port_client):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
         ulysses_attention(q, q, q, make_mesh((1,), ("sp",), [q.device]),
                           axis="sp")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
         Placement.data_parallel().apply(ColumnTable.from_rows([{"a": 1}]))
     # a placed input with no sharded axis runs the single-device forward
     pm.setup(port_client)
