@@ -5,7 +5,9 @@ Run from the repository root:  python3 chip_smoke.py
 (``--paged-only``: phases 1 and 7 alone, without the contract's last
 line, to compare the paged path of two trees; ``--models-only``: phases
 1 and 8 alone, the same way; ``--train-la-only``: phases 1, 9 and 10;
-``--relational-only``: phases 1 and 11.)
+``--relational-only``: phases 1 and 11; ``--paged-relations-only``:
+phase 1, the SF 10 tables made resident on a card client, and phase
+12.)
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -93,15 +95,31 @@ Phases (any failure raises and the exit code is non-zero):
    memory rate (its bound), the CPU's ms, and for Q01, Q02 and Q04 the
    reference's cluster seconds beside them; one profiled request of
    each (busy share, top three kernels). No hand-written kernel lies on
-   this path.
+   this path;
+12. paged relations at the same SF: lineitem, orders and partsupp sent
+   with ``storage="paged"`` into an arena of ``PAGED_REL_POOL_BYTES`` in
+   pages of ``PAGED_REL_PAGE_BYTES`` (it spills), the other tables
+   resident. Per suite query a cold request (device cache resized to
+   0), one that installs the blocks and two warm ones, each held to the
+   same sink on phase 11's resident card client (``_hold``, Q03's
+   top-10 rule); each prints its ms, pages read, spills and loads,
+   staged bytes and copy GB/s, chunks, host syncs (sync debug mode) and
+   peak memory above what was allocated. Warm requests must read no
+   page and stage no byte, except Q12, whose one-pass grace hash over
+   the paged orders must read lineitem's pages exactly once a request;
+   a cold request's peak must stay under half of lineitem's bytes. Then
+   Q03 through ``q03_build_sink`` into a paged set and
+   ``q03_probe_sink``; one cold request under the profiler (uploads
+   pinned, on a stream the fold's kernels do not use) and one warm
+   request of each query (busy share, top three kernels).
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
 just before phase 5's requests and read just after them, again
 around each model's paged requests in phase 7, around phase 8, where
 both must read 0, around phase 9 (B1 once a layer step, B2 never) and
-around phase 10 and around phase 11 (both 0). The last line is the
-contract's device record.
+around phases 10, 11 and 12 (both 0). The last line is the contract's
+device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -113,6 +131,7 @@ import sys
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 SEED = 0
 F32_TOL = 1e-4    # kernel vs plain, f32: summation order differs over 4096 keys
@@ -832,13 +851,17 @@ def _overlap(intervals, union) -> float:
     return total
 
 
-def profile_staged(name: str, run, request_ms: float) -> dict:
+def profile_staged(name: str, run, request_ms: float,
+                   compute_kernel: Optional[str] = None) -> dict:
     """One cold staged request under torch.profiler, read from its trace:
     where the host-to-device copies ran (their streams, pinned or
     pageable source), how long they took, how much of that time kernels
     ran on other streams, the device's busy share of the unprofiled
     request and the kernels by device time. Raises if a copy came from
-    pageable memory or ran on a stream that also ran kernels."""
+    pageable memory or ran on a stream that also ran kernels — or, with
+    ``compute_kernel``, on a stream that ran a kernel of that name (the
+    staged relation chunks are padded and transposed on the copy stream
+    itself, so there only the request's compute must stay off it)."""
     import os
     import tempfile
 
@@ -872,7 +895,9 @@ def profile_staged(name: str, run, request_ms: float) -> dict:
               and "HtoD" in e["name"]]
     kernels = [e for e in dev if e["cat"] == "kernel"]
     copy_streams = {e.get("args", {}).get("stream") for e in copies}
-    kernel_streams = {e.get("args", {}).get("stream") for e in kernels}
+    kernel_streams = {e.get("args", {}).get("stream") for e in kernels
+                      if compute_kernel is None
+                      or compute_kernel in e["name"]}
     pageable = [e["name"] for e in copies if "Pinned" not in e["name"]]
     copy_iv = [(e["ts"], e["ts"] + e["dur"]) for e in copies]
     copy_us = sum(e - s for s, e in copy_iv)
@@ -2077,17 +2102,18 @@ def phase_relational(pk: dict, device="cuda", sf=TPCH_SF,
     out["crossovers"] = crossovers
     out["resident_gib"] = resident / 2**30
     out["sf"] = sf
-    return out, profiled
+    return out, profiled, {"card": card, "host": host}
 
 
-def relational_path(pk: dict) -> dict:
+def relational_path(pk: dict) -> tuple:
     """Phase 11 between launch counts set to 0 and read: neither
-    attention kernel lies on the relational path."""
+    attention kernel lies on the relational path. Returns the results and
+    phase 11's card client and host tables, which phase 12 reuses."""
     from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
                                                    flash_attention_step)
 
     flash_attention.launches = flash_attention_step.launches = 0
-    out, profiled = phase_relational(pk)
+    out, profiled, state = phase_relational(pk)
     launches = (flash_attention.launches, flash_attention_step.launches)
     print(f"[tpch] launches on this path: flash_attention {launches[0]}, "
           f"flash_attention_step {launches[1]}")
@@ -2097,6 +2123,269 @@ def relational_path(pk: dict) -> dict:
     rows = phase_profile(profiled, top=3)
     out["profile_top3"] = {k: [(ms, key[:60]) for ms, key in v[:3]]
                            for k, v in rows.items()}
+    return out, state
+
+
+# --- phase 12 ------------------------------------------------------------
+# netsDB's page size (the reference's default) and bench_paged_set_api's
+# pool: lineitem's 2.9 GB of columns do not fit, so ingest and cold reads
+# spill; the cache of the install and warm requests holds every chunk
+PAGED_REL_PAGE_BYTES = 64 << 20
+PAGED_REL_POOL_BYTES = 1 << 30
+PAGED_REL_CACHE_BYTES = 8 << 30
+PAGED_REL_FACTS = ("lineitem", "orders", "partsupp")  # tests/test_paged_sets.py
+
+
+def _rel_request(client, run) -> tuple:
+    """``staged_request`` plus the arena's spills and loads, the peak
+    device memory above what was allocated before the request, and the
+    host synchronisations counted by the sync debug mode while ``run``
+    ran (every thread's)."""
+    import torch
+
+    arena0 = client.store.page_store().stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted():
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        out, rec = staged_request(client, counted)
+    arena1 = client.store.page_store().stats()
+    rec["spills"] = arena1["spills"] - arena0["spills"]
+    rec["loads"] = arena1["loads"] - arena0["loads"]
+    rec["peak_above_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    rec["syncs"] = sum("synchroniz" in str(w.message).lower()
+                       for w in caught)
+    rec["copy_gbps"] = rec["staged_bytes"] / (rec["ms"] * 1e6)
+    return out, rec
+
+
+def _resident_card(sf, device="cuda") -> dict:
+    """Phase 11's state without phase 11: the host tables and a card
+    client holding them resident (``--paged-relations-only``)."""
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.relational.bench import generate_host
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    host = generate_host(sf, SEED)
+    card = Client(device=device)
+    card.create_database("tpch")
+    for n, (cols, dicts) in host.items():
+        card.create_set("tpch", n, type_name="table")
+        card.send_table("tpch", n, ColumnTable.from_columns(cols, dicts,
+                                                            device="cpu"))
+    return {"card": card, "host": host}
+
+
+def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
+                          device="cuda") -> dict:
+    """The ten TPC-H folds streamed page by page at SF ``sf``: lineitem,
+    orders and partsupp paged (pages of PAGED_REL_PAGE_BYTES in an arena
+    capped at PAGED_REL_POOL_BYTES), the other tables resident, all
+    through ``send_table`` into one card client. Per query one cold
+    request (device cache resized to 0), one that installs the blocks
+    (cache resized to PAGED_REL_CACHE_BYTES) and two warm ones, each held
+    to the same sink on phase 11's resident card client (``_hold``, and
+    Q03's top-10 rule); warm requests must read no page and stage no
+    byte, except Q12, which takes the one-pass grace hash over the paged
+    orders on every request (``probe_passes`` 1.0 over lineitem's
+    pages). Then Q03 through ``q03_build_sink`` into a paged build set
+    and ``q03_probe_sink``. One cold request under the profiler (copy
+    streams, pinned source, rate) and, right after its warm requests, one
+    warm request of each query (busy share, top three kernels)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.relational import dag
+    from netsdb_tpu_torch.relational.table import ColumnTable
+    from netsdb_tpu_torch.storage.store import SetIdentifier
+
+    t_phase = time.perf_counter()
+    resident, host = state["card"], state["host"]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="netsdb_paged_rel_") as root:
+        client = Client(Configuration(
+            root_dir=root, page_size_bytes=PAGED_REL_PAGE_BYTES,
+            page_pool_bytes=PAGED_REL_POOL_BYTES,
+            device_cache_bytes=PAGED_REL_CACHE_BYTES), device=device)
+        client.create_database("tpch")
+        t0 = time.perf_counter()
+        for n, (cols, dicts) in host.items():
+            client.create_set("tpch", n, type_name="table",
+                              storage="paged" if n in PAGED_REL_FACTS
+                              else "memory")
+            client.send_table("tpch", n, ColumnTable.from_columns(
+                cols, dicts, device="cpu"))
+        ingest_s = time.perf_counter() - t0
+        store, cache = client.store, client.store.device_cache()
+        rels = {n: store.paged_relation(SetIdentifier("tpch", n))
+                for n in PAGED_REL_FACTS}
+        li = rels["lineitem"]
+        li_bytes = li.num_rows * (len(li.int_names) + len(li.float_names)) * 4
+        chunk_mib = li.pad_rows() * (len(li.int_names)
+                                     + len(li.float_names) + 2) * 4 / 2**20
+        arena = store.page_store().stats()
+        print(f"[tpch-paged] SF {sf}: "
+              + ", ".join(f"{n} {r.num_rows} rows in {r.num_pages()} pages"
+                          for n, r in rels.items())
+              + f"; ingest {ingest_s:.1f} s; lineitem {li_bytes / 2**30:.3f}"
+              f" GiB, chunk {chunk_mib:.1f} MiB ({li.pad_rows()} rows); "
+              f"arena {PAGED_REL_POOL_BYTES >> 20} MiB of "
+              f"{PAGED_REL_PAGE_BYTES >> 20} MiB pages, {arena['spills']} "
+              f"spills at ingest")
+        if not arena["spills"] > 0:
+            raise RuntimeError(f"the arena never spilled at ingest: {arena}")
+
+        def check(q, got, ref) -> float:
+            if q == "q03":
+                return _top10(q, *_q03_parts(q, got), *_q03_parts(q, ref))
+            if q == "q03_probe":
+                return _top10(q, *_q03_parts(q, got), *_q03_parts(
+                    "q03_sink_for", ref))
+            return _hold(q, got, ref)
+
+        def drive(q, sink, ref, grace=False) -> dict:
+            recs = []
+            for kind in ("cold", "install", "warm", "warm"):
+                if kind == "cold":
+                    cache.resize(0)
+                elif kind == "install":
+                    cache.resize(PAGED_REL_CACHE_BYTES)
+                before = li.pages_streamed
+                got, rec = _rel_request(client,
+                                        lambda: dag.run_query(client, sink))
+                rec["kind"] = kind
+                rec["max_rel_err"] = check(q, got, ref)
+                rec["lineitem_passes"] = ((li.pages_streamed - before)
+                                          / li.num_pages())
+                recs.append(rec)
+                print(f"[tpch-paged] {q} {kind:7s} {rec['ms']:.3f} ms, "
+                      f"{rec['page_reads']} pages read, {rec['spills']} "
+                      f"spills, {rec['loads']} loads, {rec['staged_bytes']} "
+                      f"bytes staged ({rec['copy_gbps']:.2f} GB/s over the "
+                      f"request), {rec['chunks']} chunks, "
+                      f"{rec['cached_runs']} cached runs, {rec['syncs']} "
+                      f"host syncs, peak {rec['peak_above_mib']:.1f} MiB "
+                      f"above the resident tables, lineitem pages read "
+                      f"{rec['lineitem_passes']:.2f} times, rel err "
+                      f"{rec['max_rel_err']:.3e}")
+            cold, warm = recs[0], recs[2:]
+            if not cold["page_reads"] > 0 or not cold["staged_bytes"] > 0:
+                raise RuntimeError(f"{q}: the cold request read no page")
+            if not cold["peak_above_mib"] * 2**20 < li_bytes / 2:
+                raise RuntimeError(
+                    f"{q}: the cold request's peak {cold['peak_above_mib']:.0f}"
+                    f" MiB is not bounded by chunks (lineitem "
+                    f"{li_bytes / 2**20:.0f} MiB)")
+            for rec in recs if grace else warm:
+                if grace:
+                    # the probe is lineitem, read once by the partitioning
+                    if rec["lineitem_passes"] != 1.0:
+                        raise RuntimeError(
+                            f"{q}: the grace hash read the probe's pages "
+                            f"{rec['lineitem_passes']} times")
+                elif rec["page_reads"] or rec["staged_bytes"]:
+                    raise RuntimeError(
+                        f"{q}: a warm request read {rec['page_reads']} pages "
+                        f"and staged {rec['staged_bytes']} bytes")
+            return {"requests": recs, "cold_ms": cold["ms"],
+                    "install_ms": recs[1]["ms"],
+                    "warm_ms": [r["ms"] for r in warm],
+                    "cold_peak_above_mib": cold["peak_above_mib"],
+                    "max_rel_err": max(r["max_rel_err"] for r in recs)}
+
+        profile_done = False
+        for q in sorted(dag._QUERY_TABLES):
+            k = {"k": 11} if q == "q03" else {}
+            ref = dag.run_query(resident, dag.suite_sink_for(
+                resident, "tpch", q, **k))
+            sink = dag.suite_sink_for(client, "tpch", q)
+            grace = q == "q12"
+            out[q] = drive(q, sink, ref, grace=grace)
+            if grace:
+                print(f"[tpch-paged] q12 took the one-pass grace hash over "
+                      f"orders' {rels['orders'].num_pages()} pages: probe "
+                      f"passes {[r['lineitem_passes'] for r in out[q]['requests']]}")
+            rows = phase_profile({f"tpch-paged {q} warm": (
+                lambda s=sink: dag.run_query(client, s),
+                out[q]["warm_ms"][-1])}, top=3)
+            out[q]["profile_top3"] = [(ms, key[:60]) for ms, key in
+                                      next(iter(rows.values()), [])[:3]]
+            if not profile_done:
+                # one cold request under the profiler: where the uploads
+                # ran, from what memory, at what rate
+                cache.resize(0)
+                out[q]["cold_profile"] = profile_staged(
+                    f"tpch-paged {q}", lambda s=sink: dag.run_query(
+                        client, s), out[q]["cold_ms"],
+                    compute_kernel="reduce_kernel")
+                cache.resize(PAGED_REL_CACHE_BYTES)
+                dag.run_query(client, sink)
+                profile_done = True
+
+        # Q03 through a paged build set, then the probe sink
+        cinfo = client.analyze_set("tpch", "customer")
+        oinfo = client.analyze_set("tpch", "orders")
+        client.create_set("tpch", "q03_build", type_name="table",
+                          storage="paged")
+        _, build_ms = _timed(lambda: client.execute_computations(
+            dag.q03_build_sink(
+                "tpch", n_customers=cinfo["stats"]["c_custkey"].key_space,
+                segment_code=cinfo["dicts"]["c_mktsegment"].index(
+                    "BUILDING"))), device)
+        bpc = store.paged_relation(SetIdentifier("tpch", "q03_build"))
+        print(f"[tpch-paged] q03_build_sink: {build_ms:.3f} ms, "
+              f"{bpc.num_rows} qualifying orders in {bpc.num_pages()} "
+              f"pages")
+        ref = dag.run_query(resident, dag.q03_sink_for(resident, "tpch",
+                                                       k=11))
+        out["q03_probe"] = drive(
+            "q03_probe", dag.q03_probe_sink(
+                "tpch", n_orders=oinfo["stats"]["o_orderkey"].key_space),
+            ref, grace=bpc.num_pages() > 1)
+        out["q03_probe"]["build_ms"] = build_ms
+        out["q03_probe"]["build_pages"] = bpc.num_pages()
+
+        out["arena"] = store.page_store().stats()
+        out["device_cache"] = cache.stats()
+        print(f"[tpch-paged] arena: {json.dumps(out['arena'])}")
+        print(f"[tpch-paged] device cache: {json.dumps(out['device_cache'])}")
+        store.page_store().close()
+    out["sf"] = sf
+    out["lineitem_gib"] = li_bytes / 2**30
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[tpch-paged] phase 12 wall time {out['wall_s']:.1f} s")
+    return out
+
+
+def paged_relations_path(pk: dict, state: Optional[dict] = None) -> dict:
+    """Phase 12 between launch counts set to 0 and read: neither
+    attention kernel lies on this path. Without phase 11's ``state``
+    (``--paged-relations-only``) the resident card client is made
+    here."""
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+
+    if state is None:
+        state = _resident_card(TPCH_SF)
+    flash_attention.launches = flash_attention_step.launches = 0
+    out = phase_paged_relations(pk, state)
+    launches = (flash_attention.launches, flash_attention_step.launches)
+    print(f"[tpch-paged] launches on this path: flash_attention "
+          f"{launches[0]}, flash_attention_step {launches[1]}")
+    if launches != (0, 0):
+        raise RuntimeError(f"the paged relational path launched an "
+                           f"attention kernel: {launches}")
     return out
 
 
@@ -2145,7 +2434,13 @@ def main() -> int:
         return 0
     if "--relational-only" in sys.argv[1:]:
         # phase 11 alone, the same way
-        print(json.dumps({"relational": relational_path(pk), "card": smi}))
+        print(json.dumps({"relational": relational_path(pk)[0],
+                          "card": smi}))
+        return 0
+    if "--paged-relations-only" in sys.argv[1:]:
+        # phase 12 alone, the same way
+        print(json.dumps({"paged_relations": paged_relations_path(pk),
+                          "card": smi}, default=str))
         return 0
     b1 = phase_kernels(pk)
     b2 = phase_step_kernel(pk)
@@ -2176,14 +2471,18 @@ def main() -> int:
     models = models_path()
     train = train_path()
     la = la_path()
-    relational = relational_path(pk)
+    relational, rel_state = relational_path(pk)
+    paged_relations = paged_relations_path(pk, rel_state)
+    del rel_state
 
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
                       "sp_tokens_per_s": sp["tokens_per_s"],
                       "sp_max_abs_err": sp["max_abs_err"],
                       "paged": paged, "models": models, "train": train,
-                      "la": la, "relational": relational, "card": smi}))
+                      "la": la, "relational": relational,
+                      "paged_relations": paged_relations, "card": smi},
+                     default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
         return {"name": kname, "route": "cuda", "source": source,

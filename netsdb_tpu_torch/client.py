@@ -10,10 +10,11 @@ that device type (every card, or the virtual positions of
 (``storage="paged"``) stays in the host page arena and streams through
 the device when a query reads it. A relation set
 (``type_name="table"``) holds one column table on the client's device,
-filled by :meth:`Client.send_table`; its planner statistics are
-collected from the host arrays at ingest. Arguments of the reference
-that belong to later slices raise ``NotImplementedError`` naming the
-ROADMAP.md item.
+filled by :meth:`Client.send_table`, or, paged, its columns as row-chunk
+pages of the arena that queries fold chunk by chunk; its planner
+statistics are collected from the host arrays at ingest. Arguments of
+the reference that belong to later slices raise ``NotImplementedError``
+naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -93,13 +94,18 @@ class Client:
         :meth:`flush_data`. ``type_name="tensor4d"`` makes a set that
         is scanned as its item list even when it holds one tensor (the
         conv model's image sets); ``type_name="table"`` a relation set
-        for :meth:`send_table` (a paged relation raises, ROADMAP.md A6,
-        and a placed one when data arrives, A4).
+        for :meth:`send_table`. A paged relation keeps its columns as
+        row-chunk pages of the arena, and queries stream it through
+        nodes that carry a relational ``fold``; a paged and placed
+        relation raises (ROADMAP.md A4), as does a placed relation when
+        data arrives, and so does a paged set of another type (a paged
+        object set, ROADMAP.md A6 part 3).
 
         ``eviction`` keeps the reference's default, ``"lru"``: the port
         never spills a set under a host-memory budget, so another policy
         raises (ROADMAP.md A2). ``partition_lambda``, the reference's
-        named key function for the dispatcher, raises (ROADMAP.md A6)."""
+        named key function for the dispatcher, raises (ROADMAP.md A6
+        part 3)."""
         if eviction != "lru":
             raise NotImplementedError(
                 f"create_set(eviction={eviction!r}): set eviction under a "
@@ -107,7 +113,7 @@ class Client:
         if partition_lambda is not None:
             raise NotImplementedError(
                 "create_set(partition_lambda=...): the dispatcher's "
-                "partitioning is not ported yet: ROADMAP.md A6")
+                "partitioning is not ported yet: ROADMAP.md A6 part 3")
         if isinstance(placement, dict):
             placement = Placement.from_meta(placement)
         if placement is not None and not isinstance(placement, Placement):
@@ -116,11 +122,18 @@ class Client:
         if storage not in ("memory", "paged"):
             raise ValueError(f"storage must be 'memory' or 'paged', "
                              f"got {storage!r}")
-        if storage == "paged" and type_name not in ("tensor", "matrix"):
+        if storage == "paged" and type_name not in ("tensor", "matrix",
+                                                      "table"):
             raise NotImplementedError(
                 f"create_set(type_name={type_name!r}, storage='paged'): "
-                f"paged object sets and relations are not ported yet: "
-                f"ROADMAP.md A6")
+                f"paged object sets are not ported yet: ROADMAP.md A6 "
+                f"part 3 (a paged relation is type_name='table')")
+        if storage == "paged" and type_name == "table" and \
+                placement is not None:
+            raise NotImplementedError(
+                "create_set(type_name='table', storage='paged', "
+                "placement=...): chunks sharded over a mesh are not ported "
+                "yet: ROADMAP.md A4")
         if persistence not in ("transient", "persistent"):
             raise ValueError(f"persistence must be 'transient' or "
                              f"'persistent', got {persistence!r}")
@@ -140,6 +153,8 @@ class Client:
         return ident
 
     def remove_set(self, db: str, set_name: str) -> None:
+        """Drop a set; a paged set's pages go back to the arena once the
+        streams reading them are done."""
         self.catalog.remove_set(db, set_name)
         self.store.remove_set(SetIdentifier(db, set_name))
 
@@ -198,25 +213,29 @@ class Client:
         """Ingest a relation as one column table on the client's device:
         row dicts are dictionary-encoded and analysed on the host, then
         uploaded once; a table on another device moves with its
-        statistics. ``append=True`` adds the rows to the stored relation
-        (the reference's addData) instead of replacing it. The catalog
-        records the set's row count and columns. Returns the table as
-        stored (for an append, the batch)."""
+        statistics. A paged set pages the table's valid rows into the
+        arena from the host instead (nothing is uploaded). ``append=True``
+        adds the rows to the stored relation (the reference's addData)
+        instead of replacing it; on a paged set, as more pages. The
+        catalog records the set's row count and columns. Returns the
+        table as stored (for an append, the batch)."""
         from netsdb_tpu_torch.relational.stats import analyze_table
         from netsdb_tpu_torch.relational.table import ColumnTable
 
+        ident = SetIdentifier(db, set_name)
+        dest = ("cpu" if self.store.storage_of(ident) == "paged"
+                else self.device)
         if isinstance(rows_or_table, ColumnTable):
             table = rows_or_table
             if table.device.type == "cpu":
                 analyze_table(table)  # on the host, before any upload
-            table = table.to(self.device)
+            table = table.to(dest)
         else:
             table = ColumnTable.from_rows(list(rows_or_table), date_cols,
-                                          device=self.device)
-        ident = SetIdentifier(db, set_name)
+                                          device=dest)
         if append:
             self.store.append_table(ident, table)
-            num_rows = self.get_table(db, set_name).num_rows
+            num_rows = self.analyze_set(db, set_name)["num_rows"]
         else:
             self.store.clear_set(ident)
             self.store.add_data(ident, [table])
@@ -225,10 +244,17 @@ class Client:
         return table
 
     def get_table(self, db: str, set_name: str):
-        """The one column table a relation set holds."""
+        """The one column table a relation set holds. A paged relation is
+        assembled on the host (CPU columns; the device never holds it
+        whole): queries should fold over its stream instead."""
         from netsdb_tpu_torch.relational.table import ColumnTable
 
-        items = self.store.get_items(SetIdentifier(db, set_name))
+        ident = SetIdentifier(db, set_name)
+        pc = (self.store.paged_relation(ident)
+              if self.store.storage_of(ident) == "paged" else None)
+        if pc is not None:
+            return pc.to_host_table()
+        items = self.store.get_items(ident)
         tables = [i for i in items if isinstance(i, ColumnTable)]
         if len(tables) != 1:
             raise ValueError(f"set {db}:{set_name} holds {len(tables)} "
@@ -239,7 +265,14 @@ class Client:
         """Planner statistics of a stored relation — ``{"stats",
         "dicts", "num_rows"}`` — from the statistics collected at
         ingest (the reference's ``StorageCollectStats``); the DAG
-        builders read these summaries, never the table."""
+        constructors read these summaries, never the table. A paged relation
+        answers from its ingest-time statistics and never streams."""
+        ident = SetIdentifier(db, set_name)
+        pc = (self.store.paged_relation(ident)
+              if self.store.storage_of(ident) == "paged" else None)
+        if pc is not None:
+            return {"stats": dict(pc.stats), "dicts": dict(pc.dicts),
+                    "num_rows": pc.num_rows}
         return table_info(self.get_table(db, set_name))
 
     def get_tensor(self, db: str, set_name: str) -> BlockedTensor:

@@ -19,9 +19,7 @@ _LATER = {"distributed_matmul": (False, "A4"),
           "fusion_cost_source": (None, "A2 (plan/fusion.py)"),
           "fusion_mapper": (None, "A2 (plan/fusion.py)"),
           "fusion_stage_budget_bytes": (None, "A2 (plan/fusion.py)"),
-          "device_cache_pin_auto": (False, "A7"),
-          # the dirty-range log serves appends to paged relations
-          "device_cache_dirty_log": (64, "A6")}
+          "device_cache_pin_auto": (False, "A7")}
 
 
 @dataclasses.dataclass
@@ -40,10 +38,12 @@ class Configuration:
     (``shape_bucketing``, ``bucket_density`` buckets per octave); the
     device block cache holds ``device_cache_bytes`` of staged blocks,
     block by block when ``device_cache_partial``, with the first
-    ``device_cache_pin_bytes`` of a set's head pinned against eviction.
-    Knobs of later ROADMAP.md items (the distributed matmul, plan fusion,
-    the automatic pin budget, the dirty-range log of appended relations)
-    raise ``NotImplementedError`` when set away from their defaults."""
+    ``device_cache_pin_bytes`` of a set's head pinned against eviction;
+    a paged relation's writes are logged as dirty row ranges, at most
+    ``device_cache_dirty_log`` entries before the log folds into one
+    whole-set entry. Knobs of later ROADMAP.md items (the distributed
+    matmul, plan fusion, the automatic pin budget) raise
+    ``NotImplementedError`` when set away from their defaults."""
 
     default_block_shape: Tuple[int, int] = (512, 512)
     root_dir: str = dataclasses.field(
@@ -62,6 +62,7 @@ class Configuration:
     device_cache_bytes: int = 256 * 1024 * 1024
     device_cache_partial: bool = True
     device_cache_pin_bytes: int = 0
+    device_cache_dirty_log: int = 64
     # --- later items (see _LATER) ---
     distributed_matmul: bool = False
     summa_grid: Optional[str] = None
@@ -71,7 +72,6 @@ class Configuration:
     fusion_mapper: Optional[str] = None
     fusion_stage_budget_bytes: Optional[int] = None
     device_cache_pin_auto: bool = False
-    device_cache_dirty_log: int = 64
 
     def __post_init__(self) -> None:
         for name, (default, item) in _LATER.items():
@@ -79,6 +79,9 @@ class Configuration:
                 raise NotImplementedError(
                     f"Configuration({name}=...) is not ported yet: "
                     f"ROADMAP.md {item}")
+        if self.device_cache_dirty_log < 1:
+            raise ValueError(f"device_cache_dirty_log must be at least 1, "
+                             f"got {self.device_cache_dirty_log!r}")
         if self.bucket_density not in (2, 4):
             raise ValueError(f"bucket_density must be 2 or 4, got "
                              f"{self.bucket_density!r}")

@@ -25,6 +25,19 @@ ColumnTable`) is scanned as its table, on the client's device; a node
 carrying a relational ``fold`` runs the fold's whole path over it, and a
 sink whose value is a table stores that table as its output set's one
 item (the reference's ``:151-226``, ``:1248``).
+
+A scan of a paged relation gives its :class:`~netsdb_tpu_torch.
+relational.outofcore.PagedColumns` handle. A node whose ``fold`` streams
+that input runs the fold chunk by chunk over the staged page stream
+(:func:`_run_fold`, the reference's ``:227-456``): one init, one step
+per chunk and one finalize per pass, the node's other inputs resident.
+A paged build side among those inputs takes the one-pass grace hash when
+the fold declares its join keys and a merge, the per-block loop when it
+declares only a merge, and otherwise is assembled once on the device.
+Gather nodes forward the handle; any other consumer gets the relation
+assembled on the device, once per request and replayed from the device
+cache by warm requests. The reference's fusion regions (``plan_fusion``)
+are ROADMAP.md A2 and raise in the configuration.
 """
 
 from __future__ import annotations
@@ -38,7 +51,10 @@ from netsdb_tpu_torch.core.blocked import BlockedTensor, BlockMeta
 from netsdb_tpu_torch.parallel.mesh import ShardedTensor
 from netsdb_tpu_torch.plan import staging
 from netsdb_tpu_torch.plan.computations import ScanSet, WriteSet
+from netsdb_tpu_torch.plan.fold import flatten_resident
 from netsdb_tpu_torch.plan.planner import LogicalPlan, plan_from_sinks
+from netsdb_tpu_torch.relational.outofcore import (PagedColumns,
+                                                   partition_by_key)
 from netsdb_tpu_torch.relational.table import ColumnTable
 from netsdb_tpu_torch.storage.paged import PagedTensor
 from netsdb_tpu_torch.storage.store import SetIdentifier
@@ -149,20 +165,182 @@ def _run_tensor_stream(node, tfold, in_vals: List[Any], src: int) -> Any:
     return carry
 
 
+def _run_fold_once(fold, pc: PagedColumns, resident) -> Any:
+    """One (possibly multi-pass) fold over a paged relation's chunk
+    stream: every pass re-streams the relation. Steps may update their
+    own state in place and never write a chunk (cached chunks belong to
+    the device cache)."""
+    state = None
+    for init, step in fold.passes:
+        state = init(state, pc, *resident)
+        # closing: a step that raises releases the stream's read lock now
+        with contextlib.closing(pc.stream_tables()) as chunks:
+            for chunk in chunks:
+                state = step(state, chunk, *resident)
+    return fold.finalize(state, pc, *resident)
+
+
+def _pad_table_rows(t: ColumnTable, rows: int) -> ColumnTable:
+    """``t`` padded with invalid rows to ``rows`` rows: every build
+    partition gets one shape."""
+    pad = rows - t.num_rows
+    if pad <= 0:
+        return t
+    cols = {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+            for k, v in t.cols.items()}
+    valid = torch.cat([t.mask(), torch.zeros(pad, dtype=torch.bool,
+                                             device=t.device)])
+    return ColumnTable(cols, t.dicts, valid)
+
+
+def _part_chunks(ppc: PagedColumns):
+    """The chunks of one probe partition, with the probe's own global
+    ``_rowid`` (kept by the partitioner as ``_rowid0``; folds break ties
+    on it)."""
+    with contextlib.closing(ppc.stream_tables()) as chunks:
+        for t in chunks:
+            cols = dict(t.cols)
+            cols["_rowid"] = cols.pop("_rowid0")
+            yield ColumnTable(cols, t.dicts, t.valid)
+
+
+def _run_fold_grace(fold, pc: PagedColumns, rest, bi: int,
+                    build_pc: PagedColumns) -> Any:
+    """The one-pass grace hash for a paged build side: both sides are
+    hash-partitioned by the fold's join keys into spill relations of the
+    arena (one host pass each; the probe's partitions keep only the
+    columns the step reads), then each partition pair runs the fold with
+    its build partition resident, and the outputs merge. The probe's
+    pages are read once. The next pair's build partition is assembled
+    and uploaded on a staging thread, ``stage_depth`` pairs ahead, while
+    the current pair probes."""
+    nparts = build_pc.num_pages()
+    build_parts: list = []
+    probe_parts: list = []
+    out = None
+    try:
+        build_parts = partition_by_key(build_pc, fold.build_key, nparts)
+        probe_parts = partition_by_key(pc, fold.probe_key, nparts,
+                                       keep_rowid=True,
+                                       columns=fold.probe_columns)
+        maxr = max((bp.num_rows for bp in build_parts if bp is not None),
+                   default=0)
+        depth = build_pc.store.config.stage_depth
+        uploader = staging.BlockUploader(
+            build_pc.device, (depth + 1) * (len(build_pc.int_names)
+                                            + len(build_pc.float_names)))
+
+        def stage_build(p):
+            return p, _pad_table_rows(
+                build_parts[p].to_table(uploader=uploader), maxr)
+
+        # a partition without build rows can only miss
+        pairs = (p for p in range(nparts) if build_parts[p] is not None)
+        with contextlib.closing(staging.stage_stream(
+                pairs, stage_build, depth,
+                name=f"grace-build:{build_pc.name}",
+                uploader=uploader)) as builds:
+            for p, btab in builds:
+                part_res = list(rest)
+                part_res[bi] = btab
+                state = None
+                for init, step in fold.passes:
+                    state = init(state, pc, *part_res)
+                    if probe_parts[p] is None:
+                        continue
+                    # closing: a step that raises must release the
+                    # partition's read lock before the drops below
+                    with contextlib.closing(
+                            _part_chunks(probe_parts[p])) as chunks:
+                        for chunk in chunks:
+                            state = step(state, chunk, *part_res)
+                part = fold.finalize(state, pc, *part_res)
+                out = part if out is None else fold.merge(out, part)
+    finally:
+        # after the build stager was joined: no upload reads them now
+        for prt in build_parts + probe_parts:
+            if prt is not None:
+                prt.drop()
+    return out
+
+
+def _run_fold(fold, pc: PagedColumns, resident) -> Any:
+    """A fold over a paged relation, by what its resident inputs are.
+
+    A paged resident the fold can merge partitions of (``merge``, and a
+    ``build_key`` it holds when the fold declares one) is the build
+    side: with a ``probe_key`` and more than one page it takes the
+    one-pass grace hash; otherwise the build side's chunks loop outside
+    and the probe streams once per chunk. Every other paged resident is
+    assembled on the device once (replayed from the device cache by warm
+    requests) — no step computes on the CPU."""
+    builds = [i for i, v in enumerate(resident)
+              if isinstance(v, PagedColumns)]
+    bi, keyed = None, False
+    if builds and fold.merge is not None:
+        if fold.build_key is not None:
+            # the merge is only right for partitions of the declared key's
+            # side (q02's winner merge is wrong for partitions of supplier)
+            for i in builds:
+                if fold.build_key in (resident[i].int_names
+                                      + resident[i].float_names):
+                    bi, keyed = i, True
+                    break
+        else:
+            bi = builds[0]
+    rest = [v.assembled() if isinstance(v, PagedColumns) and i != bi else v
+            for i, v in enumerate(resident)]
+    if bi is None:
+        return _run_fold_once(fold, pc, tuple(rest))
+    build_pc = resident[bi]
+    if keyed and fold.probe_key is not None and build_pc.num_pages() > 1:
+        return _run_fold_grace(fold, pc, rest, bi, build_pc)
+    out = None
+    with contextlib.closing(build_pc.stream_tables()) as btabs:
+        for btab in btabs:
+            rest[bi] = btab
+            part = _run_fold_once(fold, pc, tuple(rest))
+            out = part if out is None else fold.merge(out, part)
+    return out
+
+
 def _label(node) -> str:
     return getattr(node, "label", node.op_kind)
 
 
 def _evaluate(plan: LogicalPlan, scan_values: Dict[int, Any]) -> Dict[int, Any]:
     """Replay the DAG in topo order; a shared subgraph runs once. A node
-    that consumes a paged handle streams it through its fold."""
+    whose fold streams a paged relation folds over its chunks; a node
+    that consumes a paged tensor streams it through its tensor fold; a
+    paged relation reaching any other consumer is assembled once."""
     values: Dict[int, Any] = dict(scan_values)
+    assembled: Dict[int, ColumnTable] = {}
+
+    def demote(v):
+        if isinstance(v, PagedColumns):
+            if id(v) not in assembled:
+                assembled[id(v)] = v.assembled()
+            return assembled[id(v)]
+        if isinstance(v, tuple):
+            return tuple(demote(x) for x in v)
+        return v
+
     for node in plan.topo:
         if node.node_id in values:
             continue
         in_vals = [values[i.node_id] for i in node.inputs]
+        fold, src = getattr(node, "fold", None), getattr(node, "fold_src", 0)
+        if fold is not None and isinstance(in_vals[src], PagedColumns):
+            resident = flatten_resident(tuple(
+                v for i, v in enumerate(in_vals) if i != src))
+            values[node.node_id] = _run_fold(fold, in_vals[src], resident)
+            continue
+        if getattr(node, "passthrough", False):
+            values[node.node_id] = node.evaluate(*in_vals)
+            continue
+        in_vals = [demote(v) for v in in_vals]
         paged = [i for i, v in enumerate(in_vals) if _has_paged(v)]
-        if paged and not getattr(node, "passthrough", False):
+        if paged:
             tfold = getattr(node, "tensor_fold", None)
             direct = [i for i in paged if isinstance(in_vals[i], PagedTensor)]
             if tfold is None or len(paged) > 1 or direct != paged:
@@ -227,7 +405,9 @@ def execute_computations(client, sinks: List[WriteSet],
         if isinstance(node, ScanSet):
             ident = SetIdentifier(node.db, node.set_name)
             if store.storage_of(ident) == "paged":
-                scan_values[node.node_id] = store.paged_tensor(ident)
+                rel = store.paged_relation(ident)
+                scan_values[node.node_id] = (
+                    rel if rel is not None else store.paged_tensor(ident))
                 continue
             items = store.get_items(ident)
             # a one-tensor or one-table set's value is the item itself;

@@ -13,8 +13,8 @@ sets).
 :class:`FoldSpec` is the relational (init, step, finalize) form, the
 reference's PageScanner contract (``src/storage/headers/PageScanner.h:
 25-34``): a node carrying one derives its whole-relation path from it,
-so the streamed path of paged relations (ROADMAP.md A6, part 2) will run
-the same math.
+and the executor streams a paged relation through the same init, step
+and finalize chunk by chunk, so the two paths run the same math.
 """
 
 from __future__ import annotations
@@ -81,8 +81,9 @@ class FoldSpec:
     ``probe_key``, ``build_key`` and ``probe_columns`` name the join's
     columns; ``state_merge`` combines the final states of two row
     partitions. The port evaluates a fold over a memory set through
-    :meth:`whole`; streaming it over pages comes with paged relations
-    (ROADMAP.md A6, part 2)."""
+    :meth:`whole` and over a paged relation chunk by chunk
+    (``plan/executor._run_fold``): a step may update its state in place
+    and never writes a chunk."""
 
     passes: Tuple[Tuple[Callable, Callable], ...]
     finalize: Callable

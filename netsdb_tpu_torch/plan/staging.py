@@ -240,6 +240,10 @@ class BlockUploader:
 def _tensors(value) -> Iterator[torch.Tensor]:
     if isinstance(value, torch.Tensor):
         yield value
+    elif isinstance(getattr(value, "cols", None), dict):  # ColumnTable
+        yield from value.cols.values()
+        if value.valid is not None:
+            yield value.valid
     elif isinstance(value, (tuple, list)):
         for v in value:
             yield from _tensors(v)
@@ -268,6 +272,20 @@ def _used_here(value):
         if t.is_cuda:
             t.record_stream(torch.cuda.current_stream(t.device))
     return value
+
+
+def hand_over(value, uploader: BlockUploader):
+    """Order the caller's current stream after everything ``uploader``
+    queued so far, and mark ``value``'s tensors as used there: for an
+    upload made outside a staged stream (nothing on the CPU)."""
+    _hand_over(value, uploader.fence(), uploader)
+    return value
+
+
+def used_here(value):
+    """A cached value's tensors marked as used on the caller's current
+    stream (they were allocated on a copy stream)."""
+    return _used_here(value)
 
 
 def _place_one(place, item, uploader: Optional[BlockUploader]):

@@ -16,6 +16,12 @@ dropped by the kernels' orphan-key rule, measures are 0.
 
 The physical plan comes from ``client.analyze_set`` summaries collected
 at ingest, closed over by the body and named in its label.
+
+Every sink runs unchanged over paged sets: ``q01_sink``, ``q06_sink``,
+the Q03 sinks and ``suite_sink_for``'s nodes carry a
+:class:`~netsdb_tpu_torch.plan.fold.FoldSpec`, which the executor folds
+chunk by chunk over a paged fact set (and grace-hashes over a paged
+build set); over memory sets the same fold's whole path runs.
 """
 
 from __future__ import annotations
@@ -289,8 +295,15 @@ def suite_sink_for(client, db: str, qname: str,
     the statistics captured from ``client.analyze_set`` and runs the
     same core as the direct path (``queries._SUITE_CORES``), so the
     output is the core's raw tensors. The label carries a hash of the
-    captured statistics. No streamable fold is attached while
-    relations cannot be paged (ROADMAP.md A6, part 2)."""
+    captured statistics.
+
+    The final node also carries the query's streamable fold
+    (:data:`~netsdb_tpu_torch.relational.folds.SUITE_FOLDS`, built from
+    the same statistics, dictionaries and row counts) with its fact
+    table as ``fold_src``: when that set is paged the executor streams
+    it through the fold, the dimension tables resident."""
+    from netsdb_tpu_torch.relational.folds import SUITE_FOLDS
+
     if qname not in _QUERY_TABLES:
         raise KeyError(f"unknown suite query {qname!r}; "
                        f"have {sorted(_QUERY_TABLES)}")
@@ -310,20 +323,27 @@ def suite_sink_for(client, db: str, qname: str,
         out = core(*args_fn(tables, **params))
         return out if isinstance(out, tuple) else (out,)
 
+    fact, make_fold = SUITE_FOLDS[qname]
+    fold = make_fold(captured, {n: info[n]["dicts"] for n in names},
+                   {n: info[n]["num_rows"] for n in names}, **params)
     label = f"suite:{qname}:{params}:{stats_tag}"
     node = ScanSet(db, names[0])
     if len(names) == 1:
-        node = Apply(node, lambda t: run_core(t), label=label)
+        node = Apply(node, lambda t: run_core(t), label=label, fold=fold)
     else:
         for n in names[1:-1]:
+            # a paged dimension rides the gather as its handle, so the
+            # fold node can grace-hash or assemble it
             node = Join(node, ScanSet(db, n),
                         fn=lambda a, b: (a + (b,) if isinstance(a, tuple)
                                          else (a, b)),
                         label=f"gather:{n}", passthrough=True)
+        # the fact table is the first or the last scan of every query
         node = Join(node, ScanSet(db, names[-1]),
                     fn=lambda a, b: run_core(*(a + (b,) if isinstance(a, tuple)
                                                else (a, b))),
-                    label=label)
+                    label=label, fold=fold,
+                    fold_src=1 if fact == names[-1] else 0)
     return WriteSet(node, db, output_set or f"{qname}_out")
 
 

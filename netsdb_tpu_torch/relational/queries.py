@@ -49,13 +49,23 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def _upload(host: np.ndarray, device) -> torch.Tensor:
+    """A small host array on ``device``: through page-locked memory on a
+    card, so the copy is queued behind the stream's work instead of
+    synchronising the host with it."""
+    t = torch.from_numpy(host)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _lut(dictionary: List[str], pred: Callable[[str], bool],
          device) -> torch.Tensor:
     """A string predicate evaluated once over a dictionary → a bool LUT
     over its codes, on ``device``."""
     host = np.fromiter((pred(s) for s in dictionary), np.bool_,
                        len(dictionary))
-    return torch.from_numpy(host).to(device)
+    return _upload(host, device)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -464,7 +474,7 @@ def q22_code_lut(phone_dict: List[str], prefixes: Sequence[str],
     pref_idx = {p: i for i, p in enumerate(pref_list)}
     lut = np.fromiter((pref_idx.get(s[:2], -1) for s in phone_dict),
                       np.int32, len(phone_dict))
-    return pref_list, torch.from_numpy(lut).to(resolve_device(device))
+    return pref_list, _upload(lut, resolve_device(device))
 
 
 def _args_q22(tables: Tables,

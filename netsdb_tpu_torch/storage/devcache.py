@@ -26,7 +26,11 @@ Cached blocks are owned by the cache: nothing writes into them (the
 executor's reduce carry is always a fresh tensor). Installs happen only
 after the block's copy to the device has completed
 (``plan/staging``), so a hit never serves a block still being written.
-The session-state entries of the reference belong to ROADMAP.md A7.
+A paged relation's chunks are cached as column tables, keyed by the
+relation's stream shape and, for a projected stream, its columns: an
+append drops only the blocks of its rows, an update in place only the
+blocks of streams that held the updated column. The reference's
+per-client state entries belong to ROADMAP.md A7.
 """
 
 from __future__ import annotations
@@ -53,7 +57,13 @@ def to_device(x, device, placement=None):
 
 def _value_nbytes(value) -> int:
     """Bytes of a cached value from metadata: tensors, numpy arrays,
-    sharded tensors (each distinct shard once) and (n, block) tuples."""
+    sharded tensors (each distinct shard once), column tables (columns
+    and mask) and (n, block) tuples."""
+    cols = getattr(value, "cols", None)
+    if isinstance(cols, dict):  # ColumnTable
+        return (sum(_value_nbytes(c) for c in cols.values())
+                + _value_nbytes(value.valid if value.valid is not None
+                                else ()))
     shards = getattr(value, "shards", None)
     if shards is not None:  # ShardedTensor
         seen = {id(t): t for t in shards.flat}
@@ -224,6 +234,19 @@ class DeviceBlockCache:
     def _block_key(base_key: Tuple, rng: Tuple[int, int]) -> Tuple:
         return tuple(base_key) + ((int(rng[0]), int(rng[1])),)
 
+    def scope_epoch(self, scope: str) -> int:
+        """The scope's current dirty epoch: a stream captures it when it
+        plans and every block install checks it again, so a write racing
+        the stream never leaves a stale block entry."""
+        with self._mu:
+            return self._epochs.get(str(scope), 0)
+
+    def has_scope(self, scope: str) -> bool:
+        """True when any entry of ``scope`` is resident (the hit and miss
+        counters do not move)."""
+        with self._mu:
+            return bool(self._by_scope.get(str(scope)))
+
     def plan_ranges(self, base_key: Tuple, ranges: List[Tuple[int, int]]
                     ) -> Tuple[int, Dict[Tuple[int, int], Any]]:
         """(epoch, {range: block}) for the cached blocks of ``base_key``
@@ -323,11 +346,20 @@ class DeviceBlockCache:
         return best
 
     def invalidate_range(self, scope: str, start: int,
-                         end: Optional[int] = None) -> int:
+                         end: Optional[int] = None,
+                         columns=None) -> int:
         """Drop the block entries overlapping rows ``[start, end)``
         (``end=None``: to the end) and every whole-run entry of the
-        scope, and bump the scope's epoch. Returns entries dropped."""
+        scope, and bump the scope's epoch. Returns entries dropped.
+
+        ``columns`` names the columns an update in place touched: a block
+        entry whose base key ends in a projection marker (a ``frozenset``
+        of columns, ``PagedColumns.partial_base_key(columns=...)``)
+        disjoint from them stays, since its stream never held those
+        columns; an entry without a marker holds every column and
+        drops."""
         scope = str(scope)
+        columns = frozenset(columns) if columns is not None else None
         dropped = dirty = 0
         with self._mu:
             self._epochs[scope] = self._epochs.get(scope, 0) + 1
@@ -338,6 +370,10 @@ class DeviceBlockCache:
                     s0, e0 = key[-1]
                     if e0 <= start or (end is not None and s0 >= end):
                         continue  # disjoint: the block stays
+                    if (columns is not None and len(key) > 1
+                            and isinstance(key[-2], frozenset)
+                            and key[-2].isdisjoint(columns)):
+                        continue  # its stream never held those columns
                     dirty += 1
                 if self._drop_entry_locked(key):
                     dropped += 1

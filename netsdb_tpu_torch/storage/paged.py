@@ -13,8 +13,11 @@ device.
 
 The pure-Python page backend is kept for tests and for machines without
 g++, but only when asked for (``force_python=True``): a failed native
-build raises. Paged object sets and relations (the reference's
-``PagedObjects`` and ``PagedColumns``) belong to ROADMAP.md A6.
+build raises. A paged relation keeps its int and float columns as two
+matrices of this store with one row blocking
+(:class:`~netsdb_tpu_torch.relational.outofcore.PagedColumns`); paged
+object sets (the reference's ``PagedObjects``) belong to ROADMAP.md A6
+part 3.
 """
 
 from __future__ import annotations
@@ -225,6 +228,19 @@ class PagedTensorStore:
         for r0 in range(0, rows, row_block):
             self.backend.write_page(sid, dense[r0:r0 + row_block])
         self._meta[sid] = ((rows, cols), (row_block, cols), dense.dtype)
+        self._layout.pop(sid, None)
+
+    def truncate_to(self, name: str, n_pages: int, rows: int) -> None:
+        """Roll a matrix back to its first ``n_pages`` pages and ``rows``
+        rows, freeing the pages after them: the undo of a failed append,
+        so that two matrices paged together stay in step."""
+        sid = self._ids.get(name)
+        if sid is None:
+            return
+        for pid in self.backend.set_pages(sid)[n_pages:]:
+            self.backend.free_page(pid)
+        (_, cols), (rb, _), dtype = self._meta[sid]
+        self._meta[sid] = ((rows, cols), (rb, cols), dtype)
         self._layout.pop(sid, None)
 
     def _block_layout(self, sid: int) -> Tuple[list, list]:

@@ -15,13 +15,19 @@ PagedTensor` handles bound to the device block cache
 (:meth:`SetStore.device_cache`). Every write bumps the set's version and
 drops its cached blocks. ``flush``/``load_set`` write a set to
 ``config.data_dir`` and bring it back, paged sets as paged sets; the
-file format is the port's own. Paged object sets and relations belong
-to ROADMAP.md A6 (part 2).
+file format is the port's own. Paged object sets belong to ROADMAP.md
+A6 part 3.
 
 A relation set holds one :class:`~netsdb_tpu_torch.relational.table.
 ColumnTable` on the store's device; :meth:`SetStore.append_table` adds
 a batch of rows to it, remapping the batch's dictionary codes into the
-stored dictionaries, under the store lock.
+stored dictionaries, under the store lock. A paged relation set holds
+one :class:`~netsdb_tpu_torch.relational.outofcore.PagedColumns`
+instead, bound to the device cache: an append writes more pages outside
+the store lock (under the set's append lock, waiting for the streams of
+the relation) and dirties only its rows; every write is logged as a
+dirty range, at most ``config.device_cache_dirty_log`` of them before
+the log folds into one whole-set entry.
 
 A set keeps the type it was created with. A ``tensor4d`` set (the conv
 model's image, filter and bias sets) is scanned as its item list even
@@ -85,6 +91,11 @@ class _StoredSet:
     # monotonic write version (store-wide counter): the freshness token
     # the device cache keys whole runs on
     version: int = 0
+    # bounded log of written row ranges: (start, end), (start, end,
+    # columns) for an update in place, (0, None) for a whole-set write
+    dirty_log: list = dataclasses.field(default_factory=list)
+    # orders the appends and updates of one paged relation
+    append_mu: Any = dataclasses.field(default_factory=threading.Lock)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -141,13 +152,41 @@ class SetStore:
                     pin_bytes=self.config.device_cache_pin_bytes)
             return self._device_cache
 
-    def _touch(self, s: _StoredSet) -> None:
-        """Advance a set's write version and drop the set's cached device
-        blocks — called by every path that changes a set's content (every
-        write of a tensor set is whole-set)."""
+    def _touch(self, s: _StoredSet, rows=None, columns=None) -> None:
+        """Advance a set's write version, log the written rows and drop
+        the set's stale cached device blocks — called by every path that
+        changes a set's content.
+
+        ``rows=(start, end)`` names the written row range of a paged
+        relation (``columns`` the columns of an update in place); None is
+        a whole-set write, which drops every block of the set. A ranged
+        write's blocks were already dropped by ``PagedColumns.append`` /
+        ``update_column``, which own that invalidation so that direct
+        callers stay coherent. When the log reaches
+        ``config.device_cache_dirty_log`` entries it folds into one
+        whole-set entry and the whole set's blocks drop."""
         s.version = next(self._version_ctr)
-        if self._device_cache is not None:
-            self._device_cache.invalidate(str(s.ident))
+        folded = len(s.dirty_log) >= self.config.device_cache_dirty_log
+        if folded:
+            s.dirty_log[:] = [(0, None)]
+        elif rows is None:
+            s.dirty_log.append((0, None))
+        elif columns is not None:
+            s.dirty_log.append((int(rows[0]), int(rows[1]),
+                                tuple(sorted(columns))))
+        else:
+            s.dirty_log.append((int(rows[0]), int(rows[1])))
+        cache = self._device_cache
+        if cache is not None and (rows is None or folded
+                                  or not cache.partial):
+            cache.invalidate(str(s.ident))
+
+    def _bind_cache(self, pc, ident: SetIdentifier) -> None:
+        """Bind a store-owned paged relation to the device cache (grace
+        partitions and temporaries stay unbound, so uncached)."""
+        pc.devcache = self.device_cache()
+        pc.cache_scope = str(ident)
+        pc.cache_version_fn = functools.partial(self.version_of, ident)
 
     def version_of(self, ident: SetIdentifier) -> int:
         """The set's write version (0: unknown set)."""
@@ -223,30 +262,40 @@ class SetStore:
         self._drop_pages(dead)
 
     def _drop_pages(self, items: List[Any]) -> None:
-        """Return the pages of replaced or cleared paged matrices to the
-        arena, once the streams reading them are done."""
+        """Return the pages of replaced or cleared paged matrices and
+        relations to the arena, once the streams reading them are
+        done."""
+        from netsdb_tpu_torch.relational.outofcore import PagedColumns
+
         for item in items:
-            if isinstance(item, _PagedMatrix):
+            if isinstance(item, PagedColumns):
+                item.drop()
+            elif isinstance(item, _PagedMatrix):
                 with item.rw.write():
                     self.page_store().drop(item.name)
 
     # --- writes -------------------------------------------------------
     def add_data(self, ident: SetIdentifier, items: List[Any]) -> None:
         """Append items. A paged set takes exactly one matrix (a 2-D
-        array or tensor), which replaces its content."""
+        array or tensor) or one relation, which replaces its content."""
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
         with self._lock:
             s = self._require(ident)
             if s.storage == "paged":
-                if len(items) != 1 or np.ndim(items[0]) != 2 or not \
-                        isinstance(items[0], (np.ndarray, torch.Tensor)):
+                item = items[0] if len(items) == 1 else None
+                if isinstance(item, ColumnTable):
+                    dead = self._ingest_paged_relation(s, item)
+                elif isinstance(item, (np.ndarray, torch.Tensor)) and \
+                        np.ndim(item) == 2:
+                    dead = self._ingest_paged(
+                        s, _host(item) if isinstance(item, torch.Tensor)
+                        else np.asarray(item))
+                else:
                     raise NotImplementedError(
-                        f"paged set {ident}: paged object sets and "
-                        f"relations are not ported yet (ROADMAP.md A6); a "
-                        f"paged tensor set holds one matrix")
-                dense = items[0]
-                dead = self._ingest_paged(
-                    s, _host(dense) if isinstance(dense, torch.Tensor)
-                    else np.asarray(dense))
+                        f"paged set {ident}: paged object sets are not "
+                        f"ported yet (ROADMAP.md A6 part 3); a paged set "
+                        f"holds one matrix or one relation")
             else:
                 dead = []
                 s.items = self._items_locked(s) + self._placed(s, items)
@@ -276,20 +325,134 @@ class SetStore:
         s.items = [_PagedMatrix(name)]
         return dead
 
+    def _ingest_paged_relation(self, s: _StoredSet, table) -> List[Any]:
+        """Page one relation into the arena under a fresh name (a fresh
+        relation has no streams to wait for, so this runs under the store
+        lock): its valid rows, pages of about ``page_size_bytes`` (at
+        least 64 rows). Returns the replaced items, whose pages the
+        caller frees outside the lock."""
+        from netsdb_tpu_torch.relational.outofcore import (PagedColumns,
+                                                           _host_cols)
+
+        dead = list(s.items or [])
+        names = [n for n in table.cols if n != "_rowid"]
+        cols = _host_cols(table, names)
+        if table.valid is not None:
+            keep = table.mask().detach().cpu().numpy()
+            cols = {n: c[keep] for n, c in cols.items()}
+        row_block = max(self.config.page_size_bytes
+                        // (4 * max(len(names), 1)), 64)
+        pc = PagedColumns.ingest(self.page_store(),
+                                 f"{s.ident}#g{next(self._gen)}", cols,
+                                 row_block=row_block,
+                                 dicts=dict(table.dicts), device=self.device)
+        self._bind_cache(pc, s.ident)
+        s.items = [pc]
+        return dead
+
+    def paged_relation(self, ident: SetIdentifier):
+        """The :class:`~netsdb_tpu_torch.relational.outofcore.
+        PagedColumns` a paged relation set holds, or None."""
+        from netsdb_tpu_torch.relational.outofcore import PagedColumns
+
+        with self._lock:
+            return next((i for i in self._items_locked(self._require(ident))
+                         if isinstance(i, PagedColumns)), None)
+
+    def _append_paged(self, s: _StoredSet, table) -> None:
+        """Append a batch to a paged relation set. The first batch is a
+        fresh ingest under the store lock; later ones write more pages
+        outside it, under the set's append lock (the write waits for the
+        relation's streams, which must not freeze the store). The stored
+        dictionaries change only after the pages are written."""
+        from netsdb_tpu_torch.relational.outofcore import (PagedColumns,
+                                                           _host_cols)
+        from netsdb_tpu_torch.relational.table import merge_dicts
+
+        with s.append_mu:
+            with self._lock:
+                if self._sets.get(s.ident) is not s:
+                    raise KeyError(f"set {s.ident} was removed during "
+                                   f"append")
+                pc = next((i for i in self._items_locked(s)
+                           if isinstance(i, PagedColumns)), None)
+                if pc is None:
+                    dead = self._ingest_paged_relation(s, table)
+                    self._touch(s)
+            if pc is None:
+                self._drop_pages(dead)
+                return
+            names = [n for n in table.cols if n != "_rowid"]
+            cols = _host_cols(table, names)
+            if table.valid is not None:
+                keep = table.mask().detach().cpu().numpy()
+                cols = {n: c[keep] for n, c in cols.items()}
+            # validate everything before any stored state changes
+            expected = set(pc.int_names) | set(pc.float_names)
+            if set(cols) != expected:
+                raise ValueError(
+                    f"append to {s.ident}: schema mismatch — stored "
+                    f"{sorted(expected)}, batch {sorted(cols)}")
+            missing = [n for n in pc.dicts
+                       if n in cols and n not in table.dicts]
+            if missing:
+                raise ValueError(
+                    f"append to {s.ident}: columns {missing} are "
+                    f"dict-encoded in the stored set but arrive as raw "
+                    f"ints — codes would be meaningless")
+            staged = {}
+            for name, d_new in table.dicts.items():
+                if name not in pc.dicts:
+                    raise ValueError(f"append to {s.ident}: column "
+                                     f"{name!r} is dict-encoded in the "
+                                     f"batch but not in the stored set")
+                staged[name], remap = merge_dicts(pc.dicts[name], d_new)
+                cols[name] = remap[cols[name]]
+            before = pc.num_rows
+            pc.append(cols)  # atomic: rolls its pages back on failure
+            pc.dicts.update(staged)
+            with self._lock:
+                self._touch(s, rows=(before, pc.num_rows))
+
+    def update_columns(self, ident: SetIdentifier,
+                       cols: Dict[str, Any]) -> None:
+        """Overwrite whole columns of a paged relation in place: pages
+        are rewritten where they sit, and the device cache drops only
+        the blocks of streams that held a touched column. The rewrite
+        runs outside the store lock, under the set's append lock."""
+        with self._lock:
+            s = self._require(ident)
+            if s.storage != "paged":
+                raise ValueError(f"update_columns needs a paged table set; "
+                                 f"{ident} is {s.storage!r}")
+        pc = self.paged_relation(ident)
+        if pc is None:
+            raise ValueError(f"set {ident} holds no paged relation")
+        with s.append_mu:
+            for name, values in cols.items():
+                pc.update_column(name, values)
+            with self._lock:
+                self._touch(s, rows=(0, pc.num_rows),
+                            columns=tuple(sorted(cols)))
+
     def append_table(self, ident: SetIdentifier, table) -> None:
         """Append a batch of rows to a relation set (the reference's
-        addData flow, ``StorageAddData``): the stored table and the
-        batch concatenate on the device with a dictionary remap, under
-        the store lock. An empty set takes the batch as its table."""
+        addData flow, ``StorageAddData``): a paged set writes more pages
+        (:meth:`_append_paged`); for a memory set the stored table and
+        the batch concatenate on the device with a dictionary remap,
+        under the store lock. An empty set takes the batch as its
+        table."""
         from netsdb_tpu_torch.relational.table import (ColumnTable,
                                                        concat_tables)
 
         with self._lock:
             s = self._require(ident)
-            if s.storage == "paged":
-                raise NotImplementedError(
-                    f"append_table on paged set {ident}: paged relations "
-                    f"are not ported yet (ROADMAP.md A6)")
+            paged = s.storage == "paged"
+        if paged:
+            self._append_paged(s, table)
+            return
+        with self._lock:
+            s = self._require(ident)
             items = self._items_locked(s)
             tables = [i for i in items if isinstance(i, ColumnTable)]
             if len(items) != len(tables) or len(tables) > 1:
@@ -309,14 +472,30 @@ class SetStore:
 
     def scan(self, ident: SetIdentifier) -> Iterator[Any]:
         """A set's items, one by one — reference ``SetScan`` /
-        ``SetIterator``. A paged matrix streams through queries and is
-        never an item here: its scan raises."""
+        ``SetIterator``. A paged matrix or relation streams through
+        queries and is never an item here: its scan raises."""
+        from netsdb_tpu_torch.relational.outofcore import PagedColumns
+
         items = self.get_items(ident)
         if any(isinstance(i, _PagedMatrix) for i in items):
             raise ValueError(
                 f"set {ident} holds a paged matrix: it streams through a "
                 f"node with a tensor_fold, or through paged_matmul")
+        if any(isinstance(i, PagedColumns) for i in items):
+            raise ValueError(
+                f"set {ident} holds a paged relation: it streams through a "
+                f"node with a fold; get_table assembles it on the host")
         return iter(items)
+
+    def set_stats(self, ident: SetIdentifier) -> Dict[str, Any]:
+        """A set's storage, write version, item count and dirty-range
+        log."""
+        with self._lock:
+            s = self._require(ident)
+            return {"ident": str(ident), "storage": s.storage,
+                    "version": s.version,
+                    "num_items": len(s.items or []),
+                    "dirty_ranges": list(s.dirty_log)}
 
     def get_tensor(self, ident: SetIdentifier) -> BlockedTensor:
         items = self.get_items(ident)
@@ -375,13 +554,18 @@ class SetStore:
 
     def flush(self, ident: SetIdentifier) -> str:
         """Write a set to ``config.data_dir`` (it stays in memory). A
-        paged matrix is read page by page on the host and written as one
-        array; it comes back paged."""
+        paged matrix or relation is read page by page on the host and
+        written whole; it comes back paged."""
+        from netsdb_tpu_torch.relational.outofcore import PagedColumns
+
         with self._lock:
             s = self._require(ident)
             payload = []
             for item in self._items_locked(s):
-                if isinstance(item, _PagedMatrix):
+                if isinstance(item, PagedColumns):
+                    payload.append(("paged_table",
+                                    item.to_host_table().__getstate__()))
+                elif isinstance(item, _PagedMatrix):
                     blocks = [b for _, b in
                               self.page_store().stream_blocks(item.name)]
                     payload.append(("paged", np.concatenate(blocks)))
@@ -432,6 +616,14 @@ class SetStore:
         for kind, *data in record["items"]:
             if kind == "paged":
                 self._ingest_paged(s, data[0])
+                self._touch(s)
+                return
+            if kind == "paged_table":
+                from netsdb_tpu_torch.relational.table import ColumnTable
+
+                table = ColumnTable.__new__(ColumnTable)
+                table.__setstate__(data[0])
+                self._ingest_paged_relation(s, table)
                 self._touch(s)
                 return
             if kind == "blocked":

@@ -42,9 +42,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stderr
     count, rest = proc.stdout.strip().split(" ", 1)
     relational, bad = rest.rsplit("] ", 1)
-    assert int(count) >= 61  # every module of the package was imported
+    assert int(count) >= 62  # every module of the package was imported
     for mod in ("table", "kernels", "tuning", "stats", "planner", "queries",
-                "folds", "dag", "bench"):
+                "folds", "dag", "bench", "outofcore"):
         assert f"'netsdb_tpu_torch.relational.{mod}'" in relational
     assert bad == "[]", f"the port pulled in {bad}"
 
@@ -141,14 +141,20 @@ def port_client(tmp_path):
                                          persistence="persistent",
                                          placement=Placement.replicated())])
 def test_out_of_slice_set_options_raise(port_client, kwargs):
-    """Paged object sets and relations are ROADMAP.md A6; a paged or
-    persistent tensor set is ported (``tests/test_torch_paged_weights.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    """Paged object sets (any paged set but a tensor or a relation) are
+    ROADMAP.md A6 part 3; a paged or persistent tensor set is ported
+    (``tests/test_torch_paged_weights.py``), and so is a paged relation,
+    ``type_name="table"`` (``tests/test_torch_paged_relations.py``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6 part 3"):
         port_client.create_set("d", "s", **kwargs)
     assert not port_client.catalog.set_exists("d", "s")
     port_client.create_set("d", "s", storage="paged",
                            persistence="persistent")
     assert port_client.store.storage_of(SetIdentifier("d", "s")) == "paged"
+    port_client.create_set("d", "t", type_name="table", storage="paged")
+    port_client.send_table("d", "t", [{"k": 1, "v": 2.0}])
+    assert port_client.store.paged_relation(
+        SetIdentifier("d", "t")).num_rows == 1
 
 
 def test_out_of_slice_client_features_raise(port_client, tmp_path):
@@ -160,8 +166,12 @@ def test_out_of_slice_client_features_raise(port_client, tmp_path):
         Configuration(summa_grid="2d")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         Configuration(device_cache_pin_auto=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        Configuration(device_cache_dirty_log=8)
+    # the dirty-range log of paged relations is ported: the knob bounds it
+    # (tests/test_torch_paged_relations.py::test_dirty_log_is_bounded)
+    assert Configuration(device_cache_dirty_log=8).device_cache_dirty_log \
+        == 8
+    with pytest.raises(ValueError, match="device_cache_dirty_log"):
+        Configuration(device_cache_dirty_log=0)
     for knob in (dict(plan_fusion=True), dict(fusion_min_region=2),
                  dict(fusion_mapper="dp"), dict(fusion_cost_source="ledger"),
                  dict(fusion_stage_budget_bytes=1 << 20)):
