@@ -7,7 +7,7 @@ line, to compare the paged path of two trees; ``--models-only``: phases
 1 and 8 alone, the same way; ``--train-la-only``: phases 1, 9 and 10;
 ``--relational-only``: phases 1 and 11; ``--paged-relations-only``:
 phase 1, the SF 10 tables made resident on a card client, and phase
-12.)
+12; ``--rows-only``: phases 1 and 13.)
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -113,13 +113,36 @@ Phases (any failure raises and the exit code is non-zero):
    pinned, on a stream the fold's kernels do not use) and one warm
    request of each query (busy share, top three kernels).
 
+13. the host-record relational path (``ROWS_SIZES``): the ten row TPC-H
+   DAGs (``workloads.tpch``, micro scale 20, about 9 000 lineitems) on a
+   card client, each held to a CPU client's same DAG (ints and strings
+   exactly, floats within ``ROWS_FLOAT_RTOL``, in order), allocating
+   nothing on the card; the same generator at scale 200 written as dbgen
+   ``.tbl`` files and loaded by ``load_tbl_dir`` and
+   ``load_tbl_dir_columnar`` (the native parser must build), their MB/s;
+   lineitem's records in a paged set (64 KiB pages, a 256 KiB pool, so
+   it spills) through Q01 and Q06, equal to the memory sets' results;
+   reddit's 200 000 comments sent to ``type_name="objects"`` sets and
+   joined three ways by ``Join(on=...)`` on the card, held to the CPU
+   client and, row for row, to the host hash join over the same
+   records; reddit's columnar bench (1 M comments, 50 000 authors,
+   ``send_table``): ``three_way_sink_for``, ``propagate_labels``,
+   ``author_comment_counts`` and ``label_partition_counts``, 3 requests
+   each, held exactly to the CPU client; tpch-bench's host DAGs at 20 000
+   customers held to ``queries_on_sets`` over ``columnarize`` of the same
+   customers on the card, then its bench size (100 000 customers x 2048
+   parts, k 10) held to the CPU client (the same top list, scores within
+   ``JACCARD_RTOL``). Per request kind the p50 ms, rows/s, the bound by
+   bytes, the CPU's ms; one profiled request of each device kind (busy
+   share, top three kernels). No hand-written kernel lies on this path.
+
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
 just before phase 5's requests and read just after them, again
 around each model's paged requests in phase 7, around phase 8, where
 both must read 0, around phase 9 (B1 once a layer step, B2 never) and
-around phases 10, 11 and 12 (both 0). The last line is the contract's
-device record.
+around phases 10, 11, 12 and 13 (both 0). The last line is the
+contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -2389,6 +2412,458 @@ def paged_relations_path(pk: dict, state: Optional[dict] = None) -> dict:
     return out
 
 
+# --- phase 13 ------------------------------------------------------------
+# the sizes of phase 13 (PERF.md §4): row TPC-H at micro scale 20 (about
+# 9 000 lineitems), its .tbl files at scale 200, paged records in 64 KiB
+# pages under a 256 KiB pool (it spills), reddit's objects at 200 000
+# comments, reddit's columnar bench (1 M comments, 50 000 authors), the
+# tpch-bench host DAGs at 20 000 customers and its bench at 100 000
+# customers x 2048 parts
+ROWS_SIZES = {"tpch_scale": 20, "tbl_scale": 200,
+              "page_bytes": 64 << 10, "pool_bytes": 256 << 10,
+              "reddit_objects": (200_000, 10_000, 500),
+              "reddit_bench": (1_000_000, 50_000, 500),
+              "tb_host_customers": 20_000,
+              "tb_bench": (100_000, 2048, 10)}
+ROWS_REQUESTS = 3
+ROWS_FLOAT_RTOL = 1e-9  # row TPC-H: Python floats on both clients
+JACCARD_RTOL = 1e-6
+
+
+def _same_rows(name, got, want, path="") -> float:
+    """A host result against the CPU client's, in order: ints, strings
+    and bools exactly, floats within ROWS_FLOAT_RTOL. Returns the largest
+    relative float error."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or list(got) != list(want):
+            raise RuntimeError(f"{name}{path}: keys {list(got)[:5]} vs "
+                               f"{list(want)[:5]}")
+        return max([_same_rows(name, got[k], want[k], f"{path}[{k!r}]")
+                    for k in want], default=0.0)
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            raise RuntimeError(f"{name}{path}: length {len(got)} vs "
+                               f"{len(want)}")
+        return max([_same_rows(name, g, w, f"{path}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))], default=0.0)
+    if isinstance(want, float):
+        err = abs(got - want) / max(abs(want), 1e-300)
+        if not err <= ROWS_FLOAT_RTOL:
+            raise RuntimeError(f"{name}{path}: {got!r} vs {want!r}")
+        return err
+    if type(got) is not type(want) or got != want:
+        raise RuntimeError(f"{name}{path}: {got!r} vs {want!r}")
+    return 0.0
+
+
+def _same_table(name, got, want) -> None:
+    """Two column tables (card and CPU) equal column for column, mask
+    included; every column here is an integer or a passthrough float."""
+    import numpy as np
+
+    if list(got.cols) != list(want.cols) or got.dicts != want.dicts:
+        raise RuntimeError(f"{name}: schema differs from the CPU")
+    pairs = [("valid", got.mask(), want.mask())] + [
+        (n, got[n], want[n]) for n in want.cols]
+    for col, a, b in pairs:
+        if not np.array_equal(a.cpu().numpy(), b.cpu().numpy()):
+            raise RuntimeError(f"{name}.{col}: differs from the CPU")
+
+
+def _requests(run, device, n) -> tuple:
+    """``n`` requests of ``run``: (last output, each ms)."""
+    out, ms = None, []
+    for _ in range(n):
+        out, t = _timed(run, device)
+        ms.append(t)
+    return out, ms
+
+
+def _row(name, ms, cpu_ms, rows, nbytes, pk, extra="") -> dict:
+    """Print and return one request kind's line: p50 ms, rows/s, the
+    bound by bytes (the columns the request reads and writes on the card
+    over its memory rate; None on the host path, which moves none) and
+    the CPU client's ms."""
+    p50 = sorted(ms)[len(ms) // 2]
+    bound = nbytes / pk["bytes"] * 1e3 if nbytes else None
+    shown = (f"bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB)" if nbytes
+             else "no device bytes")
+    print(f"[rows] {name}: p50 {p50:.3f} ms of {[round(m, 3) for m in ms]}, "
+          f"{rows / p50 * 1e3:.4g} rows/s, {shown}, cpu {cpu_ms:.3f} ms "
+          f"{extra}")
+    return {"ms": ms, "p50_ms": p50, "rows_per_s": rows / p50 * 1e3,
+            "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+            "cpu_ms": cpu_ms}
+
+
+def _tbl_column_differs(table, name, col) -> bool:
+    """The columnar loader's column ``name`` against the generated values
+    ``col``: integers, dates (yyyymmdd) and dictionary strings exactly,
+    floats within one f32 rounding."""
+    import numpy as np
+
+    from netsdb_tpu_torch.relational.table import date_to_int
+
+    got = table[name].cpu().numpy()
+    if name in table.dicts:
+        return [table.dicts[name][c] for c in got.tolist()] != col
+    if isinstance(col[0], str):
+        return got.tolist() != [date_to_int(v) for v in col]
+    if isinstance(col[0], float):
+        want = np.asarray(col, np.float64)
+        return not bool(np.all(np.abs(got.astype(np.float64) - want)
+                               <= np.finfo(np.float32).eps * np.abs(want)))
+    return got.tolist() != col
+
+
+def _rows_tpch(out, profiled, sizes, device, pk) -> None:
+    """Parts 1-3: the ten row DAGs on a card client and a CPU client, the
+    .tbl loaders (native parser), paged records under a spilling pool
+    held to part 1's results."""
+    import os
+    import tempfile
+
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.native import tblparse
+    from netsdb_tpu_torch.workloads import tpch
+
+    data = tpch.generate(scale=sizes["tpch_scale"], seed=SEED)
+    n_li = len(data["lineitem"])
+    card, cpu = Client(device=device), Client(device="cpu")
+    for c in (card, cpu):
+        tpch.load_tables(c, "tpch", data)
+    cuda = torch.device(device).type == "cuda"
+    alloc0 = torch.cuda.memory_allocated() if cuda else 0
+    want = {}
+    for q in tpch.QUERIES:
+        got, ms = _requests(lambda q=q: tpch.run_query(card, q), device,
+                            ROWS_REQUESTS)
+        want[q], cpu_ms = _timed(lambda q=q: tpch.run_query(cpu, q), "cpu")
+        err = _same_rows(f"tpch {q}", got, want[q])
+        out[f"tpch {q}"] = _row(f"tpch {q}", ms, cpu_ms, n_li, 0, pk,
+                                f"(host path; float err {err:.1e})")
+    grown = (torch.cuda.memory_allocated() if cuda else 0) - alloc0
+    print(f"[rows] tpch row DAGs: {n_li} lineitems, card memory allocated "
+          f"by the host path {grown} bytes")
+    if grown:
+        raise RuntimeError(f"the host path allocated {grown} bytes on the "
+                           f"card")
+
+    with tempfile.TemporaryDirectory(prefix="netsdb_rows_") as root:
+        big = tpch.generate(scale=sizes["tbl_scale"], seed=SEED)
+        paths = tpch.write_tbl_dir(big, os.path.join(root, "tbl"))
+        mb = sum(os.path.getsize(p) for p in paths.values()) / 1e6
+        if not tblparse.available():
+            raise RuntimeError(f"the native .tbl parser did not build: "
+                               f"{tblparse._lib_err}")
+        t0 = time.perf_counter()
+        counts = tpch.load_tbl_dir(card, os.path.join(root, "tbl"), db="tbl")
+        row_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ccounts = tpch.load_tbl_dir_columnar(card, os.path.join(root, "tbl"),
+                                             db="tbl")
+        col_s = time.perf_counter() - t0
+        want_counts = {t: len(r) for t, r in big.items()}
+        if counts != want_counts or ccounts != want_counts:
+            raise RuntimeError(f".tbl row counts {counts} / {ccounts} vs "
+                               f"{want_counts}")
+        for t, rows in big.items():
+            got = list(card.get_set_iterator("tbl", t))
+            [table] = list(card.get_set_iterator("tbl", f"{t}_columnar"))
+            names = [n for n, _ in tpch._TBL_SCHEMAS[t]]
+            if list(table.cols) != names or table.device.type != \
+                    torch.device(device).type:
+                raise RuntimeError(f".tbl {t}: columns {list(table.cols)}")
+            for name in rows[0]:
+                col = [r[name] for r in got]
+                if col != [r[name] for r in rows]:
+                    raise RuntimeError(f".tbl {t}.{name}: rows differ from "
+                                       f"the generated records")
+                if _tbl_column_differs(table, name, col):
+                    raise RuntimeError(f".tbl {t}.{name}: the columnar "
+                                       f"loader's column differs")
+        out["tbl"] = {"mb": mb, "row_s": row_s, "columnar_s": col_s,
+                      "row_mb_per_s": mb / row_s, "columnar_mb_per_s":
+                      mb / col_s, "rows": sum(counts.values())}
+        print(f"[rows] .tbl ingest of {mb:.1f} MB ({sum(counts.values())} "
+              f"rows, native parser): rows {row_s:.3f} s "
+              f"({mb / row_s:.1f} MB/s), columnar {col_s:.3f} s "
+              f"({mb / col_s:.1f} MB/s)")
+
+        paged = Client(Configuration(root_dir=root,
+                                     page_size_bytes=sizes["page_bytes"],
+                                     page_pool_bytes=sizes["pool_bytes"]),
+                       device=device)
+        paged.create_database("tpch")
+        for name, rows in data.items():
+            paged.create_set("tpch", name, type_name="object",
+                             storage="paged" if name == "lineitem"
+                             else "memory")
+            paged.send_data("tpch", name, rows)
+        for q in ("q01", "q06"):
+            got, ms = _timed(lambda q=q: tpch.run_query(paged, q), device)
+            _same_rows(f"paged {q}", got, want[q])
+            out[f"paged {q}"] = {"ms": ms}
+        stats = paged.store.page_store().stats()
+        print(f"[rows] paged lineitem records: Q01 {out['paged q01']['ms']:.3f}"
+              f" ms, Q06 {out['paged q06']['ms']:.3f} ms, spills "
+              f"{stats['spills']}, page reads {stats['page_reads']}")
+        if stats["spills"] <= 0:
+            raise RuntimeError("the paged record set did not spill")
+        out["paged_spills"] = stats["spills"]
+        paged.store.page_store().close()
+
+
+def _rows_reddit(out, profiled, sizes, device, pk) -> None:
+    """Parts 4 and 5: reddit's objects through ``Join(on=)`` held to the
+    host join, and the columnar bench's four requests held to the CPU."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.relational.table import ColumnTable
+    from netsdb_tpu_torch.workloads import reddit
+    from netsdb_tpu_torch.workloads import reddit_columnar as RC
+
+    n_c, n_a, n_s = sizes["reddit_objects"]
+    data = reddit.generate(num_comments=n_c, num_authors=n_a, num_subs=n_s,
+                           seed=SEED)
+    card, cpu = Client(device=device), Client(device="cpu")
+    for c in (card, cpu):
+        c.create_database("reddit")
+        for name, items in zip(("comments", "authors", "subs"), data):
+            c.create_set("reddit", name, type_name="objects")
+            c.send_data("reddit", name, items)
+    card.create_database("reddit_host")
+    for name, items in zip(("comments", "authors", "subs"), data):
+        card.create_set("reddit_host", name, type_name="object")
+        card.send_data("reddit_host", name, items)
+
+    def device_join(c):
+        return next(iter(c.execute_computations(
+            reddit.build_three_way_join_device("reddit")).values()))
+
+    got, ms = _requests(lambda: device_join(card), device, ROWS_REQUESTS)
+    if got.device.type != torch.device(device).type:
+        raise RuntimeError(f"Join(on=) ran on {got.device}")
+    ref, cpu_ms = _timed(lambda: device_join(cpu), "cpu")
+    _same_table("reddit Join(on=)", got, ref)
+    host, host_ms = _timed(lambda: next(iter(card.execute_computations(
+        reddit.build_three_way_join("reddit_host")).values())), "cpu")
+    karma = {a.author_id: a.karma for a in data[1]}
+    subscribers = {s.id: s.subscribers for s in data[2]}
+    rows = got.to_rows()
+    want = [(f.index, f.author_id, karma[f.author_id], subscribers[f.sub_id])
+            for f in host]
+    if [(r["index"], r["author_id"], r["karma"], r["subscribers"])
+            for r in rows] != want:
+        raise RuntimeError("reddit Join(on=) rows differ from the host join")
+    nbytes = 4 * (2 * n_c + 3 * n_c) + n_c + 4 * 2 * (n_a + n_s)
+    out["reddit join_on"] = _row(
+        "reddit Join(on=)", ms, cpu_ms, n_c, nbytes, pk,
+        f"(host hash join {host_ms:.1f} ms, {len(want)} rows equal)")
+    profiled["reddit Join(on=)"] = (lambda: device_join(card),
+                                    out["reddit join_on"]["p50_ms"])
+
+    rows_n, n_auth, n_sub = sizes["reddit_bench"]
+    host_cols = RC.bench_columns(rows_n, n_auth, n_sub, seed=SEED)
+    for c in (card, cpu):
+        c.create_database("redditc")
+        for name, (cols, dicts) in host_cols.items():
+            c.create_set("redditc", name, type_name="table")
+            c.send_table("redditc", name, ColumnTable.from_columns(
+                cols, dicts, device="cpu"))
+    n_hash = sum(n.startswith("body_h") for n in host_cols["comments"][0])
+    ops = {
+        "three_way_sink": (
+            lambda c: next(iter(c.execute_computations(
+                RC.three_way_sink_for(c, "redditc")).values())),
+            4 * rows_n * (2 + 2 + 11 + n_hash + 64) + rows_n),
+        "propagate_labels": (
+            lambda c: RC.propagate_labels(c.get_table("redditc",
+                                                      "comments"), n_auth),
+            4 * rows_n * 3),
+        "author_comment_counts": (
+            lambda c: RC.author_comment_counts(
+                c.get_table("redditc", "comments"), n_auth),
+            4 * rows_n + 4 * n_auth),
+        "label_partition_counts": (
+            lambda c: RC.label_partition_counts(
+                c.get_table("redditc", "comments")),
+            4 * rows_n * 2)}
+    for name, (run, nbytes) in ops.items():
+        got, ms = _requests(lambda run=run: run(card), device, ROWS_REQUESTS)
+        ref, cpu_ms = _timed(lambda run=run: run(cpu), "cpu")
+        if hasattr(ref, "cols"):
+            _same_table(f"reddit {name}", got, ref)
+        elif not np.array_equal(got.cpu().numpy(), ref.numpy()):
+            raise RuntimeError(f"reddit {name}: differs from the CPU")
+        out[f"reddit {name}"] = _row(f"reddit {name}", ms, cpu_ms, rows_n,
+                                     nbytes, pk)
+        profiled[f"reddit {name}"] = (lambda run=run: run(card),
+                                      out[f"reddit {name}"]["p50_ms"])
+
+
+def _rows_tpch_bench(out, profiled, sizes, device, pk) -> None:
+    """Part 6: the tpch-bench host DAGs held to ``queries_on_sets`` over
+    ``columnarize`` of the same customers on the card, then the bench's
+    size against the CPU client."""
+    import numpy as np
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.relational.table import ColumnTable
+    from netsdb_tpu_torch.workloads import tpch_bench as TB
+    from netsdb_tpu_torch.workloads import tpch_bench_columnar as TBC
+
+    n = sizes["tb_host_customers"]
+    customers = TB.generate(num_customers=n, num_parts=60, seed=SEED)
+    card, cpu = Client(device=device), Client(device="cpu")
+    TB.load(card, customers)
+    thr, seg, query, k = n // 2, "BUILDING", [1, 3, 5, 7, 11, 13, 17], 10
+    t0 = time.perf_counter()
+    res = card.execute_computations(
+        TB.customer_int_selection(threshold=thr),
+        TB.customer_string_selection(segment=seg), TB.count_customers(),
+        TB.flatten_triples(), TB.top_jaccard(query_parts=query, k=k))
+    host = {ident.set: v for ident, v in res.items()}
+    host_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    info = next(iter(card.execute_computations(
+        TB.group_by_supplier()).values()))
+    group_ms = (time.perf_counter() - t0) * 1e3
+    card.create_database("tpchbc")
+    for name, t in TBC.columnarize(customers, device=device).items():
+        card.create_set("tpchbc", name, type_name="table")
+        card.send_table("tpchbc", name, t)
+    col, col_ms = _timed(lambda: TBC.queries_on_sets(
+        card, "tpchbc", thr, seg, query, k), device)
+    sel_int, _, sel_str, _ = (m.cpu().numpy() for m in col["selections"])
+    keys = [c.custKey for c in customers]
+    if [keys[i] for i in np.nonzero(sel_int)[0]] != \
+            [c.custKey for c in host["selected_int"]] or \
+            [keys[i] for i in np.nonzero(sel_str)[0]] != \
+            [c.custKey for c in host["selected_str"]] or \
+            col["count"] != host["customer_count"][0]:
+        raise RuntimeError("tpch-bench selections or count differ from the "
+                           "host DAGs")
+    # the pair counts (triples per supplier and customer) must equal the
+    # group-by's part lists
+    sup_names = card.get_table("tpchbc", "triples").dicts["supplier"]
+    pair = col["pair_counts"].cpu().numpy()
+    if sum(map(len, (p for pc in info.values() for p in pc.values()))) != \
+            int(pair.sum()):
+        raise RuntimeError("tpch-bench group-by total differs")
+    for sname, per_cust in info.items():
+        s = sup_names.index(sname)
+        if any(pair[s, int(cn[len("Customer"):])] != len(p)
+               for cn, p in per_cust.items()):
+            raise RuntimeError(f"tpch-bench group-by {sname} differs")
+    heap, top = host["top_jaccard"][0], col["top_jaccard"]
+    kth = top[-1][0]
+    if _rel_err([s for s, _ in top], [s for s, _, _ in heap]) > JACCARD_RTOL \
+            or {c for s, c in top if s > kth} != {c for s, c, _ in heap
+                                                 if s > kth}:
+        raise RuntimeError("tpch-bench top_jaccard differs from the host "
+                           "heap")
+    print(f"[rows] tpch-bench {n} customers: host DAGs {host_ms:.1f} ms "
+          f"(group-by {group_ms:.1f} ms), queries_on_sets "
+          f"{col_ms:.3f} ms, agree")
+    out["tpch-bench host"] = {"host_ms": host_ms, "group_ms": group_ms,
+                              "columnar_ms": col_ms}
+
+    n_cust, n_parts, kb = sizes["tb_bench"]
+    host_cols = TBC.bench_columns(n_customers=n_cust, n_parts=n_parts,
+                                  seed=SEED)
+    for c in (card, cpu):
+        c.create_database("tpchbb")
+        for name, (cols, dicts) in host_cols.items():
+            c.create_set("tpchbb", name, type_name="table")
+            c.send_table("tpchbb", name, ColumnTable.from_columns(
+                cols, dicts, device="cpu"))
+    rng = np.random.default_rng(SEED + 13)
+    qparts = np.nonzero(rng.random(n_parts) < 0.05)[0].tolist()
+
+    def run(c):
+        return TBC.queries_on_sets(c, "tpchbb", n_cust // 2, "BUILDING",
+                                   qparts, kb)
+
+    got, ms = _requests(lambda: run(card), device, ROWS_REQUESTS)
+    ref, cpu_ms = _timed(lambda: run(cpu), "cpu")
+    for a, b in zip(got["selections"] + (got["pair_counts"],
+                                         got["per_supplier"]),
+                    ref["selections"] + (ref["pair_counts"],
+                                         ref["per_supplier"])):
+        if not np.array_equal(a.cpu().numpy(), b.numpy()):
+            raise RuntimeError("tpch-bench bench: masks or counts differ "
+                               "from the CPU")
+    err = _rel_err([s for s, _ in got["top_jaccard"]],
+                   [s for s, _ in ref["top_jaccard"]])
+    if [c for _, c in got["top_jaccard"]] != \
+            [c for _, c in ref["top_jaccard"]] or err > JACCARD_RTOL:
+        raise RuntimeError(f"tpch-bench top_jaccard {got['top_jaccard']} vs "
+                           f"the CPU's {ref['top_jaccard']}")
+    n_trip = len(host_cols["triples"][0]["custKey"])
+    nbytes = 4 * 3 * n_trip + 4 * 4 * n_cust
+    out["tpch-bench bench"] = _row(
+        "tpch-bench queries_on_sets", ms, cpu_ms, n_trip, nbytes, pk,
+        f"({n_cust} x {n_parts} membership, {n_cust * n_parts * 4 / 1e9:.2f}"
+        f" GB; top {kb} {got['top_jaccard'][:3]}...)")
+    profiled["tpch-bench queries_on_sets"] = (lambda: run(card),
+                                              out["tpch-bench bench"][
+                                                  "p50_ms"])
+
+
+def phase_rows(pk: dict, device="cuda", sizes=None) -> tuple:
+    """Phase 13: the host-record relational path and its workloads
+    (``ROWS_SIZES``). Returns the results and the requests to profile."""
+    from netsdb_tpu_torch.relational import tuning
+
+    sizes = dict(ROWS_SIZES, **(sizes or {}))
+    t0 = time.perf_counter()
+    # the planner's crossovers measured here, so that this phase plans
+    # the same way alone (--rows-only) and after phase 11
+    crossovers = tuning.autotune(device, persist=False)
+    print(f"[rows] crossovers measured on {tuning.device_kind(device)} "
+          f"({time.perf_counter() - t0:.1f} s): "
+          + ", ".join(f"{k} {v:g}" for k, v in crossovers.items()))
+    out, profiled = {"crossovers": crossovers}, {}
+    for part in (_rows_tpch, _rows_reddit, _rows_tpch_bench):
+        part(out, profiled, sizes, device, pk)
+        print(f"[rows] {part.__name__} done at "
+              f"{time.perf_counter() - t0:.1f} s")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[rows] phase 13 wall {out['wall_s']:.1f} s")
+    return out, profiled
+
+
+def rows_path(pk: dict) -> dict:
+    """Phase 13 between launch counts set to 0 and read: neither attention
+    kernel lies on the host-record path. One request of each device kind
+    runs under the profiler."""
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+
+    flash_attention.launches = flash_attention_step.launches = 0
+    out, profiled = phase_rows(pk)
+    launches = (flash_attention.launches, flash_attention_step.launches)
+    print(f"[rows] launches on this path: flash_attention {launches[0]}, "
+          f"flash_attention_step {launches[1]}")
+    if launches != (0, 0):
+        raise RuntimeError(f"the host-record path launched an attention "
+                           f"kernel: {launches}")
+    rows = phase_profile(profiled, top=3)
+    out["profile_top3"] = {k: [(ms, key[:60]) for ms, key in v[:3]]
+                           for k, v in rows.items()}
+    # None where the profiler saw no device time: not measured
+    out["busy_share"] = {k: (sum(ms for ms, _ in v) / profiled[k][1]
+                             if v else None)
+                         for k, v in rows.items()}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2442,6 +2917,11 @@ def main() -> int:
         print(json.dumps({"paged_relations": paged_relations_path(pk),
                           "card": smi}, default=str))
         return 0
+    if "--rows-only" in sys.argv[1:]:
+        # phase 13 alone, the same way
+        print(json.dumps({"rows": rows_path(pk), "card": smi},
+                         default=str))
+        return 0
     b1 = phase_kernels(pk)
     b2 = phase_step_kernel(pk)
 
@@ -2474,6 +2954,7 @@ def main() -> int:
     relational, rel_state = relational_path(pk)
     paged_relations = paged_relations_path(pk, rel_state)
     del rel_state
+    rows = rows_path(pk)
 
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
@@ -2481,8 +2962,8 @@ def main() -> int:
                       "sp_max_abs_err": sp["max_abs_err"],
                       "paged": paged, "models": models, "train": train,
                       "la": la, "relational": relational,
-                      "paged_relations": paged_relations, "card": smi},
-                     default=str))
+                      "paged_relations": paged_relations, "rows": rows,
+                      "card": smi}, default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
         return {"name": kname, "route": "cuda", "source": source,

@@ -12,9 +12,12 @@ the device when a query reads it. A relation set
 (``type_name="table"``) holds one column table on the client's device,
 filled by :meth:`Client.send_table`, or, paged, its columns as row-chunk
 pages of the arena that queries fold chunk by chunk; its planner
-statistics are collected from the host arrays at ingest. Arguments of
-the reference that belong to later slices raise ``NotImplementedError``
-naming the ROADMAP.md item.
+statistics are collected from the host arrays at ingest. A set of
+``type_name="objects"`` columnarises the records it is sent into one
+such table, so ``Join(on=...)`` runs over it on the device; any other
+set keeps host records as they are (paged: as pickled-batch pages of the
+arena, streamed by queries). Arguments of the reference that belong to
+later slices raise ``NotImplementedError`` naming the ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -89,7 +92,9 @@ class Client:
 
         ``storage="paged"`` keeps the set's matrix as pages of the
         shared page arena: queries stream it through nodes that carry a
-        ``tensor_fold`` (a placed paged set places each staged block).
+        ``tensor_fold`` (a placed paged set places each staged block);
+        host records sent to a paged set are kept as pickled-batch pages
+        that queries and :meth:`get_set_iterator` stream.
         ``persistence="persistent"`` marks the set for
         :meth:`flush_data`. ``type_name="tensor4d"`` makes a set that
         is scanned as its item list even when it holds one tensor (the
@@ -98,22 +103,19 @@ class Client:
         row-chunk pages of the arena, and queries stream it through
         nodes that carry a relational ``fold``; a paged and placed
         relation raises (ROADMAP.md A4), as does a placed relation when
-        data arrives, and so does a paged set of another type (a paged
-        object set, ROADMAP.md A6 part 3).
+        data arrives. ``type_name="objects"`` columnarises what
+        :meth:`send_data` sends (a paged ``objects`` set pages the table).
 
         ``eviction`` keeps the reference's default, ``"lru"``: the port
         never spills a set under a host-memory budget, so another policy
-        raises (ROADMAP.md A2). ``partition_lambda``, the reference's
-        named key function for the dispatcher, raises (ROADMAP.md A6
-        part 3)."""
+        raises (ROADMAP.md A2). ``partition_lambda`` names the key
+        function the dispatcher routes the set's records by (the
+        reference's createSet with a dispatch computation); the catalog
+        keeps it in the set's meta."""
         if eviction != "lru":
             raise NotImplementedError(
                 f"create_set(eviction={eviction!r}): set eviction under a "
                 f"host-memory budget is not ported yet: ROADMAP.md A2")
-        if partition_lambda is not None:
-            raise NotImplementedError(
-                "create_set(partition_lambda=...): the dispatcher's "
-                "partitioning is not ported yet: ROADMAP.md A6 part 3")
         if isinstance(placement, dict):
             placement = Placement.from_meta(placement)
         if placement is not None and not isinstance(placement, Placement):
@@ -122,12 +124,6 @@ class Client:
         if storage not in ("memory", "paged"):
             raise ValueError(f"storage must be 'memory' or 'paged', "
                              f"got {storage!r}")
-        if storage == "paged" and type_name not in ("tensor", "matrix",
-                                                      "table"):
-            raise NotImplementedError(
-                f"create_set(type_name={type_name!r}, storage='paged'): "
-                f"paged object sets are not ported yet: ROADMAP.md A6 "
-                f"part 3 (a paged relation is type_name='table')")
         if storage == "paged" and type_name == "table" and \
                 placement is not None:
             raise NotImplementedError(
@@ -140,7 +136,9 @@ class Client:
         if not self.catalog.database_exists(db):
             raise KeyError(f"database {db!r} does not exist; "
                            f"create_database first")
-        meta = {}
+        meta: Dict[str, Any] = {}
+        if partition_lambda:
+            meta["partition_lambda"] = partition_lambda
         if placement is not None:
             # resolves the axes now: two size-0 axes raise before the
             # catalog row is written
@@ -178,9 +176,38 @@ class Client:
     def send_data(self, db: str, set_name: str, items: Sequence[Any]) -> None:
         """Append items to a set. Arrays and tensors move to the
         client's device; other objects are stored as they are. A paged
-        set takes one matrix, which stays on the host."""
+        set takes one matrix, which stays on the host, or host records,
+        which append as pages.
+
+        A set of ``type_name="objects"`` columnarises the records
+        (:func:`~netsdb_tpu_torch.relational.autojoin.table_from_objects`,
+        strings dictionary-encoded on the host) and appends them to its
+        one table, on the client's device (paged: as more pages), with
+        the dictionaries remapped (``concat_tables``) atomically under
+        the store lock, so that concurrent senders lose no batch."""
         ident = SetIdentifier(db, set_name)
-        if self.store.storage_of(ident) == "paged":
+        info = self.catalog.get_set(db, set_name)
+        paged = self.store.storage_of(ident) == "paged"
+        if info is not None and info.get("type") == "objects":
+            if not items:
+                return
+            from netsdb_tpu_torch.relational.autojoin import (
+                concat_tables, table_from_objects)
+            from netsdb_tpu_torch.relational.table import ColumnTable
+
+            new = table_from_objects(list(items),
+                                     device="cpu" if paged else self.device)
+            if paged:
+                self.store.append_table(ident, new)
+                return
+
+            def append(existing):
+                tables = [i for i in existing if isinstance(i, ColumnTable)]
+                return [concat_tables(tables[0], new) if tables else new]
+
+            self.store.update_set(ident, append)
+            return
+        if paged:
             self.store.add_data(ident, list(items))
             return
         self.store.add_data(ident, [self._on_device(i) for i in items])
@@ -279,7 +306,8 @@ class Client:
         return self.store.get_tensor(SetIdentifier(db, set_name))
 
     def get_set_iterator(self, db: str, set_name: str) -> Iterator[Any]:
-        """The set's items, one by one (a paged matrix raises)."""
+        """The set's items, one by one; a paged record set streams its
+        records page by page (a paged matrix or relation raises)."""
         return self.store.scan(SetIdentifier(db, set_name))
 
     def paged_matmul(self, db: str, set_name: str, rhs) -> torch.Tensor:

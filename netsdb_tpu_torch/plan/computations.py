@@ -2,10 +2,19 @@
 ``netsdb_tpu/plan/computations.py``.
 
 Each node carries a Python function over set values (``BlockedTensor``s,
-tensors or host objects); the executor replays the DAG in topo order.
-Node kinds keep the reference's names (``ScanSet``/``Apply``/``Join``/
-``WriteSet`` ≙ ScanUserSet/SelectionComp/JoinComp/SetWriter) and the
-TCAP-like ``plan_atom`` dump. A node given a ``tensor_fold``
+tensors, column tables or host records); the executor replays the DAG
+in topo order. Node kinds keep the reference's names (``ScanSet``/
+``Apply``/``Filter``/``MultiApply``/``Join``/``Aggregate``/``Partition``/
+``WriteSet`` ≙ ScanUserSet/SelectionComp/its selection/
+MultiSelectionComp/JoinComp/AggregateComp/PartitionComp/SetWriter) and
+the TCAP-like ``plan_atom`` dump, atom for atom, so a plan string is the
+same in both packages. The host nodes (``Filter``, ``MultiApply``, a
+key-function ``Join``, a ``key``/``value``/``combine`` ``Aggregate``,
+``Partition``) iterate records in input order and keep it: a join's
+pairs come in probe order, then build-bucket order; an aggregate's dict
+in first-seen key order. ``Join(on=...)`` joins by column name on the
+device (:func:`~netsdb_tpu_torch.relational.autojoin.equijoin`), record
+inputs columnarised on the way. A node given a ``tensor_fold``
 (:class:`~netsdb_tpu_torch.plan.fold.TensorFold`) may consume a paged
 tensor set: the executor streams the set's row blocks through it. A node
 given a relational ``fold`` (:class:`~netsdb_tpu_torch.plan.fold.
@@ -86,9 +95,64 @@ class Apply(Computation):
                 f"'{self.label}')")
 
 
+class Filter(Computation):
+    """Selection predicate over host records — reference
+    ``SelectionComp::getSelection`` (the FILTER atom)."""
+
+    op_kind = "Filter"
+
+    def __init__(self, input_: Computation, pred: Callable[[Any], bool],
+                 label: str = ""):
+        super().__init__([input_])
+        self.pred = pred
+        self.label = label or getattr(pred, "__name__", "pred")
+
+    def evaluate(self, items):
+        return [x for x in items if self.pred(x)]
+
+    def plan_atom(self) -> str:
+        return (f"{self.output_name} <= FILTER({self.inputs[0].output_name}, "
+                f"'{self.label}')")
+
+
+class MultiApply(Computation):
+    """1-in → many-out flatten — reference ``MultiSelectionComp`` (the
+    FLATTEN atom). ``fn`` returns a list per input record; the lists
+    concatenate in input order."""
+
+    op_kind = "Flatten"
+
+    def __init__(self, input_: Computation, fn: Callable[[Any], List[Any]],
+                 label: str = ""):
+        super().__init__([input_])
+        self.fn = fn
+        self.label = label or getattr(fn, "__name__", "fn")
+
+    def evaluate(self, items):
+        out: List[Any] = []
+        for x in items:
+            out.extend(self.fn(x))
+        return out
+
+    def plan_atom(self) -> str:
+        return (f"{self.output_name} <= FLATTEN({self.inputs[0].output_name}, "
+                f"'{self.label}')")
+
+
 class Join(Computation):
     """2-in combine — reference ``JoinComp``. For tensor pipelines the
-    join-on-block-index + projection is one fn (e.g. ``ops.matmul_t``).
+    join-on-block-index + projection is one fn (e.g. ``ops.matmul_t``);
+    for host records an equi-join on key functions (``left_key``,
+    ``right_key``, ``project``: a hash join that builds on the right and
+    probes with the left, pairs in probe order, then bucket order).
+
+    ``on=(left_col, right_col)`` names the equi-join key by column and
+    runs the join on the device (:func:`~netsdb_tpu_torch.relational.
+    autojoin.equijoin`, a unique-key right side): a record input is
+    columnarised on the way (string keys dictionary-encoded, the two
+    dictionaries unified on the host) and ``take`` limits the right
+    columns gathered. A failure there raises; the host join never takes
+    its place.
 
     ``passthrough=True`` declares that ``fn`` only re-shapes its inputs
     (the gather-chain tuple append that collects a model's weight sets
@@ -105,12 +169,23 @@ class Join(Computation):
 
     def __init__(self, left: Computation, right: Computation,
                  fn: Optional[Callable[[Any, Any], Any]] = None,
-                 label: str = "", tensor_fold=None,
-                 passthrough: bool = False, fold=None, fold_src: int = 0):
+                 left_key: Optional[Callable] = None,
+                 right_key: Optional[Callable] = None,
+                 project: Optional[Callable[[Any, Any], Any]] = None,
+                 label: str = "", fold=None, fold_src: int = 0,
+                 on: Optional[tuple] = None,
+                 take: Optional[Sequence[str]] = None,
+                 tensor_fold=None, passthrough: bool = False):
         super().__init__([left, right])
-        if fn is None:
+        self.on = tuple(on) if on else None
+        self.take = take
+        self.left_key = left_key
+        self.right_key = right_key
+        self.project = project
+        if fn is None and left_key is None and self.on is None:
             if fold is None:
-                raise ValueError("Join needs fn or fold")
+                raise ValueError("Join needs fn, fold, left_key/right_key "
+                                 "or on")
             from netsdb_tpu_torch.plan.fold import flatten_resident
 
             if fold_src == 0:
@@ -122,14 +197,120 @@ class Join(Computation):
         self.fold_src = fold_src
         self.tensor_fold = tensor_fold
         self.passthrough = passthrough
-        self.label = label or getattr(fn, "__name__", "join")
+        self.label = label or (getattr(fn, "__name__", "join") if fn
+                               else "equijoin")
 
-    def evaluate(self, left, right):
-        return self.fn(left, right)
+    def evaluate(self, left, right, device=None):
+        """``device`` is where a record input of an ``on=`` join is
+        columnarised (the executor passes the client's); by default the
+        device of the other input's table, else CUDA."""
+        if self.fn is not None:
+            return self.fn(left, right)
+        if self.on is not None:
+            from netsdb_tpu_torch.relational.autojoin import (
+                equijoin, table_from_objects)
+            from netsdb_tpu_torch.relational.table import ColumnTable
+
+            if device is None:
+                device = next((t.device for t in (left, right)
+                               if isinstance(t, ColumnTable)), None)
+            lt = (left if isinstance(left, ColumnTable)
+                  else table_from_objects(list(left), device=device))
+            rt = (right if isinstance(right, ColumnTable)
+                  else table_from_objects(list(right), device=device))
+            return equijoin(lt, self.on[0], rt, self.on[1], take=self.take)
+        table: dict = {}
+        for r in right:
+            table.setdefault(self.right_key(r), []).append(r)
+        out = []
+        proj = self.project or (lambda a, b: (a, b))
+        for item in left:
+            for r in table.get(self.left_key(item), ()):
+                out.append(proj(item, r))
+        return out
 
     def plan_atom(self) -> str:
         return (f"{self.output_name} <= JOIN({self.inputs[0].output_name}, "
                 f"{self.inputs[1].output_name}, '{self.label}')")
+
+
+class Aggregate(Computation):
+    """Group-by / reduce — reference ``AggregateComp``. ``fn`` is a
+    reduction over the whole input; otherwise ``key``/``value``/
+    ``combine`` fold the input's records into a dict, keys in
+    first-seen order (the reference's combiner and aggregation
+    processors as one fold)."""
+
+    op_kind = "Aggregate"
+
+    def __init__(self, input_: Computation,
+                 fn: Optional[Callable[[Any], Any]] = None,
+                 key: Optional[Callable] = None,
+                 value: Optional[Callable] = None,
+                 combine: Optional[Callable[[Any, Any], Any]] = None,
+                 label: str = ""):
+        super().__init__([input_])
+        self.fn = fn
+        self.key = key
+        self.value = value
+        self.combine = combine
+        self.label = label or (getattr(fn, "__name__", "agg") if fn
+                               else "groupby")
+
+    def evaluate(self, x):
+        if self.fn is not None:
+            return self.fn(x)
+        acc: dict = {}
+        for item in x:
+            k = self.key(item)
+            v = self.value(item)
+            acc[k] = self.combine(acc[k], v) if k in acc else v
+        return acc
+
+    def plan_atom(self) -> str:
+        return (f"{self.output_name} <= AGGREGATE("
+                f"{self.inputs[0].output_name}, '{self.label}')")
+
+
+class Partition(Computation):
+    """Repartition by key — reference ``PartitionComp`` (the
+    APPLY-PARTITION atom): each record goes to one of
+    ``num_partitions`` by its key, routed by the dispatcher's
+    :class:`~netsdb_tpu_torch.storage.dispatcher.HashPolicy`, so a set
+    made from this node is co-partitioned with any set dispatched with
+    the same key function. Output: ``{partition_id: [records]}``.
+
+    ``key_fn`` given as a column name is the mesh row shuffle of a
+    placed relation in the reference; it raises (ROADMAP.md A4)."""
+
+    op_kind = "Partition"
+
+    def __init__(self, input_: Computation, key_fn,
+                 num_partitions: int, label: str = ""):
+        super().__init__([input_])
+        if num_partitions < 1:
+            raise ValueError(f"num_partitions must be >= 1, got "
+                             f"{num_partitions}")
+        self.key_fn = key_fn
+        self.num_partitions = num_partitions
+        self.label = label or (key_fn if isinstance(key_fn, str)
+                               else getattr(key_fn, "__name__", "partition"))
+
+    def evaluate(self, items):
+        if isinstance(self.key_fn, str):
+            raise NotImplementedError(
+                f"Partition on column {self.key_fn!r} is the mesh row "
+                f"shuffle of a placed relation, which is not ported yet: "
+                f"ROADMAP.md A4")
+        from netsdb_tpu_torch.storage.dispatcher import HashPolicy
+
+        parts = HashPolicy(self.key_fn).partition(items,
+                                                  self.num_partitions)
+        return dict(enumerate(parts))
+
+    def plan_atom(self) -> str:
+        return (f"{self.output_name} <= PARTITION("
+                f"{self.inputs[0].output_name}, '{self.label}')")
 
 
 class WriteSet(Computation):

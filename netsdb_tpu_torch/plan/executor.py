@@ -38,6 +38,16 @@ Gather nodes forward the handle; any other consumer gets the relation
 assembled on the device, once per request and replayed from the device
 cache by warm requests. The reference's fusion regions (``plan_fusion``)
 are ROADMAP.md A2 and raise in the configuration.
+
+A scan of a paged record set gives its :class:`~netsdb_tpu_torch.
+storage.paged.PagedObjects` handle, an iterable of the records. The host
+nodes that consume records (``Filter``, ``MultiApply``, a key or
+``on=`` ``Join``, a ``key``/``value``/``combine`` ``Aggregate``, a host
+``Partition``) iterate it under ``contextlib.closing`` (:func:`_eval_node`),
+so a predicate that raises mid-stream releases the set's read lock at
+once; every other node gets the handle itself. A record input of a
+``Join(on=...)`` is columnarised on the client's device (the
+reference's ``:163-184``).
 """
 
 from __future__ import annotations
@@ -50,13 +60,16 @@ import torch
 from netsdb_tpu_torch.core.blocked import BlockedTensor, BlockMeta
 from netsdb_tpu_torch.parallel.mesh import ShardedTensor
 from netsdb_tpu_torch.plan import staging
-from netsdb_tpu_torch.plan.computations import ScanSet, WriteSet
+from netsdb_tpu_torch.plan.computations import (Aggregate, Computation,
+                                                Filter, Join, MultiApply,
+                                                Partition, ScanSet,
+                                                WriteSet)
 from netsdb_tpu_torch.plan.fold import flatten_resident
 from netsdb_tpu_torch.plan.planner import LogicalPlan, plan_from_sinks
 from netsdb_tpu_torch.relational.outofcore import (PagedColumns,
                                                    partition_by_key)
 from netsdb_tpu_torch.relational.table import ColumnTable
-from netsdb_tpu_torch.storage.paged import PagedTensor
+from netsdb_tpu_torch.storage.paged import PagedObjects, PagedTensor
 from netsdb_tpu_torch.storage.store import SetIdentifier
 
 
@@ -308,11 +321,39 @@ def _label(node) -> str:
     return getattr(node, "label", node.op_kind)
 
 
-def _evaluate(plan: LogicalPlan, scan_values: Dict[int, Any]) -> Dict[int, Any]:
+def _consumes_records(node: Computation) -> bool:
+    """Whether ``node`` iterates its inputs' records (and so must close
+    a paged record stream it does not finish)."""
+    return (isinstance(node, (Filter, MultiApply))
+            or (isinstance(node, Join) and node.fn is None)
+            or (isinstance(node, Aggregate) and node.fn is None)
+            or (isinstance(node, Partition)
+                and not isinstance(node.key_fn, str)))
+
+
+def _eval_node(node: Computation, in_vals: List[Any], device) -> Any:
+    """``node.evaluate``, with each :class:`PagedObjects` input of a
+    record-consuming node handed over as a stream under
+    ``contextlib.closing``: the stream holds the set's read lock, and it
+    is closed when the node returns or raises, whatever the node's
+    frames or traceback still reference (an open stream blocks drops)."""
+    kw = {"device": device} if isinstance(node, Join) else {}
+    if not _consumes_records(node) or not any(
+            isinstance(v, PagedObjects) for v in in_vals):
+        return node.evaluate(*in_vals, **kw)
+    with contextlib.ExitStack() as stack:
+        safe = [stack.enter_context(contextlib.closing(iter(v)))
+                if isinstance(v, PagedObjects) else v for v in in_vals]
+        return node.evaluate(*safe, **kw)
+
+
+def _evaluate(plan: LogicalPlan, scan_values: Dict[int, Any],
+              device=None) -> Dict[int, Any]:
     """Replay the DAG in topo order; a shared subgraph runs once. A node
     whose fold streams a paged relation folds over its chunks; a node
     that consumes a paged tensor streams it through its tensor fold; a
-    paged relation reaching any other consumer is assembled once."""
+    paged relation reaching any other consumer is assembled once; a
+    paged record set reaches its consumers as its handle."""
     values: Dict[int, Any] = dict(scan_values)
     assembled: Dict[int, ColumnTable] = {}
 
@@ -336,7 +377,7 @@ def _evaluate(plan: LogicalPlan, scan_values: Dict[int, Any]) -> Dict[int, Any]:
             values[node.node_id] = _run_fold(fold, in_vals[src], resident)
             continue
         if getattr(node, "passthrough", False):
-            values[node.node_id] = node.evaluate(*in_vals)
+            values[node.node_id] = _eval_node(node, in_vals, device)
             continue
         in_vals = [demote(v) for v in in_vals]
         paged = [i for i, v in enumerate(in_vals) if _has_paged(v)]
@@ -357,7 +398,7 @@ def _evaluate(plan: LogicalPlan, scan_values: Dict[int, Any]) -> Dict[int, Any]:
             values[node.node_id] = _run_tensor_stream(node, tfold, in_vals,
                                                       paged[0])
             continue
-        values[node.node_id] = node.evaluate(*in_vals)
+        values[node.node_id] = _eval_node(node, in_vals, device)
     return values
 
 
@@ -405,9 +446,12 @@ def execute_computations(client, sinks: List[WriteSet],
         if isinstance(node, ScanSet):
             ident = SetIdentifier(node.db, node.set_name)
             if store.storage_of(ident) == "paged":
-                rel = store.paged_relation(ident)
+                handle = store.paged_objects(ident)
+                if handle is None:
+                    handle = store.paged_relation(ident)
                 scan_values[node.node_id] = (
-                    rel if rel is not None else store.paged_tensor(ident))
+                    handle if handle is not None
+                    else store.paged_tensor(ident))
                 continue
             items = store.get_items(ident)
             # a one-tensor or one-table set's value is the item itself;
@@ -419,7 +463,7 @@ def execute_computations(client, sinks: List[WriteSet],
                 and not store.scans_as_list(ident)
             scan_values[node.node_id] = items[0] if single else items
     with torch.inference_mode():
-        values = _evaluate(plan, scan_values)
+        values = _evaluate(plan, scan_values, client.device)
 
     results: Dict[SetIdentifier, Any] = {}
     for sink in plan.sinks:

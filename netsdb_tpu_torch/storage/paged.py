@@ -15,9 +15,9 @@ The pure-Python page backend is kept for tests and for machines without
 g++, but only when asked for (``force_python=True``): a failed native
 build raises. A paged relation keeps its int and float columns as two
 matrices of this store with one row blocking
-(:class:`~netsdb_tpu_torch.relational.outofcore.PagedColumns`); paged
-object sets (the reference's ``PagedObjects``) belong to ROADMAP.md A6
-part 3.
+(:class:`~netsdb_tpu_torch.relational.outofcore.PagedColumns`); a paged
+object set keeps its host records as pickled batches of about one page
+each (:class:`PagedObjects`), which iterate page by page.
 """
 
 from __future__ import annotations
@@ -150,6 +150,117 @@ class PagedTensor:
     def block_ranges(self) -> list:
         """[(start_row, end_row)] per page block, from metadata only."""
         return self.store.block_ranges(self.name)
+
+
+class PagedObjects:
+    """Host records paged as pickled batches in the shared arena —
+    counterpart of the reference's ``PagedObjects`` (netsDB's pages hold
+    arbitrary objects, ``src/storage/headers/PDBPage.h:17-33``).
+    Iterating the handle streams the records page by page (pin one
+    batch, yield its records, move on) under the read lock, so the
+    executor's host nodes consume it as they consume a list.
+
+    A batch is flushed as one page once its measured pickled size
+    reaches ``config.page_size_bytes`` (at least 4096); the arena caps
+    and spills these pages as it does matrix pages.
+
+    Locking: an append only adds pages, so it holds the read lock (which
+    excludes :meth:`drop`) and the handle's append mutex, never the
+    write lock: it does not wait for live streams, and a consumer that
+    appends while it iterates cannot deadlock on its own read lock. A
+    stream started mid-append may see a prefix of the batch's pages."""
+
+    def __init__(self, store: "PagedTensorStore", name: str,
+                 num_items: int = 0):
+        self.store = store
+        self.name = name
+        self.num_items = num_items
+        self.rw = RWLock()
+        self._append_mu = threading.Lock()
+        self.dropped = False
+        store.backend.create_set(store._set_id(name))
+
+    @staticmethod
+    def ingest(store: "PagedTensorStore", name: str,
+               items: list) -> "PagedObjects":
+        po = PagedObjects(store, name)
+        po.append(items)
+        return po
+
+    def append(self, items: list) -> None:
+        """Write records as more pickled-batch pages."""
+        import io
+        import pickle
+
+        if not items:
+            return
+        with self._append_mu, self.rw.read():
+            if self.dropped:
+                raise KeyError(f"paged object set {self.name!r} was "
+                               f"dropped; cannot append")
+            sid = self.store._set_id(self.name)
+            target = max(self.store.config.page_size_bytes, 4096)
+            # the batch is measured as it fills (an incremental pickler
+            # over the batch's own records), so a page never holds much
+            # more than the target, whatever the records' sizes
+            batch: list = []
+            buf = io.BytesIO()
+            measurer = pickle.Pickler(buf, protocol=pickle.HIGHEST_PROTOCOL)
+
+            def flush():
+                nonlocal buf, measurer
+                if not batch:
+                    return
+                self.store.backend.write_page(
+                    sid, pickle.dumps(batch,
+                                      protocol=pickle.HIGHEST_PROTOCOL))
+                batch.clear()
+                buf = io.BytesIO()
+                measurer = pickle.Pickler(buf,
+                                          protocol=pickle.HIGHEST_PROTOCOL)
+
+            for it in items:
+                batch.append(it)
+                try:
+                    measurer.dump(it)
+                    full = buf.tell() >= target
+                except (pickle.PicklingError, TypeError, AttributeError):
+                    # the real dumps in flush() raises with the batch
+                    full = True
+                if full:
+                    flush()
+            flush()
+            self.num_items += len(items)
+
+    def __iter__(self):
+        """The records, page by page, under the read lock (held until
+        the generator ends or is closed)."""
+        import pickle
+
+        with self.rw.read():
+            if self.dropped:
+                raise KeyError(f"paged object set {self.name!r} was "
+                               f"dropped; cannot stream")
+            sid = self.store._set_id(self.name)
+            for pid in self.store.backend.set_pages(sid):
+                # pages this store wrote
+                yield from pickle.loads(self.store._read(pid))
+
+    def __len__(self) -> int:
+        return self.num_items
+
+    def to_list(self) -> list:
+        return list(self)
+
+    def drop(self) -> None:
+        """Free the pages, once the streams reading them are done."""
+        with self.rw.write():
+            self.dropped = True
+            sid = self.store._ids.pop(self.name, None)
+            if sid is None:
+                return
+            for pid in self.store.backend.set_pages(sid):
+                self.store.backend.free_page(pid)
 
 
 class PagedTensorStore:

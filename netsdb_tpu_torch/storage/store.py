@@ -15,8 +15,13 @@ PagedTensor` handles bound to the device block cache
 (:meth:`SetStore.device_cache`). Every write bumps the set's version and
 drops its cached blocks. ``flush``/``load_set`` write a set to
 ``config.data_dir`` and bring it back, paged sets as paged sets; the
-file format is the port's own. Paged object sets belong to ROADMAP.md
-A6 part 3.
+file format is the port's own. A paged set given host records keeps
+them as pickled-batch pages (:class:`~netsdb_tpu_torch.storage.paged.
+PagedObjects`): the first batch is ingested under the store lock, and
+later batches append outside it, under the set's append lock, so an
+append that waits on the records' own locks never freezes the store.
+:meth:`SetStore.update_set` is the atomic read-modify-write of a memory
+set's items (the columnarising append of an ``objects`` set).
 
 A relation set holds one :class:`~netsdb_tpu_torch.relational.table.
 ColumnTable` on the store's device; :meth:`SetStore.append_table` adds
@@ -262,13 +267,14 @@ class SetStore:
         self._drop_pages(dead)
 
     def _drop_pages(self, items: List[Any]) -> None:
-        """Return the pages of replaced or cleared paged matrices and
-        relations to the arena, once the streams reading them are
-        done."""
+        """Return the pages of replaced or cleared paged matrices,
+        relations and record sets to the arena, once the streams reading
+        them are done."""
         from netsdb_tpu_torch.relational.outofcore import PagedColumns
+        from netsdb_tpu_torch.storage.paged import PagedObjects
 
         for item in items:
-            if isinstance(item, PagedColumns):
+            if isinstance(item, (PagedColumns, PagedObjects)):
                 item.drop()
             elif isinstance(item, _PagedMatrix):
                 with item.rw.write():
@@ -277,30 +283,92 @@ class SetStore:
     # --- writes -------------------------------------------------------
     def add_data(self, ident: SetIdentifier, items: List[Any]) -> None:
         """Append items. A paged set takes exactly one matrix (a 2-D
-        array or tensor) or one relation, which replaces its content."""
+        array or tensor) or one relation, which replaces its content, or
+        host records, which append as pickled-batch pages: the store
+        lock only locates and pins the set's :class:`~netsdb_tpu_torch.
+        storage.paged.PagedObjects`, and the append runs outside it
+        under the set's append lock (a concurrent remove or replace
+        drops the pinned handle, and the append then raises)."""
         from netsdb_tpu_torch.relational.table import ColumnTable
 
+        po = None
         with self._lock:
             s = self._require(ident)
             if s.storage == "paged":
-                item = items[0] if len(items) == 1 else None
+                if not items:
+                    return
+                item = items[0]
+                whole = isinstance(item, (ColumnTable, BlockedTensor,
+                                          np.ndarray, torch.Tensor))
+                if whole and (len(items) != 1 or (
+                        not isinstance(item, ColumnTable)
+                        and np.ndim(item) != 2)):
+                    raise ValueError(
+                        f"paged set {ident} holds one matrix (2-D), one "
+                        f"relation or host records; got {len(items)} "
+                        f"item(s) starting with {type(item).__name__}")
                 if isinstance(item, ColumnTable):
                     dead = self._ingest_paged_relation(s, item)
-                elif isinstance(item, (np.ndarray, torch.Tensor)) and \
-                        np.ndim(item) == 2:
+                elif whole:
                     dead = self._ingest_paged(
                         s, _host(item) if isinstance(item, torch.Tensor)
                         else np.asarray(item))
                 else:
-                    raise NotImplementedError(
-                        f"paged set {ident}: paged object sets are not "
-                        f"ported yet (ROADMAP.md A6 part 3); a paged set "
-                        f"holds one matrix or one relation")
+                    po = self._pin_paged_objects(s)
+                    dead = ([] if po is not None
+                            else self._ingest_paged_objects(s, items))
             else:
                 dead = []
                 s.items = self._items_locked(s) + self._placed(s, items)
-            self._touch(s)
+            if po is None:
+                self._touch(s)
+        if po is not None:
+            with s.append_mu:
+                po.append(items)
+            with self._lock:
+                if self._sets.get(ident) is s:
+                    self._touch(s)
         self._drop_pages(dead)
+
+    def _pin_paged_objects(self, s: _StoredSet):
+        """The :class:`~netsdb_tpu_torch.storage.paged.PagedObjects` a
+        paged set holds, or None. Caller holds the store lock."""
+        from netsdb_tpu_torch.storage.paged import PagedObjects
+
+        return next((i for i in self._items_locked(s)
+                     if isinstance(i, PagedObjects)), None)
+
+    def _ingest_paged_objects(self, s: _StoredSet,
+                              items: List[Any]) -> List[Any]:
+        """Page host records into the arena under a fresh name (no stream
+        can hold a relation that does not exist yet, so this runs under
+        the store lock). Returns the replaced items, whose pages the
+        caller frees outside the lock."""
+        from netsdb_tpu_torch.storage.paged import PagedObjects
+
+        dead = list(s.items or [])
+        s.items = [PagedObjects.ingest(
+            self.page_store(), f"{s.ident}#g{next(self._gen)}", items)]
+        return dead
+
+    def paged_objects(self, ident: SetIdentifier):
+        """The :class:`~netsdb_tpu_torch.storage.paged.PagedObjects` a
+        paged record set holds, or None."""
+        with self._lock:
+            return self._pin_paged_objects(self._require(ident))
+
+    def update_set(self, ident: SetIdentifier, fn) -> None:
+        """Atomic read-modify-write of a memory set's items: ``fn(items)
+        -> new items`` runs under the store lock, so two concurrent
+        updaters cannot lose each other's batch. The set's placement
+        applies to the result."""
+        with self._lock:
+            s = self._require(ident)
+            if s.storage != "memory":
+                raise ValueError(f"update_set needs a memory set; {ident} "
+                                 f"is {s.storage!r}")
+            s.items = self._placed(s, fn(list(self._items_locked(s))))
+            self._touch(s)
 
     def put_tensor(self, ident: SetIdentifier, tensor: BlockedTensor) -> None:
         """Replace a set's content with one blocked matrix (every weight
@@ -472,11 +540,15 @@ class SetStore:
 
     def scan(self, ident: SetIdentifier) -> Iterator[Any]:
         """A set's items, one by one — reference ``SetScan`` /
-        ``SetIterator``. A paged matrix or relation streams through
-        queries and is never an item here: its scan raises."""
+        ``SetIterator``; a paged record set streams its records page by
+        page. A paged matrix or relation streams through queries and is
+        never an item here: its scan raises."""
         from netsdb_tpu_torch.relational.outofcore import PagedColumns
+        from netsdb_tpu_torch.storage.paged import PagedObjects
 
         items = self.get_items(ident)
+        if len(items) == 1 and isinstance(items[0], PagedObjects):
+            return iter(items[0])
         if any(isinstance(i, _PagedMatrix) for i in items):
             raise ValueError(
                 f"set {ident} holds a paged matrix: it streams through a "
@@ -557,12 +629,15 @@ class SetStore:
         paged matrix or relation is read page by page on the host and
         written whole; it comes back paged."""
         from netsdb_tpu_torch.relational.outofcore import PagedColumns
+        from netsdb_tpu_torch.storage.paged import PagedObjects
 
         with self._lock:
             s = self._require(ident)
             payload = []
             for item in self._items_locked(s):
-                if isinstance(item, PagedColumns):
+                if isinstance(item, PagedObjects):
+                    payload.append(("paged_objects", item.to_list()))
+                elif isinstance(item, PagedColumns):
                     payload.append(("paged_table",
                                     item.to_host_table().__getstate__()))
                 elif isinstance(item, _PagedMatrix):
@@ -616,6 +691,10 @@ class SetStore:
         for kind, *data in record["items"]:
             if kind == "paged":
                 self._ingest_paged(s, data[0])
+                self._touch(s)
+                return
+            if kind == "paged_objects":
+                self._ingest_paged_objects(s, data[0])
                 self._touch(s)
                 return
             if kind == "paged_table":

@@ -210,7 +210,7 @@ def test_paged_set_iterator_raises(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(partition_lambda="by_key"), "ROADMAP.md A6"),
+    (dict(eviction="random"), "ROADMAP.md A2"),
     (dict(eviction="mru"), "ROADMAP.md A2")])
 def test_create_set_options_the_port_cannot_honour_raise(clients, kwargs,
                                                          item):

@@ -44,9 +44,45 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     relational, bad = rest.rsplit("] ", 1)
     assert int(count) >= 62  # every module of the package was imported
     for mod in ("table", "kernels", "tuning", "stats", "planner", "queries",
-                "folds", "dag", "bench", "outofcore"):
+                "folds", "dag", "bench", "outofcore", "autojoin"):
         assert f"'netsdb_tpu_torch.relational.{mod}'" in relational
     assert bad == "[]", f"the port pulled in {bad}"
+
+
+def test_host_record_modules_import_no_jax_and_nothing_of_the_jax_package():
+    """The host-record slice (dispatcher, parser, the tblparse binding and
+    the row workloads) on its own, in a fresh interpreter."""
+    mods = ["netsdb_tpu_torch.storage.dispatcher",
+            "netsdb_tpu_torch.plan.parser",
+            "netsdb_tpu_torch.relational.autojoin",
+            "netsdb_tpu_torch.native.tblparse",
+            "netsdb_tpu_torch.workloads.tpch",
+            "netsdb_tpu_torch.workloads.tpch_bench",
+            "netsdb_tpu_torch.workloads.tpch_bench_columnar",
+            "netsdb_tpu_torch.workloads.reddit",
+            "netsdb_tpu_torch.workloads.reddit_columnar"]
+    probe = ("import importlib, sys\n"
+             f"for m in {mods!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'netsdb_tpu' or "
+             "m.startswith('netsdb_tpu.')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_nothing_raises_naming_a6():
+    """The relational engine is ported whole on one device: no message
+    of the package still names A6."""
+    import pathlib
+
+    pkg = pathlib.Path(REPO) / "netsdb_tpu_torch"
+    hits = [str(p.relative_to(REPO)) for p in pkg.rglob("*.py")
+            if "ROADMAP.md A6" in p.read_text()]
+    assert hits == []
 
 
 def test_client_defaults_to_cuda_and_never_falls_back(tmp_path):
@@ -134,18 +170,19 @@ def port_client(tmp_path):
     return c
 
 
-@pytest.mark.parametrize("kwargs", [dict(type_name="object", storage="paged"),
-                                    dict(type_name="relation",
-                                         storage="paged"),
-                                    dict(type_name="object", storage="paged",
-                                         persistence="persistent",
-                                         placement=Placement.replicated())])
-def test_out_of_slice_set_options_raise(port_client, kwargs):
-    """Paged object sets (any paged set but a tensor or a relation) are
-    ROADMAP.md A6 part 3; a paged or persistent tensor set is ported
-    (``tests/test_torch_paged_weights.py``), and so is a paged relation,
-    ``type_name="table"`` (``tests/test_torch_paged_relations.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6 part 3"):
+@pytest.mark.parametrize("kwargs,item", [
+    (dict(type_name="table", storage="paged",
+          placement=Placement.data_parallel(ndim=1)), "ROADMAP.md A4"),
+    (dict(type_name="object", eviction="mru"), "ROADMAP.md A2"),
+    (dict(type_name="object", storage="paged", eviction="random",
+          placement=Placement.replicated()), "ROADMAP.md A2")])
+def test_out_of_slice_set_options_raise(port_client, kwargs, item):
+    """A paged and placed relation is ROADMAP.md A4 and set eviction A2;
+    paged object sets (``tests/test_torch_paged_objects.py``), paged or
+    persistent tensor sets (``tests/test_torch_paged_weights.py``), paged
+    relations (``tests/test_torch_paged_relations.py``) and the
+    dispatcher's ``partition_lambda`` are ported."""
+    with pytest.raises(NotImplementedError, match=item):
         port_client.create_set("d", "s", **kwargs)
     assert not port_client.catalog.set_exists("d", "s")
     port_client.create_set("d", "s", storage="paged",
@@ -155,6 +192,17 @@ def test_out_of_slice_set_options_raise(port_client, kwargs):
     port_client.send_table("d", "t", [{"k": 1, "v": 2.0}])
     assert port_client.store.paged_relation(
         SetIdentifier("d", "t")).num_rows == 1
+    for name, kw in (("o", dict(type_name="object", storage="paged")),
+                     ("r", dict(type_name="relation", storage="paged")),
+                     ("pl", dict(type_name="object", storage="paged",
+                                 placement=Placement.replicated(),
+                                 partition_lambda="by_k"))):
+        port_client.create_set("d", name, **kw)
+        port_client.send_data("d", name, [{"k": 1}, {"k": 2}])
+        assert list(port_client.get_set_iterator("d", name)) == \
+            [{"k": 1}, {"k": 2}]
+    assert port_client.catalog.get_set("d", "pl")["meta"][
+        "partition_lambda"] == "by_k"
 
 
 def test_out_of_slice_client_features_raise(port_client, tmp_path):

@@ -221,8 +221,9 @@ def test_table_sets_flush_and_load(tmp_path, data):
 def test_out_of_slice_relations_raise(tmp_path, data):
     """A paged relation is ported (``tests/test_torch_paged_relations.py``),
     but a paged and placed one is ROADMAP.md A4, and so is a placed
-    (row-sharded) one when data arrives; a paged object set is A6 part 3;
-    an append to a set holding other items refuses."""
+    (row-sharded) one when data arrives; a paged object set is ported
+    (``tests/test_torch_paged_objects.py``); an append to a set holding
+    other items refuses."""
     port, _ = clients(tmp_path)
     port.create_set("tpch", "p", type_name="table", storage="paged")
     port.send_table("tpch", "p", data["region"])
@@ -230,10 +231,10 @@ def test_out_of_slice_relations_raise(tmp_path, data):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
         port.create_set("tpch", "pp", type_name="table", storage="paged",
                         placement=Placement.data_parallel(ndim=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6 part 3"):
-        port.create_set("tpch", "po", type_name="object", storage="paged")
+    port.create_set("tpch", "po", type_name="object", storage="paged")
+    port.send_data("tpch", "po", data["region"])
+    assert list(port.get_set_iterator("tpch", "po")) == data["region"]
     assert not port.set_exists("tpch", "pp")
-    assert not port.set_exists("tpch", "po")
     port.create_set("tpch", "placed", type_name="table",
                     placement=Placement.data_parallel(ndim=1))
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
