@@ -7,7 +7,12 @@ line, to compare the paged path of two trees; ``--models-only``: phases
 1 and 8 alone, the same way; ``--train-la-only``: phases 1, 9 and 10;
 ``--relational-only``: phases 1 and 11; ``--paged-relations-only``:
 phase 1, the SF 10 tables made resident on a card client, and phase
-12; ``--rows-only``: phases 1 and 13.)
+12; ``--rows-only``: phases 1 and 13; ``--compiled-only``: phases 1 and
+14, TPC-H at ``COMPILED_ONLY_SF``.)
+
+Every phase runs with the compiled-program cache in use and
+``plan_fusion`` on, the port's defaults: a resident job is one CUDA
+graph, captured on its first request and replayed after that.
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -103,8 +108,10 @@ Phases (any failure raises and the exit code is non-zero):
    0), one that installs the blocks and two warm ones, each held to the
    same sink on phase 11's resident card client (``_hold``, Q03's
    top-10 rule); each prints its ms, pages read, spills and loads,
-   staged bytes and copy GB/s, chunks, host syncs (sync debug mode) and
-   peak memory above what was allocated. Warm requests must read no
+   staged bytes and copy GB/s, chunks, host syncs (sync debug mode),
+   graphs captured and peak memory above what was allocated (a fold's
+   step captures from its second request on, so a cold request holds no
+   graph's copies). Warm requests must read no
    page and stage no byte, except Q12, whose one-pass grace hash over
    the paged orders must read lineitem's pages exactly once a request;
    a cold request's peak must stay under half of lineitem's bytes. Then
@@ -136,12 +143,38 @@ Phases (any failure raises and the exit code is non-zero):
    bytes, the CPU's ms; one profiled request of each device kind (busy
    share, top three kernels). No hand-written kernel lies on this path.
 
+14. compiled plans (``plan/executor.py``'s program cache, one CUDA graph
+   per program and input signature): the cache cleared, then per
+   resident request — FF, the layer, logistic regression, word2vec's and
+   the text classifier's DAGs, the LSTM (f32, bf16), conv2d, the three LA
+   tasks through ``compile_pdml`` and the ten TPC-H suite queries on
+   phase 11's client — one cold request (the capture) and
+   ``COMPILED_WARM`` warm ones, each held to the same request run node by
+   node (``node_by_node``: the executor's eager evaluator) within the
+   path's tolerance, with ms, busy share, captures, replays, the bytes
+   captured and every fallback with its reason. Warm requests must build
+   no program; ``MUST_CAPTURE`` requests must capture with no fallback;
+   the layer launches B1 once a request and the sequence-parallel layer
+   (phase 5's size) B2 16 times, counted through the replays and by the
+   profiler on the card. Then the stale-graph cases (``_compiled_stale``:
+   a new FF batch, an earlier result re-read, a second FF of other
+   shapes in the same db and job, a small and a large set rewritten with
+   the same shape and in place, a set evicted and reloaded, the same
+   labels with another constant, two threads building at once), each
+   held to node by node. Then warm paged Q01, Q03 and Q12 on phase 12's
+   client, the mixed spine plan and the graft chain of
+   ``_region_plans`` (which must form regions) and a paged FF (also
+   node by node), with ``plan_fusion`` on and off (ms, chunks, host ms
+   per chunk, regions formed, captures, replays), the two settings'
+   results equal and no measured request capturing.
+
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
 just before phase 5's requests and read just after them, again
 around each model's paged requests in phase 7, around phase 8, where
 both must read 0, around phase 9 (B1 once a layer step, B2 never) and
-around phases 10, 11, 12 and 13 (both 0). The last line is the
+around phases 10, 11, 12 and 13 (both 0) and around phase 14 (B1 once a
+layer request, B2 16 times an SP request). The last line is the
 contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
@@ -2166,7 +2199,10 @@ def _rel_request(client, run) -> tuple:
     ran (every thread's)."""
     import torch
 
+    from netsdb_tpu_torch.plan import programs
+
     arena0 = client.store.page_store().stats()
+    captures0 = programs.program_stats()["captures"]
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with warnings.catch_warnings(record=True) as caught:
@@ -2183,6 +2219,7 @@ def _rel_request(client, run) -> tuple:
     rec["spills"] = arena1["spills"] - arena0["spills"]
     rec["loads"] = arena1["loads"] - arena0["loads"]
     rec["peak_above_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    rec["captures"] = programs.program_stats()["captures"] - captures0
     rec["syncs"] = sum("synchroniz" in str(w.message).lower()
                        for w in caught)
     rec["copy_gbps"] = rec["staged_bytes"] / (rec["ms"] * 1e6)
@@ -2227,29 +2264,15 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
     import numpy as np
     import torch
 
-    from netsdb_tpu_torch import Client
-    from netsdb_tpu_torch.config import Configuration
     from netsdb_tpu_torch.relational import dag
-    from netsdb_tpu_torch.relational.table import ColumnTable
     from netsdb_tpu_torch.storage.store import SetIdentifier
 
     t_phase = time.perf_counter()
     resident, host = state["card"], state["host"]
     out = {}
-    with tempfile.TemporaryDirectory(prefix="netsdb_paged_rel_") as root:
-        client = Client(Configuration(
-            root_dir=root, page_size_bytes=PAGED_REL_PAGE_BYTES,
-            page_pool_bytes=PAGED_REL_POOL_BYTES,
-            device_cache_bytes=PAGED_REL_CACHE_BYTES), device=device)
-        client.create_database("tpch")
-        t0 = time.perf_counter()
-        for n, (cols, dicts) in host.items():
-            client.create_set("tpch", n, type_name="table",
-                              storage="paged" if n in PAGED_REL_FACTS
-                              else "memory")
-            client.send_table("tpch", n, ColumnTable.from_columns(
-                cols, dicts, device="cpu"))
-        ingest_s = time.perf_counter() - t0
+    root = tempfile.mkdtemp(prefix="netsdb_paged_rel_")
+    try:
+        client, ingest_s = _paged_card(host, root, device)
         store, cache = client.store, client.store.device_cache()
         rels = {n: store.paged_relation(SetIdentifier("tpch", n))
                 for n in PAGED_REL_FACTS}
@@ -2298,7 +2321,8 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
                       f"bytes staged ({rec['copy_gbps']:.2f} GB/s over the "
                       f"request), {rec['chunks']} chunks, "
                       f"{rec['cached_runs']} cached runs, {rec['syncs']} "
-                      f"host syncs, peak {rec['peak_above_mib']:.1f} MiB "
+                      f"host syncs, {rec['captures']} captures, peak "
+                      f"{rec['peak_above_mib']:.1f} MiB "
                       f"above the resident tables, lineitem pages read "
                       f"{rec['lineitem_passes']:.2f} times, rel err "
                       f"{rec['max_rel_err']:.3e}")
@@ -2325,6 +2349,7 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
                     "install_ms": recs[1]["ms"],
                     "warm_ms": [r["ms"] for r in warm],
                     "cold_peak_above_mib": cold["peak_above_mib"],
+                    "cold_captures": cold["captures"],
                     "max_rel_err": max(r["max_rel_err"] for r in recs)}
 
         profile_done = False
@@ -2383,12 +2408,51 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
         out["device_cache"] = cache.stats()
         print(f"[tpch-paged] arena: {json.dumps(out['arena'])}")
         print(f"[tpch-paged] device cache: {json.dumps(out['device_cache'])}")
-        store.page_store().close()
+    except BaseException:
+        _close_paged({"client": locals().get("client"), "root": root})
+        raise
+    # phase 14 reads the same paged client; it closes it
+    state["paged"] = {"client": client, "root": root}
     out["sf"] = sf
     out["lineitem_gib"] = li_bytes / 2**30
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"[tpch-paged] phase 12 wall time {out['wall_s']:.1f} s")
     return out
+
+
+def _paged_card(host, root, device="cuda") -> tuple:
+    """A card client over ``root`` with lineitem, orders and partsupp paged
+    (PAGED_REL_PAGE_BYTES pages in a PAGED_REL_POOL_BYTES arena, a
+    PAGED_REL_CACHE_BYTES device cache) and the other tables resident;
+    returns it and the ingest seconds."""
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    client = Client(Configuration(
+        root_dir=root, page_size_bytes=PAGED_REL_PAGE_BYTES,
+        page_pool_bytes=PAGED_REL_POOL_BYTES,
+        device_cache_bytes=PAGED_REL_CACHE_BYTES), device=device)
+    client.create_database("tpch")
+    t0 = time.perf_counter()
+    for n, (cols, dicts) in host.items():
+        client.create_set("tpch", n, type_name="table",
+                          storage="paged" if n in PAGED_REL_FACTS
+                          else "memory")
+        client.send_table("tpch", n, ColumnTable.from_columns(
+            cols, dicts, device="cpu"))
+    return client, time.perf_counter() - t0
+
+
+def _close_paged(paged: Optional[dict]) -> None:
+    """Close a paged client's arena and remove its directory."""
+    import shutil
+
+    if not paged:
+        return
+    if paged.get("client") is not None:
+        paged["client"].store.page_store().close()
+    shutil.rmtree(paged["root"], ignore_errors=True)
 
 
 def paged_relations_path(pk: dict, state: Optional[dict] = None) -> dict:
@@ -2864,6 +2928,900 @@ def rows_path(pk: dict) -> dict:
     return out
 
 
+# --- phase 14 ------------------------------------------------------------
+# warm requests of each compiled request; the resident requests that must
+# be captured whole, with no fallback; TPC-H's scale under --compiled-only
+# (the full run reuses phase 11's and phase 12's clients at TPCH_SF); the
+# paged queries run with plan_fusion on and off
+COMPILED_WARM = 3
+MUST_CAPTURE = ("ff", "transformer", "logreg", "la gram", "la linreg",
+                "la matmul")
+COMPILED_ONLY_SF = 1
+COMPILED_PAGED = ("q01", "q03", "q12")
+
+
+def _program_counts() -> dict:
+    from netsdb_tpu_torch.plan import executor, programs
+
+    return {"traces": executor.compile_stats()["traces"],
+            **programs.program_stats()}
+
+
+def _device_profile(run) -> tuple:
+    """(device busy ms, {kernel: launches}) of one request under the
+    profiler; kernels replayed from a CUDA graph count as launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("Activity Buffer")]
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            {e.key: e.count for e in rows})
+
+
+def node_by_node(client, sink):
+    """``sink``'s value from the executor's eager evaluator: the plan run
+    node by node, no program involved."""
+    import torch
+
+    from netsdb_tpu_torch.plan import executor
+    from netsdb_tpu_torch.plan.planner import plan_from_sinks
+
+    plan = plan_from_sinks([sink])
+    with torch.inference_mode():
+        values = executor._evaluate(
+            plan, executor.scan_values(client, plan), client.device)
+    return values[sink.inputs[0].node_id]
+
+
+def _new_fallbacks(before: dict) -> list:
+    from netsdb_tpu_torch.plan import programs
+
+    return [(f["key"], f["reason"]) for f in programs.fallback_log()
+            if f["runs"] > before.get(f["key"], 0)]
+
+
+_COMPILED_FAILURES: list = []
+
+
+def compiled_request(name, run, nbn, hold, kernel=None) -> dict:
+    """:func:`_compiled_request`, a failure recorded (phase 14 raises at
+    its end, after every request ran)."""
+    try:
+        return _compiled_request(name, run, nbn, hold, kernel)
+    except Exception as e:  # noqa: BLE001 — raised at the phase's end
+        print(f"[compiled] {name}: FAILED: {type(e).__name__}: {e}")
+        _COMPILED_FAILURES.append(f"{name}: {type(e).__name__}: {e}")
+        return {"failed": f"{type(e).__name__}: {e}"}
+
+
+def _compiled_request(name, run, nbn, hold, kernel=None) -> dict:
+    """One cold request of ``run`` (the capture) and COMPILED_WARM warm
+    ones through the compiled-program cache, then ``nbn`` (the same
+    request node by node); ``hold(got, ref)`` holds each compiled output
+    to the node-by-node one within the path's tolerance and returns the
+    error. Prints ms, busy share, captures, replays, the bytes captured
+    and the fallbacks with their reasons. Warm requests must build no
+    program; MUST_CAPTURE requests must capture with no fallback. With
+    ``kernel`` = (wrapper, launches a request, "false" for B1 or "true"
+    for B2) every request launches that kernel so many times, counted
+    through the replays by the wrapper's counter and on the card by the
+    profiler (``fold_kernel<..., carry>``)."""
+    import torch
+
+    from netsdb_tpu_torch.plan import programs
+
+    fb0 = {f["key"]: f["runs"] for f in programs.fallback_log()}
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    c0 = _program_counts()
+    k0 = kernel[0].launches if kernel else 0
+    cold_out, cold_ms = request(run)
+    c1 = _program_counts()
+    warm, outs = [], []
+    for _ in range(COMPILED_WARM):
+        got, ms = request(run)
+        warm.append(ms)
+        outs.append(got)
+    c2 = _program_counts()
+    counted = kernel[0].launches - k0 if kernel else 0
+    ref, nbn_ms = request(nbn)
+    err = max(hold(o, ref) for o in [cold_out] + outs)
+    del outs
+    graph_ms, kernels = _device_profile(run)
+    nbn_busy_ms, _ = _device_profile(nbn)
+    # the profiler may not see the kernels a graph replays (CUPTI traces
+    # them only in some sessions): then the same kernels, launched one
+    # by one in the node-by-node run, give the device time
+    traced = graph_ms >= 0.5 * nbn_busy_ms
+    busy_ms = graph_ms if traced else nbn_busy_ms
+    fallbacks = _new_fallbacks(fb0)
+    p50 = sorted(warm)[len(warm) // 2]
+    row = {"cold_ms": cold_ms, "warm_ms": warm, "warm_p50_ms": p50,
+           "node_by_node_ms": nbn_ms, "device_busy_ms": busy_ms,
+           "graph_profile_ms": graph_ms,
+           "node_by_node_busy_ms": nbn_busy_ms,
+           "busy_share": busy_ms / p50 if busy_ms else None,
+           "captures": c1["captures"] - c0["captures"],
+           "replays": c2["replays"] - c1["replays"],
+           "warm_traces": c2["traces"] - c1["traces"],
+           "capture_bytes": c1["capture_bytes"] - c0["capture_bytes"],
+           "reserved_bytes": torch.cuda.memory_reserved() - reserved0,
+           "fallbacks": fallbacks, "max_err": err}
+    busy = (f"{100 * row['busy_share']:.1f}%" if busy_ms
+            else "not measured (the profiler saw no CUDA activity)")
+    source = ("the replay's kernels" if traced else
+              f"the node-by-node run's kernels (the profiler saw "
+              f"{graph_ms:.3f} ms of the replay)")
+    print(f"[compiled] {name}: cold {cold_ms:.3f} ms, warm "
+          f"{', '.join(f'{m:.3f}' for m in warm)} ms, node by node "
+          f"{nbn_ms:.3f} ms; busy {busy_ms:.3f} ms ({source}) = {busy} of "
+          f"the warm p50; {row['captures']} captures, {row['replays']} "
+          f"replays, "
+          f"{row['warm_traces']} builds in warm requests; captured "
+          f"{row['capture_bytes'] / 2**20:.1f} MiB, reserved "
+          f"{row['reserved_bytes'] / 2**20:+.1f} MiB; max err vs node by "
+          f"node {err:.3e}; {len(fallbacks)} fallbacks")
+    for key, reason in fallbacks:
+        print(f"[compiled]   fallback {key[:110]}: {reason}")
+    if row["warm_traces"]:
+        raise RuntimeError(f"{name}: warm requests built "
+                           f"{row['warm_traces']} new programs")
+    if name in MUST_CAPTURE and (fallbacks or not row["captures"]):
+        raise RuntimeError(f"{name}: {row['captures']} captures, "
+                           f"fallbacks {fallbacks}")
+    if kernel:
+        wrapper, per_request, carry = kernel
+        kname = wrapper.__name__
+        # the launches recorded into the graph the cold request captured
+        # (what each replay launches on the card), and the kernels the
+        # profiler saw in one replay when it traced the graph's kernels
+        in_graph = (c1["captured_launches"].get(kname, 0)
+                    - c0["captured_launches"].get(kname, 0))
+        profiled = sum(n for k, n in kernels.items()
+                       if "fold_kernel" in k and f", {carry}>" in k)
+        row["kernel_launches"] = {kname: counted}
+        row["kernel_launches_in_graph"] = in_graph
+        row["kernel_profiled_in_replay"] = profiled if traced else None
+        print(f"[compiled] {name}: {kname} {counted} launches in "
+              f"{1 + COMPILED_WARM} requests through the program cache; "
+              f"{in_graph} recorded into the captured graph; "
+              + (f"{profiled} on the card in the profiled replay" if traced
+                 else "the profiler did not trace the replay's kernels"))
+        if counted != per_request * (1 + COMPILED_WARM) \
+                or in_graph != per_request or row["captures"] != 1 \
+                or (traced and profiled != per_request):
+            raise RuntimeError(f"{name}: {kname} launched {counted} times "
+                               f"in {1 + COMPILED_WARM} requests, "
+                               f"{in_graph} in {row['captures']} captured "
+                               f"graph(s), {profiled} profiled (want "
+                               f"{per_request} a request, in one graph)")
+    return row
+
+
+def _tol_hold(tol):
+    def hold(got, ref):
+        got = got.to_dense() if hasattr(got, "to_dense") else got
+        ref = ref.to_dense() if hasattr(ref, "to_dense") else ref
+        err = (got.double() - ref.double()).abs().max().item()
+        if not err <= tol:
+            raise RuntimeError(f"compiled vs node by node: {err} > {tol}")
+        return err
+    return hold
+
+
+def _seq_hold(tol):
+    def hold(got, ref):
+        return max(_tol_hold(tol)(a, b) for a, b in zip(got, ref))
+    return hold
+
+
+def _compiled_models(client, out) -> None:
+    """FF, the layer, logreg, word2vec's and the text classifier's DAGs,
+    the LSTM in f32 and bf16, conv2d (direct, VALID) and the LA tasks."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.core.blocked import BlockedTensor
+    from netsdb_tpu_torch.dsl import LAInterpreter, parse_program
+    from netsdb_tpu_torch.models import (Conv2DModel, FFModel, LogRegModel,
+                                         LSTMModel, TextClassifierModel,
+                                         TransformerLayerModel,
+                                         Word2VecModel)
+    from netsdb_tpu_torch.ops.cuda_kernels import flash_attention
+    from netsdb_tpu_torch.ops.lstm import lstm_unroll
+    from netsdb_tpu_torch.workloads import la_tasks
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    ff = FFModel(db="ff14", block=(512, 512))
+    ff.setup(client)
+    ff.load_random_weights(client, 1024, 4096, 1024, seed=SEED)
+    ff.load_inputs(client, np.random.default_rng(SEED + 41).standard_normal(
+        (16384, 1024), dtype=np.float32))
+    out["ff"] = compiled_request(
+        "ff", lambda: ff.inference(client),
+        lambda: node_by_node(client, ff.build_inference_dag()),
+        _tol_hold(FF_TOL))
+
+    tf = TransformerLayerModel(db="tf14", num_heads=8)
+    tf.setup(client)
+    tf.load_random_weights(client, embed=1024, seed=SEED)
+    tf.load_inputs(client, np.random.default_rng(SEED + 42).standard_normal(
+        (2, 4096, 1024), dtype=np.float32))
+    out["transformer"] = compiled_request(
+        "transformer", lambda: tf.serve_forward(client),
+        lambda: node_by_node(client, tf.build_forward_dag(client)),
+        _tol_hold(LAYER_TOL), kernel=(flash_attention, 1, "false"))
+
+    features, rows = MODEL_SIZES["logreg"].values()
+    lr = LogRegModel(db="lr14", block=(512, 512))
+    lr.setup(client)
+    lr.load_weights(client, randn(features, scale=features ** -0.5), 0.1)
+    lr.load_inputs(client, randn(rows, features))
+    out["logreg"] = compiled_request(
+        "logreg", lambda: lr.inference(client),
+        lambda: node_by_node(client, lr.build_inference_dag()),
+        _tol_hold(MODEL_TOLS["logreg"]))
+
+    vocab, dim, _, _, dag_rows = MODEL_SIZES["word2vec"].values()
+    w2v = Word2VecModel(db="w2v14", block=(512, 512))
+    w2v.setup(client)
+    w2v.load_embeddings(client, randn(vocab, dim))
+    w2v.load_onehot_inputs(client, torch.randint(
+        0, vocab, (dag_rows,), generator=g, device="cuda"), vocab)
+    out["word2vec_dag"] = compiled_request(
+        "word2vec one-hot DAG", lambda: w2v.inference(client),
+        lambda: node_by_node(client, w2v.build_inference_dag()),
+        _tol_hold(MODEL_TOLS["word2vec"]))
+    tvocab, labels, _ = MODEL_SIZES["text_classifier"].values()
+    tc = TextClassifierModel(db="tc14", block=(512, 512))
+    tc.setup(client)
+    tc.load_weights(client, randn(tvocab, dim),
+                    randn(labels, dim, scale=dim ** -0.5),
+                    randn(labels, scale=0.1))
+    tc.load_onehot_inputs(client, torch.randint(
+        0, tvocab, (dag_rows,), generator=g, device="cuda"), tvocab)
+    out["text_classifier_dag"] = compiled_request(
+        "text classifier DAG", lambda: tc.inference(client),
+        lambda: node_by_node(client, tc.build_inference_dag()),
+        _tol_hold(MODEL_TOLS["text_classifier"]))
+
+    hidden, inp, batch, steps, lblock = MODEL_SIZES["lstm"].values()
+    lw = {}
+    for gate in "ifco":
+        lw[f"w_{gate}"] = randn(hidden, inp, scale=inp ** -0.5)
+        lw[f"u_{gate}"] = randn(hidden, hidden, scale=hidden ** -0.5)
+        lw[f"b_{gate}"] = randn(hidden, scale=0.1)
+    h0, c0 = randn(hidden, batch, scale=0.5), randn(hidden, batch, scale=0.5)
+    xs = randn(steps, inp, batch)
+    for cd, key in ((None, "lstm"), ("bfloat16", "lstm_bf16")):
+        m = LSTMModel(db=f"{key}14", block=(lblock, lblock),
+                      compute_dtype=cd)
+        m.setup(client)
+        m.load_weights(client, lw)
+        m.load_state(client, h0, c0)
+
+        def eager(m=m):
+            xp = torch.stack([BlockedTensor.from_dense(
+                xs[t], (lblock, lblock), dtype=torch.float32,
+                device="cuda").data for t in range(steps)])
+            with torch.inference_mode():
+                return lstm_unroll(m.params_from_store(client), xp,
+                                   client.get_tensor(m.db, "h"),
+                                   client.get_tensor(m.db, "c"),
+                                   m.compute_dtype)
+
+        out[key] = compiled_request(
+            f"{key} run_sequence x{steps}",
+            lambda m=m: m.run_sequence(client, xs), eager,
+            _seq_hold(MODEL_TOLS[key]))
+
+    n, c, hw, o, k = MODEL_SIZES["conv2d"].values()
+    conv = Conv2DModel(db="conv14", mode="direct", stride=(1, 1),
+                       padding="VALID", activation="relu")
+    conv.setup(client)
+    conv.load(client, randn(n, c, hw, hw), randn(o, c, k, k), randn(o))
+    out["conv2d"] = compiled_request(
+        "conv2d direct", lambda: conv.inference(client),
+        lambda: node_by_node(client, conv.build_inference_dag()),
+        _seq_hold(MODEL_TOLS["conv2d"]))
+
+    for task in la_tasks.TASKS:
+        env = la_tasks.make_inputs(task, LA_ROWS, LA_COLS, LA_BLOCK, LA_LAM,
+                                   seed=SEED + 43)
+        fn = la_tasks.compile_pdml(la_tasks.PROGRAMS[task])
+        target = parse_program(la_tasks.PROGRAMS[task])[-1].target
+
+        def eager(task=task, env=env):
+            interp = LAInterpreter(device="cuda")
+            interp.env.update(env)
+            return interp.run(la_tasks.PROGRAMS[task])
+
+        def hold(got, ref, target=target):
+            bad, err = la_violations(got[target],
+                                     ref[target].to_dense().double())
+            if bad:
+                raise RuntimeError(f"{bad} entries outside rtol = atol = "
+                                   f"{LA_RTOL} of the node-by-node run")
+            return err
+
+        out[f"la_{task}"] = compiled_request(
+            f"la {task}", lambda fn=fn, env=env: fn(env), eager, hold)
+        del env
+
+
+STALE_SMALL = 256         # a 256 x 256 f32 set (256 KiB)
+STALE_LARGE = 8192        # an 8192 x 8192 f32 set (256 MiB)
+
+
+def _scale_dag(db, factor, label="scale", out_set="out"):
+    """One Apply over set ``db``:m scaling it by the closure's ``factor``."""
+    from netsdb_tpu_torch.plan.computations import Apply, ScanSet, WriteSet
+
+    return WriteSet(Apply(ScanSet(db, "m"), lambda t: t.with_data(
+        t.data * factor), label=label), db, out_set)
+
+
+def _compiled_stale(out) -> None:
+    """The ways a graph could go stale, each request held on the card to
+    the same plan run node by node (and to its known value where there is
+    one): FF after a new batch, an earlier result re-read after later
+    requests, a second FF model of other shapes in the same db and job,
+    a small and a large set rewritten with the same shape (by a new
+    tensor, and in place by ``update_set``), a set evicted and reloaded,
+    the same labels with another closure constant, and two threads
+    building programs at once. A written set drops the variants that
+    read it, so its next request captures again (``captures`` 1); a
+    replay captures nothing."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.models import FFModel
+    from netsdb_tpu_torch.plan import executor
+    from netsdb_tpu_torch.storage.store import SetIdentifier
+
+    rows = out.setdefault("stale", {})
+
+    def held(name, run, nbn, want=None, tol=0.0, captures=None):
+        c0 = _program_counts()
+        got = run()
+        torch.cuda.synchronize()
+        c1 = _program_counts()
+        err = _tol_hold(tol)(got, nbn())
+        if want is not None:
+            err = max(err, _tol_hold(tol)(got, want))
+        n = c1["captures"] - c0["captures"]
+        rows[name] = {"max_err": err, "captures": n,
+                      "replays": c1["replays"] - c0["replays"]}
+        print(f"[compiled] stale {name}: max err {err:.3e} vs node by node"
+              f"{' and the known value' if want is not None else ''}; "
+              f"{n} captures, {rows[name]['replays']} replays")
+        if captures is not None and n != captures:
+            raise RuntimeError(f"stale {name}: {n} captures, want "
+                               f"{captures}")
+        return got
+
+    def case(name, fn):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 — raised at the phase's end
+            print(f"[compiled] stale {name}: FAILED: "
+                  f"{type(e).__name__}: {e}")
+            _COMPILED_FAILURES.append(f"stale {name}: {e}")
+
+    client = Client()
+    rng = np.random.default_rng(SEED + 47)
+
+    def ff_cases():
+        ff = FFModel(db="ff_stale", block=(512, 512))
+        ff.setup(client)
+        ff.load_random_weights(client, 1024, 4096, 1024, seed=SEED)
+        ff.load_inputs(client, rng.standard_normal((16384, 1024),
+                                                   dtype=np.float32))
+
+        def nbn():
+            return node_by_node(client, ff.build_inference_dag())
+
+        first = held("ff cold", lambda: ff.inference(client), nbn,
+                     tol=FF_TOL, captures=1)
+        kept = first.to_dense().clone()
+        held("ff warm", lambda: ff.inference(client), nbn, tol=FF_TOL,
+             captures=0)
+        ff.load_inputs(client, rng.standard_normal((16384, 1024),
+                                                   dtype=np.float32))
+        held("ff new batch", lambda: ff.inference(client), nbn,
+             tol=FF_TOL, captures=1)
+        held("ff new batch warm", lambda: ff.inference(client), nbn,
+             tol=FF_TOL, captures=0)
+        prog = [p for p in executor.cached_programs()
+                if p.key.startswith("ff_stale-inference::")]
+        if len(prog) != 1 or prog[0].variants() != 1:
+            raise RuntimeError(f"ff new batch: {len(prog)} programs, "
+                               f"{[p.variants() for p in prog]} variants "
+                               f"(the old batch's variant must be dropped)")
+        diff = (first.to_dense() - kept).abs().max().item()
+        print(f"[compiled] stale earlier result after 3 later requests: "
+              f"max change {diff:.3e}")
+        rows["earlier result"] = {"max_change": diff}
+        if diff != 0.0:
+            raise RuntimeError(f"an earlier result changed by {diff}")
+        ff2 = FFModel(db="ff_stale", block=(512, 512))  # same db and job
+        ff2.setup(client)
+        ff2.load_random_weights(client, 512, 2048, 256, seed=SEED + 1)
+        ff2.load_inputs(client, rng.standard_normal((4096, 512),
+                                                    dtype=np.float32))
+        held("second ff of other shapes", lambda: ff2.inference(client),
+             lambda: node_by_node(client, ff2.build_inference_dag()),
+             tol=FF_TOL, captures=1)
+
+    case("ff", ff_cases)
+
+    def rewritten(n):
+        db = f"stale{n}"
+        client.create_database(db)
+        client.create_set(db, "m")
+        x = rng.standard_normal((n, n), dtype=np.float32)
+        client.send_matrix(db, "m", x, (512, 512) if n >= 512 else (64, 64))
+        sink = _scale_dag(db, 2.0)
+        want = torch.from_numpy(2 * x).cuda()
+        run = lambda: client.execute_computations(  # noqa: E731
+            sink, job_name=db)[SetIdentifier(db, "out")]
+        nbn = lambda: node_by_node(client, sink)  # noqa: E731
+        held(f"{n} x {n} cold", run, nbn, want, captures=1)
+        held(f"{n} x {n} warm", run, nbn, want, captures=0)
+        client.send_matrix(db, "m", 5 * x, (512, 512) if n >= 512
+                           else (64, 64))
+        held(f"{n} x {n} rewritten", run, nbn, 5 * want, captures=1)
+
+        def in_place(items):
+            items[0].data.mul_(3)
+            return items
+        client.store.update_set(SetIdentifier(db, "m"), in_place)
+        # the set now holds (5 x) * 3, rounded twice as on the card
+        want = torch.from_numpy(5 * x * np.float32(3) * 2).cuda()
+        held(f"{n} x {n} rewritten in place", run, nbn, want, captures=1)
+        held(f"{n} x {n} in place warm", run, nbn, want, captures=0)
+        for name in ("m", "out"):  # the large set's 256 MiB twice
+            client.remove_set(db, name)
+
+    case("small set", lambda: rewritten(STALE_SMALL))
+    case("large set", lambda: rewritten(STALE_LARGE))
+
+    def constants():
+        client.create_database("stalek")
+        client.create_set("stalek", "m")
+        x = rng.standard_normal((1024, 1024), dtype=np.float32)
+        client.send_matrix("stalek", "m", x, (512, 512))
+        want = torch.from_numpy(x).cuda()
+        for factor in (2.0, 3.0, 2.0):
+            sink = _scale_dag("stalek", factor)
+            held(f"same labels, factor {factor}",
+                 lambda: client.execute_computations(
+                     sink, job_name="stalek")[SetIdentifier("stalek", "out")],
+                 lambda: node_by_node(client, sink), factor * want)
+
+    case("closure constants", constants)
+
+    def evicted():
+        with tempfile.TemporaryDirectory(prefix="netsdb_evict_") as root:
+            ec = Client(Configuration(root_dir=root))
+            ec.create_database("ev")
+            x = rng.standard_normal((4096, 4096), dtype=np.float32)
+            for name in ("m", "other"):
+                ec.create_set("ev", name)
+            ec.send_matrix("ev", "m", x, (512, 512))
+            # m and the output fit; "other", twice m, evicts them both
+            ec.store.max_host_bytes = 2 * x.nbytes + (1 << 20)
+            sink = _scale_dag("ev", 2.0)
+            want = torch.from_numpy(2 * x).cuda()
+            run = lambda: ec.execute_computations(  # noqa: E731
+                sink, job_name="ev")[SetIdentifier("ev", "out")]
+            nbn = lambda: node_by_node(ec, sink)  # noqa: E731
+            held("evicted: before", run, nbn, want, captures=1)
+            ec.send_matrix("ev", "other", np.concatenate([x, x]),
+                           (512, 512))
+            st = ec.store.set_stats(SetIdentifier("ev", "m"))
+            if ec.store.stats.evictions < 1 or st["in_memory"]:
+                raise RuntimeError(f"set m was not evicted: "
+                                   f"{ec.store.stats.evictions} evictions, "
+                                   f"{st}")
+            held("evicted and reloaded", run, nbn, want, captures=1)
+
+    case("eviction", evicted)
+
+    def two_threads():
+        mode0, show0 = torch.cuda.get_sync_debug_mode(), warnings.showwarning
+        xs = {}
+        for db in ("thr_a", "thr_b"):
+            client.create_database(db)
+            client.create_set(db, "m")
+            xs[db] = rng.standard_normal((2048, 2048), dtype=np.float32)
+            client.send_matrix(db, "m", xs[db], (512, 512))
+        c0 = _program_counts()
+        barrier, got, errs = threading.Barrier(2), {}, []
+
+        def go(db, factor):
+            try:
+                with torch.inference_mode():
+                    barrier.wait()
+                    got[db] = client.execute_computations(
+                        _scale_dag(db, factor), job_name=db)[
+                            SetIdentifier(db, "out")]
+            except Exception as e:  # noqa: BLE001
+                errs.append(e)
+        ts = [threading.Thread(target=go, args=(db, f))
+              for db, f in (("thr_a", 2.0), ("thr_b", 3.0))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        torch.cuda.synchronize()
+        c1 = _program_counts()
+        if errs:
+            raise errs[0]
+        for db, f in (("thr_a", 2.0), ("thr_b", 3.0)):
+            _tol_hold(0.0)(got[db], torch.from_numpy(f * xs[db]).cuda())
+        n = c1["captures"] - c0["captures"]
+        restored = (torch.cuda.get_sync_debug_mode() == mode0
+                    and warnings.showwarning is show0)
+        rows["two threads"] = {"captures": n, "restored": restored}
+        print(f"[compiled] stale two threads building at once: {n} "
+              f"captures, results exact, sync debug mode and warning hook "
+              f"{'restored' if restored else 'NOT restored'}")
+        if n != 2 or not restored:
+            raise RuntimeError(f"two threads: {n} captures, restored "
+                               f"{restored}")
+
+    case("two threads", two_threads)
+
+
+def _compiled_sp(out) -> None:
+    """The sequence-parallel layer (phase 5's size) over SP_POSITIONS
+    virtual positions of card 0: B2 16 times a request through the
+    replays."""
+    import numpy as np
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.ops.cuda_kernels import flash_attention_step
+    from netsdb_tpu_torch.parallel.mesh import virtual_devices
+
+    with virtual_devices(SP_POSITIONS, "cuda:0"):
+        client = Client()
+        model, replicated, seq_sharded = sp_model(client)
+        model.db = "transformer_sp14"
+        model.setup(client, placements={s: replicated
+                                        for s in TransformerLayerModel.SETS})
+        model.load_random_weights(client, embed=1024, seed=SEED)
+        model.load_inputs(client, np.random.default_rng(SEED + 45)
+                          .standard_normal((2, 16384, 1024),
+                                           dtype=np.float32),
+                          placement=seq_sharded)
+        out["sp"] = compiled_request(
+            "sp", lambda: model.serve_forward(client),
+            lambda: node_by_node(client, model.build_forward_dag(client)),
+            _tol_hold(SP_TOL), kernel=(flash_attention_step,
+                                       SP_POSITIONS * SP_POSITIONS, "true"))
+
+
+def _compiled_tpch(card, out) -> None:
+    """The ten suite queries on the resident card client."""
+    from netsdb_tpu_torch.relational import dag
+
+    for q in sorted(dag._QUERY_TABLES):
+        sink = dag.suite_sink_for(card, "tpch", q)
+
+        def hold(got, ref, q=q):
+            if q == "q03":
+                return _top10(q, *_q03_parts(q, got), *_q03_parts(q, ref))
+            return _hold(q, got, ref)
+
+        out[f"tpch_{q}"] = compiled_request(
+            f"tpch {q}", lambda s=sink: dag.run_query(card, s),
+            lambda s=sink: node_by_node(card, s), hold)
+
+
+REGION_DIM_ROWS = 1 << 20   # the spine's resident table
+REGION_KEYS = 8             # l_shipmode's 7 codes, padded
+
+
+def _region_plans(client, host) -> dict:
+    """tests/test_torch_fusion.py's mixed plan (Q06's fold over the paged
+    lineitem joined to a four-Apply spine over a resident table, one
+    spine region) and graft chain (a rowwise pre-chain, a segment-sum
+    fold over lineitem's chunks and a two-Apply epilogue, one graft
+    region) on the paged SF client: {name: (sink, hold(got, ref))}. The
+    graft sums in f64, so fused and unfused agree to 1e-12 and both
+    agree with numpy over the host columns."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.plan.computations import (Apply, Join, ScanSet,
+                                                    WriteSet)
+    from netsdb_tpu_torch.plan.fold import single_pass
+    from netsdb_tpu_torch.relational import dag
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    rng = np.random.default_rng(SEED + 46)
+    if not client.set_exists("tpch", "dim14"):
+        client.create_set("tpch", "dim14", type_name="table")
+    client.send_table("tpch", "dim14", ColumnTable.from_columns(
+        {"x": rng.standard_normal(REGION_DIM_ROWS, dtype=np.float32)}, {},
+        device="cpu"))
+    node = ScanSet("tpch", "dim14")
+    for i in range(4):
+        node = Apply(node, lambda t, _i=i: ColumnTable(
+            {"x": t["x"] * (1.0 + 1e-6 * _i)}, t.dicts, t.valid),
+            label=f"sp{i}")
+    z = Apply(node, lambda t: torch.sum(t["x"]) * 1e-9, label="zsum")
+    q06 = dag.q06_sink("tpch")
+    mixed = WriteSet(Join(q06.inputs[0], z, fn=lambda rev, v: ColumnTable(
+        {"revenue": rev["revenue"] + v}, rev.dicts, rev.valid),
+        label="combine"), "tpch", "mixed14")
+
+    def hold_mixed(got, ref):
+        a, b = got["revenue"].double(), ref["revenue"].double()
+        err = ((a - b).abs() / b.abs().clamp_min(1.0)).max().item()
+        if not err <= 1e-6:
+            raise RuntimeError(f"mixed: fused vs unfused rel err {err}")
+        return err
+
+    nk = REGION_KEYS
+    device = client.device
+    pre = Apply(ScanSet("tpch", "lineitem"), lambda t: ColumnTable(
+        {"k": t["l_shipmode"], "v": t["l_extendedprice"] * 1.5}, {},
+        t.valid), label="pre", rowwise=True)
+
+    def seg(st, ch):
+        m = ch.mask()
+        return st.index_add_(0, torch.where(m, ch["k"], 0).long(),
+                             torch.where(m, ch["v"], 0.0).double())
+
+    fold = single_pass(
+        lambda prev, src: torch.zeros(nk, dtype=torch.float64,
+                                      device=device),
+        seg, lambda st, src: st)
+    agg = Apply(pre, fold=fold, label="seg")
+    e1 = Apply(agg, lambda v: v + 1.0, label="e1")
+    graft = WriteSet(Apply(e1, lambda v: v * 0.5, label="e2"), "tpch",
+                     "graft14")
+    li = host["lineitem"][0]
+    oracle = (np.bincount(li["l_shipmode"], minlength=nk, weights=(
+        li["l_extendedprice"] * np.float32(1.5)).astype(np.float64))
+        + 1.0) * 0.5
+
+    def hold_graft(got, ref):
+        err = ((got - ref).abs() / ref.abs()).max().item()
+        want = torch.from_numpy(oracle).to(got.device)
+        err_np = ((got - want).abs() / want.abs()).max().item()
+        if not (err <= 1e-12 and err_np <= 1e-9):
+            raise RuntimeError(f"graft: fused vs unfused rel err {err}, "
+                               f"vs numpy {err_np}")
+        return max(err, err_np)
+
+    return {"mixed": (mixed, hold_mixed), "graft": (graft, hold_graft)}
+
+
+def _compiled_paged(paged, resident, host, out) -> None:
+    """Warm paged Q01, Q03 and Q12, the two region plans of
+    :func:`_region_plans` and the paged FF, each with plan_fusion on and
+    off: ms, chunks, host ms per chunk (the request's ms less the
+    device's busy ms, over its chunks), regions formed, captures and
+    replays; the two settings' results must be equal, the region plans
+    must form regions with fusion on only, and no measured request may
+    capture."""
+    import numpy as np
+    import tempfile
+
+    from netsdb_tpu_torch import Client, obs
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.models import FFModel
+    from netsdb_tpu_torch.plan import programs
+    from netsdb_tpu_torch.relational import dag
+    from netsdb_tpu_torch.storage.store import SetIdentifier
+
+    def both(name, client, run, hold, regions_needed=False) -> dict:
+        rows, outs = {}, {}
+        for fusion in (True, False):
+            client.store.config.plan_fusion = fusion
+            # this setting's programs are built by the first request and
+            # its stream steps captured by the second
+            fb0 = {f["key"]: f["runs"] for f in programs.fallback_log()}
+            c0 = _program_counts()
+            run()
+            run()
+            c1 = _program_counts()
+            regions0 = obs.REGISTRY.counter("fusion.regions_formed").value
+            got, rec = staged_request(client, run)
+            regions = (obs.REGISTRY.counter("fusion.regions_formed").value
+                       - regions0)
+            c2 = _program_counts()
+            fallbacks = _new_fallbacks(fb0)
+            # a request of seconds (Q12's host partition pass) is not
+            # profiled: its device share is small and known (PERF.md)
+            busy_ms = (_device_profile(run)[0] if rec["ms"] < 1000.0
+                       else None) or None  # 0: the replays were not traced
+            chunks = rec["chunks"]
+            host = ((rec["ms"] - busy_ms) / chunks
+                    if chunks and busy_ms is not None else None)
+            outs[fusion] = got
+            rows["on" if fusion else "off"] = {
+                "warm_ms": rec["ms"], "chunks": chunks,
+                "device_busy_ms": busy_ms, "host_ms_per_chunk": host,
+                "regions": regions,
+                "warmup_captures": c1["captures"] - c0["captures"],
+                "captures": c2["captures"] - c1["captures"],
+                "replays": c2["replays"] - c1["replays"],
+                "fallbacks": fallbacks}
+            print(f"[compiled] paged {name} plan_fusion={fusion}: warm "
+                  f"{rec['ms']:.3f} ms, {chunks} chunks, "
+                  + (f"device busy {busy_ms:.3f} ms, host {host:.3f} ms "
+                     f"per chunk" if host is not None else
+                     "device busy not measured (a request of seconds, "
+                     "or replays the profiler did not trace)")
+                  + f", {regions} regions formed; "
+                  f"{rows['on' if fusion else 'off']['warmup_captures']} "
+                  f"captures in its first two requests, "
+                  f"{c2['captures'] - c1['captures']} in this one, "
+                  f"{c2['replays'] - c1['replays']} replays, "
+                  f"{len(fallbacks)} fallbacks")
+            for key, reason in fallbacks:
+                print(f"[compiled]   fallback {key[:110]}: {reason}")
+            if c2["captures"] != c1["captures"]:
+                raise RuntimeError(f"paged {name}: a warm request captured "
+                                   f"{c2['captures'] - c1['captures']}")
+            if regions_needed and (regions > 0) != fusion:
+                raise RuntimeError(f"paged {name} plan_fusion={fusion}: "
+                                   f"{regions} regions formed")
+        client.store.config.plan_fusion = True
+        rows["max_err"] = hold(outs[True], outs[False])
+        return rows
+
+    client = paged["client"]
+    for q in COMPILED_PAGED:
+        sink = dag.suite_sink_for(client, "tpch", q)
+
+        def hold(got, ref, q=q):
+            if q == "q03":
+                return _top10(q, *_q03_parts(q, got), *_q03_parts(q, ref))
+            return _hold(q, got, ref)
+
+        try:
+            out[f"paged_{q}"] = both(q, client, lambda s=sink: dag.run_query(
+                client, s), hold)
+            k = {"k": 11} if q == "q03" else {}
+            ref = dag.run_query(resident, dag.suite_sink_for(
+                resident, "tpch", q, **k))
+            hold(dag.run_query(client, sink), ref)
+        except Exception as e:  # noqa: BLE001 — raised at the phase's end
+            print(f"[compiled] paged {q}: FAILED: {type(e).__name__}: {e}")
+            _COMPILED_FAILURES.append(f"paged {q}: {e}")
+
+    for name, (sink, hold) in _region_plans(client, host).items():
+        try:
+            out[f"paged_{name}"] = both(
+                name, client, lambda s=sink: client.execute_computations(
+                    s, job_name=f"{name}14")[SetIdentifier(
+                        "tpch", s.set_name)], hold, regions_needed=True)
+        except Exception as e:  # noqa: BLE001 — raised at the phase's end
+            print(f"[compiled] paged {name}: FAILED: "
+                  f"{type(e).__name__}: {e}")
+            _COMPILED_FAILURES.append(f"paged {name}: {e}")
+
+    with tempfile.TemporaryDirectory(prefix="netsdb_paged_ff_") as root:
+        fc = Client(Configuration(root_dir=root, page_size_bytes=PAGE_BYTES,
+                                  page_pool_bytes=POOL_BYTES))
+        ff = FFModel(db="ff_paged14", block=(512, 512))
+        ff.setup(fc, storages={"w1": "paged", "wo": "paged"})
+        ff.load_random_weights(fc, 1024, 4096, 1024, seed=SEED)
+        ff.load_inputs(fc, np.random.default_rng(SEED + 44).standard_normal(
+            (16384, 1024), dtype=np.float32))
+        try:
+            out["paged_ff"] = both("ff", fc, lambda: ff.inference(fc),
+                                   _tol_hold(PAGED_FF_TOL))
+            # the same warm request with every block step run as it comes
+            nbn = [request(lambda: node_by_node(
+                fc, ff.build_inference_dag()))[1] for _ in range(3)]
+            out["paged_ff"]["node_by_node_ms"] = nbn
+            print(f"[compiled] paged ff node by node (no program): warm "
+                  f"{', '.join(f'{m:.3f}' for m in nbn)} ms")
+        except Exception as e:  # noqa: BLE001 — raised at the phase's end
+            print(f"[compiled] paged ff: FAILED: {type(e).__name__}: {e}")
+            _COMPILED_FAILURES.append(f"paged ff: {e}")
+        fc.store.page_store().close()
+
+
+def compiled_path(state: Optional[dict] = None) -> dict:
+    """Phase 14 between launch counts set to 0 and read, the compiled
+    cache cleared first so every cold request captures. ``state`` holds
+    phase 11's resident card client and phase 12's paged client; without
+    it (``--compiled-only``) both are made here at COMPILED_ONLY_SF."""
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+    from netsdb_tpu_torch.plan import executor, programs
+
+    t0 = time.perf_counter()
+    own = state is None
+    if own:
+        import tempfile
+
+        state = _resident_card(COMPILED_ONLY_SF)
+        root = tempfile.mkdtemp(prefix="netsdb_paged_rel_")
+        state["paged"] = {"client": None, "root": root}
+        state["paged"]["client"], _ = _paged_card(state["host"], root)
+    executor.clear_compiled_cache()
+    programs.reset_program_stats()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    flash_attention.launches = flash_attention_step.launches = 0
+    out = {"graph_pool_bytes": {}}
+
+    def section(name, run):
+        run()
+        torch.cuda.synchronize()
+        out["graph_pool_bytes"][name] = programs.graph_pool_bytes()
+        print(f"[compiled] {name}: the cache's graphs hold "
+              f"{programs.graph_pool_bytes() / 2**20:.1f} MiB of pools, "
+              f"{len(executor.compiled_cache_keys())} programs; reserved "
+              f"{(torch.cuda.memory_reserved() - reserved0) / 2**30:+.3f} "
+              f"GiB over the phase")
+        executor.clear_compiled_cache()
+        torch.cuda.empty_cache()
+
+    try:
+        section("models", lambda: _compiled_models(Client(), out))
+        section("stale", lambda: _compiled_stale(out))
+        section("sp", lambda: _compiled_sp(out))
+        section("tpch", lambda: _compiled_tpch(state["card"], out))
+        section("paged", lambda: _compiled_paged(state["paged"],
+                                                 state["card"],
+                                                 state["host"], out))
+    finally:
+        _close_paged(state.get("paged"))
+    launches = (flash_attention.launches, flash_attention_step.launches)
+    stats = programs.program_stats()
+    torch.cuda.synchronize()
+    out["program_stats"] = stats
+    out["fallbacks"] = programs.fallback_log()
+    out["cache_reserved_bytes"] = torch.cuda.memory_reserved() - reserved0
+    out["launches"] = {"flash_attention": launches[0],
+                       "flash_attention_step": launches[1]}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[compiled] phase 14: {json.dumps(stats)}; "
+          f"{len(executor.compiled_cache_keys())} programs cached, memory "
+          f"reserved {out['cache_reserved_bytes'] / 2**30:+.3f} GiB over "
+          f"the phase; flash_attention {launches[0]} launches, "
+          f"flash_attention_step {launches[1]}; {out['wall_s']:.1f} s")
+    print(f"[compiled] open fallbacks: {len(out['fallbacks'])}")
+    for f in out["fallbacks"]:
+        print(f"[compiled]   {f['key'][:110]}: {f['reason']} "
+              f"({f['runs']} eager runs)")
+    if _COMPILED_FAILURES:
+        raise RuntimeError("phase 14: " + " | ".join(_COMPILED_FAILURES))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2914,8 +3872,18 @@ def main() -> int:
         return 0
     if "--paged-relations-only" in sys.argv[1:]:
         # phase 12 alone, the same way
-        print(json.dumps({"paged_relations": paged_relations_path(pk),
-                          "card": smi}, default=str))
+        state = _resident_card(TPCH_SF)
+        try:
+            res = paged_relations_path(pk, state)
+        finally:
+            _close_paged(state.get("paged"))
+        print(json.dumps({"paged_relations": res, "card": smi},
+                         default=str))
+        return 0
+    if "--compiled-only" in sys.argv[1:]:
+        # phase 14 alone, the same way (TPC-H at COMPILED_ONLY_SF)
+        print(json.dumps({"compiled": compiled_path(), "card": smi},
+                         default=str))
         return 0
     if "--rows-only" in sys.argv[1:]:
         # phase 13 alone, the same way
@@ -2952,9 +3920,13 @@ def main() -> int:
     train = train_path()
     la = la_path()
     relational, rel_state = relational_path(pk)
-    paged_relations = paged_relations_path(pk, rel_state)
+    try:
+        paged_relations = paged_relations_path(pk, rel_state)
+        rows = rows_path(pk)
+        compiled = compiled_path(rel_state)
+    finally:
+        _close_paged(rel_state.get("paged"))
     del rel_state
-    rows = rows_path(pk)
 
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
@@ -2963,7 +3935,7 @@ def main() -> int:
                       "paged": paged, "models": models, "train": train,
                       "la": la, "relational": relational,
                       "paged_relations": paged_relations, "rows": rows,
-                      "card": smi}, default=str))
+                      "compiled": compiled, "card": smi}, default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
         return {"name": kname, "route": "cuda", "source": source,
@@ -2980,11 +3952,15 @@ def main() -> int:
                    "netsdb_tpu_torch/csrc/flash_attention.cu",
                    "netsdb_tpu/ops/pallas_kernels.py:135",
                    {"inference": b1_launches,
-                    "training": train["transformer_b1_launches"]}, b1),
+                    "training": train["transformer_b1_launches"],
+                    "compiled": compiled["launches"]["flash_attention"]},
+                   b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
                    "netsdb_tpu/ops/pallas_kernels.py:286",
-                   {"sequence_parallel": sp["launches"]}, b2)]}))
+                   {"sequence_parallel": sp["launches"],
+                    "compiled": compiled["launches"]["flash_attention_step"]},
+                   b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

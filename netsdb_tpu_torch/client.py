@@ -106,16 +106,18 @@ class Client:
         data arrives. ``type_name="objects"`` columnarises what
         :meth:`send_data` sends (a paged ``objects`` set pages the table).
 
-        ``eviction`` keeps the reference's default, ``"lru"``: the port
-        never spills a set under a host-memory budget, so another policy
-        raises (ROADMAP.md A2). ``partition_lambda`` names the key
-        function the dispatcher routes the set's records by (the
+        ``eviction`` (``"lru"``, ``"mru"`` or ``"random"``) orders the set
+        among those the store flushes and drops when its memory sets
+        outgrow ``store.max_host_bytes`` (on the client's device); a
+        dropped set reloads on its next read. ``partition_lambda`` names
+        the key function the dispatcher routes the set's records by (the
         reference's createSet with a dispatch computation); the catalog
         keeps it in the set's meta."""
-        if eviction != "lru":
-            raise NotImplementedError(
-                f"create_set(eviction={eviction!r}): set eviction under a "
-                f"host-memory budget is not ported yet: ROADMAP.md A2")
+        from netsdb_tpu_torch.storage.store import EVICTION_POLICIES
+
+        if eviction not in EVICTION_POLICIES:
+            raise ValueError(f"eviction must be one of {EVICTION_POLICIES}, "
+                             f"got {eviction!r}")
         if isinstance(placement, dict):
             placement = Placement.from_meta(placement)
         if placement is not None and not isinstance(placement, Placement):
@@ -147,7 +149,8 @@ class Client:
         self.catalog.create_set(db, set_name, type_name, meta, persistence)
         ident = SetIdentifier(db, set_name)
         self.store.create_set(ident, placement=placement, storage=storage,
-                              persistence=persistence, type_name=type_name)
+                              persistence=persistence, type_name=type_name,
+                              eviction=eviction)
         return ident
 
     def remove_set(self, db: str, set_name: str) -> None:
@@ -326,11 +329,24 @@ class Client:
 
     # --- query execution ----------------------------------------------
     def execute_computations(self, *sinks, job_name: str = "job",
-                             materialize: bool = True):
+                             materialize: bool = True,
+                             explain: bool = False):
         """Plan and run a Computation DAG (reference
         ``QueryClient::executeComputations``); ``sinks`` are
-        :class:`~netsdb_tpu_torch.plan.computations.WriteSet` nodes."""
+        :class:`~netsdb_tpu_torch.plan.computations.WriteSet` nodes.
+
+        ``explain=True`` is the in-process EXPLAIN ANALYZE: every plan
+        node's wall time, rows, program builds and fusion region are
+        recorded (``obs/operators.py``) and the return becomes
+        ``(results, operators_tree)``."""
+        from netsdb_tpu_torch import obs
         from netsdb_tpu_torch.plan.executor import execute_computations
 
-        return execute_computations(self, list(sinks), job_name=job_name,
-                                    materialize=materialize)
+        if not explain:
+            return execute_computations(self, list(sinks), job_name=job_name,
+                                        materialize=materialize)
+        with obs.operators.explain_capture() as cap:
+            results = execute_computations(self, list(sinks),
+                                           job_name=job_name,
+                                           materialize=materialize)
+        return results, cap.get("operators")

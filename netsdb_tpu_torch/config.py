@@ -14,11 +14,6 @@ import torch
 # setting one away from its default raises, naming the item
 _LATER = {"distributed_matmul": (False, "A4"),
           "summa_grid": (None, "A4"),
-          "plan_fusion": (False, "A2 (plan/fusion.py)"),
-          "fusion_min_region": (None, "A2 (plan/fusion.py)"),
-          "fusion_cost_source": (None, "A2 (plan/fusion.py)"),
-          "fusion_mapper": (None, "A2 (plan/fusion.py)"),
-          "fusion_stage_budget_bytes": (None, "A2 (plan/fusion.py)"),
           "device_cache_pin_auto": (False, "A7")}
 
 
@@ -41,9 +36,20 @@ class Configuration:
     ``device_cache_pin_bytes`` of a set's head pinned against eviction;
     a paged relation's writes are logged as dirty row ranges, at most
     ``device_cache_dirty_log`` entries before the log folds into one
-    whole-set entry. Knobs of later ROADMAP.md items (the distributed
-    matmul, plan fusion, the automatic pin budget) raise
-    ``NotImplementedError`` when set away from their defaults."""
+    whole-set entry.
+
+    Fusion (``plan/fusion.py``) keeps the reference's knobs and
+    defaults: ``plan_fusion`` on (paged plans run spine regions as one
+    program each and graft chains onto streamed folds; off, node by
+    node), ``fusion_min_region`` nodes at least per spine region (at
+    least 2), ``fusion_cost_source`` ``"ledger"`` (the operator ledger's
+    means) or ``"static"``, ``fusion_mapper`` ``"optimal"`` (the exact
+    segmentation) or ``"greedy"``, and ``fusion_stage_budget_bytes`` (0:
+    no budget) splitting a region whose staged-bytes estimate exceeds it.
+
+    Knobs of later ROADMAP.md items (the distributed matmul, the
+    automatic pin budget) raise ``NotImplementedError`` when set away
+    from their defaults."""
 
     default_block_shape: Tuple[int, int] = (512, 512)
     root_dir: str = dataclasses.field(
@@ -63,14 +69,15 @@ class Configuration:
     device_cache_partial: bool = True
     device_cache_pin_bytes: int = 0
     device_cache_dirty_log: int = 64
+    # --- fusion-aware plan compilation (plan/fusion.py) ---
+    plan_fusion: bool = True
+    fusion_min_region: int = 2
+    fusion_cost_source: str = "ledger"
+    fusion_mapper: str = "optimal"
+    fusion_stage_budget_bytes: int = 0
     # --- later items (see _LATER) ---
     distributed_matmul: bool = False
     summa_grid: Optional[str] = None
-    plan_fusion: bool = False
-    fusion_min_region: Optional[int] = None
-    fusion_cost_source: Optional[str] = None
-    fusion_mapper: Optional[str] = None
-    fusion_stage_budget_bytes: Optional[int] = None
     device_cache_pin_auto: bool = False
 
     def __post_init__(self) -> None:
@@ -85,6 +92,15 @@ class Configuration:
         if self.bucket_density not in (2, 4):
             raise ValueError(f"bucket_density must be 2 or 4, got "
                              f"{self.bucket_density!r}")
+        if self.fusion_cost_source not in ("ledger", "static"):
+            raise ValueError(f"fusion_cost_source must be 'ledger' or "
+                             f"'static', got {self.fusion_cost_source!r}")
+        if self.fusion_mapper not in ("optimal", "greedy"):
+            raise ValueError(f"fusion_mapper must be 'optimal' or "
+                             f"'greedy', got {self.fusion_mapper!r}")
+        if self.fusion_stage_budget_bytes < 0:
+            raise ValueError(f"fusion_stage_budget_bytes must be >= 0, "
+                             f"got {self.fusion_stage_budget_bytes!r}")
 
     @property
     def data_dir(self) -> str:

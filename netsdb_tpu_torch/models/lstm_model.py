@@ -4,7 +4,10 @@
 biases), input and state sets, one cell step as 8 matmuls and the gate
 fusions. ``step`` writes the new state through the store as the
 reference test program does per timestep; ``run_sequence`` loops the
-cell over a sequence (``ops.lstm.lstm_unroll``).
+cell over a sequence (``ops.lstm.lstm_unroll``) as one program of the
+executor's compiled-program cache (``lstm::<db>::<compute dtype>``: one
+CUDA graph per sequence shape on the card, the stored weights and state
+read in place), as the reference runs it as one ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -84,4 +87,9 @@ class LSTMModel:
             BlockedTensor.from_dense(xs[t], x_block, dtype=torch.float32,
                                      device=client.device).data
             for t in range(xs.shape[0])])
-        return lstm_unroll(params, xs_padded, h, c, self.compute_dtype)
+        from netsdb_tpu_torch.plan.executor import run_program
+
+        with torch.inference_mode():
+            return run_program(f"lstm::{self.db}::{self.compute_dtype}",
+                               lstm_unroll, params, xs_padded, h, c,
+                               self.compute_dtype, ref_args=(0, 2, 3))

@@ -8,7 +8,9 @@ re-mask their output; masked reductions use neutral fills.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+from typing import Callable, Iterator, List, Optional
 
 import torch
 
@@ -23,6 +25,36 @@ def on_sm90(device=None) -> bool:
     if dev.type != "cuda" or not torch.cuda.is_available():
         return False
     return torch.cuda.get_device_capability(dev) == (9, 0)
+
+
+_deferred: "contextvars.ContextVar[Optional[List[Callable[[], None]]]]" = \
+    contextvars.ContextVar("netsdb_torch_deferred_checks", default=None)
+
+
+def defer_check(check: Callable[[], None]) -> bool:
+    """Hand a host-syncing validity check (``check()`` raises when the
+    values it reads are bad) to the compiled program being built, which
+    runs it after the program ran (and after every replay); True when it
+    was deferred. Outside a program build this returns False and the
+    caller runs ``check()`` at once. An op that defers must keep its own
+    kernels in bounds for bad values (clamp), since they run before the
+    check."""
+    pending = _deferred.get()
+    if pending is None:
+        return False
+    pending.append(check)
+    return True
+
+
+@contextlib.contextmanager
+def deferring() -> Iterator[List[Callable[[], None]]]:
+    """Collect the checks :func:`defer_check` is handed in this context."""
+    pending: List[Callable[[], None]] = []
+    token = _deferred.set(pending)
+    try:
+        yield pending
+    finally:
+        _deferred.reset(token)
 
 
 def full_f32_precision() -> None:

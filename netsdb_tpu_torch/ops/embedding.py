@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from netsdb_tpu_torch.core.blocked import BlockedTensor, as_torch_dtype
+from netsdb_tpu_torch.ops.common import defer_check
 from netsdb_tpu_torch.ops.linalg import transpose
 from netsdb_tpu_torch.ops.matmul import matmul_t
 
@@ -35,9 +36,18 @@ def _ids(ids, device, bound: int, what: str) -> torch.Tensor:
                               device=device)
     if idx.numel():
         lo, hi = torch.aminmax(idx)
-        if lo < 0 or hi >= bound:
-            raise IndexError(f"{what} must lie in [0, {bound}), got "
-                             f"[{int(lo)}, {int(hi)}]")
+
+        def check():
+            if lo < 0 or hi >= bound:
+                raise IndexError(f"{what} must lie in [0, {bound}), got "
+                                 f"[{int(lo)}, {int(hi)}]")
+
+        if defer_check(check):
+            # inside a compiled program the check runs after it: keep the
+            # gather in bounds until then
+            idx = idx.clamp(0, bound - 1)
+        else:
+            check()
     return idx
 
 

@@ -22,7 +22,8 @@ import torch
 
 from netsdb_tpu_torch.config import resolve_device
 from netsdb_tpu_torch.core.blocked import BlockMeta, BlockedTensor
-from netsdb_tpu_torch.ops.common import full_f32_precision, neutral_fill
+from netsdb_tpu_torch.ops.common import (defer_check, full_f32_precision,
+                                        neutral_fill)
 # re-exported: the DSL's products
 from netsdb_tpu_torch.ops.matmul import matmul, matmul_t, t_matmul  # noqa: F401
 
@@ -171,6 +172,18 @@ def inverse(a: BlockedTensor) -> BlockedTensor:
     if a.shape[0] != a.shape[1]:
         raise ValueError(f"inverse of non-square {a.shape}")
     full_f32_precision()
-    inv = torch.linalg.inv(a.to_dense().float())
+    # inv_ex reports a singular matrix in ``info`` without a host sync,
+    # so a compiled program can hold it (its check runs after the program)
+    inv, info = torch.linalg.inv_ex(a.to_dense().float())
+
+    def check():
+        if info != 0:
+            raise torch.linalg.LinAlgError(
+                f"linalg.inv: The diagonal element {int(info)} is zero, the "
+                f"inversion could not be completed because the input "
+                f"matrix is singular.")
+
+    if not defer_check(check):
+        check()
     return BlockedTensor.from_dense(inv.to(a.dtype), a.meta.block_shape,
                                     dtype=a.dtype, device=a.device)

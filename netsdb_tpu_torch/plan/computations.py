@@ -29,6 +29,19 @@ from typing import Any, Callable, List, Optional, Sequence
 
 _ids = itertools.count()
 
+#: labels of the audited row-decomposable chunk transforms (the
+#: reference's ``ROWWISE_SAFE_LABELS``): an :class:`Apply` whose label
+#: matches one (exactly, or by prefix for an entry ending in ``:``) is
+#: ``rowwise`` unless it declares otherwise
+ROWWISE_SAFE_LABELS = ("pre:affine", "pre:project", "pre:scale")
+
+
+def rowwise_safe(label: str) -> bool:
+    """True when ``label`` is in the derived rowwise set."""
+    lab = str(label or "")
+    return any(lab.startswith(entry) if entry.endswith(":")
+               else lab == entry for entry in ROWWISE_SAFE_LABELS)
+
 
 class Computation:
     """DAG node. ``inputs`` are upstream Computations."""
@@ -70,13 +83,24 @@ class Apply(Computation):
     """1-in projection — reference ``SelectionComp``. ``tensor_fold``
     says how the node streams a paged tensor input; with ``fn=None`` a
     ``fold`` gives ``fn`` (``fold.whole``). ``label`` should name every
-    parameter ``fn`` closes over, as the reference's builders do."""
+    parameter ``fn`` closes over, as the reference's builders do (the
+    port's compiled programs also key on the closure's values, so a
+    reused label never serves another closure's result).
+
+    ``traceable=False`` keeps the node out of every compiled program
+    (host work that must run as it comes). ``rowwise=True`` declares
+    ``fn`` row-decomposable and schema-preserving (a row slice in gives
+    the matching row slice of the whole result, a ColumnTable in a
+    ColumnTable out with the same dictionaries), so the fusion mapper
+    may run it inside a streamed fold's per-chunk step; ``None`` derives
+    it from :data:`ROWWISE_SAFE_LABELS`."""
 
     op_kind = "Apply"
 
     def __init__(self, input_: Computation,
                  fn: Optional[Callable[[Any], Any]] = None,
-                 label: str = "", tensor_fold=None, fold=None):
+                 label: str = "", tensor_fold=None, fold=None,
+                 traceable: bool = True, rowwise: Optional[bool] = None):
         super().__init__([input_])
         if fn is None:
             if fold is None:
@@ -85,7 +109,10 @@ class Apply(Computation):
         self.fn = fn
         self.fold = fold
         self.tensor_fold = tensor_fold
+        self.traceable = traceable
         self.label = label or getattr(fn, "__name__", "fn")
+        self.rowwise = (bool(rowwise) if rowwise is not None
+                        else rowwise_safe(self.label))
 
     def evaluate(self, x):
         return self.fn(x)
@@ -293,6 +320,7 @@ class Partition(Computation):
                              f"{num_partitions}")
         self.key_fn = key_fn
         self.num_partitions = num_partitions
+        self.traceable = False  # host routing runs as it comes
         self.label = label or (key_fn if isinstance(key_fn, str)
                                else getattr(key_fn, "__name__", "partition"))
 

@@ -1,6 +1,8 @@
 """Logical planner — counterpart of ``netsdb_tpu/plan/planner.py``:
 topo-sort the DAG from its sinks and keep shared subgraphs once. The
-port runs the whole plan eagerly, so it cuts no stages. The TCAP-like
+executor compiles whole plans and fusion regions itself
+(``plan/executor.py``, ``plan/fusion.py``), so the planner cuts no
+stages. The TCAP-like
 dump stays the debuggable plan artifact."""
 
 from __future__ import annotations
@@ -19,6 +21,15 @@ class LogicalPlan:
     def to_plan_string(self) -> str:
         """TCAP-like textual dump (test/debug surface)."""
         return "\n".join(n.plan_atom() for n in self.topo)
+
+    def consumers(self) -> Dict[int, List[Computation]]:
+        """node_id → its consumers in topo order (the reverse edges the
+        fusion mapper walks)."""
+        out: Dict[int, List[Computation]] = {}
+        for n in self.topo:
+            for i in n.inputs:
+                out.setdefault(i.node_id, []).append(n)
+        return out
 
     def cache_key(self) -> str:
         """Canonical structural key: nodes renumbered by topo position,

@@ -546,19 +546,25 @@ def suite_args_split(tables: Tables):
 
 def compile_suite(tables: Tables) -> Callable[[], Dict[str, object]]:
     """The ten-query suite as one callable: each call runs the ten
-    cores in turn, eagerly, and returns ``{name: raw core output}``.
-    The plans and arguments are fixed once here (the reference fuses
-    the suite into one jitted program; capturing the ten cores in one
-    CUDA graph is ROADMAP.md A2)."""
+    cores in turn and returns ``{name: raw core output}``. The plans and
+    arguments are fixed once here, and, as the reference fuses the suite
+    into one jitted program, the ten cores are one program of the
+    executor's compiled-program cache (one CUDA graph on the card, the
+    tables' columns read in place)."""
+    from netsdb_tpu_torch.plan.executor import run_program
+
     templates, arrays = suite_args_split(tables)
 
-    def runner():
+    def cores(arrays):
         out = {}
         for name, t in templates.items():
             it = iter(arrays[name])
             rebuilt = [next(it) if x is _SLOT else x for x in t]
             out[name] = _SUITE_CORES[name][0](*rebuilt)
         return out
+
+    def runner():
+        return run_program("suite::tpch", cores, arrays, ref_args=(0,))
 
     runner.arrays = arrays
     runner.templates = templates

@@ -98,6 +98,15 @@ def clear_overrides() -> None:
     _cache.clear()
 
 
+def state_token() -> tuple:
+    """Every threshold in force, by device kind (the default device's
+    loaded first): compiled programs key on it, since a plan's strategy
+    choices are baked into a captured graph."""
+    _load(device_kind())
+    return tuple(sorted((kind, tuple(sorted(table.items())))
+                        for kind, table in _cache.items()))
+
+
 # --------------------------------------------------------------- autotune
 
 def _time_ms(fn: Callable[[], object], device, iters: int = 5) -> float:

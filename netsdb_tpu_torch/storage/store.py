@@ -34,6 +34,21 @@ the relation) and dirties only its rows; every write is logged as a
 dirty range, at most ``config.device_cache_dirty_log`` of them before
 the log folds into one whole-set entry.
 
+**Eviction** (reference ``store.py:1173-1212``). The store holds at most
+``max_host_bytes`` (default ``config.shared_mem_bytes``) of memory sets'
+items. In the port those bytes live on the client's device (a memory
+set's tensors and tables are on the card), so the budget bounds device
+memory, not host memory. Past it, after a write,
+:meth:`SetStore._maybe_evict` flushes memory sets to ``config.data_dir``
+and drops their items, ordered by each set's ``eviction`` policy
+(``"lru"``, ``"mru"``, ``"random"``), the set just written excluded (a
+reload evicts nothing: the next write does, as in the reference);
+paged sets are never evicted (their pages already live in the arena).
+``stats.evictions`` counts them, and a dropped set reloads on its next
+read. Every write, eviction and removal is announced to the listeners of
+:func:`on_set_write` (the compiled-program cache drops the programs that
+read the set in place).
+
 A set keeps the type it was created with. A ``tensor4d`` set (the conv
 model's image, filter and bias sets) is scanned as its item list even
 when it holds one tensor, as the reference scans a set of numpy arrays
@@ -48,8 +63,10 @@ import functools
 import itertools
 import os
 import pickle
+import random
 import threading
-from typing import Any, Dict, Iterator, List, NamedTuple, Optional
+import time
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -63,6 +80,35 @@ from netsdb_tpu_torch.utils.locks import RWLock
 
 # set types whose scan is always the item list
 LIST_SCAN_TYPES = frozenset({"tensor4d"})
+
+EVICTION_POLICIES = ("lru", "mru", "random")
+
+_write_listeners: List[Callable[[str], None]] = []
+
+
+def on_set_write(fn: Callable[[str], None]) -> None:
+    """Call ``fn(str(ident))`` whenever a set's content changes, or the
+    set is evicted or removed."""
+    if fn not in _write_listeners:
+        _write_listeners.append(fn)
+
+
+def _announce(ident) -> None:
+    for fn in list(_write_listeners):
+        fn(str(ident))
+
+
+@dataclasses.dataclass
+class CacheStats:
+    """Hit, miss, eviction, spill and load counters (reference
+    ``CacheStats``): a hit is a read of a set in memory, a miss or load
+    one that had to reload it, a spill one flush of an evicted set."""
+
+    hits: int = 0
+    misses: int = 0
+    evictions: int = 0
+    spills: int = 0
+    loads: int = 0
 
 
 class SetIdentifier(NamedTuple):
@@ -101,6 +147,27 @@ class _StoredSet:
     dirty_log: list = dataclasses.field(default_factory=list)
     # orders the appends and updates of one paged relation
     append_mu: Any = dataclasses.field(default_factory=threading.Lock)
+    eviction: str = "lru"
+    last_access: float = 0.0
+    nbytes: int = 0
+
+
+def _item_nbytes(item: Any) -> int:
+    """Bytes an item holds (tensors by their padded size); a host record
+    counts 256, as in the reference."""
+    if isinstance(item, BlockedTensor):
+        return _item_nbytes(item.data)
+    if isinstance(item, torch.Tensor):
+        return item.numel() * item.element_size()
+    if isinstance(item, ShardedTensor):
+        return sum(t.numel() * t.element_size()
+                   for t in {id(t): t for t in item.shards.flat}.values())
+    cols = getattr(item, "cols", None)
+    if isinstance(cols, dict):  # ColumnTable
+        n = sum(c.numel() * c.element_size() for c in cols.values())
+        valid = getattr(item, "valid", None)
+        return n + (valid.numel() if valid is not None else 0)
+    return 256
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -121,9 +188,11 @@ class SetStore:
     streams reading it without freezing the store."""
 
     def __init__(self, config: Optional[Configuration] = None,
-                 device=None):
+                 device=None, max_host_bytes: Optional[int] = None):
         self.config = config if config is not None else Configuration()
         self.device = torch.device(device if device is not None else "cpu")
+        self.max_host_bytes = max_host_bytes or self.config.shared_mem_bytes
+        self.stats = CacheStats()
         self._sets: Dict[SetIdentifier, _StoredSet] = {}
         self._lock = threading.RLock()
         self._page_store = None
@@ -185,6 +254,10 @@ class SetStore:
         if cache is not None and (rows is None or folded
                                   or not cache.partial):
             cache.invalidate(str(s.ident))
+        s.last_access = time.time()
+        if s.items is not None and s.storage == "memory":
+            s.nbytes = sum(_item_nbytes(i) for i in s.items)
+        _announce(s.ident)
 
     def _bind_cache(self, pc, ident: SetIdentifier) -> None:
         """Bind a store-owned paged relation to the device cache (grace
@@ -202,19 +275,22 @@ class SetStore:
     def create_set(self, ident: SetIdentifier, placement: Optional[Any] = None,
                    storage: str = "memory",
                    persistence: str = "transient",
-                   type_name: str = "tensor") -> None:
+                   type_name: str = "tensor", eviction: str = "lru") -> None:
         """Create the set if it is new. A placement given for an existing
         set replaces its placement and re-places what it holds; an
-        existing set keeps its type."""
+        existing set keeps its type and eviction policy."""
         if storage not in ("memory", "paged"):
             raise ValueError(f"storage must be 'memory' or 'paged', "
                              f"got {storage!r}")
+        if eviction not in EVICTION_POLICIES:
+            raise ValueError(f"eviction must be one of {EVICTION_POLICIES}, "
+                             f"got {eviction!r}")
         with self._lock:
             s = self._sets.get(ident)
             if s is None:
                 s = self._sets[ident] = _StoredSet(
                     ident, [], persistence=persistence, placement=placement,
-                    storage=storage, type_name=type_name)
+                    storage=storage, type_name=type_name, eviction=eviction)
                 self._touch(s)
             elif placement is not None:
                 s.placement = placement
@@ -254,6 +330,7 @@ class SetStore:
             path = self._spill_path(ident)
             if os.path.exists(path):
                 os.remove(path)
+        _announce(ident)
         self._drop_pages(dead)
 
     def clear_set(self, ident: SetIdentifier) -> None:
@@ -322,6 +399,7 @@ class SetStore:
                 s.items = self._items_locked(s) + self._placed(s, items)
             if po is None:
                 self._touch(s)
+                self._maybe_evict(exclude=ident)
         if po is not None:
             with s.append_mu:
                 po.append(items)
@@ -369,6 +447,7 @@ class SetStore:
                                  f"is {s.storage!r}")
             s.items = self._placed(s, fn(list(self._items_locked(s))))
             self._touch(s)
+            self._maybe_evict(exclude=ident)
 
     def put_tensor(self, ident: SetIdentifier, tensor: BlockedTensor) -> None:
         """Replace a set's content with one blocked matrix (every weight
@@ -382,6 +461,7 @@ class SetStore:
                 dead = []
                 s.items = self._placed(s, [tensor])
             self._touch(s)
+            self._maybe_evict(exclude=ident)
         self._drop_pages(dead)
 
     def _ingest_paged(self, s: _StoredSet, dense: np.ndarray) -> List[Any]:
@@ -532,11 +612,18 @@ class SetStore:
             new = concat_tables(tables[0], table) if tables else table
             s.items = self._placed(s, [new])
             self._touch(s)
+            self._maybe_evict(exclude=ident)
 
     # --- reads --------------------------------------------------------
     def get_items(self, ident: SetIdentifier) -> List[Any]:
+        """A set's items; an evicted set reloads from ``data_dir`` here."""
         with self._lock:
-            return list(self._items_locked(self._require(ident)))
+            s = self._require(ident)
+            if s.items is not None:
+                self.stats.hits += 1
+            items = list(self._items_locked(s))
+            s.last_access = time.time()
+            return items
 
     def scan(self, ident: SetIdentifier) -> Iterator[Any]:
         """A set's items, one by one — reference ``SetScan`` /
@@ -567,6 +654,8 @@ class SetStore:
             return {"ident": str(ident), "storage": s.storage,
                     "version": s.version,
                     "num_items": len(s.items or []),
+                    "nbytes": s.nbytes, "in_memory": s.items is not None,
+                    "eviction": s.eviction,
                     "dirty_ranges": list(s.dirty_log)}
 
     def get_tensor(self, ident: SetIdentifier) -> BlockedTensor:
@@ -633,6 +722,8 @@ class SetStore:
 
         with self._lock:
             s = self._require(ident)
+            if s.items is not None:
+                self.stats.hits += 1  # a flush reads the set
             payload = []
             for item in self._items_locked(s):
                 if isinstance(item, PagedObjects):
@@ -654,7 +745,7 @@ class SetStore:
                 else:
                     payload.append(("object", item))
             record = {"persistence": s.persistence, "storage": s.storage,
-                      "type_name": s.type_name,
+                      "type_name": s.type_name, "eviction": s.eviction,
                       "placement": (s.placement.to_meta()
                                     if s.placement is not None else None),
                       "items": payload}
@@ -664,6 +755,7 @@ class SetStore:
             with open(tmp, "wb") as f:
                 pickle.dump(record, f, protocol=pickle.HIGHEST_PROTOCOL)
             os.replace(tmp, path)
+            self.stats.spills += 1
             return path
 
     def load_set(self, ident: SetIdentifier) -> None:
@@ -684,6 +776,7 @@ class SetStore:
         s.storage = record["storage"]
         s.persistence = record["persistence"]
         s.type_name = record.get("type_name", "tensor")
+        s.eviction = record.get("eviction", s.eviction)
         if s.placement is None and record["placement"]:
             s.placement = Placement.from_meta(record["placement"])
         s.items = []
@@ -722,10 +815,42 @@ class SetStore:
         s.items = self._placed(s, items)
         self._touch(s)
 
+    # --- eviction -----------------------------------------------------
+    def _maybe_evict(self, exclude: Optional[SetIdentifier] = None) -> None:
+        """Past ``max_host_bytes``, flush and drop memory sets by their
+        policies until the total fits (or nothing but ``exclude`` is
+        left). Caller holds the store lock."""
+        total = sum(s.nbytes for s in self._sets.values()
+                    if s.items is not None and s.storage == "memory")
+        if total <= self.max_host_bytes:
+            return
+        candidates = [s for s in self._sets.values()
+                      if s.items is not None and s.ident != exclude
+                      and s.nbytes > 0 and s.storage == "memory"]
+
+        def key(s: _StoredSet):
+            if s.eviction == "mru":
+                return -s.last_access
+            if s.eviction == "random":
+                return random.random()
+            return s.last_access  # lru
+
+        for s in sorted(candidates, key=key):
+            if total <= self.max_host_bytes:
+                break
+            self.flush(s.ident)
+            total -= s.nbytes
+            s.items = None
+            s.nbytes = 0
+            self.stats.evictions += 1
+            _announce(s.ident)
+
     # --- helpers ------------------------------------------------------
     def _items_locked(self, s: _StoredSet) -> List[Any]:
         if s.items is None:
             self._load_from_disk(s)
+            self.stats.misses += 1
+            self.stats.loads += 1
         return s.items
 
     @staticmethod

@@ -10,11 +10,12 @@ netsDB itself published (reference ``selfLearning/documentation.md:5-10``,
 Each task is a PDML program evaluated over the port's op layer with its
 inputs bound in the interpreter's environment as device-resident
 ``BlockedTensor`` s — the "data already in sets" starting point of the
-reference's timings. The reference traces the whole program into one
-jitted XLA program; PyTorch runs eagerly, so :func:`compile_pdml` parses
-once and runs the statements' ops as they come (compiled plans are
-ROADMAP.md A2). :func:`run_task` times requests with CUDA events on the
-card (a host clock on the CPU, and says which).
+reference's timings. As the reference traces the whole program into one
+jitted XLA program, :func:`compile_pdml` makes it one program of the
+executor's compiled-program cache (``plan/executor.run_program``): one
+CUDA graph per input signature on the card, replayed after its first
+request. :func:`run_task` times requests with CUDA events on the card (a
+host clock on the CPU, and says which).
 """
 
 from __future__ import annotations
@@ -53,8 +54,12 @@ TASKS = tuple(PROGRAMS)
 def compile_pdml(text: str) -> Callable[[Dict[str, BlockedTensor]],
                                         Dict[str, BlockedTensor]]:
     """Parse a PDML program once; returns ``run(env) -> {target: value}``
-    for each statement, evaluated over the inputs bound in ``env`` on
-    their device."""
+    for each statement, the whole program one program of the compiled
+    cache (key ``pdml::<text>``), evaluated over the inputs bound in
+    ``env`` on their device. The bound inputs are read in place: a
+    caller that rewrites one in place must bind a new tensor instead."""
+    from netsdb_tpu_torch.plan.executor import run_program
+
     stmts = parse_program(text)
 
     def run(env: Dict[str, BlockedTensor]) -> Dict[str, BlockedTensor]:
@@ -65,7 +70,10 @@ def compile_pdml(text: str) -> Callable[[Dict[str, BlockedTensor]],
             interp.execute(stmt)
         return {stmt.target: interp.env[stmt.target] for stmt in stmts}
 
-    return run
+    def compiled(env: Dict[str, BlockedTensor]) -> Dict[str, BlockedTensor]:
+        return run_program(f"pdml::{text}", run, env, ref_args=(0,))
+
+    return compiled
 
 
 def make_inputs(task: str, rows: int, cols: int, block: int,

@@ -209,14 +209,19 @@ def test_paged_set_iterator_raises(tmp_path):
     assert c.store.page_store().stats()["bytes_in_use"] < in_use
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(eviction="random"), "ROADMAP.md A2"),
-    (dict(eviction="mru"), "ROADMAP.md A2")])
+@pytest.mark.parametrize("kwargs,exc,item", [
+    (dict(eviction="fifo"), ValueError, "eviction"),
+    (dict(type_name="table", storage="paged", eviction="mru",
+          placement={"axes": [["dp", 0]], "spec": ["dp"]}),
+     NotImplementedError, "ROADMAP.md A4")])
 def test_create_set_options_the_port_cannot_honour_raise(clients, kwargs,
-                                                         item):
+                                                         exc, item):
+    """Set eviction is ported (``mru`` and ``random`` too:
+    ``tests/test_torch_eviction.py``); a policy the reference does not
+    have, and a paged and placed relation (A4), still raise."""
     _, pc = clients
     pc.create_database("d")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         pc.create_set("d", "s", **kwargs)
     assert not pc.set_exists("d", "s")
     pc.create_set("d", "s", eviction="lru")  # the reference's default

@@ -74,6 +74,38 @@ def test_host_record_modules_import_no_jax_and_nothing_of_the_jax_package():
     assert proc.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("mods", [
+    ["netsdb_tpu_torch.obs", "netsdb_tpu_torch.obs.metrics",
+     "netsdb_tpu_torch.obs.trace", "netsdb_tpu_torch.obs.operators"],
+    ["netsdb_tpu_torch.plan.fusion", "netsdb_tpu_torch.plan.programs",
+     "netsdb_tpu_torch.plan.executor"]])
+def test_compiled_plan_modules_import_no_jax_and_nothing_of_the_jax_package(
+        mods):
+    """The observability parts and the compiled-plan modules (the program
+    cache, the fusion mapper) on their own, in a fresh interpreter; the
+    ``obs`` modules import nothing but the standard library."""
+    probe = ("import importlib, sys\n"
+             f"for m in {mods!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'netsdb_tpu' or "
+             "m.startswith('netsdb_tpu.')), 'torch' in sys.modules)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().rsplit(" ", 1)[0] == "[]"
+    if mods[0] == "netsdb_tpu_torch.obs":
+        # the package's __init__ brings the client (and torch); the obs
+        # modules themselves import no third-party module
+        import pathlib
+
+        for name in ("metrics", "trace", "operators", "__init__"):
+            src = (pathlib.Path(REPO) / "netsdb_tpu_torch" / "obs"
+                   / f"{name}.py").read_text()
+            assert "import torch" not in src and "numpy" not in src
+
+
 def test_nothing_raises_naming_a6():
     """The relational engine is ported whole on one device: no message
     of the package still names A6."""
@@ -170,19 +202,23 @@ def port_client(tmp_path):
     return c
 
 
-@pytest.mark.parametrize("kwargs,item", [
+@pytest.mark.parametrize("kwargs,exc,item", [
     (dict(type_name="table", storage="paged",
-          placement=Placement.data_parallel(ndim=1)), "ROADMAP.md A4"),
-    (dict(type_name="object", eviction="mru"), "ROADMAP.md A2"),
-    (dict(type_name="object", storage="paged", eviction="random",
-          placement=Placement.replicated()), "ROADMAP.md A2")])
-def test_out_of_slice_set_options_raise(port_client, kwargs, item):
-    """A paged and placed relation is ROADMAP.md A4 and set eviction A2;
-    paged object sets (``tests/test_torch_paged_objects.py``), paged or
-    persistent tensor sets (``tests/test_torch_paged_weights.py``), paged
-    relations (``tests/test_torch_paged_relations.py``) and the
-    dispatcher's ``partition_lambda`` are ported."""
-    with pytest.raises(NotImplementedError, match=item):
+          placement=Placement.data_parallel(ndim=1)), NotImplementedError,
+     "ROADMAP.md A4"),
+    (dict(type_name="object", eviction="fifo"), ValueError, "eviction"),
+    (dict(type_name="table", storage="paged", eviction="random",
+          placement=Placement.replicated()), NotImplementedError,
+     "ROADMAP.md A4")])
+def test_out_of_slice_set_options_raise(port_client, kwargs, exc, item):
+    """A paged and placed relation is ROADMAP.md A4, and an eviction
+    policy the reference lacks is an error; set eviction (``lru``,
+    ``mru``, ``random``: ``tests/test_torch_eviction.py``), paged object
+    sets (``tests/test_torch_paged_objects.py``), paged or persistent
+    tensor sets (``tests/test_torch_paged_weights.py``), paged relations
+    (``tests/test_torch_paged_relations.py``) and the dispatcher's
+    ``partition_lambda`` are ported."""
+    with pytest.raises(exc, match=item):
         port_client.create_set("d", "s", **kwargs)
     assert not port_client.catalog.set_exists("d", "s")
     port_client.create_set("d", "s", storage="paged",
@@ -220,10 +256,17 @@ def test_out_of_slice_client_features_raise(port_client, tmp_path):
         == 8
     with pytest.raises(ValueError, match="device_cache_dirty_log"):
         Configuration(device_cache_dirty_log=0)
-    for knob in (dict(plan_fusion=True), dict(fusion_min_region=2),
-                 dict(fusion_mapper="dp"), dict(fusion_cost_source="ledger"),
-                 dict(fusion_stage_budget_bytes=1 << 20)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
+    # the fusion knobs are ported with the reference's defaults and
+    # checks (tests/test_torch_fusion.py)
+    cfg = Configuration()
+    assert (cfg.plan_fusion, cfg.fusion_min_region, cfg.fusion_cost_source,
+            cfg.fusion_mapper, cfg.fusion_stage_budget_bytes) == \
+        (True, 2, "ledger", "optimal", 0)
+    for knob, name in ((dict(fusion_mapper="dp"), "fusion_mapper"),
+                       (dict(fusion_cost_source="x"), "fusion_cost_source"),
+                       (dict(fusion_stage_budget_bytes=-1),
+                        "fusion_stage_budget_bytes")):
+        with pytest.raises(ValueError, match=name):
             Configuration(**knob)
     with pytest.raises(ValueError, match="bucket_density"):
         Configuration(bucket_density=3)

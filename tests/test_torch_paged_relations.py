@@ -582,5 +582,6 @@ def test_paged_placed_relation_and_fusion_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
         c.create_set("d", "t", type_name="table", storage="paged",
                      placement=Placement.replicated())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A2"):
-        Configuration(plan_fusion=True)
+    # fusion is ported and on by default, as in the reference
+    assert Configuration().plan_fusion
+    assert not Configuration(plan_fusion=False).plan_fusion
