@@ -8,7 +8,8 @@ line, to compare the paged path of two trees; ``--models-only``: phases
 ``--relational-only``: phases 1 and 11; ``--paged-relations-only``:
 phase 1, the SF 10 tables made resident on a card client, and phase
 12; ``--rows-only``: phases 1 and 13; ``--compiled-only``: phases 1 and
-14, TPC-H at ``COMPILED_ONLY_SF``.)
+14, TPC-H at ``COMPILED_ONLY_SF``; ``--workloads-only``: phases 1 and
+15.)
 
 Every phase runs with the compiled-program cache in use and
 ``plan_fusion`` on, the port's defaults: a resident job is one CUDA
@@ -168,13 +169,40 @@ Phases (any failure raises and the exit code is non-zero):
    per chunk, regions formed, captures, replays), the two settings'
    results equal and no measured request capturing.
 
+15. the single-device workloads, MoE and dedup (``WL_SIZES``), each
+   through the port's ``Client`` on the card: ``kmeans_on_set`` (4 M x
+   128 points around 100 planted centres at least 10 sigma apart, k 100,
+   10 rounds) and ``kmeans(init="sample")``, ``gmm_on_set`` (1 M x 32, k
+   16, 20 rounds), ``lda_on_set`` (50 000 x 20 000 counts, k 50, 50
+   rounds), ``pagerank_on_table_set`` and ``pagerank`` at
+   soc-LiveJournal1's 4 847 571 nodes and 68 993 773 edges (a power-law
+   graph drawn from the seed), ``pagerank_on_set`` over 1 M edge objects,
+   ``top_k_on_table_set`` over 60 M scores with planted ties and
+   ``top_k_on_set`` over 100 000 objects, ``ConvFusionPipeline.run`` (8
+   images 3 x 112 x 112, 64 filters 7 x 7, its host ms a job),
+   ``moe_forward`` at Switch-Base-128's widths (4096 tokens, 128
+   experts), ``dedup_resident`` over two FF models at bench.py's widths
+   (one block in 8 changed) and ``bench_lsh_zoo()``. Each request
+   ``WL_REQUESTS`` times (ms, p50, its bound by bytes or operations, peak
+   memory) and once under the profiler (busy share, top five kernels);
+   each held to the same function in float64 on the card from the same
+   seed and initial state (``WL_TOLS``): k-means assignments equal
+   (a point whose two best f64 scores lie within f32 rounding is counted
+   as a tie and printed), top-k equal to numpy's stable order, conv to
+   ``F.conv2d``, the conv job compiled equal to node by node, the dedup
+   report equal to the planted counts and both FF models bit-equal to
+   before pooling, node by node and compiled, and again after
+   ``drop_pool_caches`` (which must capture anew). Every workload also
+   runs at a small size on the card and on a CPU client from the same
+   inputs.
+
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
 just before phase 5's requests and read just after them, again
 around each model's paged requests in phase 7, around phase 8, where
 both must read 0, around phase 9 (B1 once a layer step, B2 never) and
-around phases 10, 11, 12 and 13 (both 0) and around phase 14 (B1 once a
-layer request, B2 16 times an SP request). The last line is the
+around phases 10, 11, 12 and 13 (both 0), around phase 14 (B1 once a
+layer request, B2 16 times an SP request) and around phase 15 (both 0). The last line is the
 contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
@@ -3822,6 +3850,877 @@ def compiled_path(state: Optional[dict] = None) -> dict:
     return out
 
 
+# --- phase 15 ------------------------------------------------------------
+# the sizes of phase 15 (PERF.md §4; this script's choice where no source is
+# named): k-means 4 M x 128 around 100 centres, GMM 1 M x 32 (k 16), LDA
+# 50 000 docs x 20 000 words (k 50), PageRank at soc-LiveJournal1's node
+# and edge counts, top-k over lineitem's rows at SF 10, conv fusion at
+# phase 8's widths with the batch cut to 8, MoE at Switch-Base-128's
+# widths (google/switch-base-128), dedup at bench.py's FF widths
+WL_SIZES = {"kmeans": dict(n=4_000_000, d=128, k=100, iters=10,
+                           block=(8192, 128)),
+            "gmm": dict(n=1_000_000, d=32, k=16, iters=20, block=(8192, 32)),
+            "lda": dict(docs=50_000, vocab=20_000, k=50, iters=50,
+                        doc_len=256, block=(2048, 2048)),
+            "pagerank": dict(nodes=4_847_571, edges=68_993_773, iters=20),
+            "pagerank_objects": dict(edges=1_000_000, nodes=100_000),
+            "topk_table": dict(rows=60_000_000, k=10),
+            "topk_objects": dict(items=100_000, k=10),
+            "conv": dict(n=8, c=3, h=112, w=112, o=64, ksize=7,
+                         block=(64, 64)),
+            "moe": dict(d=768, hidden=3072, experts=128, tokens=4096,
+                        capacity_factor=2.0, oracle_tokens=256),
+            "dedup": dict(features=1024, hidden=4096, labels=1024,
+                          block=(512, 512), batch=16384, every=8),
+            "small": dict(n=2000, d=16, k=8, docs=64, vocab=96, nodes=300,
+                          edges=3000, images=2, hw=20)}
+WL_REQUESTS = 3
+# the workload clients' store budget (``shared_mem_bytes``): the 3.7 GiB
+# LDA counts and its outputs pass the 4 GiB default, which would flush
+# and reload the counts on every request
+WL_STORE_BYTES = 48 << 30
+WL_TOLS = {"kmeans_cent_rtol": 1e-4, "gmm_rtol": 1e-3, "gmm_ll_rtol": 1e-5,
+           "lda_perp_rtol": 1e-4, "lda_atol": 1e-4, "pagerank_rtol": 1e-5,
+           "pagerank_sum": 1e-5, "conv_atol": 1e-3, "moe_atol": 1e-4,
+           "small_rtol": 1e-4}
+_WL_FAILURES: list = []
+
+
+def _wl_gen(device, seed):
+    import torch
+
+    return torch.Generator(device=device).manual_seed(SEED + seed)
+
+
+def _wl_free(device) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _wl_request(out, profiled, name, run, device, bound, n=WL_REQUESTS):
+    """``n`` requests of ``run`` (synchronised wall ms each, their p50),
+    the peak memory above what was allocated before them, and ``run``
+    kept to be profiled once. ``bound`` is (bound ms, by). Returns the
+    last request's output."""
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    _wl_free(device)
+    if cuda:
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    ms = []
+    res = None
+    for _ in range(n):
+        res = None
+        res, t = _timed(run, device)
+        ms.append(t)
+    p50 = sorted(ms)[len(ms) // 2]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda \
+        else None
+    row = {"ms": ms, "p50_ms": p50, "bound_ms": bound[0],
+           "bound_by": bound[1], "peak_mib": peak}
+    out[name] = row
+    print(f"[workloads] {name}: {', '.join(f'{m:.3f}' for m in ms)} ms, "
+          f"p50 {p50:.3f} ms; bound {bound[0]:.3f} ms by {bound[1]}; peak "
+          + (f"{peak:.1f} MiB above the start" if peak is not None
+             else "not measured (CPU)"))
+    if cuda:  # one more request under the profiler, while its data lives
+        rows = phase_profile({name: (run, p50)}, top=5)[name]
+        row["device_busy_ms"] = sum(m for m, _ in rows) if rows else None
+        row["top_kernels"] = rows[:5]
+    profiled[name] = p50
+    return res
+
+
+def _wl_bound(flops, nbytes, pk, dtype="float32") -> tuple:
+    b = bounds_ms(flops, nbytes, dtype, pk)
+    return b[0], b[1]
+
+
+def _wl_check(name, ok, detail, out=None) -> None:
+    """Record a failed check (raised at the phase's end) and print it."""
+    print(f"[workloads] {name}: {detail}" + ("" if ok else "  FAILED"))
+    if out is not None:
+        out.setdefault("checks", {})[name] = detail
+    if not ok:
+        _WL_FAILURES.append(f"{name}: {detail}")
+
+
+def _rel(got, want) -> float:
+    got, want = got.double(), want.double()
+    return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+
+
+def _wl_client(device, root=None):
+    import tempfile
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+
+    root = root or tempfile.mkdtemp(prefix="netsdb_wl_")
+    return Client(Configuration(root_dir=root,
+                                shared_mem_bytes=WL_STORE_BYTES),
+                  device=device)
+
+
+def _row_rel(got, want) -> float:
+    """Largest row-wise ‖got − want‖ / ‖want‖ (a centroid's error over its
+    norm)."""
+    got, want = got.double(), want.double()
+    return ((got - want).norm(dim=1)
+            / want.norm(dim=1).clamp_min(1e-30)).max().item()
+
+
+def _inertia(points64, cents, assign) -> float:
+    """Sum of squared distances of the points to their centroids, in f64."""
+    total = 0.0
+    step = 1 << 20
+    for r in range(0, points64.shape[0], step):
+        d = points64[r:r + step] - cents.double().index_select(
+            0, assign[r:r + step])
+        total += (d * d).sum().item()
+    return total
+
+
+def _wl_blobs(n, d, k, device, seed, spread=1.0):
+    """``n`` points around ``k`` planted centres (unit-variance noise,
+    centres N(0, spread²) per dimension), made on ``device``."""
+    import torch
+
+    g = _wl_gen(device, seed)
+    centres = torch.randn(k, d, generator=g, device=device) * spread
+    labels = torch.randint(0, k, (n,), generator=g, device=device)
+    pts = centres.index_select(0, labels)
+    pts += torch.randn(n, d, generator=g, device=device)
+    return pts, labels, centres
+
+
+def _wl_kmeans(out, profiled, s, device, pk) -> None:
+    import torch
+
+    kmod = __import__("netsdb_tpu_torch.workloads.kmeans",
+                      fromlist=["x"])
+    n, d, k, iters = s["n"], s["d"], s["k"], s["iters"]
+    pts, _, centres = _wl_blobs(n, d, k, device, 1, spread=1.5)
+    gap = torch.cdist(centres, centres) + torch.eye(k, device=device) * 1e9
+    _wl_check("kmeans centres", gap.min().item() >= 10.0,
+              f"min centre distance {gap.min().item():.3f} sigma (>= 10)",
+              out)
+    c = _wl_client(device)
+    c.create_database("wl")
+    c.create_set("wl", "points")
+    c.send_matrix("wl", "points", pts, s["block"])
+    del pts
+    bound = _wl_bound(iters * 2.0 * n * d * k, iters * 4.0 * n * d, pk)
+    cents, assign = _wl_request(
+        out, profiled, "kmeans_on_set",
+        lambda: kmod.kmeans_on_set(c, "wl", "points", k, iters, seed=SEED),
+        device, bound)
+    # the profiled request wrote the set last: one more, read back at once
+    cents, assign = kmod.kmeans_on_set(c, "wl", "points", k, iters,
+                                       seed=SEED)
+    points = c.get_tensor("wl", "points").to_dense()
+    stored = c.get_tensor("wl", "kmeans_centroids").to_dense()
+    _wl_check("kmeans_on_set stored", torch.equal(stored, cents),
+              f"the centroid set ({tuple(stored.shape)}) holds the "
+              f"returned centroids", out)
+    # from its random start, two initial centroids in one cluster split
+    # it, and the split's direction is free: f32 and f64 drift apart
+    # there, so this run is held by its objective and counted
+    init = kmod.random_init(points, k, SEED)
+    p64 = points.double()
+    c64, a64 = kmod.kmeans(p64, k, iters, init_centroids=init.double())
+    diff = int((assign != a64).sum())
+    obj, obj64 = _inertia(p64, cents, assign), _inertia(p64, c64, a64)
+    obj_err = abs(obj - obj64) / obj64
+    out["kmeans_on_set"].update(mismatched=diff, inertia=obj,
+                                inertia_rel_err=obj_err,
+                                cent_rel_err=_row_rel(cents, c64))
+    _wl_check("kmeans_on_set vs f64", obj_err <= WL_TOLS["kmeans_cent_rtol"],
+              f"inertia {obj:.6e} rel err {obj_err:.3e}; {diff} of {n} "
+              f"assignments differ (split clusters), centroids row rel "
+              f"err {out['kmeans_on_set']['cent_rel_err']:.3e}", out)
+    del c64, a64
+    # from the planted centres every point's nearest centroid is clear:
+    # the assignments must equal f64's exactly
+    planted = _wl_request(
+        out, profiled, "kmeans (planted start)",
+        lambda: kmod.kmeans(points, k, iters, init_centroids=centres),
+        device, bound)
+    c64, a64 = kmod.kmeans(p64, k, iters, init_centroids=centres.double())
+    diff = int((planted[1] != a64).sum())
+    rel = _row_rel(planted[0], c64)
+    out["kmeans (planted start)"].update(mismatched=diff, cent_rel_err=rel)
+    _wl_check("kmeans (planted start) vs f64", diff == 0
+              and rel <= WL_TOLS["kmeans_cent_rtol"],
+              f"{diff} of {n} assignments differ; centroids row rel err "
+              f"{rel:.3e}", out)
+    del p64, c64, a64, planted
+    # the sampled init: the reference's numpy draws, so the CPU client's
+    # start bit for bit
+    t0 = time.perf_counter()
+    start = kmod.sample_init(points, k, SEED)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    cpu = _wl_client("cpu")
+    cpu.create_database("wl")
+    cpu.create_set("wl", "points")
+    cpu.send_matrix("wl", "points", points.cpu(), s["block"])
+    cpu_start = kmod.sample_init(cpu.get_tensor("wl", "points").to_dense(),
+                                 k, SEED)
+    same = torch.equal(start.cpu(), cpu_start)
+    _wl_check("kmeans init=sample", same,
+              f"{start.shape[0]} initial centroids, equal to the CPU "
+              f"client's bit for bit: {same} (host {host_ms:.1f} ms)", out)
+    del cpu
+    _wl_request(out, profiled, "kmeans init=sample",
+                lambda: kmod.kmeans(points, k, iters, seed=SEED,
+                                    init="sample"),
+                device, bound, n=1)
+    del points, c
+
+
+def _wl_gmm(out, profiled, s, device, pk) -> None:
+    gm = __import__("netsdb_tpu_torch.workloads.gmm", fromlist=["x"])
+    n, d, k, iters = s["n"], s["d"], s["k"], s["iters"]
+    pts, _, _ = _wl_blobs(n, d, k, device, 2, spread=3.0)
+    c = _wl_client(device)
+    c.create_database("wl")
+    c.create_set("wl", "points")
+    c.send_matrix("wl", "points", pts, s["block"])
+    del pts
+    # per round: the (n, k, d) differences, squares, scaling and sums, and
+    # the two moment products
+    bound = _wl_bound(iters * 8.0 * n * k * d, (iters + 1) * 4.0 * n * d,
+                      pk)
+    state, _ = _wl_request(
+        out, profiled, "gmm_on_set",
+        lambda: gm.gmm_on_set(c, "wl", "points", k, iters, seed=SEED),
+        device, bound)
+    points = c.get_tensor("wl", "points").to_dense()
+    init = gm.gmm_init(points, k, SEED)
+    p64 = points.double()
+    s64, _ = gm.gmm_em(p64, k, iters, init=init)
+    errs = {f: _rel(getattr(state, f), getattr(s64, f))
+            for f in ("means", "variances", "weights")}
+    ll = gm.gmm_log_likelihood(points, state).item()
+    ll64 = gm.gmm_log_likelihood(p64, s64).item()
+    ll_err = abs(ll - ll64) / abs(ll64)
+    out["gmm_on_set"].update(rel_err=errs, ll=ll, ll_rel_err=ll_err)
+    _wl_check("gmm vs f64", max(errs.values()) <= WL_TOLS["gmm_rtol"]
+              and ll_err <= WL_TOLS["gmm_ll_rtol"],
+              "rel err " + ", ".join(f"{f} {e:.3e}" for f, e in errs.items())
+              + f"; log-likelihood {ll:.6f} rel err {ll_err:.3e}", out)
+    del p64, s64, points, c
+
+
+def _wl_lda(out, profiled, s, device, pk) -> None:
+    import torch
+
+    ld = __import__("netsdb_tpu_torch.workloads.lda", fromlist=["x"])
+    docs, vocab, k, iters = s["docs"], s["vocab"], s["k"], s["iters"]
+    g = _wl_gen(device, 3)
+    # 50 planted topics over the vocabulary, Dirichlet-like mixtures per
+    # document, Poisson counts of about doc_len words a document
+    topics = torch.rand(k, vocab, generator=g, device=device) ** 8
+    topics /= topics.sum(1, keepdim=True)
+    mix = torch.rand(docs, k, generator=g, device=device) ** 4
+    mix /= mix.sum(1, keepdim=True)
+    rates = (mix @ topics).mul_(s["doc_len"])
+    counts = torch.poisson(rates, generator=g)
+    del rates, mix, topics
+    c = _wl_client(device)
+    c.create_database("wl")
+    c.create_set("wl", "counts")
+    c.send_matrix("wl", "counts", counts, s["block"])
+    del counts
+    bound = _wl_bound(iters * 6.0 * docs * k * vocab,
+                      iters * 4.0 * docs * vocab, pk)
+    state = _wl_request(
+        out, profiled, "lda_on_set",
+        lambda: ld.lda_on_set(c, "wl", "counts", k, iters, seed=SEED),
+        device, bound)
+    counts = c.get_tensor("wl", "counts").to_dense()
+    perp = ld.lda_perplexity(counts, state).item()
+    init = ld.lda_init(counts, k, SEED)
+    c64 = counts.double()
+    s64 = ld.lda_em(c64, k, iters, init=init)
+    perp64 = ld.lda_perplexity(c64, s64).item()
+    del c64
+    p_err = abs(perp - perp64) / perp64
+    th = (state.doc_topic.double() - s64.doc_topic).abs().max().item()
+    ph = (state.topic_word.double() - s64.topic_word).abs().max().item()
+    out["lda_on_set"].update(perplexity=perp, perplexity_rel_err=p_err,
+                             theta_abs_err=th, phi_abs_err=ph)
+    _wl_check("lda vs f64", p_err <= WL_TOLS["lda_perp_rtol"]
+              and max(th, ph) <= WL_TOLS["lda_atol"],
+              f"perplexity {perp:.4f} rel err {p_err:.3e}; theta abs err "
+              f"{th:.3e}, phi abs err {ph:.3e}", out)
+    del s64, state, counts, c
+
+
+def _wl_edges(nodes, edges, device, seed):
+    """A power-law graph drawn on ``device``: sources and targets skewed
+    toward a random set of hot nodes (inverse-transform draws u**2 and
+    u**1.5 over a random relabelling), int32."""
+    import torch
+
+    g = _wl_gen(device, seed)
+    perm = torch.randperm(nodes, generator=g, device=device)
+    u = torch.rand(edges, generator=g, device=device, dtype=torch.float64)
+    src = perm.index_select(0, (u.pow_(2) * nodes).long().clamp_(
+        max=nodes - 1))
+    u = torch.rand(edges, generator=g, device=device, dtype=torch.float64)
+    dst = perm.index_select(0, (u.pow_(1.5) * nodes).long().clamp_(
+        max=nodes - 1))
+    return src.to(torch.int32), dst.to(torch.int32)
+
+
+def _pagerank_f64(src, dst, n, iters, damping=0.85, dangling=True):
+    import torch
+
+    src, dst = src.long(), dst.long()
+    deg = torch.bincount(src, minlength=n).double()
+    safe = deg.clamp_min(1.0)
+    rank = torch.full((n,), 1.0 / n, dtype=torch.float64, device=src.device)
+    for _ in range(iters):
+        inc = torch.zeros_like(rank).index_add_(
+            0, dst, (rank / safe).index_select(0, src))
+        dm = rank[deg == 0].sum() if dangling else 0.0
+        rank = (1 - damping) / n + damping * (inc + dm / n)
+    return rank
+
+
+def _wl_pagerank(out, profiled, s, device, pk) -> None:
+    import numpy as np
+    import torch
+
+    pr = __import__("netsdb_tpu_torch.workloads.pagerank", fromlist=["x"])
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    n, e, iters = s["nodes"], s["edges"], s["iters"]
+    src, dst = _wl_edges(n, e, device, 4)
+    c = _wl_client(device)
+    c.create_database("wl")
+    c.create_set("wl", "links", type_name="table")
+    c.send_table("wl", "links", ColumnTable({"src": src, "dst": dst}))
+    # each round reads both endpoints of every edge once (int32)
+    bound = _wl_bound(iters * 2.0 * e, iters * 8.0 * e, pk)
+    ranks_t = _wl_request(
+        out, profiled, "pagerank_on_table_set",
+        lambda: pr.pagerank_on_table_set(c, "wl", "links", n, iters=iters),
+        device, bound)
+    ranks = _wl_request(out, profiled, "pagerank",
+                        lambda: pr.pagerank(src, dst, n, iters=iters),
+                        device, bound)
+    r64 = _pagerank_f64(src, dst, n, iters)
+    r64t = _pagerank_f64(src, dst, n, iters, dangling=False)
+    e1 = _rel(ranks, r64)
+    e2 = _rel(torch.from_numpy(ranks_t).to(device), r64t)
+    total = ranks.double().sum().item()
+    out["pagerank"].update(rel_err=e1, sum=total)
+    out["pagerank_on_table_set"].update(rel_err=e2)
+    _wl_check("pagerank vs f64", e1 <= WL_TOLS["pagerank_rtol"]
+              and e2 <= WL_TOLS["pagerank_rtol"]
+              and abs(total - 1.0) <= WL_TOLS["pagerank_sum"],
+              f"pagerank rel err {e1:.3e}, ranks sum to {total:.9f}; "
+              f"pagerank_on_table_set rel err {e2:.3e}", out)
+    stored = len(list(c.get_set_iterator("wl", "ranks")))
+    _wl_check("pagerank ranks set", stored == n,
+              f"{stored} (url, rank) pairs written", out)
+    del src, dst, r64, r64t, ranks, c
+    _wl_free(device)
+    # the object driver: a Python object per edge (cut to 1 M edges)
+    no, eo = s["objects_nodes"], s["objects_edges"]
+    so, do = _wl_edges(no, eo, device, 5)
+    pairs = list(zip(so.cpu().numpy().tolist(), do.cpu().numpy().tolist()))
+    c = _wl_client(device)
+    c.create_database("wl")
+    c.create_set("wl", "links", type_name="object")
+    c.send_data("wl", "links", pairs)
+    bound = _wl_bound(iters * 2.0 * eo, iters * 8.0 * eo, pk)
+    got = _wl_request(
+        out, profiled, "pagerank_on_set",
+        lambda: pr.pagerank_on_set(c, "wl", "links", no, iters=iters),
+        device, bound)
+    want = pr.pagerank(so, do, no, iters=iters).cpu().numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    _wl_check("pagerank_on_set", err <= 1e-6,
+              f"equal to pagerank on the same edges within {err:.3e}", out)
+    del c, pairs
+
+
+def _wl_topk(out, profiled, s, device, pk) -> None:
+    import numpy as np
+    import torch
+
+    tk = __import__("netsdb_tpu_torch.workloads.topk", fromlist=["x"])
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    rows, k = s["rows"], s["k"]
+    g = _wl_gen(device, 6)
+    # 1000 distinct values: every value is shared by about 60 000 rows
+    scores = torch.randint(0, 1000, (rows,), generator=g,
+                           device=device).to(torch.float32) / 10
+    c = _wl_client(device)
+    c.create_database("wl")
+    c.create_set("wl", "lineitem", type_name="table")
+    c.send_table("wl", "lineitem", ColumnTable({"score": scores}))
+    res = _wl_request(
+        out, profiled, "top_k_on_table_set",
+        lambda: tk.top_k_on_table_set(c, "wl", "lineitem", "score", k),
+        device, _wl_bound(0.0, 4.0 * rows, pk))
+    host = scores.cpu().numpy()
+    kth = np.partition(-host, k - 1)[k - 1]
+    cand = np.nonzero(-host <= kth)[0]
+    want = cand[np.argsort(-host[cand], kind="stable")][:k]
+    got = res["row"].cpu().numpy()
+    _wl_check("top_k_on_table_set", np.array_equal(got, want),
+              f"rows {got.tolist()} (numpy's stable order "
+              f"{want.tolist()}), scores {res['score'].cpu().tolist()}", out)
+    del c, scores
+    items = s["objects"]
+    vals = np.random.default_rng(SEED + 6).integers(0, 50, items).tolist()
+    objs = [{"id": i, "score": v} for i, v in enumerate(vals)]
+    c = _wl_client(device)
+    c.create_database("wl")
+    c.create_set("wl", "objs", type_name="object")
+    c.send_data("wl", "objs", objs)
+    winners = _wl_request(
+        out, profiled, "top_k_on_set",
+        lambda: tk.top_k_on_set(c, "wl", "objs", k,
+                                score=lambda o: o["score"]),
+        device, _wl_bound(0.0, 4.0 * items, pk))
+    want = np.argsort(-np.asarray(vals), kind="stable")[:k].tolist()
+    _wl_check("top_k_on_set", [w["id"] for w in winners] == want,
+              f"ids {[w['id'] for w in winners]}", out)
+    del c, objs
+
+
+def _conv_f64(images, kernels, bias, device):
+    import torch
+    import torch.nn.functional as F
+
+    return F.conv2d(torch.from_numpy(images).to(device).double(),
+                    torch.from_numpy(kernels).to(device).double(),
+                    torch.from_numpy(bias).to(device).double())
+
+
+def _wl_conv(out, profiled, s, device, pk) -> None:
+    import numpy as np
+    import torch
+
+    cf = __import__("netsdb_tpu_torch.workloads.conv_fusion",
+                    fromlist=["x"])
+    from netsdb_tpu_torch.plan import executor
+
+    rng = np.random.default_rng(SEED + 7)
+    n, ch, h, w, o, ks = (s[x] for x in ("n", "c", "h", "w", "o", "ksize"))
+    images = rng.standard_normal((n, ch, h, w), dtype=np.float32)
+    kernels = rng.standard_normal((o, ch, ks, ks), dtype=np.float32) * 0.1
+    bias = rng.standard_normal(o, dtype=np.float32)
+    c = _wl_client(device)
+    jobs: dict = {}
+    run_jobs = c.execute_computations
+
+    def timed_jobs(*a, **kw):
+        t0 = time.perf_counter()
+        res = run_jobs(*a, **kw)
+        _sync(device)
+        jobs.setdefault(kw.get("job_name", "job"), []).append(
+            (time.perf_counter() - t0) * 1e3)
+        return res
+
+    c.execute_computations = timed_jobs
+    pipe = cf.ConvFusionPipeline(db="convfuse", kernel_size=ks,
+                                 block=s["block"])
+    oh, ow = h - ks + 1, w - ks + 1
+    flops = 2.0 * n * o * oh * ow * (ch * ks * ks + 1)
+    nbytes = 4.0 * (images.size + kernels.size + n * o * oh * ow)
+    res = _wl_request(out, profiled, "ConvFusionPipeline.run",
+                      lambda: pipe.run(c, images, kernels, bias), device,
+                      _wl_bound(flops, nbytes, pk))
+    for job, ms in jobs.items():
+        print(f"[workloads]   job {job}: host+device ms "
+              f"{', '.join(f'{m:.1f}' for m in ms)}")
+    out["ConvFusionPipeline.run"]["job_ms"] = jobs
+    ref = _conv_f64(images, kernels, bias, device)
+    got = torch.from_numpy(np.stack([im.data for im in res])).to(device)
+    err = (got.double() - ref).abs().max().item()
+    out["ConvFusionPipeline.run"]["max_abs_err"] = err
+    _wl_check("conv fusion vs F.conv2d f64", err <= WL_TOLS["conv_atol"]
+              and len(res) == n, f"{len(res)} images, max abs err "
+              f"{err:.3e}", out)
+    # the conv job alone, replayed: compiled equals node by node
+    c.execute_computations = run_jobs
+    counts0 = _program_counts()
+    for _ in range(2):
+        compiled = c.execute_computations(pipe.build_conv(),
+                                          job_name="convfuse-conv2d")
+    counts1 = _program_counts()
+    from netsdb_tpu_torch.storage.store import SetIdentifier
+
+    compiled = compiled[SetIdentifier("convfuse", "result")].to_dense()
+    nbn = node_by_node(c, pipe.build_conv()).to_dense()
+    same = torch.equal(compiled, nbn)
+    replays = counts1.get("replays", 0) - counts0.get("replays", 0)
+    _wl_check("conv job compiled vs node by node", same,
+              f"bit-equal {same}; {replays} replays, "
+              f"{counts1['traces'] - counts0['traces']} traces", out)
+    executor.clear_compiled_cache()
+    del c, res
+
+
+def _wl_moe(out, profiled, s, device, pk) -> None:
+    import torch
+
+    moe = __import__("netsdb_tpu_torch.models.moe", fromlist=["x"])
+    d, hd, ne, t = s["d"], s["hidden"], s["experts"], s["tokens"]
+    g = _wl_gen(device, 8)
+    params = moe.MoEParams(
+        w_gate=torch.randn(d, ne, generator=g, device=device) * d ** -0.5,
+        w_up=torch.randn(ne, d, hd, generator=g, device=device) * d ** -0.5,
+        w_down=torch.randn(ne, hd, d, generator=g, device=device)
+        * hd ** -0.5)
+    x = torch.randn(t, d, generator=g, device=device)
+    cf = s["capacity_factor"]
+    cap = moe.capacity_of(t, ne, cf)
+    slots = ne * cap
+    flops = (2.0 * t * d * ne + 2 * 2.0 * t * slots * d
+             + 2 * 2.0 * slots * d * hd)
+    nbytes = 4.0 * (params.w_gate.numel() + params.w_up.numel()
+                    + params.w_down.numel() + 2 * x.numel())
+    y = _wl_request(out, profiled, "moe_forward",
+                    lambda: moe.moe_forward(params, x, cf), device,
+                    _wl_bound(flops, nbytes, pk))
+    dropped = int((~moe.route(params, x, cf).keep).sum())
+    p64 = moe.MoEParams(*(p.double() for p in (params.w_gate, params.w_up,
+                                               params.w_down)))
+    y64 = moe.moe_forward(p64, x.double(), cf)
+    err = (y.double() - y64).abs().max().item()
+    del p64, y64
+    few = s["oracle_tokens"]
+    oracle = moe.moe_forward_dense_oracle(params, x[:few], cf)
+    err_o = (moe.moe_forward(params, x[:few], cf) - oracle).abs().max().item()
+    out["moe_forward"].update(max_abs_err=err, dropped_tokens=dropped,
+                              capacity=cap, oracle_err=err_o)
+    _wl_check("moe vs f64", err <= WL_TOLS["moe_atol"]
+              and err_o <= WL_TOLS["moe_atol"],
+              f"max abs err {err:.3e}; {dropped} of {t} tokens dropped "
+              f"(capacity {cap}); dense oracle at {few} tokens "
+              f"{err_o:.3e}", out)
+
+
+def _ff_pair(c, s, device):
+    """Two FF models at ``s``'s widths; the second a fine-tuned copy of the
+    first in which one of every ``every`` blocks of w1 and of wo moved."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.models import FFModel
+
+    a = FFModel(db="ffa", block=s["block"])
+    b = FFModel(db="ffb", block=s["block"])
+    for m in (a, b):
+        m.setup(c)
+    a.load_random_weights(c, s["features"], s["hidden"], s["labels"],
+                          seed=SEED)
+    changed = 0
+    dense = {}
+    for name in ("w1", "b1", "wo", "bo"):
+        t = c.get_tensor("ffa", name)
+        arr = t.to_dense().cpu().numpy().copy()
+        if name in ("w1", "wo"):
+            for i, idx in enumerate(np.ndindex(*t.meta.grid)):
+                if i % s["every"] == 0:
+                    arr[t.meta.block_slice(idx)] += 0.01
+                    changed += 1
+        dense[name] = arr
+    b.load_weights(c, *(dense[n] for n in ("w1", "b1", "wo", "bo")))
+    x = torch.randn(s["batch"], s["features"],
+                    generator=_wl_gen(device, 9), device=device)
+    for m in (a, b):
+        m.load_inputs(c, x)
+    return a, b, changed
+
+
+def _wl_dedup(out, profiled, s, device, pk) -> None:
+    import torch
+
+    from netsdb_tpu_torch.plan import executor
+    from netsdb_tpu_torch.storage.store import SetIdentifier
+
+    executor.clear_compiled_cache()
+    c = _wl_client(device)
+    a, b, changed = _ff_pair(c, s, device)
+    sets = [(m.db, w) for m in (a, b) for w in ("w1", "wo")]
+
+    def infer(m, job):
+        return c.execute_computations(m.build_inference_dag(),
+                                      job_name=job)[SetIdentifier(
+                                          m.db, "output")].to_dense().clone()
+
+    def both_ways():
+        res = {}
+        for m in (a, b):
+            c0 = _program_counts()
+            comp = [infer(m, f"dedup-{m.db}") for _ in range(2)]
+            c1 = _program_counts()
+            res[m.db] = {"compiled": comp,
+                         "nbn": node_by_node(c, m.build_inference_dag())
+                         .to_dense().clone(),
+                         "captures": c1.get("captures", 0)
+                         - c0.get("captures", 0),
+                         "replays": c1.get("replays", 0)
+                         - c0.get("replays", 0)}
+        return res
+
+    before = both_ways()
+    blocks = sum(c.get_tensor(*st).meta.num_blocks for st in sets)
+    block_bytes = 4 * s["block"][0] * s["block"][1]
+    want_unique = blocks // 2 + changed
+    # every set read once, the pool written once; a request after the
+    # first pools the assembled sets again, to the same pool
+    report = _wl_request(out, profiled, "dedup_resident",
+                         lambda: c.dedup_resident(sets), device,
+                         _wl_bound(0.0, (blocks + want_unique)
+                                   * block_bytes, pk))
+    ok = (report["unique_blocks"] == want_unique
+          and report["hbm_bytes_pooled"] == want_unique * block_bytes
+          and c.store.live_pool_bytes() == want_unique * block_bytes)
+    out["dedup_resident"].update(report=report,
+                                 planted_unique_blocks=want_unique)
+    _wl_check("dedup_resident report", ok,
+              f"{report['total_blocks']} blocks, {report['unique_blocks']} "
+              f"unique (planted {want_unique}), pooled "
+              f"{report['hbm_bytes_pooled']} bytes of "
+              f"{report['hbm_bytes_before']}", out)
+    pooled = both_ways()
+    dropped = c.store.drop_pool_caches()
+    after = both_ways()
+    for stage, res in (("pooled", pooled), ("after drop_pool_caches",
+                                            after)):
+        for db in res:
+            same = all(torch.equal(x, y) for x, y in zip(
+                res[db]["compiled"], before[db]["compiled"])) and \
+                torch.equal(res[db]["nbn"], before[db]["nbn"])
+            _wl_check(f"dedup inference {db} {stage}", same and (
+                device == "cpu" or res[db]["captures"] >= 1),
+                f"bit-equal to before pooling: {same}; "
+                f"{res[db]['captures']} captures, {res[db]['replays']} "
+                f"replays" + (f"; {dropped} cache bytes dropped"
+                              if stage != "pooled" else ""), out)
+    diff = max((x["compiled"][-1] - x["nbn"]).abs().max().item()
+               for x in before.values())
+    _wl_check("dedup compiled vs node by node", diff <= FF_TOL,
+              f"max abs diff {diff:.3e}", out)
+    executor.clear_compiled_cache()
+    del c
+
+
+def _wl_lsh(out, profiled, device, pk) -> None:
+    from netsdb_tpu_torch.dedup.lsh import bench_lsh_zoo
+
+    res = _wl_request(out, profiled, "bench_lsh_zoo",
+                      lambda: bench_lsh_zoo(device=device), device,
+                      _wl_bound(100 * 2.0 * 8 * 65536 * 128,
+                                4.0 * 100 * 8 * 65536, pk), n=1)
+    cpu = bench_lsh_zoo(device="cpu")
+    keys = ("models", "blocks", "groups", "groups_family_pure",
+            "verified_pairs", "all_pairs", "index_stats")
+    same = all(res[k] == cpu[k] for k in keys)
+    out["bench_lsh_zoo"]["result"] = res
+    _wl_check("bench_lsh_zoo vs the CPU client", same,
+              f"{res['groups']} groups, pure {res['groups_family_pure']}, "
+              f"{res['verified_pairs']} verified pairs; build "
+              f"{res['build_s']} s, probe {res['probe_s']} s", out)
+
+
+def _wl_small_vs_cpu(out, s, device) -> None:
+    """Each workload at a small size on the card and on a CPU client, from
+    the same numpy inputs and initial states."""
+    import numpy as np
+    import torch
+
+    km = __import__("netsdb_tpu_torch.workloads.kmeans", fromlist=["x"])
+    gm = __import__("netsdb_tpu_torch.workloads.gmm", fromlist=["x"])
+    ld = __import__("netsdb_tpu_torch.workloads.lda", fromlist=["x"])
+    pr = __import__("netsdb_tpu_torch.workloads.pagerank", fromlist=["x"])
+    tk = __import__("netsdb_tpu_torch.workloads.topk", fromlist=["x"])
+    cf = __import__("netsdb_tpu_torch.workloads.conv_fusion",
+                    fromlist=["x"])
+    moe = __import__("netsdb_tpu_torch.models.moe", fromlist=["x"])
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    rng = np.random.default_rng(SEED + 10)
+    tol = WL_TOLS["small_rtol"]
+    n, d, k = s["n"], s["d"], s["k"]
+    centres = rng.standard_normal((k, d)).astype(np.float32) * 6
+    pts = (centres[rng.integers(0, k, n)]
+           + rng.standard_normal((n, d)).astype(np.float32))
+    counts = rng.poisson(2.0, (s["docs"], s["vocab"])).astype(np.float32)
+    src = rng.integers(0, s["nodes"], s["edges"]).astype(np.int32)
+    dst = rng.integers(0, s["nodes"], s["edges"]).astype(np.int32)
+    scores = rng.integers(0, 30, 5000).astype(np.float32)
+    images = rng.standard_normal((s["images"], 3, s["hw"], s["hw"]),
+                                 dtype=np.float32)
+    kernels = rng.standard_normal((8, 3, 5, 5), dtype=np.float32) * 0.1
+    bias = rng.standard_normal(8, dtype=np.float32)
+    gmm_init = gm.GMMState(torch.from_numpy(centres[:k].copy()),
+                           torch.ones(k, d) * 2.0, torch.full((k,), 1 / k))
+    lda_init = ld.lda_init(torch.from_numpy(counts), 6, SEED)
+    mp = moe.init_moe_params(32, 64, 8, seed=SEED, device="cpu")
+    xm = rng.standard_normal((128, 32)).astype(np.float32)
+    res = {}
+    for dev in (device, "cpu"):
+        def put(a, dev=dev):
+            return torch.from_numpy(np.asarray(a)).to(dev)
+
+        c = _wl_client(dev)
+        c.create_database("wl")
+        c.create_set("wl", "links", type_name="object")
+        c.send_data("wl", "links", list(zip(src.tolist(), dst.tolist())))
+        c.create_set("wl", "lt", type_name="table")
+        c.send_table("wl", "lt", ColumnTable({"src": put(src),
+                                              "dst": put(dst)}))
+        c.create_set("wl", "s", type_name="table")
+        c.send_table("wl", "s", ColumnTable({"score": put(scores)}))
+        c.create_set("wl", "o", type_name="object")
+        c.send_data("wl", "o", [{"i": i, "v": float(v)}
+                                for i, v in enumerate(scores[:500])])
+        p = put(pts)
+        r = {"kmeans": km.kmeans(p, k, 5, init_centroids=put(pts[:k])),
+             "kmeans_sample": km.sample_init(p, k, SEED),
+             "gmm": gm.gmm_em(p, k, 5, init=gmm_init)[0],
+             "lda": ld.lda_em(put(counts), 6, 10, init=lda_init),
+             "pagerank": pr.pagerank(put(src), put(dst), s["nodes"]),
+             "pagerank_on_set": pr.pagerank_on_set(c, "wl", "links",
+                                                   s["nodes"]),
+             "pagerank_on_table_set": pr.pagerank_on_table_set(
+                 c, "wl", "lt", s["nodes"]),
+             "top_k_on_table_set": tk.top_k_on_table_set(c, "wl", "s",
+                                                         "score", 25),
+             "top_k_on_set": [o["i"] for o in tk.top_k_on_set(
+                 c, "wl", "o", 25, score=lambda o: o["v"])],
+             "conv": np.stack([im.data for im in cf.ConvFusionPipeline(
+                 db="cf", kernel_size=5, block=(32, 32)).run(
+                 c, images, kernels, bias)]),
+             "moe": moe.moe_forward(moe.MoEParams(
+                 put(mp.w_gate), put(mp.w_up), put(mp.w_down)), put(xm))}
+        res[dev] = r
+    g, w = res[device], res["cpu"]
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return np.asarray(x)
+
+    errs = {
+        "kmeans": max(float(np.abs(host(g["kmeans"][0])
+                                   - host(w["kmeans"][0])).max()),
+                      float((host(g["kmeans"][1])
+                             != host(w["kmeans"][1])).sum())),
+        "kmeans_sample": float(not np.array_equal(
+            host(g["kmeans_sample"]), host(w["kmeans_sample"]))),
+        "gmm": max(_rel(a.cpu(), b) for a, b in zip(g["gmm"], w["gmm"])),
+        "lda": max(float(np.abs(host(a) - host(b)).max())
+                   for a, b in zip(g["lda"], w["lda"])),
+        "pagerank": _rel(g["pagerank"].cpu(), w["pagerank"]),
+        "pagerank_on_set": float(np.abs(g["pagerank_on_set"]
+                                        - w["pagerank_on_set"]).max()
+                                 / w["pagerank_on_set"].max()),
+        "pagerank_on_table_set": float(
+            np.abs(g["pagerank_on_table_set"]
+                   - w["pagerank_on_table_set"]).max()
+            / w["pagerank_on_table_set"].max()),
+        "top_k_on_table_set": float(not np.array_equal(
+            host(g["top_k_on_table_set"]["row"]),
+            host(w["top_k_on_table_set"]["row"]))),
+        "top_k_on_set": float(g["top_k_on_set"] != w["top_k_on_set"]),
+        "conv": float(np.abs(g["conv"] - w["conv"]).max()),
+        "moe": float(np.abs(host(g["moe"]) - host(w["moe"])).max())}
+    out["small_vs_cpu"] = errs
+    bad = [name for name, e in errs.items() if not e <= tol]
+    _wl_check("small sizes vs the CPU client", not bad,
+              ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + (f" (over {tol}: {bad})" if bad else ""), out)
+
+
+def phase_workloads(pk: dict, device="cuda", sizes=None) -> tuple:
+    """Phase 15: the single-device workloads, MoE and dedup (``WL_SIZES``),
+    each request through the port's ``Client`` held to the same function
+    in float64 on the same device, and at small sizes to a CPU client.
+    Returns the results and the requests to profile."""
+    sizes = {k: dict(v, **((sizes or {}).get(k, {})))
+             for k, v in WL_SIZES.items()}
+    sizes["pagerank"].update(objects_nodes=sizes["pagerank_objects"]["nodes"],
+                             objects_edges=sizes["pagerank_objects"]["edges"])
+    sizes["topk_table"]["objects"] = sizes["topk_objects"]["items"]
+    del _WL_FAILURES[:]
+    t0 = time.perf_counter()
+    out, profiled = {}, {}
+    parts = [("small", lambda: _wl_small_vs_cpu(out, sizes["small"],
+                                                device)),
+             ("kmeans", lambda: _wl_kmeans(out, profiled, sizes["kmeans"],
+                                           device, pk)),
+             ("gmm", lambda: _wl_gmm(out, profiled, sizes["gmm"], device,
+                                     pk)),
+             ("lda", lambda: _wl_lda(out, profiled, sizes["lda"], device,
+                                     pk)),
+             ("pagerank", lambda: _wl_pagerank(out, profiled,
+                                               sizes["pagerank"], device,
+                                               pk)),
+             ("topk", lambda: _wl_topk(out, profiled, sizes["topk_table"],
+                                       device, pk)),
+             ("conv", lambda: _wl_conv(out, profiled, sizes["conv"], device,
+                                       pk)),
+             ("moe", lambda: _wl_moe(out, profiled, sizes["moe"], device,
+                                     pk)),
+             ("dedup", lambda: _wl_dedup(out, profiled, sizes["dedup"],
+                                         device, pk)),
+             ("lsh", lambda: _wl_lsh(out, profiled, device, pk))]
+    for name, part in parts:
+        try:
+            part()
+        except Exception as e:  # noqa: BLE001 — raised at the phase's end
+            import traceback
+
+            traceback.print_exc()
+            print(f"[workloads] {name}: FAILED: {type(e).__name__}: {e}")
+            _WL_FAILURES.append(f"{name}: {type(e).__name__}: {e}")
+        _wl_free(device)
+        print(f"[workloads] {name} done at {time.perf_counter() - t0:.1f} s")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[workloads] phase 15 wall {out['wall_s']:.1f} s")
+    return out, profiled
+
+
+def workloads_path(pk: dict) -> dict:
+    """Phase 15 between launch counts set to 0 and read: neither attention
+    kernel lies on these paths."""
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+
+    flash_attention.launches = flash_attention_step.launches = 0
+    out, _ = phase_workloads(pk)
+    launches = (flash_attention.launches, flash_attention_step.launches)
+    out["launches"] = {"flash_attention": launches[0],
+                       "flash_attention_step": launches[1]}
+    print(f"[workloads] launches: flash_attention {launches[0]}, "
+          f"flash_attention_step {launches[1]}")
+    if any(launches):
+        _WL_FAILURES.append(f"attention kernels launched {launches}")
+    if _WL_FAILURES:
+        raise RuntimeError("phase 15: " + " | ".join(_WL_FAILURES))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3890,6 +4789,11 @@ def main() -> int:
         print(json.dumps({"rows": rows_path(pk), "card": smi},
                          default=str))
         return 0
+    if "--workloads-only" in sys.argv[1:]:
+        # phase 15 alone, the same way
+        print(json.dumps({"workloads": workloads_path(pk), "card": smi},
+                         default=str))
+        return 0
     b1 = phase_kernels(pk)
     b2 = phase_step_kernel(pk)
 
@@ -3927,6 +4831,7 @@ def main() -> int:
     finally:
         _close_paged(rel_state.get("paged"))
     del rel_state
+    workloads = workloads_path(pk)
 
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
@@ -3935,7 +4840,8 @@ def main() -> int:
                       "paged": paged, "models": models, "train": train,
                       "la": la, "relational": relational,
                       "paged_relations": paged_relations, "rows": rows,
-                      "compiled": compiled, "card": smi}, default=str))
+                      "compiled": compiled, "workloads": workloads,
+                      "card": smi}, default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
         return {"name": kname, "route": "cuda", "source": source,
@@ -3953,13 +4859,16 @@ def main() -> int:
                    "netsdb_tpu/ops/pallas_kernels.py:135",
                    {"inference": b1_launches,
                     "training": train["transformer_b1_launches"],
-                    "compiled": compiled["launches"]["flash_attention"]},
+                    "compiled": compiled["launches"]["flash_attention"],
+                    "workloads": workloads["launches"]["flash_attention"]},
                    b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
                    "netsdb_tpu/ops/pallas_kernels.py:286",
                    {"sequence_parallel": sp["launches"],
-                    "compiled": compiled["launches"]["flash_attention_step"]},
+                    "compiled": compiled["launches"]["flash_attention_step"],
+                    "workloads":
+                        workloads["launches"]["flash_attention_step"]},
                    b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -60,6 +60,8 @@ class Client:
     registerType(.so)        :meth:`register_type`
     executeComputations      :meth:`execute_computations`
     clearSet                 :meth:`clear_set`
+    addSharedMapping         :meth:`add_shared_mapping`
+    StorageCollectStats      :meth:`collect_stats`
     =======================  =====================================
     """
 
@@ -75,6 +77,13 @@ class Client:
         self.device = resolve_device(device)
         self.catalog = Catalog(catalog_path or ":memory:")
         self.store = SetStore(self.config, self.device)
+        self._mesh = None
+
+    @property
+    def mesh(self):
+        """The mesh of the last ``create_set`` given a placement (None
+        while every set is on one device)."""
+        return self._mesh
 
     # --- DDL ----------------------------------------------------------
     def create_database(self, db: str) -> None:
@@ -144,13 +153,15 @@ class Client:
         if placement is not None:
             # resolves the axes now: two size-0 axes raise before the
             # catalog row is written
-            placement.mesh(visible_devices(self.device.type))
+            mesh = placement.mesh(visible_devices(self.device.type))
             meta["sharding"] = placement.to_meta()
         self.catalog.create_set(db, set_name, type_name, meta, persistence)
         ident = SetIdentifier(db, set_name)
         self.store.create_set(ident, placement=placement, storage=storage,
                               persistence=persistence, type_name=type_name,
                               eviction=eviction)
+        if placement is not None:
+            self._mesh = mesh
         return ident
 
     def remove_set(self, db: str, set_name: str) -> None:
@@ -326,6 +337,52 @@ class Client:
             info = self.catalog.get_set(ident.db, ident.set)
             if info and info.get("persistence") == "persistent":
                 self.store.flush(ident)
+
+    # --- dedup (reference addSharedMapping, SharedTensorBlockSet) -----
+    def dedup_resident(self, sets: Sequence[Tuple[str, str]],
+                       bands: int = 16, seed: int = 0) -> Dict[str, Any]:
+        """Dedup resident weight sets block by block: LSH groups the
+        candidate blocks across the sets, byte-equal blocks share one
+        slot of a pool on the device, and each set keeps a slot grid
+        (``dedup/pool.py``). Sets are pooled per (block shape, dtype)
+        class; reads are unchanged to the bit. Returns the summed
+        pooling report."""
+        from netsdb_tpu_torch.dedup.pool import pool_models
+
+        by_class: Dict[Any, Dict[str, BlockedTensor]] = {}
+        for db, set_name in sets:
+            t = self.get_tensor(db, set_name)
+            by_class.setdefault((t.meta.block_shape, str(t.dtype)),
+                                {})[f"{db}:{set_name}"] = t
+        keys = ("models", "total_blocks", "unique_blocks",
+                "shared_block_refs", "hbm_bytes_before", "hbm_bytes_pooled")
+        total: Dict[str, Any] = {"classes": len(by_class),
+                                 **{k: 0 for k in keys}}
+        for group in by_class.values():
+            pooled, report = pool_models(group, bands=bands, seed=seed)
+            for name, pt in pooled.items():
+                self.store.set_pooled(SetIdentifier(*name.split(":", 1)), pt)
+            for k in keys:
+                total[k] += report[k]
+        total["hbm_savings_pct"] = round(
+            100 * (1 - total["hbm_bytes_pooled"]
+                   / max(total["hbm_bytes_before"], 1)), 1)
+        return total
+
+    def add_shared_mapping(self, private_db: str, private_set: str,
+                           shared_db: str, shared_set: str,
+                           mapping: Optional[Dict] = None) -> None:
+        """Make ``private_set`` read ``shared_set``'s storage (it is
+        read-only from then on)."""
+        self.store.add_shared_mapping(SetIdentifier(private_db, private_set),
+                                      SetIdentifier(shared_db, shared_set),
+                                      mapping)
+
+    def collect_stats(self) -> Dict[str, Any]:
+        """Per-set storage statistics (reference ``StorageCollectStats``),
+        keyed by ``"db:set"``."""
+        return {str(i): self.store.set_stats(i)
+                for i in self.store.list_sets()}
 
     # --- query execution ----------------------------------------------
     def execute_computations(self, *sinks, job_name: str = "job",

@@ -1,29 +1,83 @@
-"""Configuration — the subset of ``netsdb_tpu.config.Configuration``
-that the ported path reads — and the rule that picks the device."""
+"""Configuration — the port's ``netsdb_tpu.config.Configuration``, every
+field with the reference's default — and the rule that picks the
+device."""
 
 from __future__ import annotations
 
 import dataclasses
 import os
 import tempfile
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 # knobs of the reference that belong to later items of ROADMAP.md A:
 # setting one away from its default raises, naming the item
-_LATER = {"distributed_matmul": (False, "A4"),
-          "summa_grid": (None, "A4"),
-          "device_cache_pin_auto": (False, "A7")}
+_LATER = {
+    # A4: meshes and the distributed matmul
+    "mesh_shape": (None, "A4"),
+    "mesh_axis_names": (("data", "model"), "A4"),
+    "distributed_matmul": (False, "A4"),
+    "summa_participants": (None, "A4"),
+    "summa_grid": (None, "A4"),
+    # A5 part 2: decode (DecodeRuntime reads both)
+    "decode_batch_max": (8, "A5"),
+    "model_dedup": (False, "A5"),
+    # A7: serving — the scheduler, shards, HA, rebalancing, sessions and
+    # the session half of the device cache
+    "device_cache_pin_auto": (False, "A7"),
+    "sched_lanes": (None, "A7"),
+    "sched_lane_quota": (0, "A7"),
+    "sched_aging_every": (8, "A7"),
+    "sched_coalesce": (True, "A7"),
+    "sched_coalesce_done_ttl_s": (0.0, "A7"),
+    "sched_coalesce_done_max": (32, "A7"),
+    "sched_affinity": (True, "A7"),
+    "sched_affinity_wait_s": (30.0, "A7"),
+    "sched_feedback": (False, "A7"),
+    "sched_feedback_every": (64, "A7"),
+    "sched_slo_shed": (False, "A7"),
+    "shard_handoff_bytes": (256 * 1024 * 1024, "A7"),
+    "rebalance": (False, "A7"),
+    "rebalance_skew_ratio": (2.0, "A7"),
+    "rebalance_windows": (3, "A7"),
+    "rebalance_max_bytes_per_round": (64 * 1024 * 1024, "A7"),
+    "ha_election_timeout_s": (5.0, "A7"),
+    "ha_mutlog": (False, "A7"),
+    "session_ttl_s": (600.0, "A7"),
+    "session_state_bytes": (16 * 1024 * 1024, "A7"),
+    # A8: the parts of obs/ the port does not have yet, the lock witness
+    "obs_enabled": (True, "A8"),
+    "obs_trace_ring": (64, "A8"),
+    "obs_hist_samples": (512, "A8"),
+    "obs_trace_sample": (1, "A8"),
+    "obs_slow_query_s": (5.0, "A8"),
+    "obs_slowlog_entries": (64, "A8"),
+    "obs_device_profile_dir": (None, "A8"),
+    "obs_history_interval_s": (5.0, "A8"),
+    "obs_history_len": (120, "A8"),
+    "lock_witness": (False, "A8"),
+}
+
+
+def _compile_cache_default() -> Optional[str]:
+    return os.environ.get("NETSDB_TPU_COMPILE_CACHE", "auto")
 
 
 @dataclasses.dataclass
 class Configuration:
-    """``default_block_shape`` is the block a matrix set gets when
+    """Every field of ``netsdb_tpu.config.Configuration``, each with the
+    reference's default (``root_dir`` excepted: the port's lies under
+    the temporary directory).
+
+    Knobs the port reads:
+
+    ``default_block_shape`` is the block a matrix set gets when
     ``send_matrix`` is given none (as in the reference package).
     ``root_dir`` is where durable sets and the page arena's spill files
     live (``data_dir``); nothing is written there until a paged or
-    persistent set asks for it.
+    persistent set asks for it. ``shared_mem_bytes`` is the store's
+    eviction budget (``SetStore.max_host_bytes``).
 
     The paged path's knobs keep the reference's defaults
     (``netsdb_tpu/config.py``): pages of ``page_size_bytes`` in an arena
@@ -46,46 +100,127 @@ class Configuration:
     means) or ``"static"``, ``fusion_mapper`` ``"optimal"`` (the exact
     segmentation) or ``"greedy"``, and ``fusion_stage_budget_bytes`` (0:
     no budget) splitting a region whose staged-bytes estimate exceeds it.
+    ``obs_explain`` records an EXPLAIN tree for every traced query.
 
-    Knobs of later ROADMAP.md items (the distributed matmul, the
-    automatic pin budget) raise ``NotImplementedError`` when set away
-    from their defaults."""
+    Knobs that no in-process path of the reference reads either, taken
+    as given: ``compute_dtype``, ``accum_dtype`` and ``storage_dtype``
+    (dtypes are chosen per call, f32 by default), ``log_level`` and
+    ``num_threads`` (the served daemon's job slots). ``enable_compression``
+    is taken as given too: the port's spill files are its own format,
+    written uncompressed whatever it says.
 
+    ``donate_fold_buffers`` has no counterpart: a fold step's state is
+    updated in place by its program or replaced by the next step's
+    output, and nothing is donated. None and False are accepted; True
+    raises ``ValueError``. ``compilation_cache_dir`` accepts ``"auto"``
+    and None (or ""): the port's programs are CUDA graphs of the process
+    and nothing is persisted; a directory raises ``NotImplementedError``
+    (the shippable compiled plan, ROADMAP.md A8).
+
+    Every knob of a later ROADMAP.md item (``_LATER``: meshes, decode,
+    serving, the rest of obs, the lock witness) raises
+    ``NotImplementedError`` naming its item when set away from its
+    default."""
+
+    # --- tensor blocking ---
     default_block_shape: Tuple[int, int] = (512, 512)
-    root_dir: str = dataclasses.field(
-        default_factory=lambda: os.path.join(tempfile.gettempdir(),
-                                             "netsdb_tpu_torch"))
+    # --- dtypes (read by no in-process path, as in the reference) ---
+    compute_dtype: str = "bfloat16"
+    accum_dtype: str = "float32"
+    storage_dtype: str = "float32"
     # --- host page store (native runtime) ---
     page_size_bytes: int = 64 * 1024 * 1024
     shared_mem_bytes: int = 4 * 1024 * 1024 * 1024
     page_pool_bytes: Optional[int] = None
+    root_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(),
+                                             "netsdb_tpu_torch"))
+    # --- mesh defaults (A4) ---
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_axis_names: Tuple[str, ...] = ("data", "model")
     # --- staged streaming (plan/staging.py) ---
     stream_prefetch_pages: int = 2
     stage_depth: int = 2
     shape_bucketing: bool = True
     bucket_density: int = 2
-    # --- device block cache (storage/devcache.py) ---
-    device_cache_bytes: int = 256 * 1024 * 1024
-    device_cache_partial: bool = True
-    device_cache_pin_bytes: int = 0
-    device_cache_dirty_log: int = 64
     # --- fusion-aware plan compilation (plan/fusion.py) ---
     plan_fusion: bool = True
     fusion_min_region: int = 2
     fusion_cost_source: str = "ledger"
     fusion_mapper: str = "optimal"
     fusion_stage_budget_bytes: int = 0
-    # --- later items (see _LATER) ---
+    # --- device block cache (storage/devcache.py) ---
+    device_cache_bytes: int = 256 * 1024 * 1024
+    device_cache_partial: bool = True
+    device_cache_pin_bytes: int = 0
+    device_cache_dirty_log: int = 64
+    # --- distributed linear algebra (A4) ---
     distributed_matmul: bool = False
+    summa_participants: Optional[int] = None
     summa_grid: Optional[str] = None
     device_cache_pin_auto: bool = False
+    donate_fold_buffers: Optional[bool] = None
+    # --- observability ---
+    obs_enabled: bool = True
+    obs_trace_ring: int = 64
+    obs_hist_samples: int = 512
+    obs_trace_sample: int = 1
+    obs_slow_query_s: Optional[float] = 5.0
+    obs_slowlog_entries: int = 64
+    obs_device_profile_dir: Optional[str] = None
+    obs_explain: bool = True
+    obs_history_interval_s: float = 5.0
+    obs_history_len: int = 120
+    # --- serving (A7) ---
+    sched_lanes: Optional[Dict[str, float]] = None
+    sched_lane_quota: int = 0
+    sched_aging_every: int = 8
+    sched_coalesce: bool = True
+    sched_coalesce_done_ttl_s: float = 0.0
+    sched_coalesce_done_max: int = 32
+    sched_affinity: bool = True
+    sched_affinity_wait_s: float = 30.0
+    shard_handoff_bytes: int = 256 * 1024 * 1024
+    rebalance: bool = False
+    rebalance_skew_ratio: float = 2.0
+    rebalance_windows: int = 3
+    rebalance_max_bytes_per_round: int = 64 * 1024 * 1024
+    ha_election_timeout_s: float = 5.0
+    ha_mutlog: bool = False
+    sched_feedback: bool = False
+    sched_feedback_every: int = 64
+    sched_slo_shed: bool = False
+    session_ttl_s: float = 600.0
+    session_state_bytes: int = 16 * 1024 * 1024
+    decode_batch_max: int = 8
+    model_dedup: bool = False
+    lock_witness: bool = False
+    # --- execution ---
+    num_threads: int = 4
+    enable_compression: bool = True
+    log_level: str = "WARNING"
+    compilation_cache_dir: Optional[str] = dataclasses.field(
+        default_factory=_compile_cache_default)
 
     def __post_init__(self) -> None:
         for name, (default, item) in _LATER.items():
-            if getattr(self, name) != default:
+            value = getattr(self, name)
+            if isinstance(default, tuple) and isinstance(value, list):
+                value = tuple(value)
+            if value != default:
                 raise NotImplementedError(
                     f"Configuration({name}=...) is not ported yet: "
                     f"ROADMAP.md {item}")
+        if self.donate_fold_buffers:
+            raise ValueError(
+                "donate_fold_buffers=True has no counterpart in the port: "
+                "fold states are updated in place or replaced, never "
+                "donated")
+        if self.compilation_cache_dir not in (
+                None, "", "auto", _compile_cache_default()):
+            raise NotImplementedError(
+                "Configuration(compilation_cache_dir=<dir>): a persisted "
+                "compiled plan is not ported yet: ROADMAP.md A8")
         if self.device_cache_dirty_log < 1:
             raise ValueError(f"device_cache_dirty_log must be at least 1, "
                              f"got {self.device_cache_dirty_log!r}")

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from netsdb_tpu_torch.core.blocked import BlockedTensor
+from netsdb_tpu_torch.ops import linalg
 from netsdb_tpu_torch.ops.common import neutral_fill, remask
 
 
@@ -29,6 +30,11 @@ def _broadcast_bias(x: BlockedTensor, bias: BlockedTensor) -> torch.Tensor:
     # compute in the activation's dtype: a f32 bias must not promote a
     # bf16 activation chain back to f32
     return b.to(x.data.dtype)
+
+
+def relu(x: BlockedTensor) -> BlockedTensor:
+    """max(x, 0); relu(0) = 0 keeps the margin."""
+    return x.with_data(torch.relu(x.data))
 
 
 def bias_relu(x: BlockedTensor, bias: BlockedTensor,
@@ -52,6 +58,24 @@ def bias_sigmoid(x: BlockedTensor, bias: BlockedTensor) -> BlockedTensor:
     """sigmoid(x + bias) — reference ``FFTransposeBiasSumSigmoid``."""
     y = torch.sigmoid(x.data + _broadcast_bias(x, bias))
     return remask(x.with_data(y))
+
+
+def bias_exp(x: BlockedTensor, bias: BlockedTensor) -> BlockedTensor:
+    """exp(x + bias) — reference ``FFTransposeBiasSum`` (the softmax
+    numerator stage); exp(0) = 1, so the margin is re-masked."""
+    y = torch.exp(x.data + _broadcast_bias(x, bias))
+    return remask(x.with_data(y))
+
+
+def row_sum(x: BlockedTensor) -> BlockedTensor:
+    """Per-row sum → (n, 1) — reference ``FFRowAggregate``; the LA op
+    set's ``row_sum``."""
+    return linalg.row_sum(x)
+
+
+def col_sum(x: BlockedTensor) -> BlockedTensor:
+    """Per-column sum → (1, m); the LA op set's ``col_sum``."""
+    return linalg.col_sum(x)
 
 
 def _masked_softmax(x: BlockedTensor, z: torch.Tensor,

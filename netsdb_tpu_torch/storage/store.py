@@ -54,6 +54,20 @@ model's image, filter and bias sets) is scanned as its item list even
 when it holds one tensor, as the reference scans a set of numpy arrays
 (:meth:`SetStore.scans_as_list`); any other set holding one tensor is
 scanned as that tensor.
+
+**Dedup** (reference ``store.py:911-935``, ``:1119-1212``).
+:meth:`SetStore.add_shared_mapping` points a set at another set's
+storage (``alias_of``): its reads are the other set's items, and every
+write to it raises, since it is read-only. :meth:`SetStore.set_pooled`
+swaps a weight set's tensor for a :class:`~netsdb_tpu_torch.dedup.pool.
+PooledTensor` (slots into a block pool shared across sets); a read
+assembles it (one gather, cached on the pooled tensor). A set's bytes
+then count only its slot grid, and each live pool counts once
+(:meth:`SetStore.live_pool_bytes`). Under memory pressure the cached
+assemblies go first (:meth:`SetStore.drop_pool_caches`), before any set
+is evicted. A dropped assembly and every fresh one count as a write of
+the set (its version moves and its programs drop), so no program reads a
+freed assembly in place; so does a write to a set that others alias.
 """
 
 from __future__ import annotations
@@ -150,6 +164,10 @@ class _StoredSet:
     eviction: str = "lru"
     last_access: float = 0.0
     nbytes: int = 0
+    # dedup: the set whose storage this set reads (read-only), and the
+    # block mapping it was aliased under
+    alias_of: Optional[SetIdentifier] = None
+    shared_mapping: Optional[Dict] = None
 
 
 def _item_nbytes(item: Any) -> int:
@@ -162,6 +180,9 @@ def _item_nbytes(item: Any) -> int:
     if isinstance(item, ShardedTensor):
         return sum(t.numel() * t.element_size()
                    for t in {id(t): t for t in item.shards.flat}.values())
+    resident = getattr(item, "nbytes_resident", None)  # PooledTensor: its
+    if resident is not None:  # slot grid; the shared pool counts once,
+        return int(resident)  # in SetStore.live_pool_bytes
     cols = getattr(item, "cols", None)
     if isinstance(cols, dict):  # ColumnTable
         n = sum(c.numel() * c.element_size() for c in cols.values())
@@ -199,6 +220,9 @@ class SetStore:
         self._device_cache = None
         self._gen = itertools.count()
         self._version_ctr = itertools.count(1)
+        # sets holding a PooledTensor (dedup/pool.py): pool accounting
+        # scans these only
+        self._pooled: set = set()
 
     # --- shared resources (lazy: most clients never page a set) -------
     def page_store(self):
@@ -258,6 +282,9 @@ class SetStore:
         if s.items is not None and s.storage == "memory":
             s.nbytes = sum(_item_nbytes(i) for i in s.items)
         _announce(s.ident)
+        for other in self._sets.values():  # readers of this set's storage
+            if other.alias_of == s.ident:
+                _announce(other.ident)
 
     def _bind_cache(self, pc, ident: SetIdentifier) -> None:
         """Bind a store-owned paged relation to the device cache (grace
@@ -267,9 +294,15 @@ class SetStore:
         pc.cache_version_fn = functools.partial(self.version_of, ident)
 
     def version_of(self, ident: SetIdentifier) -> int:
-        """The set's write version (0: unknown set)."""
+        """The set's write version (0: unknown set); a set aliasing
+        another moves with that set's writes too (versions come from one
+        store-wide counter, so the larger is the newer)."""
         s = self._sets.get(ident)
-        return s.version if s is not None else 0
+        if s is None:
+            return 0
+        if s.alias_of is not None:
+            return max(s.version, self.version_of(s.alias_of))
+        return s.version
 
     # --- set lifecycle ------------------------------------------------
     def create_set(self, ident: SetIdentifier, placement: Optional[Any] = None,
@@ -370,7 +403,7 @@ class SetStore:
 
         po = None
         with self._lock:
-            s = self._require(ident)
+            s = self._writable(ident)
             if s.storage == "paged":
                 if not items:
                     return
@@ -441,7 +474,7 @@ class SetStore:
         updaters cannot lose each other's batch. The set's placement
         applies to the result."""
         with self._lock:
-            s = self._require(ident)
+            s = self._writable(ident)
             if s.storage != "memory":
                 raise ValueError(f"update_set needs a memory set; {ident} "
                                  f"is {s.storage!r}")
@@ -454,7 +487,7 @@ class SetStore:
         set is exactly one). A paged set pages the matrix into the arena
         from the host."""
         with self._lock:
-            s = self._require(ident)
+            s = self._writable(ident)
             if s.storage == "paged":
                 dead = self._ingest_paged(s, _host(tensor.to_dense()))
             else:
@@ -569,7 +602,7 @@ class SetStore:
         the blocks of streams that held a touched column. The rewrite
         runs outside the store lock, under the set's append lock."""
         with self._lock:
-            s = self._require(ident)
+            s = self._writable(ident)
             if s.storage != "paged":
                 raise ValueError(f"update_columns needs a paged table set; "
                                  f"{ident} is {s.storage!r}")
@@ -594,13 +627,13 @@ class SetStore:
                                                        concat_tables)
 
         with self._lock:
-            s = self._require(ident)
+            s = self._writable(ident)
             paged = s.storage == "paged"
         if paged:
             self._append_paged(s, table)
             return
         with self._lock:
-            s = self._require(ident)
+            s = self._writable(ident)
             items = self._items_locked(s)
             tables = [i for i in items if isinstance(i, ColumnTable)]
             if len(items) != len(tables) or len(tables) > 1:
@@ -616,14 +649,35 @@ class SetStore:
 
     # --- reads --------------------------------------------------------
     def get_items(self, ident: SetIdentifier) -> List[Any]:
-        """A set's items; an evicted set reloads from ``data_dir`` here."""
+        """A set's items; an evicted set reloads from ``data_dir`` here.
+        A set aliasing another reads that set's items (reference
+        ``PartitionTensorBlockSharedPageIterator``); a pooled tensor is
+        given as its assembly, and an assembly made anew is a write of
+        the set."""
         with self._lock:
             s = self._require(ident)
+            if s.alias_of is not None:
+                return self.get_items(s.alias_of)
             if s.items is not None:
                 self.stats.hits += 1
             items = list(self._items_locked(s))
             s.last_access = time.time()
+            if ident in self._pooled:
+                items = self._assembled(s, items)
             return items
+
+    def _assembled(self, s: _StoredSet, items: List[Any]) -> List[Any]:
+        from netsdb_tpu_torch.dedup.pool import PooledTensor
+
+        out, fresh = [], False
+        for item in items:
+            if isinstance(item, PooledTensor):
+                fresh |= item.cached is None
+                item = item.assemble()
+            out.append(item)
+        if fresh:  # a new buffer: no program may hold the old one
+            self._touch(s)
+        return out
 
     def scan(self, ident: SetIdentifier) -> Iterator[Any]:
         """A set's items, one by one — reference ``SetScan`` /
@@ -647,16 +701,21 @@ class SetStore:
         return iter(items)
 
     def set_stats(self, ident: SetIdentifier) -> Dict[str, Any]:
-        """A set's storage, write version, item count and dirty-range
-        log."""
+        """The reference's per-set statistics (``StorageCollectStats``):
+        item count, bytes, residency, persistence, the set it aliases,
+        its placement's label, storage, write version and dirty-range
+        log; and its eviction policy."""
         with self._lock:
             s = self._require(ident)
-            return {"ident": str(ident), "storage": s.storage,
-                    "version": s.version,
-                    "num_items": len(s.items or []),
+            return {"ident": str(ident), "num_items": len(s.items or []),
                     "nbytes": s.nbytes, "in_memory": s.items is not None,
-                    "eviction": s.eviction,
-                    "dirty_ranges": list(s.dirty_log)}
+                    "persistence": s.persistence,
+                    "alias_of": str(s.alias_of) if s.alias_of else None,
+                    "placement": (s.placement.label()
+                                  if s.placement is not None else None),
+                    "storage": s.storage, "version": s.version,
+                    "dirty_ranges": list(s.dirty_log),
+                    "eviction": s.eviction}
 
     def get_tensor(self, ident: SetIdentifier) -> BlockedTensor:
         items = self.get_items(ident)
@@ -708,6 +767,79 @@ class SetStore:
                                       cache_scope=str(ident),
                                       cache_version=version)
 
+    # --- dedup (reference addSharedMapping, SharedTensorBlockSet) -----
+    def add_shared_mapping(self, private: SetIdentifier,
+                           shared: SetIdentifier,
+                           mapping: Optional[Dict] = None) -> None:
+        """Point ``private`` at ``shared``'s storage (reference
+        ``PDBClient::addSharedMapping``): its items go, its reads are
+        ``shared``'s, and it is read-only from now on."""
+        with self._lock:
+            s = self._require(private)
+            dead = list(s.items or [])
+            s.alias_of = shared
+            s.shared_mapping = dict(mapping or {})
+            s.items = []
+            s.nbytes = 0
+            self._pooled.discard(private)
+            self._touch(s)
+        self._drop_pages(dead)
+
+    def set_pooled(self, ident: SetIdentifier, pooled: Any) -> None:
+        """Replace a weight set's tensor by its pooled form
+        (``dedup/pool.py``); the dense tensor is freed once nothing else
+        holds it."""
+        with self._lock:
+            s = self._writable(ident)
+            s.items = [pooled]
+            self._pooled.add(ident)
+            self._touch(s)
+
+    def live_pool_bytes(self) -> int:
+        """Bytes of every distinct block pool that a set holds, each pool
+        once however many sets share it; a pool drops out with the last
+        set that holds it."""
+        with self._lock:
+            return self._live_pool_bytes()
+
+    def _pooled_items(self):
+        """``(set, item)`` of every pooled tensor a live set holds;
+        forgets removed sets. Caller holds the lock."""
+        from netsdb_tpu_torch.dedup.pool import PooledTensor
+
+        for ident in list(self._pooled):
+            s = self._sets.get(ident)
+            if s is None or s.alias_of is not None:
+                self._pooled.discard(ident)
+                continue
+            for item in s.items or []:
+                if isinstance(item, PooledTensor):
+                    yield s, item
+
+    def _live_pool_bytes(self) -> int:
+        pools = {id(item.pool): item.pool.nbytes
+                 for _, item in self._pooled_items()}
+        return sum(pools.values())
+
+    def _live_pool_cache_bytes(self) -> int:
+        """Bytes held by the pooled sets' cached assemblies (they count
+        toward the eviction budget: the caches may be the pressure)."""
+        return sum(item.cache_nbytes for _, item in self._pooled_items())
+
+    def drop_pool_caches(self) -> int:
+        """Release every pooled set's cached assembly (the cheapest
+        memory to give back: one gather rebuilds it); each set whose
+        assembly went counts as written, so the programs that read the
+        assembly in place drop it too. Returns the bytes released."""
+        with self._lock:
+            released = 0
+            for s, item in list(self._pooled_items()):
+                n = item.drop_cache()
+                if n:
+                    released += n
+                    self._touch(s)
+            return released
+
     # --- persistence --------------------------------------------------
     def _spill_path(self, ident: SetIdentifier) -> str:
         safe = f"{ident.db}__{ident.set}".replace("/", "_")
@@ -725,7 +857,11 @@ class SetStore:
             if s.items is not None:
                 self.stats.hits += 1  # a flush reads the set
             payload = []
-            for item in self._items_locked(s):
+            items = self._items_locked(s)
+            if s.ident in self._pooled:
+                items = [i.assemble() if hasattr(i, "assemble") else i
+                         for i in items]  # a pool is not a disk format
+            for item in items:
                 if isinstance(item, PagedObjects):
                     payload.append(("paged_objects", item.to_list()))
                 elif isinstance(item, PagedColumns):
@@ -748,6 +884,9 @@ class SetStore:
                       "type_name": s.type_name, "eviction": s.eviction,
                       "placement": (s.placement.to_meta()
                                     if s.placement is not None else None),
+                      "alias_of": (tuple(s.alias_of) if s.alias_of
+                                   else None),
+                      "shared_mapping": s.shared_mapping,
                       "items": payload}
             self.config.ensure_dirs()
             path = self._spill_path(ident)
@@ -777,6 +916,10 @@ class SetStore:
         s.persistence = record["persistence"]
         s.type_name = record.get("type_name", "tensor")
         s.eviction = record.get("eviction", s.eviction)
+        if record.get("alias_of"):
+            s.alias_of = SetIdentifier(*record["alias_of"])
+            s.shared_mapping = record.get("shared_mapping")
+        self._pooled.discard(s.ident)  # a pooled set reloads dense
         if s.placement is None and record["placement"]:
             s.placement = Placement.from_meta(record["placement"])
         s.items = []
@@ -822,11 +965,17 @@ class SetStore:
         left). Caller holds the store lock."""
         total = sum(s.nbytes for s in self._sets.values()
                     if s.items is not None and s.storage == "memory")
+        total += self._live_pool_bytes() + self._live_pool_cache_bytes()
+        if total <= self.max_host_bytes:
+            return
+        # cached pool assemblies go first: one gather rebuilds them
+        total -= self.drop_pool_caches()
         if total <= self.max_host_bytes:
             return
         candidates = [s for s in self._sets.values()
                       if s.items is not None and s.ident != exclude
-                      and s.nbytes > 0 and s.storage == "memory"]
+                      and s.nbytes > 0 and s.storage == "memory"
+                      and s.alias_of is None]
 
         def key(s: _StoredSet):
             if s.eviction == "mru":
@@ -835,6 +984,7 @@ class SetStore:
                 return random.random()
             return s.last_access  # lru
 
+        pool_before = self._live_pool_bytes()
         for s in sorted(candidates, key=key):
             if total <= self.max_host_bytes:
                 break
@@ -844,6 +994,12 @@ class SetStore:
             s.nbytes = 0
             self.stats.evictions += 1
             _announce(s.ident)
+            if s.ident in self._pooled:
+                # the last set holding a pool releases it: credit the
+                # bytes, or the loop evicts everyone else too
+                pool_now = self._live_pool_bytes()
+                total -= pool_before - pool_now
+                pool_before = pool_now
 
     # --- helpers ------------------------------------------------------
     def _items_locked(self, s: _StoredSet) -> List[Any]:
@@ -863,4 +1019,11 @@ class SetStore:
         s = self._sets.get(ident)
         if s is None:
             raise KeyError(f"unknown set {ident}; create_set first")
+        return s
+
+    def _writable(self, ident: SetIdentifier) -> _StoredSet:
+        s = self._require(ident)
+        if s.alias_of is not None:
+            raise ValueError(f"set {ident} aliases {s.alias_of}; it is "
+                             f"read-only")
         return s

@@ -22,6 +22,7 @@ from netsdb_tpu_torch.config import resolve_device
 from netsdb_tpu_torch.core.blocked import BlockMeta, BlockedTensor, owned_tensor
 from netsdb_tpu_torch.models.ff import FFParams
 from netsdb_tpu_torch.models.logreg import LogRegParams
+from netsdb_tpu_torch.models.moe import MoEParams
 from netsdb_tpu_torch.models.transformer import TransformerLayerParams
 from netsdb_tpu_torch.ops.lstm import LSTMParams
 
@@ -94,6 +95,16 @@ def transformer_params_from_numpy(arrays: Mapping[str, np.ndarray],
     return TransformerLayerParams(**{
         name: owned_tensor(arrays[name], dtype=torch.float32, device=device)
         for name in ("w_qkv", "w_out", "w_up", "w_down")})
+
+
+def moe_params_from_numpy(arrays: Mapping[str, np.ndarray],
+                          device=None) -> MoEParams:
+    """``MoEParams`` from dense ``{w_gate, w_up, w_down}`` arrays, on
+    ``device`` (CUDA unless the caller asks for another)."""
+    device = resolve_device(device)
+    return MoEParams(**{
+        name: owned_tensor(arrays[name], dtype=torch.float32, device=device)
+        for name in ("w_gate", "w_up", "w_down")})
 
 
 def blocked_to_numpy(bt: BlockedTensor) -> PaddedMatrix:

@@ -1,0 +1,108 @@
+"""The port's ``Configuration`` against the reference's: every field of
+``netsdb_tpu.config.Configuration`` is accepted at the reference's
+default, and every knob of a later ROADMAP.md item raises
+``NotImplementedError`` naming its item when set away from it."""
+
+import dataclasses
+
+import pytest
+
+from netsdb_tpu.config import Configuration as JConfiguration
+from netsdb_tpu_torch.config import _LATER, Configuration
+
+REF_FIELDS = dataclasses.fields(JConfiguration)
+
+
+def _default(f):
+    if f.default is not dataclasses.MISSING:
+        return f.default
+    return f.default_factory()
+
+
+def test_the_port_has_every_field_of_the_reference():
+    port = {f.name for f in dataclasses.fields(Configuration)}
+    assert {f.name for f in REF_FIELDS} == port
+    assert len(port) == 65
+
+
+@pytest.mark.parametrize("field", REF_FIELDS, ids=lambda f: f.name)
+def test_each_reference_field_at_its_default_builds(field, tmp_path):
+    value = _default(field)
+    if field.name == "root_dir":
+        value = str(tmp_path / "port")
+    cfg = Configuration(**{field.name: value})
+    assert getattr(cfg, field.name) == value
+
+
+def test_all_reference_defaults_at_once(tmp_path):
+    values = {f.name: _default(f) for f in REF_FIELDS}
+    values["root_dir"] = str(tmp_path / "port")
+    cfg = Configuration(**values)
+    for name, value in values.items():
+        assert getattr(cfg, name) == value
+    # the defaults the port reads are the reference's
+    ref = JConfiguration(root_dir=str(tmp_path / "ref"))
+    for name in ("default_block_shape", "page_size_bytes",
+                 "shared_mem_bytes", "page_pool_bytes",
+                 "stream_prefetch_pages", "stage_depth", "shape_bucketing",
+                 "bucket_density", "plan_fusion", "fusion_min_region",
+                 "fusion_cost_source", "fusion_mapper",
+                 "fusion_stage_budget_bytes", "device_cache_bytes",
+                 "device_cache_partial", "device_cache_pin_bytes",
+                 "device_cache_dirty_log", "obs_explain"):
+        assert getattr(Configuration(), name) == getattr(ref, name), name
+
+
+def _away(default):
+    """A value other than ``default`` of a plausible type."""
+    if isinstance(default, bool):
+        return not default
+    if default is None:
+        return 2
+    if isinstance(default, tuple):
+        return ("x", "y")
+    if isinstance(default, (int, float)):
+        return default * 3 + 1
+    return default + "x"
+
+
+@pytest.mark.parametrize("name", sorted(_LATER))
+def test_each_later_knob_raises_naming_its_item(name, tmp_path):
+    default, item = _LATER[name]
+    with pytest.raises(NotImplementedError,
+                       match=f"{name}.*ROADMAP.md {item}"):
+        Configuration(root_dir=str(tmp_path), **{name: _away(default)})
+
+
+def test_later_knobs_name_their_roadmap_items():
+    items = {name: item for name, (_, item) in _LATER.items()}
+    for name in ("mesh_shape", "mesh_axis_names", "summa_participants",
+                 "distributed_matmul", "summa_grid"):
+        assert items[name] == "A4"
+    assert items["decode_batch_max"] == items["model_dedup"] == "A5"
+    for name in items:
+        if name.startswith(("sched_", "ha_", "rebalance", "session_")):
+            assert items[name] == "A7", name
+    assert items["shard_handoff_bytes"] == "A7"
+    assert items["lock_witness"] == "A8"
+    assert all(items[n] == "A8" for n in items if n.startswith("obs_"))
+    assert "obs_explain" not in items  # read by obs/operators.py
+
+
+def test_donate_fold_buffers_and_compile_cache(tmp_path):
+    assert Configuration(donate_fold_buffers=False).donate_fold_buffers \
+        is False
+    with pytest.raises(ValueError, match="donate"):
+        Configuration(donate_fold_buffers=True)
+    for ok in (None, "", "auto"):
+        assert Configuration(compilation_cache_dir=ok) is not None
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
+        Configuration(compilation_cache_dir=str(tmp_path / "cc"))
+
+
+def test_knobs_read_by_no_in_process_path_are_taken(tmp_path):
+    cfg = Configuration(compute_dtype="float32", accum_dtype="bfloat16",
+                        storage_dtype="bfloat16", num_threads=16,
+                        log_level="DEBUG", enable_compression=False)
+    assert (cfg.compute_dtype, cfg.num_threads, cfg.log_level) == \
+        ("float32", 16, "DEBUG")

@@ -74,6 +74,80 @@ def test_host_record_modules_import_no_jax_and_nothing_of_the_jax_package():
     assert proc.stdout.strip() == "[]"
 
 
+def test_single_device_workload_and_dedup_modules_import_no_jax():
+    """The workloads of ROADMAP.md A8 part 1, the MoE layer, the sampler
+    and the dedup package on their own, in a fresh interpreter."""
+    mods = ["netsdb_tpu_torch.utils.sampler",
+            "netsdb_tpu_torch.workloads.kmeans",
+            "netsdb_tpu_torch.workloads.gmm",
+            "netsdb_tpu_torch.workloads.lda",
+            "netsdb_tpu_torch.workloads.pagerank",
+            "netsdb_tpu_torch.workloads.topk",
+            "netsdb_tpu_torch.workloads.conv_fusion",
+            "netsdb_tpu_torch.models.moe",
+            "netsdb_tpu_torch.dedup",
+            "netsdb_tpu_torch.dedup.detector",
+            "netsdb_tpu_torch.dedup.lsh",
+            "netsdb_tpu_torch.dedup.pool"]
+    probe = ("import importlib, sys\n"
+             f"for m in {mods!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'netsdb_tpu' or "
+             "m.startswith('netsdb_tpu.')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("knob,value,item", [
+    ("mesh_shape", (2, 4), "A4"), ("mesh_axis_names", ("x",), "A4"),
+    ("summa_participants", 4, "A4"), ("model_dedup", True, "A5"),
+    ("decode_batch_max", 16, "A5"), ("sched_lanes", {"a": 2.0}, "A7"),
+    ("ha_mutlog", True, "A7"), ("rebalance", True, "A7"),
+    ("session_ttl_s", 5.0, "A7"), ("shard_handoff_bytes", 1, "A7"),
+    ("obs_enabled", False, "A8"), ("obs_trace_sample", 4, "A8"),
+    ("lock_witness", True, "A8")])
+def test_later_configuration_knobs_raise(knob, value, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        Configuration(**{knob: value})
+
+
+def test_placed_conv_fusion_and_expert_parallel_moe_raise(port_client):
+    from netsdb_tpu_torch.models.moe import init_moe_params, moe_forward
+    from netsdb_tpu_torch.workloads.conv_fusion import ConvFusionPipeline
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+        ConvFusionPipeline(db="cf").setup(port_client, placements={
+            "image_flat": Placement.data_parallel(ndim=2)})
+    params = init_moe_params(4, 8, 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+        moe_forward(params, torch.zeros(4, 4), mesh=object())
+
+
+def test_new_entry_points_default_to_cuda_and_never_fall_back():
+    from netsdb_tpu_torch.dedup.lsh import bench_lsh_zoo
+    from netsdb_tpu_torch.models.moe import init_moe_params
+    from netsdb_tpu_torch.workloads.pagerank import pagerank
+
+    calls = [lambda **kw: init_moe_params(4, 8, 2, **kw).w_gate.device,
+             lambda **kw: pagerank(np.asarray([0, 1]), np.asarray([1, 0]),
+                                   2, **kw).device,
+             lambda **kw: bench_lsh_zoo(n_models=2, blocks_per_model=1,
+                                        block=8, n_families=1,
+                                        **kw) and torch.device(
+                 kw.get("device", "cuda"))]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        assert call(device="cpu").type == "cpu"
+
+
 @pytest.mark.parametrize("mods", [
     ["netsdb_tpu_torch.obs", "netsdb_tpu_torch.obs.metrics",
      "netsdb_tpu_torch.obs.trace", "netsdb_tpu_torch.obs.operators"],
