@@ -9,7 +9,7 @@ line, to compare the paged path of two trees; ``--models-only``: phases
 phase 1, the SF 10 tables made resident on a card client, and phase
 12; ``--rows-only``: phases 1 and 13; ``--compiled-only``: phases 1 and
 14, TPC-H at ``COMPILED_ONLY_SF``; ``--workloads-only``: phases 1 and
-15.)
+15; ``--serve-only``: phases 1 and 16.)
 
 Every phase runs with the compiled-program cache in use and
 ``plan_fusion`` on, the port's defaults: a resident job is one CUDA
@@ -196,14 +196,43 @@ Phases (any failure raises and the exit code is non-zero):
    runs at a small size on the card and on a CPU client from the same
    inputs.
 
+16. one serving daemon on the card (``SERVE_SIZES``), in its own
+   process (``serve.server.run_daemon`` on a ``Configuration`` with
+   ``model_dedup`` and ``SERVE_PAGE_BYTES`` pages, ``port=0``), this
+   script its client over localhost TCP: FF at bench.py's shape with
+   weights and inputs sent out of band and three EXECUTE_COMPUTATIONS,
+   each held to f64 (1e-4) and to the in-process client on the card
+   (request p50 remote and in-process, ingest MB/s, the daemon's busy
+   share over the requests); the transformer layer (embed 1024, 8
+   heads, batch 2, seq 4096) executed by the daemon, held to the layer
+   with plain attention (1e-3), B1 launched in the daemon at least once
+   a request (read through COLLECT_STATS); Q01 over a paged lineitem
+   (SF 0.2) by two clients at once through one captured fold-step graph,
+   in six pairs after a cold, a capturing and a warm request, every
+   result held to the plan run node by node in this process; decode sessions
+   through ``SessionHandle``: an LSTM (hidden 1024) and the layer (embed
+   1024, 8 heads, kv_max 64), 12 concurrent sessions of 128 steps each
+   per model, one session re-run solo and bit-equal to its batched run,
+   every output within ``SERVE_DECODE_TOLS`` of an f64 oracle written in
+   this script, two step programs (one per kind, shape and bucket) and
+   no arena read; two fine-tuned layer variants of one base
+   (``finetune_frac`` 0.25) pooled by ``model_dedup``, each one's step
+   held to the oracle with its own weights, the residency report's
+   unique page bytes equal to the tiles planted and its charges summing
+   to them. Every line carries
+   the card's name and power limit; the daemon is stopped (SHUTDOWN,
+   then killed if it lingers) whatever happens.
+
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
 just before phase 5's requests and read just after them, again
 around each model's paged requests in phase 7, around phase 8, where
 both must read 0, around phase 9 (B1 once a layer step, B2 never) and
 around phases 10, 11, 12 and 13 (both 0), around phase 14 (B1 once a
-layer request, B2 16 times an SP request) and around phase 15 (both 0). The last line is the
-contract's device record.
+layer request, B2 16 times an SP request) and around phase 15 (both 0);
+phase 16's launches are the daemon's own counters, read before and
+after through COLLECT_STATS (B1 at least once a served layer request,
+B2 never). The last line is the contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -4721,6 +4750,625 @@ def workloads_path(pk: dict) -> dict:
     return out
 
 
+# --- phase 16: one serving daemon on the card ----------------------------
+# sizes of the repo's own: bench.py's FF, transformer_bench.py's layer,
+# PERF.md's LSTM width; kv_max is the daemon's DecodeRuntime default; 12
+# sessions of 128 steps each wrap a 64-entry ring twice and, at
+# decode_batch_max 8, put every batch on bucket 8
+SERVE_SIZES = {"ff": dict(batch=16384, features=1024, hidden=4096,
+                          labels=1024, block=512, requests=3),
+               "layer": dict(embed=1024, heads=8, batch=2, seq=4096,
+                             requests=3),
+               "decode": dict(hidden=1024, heads=8, kv_max=64, sessions=12,
+                              steps=128),
+               "paged": dict(sf=0.2, pairs=6),
+               "residency": dict(finetune_frac=0.25, block=32)}
+SERVE_DECODE_TOLS = {"lstm": 1e-4, "transformer_layer": 1e-3}
+SERVE_BUDGET_S = 90.0
+# the daemon's page size: SF 0.2's lineitem streams in about 40 chunks
+SERVE_PAGE_BYTES = 2 << 20
+SERVE_TIMEOUT_S = 120.0  # bounds every request to the daemon
+
+
+# the daemon's process: run_daemon on the phase's Configuration
+_SERVE_MAIN = (
+    "import sys\n"
+    "from netsdb_tpu_torch.config import Configuration\n"
+    "from netsdb_tpu_torch.serve.server import run_daemon\n"
+    "sys.exit(run_daemon(Configuration(root_dir=sys.argv[1], "
+    "model_dedup=True, page_size_bytes=int(sys.argv[3])), port=0, "
+    "device=sys.argv[2]))\n")
+
+
+def _serve_start(device: str, root: str, log_path: str):
+    """The daemon in its own process (``serve.server.run_daemon``);
+    returns (process, address) once it printed the address it listens
+    on."""
+    import os
+    import threading
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _SERVE_MAIN, root, device,
+         str(SERVE_PAGE_BYTES)],
+        stdout=subprocess.PIPE, stderr=log, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    log.close()
+    line = []
+    reader = threading.Thread(target=lambda: line.append(
+        proc.stdout.readline()), daemon=True)
+    reader.start()
+    reader.join(120)
+    if not line or not line[0].startswith("serving on "):
+        proc.kill()
+        proc.wait(30)
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        raise RuntimeError(f"the daemon did not start: {line!r}\n{tail}")
+    return proc, line[0].split()[-1]
+
+
+def _serve_stop(proc, client) -> None:
+    try:
+        if client is not None:
+            client.shutdown_server()
+        proc.wait(30)
+    except Exception:  # noqa: BLE001 — the kill below stops it anyway
+        pass
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(30)
+
+
+def _p50(xs) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), 50))
+
+
+def _serve_ff(remote, local, s, device, card) -> dict:
+    """FF at bench.py's shape: weights and inputs over the wire, three
+    EXECUTE_COMPUTATIONS, each held to f64 and to the in-process client on
+    the same card."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.models.ff import FFModel
+
+    blk = (s["block"], s["block"])
+    rm, lm = FFModel(block=blk), FFModel(block=blk)
+    rm.setup(remote)
+    lm.setup(local)
+    # the draws of FFModel.load_random_weights, made once on the host
+    rng = np.random.default_rng(SEED)
+    f, h, lab = s["features"], s["hidden"], s["labels"]
+    weights = (rng.standard_normal((h, f), dtype=np.float32)
+               * np.sqrt(2.0 / f),
+               rng.standard_normal((h,), dtype=np.float32) * 0.01,
+               rng.standard_normal((lab, h), dtype=np.float32)
+               * np.sqrt(2.0 / h),
+               rng.standard_normal((lab,), dtype=np.float32) * 0.01)
+    t0 = time.perf_counter()
+    rm.load_weights(remote, *weights)
+    t_w = time.perf_counter() - t0
+    w_bytes = sum(w.nbytes for w in weights)
+    lm.load_weights(local, *weights)
+    p = lm.params_from_store(local)
+    w1, b1, wo, bo = (t.to_dense().double() for t in (p.w1, p.b1, p.wo,
+                                                      p.bo))
+    rng = np.random.default_rng(SEED + 1)
+    sink = rm.build_inference_dag()
+    ms, local_ms, errs, diffs, ingest = [], [], [], [], []
+    busy = wall = 0.0
+    for _ in range(s["requests"]):
+        x = rng.standard_normal((s["batch"], s["features"]),
+                                dtype=np.float32)
+        t0 = time.perf_counter()
+        rm.load_inputs(remote, x)
+        ingest.append(x.nbytes / (time.perf_counter() - t0) / 1e6)
+        busy0 = remote.collect_stats()["serve"]["busy_s"]
+        t0 = time.perf_counter()
+        res = remote.execute_computations(sink, job_name="served-ff")
+        dt = time.perf_counter() - t0
+        busy += remote.collect_stats()["serve"]["busy_s"] - busy0
+        wall += dt
+        got = next(iter(res.values())).to_dense()
+        lm.load_inputs(local, x)
+        _sync(device)
+        t1 = time.perf_counter()
+        lout = lm.inference(local)
+        _sync(device)
+        local_ms.append((time.perf_counter() - t1) * 1e3)
+        xd = torch.as_tensor(x, device=device).double()
+        ref = torch.softmax(wo @ torch.relu(w1 @ xd.T + b1) + bo, dim=0)
+        if got.shape != (s["labels"], s["batch"]) \
+                or not np.isfinite(got).all():
+            raise RuntimeError(f"served FF output {got.shape} is wrong or "
+                               f"non-finite")
+        err = float((torch.as_tensor(got, device=device).double()
+                     - ref).abs().max())
+        diff = float(np.abs(got - lout.to_dense().cpu().numpy()).max())
+        if not err <= FF_TOL:
+            raise RuntimeError(f"served FF: max abs err {err} > {FF_TOL}")
+        ms.append(dt * 1e3)
+        errs.append(err)
+        diffs.append(diff)
+        print(f"[serve] ff request {dt * 1e3:.3f} ms (in-process "
+              f"{local_ms[-1]:.3f} ms) max_abs_err {err:.3e} vs in-process "
+              f"{diff:.3e} inputs {ingest[-1]:.1f} MB/s ({card})")
+    out = {"ms": ms, "p50_ms": _p50(ms), "local_ms": local_ms,
+           "local_p50_ms": _p50(local_ms), "max_abs_err": max(errs),
+           "max_diff_vs_in_process": max(diffs),
+           "weights_mb_per_s": w_bytes / t_w / 1e6,
+           "inputs_mb_per_s": ingest, "busy_share": busy / wall,
+           "rows_per_s": [s["batch"] / (m / 1e3) for m in ms]}
+    print(f"[serve] ff p50 {out['p50_ms']:.3f} ms remote vs "
+          f"{out['local_p50_ms']:.3f} ms in-process; weights "
+          f"{out['weights_mb_per_s']:.1f} MB/s; daemon busy share "
+          f"{out['busy_share']:.3f} ({card})")
+    return out
+
+
+def _serve_layer(remote, local, s, device, card) -> dict:
+    """The transformer layer executed by the daemon (B1 in its process,
+    read through COLLECT_STATS), held to the layer with plain attention."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.ops.attention import merge_project, qkv_project
+    from netsdb_tpu_torch.ops.cuda_kernels import flash_attention_plain
+
+    heads = s["heads"]
+    rm, lm = (TransformerLayerModel(db="served_layer", num_heads=heads),
+              TransformerLayerModel(db="served_layer", num_heads=heads))
+    rm.setup(remote)
+    lm.setup(local)
+    rm.load_random_weights(remote, embed=s["embed"], seed=SEED)
+    lm.load_random_weights(local, embed=s["embed"], seed=SEED)
+    p = lm.params_from_store(local)
+    rng = np.random.default_rng(SEED + 2)
+    ms, errs, launches = [], [], []
+    for _ in range(s["requests"]):
+        x = rng.standard_normal((s["batch"], s["seq"], s["embed"]),
+                                dtype=np.float32)
+        rm.load_inputs(remote, x)
+        k0 = remote.collect_stats()["metrics"]["kernels"]
+        t0 = time.perf_counter()
+        (y,) = rm.serve_forward(remote)
+        dt = time.perf_counter() - t0
+        k1 = remote.collect_stats()["metrics"]["kernels"]
+        n = k1["flash_attention"] - k0["flash_attention"]
+        n_step = k1["flash_attention_step"] - k0["flash_attention_step"]
+        if device == "cuda" and not n >= 1:
+            raise RuntimeError(f"the served layer launched "
+                               f"flash_attention {n} times")
+        if n_step:
+            raise RuntimeError(f"the served layer launched "
+                               f"flash_attention_step {n_step} times")
+        with torch.inference_mode():
+            xt = torch.as_tensor(x, device=device)
+            q, k, v = (t.contiguous() for t in
+                       qkv_project(lm._ln(xt), p.w_qkv, heads))
+            x1 = xt + merge_project(flash_attention_plain(q, k, v),
+                                    p.w_out)
+            ref = x1 + lm._mlp(lm._ln(x1), p)
+        y = torch.as_tensor(y).to(device)
+        if tuple(y.shape) != tuple(ref.shape) or not torch.isfinite(y).all():
+            raise RuntimeError(f"served layer output {tuple(y.shape)} is "
+                               f"wrong or non-finite")
+        err = float((y - ref).abs().max())
+        if not err <= LAYER_TOL:
+            raise RuntimeError(f"served layer: max abs err {err} > "
+                               f"{LAYER_TOL}")
+        ms.append(dt * 1e3)
+        errs.append(err)
+        launches.append(n)
+        print(f"[serve] layer request {dt * 1e3:.3f} ms "
+              f"{s['batch'] * s['seq'] / dt:.1f} tokens/s max_abs_err "
+              f"{err:.3e} flash_attention launches in the daemon {n} "
+              f"({card})")
+    return {"ms": ms, "p50_ms": _p50(ms), "max_abs_err": max(errs),
+            "b1_launches": launches,
+            "tokens_per_s": [s["batch"] * s["seq"] / (m / 1e3) for m in ms]}
+
+
+def _decode_oracle(kind, dense, xs, heads, kv_max, device):
+    """Every session's outputs in float64 on the card, written here from
+    the models' definitions and independent of ``models/decode.py``: the
+    LSTM cell, and the layer attending over a sliding window of its last
+    ``kv_max`` keys and values (the sessions step in lockstep)."""
+    import numpy as np
+    import torch
+
+    p = {k: torch.as_tensor(v, device=device).double() for k, v in
+         dense.items()}
+    n, steps, hidden = xs.shape
+    out = np.zeros(xs.shape, np.float64)
+    sig = torch.sigmoid
+    with torch.inference_mode():
+        if kind == "lstm":
+            h = torch.zeros(n, hidden, device=device, dtype=torch.float64)
+            c = torch.zeros_like(h)
+            for s in range(steps):
+                x = torch.as_tensor(xs[:, s], device=device).double()
+                z = {g: x @ p["w_" + g].T + h @ p["u_" + g].T
+                     + p["b_" + g][:, 0] for g in "ifco"}
+                c = sig(z["f"]) * c + sig(z["i"]) * torch.tanh(z["c"])
+                h = sig(z["o"]) * torch.tanh(c)
+                out[:, s] = h.cpu().numpy()
+            return out
+        dh = hidden // heads
+        keys, vals = [], []
+        for s in range(steps):
+            x = torch.as_tensor(xs[:, s], device=device).double()
+            keys = (keys + [(x @ p["wk"].T).reshape(n, heads, dh)])[-kv_max:]
+            vals = (vals + [(x @ p["wv"].T).reshape(n, heads, dh)])[-kv_max:]
+            q = (x @ p["wq"].T).reshape(n, heads, 1, dh)
+            k, v = torch.stack(keys, 2), torch.stack(vals, 2)  # n,h,T,dh
+            w = torch.softmax(q @ k.transpose(-1, -2) / dh ** 0.5, dim=-1)
+            y = x + (w @ v).reshape(n, hidden) @ p["wo"].T
+            out[:, s] = (y + torch.relu(y @ p["w1"].T)
+                         @ p["w2"].T).cpu().numpy()
+    return out
+
+
+def _serve_decode(addr, remote, s, device, card) -> dict:
+    """12 concurrent sessions per model through SessionHandle, 128 steps
+    each; one session re-run solo; every output held to f64."""
+    import threading
+
+    import numpy as np
+
+    from netsdb_tpu_torch.models import decode as dec
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    out = {}
+    n, steps, hidden, heads = (s["sessions"], s["steps"], s["hidden"],
+                               s["heads"])
+    rng = np.random.default_rng(SEED + 16)
+    for kind, db, seed in (("lstm", "dec_lstm", SEED + 3),
+                           ("transformer_layer", "dec_layer", SEED + 4)):
+        dec.deploy_decode_model(remote, db, kind=kind, hidden=hidden,
+                                heads=heads, seed=seed)
+        dense = dec.decode_weights(kind, hidden, heads, seed)
+        xs = rng.standard_normal((n, steps, hidden)).astype(np.float32)
+        clients = [RemoteClient(addr, timeout=SERVE_TIMEOUT_S,
+                                connect_timeout=30.0) for _ in range(n)]
+        try:
+            handles = [c.open_session(db, kind=kind, heads=heads)
+                       for c in clients]
+            got = np.zeros(xs.shape, np.float32)
+            lat = [[] for _ in range(n)]
+            errors = []
+            barrier = threading.Barrier(n)
+
+            def drive(i):
+                try:
+                    barrier.wait(60)
+                    for t in range(steps):
+                        t0 = time.perf_counter()
+                        got[i, t] = handles[i].generate(xs[i, t],
+                                                        deadline_s=120.0)
+                        lat[i].append((time.perf_counter() - t0) * 1e3)
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errors.append((i, repr(e)))
+
+            threads = [threading.Thread(target=drive, args=(i,))
+                       for i in range(n)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(SERVE_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if errors or any(t.is_alive() for t in threads):
+                raise RuntimeError(f"{kind} sessions failed: {errors[:3]}")
+            if any(h.steps != steps for h in handles):
+                raise RuntimeError(f"{kind}: steps "
+                                   f"{[h.steps for h in handles]}")
+            solo = clients[0].open_session(db, kind=kind, heads=heads)
+            solo_out = np.stack([solo.generate(xs[0, t], deadline_s=120.0)
+                                 for t in range(steps)])
+            for h in handles + [solo]:
+                h.close()
+        finally:
+            for c in clients:
+                c.close()
+        if solo_out.tobytes() != got[0].tobytes():
+            raise RuntimeError(f"{kind}: the solo run differs from the "
+                               f"batched one by "
+                               f"{np.abs(solo_out - got[0]).max():.3e}")
+        oracle = _decode_oracle(kind, dense, xs, heads, s["kv_max"], device)
+        err = float(np.abs(got.astype(np.float64) - oracle).max())
+        tol = SERVE_DECODE_TOLS[kind]
+        if not err <= tol or not np.isfinite(got).all():
+            raise RuntimeError(f"{kind} decode: max abs err {err} vs f64 "
+                               f"> {tol}")
+        flat = [x for row in lat for x in row]
+        out[kind] = {"steps_per_s": n * steps / wall,
+                     "generate_p50_ms": _p50(flat),
+                     "generate_p99_ms": float(np.percentile(flat, 99)),
+                     "max_abs_err": err, "solo_bit_equal": True,
+                     "wall_s": wall}
+        print(f"[serve] decode {kind}: {n} sessions x {steps} steps "
+              f"{n * steps / wall:.1f} steps/s, GENERATE p50 "
+              f"{_p50(flat):.3f} ms p99 {out[kind]['generate_p99_ms']:.3f} "
+              f"ms, max_abs_err vs f64 {err:.3e}, solo bit-equal ({card})")
+    return out
+
+
+def _serve_paged_pair(addr, remote, local, s, device, card) -> dict:
+    """Q01 over a paged lineitem through the daemon: a cold request (its
+    fold steps eager), one that captures the step's graph, a warm one
+    (which captures the signatures the second saw first, the ragged last
+    chunk's), then ``pairs`` pairs of requests from two clients at once,
+    which replay those graphs from two handler threads (a chunk shape a
+    pair meets first is captured by the next request that meets it, as
+    in any request). Each request's DAG is built anew, so the scheduler
+    cannot coalesce the two. The two of a pair write one output set,
+    whose clear and add are two store calls (as in the reference), so a
+    client reading it back during the other's write may find it empty,
+    and the two writes may leave both tables: the set is read once the
+    pair is done, and every table in it is held to the plan run node by
+    node in this process."""
+    import threading
+
+    from netsdb_tpu_torch.relational import bench as rbench
+    from netsdb_tpu_torch.relational import dag
+    from netsdb_tpu_torch.relational.table import ColumnTable
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    db = "srv_tpch"
+    cols, dicts = rbench.generate_host(sf=s["sf"], seed=SEED)["lineitem"]
+    for c, storage in ((remote, "paged"), (local, "memory")):
+        c.create_database(db)
+        c.create_set(db, "lineitem", type_name="table", storage=storage)
+        c.send_table(db, "lineitem", ColumnTable.from_columns(
+            cols, dicts, device="cpu"))
+    ref = node_by_node(local, dag.q01_sink(db))
+    job = "served-q01"
+
+    def request(client):
+        t0 = time.perf_counter()
+        client.execute_computations(dag.q01_sink(db), job_name=job,
+                                    fetch_results=False)
+        return (time.perf_counter() - t0) * 1e3
+
+    def hold_written(name):
+        tables = list(remote.get_set_iterator(db, "q01_out"))
+        if not tables:
+            raise RuntimeError(f"{name}: no table written")
+        return max(_hold(name, t, ref) for t in tables)
+
+    def programs_now():
+        return remote.collect_stats()["metrics"]["programs"]
+
+    errs, ms = [], []
+    for kind in ("cold", "capture", "warm"):
+        ms.append(request(remote))
+        errs.append(hold_written(f"served q01 {kind}"))
+    p0 = programs_now()
+    clients = [RemoteClient(addr, timeout=SERVE_TIMEOUT_S,
+                            connect_timeout=30.0) for _ in range(2)]
+    pair_ms = []
+    try:
+        for n in range(s["pairs"]):
+            got, errors = [None, None], []
+            barrier = threading.Barrier(2)
+
+            def one(i):
+                try:
+                    barrier.wait(60)
+                    got[i] = request(clients[i])
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errors.append(repr(e))
+
+            threads = [threading.Thread(target=one, args=(i,))
+                       for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(SERVE_TIMEOUT_S)
+            if errors or any(t.is_alive() for t in threads):
+                raise RuntimeError(f"served q01 pair {n}: {errors[:2]}")
+            pair_ms.extend(got)
+            errs.append(hold_written(f"served q01 pair {n}"))
+    finally:
+        for c in clients:
+            c.close()
+    p1 = programs_now()
+    replays = p1["replays"] - p0["replays"]
+    captures = p1["captures"] - p0["captures"]
+    if device == "cuda" and replays < 2 * s["pairs"]:
+        raise RuntimeError(f"the pairs made {replays} replays and "
+                           f"{captures} captures: they did not share one "
+                           f"captured graph")
+    remote.remove_set(db, "lineitem")
+    out = {"cold_ms": ms[0], "capture_ms": ms[1], "warm_ms": ms[2],
+           "pair_ms": pair_ms, "pair_p50_ms": _p50(pair_ms),
+           "replays": replays, "captures": captures,
+           "max_rel_err": max(errs)}
+    print(f"[serve] paged q01: cold {ms[0]:.3f} ms, capturing {ms[1]:.3f} "
+          f"ms, warm {ms[2]:.3f} ms, {s['pairs']} concurrent pairs p50 "
+          f"{out['pair_p50_ms']:.3f} ms over {replays} step replays and "
+          f"{captures} captures, every result held to node by node (max "
+          f"rel err {max(errs):.3e}) ({card})")
+    return out
+
+
+def _planted_unique_bytes(models, block) -> tuple:
+    """(unique page bytes, total page bytes) of the registered models'
+    weights tiled by ``block`` (a bias by ``(block, 1)``), counted on the
+    host from the tiles' bytes: the pages distinct over all models, and
+    the sum over models of each model's distinct pages."""
+    import hashlib
+
+    seen, total = {}, 0
+    for dense in models:
+        mine = {}
+        for w in dense.values():
+            bw = 1 if w.shape[1] == 1 else block
+            for i in range(0, w.shape[0], block):
+                for j in range(0, w.shape[1], bw):
+                    key = hashlib.sha256(
+                        w[i:i + block, j:j + bw].tobytes()).hexdigest()
+                    mine[key] = block * bw * 4
+        seen.update(mine)
+        total += sum(mine.values())
+    return sum(seen.values()), total
+
+
+def _serve_residency(remote, s, r, device, card) -> dict:
+    """Two fine-tuned layer variants of one base under model_dedup: each
+    one's step through the daemon's one layer program held to the f64
+    oracle with its own weights; the daemon's residency report and its
+    pool against the planted page count; the charges sum to the pool."""
+    import numpy as np
+
+    from netsdb_tpu_torch.models import decode as dec
+
+    hidden, heads = s["hidden"], s["heads"]
+    x = np.random.default_rng(SEED + 17).standard_normal(
+        hidden).astype(np.float32)
+    ys = []
+    tol = SERVE_DECODE_TOLS["transformer_layer"]
+    for db, seed in (("dec_va", SEED + 21), ("dec_vb", SEED + 22)):
+        dec.deploy_decode_model(remote, db, kind="transformer_layer",
+                                hidden=hidden, heads=heads, seed=seed,
+                                base_seed=SEED + 77,
+                                finetune_frac=r["finetune_frac"])
+        h = remote.open_session(db, kind="transformer_layer", heads=heads)
+        ys.append(h.generate(x))
+        h.close()
+        want = _decode_oracle(
+            "transformer_layer", dec.decode_weights(
+                "transformer_layer", hidden, heads, seed,
+                base_seed=SEED + 77, finetune_frac=r["finetune_frac"]),
+            x[None, None], heads, s["kv_max"], device)[0, 0]
+        err = float(np.abs(ys[-1] - want).max())
+        if not err <= tol:
+            raise RuntimeError(f"variant {db}: max abs err {err} vs its "
+                               f"own weights in f64 > {tol}")
+    if ys[0].tobytes() == ys[1].tobytes():
+        raise RuntimeError("the two fine-tuned variants decode alike")
+    rep = remote.collect_stats()["sessions"]["residency"]
+    models = [dec.decode_weights("lstm", hidden, heads, SEED + 3),
+              dec.decode_weights("transformer_layer", hidden, heads,
+                                 SEED + 4)]
+    models += [dec.decode_weights("transformer_layer", hidden, heads, seed,
+                                  base_seed=SEED + 77,
+                                  finetune_frac=r["finetune_frac"])
+               for seed in (SEED + 21, SEED + 22)]
+    planted, total = _planted_unique_bytes(models, r["block"])
+    charged = sum(rep["charged_by_model"].values())
+    pooled = (rep.get("pool") or {}).get("hbm_bytes_pooled")
+    if rep["models"] != 4 or rep["unique_page_bytes"] != planted \
+            or rep["total_page_bytes"] != total or pooled != planted \
+            or abs(charged - rep["unique_page_bytes"]) > rep["models"]:
+        raise RuntimeError(f"residency: {rep} against planted unique "
+                           f"{planted} of {total} bytes")
+    print(f"[serve] residency: 4 models, unique pages {planted} B of "
+          f"{total} B planted and reported; charges sum {charged} B; pool "
+          f"{pooled} B ({card})")
+    return {"unique_page_bytes": planted, "total_page_bytes": total,
+            "charged_sum": charged, "pool": rep.get("pool")}
+
+
+def phase_serve(pk: dict, smi: str, device: str = "cuda",
+                sizes: Optional[dict] = None) -> dict:
+    """Phase 16: the daemon in its own process on the card, this script
+    its client (``SERVE_SIZES``): served FF, the served transformer layer
+    (B1 in the daemon), decode sessions and multi-model residency."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    s = {k: dict(v, **((sizes or {}).get(k, {})))
+         for k, v in SERVE_SIZES.items()}
+    card = smi
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="netsdb_serve_")
+    proc, remote = None, None
+    try:
+        proc, addr = _serve_start(device, os.path.join(root, "daemon"),
+                                  os.path.join(root, "daemon.log"))
+        print(f"[serve] daemon pid {proc.pid} on {addr} "
+              f"({time.perf_counter() - t0:.1f} s to listen) ({card})")
+        remote = RemoteClient(addr, timeout=SERVE_TIMEOUT_S,
+                              connect_timeout=30.0)
+        if not remote.pickle_ok:
+            raise RuntimeError("the daemon refused this interpreter's "
+                               "pickle codec")
+        k_start = remote.collect_stats()["metrics"]["kernels"]
+        local = Client(device=device)
+        out = {"ff": _serve_ff(remote, local, s["ff"], device, card),
+               "layer": _serve_layer(remote, local, s["layer"], device,
+                                     card),
+               "paged": _serve_paged_pair(addr, remote, local, s["paged"],
+                                          device, card)}
+        del local
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out["decode"] = _serve_decode(addr, remote, s["decode"], device,
+                                      card)
+        out["residency"] = _serve_residency(remote, s["decode"],
+                                            s["residency"], device, card)
+        stats = remote.collect_stats()
+        dstats = stats["sessions"]["decode"]
+        if dstats["traces"] != 2:
+            raise RuntimeError(f"decode traces {dstats} != 2 (one per "
+                               f"kind, shape and bucket)")
+        if stats["sessions"]["arena"]["reads"] != 0:
+            raise RuntimeError(f"warm steps read the arena: "
+                               f"{stats['sessions']['arena']}")
+        k_end = stats["metrics"]["kernels"]
+        out["launches"] = {k: k_end[k] - k_start[k] for k in k_end}
+        out["decode_stats"] = dstats
+        out["pid"] = stats["serve"]["pid"]
+        if out["pid"] == os.getpid() or out["pid"] != proc.pid:
+            raise RuntimeError("the daemon did not run in its own process")
+        out["wall_s"] = time.perf_counter() - t0
+        print(f"[serve] decode traces {dstats['traces']}, batches "
+              f"{dstats['batches']}, pad rows {dstats['pad_rows']}, arena "
+              f"reads 0; daemon launches {out['launches']}; phase 16 wall "
+              f"{out['wall_s']:.1f} s ({card})")
+        if out["wall_s"] > SERVE_BUDGET_S:
+            print(f"[serve] WARNING: phase 16 took {out['wall_s']:.1f} s, "
+                  f"over its {SERVE_BUDGET_S} s budget")
+        return out
+    except BaseException:
+        # the daemon's thread stacks (SIGUSR1: faulthandler) and its log
+        if proc is not None and proc.poll() is None:
+            import signal
+
+            proc.send_signal(signal.SIGUSR1)
+            time.sleep(1.0)
+        try:
+            with open(os.path.join(root, "daemon.log")) as f:
+                print("[serve] daemon log:\n" + f.read()[-12000:])
+        except OSError:
+            pass
+        raise
+    finally:
+        if proc is not None:
+            _serve_stop(proc, remote)
+        if remote is not None:
+            remote.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -4794,6 +5442,11 @@ def main() -> int:
         print(json.dumps({"workloads": workloads_path(pk), "card": smi},
                          default=str))
         return 0
+    if "--serve-only" in sys.argv[1:]:
+        # phase 16 alone, the same way
+        print(json.dumps({"serve": phase_serve(pk, smi), "card": smi},
+                         default=str))
+        return 0
     b1 = phase_kernels(pk)
     b2 = phase_step_kernel(pk)
 
@@ -4832,6 +5485,7 @@ def main() -> int:
         _close_paged(rel_state.get("paged"))
     del rel_state
     workloads = workloads_path(pk)
+    serve = phase_serve(pk, smi)
 
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
@@ -4841,7 +5495,7 @@ def main() -> int:
                       "la": la, "relational": relational,
                       "paged_relations": paged_relations, "rows": rows,
                       "compiled": compiled, "workloads": workloads,
-                      "card": smi}, default=str))
+                      "serve": serve, "card": smi}, default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
         return {"name": kname, "route": "cuda", "source": source,
@@ -4856,19 +5510,21 @@ def main() -> int:
     print(json.dumps({"kernels": [
         kernel_row("flash_attention",
                    "netsdb_tpu_torch/csrc/flash_attention.cu",
-                   "netsdb_tpu/ops/pallas_kernels.py:135",
+                   "netsdb_tpu/ops/pallas_kernels.py:211",
                    {"inference": b1_launches,
                     "training": train["transformer_b1_launches"],
                     "compiled": compiled["launches"]["flash_attention"],
-                    "workloads": workloads["launches"]["flash_attention"]},
+                    "workloads": workloads["launches"]["flash_attention"],
+                    "served": serve["launches"]["flash_attention"]},
                    b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
-                   "netsdb_tpu/ops/pallas_kernels.py:286",
+                   "netsdb_tpu/ops/pallas_kernels.py:333",
                    {"sequence_parallel": sp["launches"],
                     "compiled": compiled["launches"]["flash_attention_step"],
                     "workloads":
-                        workloads["launches"]["flash_attention_step"]},
+                        workloads["launches"]["flash_attention_step"],
+                    "served": serve["launches"]["flash_attention_step"]},
                    b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

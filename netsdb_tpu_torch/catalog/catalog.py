@@ -126,3 +126,11 @@ class Catalog:
                 "INSERT OR REPLACE INTO types VALUES (?, ?, ?)",
                 (type_name, entry_point, time.time()))
             self._conn.commit()
+
+    def get_type(self, type_name: str) -> Optional[str]:
+        """The entry point registered under ``type_name``, or None."""
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT entry_point FROM types WHERE type_name = ?",
+                (type_name,)).fetchone()
+        return row[0] if row else None

@@ -18,6 +18,10 @@ such table, so ``Join(on=...)`` runs over it on the device; any other
 set keeps host records as they are (paged: as pickled-batch pages of the
 arena, streamed by queries). Arguments of the reference that belong to
 later slices raise ``NotImplementedError`` naming the ROADMAP.md item.
+
+``Client(address="host:port")`` returns the served form instead: a
+:class:`~netsdb_tpu_torch.serve.client.RemoteClient` of a resident daemon
+(``python -m netsdb_tpu_torch.serve.server``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -65,14 +69,27 @@ class Client:
     =======================  =====================================
     """
 
+    def __new__(cls, config: Optional[Configuration] = None,
+                catalog_path: Optional[str] = None,
+                address: Optional[str] = None,
+                device: Union[str, torch.device, None] = None,
+                token: Optional[str] = None, replicas=None):
+        if address is not None:
+            # the served form: a thin RPC client of a resident daemon,
+            # which owns the store and the card
+            from netsdb_tpu_torch.serve.client import RemoteClient
+
+            return RemoteClient(address, token=token, replicas=replicas)
+        if replicas:
+            raise ValueError("replicas= needs address=")
+        return super().__new__(cls)
+
     def __init__(self, config: Optional[Configuration] = None,
                  catalog_path: Optional[str] = None,
                  address: Optional[str] = None,
-                 device: Union[str, torch.device, None] = None):
-        if address is not None:
-            raise NotImplementedError(
-                "Client(address=...) — the served RemoteClient — is not "
-                "ported yet: ROADMAP.md A7")
+                 device: Union[str, torch.device, None] = None,
+                 token: Optional[str] = None, replicas=None):
+        del address, token, replicas  # consumed by __new__
         self.config = config if config is not None else Configuration()
         self.device = resolve_device(device)
         self.catalog = Catalog(catalog_path or ":memory:")
@@ -341,10 +358,10 @@ class Client:
     # --- dedup (reference addSharedMapping, SharedTensorBlockSet) -----
     def dedup_resident(self, sets: Sequence[Tuple[str, str]],
                        bands: int = 16, seed: int = 0) -> Dict[str, Any]:
-        """Dedup resident weight sets block by block: LSH groups the
-        candidate blocks across the sets, byte-equal blocks share one
-        slot of a pool on the device, and each set keeps a slot grid
-        (``dedup/pool.py``). Sets are pooled per (block shape, dtype)
+        """Dedup resident weight sets block by block: byte-equal blocks
+        share one slot of a pool on the device, and each set keeps a slot
+        grid (``dedup/pool.py``; ``bands`` and ``seed`` are the LSH
+        index's, which the summed report does not read). Sets are pooled per (block shape, dtype)
         class; reads are unchanged to the bit. Returns the summed
         pooling report."""
         from netsdb_tpu_torch.dedup.pool import pool_models
@@ -359,7 +376,8 @@ class Client:
         total: Dict[str, Any] = {"classes": len(by_class),
                                  **{k: 0 for k in keys}}
         for group in by_class.values():
-            pooled, report = pool_models(group, bands=bands, seed=seed)
+            pooled, report = pool_models(group, bands=bands, seed=seed,
+                                         report_lsh=False)
             for name, pt in pooled.items():
                 self.store.set_pooled(SetIdentifier(*name.split(":", 1)), pt)
             for k in keys:

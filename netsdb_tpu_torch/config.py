@@ -20,32 +20,21 @@ _LATER = {
     "distributed_matmul": (False, "A4"),
     "summa_participants": (None, "A4"),
     "summa_grid": (None, "A4"),
-    # A5 part 2: decode (DecodeRuntime reads both)
-    "decode_batch_max": (8, "A5"),
-    "model_dedup": (False, "A5"),
-    # A7: serving — the scheduler, shards, HA, rebalancing, sessions and
-    # the session half of the device cache
-    "device_cache_pin_auto": (False, "A7"),
-    "sched_lanes": (None, "A7"),
-    "sched_lane_quota": (0, "A7"),
-    "sched_aging_every": (8, "A7"),
-    "sched_coalesce": (True, "A7"),
-    "sched_coalesce_done_ttl_s": (0.0, "A7"),
-    "sched_coalesce_done_max": (32, "A7"),
-    "sched_affinity": (True, "A7"),
-    "sched_affinity_wait_s": (30.0, "A7"),
-    "sched_feedback": (False, "A7"),
-    "sched_feedback_every": (64, "A7"),
-    "sched_slo_shed": (False, "A7"),
-    "shard_handoff_bytes": (256 * 1024 * 1024, "A7"),
-    "rebalance": (False, "A7"),
-    "rebalance_skew_ratio": (2.0, "A7"),
-    "rebalance_windows": (3, "A7"),
-    "rebalance_max_bytes_per_round": (64 * 1024 * 1024, "A7"),
-    "ha_election_timeout_s": (5.0, "A7"),
-    "ha_mutlog": (False, "A7"),
-    "session_ttl_s": (600.0, "A7"),
-    "session_state_bytes": (16 * 1024 * 1024, "A7"),
+    # A7 part 2: the daemon pool — pin auto-sizing from the attribution
+    # ledger, shards, HA, rebalancing
+    "device_cache_pin_auto": (False, "A7 part 2"),
+    "shard_handoff_bytes": (256 * 1024 * 1024, "A7 part 2"),
+    "rebalance": (False, "A7 part 2"),
+    "rebalance_skew_ratio": (2.0, "A7 part 2"),
+    "rebalance_windows": (3, "A7 part 2"),
+    "rebalance_max_bytes_per_round": (64 * 1024 * 1024, "A7 part 2"),
+    "ha_election_timeout_s": (5.0, "A7 part 2"),
+    "ha_mutlog": (False, "A7 part 2"),
+    # A8: the scheduler's feedback loop and SLO shedding read obs.attrib
+    # and obs.slo
+    "sched_feedback": (False, "A8"),
+    "sched_feedback_every": (64, "A8"),
+    "sched_slo_shed": (False, "A8"),
     # A8: the parts of obs/ the port does not have yet, the lock witness
     "obs_enabled": (True, "A8"),
     "obs_trace_ring": (64, "A8"),
@@ -117,10 +106,17 @@ class Configuration:
     and nothing is persisted; a directory raises ``NotImplementedError``
     (the shippable compiled plan, ROADMAP.md A8).
 
-    Every knob of a later ROADMAP.md item (``_LATER``: meshes, decode,
-    serving, the rest of obs, the lock witness) raises
-    ``NotImplementedError`` naming its item when set away from its
-    default."""
+    The one-daemon serving knobs keep the reference's defaults and
+    checks: the query scheduler's ``sched_lanes`` (lane weights),
+    ``sched_lane_quota``, ``sched_aging_every``, ``sched_coalesce*`` and
+    ``sched_affinity*``; the sessions' ``session_ttl_s`` (> 0) and
+    ``session_state_bytes`` (>= 0); the decode runtime's
+    ``decode_batch_max`` (>= 1) and ``model_dedup``.
+
+    Every knob of a later ROADMAP.md item (``_LATER``: meshes, the
+    daemon pool, the scheduler's feedback, the rest of obs, the lock
+    witness) raises ``NotImplementedError`` naming its item when set
+    away from its default."""
 
     # --- tensor blocking ---
     default_block_shape: Tuple[int, int] = (512, 512)
@@ -171,7 +167,7 @@ class Configuration:
     obs_explain: bool = True
     obs_history_interval_s: float = 5.0
     obs_history_len: int = 120
-    # --- serving (A7) ---
+    # --- serving (one daemon; the pool knobs are A7 part 2) ---
     sched_lanes: Optional[Dict[str, float]] = None
     sched_lane_quota: int = 0
     sched_aging_every: int = 8
@@ -233,6 +229,15 @@ class Configuration:
         if self.fusion_mapper not in ("optimal", "greedy"):
             raise ValueError(f"fusion_mapper must be 'optimal' or "
                              f"'greedy', got {self.fusion_mapper!r}")
+        if self.session_ttl_s <= 0:
+            raise ValueError(f"session_ttl_s must be > 0, got "
+                             f"{self.session_ttl_s!r}")
+        if self.session_state_bytes < 0:
+            raise ValueError(f"session_state_bytes must be >= 0, got "
+                             f"{self.session_state_bytes!r}")
+        if self.decode_batch_max < 1:
+            raise ValueError(f"decode_batch_max must be >= 1, got "
+                             f"{self.decode_batch_max!r}")
         if self.fusion_stage_budget_bytes < 0:
             raise ValueError(f"fusion_stage_budget_bytes must be >= 0, "
                              f"got {self.fusion_stage_budget_bytes!r}")

@@ -3,10 +3,14 @@
 ``PDBClient.h:113-138``): fine-tuned variants that share most blocks
 keep one copy of each distinct block on the card.
 
-The LSH index (:mod:`netsdb_tpu_torch.dedup.lsh`) groups candidate
-near-duplicate blocks across the models; only blocks inside a group are
-byte-compared, and exactly equal ones share one slot of a stacked pool
-``(P, bh, bw)``. Each model keeps an int32 slot grid. A
+Every block is keyed by a hash of its bytes, and exactly equal blocks
+share one slot of a stacked pool ``(P, bh, bw)``. The LSH index
+(:mod:`netsdb_tpu_torch.dedup.lsh`) groups the near-duplicate blocks
+for the report when it is asked for (``lsh_groups``,
+``verified_pairs``), but decides nothing: the reference byte-compares
+only blocks its LSH grouped, and above 8 blocks a bucket its anchor
+heuristic pairs each block with the bucket's first only, so past a few
+thousand blocks it leaves most byte-equal blocks unpooled. Each model keeps an int32 slot grid. A
 :class:`PooledTensor` stored in a set is assembled back into its
 ``BlockedTensor`` when read (one ``index_select`` and a permute); the
 assembly is cached on the pooled tensor, so consecutive reads gather once
@@ -105,12 +109,13 @@ def _rebuild_blocked(data, shape, block_shape, device):
 
 
 def pool_models(tensors: Dict[str, BlockedTensor], bands: int = 16,
-                n_bits: int = 128, seed: int = 0
+                n_bits: int = 128, seed: int = 0, report_lsh: bool = True
                 ) -> Tuple[Dict[str, PooledTensor], Dict]:
     """One shared pool over the given 2-D model tensors, which must share
-    block shape and dtype (one pool class). LSH groups the candidate
-    blocks; byte-equal members of a group share a slot. Returns
-    ({name: PooledTensor}, report)."""
+    block shape and dtype (one pool class). Byte-equal blocks share a
+    slot; with ``report_lsh`` LSH's near-duplicate groups are reported
+    (``lsh_groups``, ``verified_pairs``), without it no LSH work is done.
+    Returns ({name: PooledTensor}, report)."""
     from netsdb_tpu_torch.dedup.lsh import LSHIndex
 
     metas = {n: t.meta for n, t in tensors.items()}
@@ -122,18 +127,11 @@ def pool_models(tensors: Dict[str, BlockedTensor], bands: int = 16,
     if len(devices) > 1:
         raise ValueError(f"pool_models needs one device; got {devices}")
 
-    index = LSHIndex(n_bits=n_bits, bands=bands, seed=seed)
-    for name, t in tensors.items():
-        index.add_model(name, t)
-    groups = index.near_duplicate_groups()
-    group_of = {r: gi for gi, g in enumerate(groups) for r in g}
-
-    slot_of: Dict[object, int] = {}  # hash key → slot
+    slot_of: Dict[bytes, int] = {}  # hash of a block's bytes → slot
     stacked: List[np.ndarray] = []
     slots: Dict[str, np.ndarray] = {}
     shared_hits = 0
     total = 0
-    unique_seq = 0  # a distinct key for each ungrouped block
     for name, t in tensors.items():
         gh, gw = t.meta.grid
         bh, bw = t.meta.block_shape
@@ -144,14 +142,7 @@ def pool_models(tensors: Dict[str, BlockedTensor], bands: int = 16,
             for j in range(gw):
                 total += 1
                 blk = host[i, j]
-                ref = (name, (i, j))
-                if ref in group_of:  # a candidate: its bytes decide
-                    key = (group_of[ref],
-                           hashlib.blake2b(blk.tobytes(),
-                                           digest_size=16).digest())
-                else:
-                    key = ("u", unique_seq)
-                    unique_seq += 1
+                key = hashlib.blake2b(blk.tobytes(), digest_size=16).digest()
                 slot = slot_of.get(key)
                 if slot is None:
                     slot = len(stacked)
@@ -175,11 +166,15 @@ def pool_models(tensors: Dict[str, BlockedTensor], bands: int = 16,
         "total_blocks": total,
         "unique_blocks": len(stacked),
         "shared_block_refs": shared_hits,
-        "lsh_groups": len(groups),
-        "verified_pairs": index.verified_pairs,
-        "hbm_bytes_before": bytes_before,
-        "hbm_bytes_pooled": pool.nbytes,
-        "hbm_savings_pct": round(100 * (1 - pool.nbytes
-                                        / max(bytes_before, 1)), 1),
     }
+    if report_lsh:
+        index = LSHIndex(n_bits=n_bits, bands=bands, seed=seed)
+        for name, t in tensors.items():
+            index.add_model(name, t)
+        report["lsh_groups"] = len(index.near_duplicate_groups())
+        report["verified_pairs"] = index.verified_pairs
+    report.update(hbm_bytes_before=bytes_before,
+                  hbm_bytes_pooled=pool.nbytes,
+                  hbm_savings_pct=round(100 * (1 - pool.nbytes
+                                               / max(bytes_before, 1)), 1))
     return pooled, report

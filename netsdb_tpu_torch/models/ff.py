@@ -65,9 +65,11 @@ class FFModel:
                               storage=(storages or {}).get(s, "memory"))
         client.register_type("FFMatrixBlock",
                              "netsdb_tpu_torch.core.blocked:BlockedTensor")
-        # a w1 set already loaded fixes the block shape the model uses
-        placed = (client.catalog.get_set(self.db, "w1") or {}).get(
-            "meta", {}).get("block_shape")
+        # a w1 set already loaded fixes the block shape the model uses (a
+        # RemoteClient has no local catalog: the daemon decides there)
+        catalog = getattr(client, "catalog", None)
+        placed = (catalog.get_set(self.db, "w1") or {}).get(
+            "meta", {}).get("block_shape") if catalog is not None else None
         if placed:
             self.block = tuple(placed)
 

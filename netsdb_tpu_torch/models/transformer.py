@@ -222,8 +222,10 @@ class TransformerLayerModel:
         placement, or a mesh of size 1 on the sharded axis, as the
         degraded-hardware rule gives) the single-device forward. The
         same DAG either way: distribution is decided by how the sets
-        were created. ``placement`` defaults to the input set's."""
-        if placement is None:
+        were created. ``placement`` defaults to the input set's (a
+        RemoteClient has no store: remote callers pass the placement
+        they created the set with)."""
+        if placement is None and hasattr(client, "store"):
             placement = client.store.placement_of(
                 SetIdentifier(self.db, input_set))
         mesh: Optional[Mesh] = None
@@ -231,6 +233,11 @@ class TransformerLayerModel:
         sharded_axes = [a for a in (placement.spec if placement else ())
                         if a is not None]
         if sharded_axes:
+            if not hasattr(client, "device"):
+                raise NotImplementedError(
+                    "a sequence-parallel layer over a daemon (a placed "
+                    "input set behind a RemoteClient) is not ported yet: "
+                    "ROADMAP.md A7 part 2")
             mesh = placement.mesh(visible_devices(client.device.type))
             ax = sharded_axes[0]
             axis = ax[0] if isinstance(ax, tuple) else ax

@@ -10,13 +10,15 @@ EXPLAIN tree with its cross-query ledger (``obs/operators.py``)::
     obs.REGISTRY.counter("fusion.fallbacks").inc()
 
 Spans and trace counters do nothing unless a query trace is installed
-(``obs.trace(...)``); registry counters are always live. Stdlib only.
+(``obs.trace(...)``); registry counters, gauges and histograms are
+always live. Stdlib only.
 Exporters, SLOs, the slow-query log and history are ROADMAP.md A8."""
 
 from netsdb_tpu_torch.obs import operators  # noqa: F401
-from netsdb_tpu_torch.obs.metrics import REGISTRY, Counter, MetricsRegistry
+from netsdb_tpu_torch.obs.metrics import (REGISTRY, Counter, Gauge,
+                                          Histogram, MetricsRegistry)
 from netsdb_tpu_torch.obs.trace import (QueryTrace, Span, add,
                                         current_trace, span, trace)
 
-__all__ = ["Counter", "MetricsRegistry", "REGISTRY", "QueryTrace", "Span",
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY", "QueryTrace", "Span",
            "add", "current_trace", "operators", "span", "trace"]

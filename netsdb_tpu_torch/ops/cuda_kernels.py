@@ -18,7 +18,8 @@ accuracy. On a CUDA tensor a wrapper
 launches its kernel or raises; on a CPU tensor it runs its plain
 version, which repeats the reference kernel's blocking and exp2-domain
 online-softmax carry in plain PyTorch. Each wrapper counts its kernel
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches``; :func:`kernel_launches` is the
+registry's ``kernels`` section of them.
 
 Gradients: neither Pallas kernel of the reference has a backward (JAX
 differentiates the attention it calls). :class:`FlashAttentionFunction`
@@ -409,3 +410,19 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_step.launches = 0
+
+
+def kernel_launches():
+    """``{wrapper name: launches}`` — the registry's ``kernels`` section,
+    so a daemon's launch counts reach its clients through COLLECT_STATS."""
+    return {"flash_attention": flash_attention.launches,
+            "flash_attention_step": flash_attention_step.launches}
+
+
+def _register_collector() -> None:
+    from netsdb_tpu_torch.obs import REGISTRY
+
+    REGISTRY.register_collector("kernels", kernel_launches)
+
+
+_register_collector()

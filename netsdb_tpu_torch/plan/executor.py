@@ -112,6 +112,7 @@ def compile_stats() -> Dict[str, Any]:
 
 
 obs.REGISTRY.register_collector("compile", compile_stats)
+obs.REGISTRY.register_collector("programs", programs.program_stats)
 
 
 def compiled_cache_keys() -> List[str]:
@@ -404,7 +405,6 @@ def _run_fold_once(fold, pc: PagedColumns, resident, step_jit=None) -> Any:
                 for chunk in chunks:
                     state = step(state, chunk, *resident)
                     n += 1
-            state = programs.detach_outputs(state)
         if sp is not None:
             sp.counters["chunks"] = n
     obs.operators.op_add("chunks", n)
@@ -489,7 +489,6 @@ def _run_fold_grace(fold, pc: PagedColumns, rest, bi: int,
                         for chunk in chunks:
                             state = step(state, chunk, *part_res)
                             nchunks += 1
-                    state = programs.detach_outputs(state)
                 part = fold.finalize(state, pc, *part_res)
                 out = part if out is None else fold.merge(out, part)
                 npairs += 1

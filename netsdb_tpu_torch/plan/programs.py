@@ -35,18 +35,17 @@ callable could have read:
 
 Every other tensor input (an intermediate of the request, a fold's
 carried state, a streamed chunk) is copied into the graph's static input
-before each replay, unless it already is that static input (a fold
-step's state that its graph updated in place).
+before each replay.
 
-**Outputs.** A replay overwrites the graph's output buffers, so a
-program's outputs are cloned after the replay, except for a *stream*
-program (a per-chunk step), whose caller consumes each output before the
-next call: a fold step's state is the next step's input and its caller
-clones the final state (:func:`detach_outputs`); a rows step's output is
-copied into the result at once. A stream program captures a signature
-from the second request that calls it on: the first request runs its
-steps eagerly, so a cold stream, whose memory is bounded by its chunks,
-holds no graph's copies of its state and chunk.
+**Outputs.** A replay overwrites the graph's output buffers, so every
+replay clones its outputs before it lets go of the graph: callers that
+replay one graph at once (a daemon's handler threads running the same
+fold) take turns from the input copies to the output clones, and none
+sees another's state. A *stream* program (a per-chunk step: its
+argument 0, a fold's carried state, is copied in like a chunk) captures
+a signature from the second request that calls it on: the first request
+runs its steps eagerly, so a cold stream, whose memory is bounded by its
+chunks, holds no graph's copies of its state and chunk.
 
 **What is not captured.** The first run is watched for host
 synchronisations (``torch.cuda.set_sync_debug_mode``): a callable that
@@ -78,6 +77,7 @@ import dataclasses
 import functools
 import itertools
 import os
+import sys
 import threading
 import traceback
 import types
@@ -352,14 +352,41 @@ class _Dicts:
 
 _MAX_DEPTH = 4
 
+# equal code objects share one serial while any of them lives: a function
+# shipped by value to a daemon arrives as a new code object with every
+# request, and must find the variants its earlier copies captured
+_code_serials: "weakref.WeakKeyDictionary[types.CodeType, int]" = \
+    weakref.WeakKeyDictionary()
+_code_seq = itertools.count()
+_code_lock = threading.Lock()
+
+
+def _code_serial(code: types.CodeType) -> int:
+    with _code_lock:
+        n = _code_serials.get(code)
+        if n is None:
+            n = _code_serials[code] = next(_code_seq)
+        return n
+
+
+def _code_names(code: types.CodeType, out: set) -> set:
+    out.update(code.co_names)
+    for const in code.co_consts:
+        if isinstance(const, types.CodeType):
+            _code_names(const, out)
+    return out
+
 
 def closure_token(fns: Sequence[Any], keep: List[Any]) -> Any:
     """A hashable token of everything ``fns`` close over: constants by
     value, tensors by identity (``keep`` holds them, so an identity is
     never reused while a variant keyed on it lives), functions by code
-    and closure, objects by their attributes down to a small depth and by
-    identity below it — and the relational engine's thresholds in force
-    (``relational.tuning``), whose strategy choices a capture bakes in."""
+    (equal code objects alike), closure and defaults — and, for a
+    function whose globals are not its module's (one shipped by value),
+    by the globals its code names — objects by their attributes down to
+    a small depth and by identity below it, and the relational engine's
+    thresholds in force (``relational.tuning``), whose strategy choices a
+    capture bakes in."""
     from netsdb_tpu_torch.relational import tuning
 
     return (tuple(_token(f, keep, 0, set()) for f in fns),
@@ -398,12 +425,19 @@ def _token(x: Any, keep: List[Any], depth: int, seen: set) -> Any:
         keep.append(x)
         return ("id", type(x).__qualname__, id(x))
     if isinstance(x, types.FunctionType):
-        keep.append(x.__code__)
+        code = x.__code__
+        keep.append(code)
         cells = tuple(_cell(c, keep, depth + 1, seen)
                       for c in (x.__closure__ or ()))
-        return ("fn", id(x.__code__),
+        glob = None
+        mod = sys.modules.get(x.__module__ or "")
+        if mod is None or x.__globals__ is not vars(mod):
+            g = x.__globals__
+            glob = _token({n: g[n] for n in sorted(_code_names(code, set()))
+                           if n in g}, keep, depth + 1, seen)
+        return ("fn", _code_serial(code), code.co_filename, x.__qualname__,
                 _token(x.__defaults__, keep, depth + 1, seen),
-                _token(x.__kwdefaults__, keep, depth + 1, seen), cells)
+                _token(x.__kwdefaults__, keep, depth + 1, seen), cells, glob)
     if isinstance(x, types.MethodType):
         return ("m", _token(x.__func__, keep, depth, seen),
                 _token(x.__self__, keep, depth + 1, seen))
@@ -600,37 +634,30 @@ class _Graph:
         self.launches = launches    # {kernel wrapper: launches per replay}
         self.keep = keep
         self.nbytes = nbytes
+        # the static inputs and outputs are shared: concurrent callers
+        # (a daemon's handler threads, on one stream) take turns from the
+        # input copies to the output clones
+        self._mu = threading.Lock()
 
-    def replay(self, leaves: List[torch.Tensor], clone: bool) -> Any:
-        with torch.inference_mode(self.inference):
+    def replay(self, leaves: List[torch.Tensor]) -> Any:
+        with self._mu, torch.inference_mode(self.inference):
             for kind, static, src in zip(self.kinds, self.statics, leaves):
-                if kind == "copy" and src.data_ptr() != static.data_ptr():
+                if kind == "copy":
                     static.copy_(src)
             self.graph.replay()
             for fn, n in self.launches.items():
                 fn.launches += n
             for check in self.checks:
                 check()
-            outs = ([t.clone() for t in self.outs] if clone
-                    else list(self.outs))
+            outs = [t.clone() for t in self.outs]
         return _unflatten(self.out_tree, iter(outs))
-
-
-def detach_outputs(value: Any) -> Any:
-    """``value`` with every tensor cloned (a stream program's final state,
-    before the graph's next replay overwrites it)."""
-    leaves: List[torch.Tensor] = []
-    tree = _flatten(value, leaves)
-    if not leaves or not any(t.is_cuda for t in leaves):
-        return value
-    return _unflatten(tree, iter([t.clone() for t in leaves]))
 
 
 class Program:
     """One cached program: a variant per input signature (see the module
     docstring). ``stream`` marks a per-chunk step: its argument 0 (a
-    carried state, a block) is never read in place, its outputs are
-    returned without a copy, and it captures from its second request on. ``on_trace`` is called
+    carried state, a block) is never read in place, and it captures from
+    its second request on. ``on_trace`` is called
     once per new signature (the executor's trace counters). ``ref_args``
     lists the positions whose tensors are read in place like scanned
     sets, keyed by identity (address on the card) instead of by set and
@@ -705,7 +732,7 @@ class Program:
         else:
             _tick("replays")
             _pool_touch(self, sig)
-            return var.replay(leaves, clone=not self.stream)
+            return var.replay(leaves)
         return self._build(sig, fn, args, trees, leaves, kinds, keep, idents)
 
     def _remember(self, sig, var, idents) -> None:

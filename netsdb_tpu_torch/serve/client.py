@@ -1,0 +1,1027 @@
+"""Thin RPC client — the port's ``netsdb_tpu/serve/client.py``: the
+``Client`` facade over the wire.
+
+:class:`RemoteClient` mirrors :class:`netsdb_tpu_torch.client.Client`
+method for method but sends typed frames to a resident
+:class:`~netsdb_tpu_torch.serve.server.ServeController` (the reference's
+``PDBClient`` speaking to its master). It needs no card: tensors come
+back as host arrays in :class:`RemoteTensor`, whose ``to_dense()``
+matches ``BlockedTensor.to_dense()`` in value, so model drivers run
+against either client.
+
+Failures are typed (``serve/errors.py``). Retryable ones are retried
+under a :class:`RetryPolicy` with jittered exponential backoff, bounded
+by a per-request deadline, honouring the server's ``retry_after_s``
+hint; a mutating frame carries one idempotency token for all its
+attempts, so a retry after a lost reply is answered from the daemon's
+cache instead of applied twice. Scans stream, big ingests stream as
+chunks pipelined ``ingest_window`` deep, and both travel with their
+arrays out of band.
+
+The pickle codec (DAGs with their functions, object items) is used only
+against a daemon that named this interpreter in its HELLO reply
+(``protocol.PY_KEY``); against any other daemon — the reference's
+included — such a request raises :class:`ProtocolVersionError` before a
+byte is sent, and the codec-0 frames work as they are.
+
+Replicas with hedged reads, HA failover, placement-routed ingest into a
+shard pool and type-source shipping belong to ROADMAP.md A7 part 2, the
+trace export (GET_TRACE, PUT_TRACE, GET_METRICS) to A8: each raises
+``NotImplementedError`` naming its item."""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import pickle
+import random
+import socket
+import threading
+import time
+import uuid
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from netsdb_tpu_torch import obs
+from netsdb_tpu_torch.serve.errors import (  # noqa: F401 — re-exported API
+    AdmissionFullError,
+    AuthError,
+    CoalesceAbortedError,
+    ConnectionLostError,
+    CorruptFrameError,
+    DeadlineExceededError,
+    FollowerDegradedError,
+    LaneSaturatedError,
+    NotLeaderError,
+    PlacementStaleError,
+    ProtocolVersionError,
+    RemoteError,
+    RemoteTimeoutError,
+    RetryableRemoteError,
+    SessionMovedError,
+    SessionUnknownError,
+    ShardUnavailableError,
+    classify_remote,
+)
+from netsdb_tpu_torch.serve.protocol import (
+    CLIENT_ID_KEY,
+    CODEC_MSGPACK,
+    CODEC_PICKLE,
+    IDEMPOTENCY_KEY,
+    LANE_KEY,
+    MUTATING_TYPES,
+    PROTO_VERSION,
+    PY_KEY,
+    PY_TAG,
+    SESSION_KEY,
+    MsgType,
+    ProtocolError,
+    recv_frame,
+    send_frame,
+    tensor_to_wire,
+)
+from netsdb_tpu_torch.utils.locks import TrackedLock
+from netsdb_tpu_torch.utils.timing import deadline_after, seconds_left
+
+
+@dataclasses.dataclass
+class RetryPolicy:
+    """Exponential backoff with jitter for retryable failures.
+    ``deadline_s`` bounds one logical request across all its attempts
+    (monotonic clock); when the next backoff would cross it,
+    :class:`DeadlineExceededError` is raised instead of sleeping.
+    ``max_attempts=1`` disables retries."""
+
+    max_attempts: int = 4
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    multiplier: float = 2.0
+    jitter: float = 0.5
+    deadline_s: Optional[float] = None
+
+    def backoff_s(self, attempt: int, rng: random.Random) -> float:
+        d = min(self.base_delay_s * self.multiplier ** (attempt - 1),
+                self.max_delay_s)
+        return d * (1.0 - self.jitter * rng.random())
+
+
+class RemoteTableInfo:
+    """Summary of a daemon-side table ingest (``send_table``'s reply)."""
+
+    def __init__(self, num_rows: int, columns: list):
+        self.num_rows = num_rows
+        self.columns = columns
+
+    def __repr__(self):
+        return f"RemoteTableInfo(rows={self.num_rows}, cols={self.columns})"
+
+
+class RemoteTensor:
+    """A dense result fetched from the daemon — reads like a
+    ``BlockedTensor`` (``to_dense``/``shape``/``dtype``), on the host."""
+
+    def __init__(self, dense: np.ndarray, block_shape=None):
+        self._dense = dense
+        self.block_shape = tuple(block_shape) if block_shape else None
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self._dense.shape)
+
+    @property
+    def dtype(self):
+        return self._dense.dtype
+
+    def to_dense(self) -> np.ndarray:
+        return self._dense
+
+    def __repr__(self) -> str:
+        return f"RemoteTensor(shape={self.shape}, dtype={self.dtype})"
+
+
+class RemoteIdent(Tuple[str, str]):
+    """(db, set) result key, printable like ``SetIdentifier``."""
+
+    def __new__(cls, db: str, set_: str):
+        return super().__new__(cls, (db, set_))
+
+    @property
+    def db(self) -> str:
+        return self[0]
+
+    @property
+    def set(self) -> str:
+        return self[1]
+
+    def __str__(self) -> str:
+        return f"{self[0]}:{self[1]}"
+
+
+def _later(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
+
+
+def _host_array(v) -> np.ndarray:
+    """An array or tensor as a host array (a CUDA tensor is copied)."""
+    if hasattr(v, "detach"):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+class RemoteClient:
+    """``Client(address="host:port")`` returns one of these."""
+
+    #: below this many items ``send_data`` sends one frame
+    PIPELINE_MIN_ITEMS = 64
+
+    def __init__(self, address: str, token: Optional[str] = None,
+                 timeout: Optional[float] = None,
+                 retry: Optional[RetryPolicy] = None,
+                 chaos=None, seed: Optional[int] = None,
+                 connect_timeout: Optional[float] = None,
+                 replicas: Optional[Sequence[str]] = None,
+                 hedge_delay_s: Optional[float] = None,
+                 ingest_window: int = 4,
+                 ingest_chunk_bytes: int = 8 << 20,
+                 client_id: Optional[str] = None,
+                 lane: Optional[str] = None,
+                 trace_sample: Optional[int] = None,
+                 ship_traces: bool = True,
+                 failover: Optional[Sequence[str]] = None):
+        """``timeout``: socket timeout of every blocking recv after the
+        handshake (None blocks); ``connect_timeout`` bounds the dial and
+        the handshake (defaults to ``timeout``). ``retry``: the
+        :class:`RetryPolicy` (default: 4 attempts). ``seed`` seeds the
+        backoff jitter. ``ingest_window``/``ingest_chunk_bytes``: bulk
+        ingest streams ~``ingest_chunk_bytes`` chunks with up to
+        ``ingest_window`` in flight. ``client_id`` rides every frame
+        (the scheduler's default lane); ``lane`` names a scheduler lane.
+        ``trace_sample`` and ``ship_traces`` concern the client half of
+        query traces, which ship to the daemon's trace ring (ROADMAP.md
+        A8): no trace is minted. ``replicas``, ``hedge_delay_s``,
+        ``failover`` and ``chaos`` raise (ROADMAP.md A7 part 2)."""
+        for name, value in (("replicas", replicas),
+                            ("hedge_delay_s", hedge_delay_s),
+                            ("failover", failover), ("chaos", chaos)):
+            if value:
+                _later(f"RemoteClient({name}=...) (replicas, hedged reads, "
+                       f"failover, fault injection)", "A7 part 2")
+        del trace_sample, ship_traces
+        host, _, port = address.rpartition(":")
+        self.host = host or "127.0.0.1"
+        self.port = int(port)
+        self.token = token
+        self._lock = TrackedLock("RemoteClient._lock")
+        self._sock: Optional[socket.socket] = None
+        self._timeout = timeout
+        self._connect_timeout = (connect_timeout if connect_timeout
+                                 is not None else timeout)
+        self._retry = retry or RetryPolicy()
+        self._rng = random.Random(seed)
+        #: attempts of the last logical request; retries over the
+        #: client's lifetime
+        self.last_attempts = 0
+        self.total_retries = 0
+        self.ingest_window = max(1, int(ingest_window))
+        self.ingest_chunk_bytes = max(64 << 10, int(ingest_chunk_bytes))
+        self.client_id = client_id
+        self.lane = lane
+        #: True when the daemon named this interpreter in its HELLO
+        #: reply: the pickle codec is usable
+        self.pickle_ok = False
+        # the thread driving a streaming reply: its nested requests take
+        # a one-shot side connection
+        self._stream_owner: Optional[int] = None
+        self._connect()
+
+    # --- transport ----------------------------------------------------
+    @property
+    def current_address(self) -> str:
+        return f"{self.host}:{self.port}"
+
+    def _dial(self, budget_s: Optional[float] = None) -> socket.socket:
+        """Open and handshake one connection. HELLO carries
+        ``PROTO_VERSION`` (a mismatch either way is the fatal
+        :class:`ProtocolVersionError`) and this interpreter's tag."""
+        ct = self._connect_timeout
+        if budget_s is not None:
+            ct = budget_s if ct is None else min(ct, budget_s)
+        s = socket.create_connection((self.host, self.port), timeout=ct)
+        try:
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            send_frame(s, MsgType.HELLO, {"token": self.token,
+                                          "proto": PROTO_VERSION,
+                                          PY_KEY: PY_TAG})
+            typ, reply = recv_frame(s, allow_pickle=False)
+            if typ == MsgType.ERR:
+                raise classify_remote(reply)
+            if reply.get("version") != PROTO_VERSION:
+                raise ProtocolVersionError(
+                    "ProtocolVersionError",
+                    f"daemon at {self.host}:{self.port} speaks wire format "
+                    f"v{reply.get('version')}; this client is "
+                    f"v{PROTO_VERSION} — mixed versions are refused")
+            self.pickle_ok = reply.get(PY_KEY) == PY_TAG
+            s.settimeout(self._timeout)
+        except BaseException:
+            s.close()
+            raise
+        return s
+
+    def _connect(self, budget_s: Optional[float] = None) -> None:
+        self._sock = self._dial(budget_s)
+
+    @staticmethod
+    def _recv_reply(sock) -> Tuple[Any, Any]:
+        """Reply recv with decode failures typed (the retryable
+        CorruptFrame family). Replies may carry host objects (SCAN_SET):
+        the client trusts the daemon it chose to connect to."""
+        try:
+            return recv_frame(sock, allow_pickle=True)
+        except (ConnectionError, OSError):
+            raise
+        except Exception as e:
+            raise CorruptFrameError(
+                type(e).__name__, f"reply body failed to decode: {e}") from e
+
+    def _oneshot_request(self, msg_type: MsgType, payload: Any, codec: int,
+                         io_timeout: Optional[float] = None) -> Any:
+        """One request over a throwaway connection — for a thread that
+        is mid-stream on the main connection."""
+        s = self._dial(io_timeout)
+        try:
+            if io_timeout is not None:
+                s.settimeout(io_timeout)
+            send_frame(s, msg_type, payload, codec)
+            typ, reply = self._recv_reply(s)
+        finally:
+            s.close()
+        if typ == MsgType.ERR:
+            raise classify_remote(reply)
+        return reply
+
+    def _request_once(self, msg_type: MsgType, payload: Any, codec: int,
+                      io_timeout: Optional[float] = None) -> Any:
+        """One attempt on the persistent connection; any failure drops
+        the connection (the frame stream is desynced) and the next
+        attempt re-dials."""
+        with self._lock:
+            if self._sock is None:
+                self._connect(io_timeout)
+            try:
+                if io_timeout is not None:
+                    self._sock.settimeout(io_timeout)
+                with obs.span("client.send", "client"):
+                    send_frame(self._sock, msg_type, payload, codec)
+                with obs.span("client.wait", "client"):
+                    typ, reply = self._recv_reply(self._sock)
+                if io_timeout is not None:
+                    self._sock.settimeout(self._timeout)
+            except Exception:
+                self._drop_connection()
+                raise
+        if typ == MsgType.ERR:
+            raise classify_remote(reply)
+        return reply
+
+    def _retry_driver(self, attempt_fn,
+                      deadline_s: Optional[float] = None) -> Any:
+        """The one retry engine: ``attempt_fn(io_timeout)`` under the
+        :class:`RetryPolicy` and the per-request deadline, retrying
+        typed-retryable failures with jittered exponential backoff (at
+        least the server's ``retry_after_s`` hint). ``io_timeout`` caps
+        an attempt at the remaining budget. Every raised error is
+        typed."""
+        policy = self._retry
+        budget_s = deadline_s if deadline_s is not None else policy.deadline_s
+        deadline = deadline_after(budget_s) if budget_s is not None else None
+        attempt = 1
+        while True:
+            self.last_attempts = attempt
+            io_timeout = None
+            if deadline is not None:
+                left = seconds_left(deadline)
+                if left <= 0:
+                    raise DeadlineExceededError(
+                        "DeadlineExceeded",
+                        f"request deadline of {budget_s}s already spent "
+                        f"before attempt {attempt}")
+                io_timeout = left if self._timeout is None \
+                    else min(self._timeout, left)
+            try:
+                return attempt_fn(io_timeout)
+            except RemoteError as e:
+                if not e.retryable:
+                    raise
+                failure: RemoteError = e
+            except (socket.timeout, TimeoutError) as e:
+                failure = RemoteTimeoutError(type(e).__name__,
+                                             str(e) or "socket timeout")
+            except (ConnectionError, OSError) as e:
+                failure = ConnectionLostError(type(e).__name__, str(e))
+            if attempt >= policy.max_attempts:
+                raise failure
+            delay = policy.backoff_s(attempt, self._rng)
+            hint = getattr(failure, "retry_after_s", None)
+            if hint is not None and hint > 0:
+                delay = max(delay, float(hint)
+                            * (1.0 + 0.25 * self._rng.random()))
+            if deadline is not None and delay > seconds_left(deadline):
+                raise DeadlineExceededError(
+                    "DeadlineExceeded",
+                    f"request deadline of {budget_s}s exhausted after "
+                    f"{attempt} attempt(s); last failure: {failure}",
+                ) from failure
+            time.sleep(delay)
+            attempt += 1
+            self.total_retries += 1
+            obs.REGISTRY.counter("serve.client.retries").inc()
+
+    def _check_codec(self, codec: int) -> None:
+        if codec == CODEC_PICKLE and not self.pickle_ok:
+            raise ProtocolVersionError(
+                "ProtocolVersionError",
+                f"the daemon at {self.current_address} did not name this "
+                f"interpreter ({PY_TAG}) in its handshake: pickled frames "
+                f"(DAGs, object items, decode steps) are not sent to it")
+
+    def _request(self, msg_type: MsgType, payload: Any,
+                 codec: int = CODEC_MSGPACK,
+                 deadline_s: Optional[float] = None) -> Any:
+        """One logical request: an idempotency token on mutating frames
+        (the same for every attempt), the client identity and lane on
+        every frame, then :meth:`_retry_driver`."""
+        self._check_codec(codec)
+        if isinstance(payload, dict):
+            extra = {}
+            if msg_type in MUTATING_TYPES and IDEMPOTENCY_KEY not in payload:
+                extra[IDEMPOTENCY_KEY] = uuid.uuid4().hex
+            if self.client_id is not None and CLIENT_ID_KEY not in payload:
+                extra[CLIENT_ID_KEY] = str(self.client_id)
+            if self.lane is not None and LANE_KEY not in payload:
+                extra[LANE_KEY] = str(self.lane)
+            if extra:
+                payload = dict(payload)
+                payload.update(extra)
+        oneshot = self._stream_owner == threading.get_ident()
+
+        def attempt(io_timeout):
+            if oneshot:
+                return self._oneshot_request(msg_type, payload, codec,
+                                             io_timeout=io_timeout)
+            return self._request_once(msg_type, payload, codec,
+                                      io_timeout=io_timeout)
+
+        return self._retry_driver(attempt, deadline_s)
+
+    # --- windowed bulk ingest (BULK_BEGIN/CHUNK/COMMIT) ---------------
+    def _bulk_once(self, sock: socket.socket, begin: dict, chunk_fn) -> Any:
+        """One attempt of a streamed-ingest conversation: BEGIN, chunks
+        pipelined ``ingest_window`` deep (each acked once the daemon
+        decoded it), COMMIT, whose reply is the op's reply. A BEGIN
+        answered without ``go`` is the daemon replaying a completed
+        execution (a retry after a lost final reply)."""
+        send_frame(sock, MsgType.BULK_BEGIN, begin)
+        typ, reply = self._recv_reply(sock)
+        if typ == MsgType.ERR:
+            raise classify_remote(reply)
+        if not (isinstance(reply, dict) and reply.get("go")):
+            return reply
+        seq = unacked = 0
+        for chunk in chunk_fn():
+            chunk["seq"] = seq
+            send_frame(sock, MsgType.BULK_CHUNK, chunk)
+            seq += 1
+            unacked += 1
+            while unacked >= self.ingest_window:
+                typ, ack = self._recv_reply(sock)
+                if typ == MsgType.ERR:
+                    raise classify_remote(ack)
+                unacked -= 1
+        while unacked:
+            typ, ack = self._recv_reply(sock)
+            if typ == MsgType.ERR:
+                raise classify_remote(ack)
+            unacked -= 1
+        send_frame(sock, MsgType.BULK_COMMIT, {"chunks": seq})
+        typ, reply = self._recv_reply(sock)
+        if typ == MsgType.ERR:
+            raise classify_remote(reply)
+        return reply
+
+    def _bulk_request(self, op: MsgType, meta: dict, chunk_fn,
+                      deadline_s: Optional[float] = None) -> Any:
+        """One logical bulk ingest, retried whole under the policy with
+        ONE idempotency token for every attempt (nothing applies before
+        COMMIT; a retry after a lost COMMIT reply replays the cached
+        result). ``chunk_fn`` returns a fresh chunk iterator per call."""
+        begin = {"op": int(op), "meta": meta,
+                 IDEMPOTENCY_KEY: uuid.uuid4().hex}
+        if self.client_id is not None:
+            begin[CLIENT_ID_KEY] = str(self.client_id)
+
+        def attempt(io_timeout):
+            if self._stream_owner == threading.get_ident():
+                s = self._dial(io_timeout)
+                try:
+                    if io_timeout is not None:
+                        s.settimeout(io_timeout)
+                    return self._bulk_once(s, begin, chunk_fn)
+                finally:
+                    s.close()
+            with self._lock:
+                if self._sock is None:
+                    self._connect(io_timeout)
+                try:
+                    if io_timeout is not None:
+                        self._sock.settimeout(io_timeout)
+                    out = self._bulk_once(self._sock, begin, chunk_fn)
+                    if io_timeout is not None:
+                        self._sock.settimeout(self._timeout)
+                    return out
+                except Exception:
+                    self._drop_connection()
+                    raise
+
+        return self._retry_driver(attempt, deadline_s)
+
+    def _drop_connection(self) -> None:
+        s, self._sock = self._sock, None
+        if s is not None:
+            try:
+                s.close()
+            except OSError:
+                pass
+
+    def close(self) -> None:
+        with self._lock:
+            self._drop_connection()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # --- session ------------------------------------------------------
+    def ping(self) -> Dict[str, Any]:
+        return self._request(MsgType.PING, {})
+
+    def shutdown_server(self) -> None:
+        with self._lock:
+            if self._sock is None:
+                self._connect()
+            try:
+                send_frame(self._sock, MsgType.SHUTDOWN, {})
+                recv_frame(self._sock, allow_pickle=False)
+            except (ConnectionError, OSError):
+                pass  # the daemon may die before acking
+            finally:
+                self._drop_connection()
+
+    # --- DDL ----------------------------------------------------------
+    def create_database(self, db: str) -> None:
+        self._request(MsgType.CREATE_DATABASE, {"db": db})
+
+    def create_set(self, db: str, set_name: str, type_name: str = "tensor",
+                   persistence: str = "transient", eviction: str = "lru",
+                   partition_lambda: Optional[str] = None,
+                   placement=None, storage: str = "memory") -> RemoteIdent:
+        """``placement`` may be a ``Placement`` (sent as its
+        ``to_meta``) or its meta dict; ``storage="paged"`` backs the set
+        with the daemon's page arena."""
+        if placement is not None and hasattr(placement, "to_meta"):
+            placement = placement.to_meta()
+        self._request(MsgType.CREATE_SET, {
+            "db": db, "set": set_name, "type_name": type_name,
+            "persistence": persistence, "eviction": eviction,
+            "partition_lambda": partition_lambda,
+            "placement": placement, "storage": storage})
+        return RemoteIdent(db, set_name)
+
+    def remove_set(self, db: str, set_name: str) -> None:
+        self._request(MsgType.REMOVE_SET, {"db": db, "set": set_name})
+
+    def clear_set(self, db: str, set_name: str) -> None:
+        self._request(MsgType.CLEAR_SET, {"db": db, "set": set_name})
+
+    def set_exists(self, db: str, set_name: str) -> bool:
+        return self._request(MsgType.SET_EXISTS,
+                             {"db": db, "set": set_name})["exists"]
+
+    def list_sets(self) -> List[Tuple[str, str]]:
+        return [tuple(s) for s in
+                self._request(MsgType.LIST_SETS, {})["sets"]]
+
+    def register_type(self, type_name: str, entry_point: str,
+                      source: Optional[str] = None,
+                      ship_module: bool = False) -> None:
+        """Register an entry point the daemon can import; shipping the
+        module's source (``source``/``ship_module``) raises."""
+        if source is not None or ship_module:
+            _later("register_type(source=..., ship_module=...)",
+                   "A7 part 2")
+        self._request(MsgType.REGISTER_TYPE,
+                      {"type_name": type_name, "entry_point": entry_point,
+                       "source": None})
+
+    # --- data path ----------------------------------------------------
+    def _item_chunks(self, items: list, chunk_bytes: int):
+        """Adaptive item batching: the first chunk holds one item, then
+        the batch tracks the observed bytes per item (growth capped at
+        4× per chunk); each blob rides out of band as a uint8 view."""
+        def chunks():
+            i = 0
+            target = 1
+            while i < len(items):
+                batch = items[i:i + target]
+                blob = pickle.dumps(batch, protocol=pickle.HIGHEST_PROTOCOL)
+                yield {"n": len(batch), "blob": np.frombuffer(blob, np.uint8)}
+                per_item = max(len(blob) // len(batch), 1)
+                target = max(1, min(chunk_bytes // per_item, 4 * target))
+                i += len(batch)
+
+        return chunks
+
+    def send_data(self, db: str, set_name: str, items: Sequence[Any],
+                  pipeline: Optional[bool] = None,
+                  chunk_bytes: Optional[int] = None) -> None:
+        """Object ingest. Big batches stream as bounded chunks under the
+        windowed-ack pipeline (``pipeline=None`` decides by item count;
+        ``True``/``False`` pins a path)."""
+        items = list(items)
+        use = (pipeline if pipeline is not None
+               else len(items) >= self.PIPELINE_MIN_ITEMS)
+        if not use:
+            self._request(MsgType.SEND_DATA,
+                          {"db": db, "set": set_name, "items": items},
+                          codec=CODEC_PICKLE)
+            return
+        cb = int(chunk_bytes or self.ingest_chunk_bytes)
+        self._bulk_request(MsgType.SEND_DATA,
+                           {"db": db, "set": set_name, "mode": "items"},
+                           self._item_chunks(items, cb))
+
+    @staticmethod
+    def _table_chunks(table, chunk_bytes: int):
+        """Row-range slices of a table's host columns, riding out of
+        band; the dictionaries travel once in the BEGIN meta."""
+        cols = {k: np.ascontiguousarray(_host_array(v))
+                for k, v in table.cols.items()}
+        nrows = int(table.num_rows)
+        row_bytes = max(1, sum(c.dtype.itemsize for c in cols.values()))
+        per_chunk = max(1, chunk_bytes // row_bytes)
+
+        def chunks():
+            for start in range(0, max(nrows, 1), per_chunk):
+                stop = min(nrows, start + per_chunk)
+                yield {"rows": [start, stop],
+                       "cols": {k: v[start:stop] for k, v in cols.items()}}
+
+        return chunks
+
+    def send_table(self, db: str, set_name: str, rows_or_table,
+                   date_cols: Sequence[str] = (),
+                   append: bool = False,
+                   pipeline: Optional[bool] = None,
+                   chunk_bytes: Optional[int] = None) -> RemoteTableInfo:
+        """Ship rows (or a ``ColumnTable``) for daemon-side columnar
+        ingest; returns a :class:`RemoteTableInfo`. A table streams as
+        row-range column slices out of band, rows as pickled batches,
+        both under the windowed-ack pipeline when big
+        (``pipeline=None`` decides by size)."""
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        cb = int(chunk_bytes or self.ingest_chunk_bytes)
+        if isinstance(rows_or_table, ColumnTable):
+            table = rows_or_table
+            if table.valid is not None:
+                table = table.compact()
+            nbytes = sum(int(v.nbytes) for v in table.cols.values())
+            use = pipeline if pipeline is not None else nbytes >= cb
+            if use:
+                reply = self._bulk_request(
+                    MsgType.SEND_DATA,
+                    {"db": db, "set": set_name, "mode": "table",
+                     "date_cols": list(date_cols), "append": append,
+                     "dicts": {k: list(v) for k, v in table.dicts.items()},
+                     "nrows": int(table.num_rows)},
+                    self._table_chunks(table, cb))
+                return RemoteTableInfo(reply["count"],
+                                       list(reply["columns"]))
+            items: Any = table.to("cpu")
+        else:
+            items = list(rows_or_table)
+            use = (pipeline if pipeline is not None
+                   else len(items) >= self.PIPELINE_MIN_ITEMS)
+            if use:
+                reply = self._bulk_request(
+                    MsgType.SEND_DATA,
+                    {"db": db, "set": set_name, "mode": "items",
+                     "as_table": True, "date_cols": list(date_cols),
+                     "append": append},
+                    self._item_chunks(items, cb))
+                return RemoteTableInfo(reply["count"],
+                                       list(reply["columns"]))
+        reply = self._request(
+            MsgType.SEND_DATA,
+            {"db": db, "set": set_name, "items": items, "as_table": True,
+             "date_cols": list(date_cols), "append": append},
+            codec=CODEC_PICKLE)
+        return RemoteTableInfo(reply["count"], list(reply["columns"]))
+
+    def analyze_set(self, db: str, set_name: str) -> Dict[str, Any]:
+        """Planner statistics computed daemon-side; only the summaries
+        cross the wire."""
+        from netsdb_tpu_torch.relational.stats import ColumnStats
+
+        reply = self._request(MsgType.ANALYZE_SET,
+                              {"db": db, "set": set_name})
+        return {"num_rows": reply["num_rows"],
+                "dicts": {k: list(v) for k, v in reply["dicts"].items()},
+                "stats": {k: ColumnStats(*v)
+                          for k, v in reply["stats"].items()}}
+
+    def get_table(self, db: str, set_name: str):
+        """A table set as a host ``ColumnTable``."""
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        tables = [i for i in self.get_set_iterator(db, set_name)
+                  if isinstance(i, ColumnTable)]
+        if len(tables) != 1:
+            raise ValueError(
+                f"set {db}:{set_name} holds {len(tables)} tables; expected 1")
+        return tables[0]
+
+    def send_matrix(self, db: str, set_name: str, dense, block_shape=None,
+                    dtype=None) -> RemoteTensor:
+        """Send a dense matrix (its buffer rides out of band, no copy);
+        the daemon blocks it on its device."""
+        dense = _host_array(dense)
+        if dtype is not None:
+            dense = dense.astype(dtype)
+        reply = self._request(MsgType.SEND_MATRIX, {
+            "db": db, "set": set_name,
+            "tensor": tensor_to_wire(dense, block_shape)})
+        return RemoteTensor(dense, reply.get("block_shape"))
+
+    def get_tensor(self, db: str, set_name: str) -> RemoteTensor:
+        reply = self._request(MsgType.GET_TENSOR,
+                              {"db": db, "set": set_name})
+        return RemoteTensor(reply["data"], reply.get("block_shape"))
+
+    def paged_matmul(self, db: str, set_name: str, rhs) -> np.ndarray:
+        """``stored @ rhs`` computed daemon-side, the paged matrix
+        streamed from the arena."""
+        reply = self._request(MsgType.PAGED_MATMUL,
+                              {"db": db, "set": set_name,
+                               "rhs": _host_array(rhs)})
+        return np.asarray(reply["data"])
+
+    def get_tensor_chunked(self, db: str, set_name: str,
+                           chunk_bytes: int = 8 << 20) -> RemoteTensor:
+        """Pull a tensor as a chunked stream: this side holds the result
+        plus one chunk."""
+        meta = None
+        buf = None
+        off = 0
+        for frame in self._stream(MsgType.GET_TENSOR_CHUNKED,
+                                  {"db": db, "set": set_name,
+                                   "chunk_bytes": int(chunk_bytes)}):
+            if meta is None:
+                meta = frame["meta"]
+                buf = bytearray(meta["nbytes"])
+            else:
+                b = frame["b"]
+                n = b.nbytes if isinstance(b, np.ndarray) else len(b)
+                buf[off:off + n] = memoryview(b) if isinstance(
+                    b, np.ndarray) else b
+                off += n
+        if meta is None:
+            raise ProtocolError("empty chunked-tensor stream")
+        dense = np.frombuffer(buf, dtype=np.dtype(meta["dtype"])
+                              ).reshape(meta["shape"])
+        return RemoteTensor(dense, meta.get("block_shape"))
+
+    def get_set_iterator(self, db: str, set_name: str) -> Iterator[Any]:
+        reply = self._request(MsgType.SCAN_SET, {"db": db, "set": set_name})
+        return iter(reply["items"])
+
+    def scan_stream(self, db: str, set_name: str,
+                    max_frame_bytes: int = 4 << 20) -> Iterator[Any]:
+        """Stream a set's items with bounded buffering on both ends (one
+        frame at a time). The connection is held while iterating;
+        abandoning the iterator drops it and the next request
+        re-dials."""
+        for frame in self._stream(MsgType.SCAN_SET_STREAM,
+                                  {"db": db, "set": set_name,
+                                   "max_frame_bytes": int(max_frame_bytes)}):
+            yield from pickle.loads(frame["batch"])
+
+    def get_table_streamed(self, db: str, set_name: str,
+                           max_frame_bytes: int = 4 << 20):
+        """Assemble a table set from the streamed scan."""
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        parts: dict = {}
+        dicts: dict = {}
+        got = False
+        with contextlib.closing(
+                self.scan_stream(db, set_name, max_frame_bytes)) as items:
+            for item in items:
+                if not isinstance(item, ColumnTable):
+                    raise TypeError(f"set {db}:{set_name} holds "
+                                    f"{type(item).__name__} items, not "
+                                    f"tables")
+                got = True
+                dicts.update(item.dicts)
+                cols = item.compact().cols if item.valid is not None \
+                    else item.cols
+                for k, v in cols.items():
+                    parts.setdefault(k, []).append(_host_array(v))
+        if not got:
+            raise ValueError(f"set {db}:{set_name} is empty")
+        import torch
+
+        return ColumnTable({k: torch.from_numpy(np.concatenate(v))
+                            for k, v in parts.items()}, dicts, None)
+
+    def _stream_frames(self, sock: socket.socket, msg_type: MsgType,
+                       payload: Any) -> Iterator[Any]:
+        send_frame(sock, msg_type, payload)
+        while True:
+            typ, reply = self._recv_reply(sock)
+            if typ == MsgType.STREAM_END:
+                return
+            if typ == MsgType.ERR:
+                raise classify_remote(reply)
+            yield reply
+
+    def _stream(self, msg_type: MsgType, payload: Any) -> Iterator[Any]:
+        """A streaming request: yield each STREAM_ITEM payload until
+        STREAM_END (ERR raises; the connection stays synchronized). A
+        stream opened from a thread already mid-stream uses its own
+        connection."""
+        if self.client_id is not None and CLIENT_ID_KEY not in payload:
+            payload = dict(payload)
+            payload[CLIENT_ID_KEY] = str(self.client_id)
+        if self._stream_owner == threading.get_ident():
+            s = self._dial()
+            try:
+                yield from self._stream_frames(s, msg_type, payload)
+            finally:
+                s.close()
+            return
+        self._lock.acquire()
+        self._stream_owner = threading.get_ident()
+        done = False
+        try:
+            if self._sock is None:
+                self._connect()
+            yield from self._stream_frames(self._sock, msg_type, payload)
+            done = True
+        except RemoteError:
+            done = True  # ERR ends the stream; the connection is in sync
+            raise
+        finally:
+            self._stream_owner = None
+            if not done:
+                self._drop_connection()
+            self._lock.release()
+
+    def dedup_resident(self, sets: Sequence[Tuple[str, str]],
+                       bands: int = 16, seed: int = 0) -> Dict[str, Any]:
+        """Daemon-side block-level model dedup (``Client.
+        dedup_resident``); returns the pooling report."""
+        return self._request(MsgType.DEDUP_RESIDENT,
+                             {"sets": [list(s) for s in sets],
+                              "bands": bands, "seed": seed})
+
+    def add_shared_mapping(self, private_db: str, private_set: str,
+                           shared_db: str, shared_set: str,
+                           mapping: Optional[Dict] = None) -> None:
+        self._request(MsgType.ADD_SHARED_MAPPING, {
+            "private_db": private_db, "private_set": private_set,
+            "shared_db": shared_db, "shared_set": shared_set,
+            "mapping": mapping})
+
+    def flush_data(self) -> None:
+        self._request(MsgType.FLUSH_DATA, {})
+
+    def load_set(self, db: str, set_name: str) -> None:
+        self._request(MsgType.LOAD_SET, {"db": db, "set": set_name})
+
+    # --- stateful serving (serve/sessions.py) -------------------------
+    def open_session(self, db: str, kind: str = "lstm",
+                     ttl_s: Optional[float] = None,
+                     heads: Optional[int] = None,
+                     session_id: Optional[str] = None) -> "SessionHandle":
+        """Open one decode session over model ``db`` (the session id is
+        minted here); returns a :class:`SessionHandle`."""
+        sid = str(session_id or uuid.uuid4().hex)
+        payload: Dict[str, Any] = {"op": "open", "sid": sid, "db": db,
+                                   "kind": kind, SESSION_KEY: sid}
+        if ttl_s is not None:
+            payload["ttl_s"] = float(ttl_s)
+        if heads is not None:
+            payload["heads"] = int(heads)
+        rep = self._request(MsgType.SESSION_OPEN, payload)
+        return SessionHandle(self, sid, db, kind, owner=rep.get("owner"),
+                             spec=rep.get("spec"),
+                             steps=int(rep.get("steps", 0)))
+
+    # --- query execution ----------------------------------------------
+    def execute_computations(self, *sinks, job_name: str = "remote-job",
+                             materialize: bool = True,
+                             fetch_results: bool = True,
+                             explain: bool = False):
+        """Ship the computation DAG (its functions pickled by value) and
+        run it on the daemon. Returns ``{ident: value}`` like the
+        in-process client (``fetch_results=False``: the summaries only;
+        the results stay resident on the daemon). ``explain=True``
+        returns ``(results, operators_tree)``."""
+        reply = self._request(
+            MsgType.EXECUTE_COMPUTATIONS,
+            {"sinks": list(sinks), "job_name": job_name,
+             "materialize": materialize, "explain": bool(explain)},
+            codec=CODEC_PICKLE)
+        results = self._collect_results(reply["results"], fetch_results)
+        if explain:
+            return results, reply.get("operators")
+        return results
+
+    def execute_plan(self, plan_text: str, registry: Dict[str, Any],
+                     job_name: str = "remote-plan", materialize: bool = True,
+                     fetch_results: bool = True, explain: bool = False):
+        """Pickle-free execution: plan text plus a label → entry-point
+        registry the daemon binds."""
+        reply = self._request(
+            MsgType.EXECUTE_PLAN,
+            {"plan": plan_text, "registry": registry, "job_name": job_name,
+             "materialize": materialize, "explain": bool(explain)})
+        results = self._collect_results(reply["results"], fetch_results)
+        if explain:
+            return results, reply.get("operators")
+        return results
+
+    def _collect_results(self, summaries: Dict[str, Any],
+                         fetch: bool) -> Dict[RemoteIdent, Any]:
+        out: Dict[RemoteIdent, Any] = {}
+        for key, summary in summaries.items():
+            db, _, set_name = key.partition(":")
+            ident = RemoteIdent(db, set_name)
+            if not fetch:
+                out[ident] = summary
+            elif summary.get("kind") == "tensor":
+                out[ident] = self.get_tensor(db, set_name)
+            else:
+                items = list(self.get_set_iterator(db, set_name))
+                out[ident] = dict(items) if summary.get("kind") == "map" \
+                    else items
+        return out
+
+    def list_jobs(self) -> List[Dict[str, Any]]:
+        return self._request(MsgType.LIST_JOBS, {})["jobs"]
+
+    # --- stats --------------------------------------------------------
+    def collect_stats(self) -> Dict[str, Any]:
+        return self._request(MsgType.COLLECT_STATS, {})
+
+    def health(self) -> Dict[str, Any]:
+        return self._request(MsgType.HEALTH, {})
+
+    def get_trace(self, *args, **kwargs):
+        _later("get_trace (the daemon's trace ring)", "A8")
+
+    def flush_traces(self, timeout_s: float = 5.0) -> bool:
+        """No client trace ships (ROADMAP.md A8): nothing to wait for."""
+        return True
+
+    def get_metrics(self, *args, **kwargs):
+        _later("get_metrics (telemetry history and export)", "A8")
+
+    def placement_map(self) -> Optional[Dict[str, Any]]:
+        """The cached shard placement map: None, as for any client of a
+        daemon with no sharded set (shard pools: ROADMAP.md A7 part 2)."""
+        return None
+
+    def placement_view(self):
+        _later("placement_view (the shard pool)", "A7 part 2")
+
+    def hedge_delay_s(self) -> float:
+        _later("hedge_delay_s (hedged reads over replicas)", "A7 part 2")
+
+    def read_latency_stats(self) -> Dict[str, Any]:
+        _later("read_latency_stats (hedged reads over replicas)",
+               "A7 part 2")
+
+    def resync_follower(self, snapshot_blob, step: int,
+                        chunk_bytes: int = 8 << 20):
+        _later("resync_follower (follower resync)", "A7 part 2")
+
+    def rebalance_status(self):
+        _later("rebalance_status (the shard pool)", "A7 part 2")
+
+    def add_worker(self, addr: str, campaign: bool = True):
+        _later("add_worker (the shard pool)", "A7 part 2")
+
+
+class SessionHandle:
+    """Client-side handle of one interactive decode session. Each
+    logical step mints one idempotency token and resends it on every
+    retry, so an applied-but-unanswered step is answered from the
+    daemon's record instead of advancing the state twice."""
+
+    def __init__(self, client: RemoteClient, sid: str, db: str,
+                 kind: str, owner: Optional[str] = None,
+                 spec: Optional[Dict[str, Any]] = None, steps: int = 0):
+        self._client = client
+        self.sid = sid
+        self.db = db
+        self.kind = kind
+        self.owner = owner or client.current_address
+        self.spec = spec or {}
+        self.steps = int(steps)
+        self.moves = 0  # owner re-points (sessions on workers: A7 part 2)
+        self._closed = False
+
+    def generate(self, x, deadline_s: float = 30.0) -> np.ndarray:
+        """One decode step: the model's output row for this session,
+        retried under ``deadline_s`` with one token for the step."""
+        if self._closed:
+            raise RuntimeError(f"session {self.sid!r} is closed")
+        payload = {"db": self.db, "set": self.sid, "sid": self.sid,
+                   "x": np.asarray(_host_array(x), np.float32),
+                   SESSION_KEY: self.sid,
+                   IDEMPOTENCY_KEY: uuid.uuid4().hex}
+        rep = self._client._request(MsgType.GENERATE, payload,
+                                    codec=CODEC_PICKLE,
+                                    deadline_s=deadline_s)
+        self.steps = int(rep.get("steps", self.steps + 1))
+        return np.asarray(rep["y"])
+
+    def close(self, deadline_s: float = 10.0) -> bool:
+        """Close the session on the daemon (idempotent; the TTL sweep
+        collects what a lost close leaves)."""
+        if self._closed:
+            return False
+        self._closed = True
+        try:
+            rep = self._client._request(
+                MsgType.SESSION_CLOSE,
+                {"sid": self.sid, "db": self.db, "set": self.sid},
+                deadline_s=deadline_s)
+            return bool(rep.get("closed"))
+        except (RemoteError, ConnectionError, OSError):
+            return False
+
+    def __enter__(self) -> "SessionHandle":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __repr__(self) -> str:
+        return (f"<SessionHandle {self.sid[:8]} db={self.db!r} "
+                f"owner={self.owner} steps={self.steps}>")

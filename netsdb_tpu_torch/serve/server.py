@@ -1,0 +1,1338 @@
+"""Resident controller daemon — the port's ``netsdb_tpu/serve/server.py``
+for one daemon on one card (the reference's ``MasterMain``: the server
+that owns the device and keeps model sets loaded across clients).
+
+One process owns the card, the set store with its device-resident
+weights, the catalog and the compiled-plan cache, all of which stay live
+across client connections. A listener thread accepts connections and
+hands each to a handler thread; a handler map keyed by frame type
+dispatches messages (the reference's ``PDBServer``). Query jobs pass
+through the query scheduler (``serve/sched/``): lanes, identical-query
+coalescing and the cache-aware affinity gate.
+
+Every handler thread runs on the daemon's device and its default stream.
+Mutating frames carry idempotency tokens; completed replies are cached
+(and persisted in sqlite under ``root_dir``), so a retry — across a
+restart too — replays the reply instead of applying the mutation twice.
+
+The pool topologies (``followers=``, ``workers=``, ``ha_peers=``) and
+their frames (RESYNC_FOLLOWER, PLACEMENT, SUBPLAN, SHUFFLE_PUT,
+SHARD_RESYNC, HA_STATE, TOKEN_ALIAS, RESHARD, LOCAL_SHARDS) belong to
+ROADMAP.md A7 part 2, and so does shipping a type's module source; the
+trace ring and telemetry export (GET_TRACE, PUT_TRACE, GET_METRICS)
+belong to A8. Each raises ``NotImplementedError`` naming its item.
+
+Run it as ``python -m netsdb_tpu_torch.serve.server --port 0 --root DIR
+[--device cpu]``, or call :func:`run_daemon` with a ``Configuration``:
+it prints ``serving on HOST:PORT`` on a line of its own once it listens,
+then serves until SHUTDOWN."""
+
+from __future__ import annotations
+
+import contextvars
+import importlib
+import inspect
+import itertools
+import os
+import socket
+import sys
+import threading
+import time
+import traceback
+from collections import OrderedDict
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from netsdb_tpu_torch import obs
+from netsdb_tpu_torch.client import Client
+from netsdb_tpu_torch.config import Configuration
+from netsdb_tpu_torch.serve import sched as _sched
+from netsdb_tpu_torch.serve import sessions as _sessions
+from netsdb_tpu_torch.serve.errors import (
+    BACKPRESSURE_FIELDS,
+    AdmissionFull,
+    CorruptFrame,
+    LaneSaturated,
+    RequestInFlight,
+)
+from netsdb_tpu_torch.serve.protocol import (
+    CLIENT_ID_KEY,
+    CODEC_MSGPACK,
+    CODEC_PICKLE,
+    HA_TERM_KEY,
+    IDEMPOTENCY_KEY,
+    LANE_KEY,
+    MAX_FRAME_BYTES,
+    PLACEMENT_EPOCH_KEY,
+    PROTO_VERSION,
+    PY_KEY,
+    PY_TAG,
+    QUERY_ID_KEY,
+    SESSION_KEY,
+    MsgType,
+    ProtocolError,
+    decode_body,
+    recv_frame,
+    recv_frame_raw,
+    send_frame,
+    tensor_from_wire,
+)
+from netsdb_tpu_torch.serve.sched.sessions import DECODE_LANE
+from netsdb_tpu_torch.storage.store import SetIdentifier
+from netsdb_tpu_torch.utils.locks import TrackedLock
+from netsdb_tpu_torch.utils.timing import deadline_after, seconds_left, wall_now
+
+#: introspection frames — outside the serve.requests counters and the
+#: serve.request_s histogram (monitoring must not move what it reads)
+OBS_FRAMES = frozenset({MsgType.PING, MsgType.COLLECT_STATS,
+                        MsgType.HEALTH})
+
+#: frames of the pool topologies (followers, shard pool, HA, rebalancing)
+POOL_FRAMES = frozenset({
+    MsgType.RESYNC_FOLLOWER, MsgType.PLACEMENT, MsgType.SUBPLAN,
+    MsgType.SHUFFLE_PUT, MsgType.SHARD_RESYNC, MsgType.HA_STATE,
+    MsgType.TOKEN_ALIAS, MsgType.RESHARD, MsgType.LOCAL_SHARDS})
+
+#: frames of the trace ring and the telemetry export
+OBS_EXPORT_FRAMES = frozenset({MsgType.GET_TRACE, MsgType.PUT_TRACE,
+                               MsgType.GET_METRICS})
+
+#: the frame's client identity for the handler's dynamic extent (the
+#: default scheduler lane)
+_client_var: "contextvars.ContextVar[Optional[str]]" = \
+    contextvars.ContextVar("netsdb_torch_client", default=None)
+
+
+def resolve_entry_point(entry: str) -> Any:
+    """'pkg.mod:attr' → the live object (the reference's loading of a
+    registered type, with the module importable here)."""
+    mod_name, _, attr = entry.partition(":")
+    obj: Any = importlib.import_module(mod_name)
+    for part in attr.split(".") if attr else []:
+        obj = getattr(obj, part)
+    return obj
+
+
+def _to_host(value: Any) -> Any:
+    """A stored item with its tensors on the host, for a reply (blocked
+    tensors and tables keep their class; their pickles then load on a
+    machine without a card)."""
+    from netsdb_tpu_torch.core.blocked import BlockedTensor
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    if isinstance(value, BlockedTensor):
+        return BlockedTensor(value.data.detach().cpu(), value.meta)
+    if isinstance(value, ColumnTable):
+        return value.to("cpu")
+    if isinstance(value, tuple) and not hasattr(value, "_fields"):
+        return tuple(_to_host(v) for v in value)
+    if isinstance(value, list):
+        return [_to_host(v) for v in value]
+    return value
+
+
+def _dense_host(t) -> np.ndarray:
+    """A blocked tensor's logical matrix as a host array."""
+    return np.ascontiguousarray(t.to_dense().detach().cpu().numpy())
+
+
+def _plain(v: Any) -> Any:
+    """A statistic as a plain Python number (MessagePack-safe)."""
+    return v.item() if hasattr(v, "item") else v
+
+
+class _IdempotencyCache:
+    """Completed-reply cache keyed by client idempotency token — the
+    server half of at-most-once for mutating frames. A retry whose
+    original is still running waits on its event; a retry of a completed
+    request gets the cached reply. With ``persist_path`` (a sqlite file
+    under ``root_dir``) completed tokens survive a daemon restart;
+    replies that cannot pickle stay memory-only. Rows are pruned to
+    ``capacity``."""
+
+    def __init__(self, capacity: int = 4096,
+                 persist_path: Optional[str] = None):
+        self._mu = TrackedLock("_IdempotencyCache._mu")
+        self._done: "OrderedDict[str, Tuple]" = OrderedDict()
+        self._inflight: Dict[str, threading.Event] = {}
+        self._capacity = capacity
+        self._db = None
+        #: tokens answered from the persisted table
+        self.persist_hits = 0
+        self._since_prune = 0
+        if persist_path:
+            import sqlite3
+
+            parent = os.path.dirname(persist_path)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            self._db = sqlite3.connect(persist_path,
+                                       check_same_thread=False)
+            try:
+                self._db.execute("PRAGMA journal_mode=WAL")
+                self._db.execute("PRAGMA synchronous=NORMAL")
+            except sqlite3.Error:
+                pass  # default journaling
+            self._db.execute("CREATE TABLE IF NOT EXISTS idem "
+                             "(token TEXT PRIMARY KEY, reply BLOB)")
+            self._db.commit()
+
+    def _load_persisted(self, token: str) -> Optional[Tuple]:
+        import pickle
+        import sqlite3
+
+        if self._db is None:
+            return None
+        try:
+            row = self._db.execute("SELECT reply FROM idem WHERE token = ?",
+                                   (token,)).fetchone()
+            if row is None:
+                return None
+            result = pickle.loads(row[0])
+        except (sqlite3.Error, pickle.UnpicklingError, ValueError,
+                EOFError, AttributeError, ImportError):
+            return None
+        self.persist_hits += 1
+        self._done[token] = result
+        return result
+
+    def _persist(self, token: str, result: Tuple) -> None:
+        import pickle
+        import sqlite3
+
+        if self._db is None:
+            return
+        try:
+            blob = pickle.dumps(result, protocol=pickle.HIGHEST_PROTOCOL)
+            self._db.execute(
+                "INSERT OR REPLACE INTO idem (token, reply) VALUES (?, ?)",
+                (token, blob))
+            self._db.commit()
+        except (sqlite3.Error, pickle.PicklingError, TypeError,
+                ValueError):
+            return
+
+    def claim(self, token: str, wait_s: float) -> Optional[Tuple]:
+        """The cached ``(reply_type, reply, codec)`` when ``token``
+        completed; None when the caller now owns execution (it must call
+        :meth:`finish` or :meth:`abort`). Raises :class:`RequestInFlight`
+        when the original still runs after ``wait_s``."""
+        deadline = deadline_after(wait_s)
+        while True:
+            with self._mu:
+                if token in self._done:
+                    self._done.move_to_end(token)
+                    obs.REGISTRY.counter("serve.idem.memory_hits").inc()
+                    return self._done[token]
+                cached = self._load_persisted(token)
+                if cached is not None:
+                    obs.REGISTRY.counter("serve.idem.persist_hits").inc()
+                    return cached
+                ev = self._inflight.get(token)
+                if ev is None:
+                    self._inflight[token] = threading.Event()
+                    return None
+            left = seconds_left(deadline)
+            if left <= 0 or not ev.wait(left):
+                raise RequestInFlight(
+                    f"duplicate request {token[:8]}… still executing "
+                    f"after {wait_s}s")
+
+    def finish(self, token: str, result: Tuple) -> None:
+        with self._mu:
+            self._done[token] = result
+            self._persist(token, result)
+            self._since_prune += 1
+            prune_now = self._since_prune >= max(self._capacity // 4, 64)
+            if prune_now:
+                self._since_prune = 0
+            while len(self._done) > self._capacity:
+                self._done.popitem(last=False)
+            ev = self._inflight.pop(token, None)
+        if ev is not None:
+            ev.set()
+        if prune_now:
+            self.prune()
+
+    def abort(self, token: str) -> None:
+        """Release waiters of a failed execution so a retry re-runs."""
+        with self._mu:
+            ev = self._inflight.pop(token, None)
+        if ev is not None:
+            ev.set()
+
+    def prune(self) -> None:
+        """Drop the oldest persisted tokens beyond ``capacity``."""
+        import sqlite3
+
+        with self._mu:
+            if self._db is None:
+                return
+            try:
+                self._db.execute(
+                    "DELETE FROM idem WHERE rowid NOT IN (SELECT rowid "
+                    "FROM idem ORDER BY rowid DESC LIMIT ?)",
+                    (self._capacity,))
+                self._db.commit()
+            except sqlite3.Error:
+                return
+
+    def close(self) -> None:
+        import sqlite3
+
+        with self._mu:
+            db, self._db = self._db, None
+            if db is not None:
+                try:
+                    db.close()
+                except sqlite3.Error:
+                    pass
+
+
+# --- windowed bulk ingest: the server half of one conversation ----------
+
+class _BulkAssembler:
+    """``add`` decodes a chunk as it lands (outside any set lock);
+    ``finish`` builds the payload the target op's handler applies."""
+
+    def __init__(self, meta: dict):
+        self.meta = meta
+        self.chunks = 0
+
+    def add(self, payload: dict) -> None:
+        raise NotImplementedError
+
+    def finish(self) -> Tuple[dict, int]:
+        raise NotImplementedError
+
+
+class _ItemsAssembler(_BulkAssembler):
+    """Pickled item batches (object rows, or row dicts of a table)."""
+
+    def __init__(self, meta: dict, allow_pickle: bool):
+        super().__init__(meta)
+        if not allow_pickle:
+            raise ProtocolError(
+                "bulk item ingest refused: chunks carry pickle and this "
+                "daemon has allow_pickle off")
+        self.items: list = []
+
+    def add(self, payload: dict) -> None:
+        import pickle
+
+        self.items.extend(pickle.loads(memoryview(payload["blob"])))
+        self.chunks += 1
+
+    def finish(self) -> Tuple[dict, int]:
+        out = {"db": self.meta["db"], "set": self.meta["set"],
+               "items": self.items}
+        if self.meta.get("as_table"):
+            out.update(as_table=True,
+                       date_cols=list(self.meta.get("date_cols") or ()),
+                       append=bool(self.meta.get("append")))
+        return out, CODEC_PICKLE
+
+
+class _TableAssembler(_BulkAssembler):
+    """Row-range column slices of one table: the columns are allocated
+    from the BEGIN meta's ``nrows`` on the first chunk and each chunk
+    lands at its row offset; ``finish`` checks the row coverage."""
+
+    def __init__(self, meta: dict):
+        super().__init__(meta)
+        self.nrows = int(meta.get("nrows") or 0)
+        self.cols: Optional[Dict[str, np.ndarray]] = None
+        self.filled = 0
+
+    def add(self, payload: dict) -> None:
+        start, stop = (int(v) for v in payload["rows"])
+        if self.cols is None:
+            self.cols = {
+                name: np.empty((self.nrows,) + np.asarray(arr).shape[1:],
+                               np.asarray(arr).dtype)
+                for name, arr in payload["cols"].items()}
+        for name, arr in payload["cols"].items():
+            self.cols[name][start:stop] = np.asarray(arr)
+        self.filled += stop - start
+        self.chunks += 1
+
+    def finish(self) -> Tuple[dict, int]:
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        if self.filled != self.nrows or self.cols is None:
+            raise CorruptFrame(f"bulk table stream covered {self.filled} "
+                               f"of {self.nrows} rows")
+        table = ColumnTable(
+            {k: torch.from_numpy(v) for k, v in self.cols.items()},
+            {k: list(v) for k, v in (self.meta.get("dicts") or {}).items()},
+            None)
+        return {"db": self.meta["db"], "set": self.meta["set"],
+                "items": table, "as_table": True,
+                "date_cols": list(self.meta.get("date_cols") or ()),
+                "append": bool(self.meta.get("append"))}, CODEC_PICKLE
+
+
+class ServeController:
+    """The daemon. ``start()`` runs the listener on a background thread
+    (tests); ``serve_forever()`` blocks (``python -m``)."""
+
+    #: frames eligible for identical-query coalescing
+    COALESCED_FRAMES = frozenset({MsgType.EXECUTE_COMPUTATIONS,
+                                  MsgType.EXECUTE_PLAN})
+
+    #: ops that accept the streamed-ingest conversation
+    BULK_OPS = frozenset({MsgType.SEND_DATA})
+
+    def __init__(self, config: Optional[Configuration] = None,
+                 host: str = "127.0.0.1", port: int = 8108,
+                 token: Optional[str] = None,
+                 max_jobs: Optional[int] = None,
+                 allow_pickle: bool = True,
+                 followers: Optional[list] = None,
+                 admission_timeout_s: float = 120.0,
+                 frame_timeout_s: float = 30.0,
+                 handshake_timeout_s: float = 10.0,
+                 heartbeat_interval_s: float = 2.0,
+                 heartbeat_timeout_s: float = 5.0,
+                 heartbeat_misses: int = 3,
+                 mirror_ack_timeout_s: Optional[float] = 300.0,
+                 resync_grace_s: float = 30.0,
+                 resync_timeout_s: float = 120.0,
+                 workers: Optional[list] = None,
+                 ha_peers: Optional[list] = None,
+                 chaos=None, follower_chaos=None,
+                 device=None):
+        """The reference's constructor. ``device`` is the card the
+        daemon owns (CUDA unless the caller asks for the CPU, as tests
+        do). ``admission_timeout_s`` bounds a job's wait for a scheduler
+        slot (then the typed retryable ``AdmissionFull``);
+        ``frame_timeout_s`` bounds a frame once its first byte landed,
+        a reply's drain, and a duplicate request's wait for its
+        original; ``handshake_timeout_s`` bounds HELLO;
+        ``mirror_ack_timeout_s`` bounds a coalesced waiter. The
+        heartbeat and resync knobs tune follower links, which — like
+        ``followers``, ``workers``, ``ha_peers`` and the chaos hooks —
+        belong to ROADMAP.md A7 part 2: a non-empty pool list, a chaos
+        injector or a link knob away from its default raises here."""
+        for name, value in (("followers", followers), ("workers", workers),
+                            ("ha_peers", ha_peers), ("chaos", chaos),
+                            ("follower_chaos", follower_chaos)):
+            if value:
+                raise NotImplementedError(
+                    f"ServeController({name}=...): the daemon pool "
+                    f"(mirroring, sharding, HA, fault injection) is not "
+                    f"ported yet: ROADMAP.md A7 part 2")
+        for name, value, default in (
+                ("heartbeat_interval_s", heartbeat_interval_s, 2.0),
+                ("heartbeat_timeout_s", heartbeat_timeout_s, 5.0),
+                ("heartbeat_misses", heartbeat_misses, 3),
+                ("resync_grace_s", resync_grace_s, 30.0),
+                ("resync_timeout_s", resync_timeout_s, 120.0)):
+            if value != default:
+                raise NotImplementedError(
+                    f"ServeController({name}={value!r}): follower links "
+                    f"are not ported yet: ROADMAP.md A7 part 2")
+        self.config = config if config is not None else Configuration()
+        self.host = host
+        self.port = port
+        self.token = token
+        self.allow_pickle = allow_pickle
+        self.admission_timeout_s = admission_timeout_s
+        self.frame_timeout_s = frame_timeout_s
+        self.handshake_timeout_s = handshake_timeout_s
+        #: this daemon's address — rewritten by start() once the port
+        #: is bound (port=0)
+        self.advertise_addr = f"{host}:{port}"
+        self.library = Client(self.config, device=device)
+        self.device = self.library.device
+        if self.device.type == "cuda" and self.device.index is None:
+            # handler threads select the card by index
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._idem = _IdempotencyCache(persist_path=os.path.join(
+            self.config.root_dir, "idempotency.sqlite"))
+        self.sessions = _sessions.SessionManager(self)
+        self.sched = _sched.QueryScheduler(
+            slots=max_jobs or self.config.num_threads,
+            lanes=self.config.sched_lanes,
+            quota=self.config.sched_lane_quota,
+            aging_every=self.config.sched_aging_every,
+            coalesce=self.config.sched_coalesce,
+            affinity=self.config.sched_affinity,
+            affinity_wait_s=self.config.sched_affinity_wait_s,
+            coalesce_wait_s=mirror_ack_timeout_s or 300.0,
+            coalesce_done_ttl_s=self.config.sched_coalesce_done_ttl_s,
+            coalesce_done_max=self.config.sched_coalesce_done_max,
+            cache_probe=self._devcache_warm)
+        self._job_seq = itertools.count(1)
+        self._jobs: Dict[int, Dict[str, Any]] = {}
+        self._jobs_lock = TrackedLock("ServeController._jobs_lock")
+        self._started = time.monotonic()
+        self._busy_s = 0.0  # handler seconds of workload frames
+        self._busy_mu = TrackedLock("ServeController._busy_mu")
+        self._stop = threading.Event()
+        self._listener: Optional[socket.socket] = None
+        self._conns: set = set()
+        self._conns_mu = TrackedLock("ServeController._conns_mu")
+        self._threads: list = []
+        self.handlers: Dict[MsgType, Callable[[Any], Tuple]] = {
+            MsgType.PING: self._on_ping,
+            MsgType.CREATE_DATABASE: self._on_create_database,
+            MsgType.CREATE_SET: self._on_create_set,
+            MsgType.REMOVE_SET: self._on_remove_set,
+            MsgType.CLEAR_SET: self._on_clear_set,
+            MsgType.SET_EXISTS: self._on_set_exists,
+            MsgType.LIST_SETS: self._on_list_sets,
+            MsgType.REGISTER_TYPE: self._on_register_type,
+            MsgType.SEND_DATA: self._on_send_data,
+            MsgType.SEND_MATRIX: self._on_send_matrix,
+            MsgType.GET_TENSOR: self._on_get_tensor,
+            MsgType.SCAN_SET: self._on_scan_set,
+            MsgType.SCAN_SET_STREAM: self._on_scan_set_stream,
+            MsgType.GET_TENSOR_CHUNKED: self._on_get_tensor_chunked,
+            MsgType.ADD_SHARED_MAPPING: self._on_add_shared_mapping,
+            MsgType.DEDUP_RESIDENT: self._on_dedup_resident,
+            MsgType.FLUSH_DATA: self._on_flush_data,
+            MsgType.LOAD_SET: self._on_load_set,
+            MsgType.EXECUTE_COMPUTATIONS: self._on_execute_computations,
+            MsgType.EXECUTE_PLAN: self._on_execute_plan,
+            MsgType.LIST_JOBS: self._on_list_jobs,
+            MsgType.COLLECT_STATS: self._on_collect_stats,
+            MsgType.HEALTH: self._on_health,
+            MsgType.ANALYZE_SET: self._on_analyze_set,
+            MsgType.PAGED_MATMUL: self._on_paged_matmul,
+            MsgType.SESSION_OPEN: self.sessions.handle_open,
+            MsgType.GENERATE: self.sessions.handle_generate,
+            MsgType.SESSION_CLOSE: self.sessions.handle_close,
+        }
+        for typ in POOL_FRAMES:
+            self.handlers[typ] = self._refuse("A7 part 2", typ)
+        for typ in OBS_EXPORT_FRAMES:
+            self.handlers[typ] = self._refuse("A8", typ)
+
+    @staticmethod
+    def _refuse(item: str, typ: MsgType) -> Callable:
+        def handler(p):
+            raise NotImplementedError(
+                f"{typ.name} is not ported yet: ROADMAP.md {item}")
+        return handler
+
+    # --- lifecycle ----------------------------------------------------
+    def start(self) -> int:
+        """Bind and start the listener thread; returns the bound port
+        (``port=0`` picks an ephemeral one)."""
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._listener.bind((self.host, self.port))
+        self._listener.listen(128)
+        self.port = self._listener.getsockname()[1]
+        self.advertise_addr = f"{self.host}:{self.port}"
+        t = threading.Thread(target=self._accept_loop, daemon=True,
+                             name="netsdb-torch-serve-accept")
+        t.start()
+        self._threads.append(t)
+        return self.port
+
+    def serve_forever(self) -> None:
+        if self._listener is None:
+            self.start()
+        try:
+            while not self._stop.wait(0.5):
+                pass
+        except KeyboardInterrupt:
+            pass
+        finally:
+            self.shutdown()
+
+    def shutdown(self) -> None:
+        self._stop.set()
+        self.sessions.stop()
+        obs.REGISTRY.unregister_collector("sched", self.sched.snapshot)
+        self._idem.close()
+        if self._listener is not None:
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+            self._listener = None
+        with self._conns_mu:
+            conns = list(self._conns)
+        for sock in conns:  # idle handler threads block in recv
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    # --- connection handling ------------------------------------------
+    def _accept_loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, addr = self._listener.accept()
+            except OSError:
+                return  # listener closed
+            t = threading.Thread(target=self._serve_connection,
+                                 args=(conn, addr), daemon=True)
+            t.start()
+
+    def _serve_connection(self, conn: socket.socket, addr) -> None:
+        with self._conns_mu:
+            self._conns.add(conn)
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            self._serve_connection_inner(conn)
+        finally:
+            with self._conns_mu:
+                self._conns.discard(conn)
+            conn.close()  # a handler that died must not leave its peer
+            # waiting on an open socket
+
+    def _serve_connection_inner(self, conn: socket.socket) -> None:
+        with conn:
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            try:
+                conn.settimeout(self.handshake_timeout_s)
+                typ, hello = recv_frame(conn, allow_pickle=False)
+                if typ != MsgType.HELLO:
+                    raise ProtocolError("expected HELLO")
+                if hello.get("proto") != PROTO_VERSION:
+                    send_frame(conn, MsgType.ERR, {
+                        "error": "ProtocolVersionError",
+                        "message": f"this daemon speaks wire format "
+                                   f"v{PROTO_VERSION}; peer sent "
+                                   f"proto={hello.get('proto')!r}",
+                        "retryable": False})
+                    return
+                if self.token and hello.get("token") != self.token:
+                    send_frame(conn, MsgType.ERR,
+                               {"error": "AuthError", "message": "bad token"})
+                    return
+                send_frame(conn, MsgType.OK,
+                           {"server": "netsdb_tpu", "version": PROTO_VERSION,
+                            PY_KEY: PY_TAG})
+                conn.settimeout(None)
+            except (ProtocolError, ConnectionError, OSError):
+                return
+            # codec 1 only between peers of one interpreter (marshal)
+            pickle_ok = self.allow_pickle and hello.get(PY_KEY) == PY_TAG
+            while not self._stop.is_set():
+                try:
+                    typ, codec_in, raw, segs = recv_frame_raw(
+                        conn, mid_frame_timeout=self.frame_timeout_s)
+                except (ProtocolError, ConnectionError, OSError):
+                    return
+                try:
+                    payload = self._decode(raw, codec_in, segs, pickle_ok,
+                                           hello)
+                except ProtocolError as e:
+                    if not self._send_err(conn, e, retryable=False):
+                        return
+                    continue
+                except Exception as e:
+                    # a body that fails to decode never executed: a resend
+                    # is safe, typed retryable
+                    fault = CorruptFrame(f"{type(e).__name__}: {e}")
+                    if not self._send_err(conn, fault, retryable=True):
+                        return
+                    continue
+                if typ == MsgType.SHUTDOWN:
+                    send_frame(conn, MsgType.OK, {})
+                    self.shutdown()
+                    return
+                if typ == MsgType.BULK_BEGIN:
+                    if not self._handle_bulk(conn, payload, pickle_ok):
+                        return
+                    continue
+                if not self._dispatch_frame(conn, typ, payload):
+                    return
+
+    def _decode(self, raw, codec_in, segs, pickle_ok: bool, hello) -> Any:
+        if codec_in == CODEC_PICKLE and self.allow_pickle and not pickle_ok:
+            raise ProtocolError(
+                f"pickled frame refused: this daemon runs {PY_TAG} and the "
+                f"peer named {hello.get(PY_KEY)!r}; functions pickled by "
+                f"value load only under the interpreter that wrote them")
+        return decode_body(raw, codec_in, pickle_ok, segments=segs)
+
+    def _send_reply(self, conn, typ, payload, codec=CODEC_MSGPACK) -> None:
+        """Reply under the same deadline as a mid-frame recv: a client
+        that stops reading cannot wedge a handler thread."""
+        conn.settimeout(self.frame_timeout_s)
+        try:
+            send_frame(conn, typ, payload, codec)
+        finally:
+            conn.settimeout(None)
+
+    def _send_err(self, conn, exc, retryable: Optional[bool] = None,
+                  with_traceback: bool = False) -> bool:
+        """ERR frame for ``exc``; False when the connection is dead."""
+        if retryable is None:
+            retryable = bool(getattr(exc, "retryable", False))
+        body = {"error": type(exc).__name__, "message": str(exc),
+                "retryable": retryable}
+        for field in BACKPRESSURE_FIELDS:
+            value = getattr(exc, field, None)
+            if value is not None:
+                body[field] = value
+        if with_traceback:
+            body["traceback"] = traceback.format_exc(limit=20)
+        try:
+            self._send_reply(conn, MsgType.ERR, body)
+            return True
+        except OSError:
+            return False
+
+    def _dispatch_frame(self, conn, typ, payload) -> bool:
+        """Execute one decoded request frame and send its reply; False
+        when the connection is dead. A retry of a completed mutating
+        frame (same idempotency token) replays the cached reply."""
+        meta = {}
+        if isinstance(payload, dict):
+            for key in (QUERY_ID_KEY, CLIENT_ID_KEY, LANE_KEY,
+                        IDEMPOTENCY_KEY, HA_TERM_KEY):
+                meta[key] = payload.pop(key, None)
+            if payload.pop(SESSION_KEY, None) is not None \
+                    and meta[LANE_KEY] is None:
+                meta[LANE_KEY] = DECODE_LANE
+        t0 = None if typ in OBS_FRAMES else time.perf_counter()
+        observed = [False]
+
+        def mark():
+            if not observed[0] and t0 is not None:
+                observed[0] = True
+                dt = time.perf_counter() - t0
+                obs.REGISTRY.histogram("serve.request_s").observe(dt)
+                with self._busy_mu:
+                    self._busy_s += dt
+
+        def done(ok):
+            if t0 is None:
+                return
+            obs.REGISTRY.counter("serve.requests").inc()
+            if ok:
+                obs.REGISTRY.counter("serve.requests_ok").inc()
+
+        token = meta.get(IDEMPOTENCY_KEY)
+        try:
+            if token is not None:
+                cached = self._idem.claim(token, wait_s=self.frame_timeout_s)
+                if cached is not None:
+                    self._send_reply(conn, *cached)
+                    mark()
+                    done(True)
+                    return True
+            with obs.span(f"server.dispatch:{getattr(typ, 'name', typ)}",
+                          "serve"):
+                out = self._execute_frame(typ, payload, token,
+                                          client=meta.get(CLIENT_ID_KEY),
+                                          lane=meta.get(LANE_KEY))
+            if inspect.isgenerator(out):
+                # streaming handler: each yielded (type, payload[, codec])
+                # is a frame; the stream ends with STREAM_END or ERR
+                for frame in out:
+                    if len(frame) == 3:
+                        f_type, f_payload, f_codec = frame
+                    else:
+                        (f_type, f_payload), f_codec = frame, CODEC_MSGPACK
+                    self._send_reply(conn, f_type, f_payload, f_codec)
+                    mark()  # time to first frame
+                mark()
+                done(True)
+                return True
+            self._send_reply(conn, *out)
+            mark()
+            done(True)
+            return True
+        except BrokenPipeError:
+            mark()
+            done(False)
+            return False
+        except Exception as e:  # handler errors go back as typed ERR
+            mark()
+            done(False)
+            return self._send_err(conn, e, with_traceback=True)
+
+    def _execute_frame(self, typ, payload, token, client=None, lane=None):
+        """Run one request's handler with the idempotency-token
+        lifecycle (the caller already claimed ``token``): the token is
+        finished or aborted exactly once. EXECUTE frames pass the
+        scheduler's coalesce point first."""
+        handler = self.handlers.get(typ)
+        try:
+            if handler is None:
+                raise ProtocolError(f"no handler for {typ!r}")
+            reset = (_client_var.set(client),
+                     _sessions.idem_token.set(token))
+            try:
+                with _sched.lane_context(lane):
+                    if typ in self.COALESCED_FRAMES:
+                        out = self.sched.coalesced(
+                            typ, payload, lambda: handler(payload),
+                            token=token)
+                    else:
+                        out = handler(payload)
+            finally:
+                _sessions.idem_token.reset(reset[1])
+                _client_var.reset(reset[0])
+        except BaseException:
+            if token is not None:
+                self._idem.abort(token)
+            raise
+        if inspect.isgenerator(out):
+            if token is not None:  # streams are never cached
+                self._idem.abort(token)
+            return out
+        result = out if len(out) == 3 else (out[0], out[1], CODEC_MSGPACK)
+        if token is not None:
+            self._idem.finish(token, result)
+        return result
+
+    def _devcache_warm(self, scope: str):
+        """The scheduler's cache probe: True (no gating) for a disabled
+        cache and for sets that are not paged; for a cold paged set
+        False, or the covered prefix's end row when partly cached."""
+        cache = self.library.store.device_cache()
+        if not cache.enabled:
+            return True
+        covered = 0
+        if cache.partial:
+            covered, total = cache.coverage(scope)
+            if total is not None and 0 < total <= covered:
+                return True
+        elif cache.has_scope(scope):
+            return True
+        db, _, set_name = scope.partition(":")
+        try:
+            storage = self.library.store.storage_of(
+                SetIdentifier(db, set_name))
+        except Exception as e:  # noqa: BLE001 — unknown set → ungated
+            del e
+            return True
+        if storage != "paged":
+            return True
+        return int(covered) if covered > 0 else False
+
+    # --- windowed bulk ingest (BULK_BEGIN/CHUNK/COMMIT) ---------------
+    def _handle_bulk(self, conn, p, pickle_ok: bool) -> bool:
+        """One streamed-ingest conversation: BEGIN (in ``p``) → N CHUNK
+        frames, each acked once it decodes (the client pipelines a
+        window of them) → COMMIT, which assembles the payload and runs
+        it through the normal handler path. False when the connection
+        must close (a mid-stream fault cannot be resynchronized: the
+        client retries the whole conversation under its token)."""
+        try:
+            op = MsgType(int(p.get("op", -1)))
+            if op not in self.BULK_OPS:
+                raise ProtocolError(
+                    f"op {p.get('op')!r} is not bulk-streamable")
+            meta = dict(p.get("meta") or {})
+            if meta.get("pepoch") is not None:
+                raise NotImplementedError(
+                    "routed ingest into a shard slot is not ported yet: "
+                    "ROADMAP.md A7 part 2")
+        except (ProtocolError, ValueError, NotImplementedError) as e:
+            return self._send_err(conn, e, retryable=False)
+        token = p.get(IDEMPOTENCY_KEY)
+        client = p.get(CLIENT_ID_KEY)
+        if token is not None:
+            try:
+                cached = self._idem.claim(token, wait_s=self.frame_timeout_s)
+            except Exception as e:  # RequestInFlight → typed retryable
+                return self._send_err(conn, e)
+            if cached is not None:
+                # a completed execution: its reply goes out instead of "go"
+                try:
+                    self._send_reply(conn, *cached)
+                    return True
+                except OSError:
+                    return False
+        owned = token is not None
+        try:
+            try:
+                asm = (_TableAssembler(meta) if meta.get("mode") == "table"
+                       else _ItemsAssembler(meta, pickle_ok))
+            except ProtocolError as e:
+                return self._send_err(conn, e, retryable=False)
+            self._send_reply(conn, MsgType.OK, {"go": True})
+            total_in = 0
+            while True:
+                typ, codec_in, raw, segs = recv_frame_raw(
+                    conn, mid_frame_timeout=self.frame_timeout_s)
+                total_in += len(raw) + sum(b.nbytes for b, _ in segs)
+                if total_in > MAX_FRAME_BYTES:
+                    self._send_err(conn, ProtocolError(
+                        f"bulk conversation exceeded the "
+                        f"{MAX_FRAME_BYTES}-byte cap"), retryable=False)
+                    return False
+                try:
+                    payload = decode_body(raw, codec_in, pickle_ok,
+                                          segments=segs)
+                except ProtocolError:
+                    raise
+                except Exception as e:
+                    raise CorruptFrame(f"{type(e).__name__}: {e}") from e
+                if typ == MsgType.BULK_CHUNK:
+                    asm.add(payload)
+                    self._send_reply(conn, MsgType.OK,
+                                     {"ack": payload.get("seq")})
+                elif typ == MsgType.BULK_COMMIT:
+                    if asm.chunks != int(payload.get("chunks", -1)):
+                        raise CorruptFrame(
+                            f"ingest stream torn: committed "
+                            f"{payload.get('chunks')} chunks, received "
+                            f"{asm.chunks}")
+                    final_payload, _codec = asm.finish()
+                    owned = False  # _execute_frame consumes the token
+                    result = self._execute_frame(op, final_payload, token,
+                                                 client=client)
+                    self._send_reply(conn, *result)
+                    return True
+                else:
+                    raise ProtocolError(f"unexpected frame {typ!r} inside "
+                                        f"a bulk-ingest conversation")
+        except BrokenPipeError:
+            return False
+        except (ProtocolError, ConnectionError, OSError):
+            return False  # transport desync — the client retries fresh
+        except Exception as e:
+            self._send_err(conn, e, with_traceback=True)
+            return False
+        finally:
+            if owned:
+                self._idem.abort(token)
+
+    # --- jobs ----------------------------------------------------------
+    def _run_job(self, job_name: str, fn: Callable[[], Any],
+                 scopes=()) -> Any:
+        """Admit and run one job under the query scheduler: its lane is
+        the frame's lane hint, else its client identity, else the
+        default; ``scopes`` ("db:set" scan leaves) pass the affinity
+        gate."""
+        job_id = next(self._job_seq)
+        rec = {"id": job_id, "name": job_name, "status": "queued",
+               "submitted": wall_now(), "elapsed": None, "lane": None}
+        with self._jobs_lock:
+            self._jobs[job_id] = rec
+            while len(self._jobs) > 1024:
+                self._jobs.pop(next(iter(self._jobs)))
+        lane = _sched.current_lane() or _client_var.get()
+        try:
+            with obs.span("server.sched.admit", "serve"):
+                ticket = self.sched.acquire(
+                    lane, timeout_s=self.admission_timeout_s)
+        except (AdmissionFull, LaneSaturated):
+            rec["status"] = "rejected"
+            raise
+        rec["status"] = "running"
+        rec["lane"] = ticket.lane
+        t0 = time.perf_counter()
+        try:
+            with self.sched.affinity(scopes):
+                with obs.span(f"server.job:{job_name}", "job"):
+                    out = fn()
+            rec["status"] = "done"
+            return out
+        except Exception:
+            rec["status"] = "failed"
+            raise
+        finally:
+            rec["elapsed"] = time.perf_counter() - t0
+            self.sched.release(ticket)
+
+    # --- handlers -----------------------------------------------------
+    def _on_ping(self, p):
+        with self._jobs_lock:
+            done = sum(1 for j in self._jobs.values()
+                       if j["status"] == "done")
+        return MsgType.OK, {"uptime": time.monotonic() - self._started,
+                            "jobs_done": done,
+                            "sets": len(self.library.store.list_sets())}
+
+    def _on_create_database(self, p):
+        self.library.create_database(p["db"])
+        return MsgType.OK, {}
+
+    def _on_create_set(self, p):
+        placement = p.get("placement")
+        if placement == "mirror":
+            placement = None  # the explicit spelling of the default
+        if placement in ("hash", "range") or (
+                isinstance(placement, dict) and placement.get("shard")):
+            raise NotImplementedError(
+                "create_set(placement='hash'|'range'): sets partitioned "
+                "over a daemon pool are not ported yet: ROADMAP.md A7 "
+                "part 2")
+        self.library.create_set(
+            p["db"], p["set"], type_name=p.get("type_name", "tensor"),
+            persistence=p.get("persistence", "transient"),
+            eviction=p.get("eviction", "lru"),
+            partition_lambda=p.get("partition_lambda"),
+            placement=placement, storage=p.get("storage", "memory"))
+        return MsgType.OK, {}
+
+    def _on_remove_set(self, p):
+        self.library.remove_set(p["db"], p["set"])
+        return MsgType.OK, {}
+
+    def _on_clear_set(self, p):
+        self.library.clear_set(p["db"], p["set"])
+        return MsgType.OK, {}
+
+    def _on_set_exists(self, p):
+        return MsgType.OK, {"exists": self.library.set_exists(p["db"],
+                                                              p["set"])}
+
+    def _on_list_sets(self, p):
+        return MsgType.OK, {"sets": [list(i) for i in
+                                     self.library.store.list_sets()]}
+
+    def _on_register_type(self, p):
+        if p.get("source") is not None:
+            raise NotImplementedError(
+                "register_type(source=...): shipping a type's module "
+                "source is not ported yet: ROADMAP.md A7 part 2")
+        self.library.register_type(p["type_name"], p["entry_point"])
+        return MsgType.OK, {}
+
+    def _resolve_registered(self, name_or_entry: str) -> Any:
+        entry = self.library.catalog.get_type(name_or_entry)
+        return resolve_entry_point(entry or name_or_entry)
+
+    def _on_send_data(self, p):
+        if p.pop(PLACEMENT_EPOCH_KEY, None) is not None:
+            raise NotImplementedError(
+                "routed ingest into a shard slot is not ported yet: "
+                "ROADMAP.md A7 part 2")
+        if p.get("as_table"):
+            t = self.library.send_table(p["db"], p["set"], p["items"],
+                                        date_cols=p.get("date_cols", ()),
+                                        append=bool(p.get("append")))
+            return MsgType.OK, {"count": int(t.num_rows),
+                                "columns": sorted(t.cols)}
+        self.library.send_data(p["db"], p["set"], p["items"])
+        return MsgType.OK, {"count": len(p["items"])}
+
+    def _on_send_matrix(self, p):
+        if p.pop(PLACEMENT_EPOCH_KEY, None) is not None:
+            raise NotImplementedError(
+                "routed ingest into a shard slot is not ported yet: "
+                "ROADMAP.md A7 part 2")
+        dense, block_shape = tensor_from_wire(p["tensor"])
+        t = self.library.send_matrix(p["db"], p["set"], dense, block_shape)
+        return MsgType.OK, {"shape": list(t.shape),
+                            "dtype": str(t.dtype).replace("torch.", ""),
+                            "block_shape": list(t.meta.block_shape)}
+
+    def _on_paged_matmul(self, p):
+        out = self.library.paged_matmul(p["db"], p["set"],
+                                        np.asarray(p["rhs"]))
+        return MsgType.OK, {"data": out.detach().cpu().numpy()}
+
+    def _on_get_tensor(self, p):
+        t = self.library.get_tensor(p["db"], p["set"])
+        return MsgType.OK, {"data": _dense_host(t),
+                            "block_shape": list(t.meta.block_shape)}
+
+    def _scan_items(self, db: str, set_name: str):
+        """A set's items for the wire, on the host: a paged relation as
+        its host-assembled table, a paged record set record by record; a
+        paged matrix streams through PAGED_MATMUL and refuses a scan."""
+        from netsdb_tpu_torch.relational.outofcore import PagedColumns
+
+        ident = SetIdentifier(db, set_name)
+        items = self.library.store.get_items(ident)
+        if len(items) == 1 and isinstance(items[0], PagedColumns):
+            yield items[0].to_host_table()
+            return
+        for value in self.library.store.scan(ident):
+            yield _to_host(value)
+
+    def _on_scan_set(self, p):
+        items = list(self._scan_items(p["db"], p["set"]))
+        return MsgType.OK, {"items": items}, CODEC_PICKLE
+
+    def _on_scan_set_stream(self, p):
+        """Streamed scan: items go out in frames of about
+        ``max_frame_bytes`` of pickled items each; the items per frame
+        track the previous frame's bytes per item (growth capped at 4×
+        per frame, the first frame holds one item). A paged relation
+        streams one host chunk table per frame."""
+        import contextlib
+        import pickle
+
+        from netsdb_tpu_torch.relational.outofcore import PagedColumns
+
+        budget = int(p.get("max_frame_bytes") or (4 << 20))
+        ident = SetIdentifier(p["db"], p["set"])
+        store = self.library.store
+        if store.storage_of(ident) == "paged":
+            items = store.get_items(ident)
+            if len(items) == 1 and isinstance(items[0], PagedColumns):
+                pc = items[0]
+
+                def pages():
+                    # one host chunk table per frame, straight off the
+                    # arena stream: the relation never materializes
+                    seq = 0
+                    with contextlib.closing(
+                            pc.stream_host_tables(prefetch=2)) as chunks:
+                        for tbl in chunks:
+                            yield MsgType.STREAM_ITEM, {
+                                "seq": seq, "paged_chunk": True,
+                                "batch": pickle.dumps(
+                                    [tbl],
+                                    protocol=pickle.HIGHEST_PROTOCOL)}
+                            seq += 1
+                    yield MsgType.STREAM_END, {"frames": seq, "items": seq}
+
+                return pages()
+
+        def stream():
+            seq = total = 0
+            target = 1
+            batch: list = []
+            for item in self._scan_items(p["db"], p["set"]):
+                batch.append(item)
+                if len(batch) < target:
+                    continue
+                blob = pickle.dumps(batch, protocol=pickle.HIGHEST_PROTOCOL)
+                yield MsgType.STREAM_ITEM, {"seq": seq, "batch": blob}
+                seq += 1
+                total += len(batch)
+                per_item = max(len(blob) // len(batch), 1)
+                target = max(1, min(budget // per_item, 4 * target))
+                batch = []
+            if batch:
+                yield MsgType.STREAM_ITEM, {
+                    "seq": seq, "batch": pickle.dumps(
+                        batch, protocol=pickle.HIGHEST_PROTOCOL)}
+                seq += 1
+                total += len(batch)
+            yield MsgType.STREAM_END, {"frames": seq, "items": total}
+
+        return stream()
+
+    def _on_get_tensor_chunked(self, p):
+        """Chunked tensor pull: a meta frame, the dense buffer in
+        ``chunk_bytes`` slices riding out of band, then STREAM_END."""
+        t = self.library.get_tensor(p["db"], p["set"])
+        dense = _dense_host(t)
+        chunk = int(p.get("chunk_bytes") or (8 << 20))
+        view = memoryview(dense).cast("B")
+        nbytes = view.nbytes
+
+        def stream():
+            yield MsgType.STREAM_ITEM, {
+                "seq": 0, "meta": {
+                    "shape": list(dense.shape), "dtype": dense.dtype.str,
+                    "block_shape": list(t.meta.block_shape),
+                    "nbytes": nbytes,
+                    "nchunks": max(1, -(-nbytes // chunk))}}
+            seq = 1
+            for off in range(0, max(nbytes, 1), chunk):
+                yield MsgType.STREAM_ITEM, {
+                    "seq": seq,
+                    "b": np.frombuffer(view[off:off + chunk], np.uint8)}
+                seq += 1
+            yield MsgType.STREAM_END, {"frames": seq}
+
+        return stream()
+
+    def _on_dedup_resident(self, p):
+        report = self.library.dedup_resident(
+            [tuple(s) for s in p["sets"]], bands=int(p.get("bands", 16)),
+            seed=int(p.get("seed", 0)))
+        return MsgType.OK, report
+
+    def _on_add_shared_mapping(self, p):
+        self.library.add_shared_mapping(
+            p["private_db"], p["private_set"], p["shared_db"],
+            p["shared_set"], p.get("mapping"))
+        return MsgType.OK, {}
+
+    def _on_flush_data(self, p):
+        self.library.flush_data()
+        return MsgType.OK, {}
+
+    def _on_load_set(self, p):
+        self.library.store.load_set(SetIdentifier(p["db"], p["set"]))
+        return MsgType.OK, {}
+
+    def _sync_results(self, results: Dict[SetIdentifier, Any]) -> None:
+        """The OK reply means the values exist, not that they were
+        enqueued."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @staticmethod
+    def _result_summaries(results: Dict[SetIdentifier, Any]) -> dict:
+        from netsdb_tpu_torch.core.blocked import BlockedTensor
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        out = {}
+        for ident, val in results.items():
+            if isinstance(val, BlockedTensor):
+                out[str(ident)] = {"kind": "tensor",
+                                   "shape": list(val.shape),
+                                   "dtype": str(val.dtype).replace(
+                                       "torch.", "")}
+            elif isinstance(val, ColumnTable):
+                out[str(ident)] = {"kind": "table",
+                                   "rows": int(val.num_rows),
+                                   "columns": sorted(val.cols)}
+            elif isinstance(val, dict):
+                out[str(ident)] = {"kind": "map", "count": len(val)}
+            elif isinstance(val, torch.Tensor):
+                # a set holding one plain tensor (the layer's output)
+                out[str(ident)] = {"kind": "objects", "count": 1}
+            else:
+                out[str(ident)] = {"kind": "objects",
+                                   "count": len(list(val))}
+        return out
+
+    def _execute(self, p, sinks, job_name):
+        def run():
+            results = self.library.execute_computations(
+                *sinks, job_name=job_name,
+                materialize=p.get("materialize", True))
+            if p.get("sync", True):
+                self._sync_results(results)
+            return results
+
+        scopes = _sched.sets_touched(MsgType.EXECUTE_COMPUTATIONS,
+                                     {"sinks": sinks})
+        if p.get("explain"):
+            with obs.operators.explain_capture() as cap:
+                results = self._run_job(job_name, run, scopes=scopes)
+            out = {"results": self._result_summaries(results)}
+            if cap.get("operators") is not None:
+                out["operators"] = cap["operators"]
+            return MsgType.OK, out
+        results = self._run_job(job_name, run, scopes=scopes)
+        return MsgType.OK, {"results": self._result_summaries(results)}
+
+    def _on_execute_computations(self, p):
+        """Body (pickle codec): ``{sinks: [WriteSet...], job_name,
+        materialize, explain}``; ``explain`` round-trips the operator
+        tree (EXPLAIN ANALYZE over the wire)."""
+        return self._execute(p, p["sinks"],
+                             p.get("job_name", "remote-job"))
+
+    def _on_execute_plan(self, p):
+        """Body (MessagePack): ``{plan: text, registry: {label: entry
+        point or {kwargs..., fn: entry point}}, job_name}`` — execution
+        with no pickle: labels bind to registered entry points."""
+        from netsdb_tpu_torch.plan.parser import parse_plan
+
+        registry: Dict[str, Any] = {}
+        for label, spec in (p.get("registry") or {}).items():
+            if isinstance(spec, str):
+                registry[label] = self._resolve_registered(spec)
+            elif isinstance(spec, dict):
+                kw = dict(spec)
+                for k, v in list(kw.items()):
+                    if isinstance(v, str) and ":" in v:
+                        kw[k] = self._resolve_registered(v)
+                registry[label] = kw
+            else:
+                raise ProtocolError(
+                    f"registry entry for {label!r} must be an entry-point "
+                    f"string or kwargs dict")
+        sinks = parse_plan(p["plan"]).to_computations(registry)
+        return self._execute(p, sinks, p.get("job_name", "remote-plan"))
+
+    def _on_list_jobs(self, p):
+        with self._jobs_lock:
+            return MsgType.OK, {"jobs": [dict(j) for j in
+                                         self._jobs.values()]}
+
+    def _serve_stats(self) -> Dict[str, Any]:
+        with self._busy_mu:
+            busy = self._busy_s
+        return {"uptime_s": time.monotonic() - self._started,
+                "busy_s": busy, "device": str(self.device),
+                "pid": os.getpid()}
+
+    def _on_collect_stats(self, p):
+        store = self.library.store
+        return MsgType.OK, {
+            "sets": self.library.collect_stats(),
+            "cache": dict(vars(store.stats)),
+            "device_cache": store.device_cache().stats(),
+            "metrics": obs.REGISTRY.snapshot(),
+            "sessions": self.sessions.stats(),
+            "serve": self._serve_stats()}
+
+    def _on_health(self, p):
+        """Liveness and load of this daemon. The SLO objectives with
+        their burn rates and the slow-query log are ROADMAP.md A8:
+        ``objectives`` and ``events`` stay empty until then."""
+        return MsgType.OK, {"objectives": {}, "events": [],
+                            "slowlog": None, "followers_status": None,
+                            "serve": self._serve_stats(),
+                            "sessions_open": self.sessions.table.count(),
+                            "sched": self.sched.snapshot()}
+
+    def _on_analyze_set(self, p):
+        """Planner statistics computed where the data lives: the
+        summaries ship, the table stays."""
+        info = self.library.analyze_set(p["db"], p["set"])
+        return MsgType.OK, {
+            "num_rows": int(info["num_rows"]),
+            "dicts": {k: list(v) for k, v in info["dicts"].items()},
+            "stats": {k: [_plain(s.n_rows), _plain(s.min_val),
+                          _plain(s.max_val), _plain(s.n_distinct)]
+                      for k, s in info["stats"].items()}}
+
+
+def run_daemon(config: Configuration, host: str = "127.0.0.1",
+               port: int = 8108, token: Optional[str] = None,
+               max_jobs: Optional[int] = None, device=None) -> int:
+    """Start a daemon, print its bound address on a line of its own,
+    and block until shutdown. SIGUSR1 writes every thread's stack to
+    stderr."""
+    import faulthandler
+    import signal
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    ctl = ServeController(config, host=host, port=port, token=token,
+                          max_jobs=max_jobs, device=device)
+    bound = ctl.start()
+    print(f"serving on {host}:{bound}", flush=True)
+    ctl.serve_forever()
+    return 0
+
+
+def main(argv=None) -> int:
+    """``python -m netsdb_tpu_torch.serve.server`` — the standalone
+    daemon (:func:`run_daemon`)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="netsdb-torch-serve")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8108)
+    ap.add_argument("--root", default=None, help="database root dir")
+    ap.add_argument("--token", default=None, help="shared auth token")
+    ap.add_argument("--max-jobs", type=int, default=None)
+    ap.add_argument("--device", default=None,
+                    help="the device the daemon owns (default cuda)")
+    for flag in ("--followers", "--workers", "--ha-peers"):
+        ap.add_argument(flag, default=None,
+                        help="daemon pools: ROADMAP.md A7 part 2")
+    args = ap.parse_args(argv)
+    if args.followers or args.workers or args.ha_peers:
+        raise NotImplementedError(
+            "--followers/--workers/--ha-peers: the daemon pool is not "
+            "ported yet: ROADMAP.md A7 part 2")
+    config = (Configuration(root_dir=args.root) if args.root
+              else Configuration())
+    return run_daemon(config, host=args.host, port=args.port,
+                      token=args.token, max_jobs=args.max_jobs,
+                      device=args.device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -29,18 +29,35 @@ after the block's copy to the device has completed
 A paged relation's chunks are cached as column tables, keyed by the
 relation's stream shape and, for a projected stream, its columns: an
 append drops only the blocks of its rows, an update in place only the
-blocks of streams that held the updated column. The reference's
-per-client state entries belong to ROADMAP.md A7.
+blocks of streams that held the updated column.
+
+A third family holds **session state** (``serve/sessions.py``): one
+mutable entry per ``(session, model, layer)``, TTL'd, sharing the LRU
+order and the byte budget with the blocks. Eviction and TTL expiry hand
+the entry to the registered spill callback (the session arena) instead
+of losing it; a close drops it without a spill.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+#: scope prefix of session-state entries, so a session scope never
+#: collides with a set scope ("db:set") in the by-scope index or the
+#: scheduler's warm probe
+SESSION_SCOPE_PREFIX = "__session__:"
+
+
+def session_scope(sid: str) -> str:
+    """The by-scope index key of one session's state entries."""
+    return SESSION_SCOPE_PREFIX + str(sid)
 
 
 def to_device(x, device, placement=None):
@@ -70,10 +87,18 @@ def _value_nbytes(value) -> int:
         return sum(int(t.nbytes) for t in seen.values())
     if isinstance(value, (tuple, list)):
         return sum(_value_nbytes(v) for v in value)
+    if isinstance(value, dict):  # session state records, column maps
+        return sum(_value_nbytes(v) for v in value.values())
     nbytes = getattr(value, "nbytes", None)
     if nbytes is not None:
         return int(nbytes)
     return 64  # ints riding along with blocks
+
+
+def _metrics():
+    from netsdb_tpu_torch.obs import REGISTRY
+
+    return REGISTRY
 
 
 def _is_block_key(key: Tuple) -> bool:
@@ -111,6 +136,14 @@ class DeviceBlockCache:
         self._pin_hw: Dict[Tuple, int] = {}
         # base key -> total rows of the set at its last plan
         self._totals: Dict[Tuple, int] = {}
+        # session entries: key -> {"deadline", "ttl", "expired"}; the
+        # session_* stats stay hidden until the session lane is wired
+        self._session_meta: Dict[Tuple, Dict[str, Any]] = {}
+        self._session_spill_cb: Optional[
+            Callable[[str, str, str, Any], None]] = None
+        self._stats.update({"session_evictions": 0,
+                            "session_expirations": 0})
+        self._session_on = False
 
     # --- sizing -------------------------------------------------------
     @property
@@ -227,6 +260,19 @@ class DeviceBlockCache:
         if key in self._pinned:
             self._pinned.discard(key)
             self._pinned_bytes -= entry[1]
+        meta = self._session_meta.pop(key, None)
+        if meta is not None:
+            # pressure and expiry demote session state, never lose it
+            self._stats["session_expirations" if meta.get("expired")
+                        else "session_evictions"] += 1
+            _metrics().counter("session.evicted").inc()
+            if self._session_spill_cb is not None:
+                sid = str(key[0])[len(SESSION_SCOPE_PREFIX):]
+                try:
+                    self._session_spill_cb(sid, str(key[1]), str(key[2]),
+                                           entry[0][0])
+                except Exception:  # noqa: BLE001 — the callback counts
+                    pass           # its own faults
         return True
 
     # --- partial mode: block entries and stitching -------------------
@@ -421,19 +467,149 @@ class DeviceBlockCache:
                     self._epochs[scope] = self._epochs.get(scope, 0) + 1
             self._entries.clear()
             self._by_scope.clear()
+            self._session_meta.clear()
             self._unpin_all_locked()
             self._totals.clear()
             self._bytes = 0
             self._stats["invalidations"] += dropped
             return dropped
 
+    # --- session-state entries (TTL'd, mutable; serve/sessions.py) ---
+    def set_session_spill(
+            self, cb: Optional[Callable[[str, str, str, Any], None]]
+    ) -> None:
+        """Register ``cb(sid, model, layer, value)``, run for every
+        session entry that LRU pressure or TTL expiry drops. It runs
+        under the cache lock, so it must be a leaf (record to the host
+        arena and return)."""
+        with self._mu:
+            self._session_spill_cb = cb
+            if cb is not None:
+                self._session_on = True
+
+    def session_put(self, sid: str, model: str, layer: str, value: Any,
+                    ttl_s: float) -> bool:
+        """Install (or replace) one session state entry. Unlike set
+        blocks, session entries install on a budget-less cache too; False
+        only when the entry alone exceeds an enabled budget."""
+        key = (session_scope(sid), str(model), str(layer))
+        nbytes = _value_nbytes(value)
+        with self._mu:
+            self._session_on = True
+            if self.enabled and nbytes > self._budget:
+                self._stats["rejected"] += 1
+                return False
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            if self.enabled:
+                self._evict_to_fit_locked(nbytes)
+            self._entries[key] = ([value], nbytes)
+            self._bytes += nbytes
+            self._by_scope.setdefault(key[0], set()).add(key)
+            self._session_meta[key] = {
+                "deadline": time.monotonic() + float(ttl_s),
+                "ttl": float(ttl_s)}
+            self._stats["installs"] += 1
+        self._publish_session_bytes()
+        return True
+
+    def session_get(self, sid: str, model: str, layer: str,
+                    touch: bool = True) -> Optional[Any]:
+        """The resident state of one layer, or None (evicted, expired or
+        never installed: the caller revives from the arena). A hit
+        refreshes the LRU position and the TTL deadline (``touch``);
+        expiry is checked here as well as by :meth:`session_sweep`."""
+        key = (session_scope(sid), str(model), str(layer))
+        with self._mu:
+            entry = self._entries.get(key)
+            meta = self._session_meta.get(key)
+            if entry is None or meta is None:
+                return None
+            if time.monotonic() >= meta["deadline"]:
+                meta["expired"] = True
+                self._drop_entry_locked(key)
+                return None
+            if touch:
+                self._entries.move_to_end(key)
+                meta["deadline"] = time.monotonic() + meta["ttl"]
+            return entry[0][0]
+
+    def session_update(self, sid: str, model: str, layer: str,
+                       value: Any) -> bool:
+        """Swap one resident entry's value in place (a decode step's
+        state advance), re-accounting bytes and refreshing LRU and TTL.
+        False when the entry is not resident: the caller installs with
+        :meth:`session_put` instead."""
+        key = (session_scope(sid), str(model), str(layer))
+        nbytes = _value_nbytes(value)
+        with self._mu:
+            entry = self._entries.get(key)
+            meta = self._session_meta.get(key)
+            if entry is None or meta is None:
+                return False
+            self._bytes += nbytes - entry[1]
+            self._entries[key] = ([value], nbytes)
+            self._entries.move_to_end(key)
+            meta["deadline"] = time.monotonic() + meta["ttl"]
+            if self.enabled:
+                self._evict_to_fit_locked(0)
+        self._publish_session_bytes()
+        return True
+
+    def session_drop(self, sid: str) -> int:
+        """Drop every entry of one session with no spill (a close).
+        Returns the entries dropped."""
+        scope = session_scope(sid)
+        with self._mu:
+            keys = list(self._by_scope.get(scope, ()))
+            for key in keys:
+                self._session_meta.pop(key, None)  # first: no spill
+                self._drop_entry_locked(key)
+        self._publish_session_bytes()
+        return len(keys)
+
+    def session_sweep(self, now: Optional[float] = None) -> int:
+        """Drop, spilling, every session entry past its TTL deadline.
+        Returns the entries expired."""
+        now = time.monotonic() if now is None else now
+        with self._mu:
+            expired = [k for k, m in self._session_meta.items()
+                       if now >= m["deadline"]]
+            for key in expired:
+                self._session_meta[key]["expired"] = True
+                self._drop_entry_locked(key)
+        if expired:
+            self._publish_session_bytes()
+        return len(expired)
+
+    def session_resident_bytes(self) -> int:
+        """Live bytes of every resident session entry."""
+        with self._mu:
+            return sum(self._entries[k][1] for k in self._session_meta
+                       if k in self._entries)
+
+    def session_entries(self) -> int:
+        with self._mu:
+            return len(self._session_meta)
+
+    def _publish_session_bytes(self) -> None:
+        _metrics().gauge("session.resident_bytes").set(
+            self.session_resident_bytes())
+
     def stats(self) -> Dict[str, int]:
         """Counter snapshot plus live bytes, entries and budgets."""
         with self._mu:
-            out = dict(self._stats)
+            out = {k: v for k, v in self._stats.items()
+                   if self._session_on or not k.startswith("session_")}
             out["bytes"] = self._bytes
             out["entries"] = len(self._entries)
             out["budget_bytes"] = self._budget
+            if self._session_on:
+                out["session_entries"] = len(self._session_meta)
+                out["session_bytes"] = sum(
+                    self._entries[k][1] for k in self._session_meta
+                    if k in self._entries)
             if self.partial:
                 out["pin_budget_bytes"] = self._pin_budget
             return out

@@ -1,6 +1,8 @@
-"""A readers-preference readers-writer lock — the port's copy of the
-stream-versus-mutation lock of ``netsdb_tpu/utils/locks.py`` (without
-the reference's lock-order witness, which belongs to ROADMAP.md A8).
+"""Locks — the port's copies from ``netsdb_tpu/utils/locks.py``: the
+readers-preference readers-writer lock of streams against mutations, and
+:class:`TrackedLock`, a ``threading.Lock`` that carries its rank name
+(the serve layer names every lock it takes). The reference's lock-order
+witness, which reads those names, belongs to ROADMAP.md A8.
 
 Streams of a paged set hold the read side for their lifetime; dropping
 or replacing the set's pages takes the write side, so pages are never
@@ -45,3 +47,33 @@ class RWLock:
             with self._cond:
                 self._writer = False
                 self._cond.notify_all()
+
+
+class TrackedLock:
+    """``threading.Lock`` with a rank name. Drop-in: context manager,
+    ``acquire(blocking=, timeout=)``, ``release()``, ``locked()``."""
+
+    __slots__ = ("_lk", "name")
+
+    def __init__(self, name: str):
+        self._lk = threading.Lock()
+        self.name = name
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        return self._lk.acquire(blocking, timeout)
+
+    def release(self) -> None:
+        self._lk.release()
+
+    def locked(self) -> bool:
+        return self._lk.locked()
+
+    def __enter__(self) -> "TrackedLock":
+        self._lk.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._lk.release()
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__} {self.name!r}>"

@@ -1,7 +1,9 @@
 """The port's ``Configuration`` against the reference's: every field of
 ``netsdb_tpu.config.Configuration`` is accepted at the reference's
 default, and every knob of a later ROADMAP.md item raises
-``NotImplementedError`` naming its item when set away from it."""
+``NotImplementedError`` naming its item when set away from it. The
+one-daemon serving knobs (the scheduler's, the sessions', the decode
+runtime's) are ported, with the reference's checks."""
 
 import dataclasses
 
@@ -66,12 +68,40 @@ def _away(default):
     return default + "x"
 
 
-@pytest.mark.parametrize("name", sorted(_LATER))
+#: knobs of the one-daemon serving slice: raised until it was ported,
+#: accepted away from their defaults since
+SERVING_PORTED = ("decode_batch_max", "model_dedup", "sched_affinity",
+                  "sched_affinity_wait_s", "sched_aging_every",
+                  "sched_coalesce", "sched_coalesce_done_max",
+                  "sched_coalesce_done_ttl_s", "sched_lane_quota",
+                  "sched_lanes", "session_state_bytes", "session_ttl_s")
+
+
+@pytest.mark.parametrize("name", sorted(set(_LATER) | set(SERVING_PORTED)))
 def test_each_later_knob_raises_naming_its_item(name, tmp_path):
+    if name in SERVING_PORTED:
+        assert name not in _LATER
+        default = _default(next(f for f in REF_FIELDS if f.name == name))
+        value = {"a": 2.0} if name == "sched_lanes" else _away(default)
+        cfg = Configuration(root_dir=str(tmp_path), **{name: value})
+        assert getattr(cfg, name) == value
+        return
     default, item = _LATER[name]
     with pytest.raises(NotImplementedError,
                        match=f"{name}.*ROADMAP.md {item}"):
         Configuration(root_dir=str(tmp_path), **{name: _away(default)})
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("session_ttl_s", 0.0), ("session_state_bytes", -1),
+    ("decode_batch_max", 0)])
+def test_serving_knobs_keep_the_reference_checks(knob, value, tmp_path):
+    from netsdb_tpu.config import Configuration as Ref
+
+    with pytest.raises(ValueError, match=knob):
+        Ref(root_dir=str(tmp_path / "ref"), **{knob: value})
+    with pytest.raises(ValueError, match=knob):
+        Configuration(root_dir=str(tmp_path), **{knob: value})
 
 
 def test_later_knobs_name_their_roadmap_items():
@@ -79,11 +109,15 @@ def test_later_knobs_name_their_roadmap_items():
     for name in ("mesh_shape", "mesh_axis_names", "summa_participants",
                  "distributed_matmul", "summa_grid"):
         assert items[name] == "A4"
-    assert items["decode_batch_max"] == items["model_dedup"] == "A5"
     for name in items:
-        if name.startswith(("sched_", "ha_", "rebalance", "session_")):
-            assert items[name] == "A7", name
-    assert items["shard_handoff_bytes"] == "A7"
+        if name.startswith(("ha_", "rebalance")):
+            assert items[name] == "A7 part 2", name
+        if name.startswith("sched_"):  # the feedback loop and shedding
+            assert items[name] == "A8", name
+    assert not any(n.startswith("session_") or n in SERVING_PORTED
+                   for n in items)
+    assert items["shard_handoff_bytes"] == "A7 part 2"
+    assert items["device_cache_pin_auto"] == "A7 part 2"
     assert items["lock_witness"] == "A8"
     assert all(items[n] == "A8" for n in items if n.startswith("obs_"))
     assert "obs_explain" not in items  # read by obs/operators.py

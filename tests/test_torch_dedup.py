@@ -405,3 +405,51 @@ def test_reference_pool_parity_on_ff_sets(client, port):
         np.testing.assert_array_equal(
             port.get_tensor(db, name).data.numpy(),
             np.asarray(client.get_tensor(db, name).data))
+
+
+def test_pool_shares_every_byte_equal_block_past_the_lsh_buckets():
+    """Two variants of 2048 blocks each (buckets of 8-bit bands far past
+    the 8-block all-pairs limit): every byte-equal block shares a slot.
+    The reference's pool byte-compares only what its LSH grouped, and
+    its anchor heuristic leaves most of these unpaired."""
+    from netsdb_tpu.dedup import pool as jpool
+
+    rng = np.random.default_rng(7)
+    base = rng.standard_normal((512, 256)).astype(np.float32)
+    variant = base.copy()
+    variant[:128] += 1.0  # 512 of the 2048 blocks of 8 x 8 change
+    want_unique = 2048 + 512
+    _, report = pool.pool_models(
+        {"a": BlockedTensor.from_dense(base, (8, 8), device="cpu"),
+         "b": BlockedTensor.from_dense(variant, (8, 8), device="cpu")})
+    assert report["unique_blocks"] == want_unique
+    assert report["shared_block_refs"] == 4096 - want_unique
+    assert report["hbm_bytes_pooled"] == want_unique * 8 * 8 * 4
+    _, ref = jpool.pool_models({"a": JBlocked.from_dense(base, (8, 8)),
+                                "b": JBlocked.from_dense(variant, (8, 8))})
+    assert ref["unique_blocks"] > want_unique  # the reference's misses
+    assert (ref["lsh_groups"], ref["verified_pairs"]) == \
+        (report["lsh_groups"], report["verified_pairs"])
+
+
+def test_pool_without_the_lsh_report_builds_no_lsh_index(monkeypatch):
+    """``dedup_resident`` reads no LSH field, so it pools with
+    ``report_lsh=False``: the same slots and report less the two LSH
+    fields, and no LSH index built."""
+    from netsdb_tpu_torch.dedup import lsh
+
+    base, variant = _variant_pair(changed=3)
+    pt = {n: BlockedTensor.from_dense(a, (32, 32), device="cpu")
+          for n, a in (("m:a", base), ("m:b", variant))}
+    full_pool, full = pool.pool_models(pt)
+
+    def refuse(*a, **k):
+        raise AssertionError("an LSH index was built")
+
+    monkeypatch.setattr(lsh, "LSHIndex", refuse)
+    pooled, report = pool.pool_models(pt, report_lsh=False)
+    assert report == {k: v for k, v in full.items()
+                      if k not in ("lsh_groups", "verified_pairs")}
+    for name in pt:
+        assert np.array_equal(pooled[name].slots, full_pool[name].slots)
+        assert torch.equal(pooled[name].assemble().data, pt[name].data)

@@ -1,5 +1,6 @@
 """Guards of the PyTorch port: it imports nothing of JAX or of the JAX
-package, its client runs on CUDA unless told otherwise, and what the
+package (nor ``msgpack`` or ``cloudpickle``: its wire codecs are its
+own), its client runs on CUDA unless told otherwise, and what the
 port does not cover yet raises ``NotImplementedError`` naming its
 ROADMAP.md item instead of being ignored."""
 
@@ -29,7 +30,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "netsdb_tpu" or m.startswith("netsdb_tpu."))
+             or m == "netsdb_tpu" or m.startswith("netsdb_tpu.")
+             or m.split(".")[0] in ("msgpack", "cloudpickle"))
 relational = sorted(n for n in names if ".relational." in n)
 print(len(names), relational, bad)
 """
@@ -104,10 +106,10 @@ def test_single_device_workload_and_dedup_modules_import_no_jax():
 
 @pytest.mark.parametrize("knob,value,item", [
     ("mesh_shape", (2, 4), "A4"), ("mesh_axis_names", ("x",), "A4"),
-    ("summa_participants", 4, "A4"), ("model_dedup", True, "A5"),
-    ("decode_batch_max", 16, "A5"), ("sched_lanes", {"a": 2.0}, "A7"),
+    ("summa_participants", 4, "A4"), ("sched_feedback", True, "A8"),
+    ("sched_slo_shed", True, "A8"), ("ha_election_timeout_s", 1.0, "A7"),
     ("ha_mutlog", True, "A7"), ("rebalance", True, "A7"),
-    ("session_ttl_s", 5.0, "A7"), ("shard_handoff_bytes", 1, "A7"),
+    ("device_cache_pin_auto", True, "A7"), ("shard_handoff_bytes", 1, "A7"),
     ("obs_enabled", False, "A8"), ("obs_trace_sample", 4, "A8"),
     ("lock_witness", True, "A8")])
 def test_later_configuration_knobs_raise(knob, value, item):
@@ -316,8 +318,11 @@ def test_out_of_slice_set_options_raise(port_client, kwargs, exc, item):
 
 
 def test_out_of_slice_client_features_raise(port_client, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        Client(address="localhost:1", device="cpu")
+    # Client(address=) is the served client (tests/test_torch_serve.py);
+    # replicas with hedged reads are the daemon pool's, and raise before
+    # any connection is tried
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7 part 2"):
+        Client(address="localhost:1", replicas=["localhost:2"])
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
         Configuration(distributed_matmul=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
@@ -393,3 +398,44 @@ def test_store_keeps_results_on_the_client_device(port_client):
         port_client.create_set("nope", "s")
     with pytest.raises(KeyError, match="create_set"):
         port_client.send_data("d", "missing", [1])
+
+
+def test_no_port_source_imports_jax_the_jax_package_msgpack_or_cloudpickle():
+    """Every import statement of the port and of ``chip_smoke.py`` —
+    function-level ones included — names none of ``jax``, ``netsdb_tpu``,
+    ``msgpack`` or ``cloudpickle``; and the serving modules load in a
+    fresh interpreter without them."""
+    import ast
+    import pathlib
+
+    banned = {"jax", "jaxlib", "netsdb_tpu", "msgpack", "cloudpickle"}
+    files = sorted((pathlib.Path(REPO) / "netsdb_tpu_torch").rglob("*.py"))
+    files.append(pathlib.Path(REPO) / "chip_smoke.py")
+    hits = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in banned:
+                    hits.append(f"{path.relative_to(REPO)}:{node.lineno} "
+                                f"{name}")
+    assert hits == []
+    mods = ["netsdb_tpu_torch.serve", "netsdb_tpu_torch.serve.server",
+            "netsdb_tpu_torch.serve.sessions",
+            "netsdb_tpu_torch.models.decode", "chip_smoke"]
+    probe = ("import importlib, sys\n"
+             f"for m in {mods!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             f"{sorted(banned)!r}))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
