@@ -9,7 +9,8 @@ line, to compare the paged path of two trees; ``--models-only``: phases
 phase 1, the SF 10 tables made resident on a card client, and phase
 12; ``--rows-only``: phases 1 and 13; ``--compiled-only``: phases 1 and
 14, TPC-H at ``COMPILED_ONLY_SF``; ``--workloads-only``: phases 1 and
-15; ``--serve-only``: phases 1 and 16.)
+15; ``--serve-only``: phases 1 and 16; ``--pool-only``: phases 1 and
+17.)
 
 Every phase runs with the compiled-program cache in use and
 ``plan_fusion`` on, the port's defaults: a resident job is one CUDA
@@ -223,6 +224,35 @@ Phases (any failure raises and the exit code is non-zero):
    the card's name and power limit; the daemon is stopped (SHUTDOWN,
    then killed if it lingers) whatever happens.
 
+17. the shard pool on the card (``POOL_SIZES``): a leader and 3 workers
+   (the reference's ``daemons=4``) and a solo daemon, each in its own
+   process on card 0 (``serve.server.run_daemon``, the leader with
+   ``workers=``), this script their client. The reference's serving
+   gate (batch 8192, 256 -> 512 -> 64, blocks 128, integer-valued
+   weights in [-3, 3), 6 frames through ``models.serving.ff_serving``):
+   every frame byte-equal to the solo daemon, every shard's EXPLAIN one
+   program, no daemon holding more than ceil(B/4) input rows. FF at
+   bench.py's width (16384 x 1024 -> 4096 -> 1024, 512 blocks, 4096 rows
+   a slot), three frames each held to f64 within ``FF_TOL``, with the
+   pool's and the solo daemon's rows/s on this one card. The scale-out
+   bench's configuration: 6 000 000 rows range-placed in 65 536-row
+   pages (routed ingest MB/s against one daemon's), six cold integer
+   Q01 scatters byte-equal to solo, ``relational.dag.q01_sink`` over a
+   float table of the same placement (ints exact, floats within rtol
+   1e-5), the shuffle join (2048 orders, 400 000 lineitems, hash-placed)
+   byte-equal to solo with its 24 buckets counted. Then a worker is
+   stopped, a scatter started and the worker killed: the client gets the
+   typed retryable refusal and the output set keeps its rows; an append
+   buffers for the dead slot; the worker restarts on its port, reloads
+   its flushed slot and is readmitted (SHARD_RESYNC, the handoff drain),
+   and the query equals solo again. Last, a leader, a worker and a solo
+   daemon in this process on the card with the same set names run the
+   Q01 scatter and the shuffle join at 200 000 rows four times, every
+   result equal to solo, with graph captures and replays counted. Each
+   daemon's busy seconds and peak reserved memory and the card's used
+   memory are printed, every line with the card's name and power limit;
+   every process is killed whatever happens.
+
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
 just before phase 5's requests and read just after them, again
@@ -232,7 +262,9 @@ around phases 10, 11, 12 and 13 (both 0), around phase 14 (B1 once a
 layer request, B2 16 times an SP request) and around phase 15 (both 0);
 phase 16's launches are the daemon's own counters, read before and
 after through COLLECT_STATS (B1 at least once a served layer request,
-B2 never). The last line is the contract's device record.
+B2 never), and phase 17's the pool daemons' and the solo's summed the
+same way, and this process's around the in-process pool (both 0). The
+last line is the contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -4780,12 +4812,10 @@ _SERVE_MAIN = (
     "device=sys.argv[2]))\n")
 
 
-def _serve_start(device: str, root: str, log_path: str):
-    """The daemon in its own process (``serve.server.run_daemon``);
-    returns (process, address) once it printed the address it listens
-    on."""
+def _daemon_popen(main: str, args: list, log_path: str):
+    """``python -c main *args`` from the repository root, stderr to
+    ``log_path`` (a daemon's process)."""
     import os
-    import threading
 
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -4793,11 +4823,18 @@ def _serve_start(device: str, root: str, log_path: str):
         + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     log = open(log_path, "w")
     proc = subprocess.Popen(
-        [sys.executable, "-c", _SERVE_MAIN, root, device,
-         str(SERVE_PAGE_BYTES)],
+        [sys.executable, "-c", main] + [str(a) for a in args],
         stdout=subprocess.PIPE, stderr=log, text=True, env=env,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     log.close()
+    return proc
+
+
+def _daemon_addr(proc, log_path: str) -> str:
+    """The address a daemon printed once it listens (``run_daemon``'s
+    ``serving on HOST:PORT``); kills it and raises if it did not."""
+    import threading
+
     line = []
     reader = threading.Thread(target=lambda: line.append(
         proc.stdout.readline()), daemon=True)
@@ -4808,8 +4845,17 @@ def _serve_start(device: str, root: str, log_path: str):
         proc.wait(30)
         with open(log_path) as f:
             tail = f.read()[-4000:]
-        raise RuntimeError(f"the daemon did not start: {line!r}\n{tail}")
-    return proc, line[0].split()[-1]
+        raise RuntimeError(f"a daemon did not start: {line!r}\n{tail}")
+    return line[0].split()[-1]
+
+
+def _serve_start(device: str, root: str, log_path: str):
+    """The daemon in its own process (``serve.server.run_daemon``);
+    returns (process, address) once it printed the address it listens
+    on."""
+    proc = _daemon_popen(_SERVE_MAIN, [root, device, SERVE_PAGE_BYTES],
+                         log_path)
+    return proc, _daemon_addr(proc, log_path)
 
 
 def _serve_stop(proc, client) -> None:
@@ -5223,6 +5269,67 @@ def _planted_unique_bytes(models, block) -> tuple:
     return sum(seen.values()), total
 
 
+def _serve_sync_beside_capture(root: str, device: str, card) -> dict:
+    """A handler's reply wait (``ServeController._sync_results``) while
+    another handler thread of the daemon is inside a graph capture: the
+    capture is held open until the wait has returned, so the two always
+    overlap (a device-wide wait fails there; the served pairs met it by
+    chance). The wait must return and the program must still capture."""
+    import threading
+
+    import torch
+
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.plan import programs
+    from netsdb_tpu_torch.serve.server import ServeController
+
+    if device != "cuda":
+        return {}
+    ctl = ServeController(Configuration(root_dir=root), port=0,
+                          device=device)
+    x = torch.arange(1 << 20, dtype=torch.float32, device=ctl.device)
+    capturing, waited = threading.Event(), threading.Event()
+
+    def fn(t):
+        if torch.cuda.is_current_stream_capturing():
+            capturing.set()
+            waited.wait(30)
+        return t * 2 + 1
+
+    prog = programs.Program("smoke::sync-beside-capture",
+                            on_trace=lambda: None)
+    got = {}
+
+    def capture():
+        try:
+            got["out"] = prog(fn, x)
+        except Exception as e:  # noqa: BLE001 — raised below
+            got["err"] = repr(e)
+        capturing.set()
+
+    c0 = programs.program_stats()["captures"]
+    th = threading.Thread(target=capture)
+    th.start()
+    try:
+        if not capturing.wait(30):
+            raise RuntimeError("the capture never began")
+        (x + 1).sum()
+        ctl._sync_results({})
+    finally:
+        waited.set()
+        th.join(30)
+        ctl.shutdown()
+    if "err" in got or th.is_alive():
+        raise RuntimeError(f"capture beside a reply wait: {got.get('err')}")
+    captures = programs.program_stats()["captures"] - c0
+    if captures != 1 or prog(fn, x).ne(x * 2 + 1).any():
+        raise RuntimeError(f"{captures} captures beside a reply wait, or "
+                           f"a wrong replay")
+    print(f"[serve] a reply wait beside another thread's capture returned; "
+          f"the graph captured and replays right ({card})")
+    return {"captures": captures}
+
+
 def _serve_residency(remote, s, r, device, card) -> dict:
     """Two fine-tuned layer variants of one base under model_dedup: each
     one's step through the daemon's one layer program held to the f64
@@ -5313,7 +5420,9 @@ def phase_serve(pk: dict, smi: str, device: str = "cuda",
                                "pickle codec")
         k_start = remote.collect_stats()["metrics"]["kernels"]
         local = Client(device=device)
-        out = {"ff": _serve_ff(remote, local, s["ff"], device, card),
+        out = {"sync_beside_capture": _serve_sync_beside_capture(
+                   os.path.join(root, "capture"), device, card),
+               "ff": _serve_ff(remote, local, s["ff"], device, card),
                "layer": _serve_layer(remote, local, s["layer"], device,
                                      card),
                "paged": _serve_paged_pair(addr, remote, local, s["paged"],
@@ -5366,6 +5475,721 @@ def phase_serve(pk: dict, smi: str, device: str = "cuda",
             _serve_stop(proc, remote)
         if remote is not None:
             remote.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# --- phase 17: the shard pool on the card --------------------------------
+# the reference's serving and scale-out benches (serve_bench.py:1073-1076
+# and :794-797), a pool of a leader and 3 workers (daemons=4), and FF at
+# bench.py's width with 4096 rows a slot; in-process, two daemons of this
+# process with the same set names at 200 000 rows
+POOL_SIZES = {"serving": dict(batch=8192, features=256, hidden=512,
+                              labels=64, block=128, frames=6),
+              "bench_ff": dict(rows_per_slot=4096, features=1024,
+                               hidden=4096, labels=1024, block=512,
+                               frames=3),
+              "scaleout": dict(rows=6_000_000, page_rows=65_536, queries=6,
+                               join_orders=2048, join_rows=400_000),
+              "failure": dict(rows=600_000, append_rows=60_000),
+              "inproc": dict(rows=200_000, requests=4)}
+POOL_DAEMONS = 4
+POOL_BUDGET_S = 120.0
+POOL_TIMEOUT_S = 300.0     # bounds every request to a pool daemon
+POOL_READMIT_S = 90.0      # bounds the wait for a restarted worker
+
+
+# a pool daemon's process: run_daemon on the phase's Configuration; argv is
+# root, device, page bytes, workers ("" for none), port
+_POOL_MAIN = (
+    "import sys\n"
+    "from netsdb_tpu_torch.config import Configuration\n"
+    "from netsdb_tpu_torch.serve.server import run_daemon\n"
+    "w = [a for a in sys.argv[4].split(',') if a]\n"
+    "kw = dict(heartbeat_interval_s=1.0, heartbeat_timeout_s=10.0) if w "
+    "else {}\n"
+    "sys.exit(run_daemon(Configuration(root_dir=sys.argv[1], "
+    "page_size_bytes=int(sys.argv[3]), device_cache_bytes=0), "
+    "port=int(sys.argv[5]), device=sys.argv[2], workers=w or None, "
+    "mirror_ack_timeout_s=300.0, **kw))\n")
+
+
+def _pool_popen(root: str, device: str, page_bytes: int, workers: list,
+                port: int, log_path: str):
+    return _daemon_popen(_POOL_MAIN, [root, device, page_bytes,
+                                      ",".join(workers), port], log_path)
+
+
+def _card_memory() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _pool_ints(rng, shape):
+    """Integer-valued f32 in [-3, 3) (serve_bench.py:1107): every sum of
+    the serving gate stays an exact integer."""
+    import numpy as np
+    return rng.integers(-3, 3, size=shape).astype(np.float32)
+
+
+def _pool_serving(pool_addr, solo, s, card) -> dict:
+    """The reference's serving gate: ff_serving deploy, then frames whose
+    scores equal the solo daemon's byte for byte, one program per shard,
+    at most ceil(B/4) input rows on any daemon."""
+    import numpy as np
+    from netsdb_tpu_torch.models.ff import FFModel
+    from netsdb_tpu_torch.models.serving import ff_serving
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    rng = np.random.default_rng(SEED)
+    f, h, lab, b = s["features"], s["hidden"], s["labels"], s["batch"]
+    weights = (_pool_ints(rng, (h, f)), _pool_ints(rng, (h,)),
+               _pool_ints(rng, (lab, h)), _pool_ints(rng, (lab,)))
+    batches = [_pool_ints(rng, (b, f)) for _ in range(s["frames"])]
+    blk = (s["block"], s["block"])
+    sm = FFModel(db="ffsolo", block=blk)
+    sm.setup(solo)
+    sm.load_weights(solo, *weights)
+    sink = sm.build_inference_dag()
+    oracle, solo_s = [], []
+    for x in batches:
+        t0 = time.perf_counter()
+        sm.load_inputs(solo, x)
+        res = solo.execute_computations(sink, job_name="ffsolo")
+        oracle.append(np.asarray(next(iter(res.values())).to_dense()))
+        solo_s.append(time.perf_counter() - t0)
+    model = FFModel(db="ffserving", block=blk)
+
+    def load(c):
+        model.setup(c)
+        model.load_weights(c, *weights)
+
+    srv = ff_serving(model, pool_addr, block=blk, timeout=POOL_TIMEOUT_S)
+    try:
+        addrs = srv.deploy(load)
+        if len(addrs) != POOL_DAEMONS:
+            raise RuntimeError(f"the pool has {len(addrs)} slots, not "
+                               f"{POOL_DAEMONS}")
+        frame_s = []
+        for i, x in enumerate(batches):
+            t0 = time.perf_counter()
+            if i == 0:
+                out, forest = srv.score(x, explain=True)
+            else:
+                out = srv.score(x)
+            frame_s.append(time.perf_counter() - t0)
+            got = np.asarray(out.to_dense())
+            if got.tobytes() != oracle[i].tobytes():
+                raise RuntimeError(
+                    f"serving frame {i}: the pool's scores differ from the "
+                    f"solo daemon's (max |d| "
+                    f"{float(np.abs(got - oracle[i]).max())})")
+        for addr, tree in forest.items():
+            nodes = [n for n in tree["nodes"]
+                     if n.get("kind") != "WholePlanJit"]
+            if tree["mode"] != "whole_plan_jit" or not all(
+                    n.get("fused") for n in nodes):
+                raise RuntimeError(f"shard {addr} did not run the chain as "
+                                   f"one program: {tree['mode']}")
+        if sorted(forest) != sorted(addrs):
+            raise RuntimeError(f"EXPLAIN forest {sorted(forest)} != slots")
+        bound = -(-b // POOL_DAEMONS)
+        held = {}
+        for addr in addrs:
+            c = RemoteClient(addr, timeout=POOL_TIMEOUT_S)
+            try:
+                held[addr] = int(c.get_tensor("ffserving",
+                                              "inputs").shape[0])
+            finally:
+                c.close()
+        if max(held.values()) > bound or sum(held.values()) != b:
+            raise RuntimeError(f"input rows by daemon {held}: over "
+                               f"ceil(B/4) = {bound} or not the batch")
+    finally:
+        srv.close()
+    warm = frame_s[1:]
+    out = {"frames": len(batches), "byte_equal": True,
+           "one_program_per_shard": True, "rows_by_daemon": held,
+           "frame_ms": [round(t * 1e3, 3) for t in frame_s],
+           "pool_rows_per_s": b * len(warm) / sum(warm),
+           "solo_rows_per_s": b * len(solo_s[1:]) / sum(solo_s[1:])}
+    print(f"[pool] serving gate: batch {b} x {f} -> {h} -> {lab}, blocks "
+          f"{blk}, {len(batches)} frames byte-equal to the solo daemon, "
+          f"one program per shard, input rows by daemon "
+          f"{sorted(held.values())} (bound {bound}); warm frames "
+          f"{out['pool_rows_per_s']:.0f} rows/s pool, "
+          f"{out['solo_rows_per_s']:.0f} rows/s solo ({card})")
+    return out
+
+
+def _pool_bench_ff(pool_addr, solo, s, device, card) -> dict:
+    """FF at bench.py's width, 4096 rows a slot: three frames each held to
+    f64 at FF_TOL; the pool's and the solo daemon's rows/s on one card."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.models.ff import FFModel
+    from netsdb_tpu_torch.models.serving import ff_serving
+
+    f, h, lab = s["features"], s["hidden"], s["labels"]
+    b = s["rows_per_slot"] * POOL_DAEMONS
+    blk = (s["block"], s["block"])
+    rng = np.random.default_rng(SEED + 17)
+    weights = (rng.standard_normal((h, f), dtype=np.float32)
+               * np.sqrt(2.0 / f),
+               rng.standard_normal((h,), dtype=np.float32) * 0.01,
+               rng.standard_normal((lab, h), dtype=np.float32)
+               * np.sqrt(2.0 / h),
+               rng.standard_normal((lab,), dtype=np.float32) * 0.01)
+    w1, b1, wo, bo = (torch.as_tensor(w, device=device).double()
+                      for w in weights)
+    model = FFModel(db="ffbench", block=blk)
+
+    def load(c):
+        model.setup(c)
+        model.load_weights(c, *weights)
+
+    load(solo)
+    solo_sink = model.build_inference_dag()
+    srv = ff_serving(model, pool_addr, block=blk, timeout=POOL_TIMEOUT_S)
+    pool_s, solo_s, errs = [], [], []
+    try:
+        srv.deploy(load)
+        for i in range(s["frames"]):
+            x = rng.standard_normal((b, f), dtype=np.float32)
+            xd = torch.as_tensor(x, device=device).double()
+            ref = torch.softmax(wo @ torch.relu(w1 @ xd.T + b1[:, None])
+                                + bo[:, None], dim=0)
+            t0 = time.perf_counter()
+            got = np.asarray(srv.score(x).to_dense())
+            pool_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            model.load_inputs(solo, x)
+            sres = solo.execute_computations(solo_sink, job_name="ffbench")
+            sgot = np.asarray(next(iter(sres.values())).to_dense())
+            solo_s.append(time.perf_counter() - t0)
+            for name, g in (("pool", got), ("solo", sgot)):
+                if g.shape != (lab, b) or not np.isfinite(g).all():
+                    raise RuntimeError(f"{name} FF frame {i}: shape "
+                                       f"{g.shape} or non-finite")
+            err = float((torch.as_tensor(got, device=device).double()
+                         - ref).abs().max())
+            errs.append(err)
+            if err > FF_TOL:
+                raise RuntimeError(f"pool FF frame {i}: max abs error {err} "
+                                   f"> {FF_TOL} against f64")
+    finally:
+        srv.close()
+    out = {"batch": b, "frames": s["frames"], "max_abs_err": max(errs),
+           "pool_ms": [round(t * 1e3, 3) for t in pool_s],
+           "solo_ms": [round(t * 1e3, 3) for t in solo_s],
+           "pool_rows_per_s": b * len(pool_s[1:]) / sum(pool_s[1:]),
+           "solo_rows_per_s": b * len(solo_s[1:]) / sum(solo_s[1:])}
+    print(f"[pool] FF {b} x {f} -> {h} -> {lab} (blocks {blk}, "
+          f"{s['rows_per_slot']} rows a slot): max abs err vs f64 "
+          f"{out['max_abs_err']:.3g} (limit {FF_TOL}); frames ms pool "
+          f"{out['pool_ms']}, solo {out['solo_ms']}; rows/s after the first "
+          f"frame: pool {out['pool_rows_per_s']:.0f}, solo "
+          f"{out['solo_rows_per_s']:.0f}, both on one card ({card})")
+    return out
+
+
+def _pool_float_table(rows: int, seed: int):
+    """The columns of tests/test_scaleout.py:258-270 (the float Q01)."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    rng = np.random.default_rng(seed)
+    cols = {
+        "l_shipdate": rng.integers(19920101, 19981231, rows, dtype=np.int32),
+        "l_returnflag": rng.integers(0, 3, rows, dtype=np.int32),
+        "l_linestatus": rng.integers(0, 2, rows, dtype=np.int32),
+        "l_quantity": rng.integers(1, 51, rows,
+                                   dtype=np.int32).astype(np.float32),
+        "l_extendedprice": rng.uniform(1000, 100000, rows).astype(np.float32),
+        "l_discount": rng.uniform(0, 0.1, rows).astype(np.float32),
+        "l_tax": rng.uniform(0, 0.08, rows).astype(np.float32)}
+    return ColumnTable({k: torch.from_numpy(v) for k, v in cols.items()},
+                       {"l_returnflag": ["A", "N", "R"],
+                        "l_linestatus": ["F", "O"]})
+
+
+def _q01_float_rows(client, out_set):
+    """The float Q01's valid rows by column, on the host."""
+    import numpy as np
+
+    t = client.get_table("d", out_set)
+    ok = t.valid.numpy() if t.valid is not None else np.ones(
+        t.num_rows, bool)
+    return {k: v.numpy()[ok] for k, v in t.cols.items()}
+
+
+def _pool_counter(clients, name) -> int:
+    """A registry counter summed over daemons (their COLLECT_STATS)."""
+    total = 0
+    for c in clients:
+        total += int(c.collect_stats()["metrics"].get("counters", {})
+                     .get(name, 0))
+    return total
+
+
+def _pool_scaleout(pool_c, solo, daemon_clients, s, card) -> dict:
+    """run_scaleout_bench's configuration: routed ingest, six cold Q01
+    scatters byte-equal to solo, the float Q01 within TPCH-style limits
+    and the shuffle join byte-equal to solo."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.relational import dag
+    from netsdb_tpu_torch.relational.table import ColumnTable
+    from netsdb_tpu_torch.workloads.serve_bench import (_scale_rows,
+                                                        scaleout_join_sink,
+                                                        scaleout_q01_sink,
+                                                        scaleout_table)
+
+    table = scaleout_table(s["rows"])
+    payload_mb = sum(int(v.nbytes) for v in table.cols.values()) / 2 ** 20
+    out = {"rows": s["rows"], "payload_mb": payload_mb}
+    for name, c, kw in (("pool", pool_c, {"placement": "range"}),
+                        ("solo", solo, {})):
+        c.create_database("d")
+        c.create_set("d", "warm", type_name="table", storage="paged", **kw)
+        c.send_table("d", "warm", scaleout_table(4096, seed=9))
+        c.create_set("d", "lineitem", type_name="table", storage="paged",
+                     **kw)
+        t0 = time.perf_counter()
+        c.send_table("d", "lineitem", table)
+        out[f"{name}_ingest_mb_per_s"] = payload_mb / (time.perf_counter()
+                                                       - t0)
+    sink = scaleout_q01_sink("d")
+    rows = {}
+    for name, c in (("pool", pool_c), ("solo", solo)):
+        ms = []
+        for q in range(s["queries"] + 1):  # the first builds the programs
+            t0 = time.perf_counter()
+            c.execute_computations(sink, job_name="scale-q01",
+                                   fetch_results=False)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = _scale_rows(c, "d", "scale_q01_out")
+            if q and got != rows.setdefault(name, got):
+                raise RuntimeError(f"{name} Q01 request {q} changed its rows")
+            rows[name] = got
+        out[f"{name}_q01_ms"] = [round(m, 3) for m in ms]
+    if rows["pool"] != rows["solo"] or len(rows["pool"]) != 6:
+        raise RuntimeError(f"scatter Q01 {rows['pool']} != solo "
+                           f"{rows['solo']}")
+    # the real relational/dag.q01_sink over the same placement
+    ftable = _pool_float_table(s["rows"], SEED + 3)
+    f_rows = {}
+    for name, c, kw in (("pool", pool_c, {"placement": "range"}),
+                        ("solo", solo, {})):
+        c.create_set("d", "lineitem_f", type_name="table", storage="paged",
+                     **kw)
+        c.send_table("d", "lineitem_f", ftable)
+        t0 = time.perf_counter()
+        c.execute_computations(dag.q01_sink("d", lineitem_set="lineitem_f"),
+                               job_name="q01f", fetch_results=False)
+        out[f"{name}_real_q01_ms"] = (time.perf_counter() - t0) * 1e3
+        f_rows[name] = _q01_float_rows(c, "q01_out")
+    worst = 0.0
+    for k, want in f_rows["solo"].items():
+        got = f_rows["pool"][k]
+        if got.dtype.kind in "iu":
+            if not np.array_equal(got, want):
+                raise RuntimeError(f"real Q01 column {k}: ints differ")
+        else:
+            rel = float(np.max(np.abs(got - want)
+                               / np.maximum(np.abs(want), 1e-30)))
+            worst = max(worst, rel)
+            if not np.allclose(got, want, rtol=1e-5, atol=0):
+                raise RuntimeError(f"real Q01 column {k}: rel err {rel}")
+    out["real_q01_max_rel"] = worst
+    # the shuffle join, hash-placed
+    rng = np.random.default_rng(7)
+    jli = ColumnTable({
+        "l_orderkey": torch.from_numpy(rng.integers(
+            0, s["join_orders"], s["join_rows"], dtype=np.int32)),
+        "l_price": torch.from_numpy(rng.integers(
+            1, 1000, s["join_rows"], dtype=np.int32))}, {}, None)
+    jord = ColumnTable({"o_orderkey": torch.arange(s["join_orders"],
+                                                   dtype=torch.int32)},
+                       {}, None)
+    jsink = scaleout_join_sink("d", s["join_orders"], lineitem_set="jli",
+                               orders_set="jorders")
+    parts0 = _pool_counter(daemon_clients, "shard.shuffle_parts")
+    j_rows = {}
+    for name, c, kw in (("pool", pool_c, {"placement": "hash"}),
+                        ("solo", solo, {})):
+        c.create_set("d", "jli", type_name="table", **kw)
+        c.create_set("d", "jorders", type_name="table", **kw)
+        c.send_table("d", "jli", jli)
+        c.send_table("d", "jorders", jord)
+        t0 = time.perf_counter()
+        c.execute_computations(jsink, job_name="scale-join",
+                               fetch_results=False)
+        out[f"{name}_join_ms"] = (time.perf_counter() - t0) * 1e3
+        j_rows[name] = _scale_rows(c, "d", "scale_join_out")
+    parts = _pool_counter(daemon_clients, "shard.shuffle_parts") - parts0
+    want_parts = POOL_DAEMONS * 2 * (POOL_DAEMONS - 1)
+    if j_rows["pool"] != j_rows["solo"] \
+            or len(j_rows["pool"]) != s["join_orders"]:
+        raise RuntimeError("the shuffle join differs from the solo daemon")
+    if parts != want_parts:
+        raise RuntimeError(f"shard.shuffle_parts moved {parts}, not "
+                           f"{want_parts}")
+    out["shuffle_parts"] = parts
+    print(f"[pool] scale-out: {s['rows']} rows ({payload_mb:.1f} MiB) "
+          f"range-placed in {s['page_rows']}-row pages, ingest MB/s routed "
+          f"{out['pool_ingest_mb_per_s']:.1f} vs one daemon "
+          f"{out['solo_ingest_mb_per_s']:.1f}; cold Q01 ms pool "
+          f"{out['pool_q01_ms']}, solo {out['solo_q01_ms']} (byte-equal); "
+          f"real Q01 ms pool {out['pool_real_q01_ms']:.1f}, solo "
+          f"{out['solo_real_q01_ms']:.1f} (ints exact, floats max rel "
+          f"{worst:.3g}); shuffle join {s['join_orders']} x "
+          f"{s['join_rows']} ms pool {out['pool_join_ms']:.1f}, solo "
+          f"{out['solo_join_ms']:.1f} (byte-equal, {parts} buckets) "
+          f"({card})")
+    return out
+
+
+def _pool_failure(pool_c, solo, procs, victim, roots, ports, device, logs,
+                  s, card) -> dict:
+    """Worker ``victim`` killed during a scatter: the typed retryable
+    error and the output set unchanged; an append lands in the leader's
+    handoff; the worker restarts on its port (``procs[victim]`` becomes
+    the new process, for the caller to stop), reloads its flushed slot, is
+    readmitted (SHARD_RESYNC, then the handoff drain) and the query
+    equals solo."""
+    import signal
+    import threading
+
+    from netsdb_tpu_torch.serve.client import (PlacementStaleError,
+                                               RemoteClient, RetryPolicy,
+                                               ShardUnavailableError)
+    from netsdb_tpu_torch.workloads.serve_bench import (_scale_rows,
+                                                        scaleout_q01_sink,
+                                                        scaleout_table)
+
+    t0 = time.perf_counter()
+    table = scaleout_table(s["rows"], seed=21)
+    extra = scaleout_table(s["append_rows"], seed=22)
+    sink = scaleout_q01_sink("d", lineitem_set="fail_li",
+                             output_set="fail_out")
+    for c, kw in ((pool_c, {"placement": "range"}), (solo, {})):
+        c.create_set("d", "fail_li", type_name="table", storage="paged",
+                     persistence="persistent", **kw)
+        c.send_table("d", "fail_li", table)
+    pool_c.execute_computations(sink, job_name="fail", fetch_results=False)
+    before = _scale_rows(pool_c, "d", "fail_out")
+    vaddr = f"127.0.0.1:{ports[victim]}"
+    vc = RemoteClient(vaddr, timeout=POOL_TIMEOUT_S)
+    vc.flush_data()  # the worker's slot on its disk, for the restart
+    vc.close()
+    one = RemoteClient(pool_c.current_address, timeout=POOL_TIMEOUT_S,
+                       retry=RetryPolicy(max_attempts=1))
+    caught = []
+
+    def query():
+        try:
+            one.execute_computations(sink, job_name="fail-mid",
+                                     fetch_results=False)
+            caught.append(None)
+        except Exception as e:  # noqa: BLE001 — judged below
+            caught.append(e)
+
+    procs[victim].send_signal(signal.SIGSTOP)
+    th = threading.Thread(target=query, daemon=True)
+    th.start()
+    time.sleep(0.5)
+    procs[victim].kill()
+    procs[victim].wait(30)
+    th.join(POOL_TIMEOUT_S)
+    one.close()
+    if th.is_alive() or not caught:
+        raise RuntimeError("the query over a killed worker did not return")
+    err = caught[0]
+    if not isinstance(err, (ShardUnavailableError, PlacementStaleError)) \
+            or not err.retryable:
+        raise RuntimeError(f"killed worker: expected the typed retryable "
+                           f"refusal, got {type(err).__name__}: {err}")
+    if _scale_rows(pool_c, "d", "fail_out") != before:
+        raise RuntimeError("a partial result replaced the output set")
+    # an append while the worker is away: its slot's share buffers
+    pool_c.send_table("d", "fail_li", extra, append=True)
+    solo.send_table("d", "fail_li", extra, append=True)
+    pending = pool_c.health()["pool"]["degraded"]
+    if vaddr not in pending:
+        raise RuntimeError(f"the killed worker is not degraded: {pending}")
+    procs[victim] = _pool_popen(roots[victim], device,
+                                s["page_bytes"], [], ports[victim],
+                                logs[victim])
+    _daemon_addr(procs[victim], logs[victim])
+    vc = RemoteClient(vaddr, timeout=POOL_TIMEOUT_S)
+    vc.create_database("d")
+    vc.load_set("d", "fail_li")
+    vc.close()
+    deadline = time.perf_counter() + POOL_READMIT_S
+    while vaddr in pool_c.health()["pool"]["degraded"]:
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"worker {vaddr} was not readmitted in "
+                               f"{POOL_READMIT_S} s")
+        time.sleep(0.5)
+    pool_c.execute_computations(sink, job_name="fail-after",
+                                fetch_results=False)
+    solo.execute_computations(sink, job_name="fail-solo",
+                              fetch_results=False)
+    got = _scale_rows(pool_c, "d", "fail_out")
+    want = _scale_rows(solo, "d", "fail_out")
+    if got != want:
+        raise RuntimeError(f"after readmission {got} != solo {want}")
+    out = {"error": type(err).__name__, "retryable": True,
+           "partial_result": False, "readmitted": True,
+           "equal_after": True, "wall_s": time.perf_counter() - t0}
+    print(f"[pool] worker {vaddr} killed mid-scatter: "
+          f"{type(err).__name__} (retryable), the output unchanged; an "
+          f"append buffered, the worker restarted, reloaded and readmitted; "
+          f"the query equals solo again ({out['wall_s']:.1f} s) ({card})")
+    return out
+
+
+def _pool_inprocess(s, device, card) -> dict:
+    """A leader and one worker in this process on the card, plus a solo
+    daemon, all with the same set names: the scale-out Q01 and the
+    shuffle join at ``rows`` rows, each request held to the solo's, the
+    graph captures and replays counted."""
+    import numpy as np
+    import tempfile
+
+    import torch
+
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+    from netsdb_tpu_torch.plan import programs
+    from netsdb_tpu_torch.relational.table import ColumnTable
+    from netsdb_tpu_torch.serve.client import RemoteClient
+    from netsdb_tpu_torch.serve.server import ServeController
+    from netsdb_tpu_torch.workloads.serve_bench import (_scale_rows,
+                                                        scaleout_join_sink,
+                                                        scaleout_q01_sink,
+                                                        scaleout_table)
+
+    root = tempfile.mkdtemp(prefix="netsdb_inproc_pool_")
+    cfg = dict(page_size_bytes=65_536 * 4)
+    daemons = []
+    clients = []
+    k0 = (flash_attention.launches, flash_attention_step.launches)
+    try:
+        w = ServeController(Configuration(root_dir=f"{root}/w", **cfg),
+                            port=0, device=device)
+        w.start()
+        daemons.append(w)
+        lead = ServeController(Configuration(root_dir=f"{root}/l", **cfg),
+                               port=0, device=device,
+                               workers=[w.advertise_addr],
+                               heartbeat_interval_s=60.0)
+        lead.start()
+        daemons.append(lead)
+        solo = ServeController(Configuration(root_dir=f"{root}/s", **cfg),
+                               port=0, device=device)
+        solo.start()
+        daemons.append(solo)
+        pc = RemoteClient(lead.advertise_addr, timeout=POOL_TIMEOUT_S)
+        sc = RemoteClient(solo.advertise_addr, timeout=POOL_TIMEOUT_S)
+        clients += [pc, sc]
+        table = scaleout_table(s["rows"], seed=31)
+        rng = np.random.default_rng(32)
+        jli = ColumnTable({
+            "l_orderkey": torch.from_numpy(rng.integers(
+                0, 2048, s["rows"], dtype=np.int32)),
+            "l_price": torch.from_numpy(rng.integers(
+                1, 1000, s["rows"], dtype=np.int32))}, {}, None)
+        jord = ColumnTable({"o_orderkey": torch.arange(2048,
+                                                       dtype=torch.int32)},
+                           {}, None)
+        for c, rk, hk in ((pc, {"placement": "range"},
+                           {"placement": "hash"}), (sc, {}, {})):
+            c.create_database("d")
+            c.create_set("d", "lineitem", type_name="table",
+                         storage="paged", **rk)
+            c.send_table("d", "lineitem", table)
+            c.create_set("d", "jli", type_name="table", **hk)
+            c.create_set("d", "jorders", type_name="table", **hk)
+            c.send_table("d", "jli", jli)
+            c.send_table("d", "jorders", jord)
+        p0 = programs.program_stats()
+        for i in range(s["requests"]):
+            for sink, out_set in ((scaleout_q01_sink("d"), "scale_q01_out"),
+                                  (scaleout_join_sink(
+                                      "d", 2048, lineitem_set="jli",
+                                      orders_set="jorders"),
+                                   "scale_join_out")):
+                rows = []
+                for c in (pc, sc):
+                    c.execute_computations(sink, job_name=f"ip-{out_set}",
+                                           fetch_results=False)
+                    rows.append(_scale_rows(c, "d", out_set))
+                if rows[0] != rows[1]:
+                    raise RuntimeError(f"in-process pool request {i} "
+                                       f"{out_set} differs from solo")
+        p1 = programs.program_stats()
+        launches = (flash_attention.launches - k0[0],
+                    flash_attention_step.launches - k0[1])
+        out = {"rows": s["rows"], "requests": s["requests"],
+               "captures": p1["captures"] - p0["captures"],
+               "replays": p1["replays"] - p0["replays"],
+               "launches": launches}
+        if device == "cuda" and out["replays"] == 0:
+            raise RuntimeError("the in-process pool replayed no graph")
+        if any(launches):
+            raise RuntimeError(f"the in-process pool launched a "
+                               f"hand-written kernel: {launches}")
+        print(f"[pool] in-process leader + worker + solo on {device} with "
+              f"the same set names: Q01 and the shuffle join at "
+              f"{s['rows']} rows, {s['requests']} requests each equal to "
+              f"solo; captures {out['captures']}, replays {out['replays']}; "
+              f"B1/B2 launches {launches} ({card})")
+        return out
+    finally:
+        for c in clients:
+            c.close()
+        for d in daemons:
+            d.shutdown()
+
+
+def phase_pool(pk: dict, smi: str, device: str = "cuda",
+               sizes: Optional[dict] = None) -> dict:
+    """Phase 17: a pool of a leader and 3 workers, each in its own process
+    on the card, and a solo daemon, this script their client
+    (``POOL_SIZES``): the serving gate, FF at bench.py's width, routed
+    ingest and scatter-gather with the shuffle join, a killed and
+    readmitted worker, then an in-process pool."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    del pk
+    s = {k: dict(v, **((sizes or {}).get(k, {})))
+         for k, v in POOL_SIZES.items()}
+    # 65 536-row pages of the scale-out table's five int32 columns (the
+    # port packs a row's columns into one page; serve_bench.py:836 sizes
+    # its pages by one column)
+    page_bytes = s["scaleout"]["page_rows"] * 4 * 5
+    s["failure"]["page_bytes"] = page_bytes
+    card = smi
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="netsdb_pool_")
+    n = POOL_DAEMONS
+    roots = [os.path.join(root, f"d{i}") for i in range(n + 1)]
+    logs = [os.path.join(root, f"d{i}.log") for i in range(n + 1)]
+    # slot 0 is the leader, 1..3 the workers, n the solo daemon
+    procs = [None] * (n + 1)
+    clients = []
+    try:
+        for i in range(1, n + 1):
+            procs[i] = _pool_popen(roots[i], device, page_bytes, [], 0,
+                                   logs[i])
+        addrs = {i: _daemon_addr(procs[i], logs[i])
+                 for i in range(1, n + 1)}
+        workers = [addrs[i] for i in range(1, n)]
+        procs[0] = _pool_popen(roots[0], device, page_bytes, workers, 0,
+                               logs[0])
+        addrs[0] = _daemon_addr(procs[0], logs[0])
+        ports = [int(addrs[i].rpartition(":")[2]) for i in range(n + 1)]
+        print(f"[pool] leader {addrs[0]}, workers {workers}, solo "
+              f"{addrs[n]}: {time.perf_counter() - t0:.1f} s to listen "
+              f"({card})")
+        pool_c = RemoteClient(addrs[0], timeout=POOL_TIMEOUT_S,
+                              connect_timeout=30.0)
+        solo = RemoteClient(addrs[n], timeout=POOL_TIMEOUT_S,
+                            connect_timeout=30.0)
+        clients += [pool_c, solo]
+        daemon_clients = [RemoteClient(addrs[i], timeout=POOL_TIMEOUT_S)
+                          for i in range(n)]
+        clients += daemon_clients
+        k_start = [c.collect_stats()["metrics"]["kernels"]
+                   for c in daemon_clients + [solo]]
+        out = {"serving": _pool_serving(addrs[0], solo, s["serving"], card),
+               "bench_ff": _pool_bench_ff(addrs[0], solo, s["bench_ff"],
+                                          device, card),
+               "scaleout": _pool_scaleout(pool_c, solo, daemon_clients,
+                                          s["scaleout"], card)}
+        stats = [c.collect_stats() for c in daemon_clients + [solo]]
+        launches = {}
+        for st, k0 in zip(stats, k_start):
+            for k, v in st["metrics"]["kernels"].items():
+                launches[k] = launches.get(k, 0) + v - k0.get(k, 0)
+        out["launches"] = launches
+        out["daemons"] = [{
+            "role": ("leader" if i == 0 else "solo" if i == n
+                     else f"worker {i}"),
+            "pid": st["serve"]["pid"], "busy_s": st["serve"]["busy_s"],
+            "max_memory_reserved_mib":
+                st["serve"].get("max_memory_reserved", 0) / 2 ** 20}
+            for i, st in enumerate(stats)]
+        out["card_memory"] = (_card_memory() if device == "cuda"
+                              else "not measured")
+        if len({d["pid"] for d in out["daemons"]} | {os.getpid()}) \
+                != n + 2:
+            raise RuntimeError("the pool's daemons did not run in their "
+                               "own processes")
+        for d in out["daemons"]:
+            print(f"[pool] {d['role']} pid {d['pid']}: busy "
+                  f"{d['busy_s']:.2f} s, peak reserved "
+                  f"{d['max_memory_reserved_mib']:.0f} MiB ({card})")
+        print(f"[pool] card memory used, total: {out['card_memory']}; "
+              f"daemon kernel launches {launches} ({card})")
+        if any(launches.values()):
+            raise RuntimeError(f"the pool paths launched a hand-written "
+                               f"kernel: {launches}")
+        for c in daemon_clients:
+            c.close()
+        out["failure"] = _pool_failure(pool_c, solo, procs, n - 1, roots,
+                                       ports, device, logs, s["failure"],
+                                       card)
+        out["inproc"] = _pool_inprocess(s["inproc"], device, card)
+        out["wall_s"] = time.perf_counter() - t0
+        print(f"[pool] phase 17 wall {out['wall_s']:.1f} s ({card})")
+        if out["wall_s"] > POOL_BUDGET_S:
+            print(f"[pool] WARNING: phase 17 took {out['wall_s']:.1f} s, "
+                  f"over its {POOL_BUDGET_S} s budget")
+        return out
+    except BaseException:
+        import signal
+
+        for i, proc in enumerate(procs):
+            if proc is not None and proc.poll() is None:
+                proc.send_signal(signal.SIGUSR1)
+        time.sleep(1.0)
+        for i, log in enumerate(logs):
+            try:
+                with open(log) as f:
+                    print(f"[pool] daemon {i} log:\n" + f.read()[-6000:])
+            except OSError:
+                pass
+        raise
+    finally:
+        for c in clients:
+            try:
+                c.close()
+            except Exception:  # noqa: BLE001 — the kills below stop them
+                pass
+        for proc in procs:
+            if proc is None:
+                continue
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(30)
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -5447,6 +6271,11 @@ def main() -> int:
         print(json.dumps({"serve": phase_serve(pk, smi), "card": smi},
                          default=str))
         return 0
+    if "--pool-only" in sys.argv[1:]:
+        # phase 17 alone, the same way
+        print(json.dumps({"pool": phase_pool(pk, smi), "card": smi},
+                         default=str))
+        return 0
     b1 = phase_kernels(pk)
     b2 = phase_step_kernel(pk)
 
@@ -5486,6 +6315,10 @@ def main() -> int:
     del rel_state
     workloads = workloads_path(pk)
     serve = phase_serve(pk, smi)
+    pool = phase_pool(pk, smi)
+    pool_launches = {
+        k: pool["launches"].get(k, 0) + pool["inproc"]["launches"][i]
+        for i, k in enumerate(("flash_attention", "flash_attention_step"))}
 
     print(json.dumps({"ff_rows_per_s": ff["rows_per_s"],
                       "transformer_tokens_per_s": tf["tokens_per_s"],
@@ -5495,7 +6328,8 @@ def main() -> int:
                       "la": la, "relational": relational,
                       "paged_relations": paged_relations, "rows": rows,
                       "compiled": compiled, "workloads": workloads,
-                      "serve": serve, "card": smi}, default=str))
+                      "serve": serve, "pool": pool, "card": smi},
+                     default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
         return {"name": kname, "route": "cuda", "source": source,
@@ -5515,7 +6349,8 @@ def main() -> int:
                     "training": train["transformer_b1_launches"],
                     "compiled": compiled["launches"]["flash_attention"],
                     "workloads": workloads["launches"]["flash_attention"],
-                    "served": serve["launches"]["flash_attention"]},
+                    "served": serve["launches"]["flash_attention"],
+                    "pool": pool_launches["flash_attention"]},
                    b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
@@ -5524,7 +6359,8 @@ def main() -> int:
                     "compiled": compiled["launches"]["flash_attention_step"],
                     "workloads":
                         workloads["launches"]["flash_attention_step"],
-                    "served": serve["launches"]["flash_attention_step"]},
+                    "served": serve["launches"]["flash_attention_step"],
+                    "pool": pool_launches["flash_attention_step"]},
                    b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

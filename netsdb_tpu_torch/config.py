@@ -21,9 +21,8 @@ _LATER = {
     "summa_participants": (None, "A4"),
     "summa_grid": (None, "A4"),
     # A7 part 2: the daemon pool — pin auto-sizing from the attribution
-    # ledger, shards, HA, rebalancing
+    # ledger, HA, rebalancing
     "device_cache_pin_auto": (False, "A7 part 2"),
-    "shard_handoff_bytes": (256 * 1024 * 1024, "A7 part 2"),
     "rebalance": (False, "A7 part 2"),
     "rebalance_skew_ratio": (2.0, "A7 part 2"),
     "rebalance_windows": (3, "A7 part 2"),
@@ -167,7 +166,8 @@ class Configuration:
     obs_explain: bool = True
     obs_history_interval_s: float = 5.0
     obs_history_len: int = 120
-    # --- serving (one daemon; the pool knobs are A7 part 2) ---
+    # --- serving (one daemon and its shard pool; the other pool knobs
+    # are A7 part 2) ---
     sched_lanes: Optional[Dict[str, float]] = None
     sched_lane_quota: int = 0
     sched_aging_every: int = 8

@@ -80,7 +80,13 @@ def col_sum(x: BlockedTensor) -> BlockedTensor:
 
 def _masked_softmax(x: BlockedTensor, z: torch.Tensor,
                     axis: int) -> BlockedTensor:
-    y = torch.softmax(neutral_fill(x.with_data(z), float("-inf")), dim=axis)
+    # softmax along a contiguous last axis: each slice's reductions then
+    # run in one order whatever the other axis's width or the thread
+    # count, so a pool shard's batch columns equal a whole batch's bit for
+    # bit (the CPU's reduction over a strided axis depends on both)
+    filled = neutral_fill(x.with_data(z), float("-inf"))
+    y = torch.softmax(filled.movedim(axis, -1).contiguous(),
+                      dim=-1).movedim(-1, axis).contiguous()
     # rows/cols that are ALL padding give NaN (softmax of all -inf)
     y = torch.nan_to_num(y, nan=0.0, posinf=0.0, neginf=0.0)
     return remask(x.with_data(y.to(x.data.dtype)))

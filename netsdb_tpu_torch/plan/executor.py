@@ -275,7 +275,8 @@ def _assembled(pc: PagedColumns) -> ColumnTable:
     table = pc.assembled()
     if pc.cache_scope is not None and pc.cache_version_fn is not None:
         programs.tag_resident(table, programs.ResidentTag(
-            str(pc.cache_scope), pc.cache_version_fn()))
+            pc.program_scope or str(pc.cache_scope),
+            pc.cache_version_fn()))
     return table
 
 
@@ -928,7 +929,7 @@ def _execute_computations(client, sinks: List[WriteSet], job_name: str,
     for n in tensor_scans:
         ident = SetIdentifier(n.db, n.set_name)
         for t in programs.tensor_leaves(scans[n.node_id]):
-            tags[id(t)] = programs.ResidentTag(str(ident),
+            tags[id(t)] = programs.ResidentTag(store.program_scope(ident),
                                                store.version_of(ident))
     recorder = obs.operators.current_recorder()
     with torch.inference_mode(), \

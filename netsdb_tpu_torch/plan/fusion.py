@@ -35,10 +35,15 @@ programming over its contiguous segmentations, splitting a run whose
 staged-bytes estimate exceeds ``fusion_stage_budget_bytes``; ``"greedy"``
 fuses each whole run or nothing. ``config.plan_fusion=False`` takes the
 per-node paths (the same ``fold::``/``eager::`` keys as without the
-mapper). The reference's scatter boundary (``compile_scatter_merge``,
-anchor-only regions of shard-side partial folds) waits for
-``plan/scatter.py`` (ROADMAP.md A7); fusion arms of the placement advisor
-wait for ``learning/`` (A8).
+mapper).
+
+The mapper also owns the **scatter boundary**: a shard-side partial fold
+(a ``scatter_partial`` node shipped by ``plan/scatter.py``) forms an
+anchor-only region under the optimal mapper even with nothing to graft,
+and :func:`compile_scatter_merge` runs the coordinator's merge and
+finalize as one program of the executor's cache; both tick
+``fusion.distributed_regions``. Fusion arms of the placement advisor
+wait for ``learning/`` (ROADMAP.md A8).
 """
 
 from __future__ import annotations
@@ -408,6 +413,18 @@ def map_regions(plan: LogicalPlan, scan_values: Dict[int, Any],
             post.append(nxt)
             cur_id = nxt.node_id
         if not pre and not post:
+            if mapper == "optimal" and getattr(node, "scatter_partial",
+                                               False):
+                # a shard-side scatter partial fold with nothing local to
+                # graft is still the shard's one program: an anchor-only
+                # region, so the per-shard EXPLAIN carries its region id
+                ids = (node.node_id,)
+                regions.append(Region(rid, "graft", ids,
+                                      _fingerprint(plan, ids),
+                                      anchor=node.node_id))
+                graft_covered.update(ids)
+                rid += 1
+                obs.REGISTRY.counter("fusion.distributed_regions").inc()
             continue
         members = pre + [node] + post
         if not cost.region_profitable(members):
@@ -421,6 +438,9 @@ def map_regions(plan: LogicalPlan, scan_values: Dict[int, Any],
             stream_src=stream_src))
         graft_covered.update(ids)
         rid += 1
+        if getattr(node, "scatter_partial", False):
+            # the shard's partial fold with its grafted chains
+            obs.REGISTRY.counter("fusion.distributed_regions").inc()
 
     # --- spine regions over the remainder: maximal topo-contiguous
     # traceable resident runs ---------------------------------------
@@ -538,6 +558,45 @@ def _optimal_segments(run: List[Computation], cost: CostModel,
         # at the cheapest edges instead of falling back per-node
         obs.REGISTRY.counter("fusion.splits").inc(len(chosen) - 1)
     return [run[j:i] for j, i in chosen]
+
+
+# ------------------------------------------------------------------
+# the scatter boundary (used by plan/scatter.py and serve/shard.py)
+# ------------------------------------------------------------------
+
+def compile_scatter_merge(fold, nslots: int, src, job_name: str,
+                          label: str) -> Callable:
+    """ONE program for a scatter-gather ``fold_state`` coordinator: the
+    left fold of the N shards' partial states through
+    ``fold.state_merge`` and ``fold.finalize`` over the merged state (on
+    the card, one CUDA graph per signature).
+
+    ``src`` (the coordinator's ``SchemaProxy``) is closed over, and
+    ``finalize`` may read only ``src.dicts`` and ``src.num_rows``, so the
+    key carries the reference's digest of exactly that surface: another
+    dictionary or row count is another program. Callers fall back to the
+    eager merge (a counted :func:`fallback`) when the states or the fold
+    cannot run as a program."""
+    from netsdb_tpu_torch.plan import executor as _executor
+
+    dicts = getattr(src, "dicts", None) or {}
+    src_fp = hashlib.blake2s(repr(
+        (sorted((k, tuple(v)) for k, v in dicts.items()),
+         int(getattr(src, "num_rows", 0) or 0))).encode()
+    ).hexdigest()[:12]
+    key = (f"region::{job_name}::scatter::{label}::merge"
+           f"::k{int(nslots)}::{src_fp}")
+
+    def merge_finalize(states):
+        merged = states[0]
+        for s in states[1:]:
+            merged = fold.state_merge(merged, s)
+        return fold.finalize(merged, src)
+
+    obs.REGISTRY.counter("fusion.distributed_regions").inc()
+    prog = _executor._cached_program(key, region=f"{job_name}:scatter")
+    return _executor._bound(prog, merge_finalize,
+                            [fold.state_merge, fold.finalize])
 
 
 # ------------------------------------------------------------------

@@ -85,6 +85,7 @@ class PagedColumns:
         self.devcache = None
         self.cache_scope = None
         self.cache_version_fn = None
+        self.program_scope = None  # the store's name of the set for programs
         # this handle's own write count, part of every whole-run key
         self._mutations = 0
 

@@ -24,10 +24,18 @@ against a daemon that named this interpreter in its HELLO reply
 included — such a request raises :class:`ProtocolVersionError` before a
 byte is sent, and the codec-0 frames work as they are.
 
-Replicas with hedged reads, HA failover, placement-routed ingest into a
-shard pool and type-source shipping belong to ROADMAP.md A7 part 2, the
-trace export (GET_TRACE, PUT_TRACE, GET_METRICS) to A8: each raises
-``NotImplementedError`` naming its item."""
+Against a shard pool's leader the client routes: the placement map
+arrives in the handshake (or the reply of a sharded ``create_set``), and
+ingest into a partitioned set splits by the set's placement
+(``serve/placement.py``) and goes straight to the owning daemons in
+parallel, each slot's batch under its own idempotency token. A refusal
+for a stale epoch (``PlacementStaleError``) re-reads the map and
+re-routes at once.
+
+Replicas with hedged reads, HA failover, rebalancing (``add_worker``,
+``rebalance_status``) and type-source shipping belong to ROADMAP.md A7
+part 2, the trace export (GET_TRACE, PUT_TRACE, GET_METRICS) to A8: each
+raises ``NotImplementedError`` naming its item."""
 
 from __future__ import annotations
 
@@ -71,10 +79,12 @@ from netsdb_tpu_torch.serve.protocol import (
     IDEMPOTENCY_KEY,
     LANE_KEY,
     MUTATING_TYPES,
+    PLACEMENT_EPOCH_KEY,
     PROTO_VERSION,
     PY_KEY,
     PY_TAG,
     SESSION_KEY,
+    SHARD_SLOT_KEY,
     MsgType,
     ProtocolError,
     recv_frame,
@@ -233,6 +243,15 @@ class RemoteClient:
         # the thread driving a streaming reply: its nested requests take
         # a one-shot side connection
         self._stream_owner: Optional[int] = None
+        # routing state: the daemon's sharded-set map (None until a
+        # sharded set exists), direct connections to shard daemons, and
+        # the stale-map refresh guard (one fetch at a time)
+        self._placement_mu = TrackedLock("RemoteClient._placement_mu")
+        self._placement_wire: Optional[Dict[str, Any]] = None
+        self._shard_clients: Dict[str, "RemoteClient"] = {}
+        self._placement_fetch_mu = TrackedLock(
+            "RemoteClient._placement_fetch_mu")
+        self._refreshing_placement: Optional[int] = None
         self._connect()
 
     # --- transport ----------------------------------------------------
@@ -263,6 +282,10 @@ class RemoteClient:
                     f"v{reply.get('version')}; this client is "
                     f"v{PROTO_VERSION} — mixed versions are refused")
             self.pickle_ok = reply.get(PY_KEY) == PY_TAG
+            if isinstance(reply.get("placement"), dict):
+                # a pool leader ships its placement map in the handshake
+                with self._placement_mu:
+                    self._placement_wire = reply["placement"]
             s.settimeout(self._timeout)
         except BaseException:
             s.close()
@@ -362,6 +385,14 @@ class RemoteClient:
                 failure = ConnectionLostError(type(e).__name__, str(e))
             if attempt >= policy.max_attempts:
                 raise failure
+            if isinstance(failure, PlacementStaleError):
+                # the frame rode an out-of-date map: re-read it and retry
+                # at once (the refusal is deterministic, not congestion)
+                self._refresh_placement()
+                attempt += 1
+                self.total_retries += 1
+                obs.REGISTRY.counter("serve.client.retries").inc()
+                continue
             delay = policy.backoff_s(attempt, self._rng)
             hint = getattr(failure, "retry_after_s", None)
             if hint is not None and hint > 0:
@@ -451,13 +482,16 @@ class RemoteClient:
         return reply
 
     def _bulk_request(self, op: MsgType, meta: dict, chunk_fn,
-                      deadline_s: Optional[float] = None) -> Any:
+                      deadline_s: Optional[float] = None,
+                      token: Optional[str] = None) -> Any:
         """One logical bulk ingest, retried whole under the policy with
         ONE idempotency token for every attempt (nothing applies before
         COMMIT; a retry after a lost COMMIT reply replays the cached
-        result). ``chunk_fn`` returns a fresh chunk iterator per call."""
+        result). ``chunk_fn`` returns a fresh chunk iterator per call;
+        ``token`` overrides the minted token (routed ingest passes its
+        slot's)."""
         begin = {"op": int(op), "meta": meta,
-                 IDEMPOTENCY_KEY: uuid.uuid4().hex}
+                 IDEMPOTENCY_KEY: token or uuid.uuid4().hex}
         if self.client_id is not None:
             begin[CLIENT_ID_KEY] = str(self.client_id)
 
@@ -494,7 +528,27 @@ class RemoteClient:
             except OSError:
                 pass
 
+    def _force_close(self) -> None:
+        """Unstick an in-flight request from another thread: shut the
+        socket down without taking ``_lock`` (the stuck thread holds
+        it), so its blocking recv fails at once."""
+        s = self._sock
+        if s is not None:
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                s.close()
+            except OSError:
+                pass
+
     def close(self) -> None:
+        with self._placement_mu:
+            shard_clients = list(self._shard_clients.values())
+            self._shard_clients.clear()
+        for sc in shard_clients:
+            sc.close()
         with self._lock:
             self._drop_connection()
 
@@ -533,11 +587,21 @@ class RemoteClient:
         with the daemon's page arena."""
         if placement is not None and hasattr(placement, "to_meta"):
             placement = placement.to_meta()
-        self._request(MsgType.CREATE_SET, {
+        reply = self._request(MsgType.CREATE_SET, {
             "db": db, "set": set_name, "type_name": type_name,
             "persistence": persistence, "eviction": eviction,
             "partition_lambda": partition_lambda,
             "placement": placement, "storage": storage})
+        entry = reply.get("placement") if isinstance(reply, dict) else None
+        if isinstance(entry, dict):
+            # a sharded create answers with its entry: cache it, so the
+            # first ingest routes without a stale-map round trip
+            with self._placement_mu:
+                wire = self._placement_wire or {"epoch": 0, "sets": {}}
+                wire.setdefault("sets", {})[f"{db}:{set_name}"] = entry
+                wire["epoch"] = max(int(wire.get("epoch") or 0),
+                                    int(entry.get("epoch") or 0))
+                self._placement_wire = wire
         return RemoteIdent(db, set_name)
 
     def remove_set(self, db: str, set_name: str) -> None:
@@ -566,6 +630,189 @@ class RemoteClient:
                       {"type_name": type_name, "entry_point": entry_point,
                        "source": None})
 
+    # --- placement-aware routing (shard pools) -------------------------
+    def _refresh_placement(self) -> None:
+        """Re-read the daemon's placement map (best effort: a failure
+        keeps the old map, and the next routed attempt refuses typed
+        again). Concurrent callers wait for the fetch in flight and use
+        its result; the fetching thread's own re-entry is a no-op."""
+        me = threading.get_ident()
+        if self._refreshing_placement == me:
+            return
+        if not self._placement_fetch_mu.acquire(blocking=False):
+            self._placement_fetch_mu.acquire()
+            self._placement_fetch_mu.release()
+            return
+        self._refreshing_placement = me
+        try:
+            wire = self._request(MsgType.PLACEMENT, {})
+            with self._placement_mu:
+                self._placement_wire = wire
+            obs.REGISTRY.counter("serve.client.placement_refreshes").inc()
+        except Exception as e:  # noqa: BLE001 — best effort by contract
+            del e
+        finally:
+            self._refreshing_placement = None
+            self._placement_fetch_mu.release()
+
+    def placement_map(self) -> Optional[Dict[str, Any]]:
+        """The cached placement map (None until the daemon has a sharded
+        set)."""
+        with self._placement_mu:
+            return self._placement_wire
+
+    def _placement_entry(self, db: str, set_name: str,
+                         refresh: bool = False) -> Optional[Dict]:
+        """One set's entry from the cached map; no traffic unless
+        ``refresh``."""
+        from netsdb_tpu_torch.serve.placement import PlacementMap
+
+        if refresh:
+            self._refresh_placement()
+        with self._placement_mu:
+            wire = self._placement_wire
+        if not wire:
+            return None
+        return PlacementMap.entry_from_wire(wire, db, set_name)
+
+    def _shard_client(self, addr: str) -> "RemoteClient":
+        """Cached direct connection to one shard daemon, one attempt per
+        request: the routed loop owns the retries (it refreshes the map
+        between them)."""
+        with self._placement_mu:
+            sc = self._shard_clients.get(addr)
+        if sc is not None:
+            return sc
+        sc = RemoteClient(addr, token=self.token, timeout=self._timeout,
+                          retry=RetryPolicy(max_attempts=1),
+                          connect_timeout=self._connect_timeout,
+                          ingest_window=self.ingest_window,
+                          ingest_chunk_bytes=self.ingest_chunk_bytes,
+                          client_id=self.client_id, lane=self.lane)
+        with self._placement_mu:
+            other = self._shard_clients.setdefault(addr, sc)
+        if other is not sc:
+            sc.close()
+        return other
+
+    def _drop_shard_client(self, addr: str) -> None:
+        with self._placement_mu:
+            sc = self._shard_clients.pop(addr, None)
+        if sc is not None:
+            sc.close()
+
+    def _send_partition(self, addr: str, db: str, set_name: str, part,
+                        as_table: bool, date_cols, epoch: int, slot: int,
+                        token: str, chunk_bytes: int) -> Any:
+        """One slot's partition to its owner (or to the leader, for a
+        slot in handoff): big payloads stream with the epoch in the BEGIN
+        meta, small ones ride one frame. ``token`` is the slot's stable
+        idempotency token, so a retried partition dedupes."""
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        sc = self._shard_client(addr)
+        routed = {"pepoch": int(epoch), "slot": int(slot)}
+        if isinstance(part, ColumnTable):
+            nbytes = sum(int(v.nbytes) for v in part.cols.values())
+            if nbytes >= chunk_bytes:
+                return sc._bulk_request(
+                    MsgType.SEND_DATA,
+                    {"db": db, "set": set_name, "mode": "table",
+                     "date_cols": list(date_cols), "append": True,
+                     "dicts": {k: list(v) for k, v in part.dicts.items()},
+                     "nrows": int(part.num_rows), **routed},
+                    sc._table_chunks(part, chunk_bytes), token=token)
+            payload: Dict[str, Any] = {
+                "db": db, "set": set_name, "items": part,
+                "as_table": True, "date_cols": list(date_cols),
+                "append": True}
+        elif len(part) >= self.PIPELINE_MIN_ITEMS:
+            meta = {"db": db, "set": set_name, "mode": "items", **routed}
+            if as_table:
+                meta.update(as_table=True, date_cols=list(date_cols),
+                            append=True)
+            return sc._bulk_request(
+                MsgType.SEND_DATA, meta,
+                sc._item_chunks(list(part), chunk_bytes), token=token)
+        elif as_table:
+            payload = {"db": db, "set": set_name, "items": list(part),
+                       "as_table": True, "date_cols": list(date_cols),
+                       "append": True}
+        else:
+            payload = {"db": db, "set": set_name, "items": list(part)}
+        payload[PLACEMENT_EPOCH_KEY] = int(epoch)
+        payload[SHARD_SLOT_KEY] = int(slot)
+        payload[IDEMPOTENCY_KEY] = token
+        return sc._request(MsgType.SEND_DATA, payload, codec=CODEC_PICKLE)
+
+    def _routed_ingest(self, db: str, set_name: str, parts: Dict[int, Any],
+                       as_table: bool, date_cols,
+                       chunk_bytes: int) -> Dict[int, Any]:
+        """One logical ingest fanned out to the owning shards in parallel.
+        Failed slots retry under the RetryPolicy with the map re-read
+        between rounds (an evicted slot's partition then goes to the
+        leader's handoff buffer); the per-slot tokens keep every retry at
+        most once."""
+        tokens = {slot: uuid.uuid4().hex for slot in parts}
+        remaining = dict(parts)
+        replies: Dict[int, Any] = {}
+        policy = self._retry
+        attempt = 1
+        obs.REGISTRY.counter("serve.client.routed_ingests").inc()
+        while True:
+            entry = self._placement_entry(db, set_name, refresh=attempt > 1)
+            if entry is None:
+                raise PlacementStaleError(
+                    "PlacementStale",
+                    f"{db}:{set_name} vanished from the placement map")
+            errors: Dict[int, BaseException] = {}
+            lock = threading.Lock()
+
+            def send_slot(slot, part, entry=entry, errors=errors,
+                          lock=lock):
+                sl = entry["slots"][slot]
+                addr = (self.current_address if sl["state"] != "live"
+                        else sl["addr"])
+                try:
+                    reply = self._send_partition(
+                        addr, db, set_name, part, as_table, date_cols,
+                        entry["epoch"], slot, tokens[slot], chunk_bytes)
+                    with lock:
+                        replies[slot] = reply
+                except Exception as e:  # noqa: BLE001 — every failure
+                    # lands in errors, or its partition would be lost
+                    self._drop_shard_client(addr)
+                    with lock:
+                        errors[slot] = e
+
+            threads = [threading.Thread(target=send_slot, args=(slot, part),
+                                        daemon=True)
+                       for slot, part in remaining.items()]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            remaining = {slot: part for slot, part in remaining.items()
+                         if slot in errors}
+            if not remaining:
+                return replies
+            # a deterministic slot failure wins at once
+            fatal = next((e for e in errors.values()
+                          if isinstance(e, RemoteError) and not e.retryable),
+                         None)
+            if fatal is not None:
+                raise fatal
+            if attempt >= policy.max_attempts:
+                raise next(iter(errors.values()))
+            if not all(isinstance(e, PlacementStaleError)
+                       for e in errors.values()):
+                # transport faults back off; stale-map refusals resolve
+                # with the refresh at the top of the next round
+                time.sleep(policy.backoff_s(attempt, self._rng))
+            attempt += 1
+            self.total_retries += 1
+            obs.REGISTRY.counter("serve.client.retries").inc()
+
     # --- data path ----------------------------------------------------
     def _item_chunks(self, items: list, chunk_bytes: int):
         """Adaptive item batching: the first chunk holds one item, then
@@ -590,18 +837,34 @@ class RemoteClient:
         """Object ingest. Big batches stream as bounded chunks under the
         windowed-ack pipeline (``pipeline=None`` decides by item count;
         ``True``/``False`` pins a path)."""
+        from netsdb_tpu_torch.serve import placement as _pl
+
         items = list(items)
+        cb = int(chunk_bytes or self.ingest_chunk_bytes)
+        entry = self._placement_entry(db, set_name)
+        if entry is not None:
+            self._routed_ingest(db, set_name,
+                                dict(_pl.split_items(items, entry)),
+                                as_table=False, date_cols=(),
+                                chunk_bytes=cb)
+            return
         use = (pipeline if pipeline is not None
                else len(items) >= self.PIPELINE_MIN_ITEMS)
-        if not use:
-            self._request(MsgType.SEND_DATA,
-                          {"db": db, "set": set_name, "items": items},
-                          codec=CODEC_PICKLE)
-            return
-        cb = int(chunk_bytes or self.ingest_chunk_bytes)
-        self._bulk_request(MsgType.SEND_DATA,
-                           {"db": db, "set": set_name, "mode": "items"},
-                           self._item_chunks(items, cb))
+        try:
+            if not use:
+                self._request(MsgType.SEND_DATA,
+                              {"db": db, "set": set_name, "items": items},
+                              codec=CODEC_PICKLE)
+                return
+            self._bulk_request(MsgType.SEND_DATA,
+                               {"db": db, "set": set_name, "mode": "items"},
+                               self._item_chunks(items, cb))
+        except PlacementStaleError:
+            # the set was sharded after this client's map: route
+            if self._placement_entry(db, set_name, refresh=True) is None:
+                raise
+            self.send_data(db, set_name, items, pipeline=pipeline,
+                           chunk_bytes=chunk_bytes)
 
     @staticmethod
     def _table_chunks(table, chunk_bytes: int):
@@ -630,10 +893,57 @@ class RemoteClient:
         ingest; returns a :class:`RemoteTableInfo`. A table streams as
         row-range column slices out of band, rows as pickled batches,
         both under the windowed-ack pipeline when big
-        (``pipeline=None`` decides by size)."""
+        (``pipeline=None`` decides by size). A partitioned set routes:
+        the rows split across the owning shards, each partition straight
+        to its daemon; ``append=False`` first clears the set pool-wide."""
+        cb = int(chunk_bytes or self.ingest_chunk_bytes)
+        if self._placement_entry(db, set_name) is not None:
+            return self._send_table_routed(db, set_name, rows_or_table,
+                                           date_cols, append, cb)
+        try:
+            return self._send_table_plain(db, set_name, rows_or_table,
+                                          date_cols, append, pipeline, cb)
+        except PlacementStaleError:
+            # the set was sharded after this client's map: route
+            if self._placement_entry(db, set_name, refresh=True) is None:
+                raise
+            return self.send_table(db, set_name, rows_or_table,
+                                   date_cols=date_cols, append=append,
+                                   pipeline=pipeline,
+                                   chunk_bytes=chunk_bytes)
+
+    def _send_table_routed(self, db: str, set_name: str, rows_or_table,
+                           date_cols, append: bool,
+                           chunk_bytes: int) -> RemoteTableInfo:
+        from netsdb_tpu_torch.relational.table import ColumnTable
+        from netsdb_tpu_torch.serve import placement as _pl
+
+        entry = self._placement_entry(db, set_name)
+        if not append:
+            # replace = a pool-wide clear, then the partitions append
+            self.clear_set(db, set_name)
+        if isinstance(rows_or_table, ColumnTable):
+            table = rows_or_table
+            self._routed_ingest(db, set_name,
+                                dict(_pl.split_table(table, entry)),
+                                as_table=True, date_cols=date_cols,
+                                chunk_bytes=chunk_bytes)
+            total = int(table.compact().num_rows if table.valid is not None
+                        else table.num_rows)
+            return RemoteTableInfo(total, sorted(table.cols))
+        items = list(rows_or_table)
+        replies = self._routed_ingest(db, set_name,
+                                      dict(_pl.split_items(items, entry)),
+                                      as_table=True, date_cols=date_cols,
+                                      chunk_bytes=chunk_bytes)
+        cols = sorted({c for r in replies.values() if isinstance(r, dict)
+                       for c in (r.get("columns") or ())})
+        return RemoteTableInfo(len(items), cols)
+
+    def _send_table_plain(self, db, set_name, rows_or_table, date_cols,
+                          append, pipeline, cb) -> RemoteTableInfo:
         from netsdb_tpu_torch.relational.table import ColumnTable
 
-        cb = int(chunk_bytes or self.ingest_chunk_bytes)
         if isinstance(rows_or_table, ColumnTable):
             table = rows_or_table
             if table.valid is not None:
@@ -701,10 +1011,61 @@ class RemoteClient:
         dense = _host_array(dense)
         if dtype is not None:
             dense = dense.astype(dtype)
+        entry = self._placement_entry(db, set_name)
+        if entry is not None:
+            return self._send_matrix_routed(db, set_name, dense,
+                                            block_shape, entry)
         reply = self._request(MsgType.SEND_MATRIX, {
             "db": db, "set": set_name,
             "tensor": tensor_to_wire(dense, block_shape)})
         return RemoteTensor(dense, reply.get("block_shape"))
+
+    def _send_matrix_routed(self, db: str, set_name: str, dense,
+                            block_shape, entry) -> RemoteTensor:
+        """Batch-partitioned tensor ingest (the serving frame): rows split
+        by the placement's contiguous range slices, slice *i* to slot
+        *i*, so slot order is batch order; slices go out in parallel. A
+        degraded slot's typed refusal surfaces to the caller (a scoring
+        batch is transient: no handoff buffering)."""
+        from netsdb_tpu_torch.serve import placement as _pl
+
+        if entry.get("mode") != "range":
+            raise ValueError(
+                f"tensor set {db}:{set_name} is partitioned "
+                f"{entry.get('mode')!r}; matrices shard by contiguous row "
+                f"ranges only — create with placement=\"range\"")
+        slots = entry["slots"]
+        slices = _pl.range_slices(int(dense.shape[0]), len(slots))
+        errors: Dict[int, BaseException] = {}
+        lock = threading.Lock()
+
+        def send_slot(i: int, lo: int, hi: int) -> None:
+            sl = slots[i]
+            addr = (self.current_address if sl["state"] != "live"
+                    else sl["addr"])
+            try:
+                self._shard_client(addr)._request(MsgType.SEND_MATRIX, {
+                    "db": db, "set": set_name,
+                    "tensor": tensor_to_wire(
+                        np.ascontiguousarray(dense[lo:hi]), block_shape),
+                    PLACEMENT_EPOCH_KEY: int(entry["epoch"]),
+                    SHARD_SLOT_KEY: i})
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                self._drop_shard_client(addr)
+                with lock:
+                    errors[i] = e
+
+        threads = [threading.Thread(target=send_slot, args=(i, lo, hi),
+                                    daemon=True)
+                   for i, (lo, hi) in enumerate(slices)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[min(errors)]
+        obs.REGISTRY.counter("serve.client.routed_ingests").inc()
+        return RemoteTensor(dense, list(block_shape) if block_shape else None)
 
     def get_tensor(self, db: str, set_name: str) -> RemoteTensor:
         reply = self._request(MsgType.GET_TENSOR,
@@ -941,13 +1302,11 @@ class RemoteClient:
     def get_metrics(self, *args, **kwargs):
         _later("get_metrics (telemetry history and export)", "A8")
 
-    def placement_map(self) -> Optional[Dict[str, Any]]:
-        """The cached shard placement map: None, as for any client of a
-        daemon with no sharded set (shard pools: ROADMAP.md A7 part 2)."""
-        return None
-
-    def placement_view(self):
-        _later("placement_view (the shard pool)", "A7 part 2")
+    def placement_view(self) -> Dict[str, Any]:
+        """The leader's live placement table: per-slot owner, state and
+        bytes of every sharded set, and the per-member totals."""
+        return self._request(MsgType.RESHARD, {"op": "view"},
+                             codec=CODEC_PICKLE)
 
     def hedge_delay_s(self) -> float:
         _later("hedge_delay_s (hedged reads over replicas)", "A7 part 2")
@@ -961,10 +1320,10 @@ class RemoteClient:
         _later("resync_follower (follower resync)", "A7 part 2")
 
     def rebalance_status(self):
-        _later("rebalance_status (the shard pool)", "A7 part 2")
+        _later("rebalance_status (shard rebalancing)", "A7 part 2")
 
     def add_worker(self, addr: str, campaign: bool = True):
-        _later("add_worker (the shard pool)", "A7 part 2")
+        _later("add_worker (shard rebalancing)", "A7 part 2")
 
 
 class SessionHandle:

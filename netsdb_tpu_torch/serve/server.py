@@ -15,12 +15,22 @@ Mutating frames carry idempotency tokens; completed replies are cached
 (and persisted in sqlite under ``root_dir``), so a retry — across a
 restart too — replays the reply instead of applying the mutation twice.
 
-The pool topologies (``followers=``, ``workers=``, ``ha_peers=``) and
-their frames (RESYNC_FOLLOWER, PLACEMENT, SUBPLAN, SHUFFLE_PUT,
-SHARD_RESYNC, HA_STATE, TOKEN_ALIAS, RESHARD, LOCAL_SHARDS) belong to
-ROADMAP.md A7 part 2, and so does shipping a type's module source; the
-trace ring and telemetry export (GET_TRACE, PUT_TRACE, GET_METRICS)
-belong to A8. Each raises ``NotImplementedError`` naming its item.
+**The shard pool.** ``ServeController(workers=[addr, ...])`` makes this
+daemon the leader of a partitioned worker pool (netsDB's master over its
+workers): a set created with ``placement="hash"`` or ``"range"`` splits
+its pages across ``[this daemon] + workers``, the leader owns the
+versioned placement map (``serve/placement.py``) it ships in the HELLO
+reply and the PLACEMENT frame, ingest routes to the owning shards with
+the epoch gate, queries over sharded sets scatter-gather
+(``serve/shard.py``: SUBPLAN, SHUFFLE_PUT) and a heartbeat loop evicts
+an unreachable worker into handoff and readmits it (SHARD_RESYNC, then
+the handoff drain). The map and the handoff buffer live in memory.
+Followers and mirroring, HA, rebalancing (RESHARD, except its ``view``
+op), chaos and their frames (RESYNC_FOLLOWER, HA_STATE, TOKEN_ALIAS,
+LOCAL_SHARDS) belong to ROADMAP.md A7 part 2, and so does shipping a
+type's module source; the trace ring and telemetry export (GET_TRACE,
+PUT_TRACE, GET_METRICS) belong to A8. Each raises ``NotImplementedError``
+naming its item.
 
 Run it as ``python -m netsdb_tpu_torch.serve.server --port 0 --root DIR
 [--device cpu]``, or call :func:`run_daemon` with a ``Configuration``:
@@ -29,6 +39,7 @@ then serves until SHUTDOWN."""
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import importlib
 import inspect
@@ -40,7 +51,7 @@ import threading
 import time
 import traceback
 from collections import OrderedDict
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,14 +59,18 @@ import torch
 from netsdb_tpu_torch import obs
 from netsdb_tpu_torch.client import Client
 from netsdb_tpu_torch.config import Configuration
+from netsdb_tpu_torch.serve import placement as _placement
 from netsdb_tpu_torch.serve import sched as _sched
 from netsdb_tpu_torch.serve import sessions as _sessions
+from netsdb_tpu_torch.serve import shard as _shard
 from netsdb_tpu_torch.serve.errors import (
     BACKPRESSURE_FIELDS,
     AdmissionFull,
     CorruptFrame,
     LaneSaturated,
+    PlacementStale,
     RequestInFlight,
+    ShardUnavailable,
 )
 from netsdb_tpu_torch.serve.protocol import (
     CLIENT_ID_KEY,
@@ -71,6 +86,7 @@ from netsdb_tpu_torch.serve.protocol import (
     PY_TAG,
     QUERY_ID_KEY,
     SESSION_KEY,
+    SHARD_SLOT_KEY,
     MsgType,
     ProtocolError,
     decode_body,
@@ -89,11 +105,10 @@ from netsdb_tpu_torch.utils.timing import deadline_after, seconds_left, wall_now
 OBS_FRAMES = frozenset({MsgType.PING, MsgType.COLLECT_STATS,
                         MsgType.HEALTH})
 
-#: frames of the pool topologies (followers, shard pool, HA, rebalancing)
+#: frames of the pool topologies not ported yet (followers, HA)
 POOL_FRAMES = frozenset({
-    MsgType.RESYNC_FOLLOWER, MsgType.PLACEMENT, MsgType.SUBPLAN,
-    MsgType.SHUFFLE_PUT, MsgType.SHARD_RESYNC, MsgType.HA_STATE,
-    MsgType.TOKEN_ALIAS, MsgType.RESHARD, MsgType.LOCAL_SHARDS})
+    MsgType.RESYNC_FOLLOWER, MsgType.HA_STATE, MsgType.TOKEN_ALIAS,
+    MsgType.LOCAL_SHARDS})
 
 #: frames of the trace ring and the telemetry export
 OBS_EXPORT_FRAMES = frozenset({MsgType.GET_TRACE, MsgType.PUT_TRACE,
@@ -413,25 +428,32 @@ class ServeController:
         ``frame_timeout_s`` bounds a frame once its first byte landed,
         a reply's drain, and a duplicate request's wait for its
         original; ``handshake_timeout_s`` bounds HELLO;
-        ``mirror_ack_timeout_s`` bounds a coalesced waiter. The
-        heartbeat and resync knobs tune follower links, which — like
-        ``followers``, ``workers``, ``ha_peers`` and the chaos hooks —
-        belong to ROADMAP.md A7 part 2: a non-empty pool list, a chaos
-        injector or a link knob away from its default raises here."""
-        for name, value in (("followers", followers), ("workers", workers),
+        ``mirror_ack_timeout_s`` bounds a coalesced waiter and a
+        scatter-gather's wait for its shards.
+
+        ``workers``: addresses of shard daemons forming this leader's
+        partitioned pool (see the module docstring). The ``heartbeat_*``
+        knobs tune the leader's pool health loop and are accepted when
+        ``workers`` is given; without it they, the resync knobs,
+        ``followers``, ``ha_peers`` and the chaos hooks tune follower
+        links, HA and fault injection, which belong to ROADMAP.md A7
+        part 2: a non-empty list, an injector or a knob away from its
+        default raises here."""
+        for name, value in (("followers", followers),
                             ("ha_peers", ha_peers), ("chaos", chaos),
                             ("follower_chaos", follower_chaos)):
             if value:
                 raise NotImplementedError(
-                    f"ServeController({name}=...): the daemon pool "
-                    f"(mirroring, sharding, HA, fault injection) is not "
-                    f"ported yet: ROADMAP.md A7 part 2")
-        for name, value, default in (
-                ("heartbeat_interval_s", heartbeat_interval_s, 2.0),
-                ("heartbeat_timeout_s", heartbeat_timeout_s, 5.0),
-                ("heartbeat_misses", heartbeat_misses, 3),
-                ("resync_grace_s", resync_grace_s, 30.0),
-                ("resync_timeout_s", resync_timeout_s, 120.0)):
+                    f"ServeController({name}=...): the daemon pool's "
+                    f"mirroring, HA and fault injection are not ported "
+                    f"yet: ROADMAP.md A7 part 2")
+        links = [("resync_grace_s", resync_grace_s, 30.0),
+                 ("resync_timeout_s", resync_timeout_s, 120.0)]
+        if not workers:
+            links += [("heartbeat_interval_s", heartbeat_interval_s, 2.0),
+                      ("heartbeat_timeout_s", heartbeat_timeout_s, 5.0),
+                      ("heartbeat_misses", heartbeat_misses, 3)]
+        for name, value, default in links:
             if value != default:
                 raise NotImplementedError(
                     f"ServeController({name}={value!r}): follower links "
@@ -444,6 +466,19 @@ class ServeController:
         self.admission_timeout_s = admission_timeout_s
         self.frame_timeout_s = frame_timeout_s
         self.handshake_timeout_s = handshake_timeout_s
+        self.heartbeat_interval_s = heartbeat_interval_s
+        self.heartbeat_timeout_s = heartbeat_timeout_s
+        self.heartbeat_misses = heartbeat_misses
+        self.mirror_ack_timeout_s = mirror_ack_timeout_s
+        # --- the shard pool -----------------------------------------
+        # the leader's set → slot map (empty on a plain daemon, whose
+        # placement probes then answer None); a worker's registrations
+        # (db, set) → {"epoch", "slot"} of the slots it holds
+        self._worker_addrs: List[str] = list(workers or [])
+        self.placement = _placement.PlacementMap()
+        self._shard_sets: Dict[Tuple[str, str], Dict[str, int]] = {}
+        self._shard_mu = TrackedLock("ServeController._shard_mu")
+        self._pool_thread: Optional[threading.Thread] = None
         #: this daemon's address — rewritten by start() once the port
         #: is bound (port=0)
         self.advertise_addr = f"{host}:{port}"
@@ -454,6 +489,11 @@ class ServeController:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._idem = _IdempotencyCache(persist_path=os.path.join(
             self.config.root_dir, "idempotency.sqlite"))
+        # pool connections, handoff buffers and the scatter coordinator;
+        # inbound shuffle buckets
+        self.shards = _shard.ShardPool(
+            self, handoff_max_bytes=self.config.shard_handoff_bytes)
+        self._shuffle = _shard.ShuffleInbox()
         self.sessions = _sessions.SessionManager(self)
         self.sched = _sched.QueryScheduler(
             slots=max_jobs or self.config.num_threads,
@@ -504,6 +544,11 @@ class ServeController:
             MsgType.HEALTH: self._on_health,
             MsgType.ANALYZE_SET: self._on_analyze_set,
             MsgType.PAGED_MATMUL: self._on_paged_matmul,
+            MsgType.PLACEMENT: self._on_placement,
+            MsgType.SUBPLAN: self._on_subplan,
+            MsgType.SHUFFLE_PUT: self._on_shuffle_put,
+            MsgType.SHARD_RESYNC: self._on_shard_resync,
+            MsgType.RESHARD: self._on_reshard,
             MsgType.SESSION_OPEN: self.sessions.handle_open,
             MsgType.GENERATE: self.sessions.handle_generate,
             MsgType.SESSION_CLOSE: self.sessions.handle_close,
@@ -534,6 +579,12 @@ class ServeController:
                              name="netsdb-torch-serve-accept")
         t.start()
         self._threads.append(t)
+        if self._worker_addrs:
+            self._pool_thread = threading.Thread(
+                target=self._pool_health_loop, daemon=True,
+                name="netsdb-torch-serve-pool-health")
+            self._pool_thread.start()
+            self._threads.append(self._pool_thread)
         return self.port
 
     def serve_forever(self) -> None:
@@ -550,6 +601,7 @@ class ServeController:
     def shutdown(self) -> None:
         self._stop.set()
         self.sessions.stop()
+        self.shards.close()
         obs.REGISTRY.unregister_collector("sched", self.sched.snapshot)
         self._idem.close()
         if self._listener is not None:
@@ -610,9 +662,13 @@ class ServeController:
                     send_frame(conn, MsgType.ERR,
                                {"error": "AuthError", "message": "bad token"})
                     return
-                send_frame(conn, MsgType.OK,
-                           {"server": "netsdb_tpu", "version": PROTO_VERSION,
-                            PY_KEY: PY_TAG})
+                ok_reply = {"server": "netsdb_tpu", "version": PROTO_VERSION,
+                            PY_KEY: PY_TAG}
+                if len(self.placement):
+                    # the map rides the handshake only while sharded sets
+                    # exist (the plain handshake stays as it was)
+                    ok_reply["placement"] = self.placement.to_wire()
+                send_frame(conn, MsgType.OK, ok_reply)
                 conn.settimeout(None)
             except (ProtocolError, ConnectionError, OSError):
                 return
@@ -829,11 +885,7 @@ class ServeController:
                 raise ProtocolError(
                     f"op {p.get('op')!r} is not bulk-streamable")
             meta = dict(p.get("meta") or {})
-            if meta.get("pepoch") is not None:
-                raise NotImplementedError(
-                    "routed ingest into a shard slot is not ported yet: "
-                    "ROADMAP.md A7 part 2")
-        except (ProtocolError, ValueError, NotImplementedError) as e:
+        except (ProtocolError, ValueError) as e:
             return self._send_err(conn, e, retryable=False)
         token = p.get(IDEMPOTENCY_KEY)
         client = p.get(CLIENT_ID_KEY)
@@ -856,6 +908,12 @@ class ServeController:
                        else _ItemsAssembler(meta, pickle_ok))
             except ProtocolError as e:
                 return self._send_err(conn, e, retryable=False)
+            if meta.get("pepoch") is not None or self.is_sharded(
+                    meta.get("db"), meta.get("set")):
+                # the placement-epoch gate at BEGIN: a stale map refuses
+                # before the payload streams (COMMIT checks again)
+                self._shard_route(meta.get("db"), meta.get("set"),
+                                  meta.get("pepoch"), meta.get("slot"))
             self._send_reply(conn, MsgType.OK, {"go": True})
             total_in = 0
             while True:
@@ -885,6 +943,12 @@ class ServeController:
                             f"{payload.get('chunks')} chunks, received "
                             f"{asm.chunks}")
                     final_payload, _codec = asm.finish()
+                    if meta.get("pepoch") is not None:
+                        # the routed epoch and slot ride to the apply,
+                        # which validates them again
+                        final_payload[PLACEMENT_EPOCH_KEY] = meta["pepoch"]
+                        if meta.get("slot") is not None:
+                            final_payload[SHARD_SLOT_KEY] = meta["slot"]
                     owned = False  # _execute_frame consumes the token
                     result = self._execute_frame(op, final_payload, token,
                                                  client=client)
@@ -955,29 +1019,106 @@ class ServeController:
         self.library.create_database(p["db"])
         return MsgType.OK, {}
 
-    def _on_create_set(self, p):
-        placement = p.get("placement")
-        if placement == "mirror":
-            placement = None  # the explicit spelling of the default
-        if placement in ("hash", "range") or (
-                isinstance(placement, dict) and placement.get("shard")):
-            raise NotImplementedError(
-                "create_set(placement='hash'|'range'): sets partitioned "
-                "over a daemon pool are not ported yet: ROADMAP.md A7 "
-                "part 2")
+    @staticmethod
+    def _shard_mode(placement_arg) -> Tuple[Optional[str], Optional[str]]:
+        """(mode, key) when ``placement`` asks for pool sharding — the
+        strings ``"hash"``/``"range"`` or ``{"shard": mode, "key": col}``
+        — else (None, None)."""
+        if isinstance(placement_arg, str) \
+                and placement_arg in ("hash", "range"):
+            return placement_arg, None
+        if isinstance(placement_arg, dict) and placement_arg.get("shard"):
+            return str(placement_arg["shard"]), placement_arg.get("key")
+        return None, None
+
+    def _create_local_set(self, p, placement=None) -> None:
         self.library.create_set(
             p["db"], p["set"], type_name=p.get("type_name", "tensor"),
             persistence=p.get("persistence", "transient"),
             eviction=p.get("eviction", "lru"),
             partition_lambda=p.get("partition_lambda"),
             placement=placement, storage=p.get("storage", "memory"))
-        return MsgType.OK, {}
+
+    def _on_create_set(self, p):
+        shard_info = p.get("__shard__")
+        if shard_info is not None:
+            # a worker's side of a sharded create: its slot's local set
+            # and the epoch routed frames are held against
+            self.library.create_database(p["db"])
+            self._create_local_set(p)
+            self._register_shard(p["db"], p["set"], shard_info["slot"],
+                                 shard_info["epoch"])
+            return MsgType.OK, {}
+        placement = p.get("placement")
+        if placement == "mirror":
+            placement = None  # the explicit spelling of the default
+        mode, key = self._shard_mode(placement)
+        if mode is None:
+            self._create_local_set(p, placement)
+            return MsgType.OK, {}
+        # the leader's side: this daemon is slot 0, every worker one slot.
+        # A degraded pool refuses before any mutation.
+        degraded = self.shards.degraded()
+        if degraded:
+            raise ShardUnavailable(
+                f"cannot create partitioned set {p['db']}:{p['set']}: pool "
+                f"worker(s) {sorted(degraded)} are degraded; retry after "
+                f"readmit")
+        self._create_local_set(p)
+        addrs = [self.advertise_addr] + list(self._worker_addrs)
+        entry = self.placement.create(p["db"], p["set"], addrs, mode=mode,
+                                      key=key)
+        fwd = {k: v for k, v in p.items() if k != "placement"}
+        try:
+            for i, addr in enumerate(addrs[1:], start=1):
+                self.shards.peer_request(
+                    addr, MsgType.CREATE_SET,
+                    {**fwd, "__shard__": {"slot": i,
+                                          "epoch": entry["epoch"]}})
+        except Exception as e:
+            # a worker died mid-create: unregister the half-born entry
+            # (a retry recreates over the local set)
+            self.placement.remove(p["db"], p["set"])
+            raise ShardUnavailable(
+                f"partitioned create of {p['db']}:{p['set']} failed "
+                f"mid-fanout ({type(e).__name__}: {e}); placement rolled "
+                f"back — retry") from e
+        return MsgType.OK, {"placement": entry}
+
+    def _fanout_sharded_ddl(self, typ, p) -> bool:
+        """Forward one DDL frame to every worker slot of a sharded set,
+        all or nothing: a degraded slot refuses typed retryable (a DDL
+        that skipped it would diverge it). True when the set is
+        sharded."""
+        entry = self.placement.entry(p["db"], p["set"])
+        if entry is None:
+            return False
+        for i, sl in enumerate(entry["slots"]):
+            if sl["state"] != _placement.LIVE:
+                raise ShardUnavailable(
+                    f"slot {i} of {p['db']}:{p['set']} ({sl['addr']}) is "
+                    f"degraded; pool-wide DDL refused rather than diverge "
+                    f"the absent shard — retry after readmit",
+                    slot=i, epoch=entry["epoch"])
+        for sl in entry["slots"]:
+            if sl["addr"] != self.advertise_addr:
+                self.shards.peer_request(sl["addr"], typ,
+                                         {"db": p["db"], "set": p["set"]})
+        return True
 
     def _on_remove_set(self, p):
+        if self._fanout_sharded_ddl(MsgType.REMOVE_SET, p):
+            self.placement.remove(p["db"], p["set"])
+        # the set's buffered handoff dies with it
+        self.shards.purge_handoff(p["db"], p["set"])
+        with self._shard_mu:
+            self._shard_sets.pop((p["db"], p["set"]), None)
         self.library.remove_set(p["db"], p["set"])
         return MsgType.OK, {}
 
     def _on_clear_set(self, p):
+        if self._fanout_sharded_ddl(MsgType.CLEAR_SET, p):
+            self.shards.purge_handoff(p["db"], p["set"])
         self.library.clear_set(p["db"], p["set"])
         return MsgType.OK, {}
 
@@ -1002,10 +1143,18 @@ class ServeController:
         return resolve_entry_point(entry or name_or_entry)
 
     def _on_send_data(self, p):
-        if p.pop(PLACEMENT_EPOCH_KEY, None) is not None:
-            raise NotImplementedError(
-                "routed ingest into a shard slot is not ported yet: "
-                "ROADMAP.md A7 part 2")
+        epoch = p.pop(PLACEMENT_EPOCH_KEY, None)
+        slot = p.pop(SHARD_SLOT_KEY, None)
+        if self._shard_route(p.get("db"), p.get("set"), epoch,
+                             slot) == "handoff":
+            # the slot's shard is away: buffer exactly this batch at the
+            # leader under the client's token; the readmit drain ships it
+            items = p.get("items")
+            count = int(getattr(items, "num_rows", None)
+                        or (len(items) if hasattr(items, "__len__") else 0))
+            self.shards.handoff_put(p["db"], p["set"], int(slot),
+                                    _sessions.idem_token.get(), p)
+            return MsgType.OK, {"count": count, "handoff": True}
         if p.get("as_table"):
             t = self.library.send_table(p["db"], p["set"], p["items"],
                                         date_cols=p.get("date_cols", ()),
@@ -1016,10 +1165,17 @@ class ServeController:
         return MsgType.OK, {"count": len(p["items"])}
 
     def _on_send_matrix(self, p):
-        if p.pop(PLACEMENT_EPOCH_KEY, None) is not None:
-            raise NotImplementedError(
-                "routed ingest into a shard slot is not ported yet: "
-                "ROADMAP.md A7 part 2")
+        # a batch-partitioned tensor set (the serving input) takes routed
+        # frames like SEND_DATA: each slot ingests its contiguous rows
+        epoch = p.pop(PLACEMENT_EPOCH_KEY, None)
+        slot = p.pop(SHARD_SLOT_KEY, None)
+        if self._shard_route(p.get("db"), p.get("set"), epoch,
+                             slot) == "handoff":
+            # a scoring batch is transient: no handoff buffering
+            raise ShardUnavailable(
+                f"slot {slot} of {p['db']}:{p['set']} is degraded; matrix "
+                f"ingest refused — retry after readmit",
+                slot=slot, epoch=epoch)
         dense, block_shape = tensor_from_wire(p["tensor"])
         t = self.library.send_matrix(p["db"], p["set"], dense, block_shape)
         return MsgType.OK, {"shape": list(t.shape),
@@ -1040,6 +1196,29 @@ class ServeController:
         """A set's items for the wire, on the host: a paged relation as
         its host-assembled table, a paged record set record by record; a
         paged matrix streams through PAGED_MATMUL and refuses a scan."""
+        from netsdb_tpu_torch.relational.outofcore import PagedColumns
+
+        entry = self.placement.entry(db, set_name)
+        if entry is not None:
+            # a sharded set: every slot's scan in slot order, the
+            # workers' over their pool connections
+            for i, sl in enumerate(entry["slots"]):
+                if sl["state"] != _placement.LIVE:
+                    raise ShardUnavailable(
+                        f"slot {i} of {db}:{set_name} ({sl['addr']}) is "
+                        f"degraded; scan refused rather than return a "
+                        f"partial set", slot=i, epoch=entry["epoch"])
+            for sl in entry["slots"]:
+                if sl["addr"] == self.advertise_addr:
+                    yield from self._scan_items_local(db, set_name)
+                else:
+                    with contextlib.closing(self.shards.client(
+                            sl["addr"]).scan_stream(db, set_name)) as items:
+                        yield from items
+            return
+        yield from self._scan_items_local(db, set_name)
+
+    def _scan_items_local(self, db: str, set_name: str):
         from netsdb_tpu_torch.relational.outofcore import PagedColumns
 
         ident = SetIdentifier(db, set_name)
@@ -1068,7 +1247,8 @@ class ServeController:
         budget = int(p.get("max_frame_bytes") or (4 << 20))
         ident = SetIdentifier(p["db"], p["set"])
         store = self.library.store
-        if store.storage_of(ident) == "paged":
+        if store.storage_of(ident) == "paged" \
+                and not self.is_sharded(p["db"], p["set"]):
             items = store.get_items(ident)
             if len(items) == 1 and isinstance(items[0], PagedColumns):
                 pc = items[0]
@@ -1163,9 +1343,12 @@ class ServeController:
 
     def _sync_results(self, results: Dict[SetIdentifier, Any]) -> None:
         """The OK reply means the values exist, not that they were
-        enqueued."""
+        enqueued. Waits for this handler's stream only: the request's
+        work ran there (a build's eager run on the capture stream is
+        joined back to it), and a device-wide wait fails while another
+        handler thread captures a graph."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     @staticmethod
     def _result_summaries(results: Dict[SetIdentifier, Any]) -> dict:
@@ -1193,7 +1376,49 @@ class ServeController:
                                    "count": len(list(val))}
         return out
 
+    def _scatter_touched(self, sinks) -> bool:
+        """Does the DAG scan a set this daemon coordinates a partitioned
+        placement for? An empty map (every plain daemon) answers at
+        once."""
+        if not len(self.placement):
+            return False
+        from netsdb_tpu_torch.plan import scatter
+
+        return bool(scatter.sharded_scan_sets(sinks, self.is_sharded))
+
+    def _execute_scatter(self, p, sinks, job_name):
+        """The coordinator path over partitioned sets: ONE admitted job
+        scatters a subplan to every slot and merges all or nothing; the
+        reply has the local path's shape. ``explain`` replies carry the
+        coordinator slot's tree as ``operators`` and the per-shard forest
+        as ``shard_operators``."""
+        explain = bool(p.get("explain"))
+        holder: Dict[str, Any] = {}
+
+        def run():
+            results, shard_ops = self.shards.scatter_execute(
+                sinks, job_name, materialize=p.get("materialize", True),
+                explain=explain, client_id=_client_var.get())
+            if p.get("sync", True):
+                self._sync_results(results)
+            holder["ops"] = shard_ops
+            return results
+
+        scopes = _sched.sets_touched(MsgType.EXECUTE_COMPUTATIONS,
+                                     {"sinks": sinks})
+        results = self._run_job(job_name, run, scopes=scopes)
+        out: Dict[str, Any] = {"results": self._result_summaries(results)}
+        if explain:
+            ops = holder.get("ops") or {}
+            if ops.get(self.advertise_addr) is not None:
+                out["operators"] = ops[self.advertise_addr]
+            out["shard_operators"] = ops
+        return MsgType.OK, out
+
     def _execute(self, p, sinks, job_name):
+        if self._scatter_touched(sinks):
+            return self._execute_scatter(p, sinks, job_name)
+
         def run():
             results = self.library.execute_computations(
                 *sinks, job_name=job_name,
@@ -1252,33 +1477,63 @@ class ServeController:
     def _serve_stats(self) -> Dict[str, Any]:
         with self._busy_mu:
             busy = self._busy_s
-        return {"uptime_s": time.monotonic() - self._started,
-                "busy_s": busy, "device": str(self.device),
-                "pid": os.getpid()}
+        out = {"uptime_s": time.monotonic() - self._started,
+               "busy_s": busy, "device": str(self.device),
+               "pid": os.getpid()}
+        if self.device.type == "cuda":
+            # this process's allocator on the card (a pool's daemons each
+            # hold their own context and graph pools)
+            out["memory_reserved"] = torch.cuda.memory_reserved(self.device)
+            out["max_memory_reserved"] = torch.cuda.max_memory_reserved(
+                self.device)
+        return out
 
     def _on_collect_stats(self, p):
+        """This daemon's statistics; a pool leader adds each worker's
+        under ``shards`` (best effort: a slow worker reports an error
+        entry and is never evicted by a read)."""
         store = self.library.store
-        return MsgType.OK, {
-            "sets": self.library.collect_stats(),
-            "cache": dict(vars(store.stats)),
-            "device_cache": store.device_cache().stats(),
-            "metrics": obs.REGISTRY.snapshot(),
-            "sessions": self.sessions.stats(),
-            "serve": self._serve_stats()}
+        out = {"sets": self.library.collect_stats(),
+               "cache": dict(vars(store.stats)),
+               "device_cache": store.device_cache().stats(),
+               "metrics": obs.REGISTRY.snapshot(),
+               "sessions": self.sessions.stats(),
+               "serve": self._serve_stats()}
+        if not p.get("local_only"):
+            shards = self.shards.fanout(MsgType.COLLECT_STATS,
+                                        {"local_only": True})
+            if shards:
+                out["shards"] = shards
+        return MsgType.OK, out
 
     def _on_health(self, p):
-        """Liveness and load of this daemon. The SLO objectives with
-        their burn rates and the slow-query log are ROADMAP.md A8:
-        ``objectives`` and ``events`` stay empty until then."""
-        return MsgType.OK, {"objectives": {}, "events": [],
-                            "slowlog": None, "followers_status": None,
-                            "serve": self._serve_stats(),
-                            "sessions_open": self.sessions.table.count(),
-                            "sched": self.sched.snapshot()}
+        """Liveness and load of this daemon (and of a leader's workers,
+        under ``shards``, with the pool's membership under ``pool``). The
+        SLO objectives with their burn rates and the slow-query log are
+        ROADMAP.md A8: ``objectives`` and ``events`` stay empty until
+        then."""
+        out = {"objectives": {}, "events": [], "slowlog": None,
+               "followers_status": None, "serve": self._serve_stats(),
+               "sessions_open": self.sessions.table.count(),
+               "sched": self.sched.snapshot()}
+        if not p.get("local_only"):
+            shards = self.shards.fanout(MsgType.HEALTH, {"local_only": True})
+            if shards:
+                out["shards"] = shards
+        if self._worker_addrs:
+            out["pool"] = {"workers": list(self._worker_addrs),
+                           "degraded": self.shards.degraded(),
+                           "placement_epoch":
+                               self.placement.to_wire()["epoch"]}
+        return MsgType.OK, out
 
     def _on_analyze_set(self, p):
         """Planner statistics computed where the data lives: the
-        summaries ship, the table stays."""
+        summaries ship, the table stays. A partitioned set merges its
+        slots' summaries (:meth:`_analyze_sharded`)."""
+        if self.is_sharded(p.get("db"), p.get("set")) \
+                and not p.get("local_only"):
+            return MsgType.OK, self._analyze_sharded(p["db"], p["set"])
         info = self.library.analyze_set(p["db"], p["set"])
         return MsgType.OK, {
             "num_rows": int(info["num_rows"]),
@@ -1287,19 +1542,314 @@ class ServeController:
                           _plain(s.max_val), _plain(s.n_distinct)]
                       for k, s in info["stats"].items()}}
 
+    def _analyze_sharded(self, db: str, set_name: str) -> Dict[str, Any]:
+        """ANALYZE_SET over a partitioned set: every live slot analyses
+        its pages and the summaries merge — rows sum, per column
+        [n_rows, min, max, n_distinct] by sum/min/max/max (a shard's
+        distinct count is a lower bound of the set's), dictionaries union
+        in slot order. A degraded slot refuses: statistics of a subset of
+        shards would mis-cost every plan built on them."""
+        entry = self.placement.entry(db, set_name)
+        parts: List[Dict[str, Any]] = []
+        payload = {"db": db, "set": set_name, "local_only": True}
+        for i, sl in enumerate(entry["slots"]):
+            if sl["state"] != _placement.LIVE:
+                raise ShardUnavailable(
+                    f"slot {i} of {db}:{set_name} ({sl['addr']}) is "
+                    f"degraded; partial statistics would mis-cost every "
+                    f"plan — retry after readmit",
+                    slot=i, epoch=entry["epoch"])
+            if sl["addr"] == self.advertise_addr:
+                _typ, rep = self._on_analyze_set(dict(payload))
+            else:
+                rep = self.shards.peer_request(
+                    sl["addr"], MsgType.ANALYZE_SET, payload)
+            parts.append(rep)
+        merged_rows = 0
+        dicts: Dict[str, List[Any]] = {}
+        stats: Dict[str, List[Any]] = {}
+        for rep in parts:
+            merged_rows += int(rep.get("num_rows") or 0)
+            for k, vals in (rep.get("dicts") or {}).items():
+                seen = dicts.setdefault(k, [])
+                known = set(seen)
+                for v in vals:
+                    if v not in known:
+                        seen.append(v)
+                        known.add(v)
+            for k, row in (rep.get("stats") or {}).items():
+                n, lo, hi, nd = row
+                cur = stats.get(k)
+                if cur is None:
+                    stats[k] = [int(n), lo, hi, int(nd)]
+                else:
+                    cur[0] += int(n)
+                    if lo is not None:
+                        cur[1] = lo if cur[1] is None else min(cur[1], lo)
+                    if hi is not None:
+                        cur[2] = hi if cur[2] is None else max(cur[2], hi)
+                    cur[3] = max(cur[3], int(nd))
+        obs.REGISTRY.counter("shard.analyze_fanouts").inc()
+        return {"num_rows": merged_rows, "dicts": dicts, "stats": stats,
+                "sharded": len(parts)}
+
+    # --- the shard pool -------------------------------------------------
+    def is_sharded(self, db: Optional[str], set_name: Optional[str]) -> bool:
+        """Does this daemon coordinate a partitioned placement for
+        (db, set)? An empty map answers False."""
+        return self.placement.entry(db, set_name) is not None
+
+    def shard_registration(self, db: str,
+                           set_name: str) -> Optional[Dict[str, int]]:
+        """A worker's registration for (db, set), or None."""
+        with self._shard_mu:
+            reg = self._shard_sets.get((db, set_name))
+            return dict(reg) if reg is not None else None
+
+    def _register_shard(self, db: str, set_name: str, slot: int,
+                        epoch: int) -> None:
+        with self._shard_mu:
+            self._shard_sets[(db, set_name)] = {"epoch": int(epoch),
+                                                "slot": int(slot)}
+
+    def _shard_route(self, db: Optional[str], set_name: Optional[str],
+                     epoch, slot) -> str:
+        """Classify one (possibly routed) mutating frame against this
+        daemon's placement knowledge: ``"local"`` (apply here),
+        ``"handoff"`` (buffer for a degraded slot), or the typed
+        retryable :class:`PlacementStale` — before anything applies."""
+        if not db or not set_name:
+            return "local"
+        entry = self.placement.entry(db, set_name)
+        if entry is not None:  # this daemon coordinates the set
+            current = entry["epoch"]
+            if epoch is None:
+                self._reject_stale(
+                    f"set {db}:{set_name} is partitioned across a worker "
+                    f"pool; fetch the placement map and route to the "
+                    f"owning shards", current)
+            if int(epoch) != current:
+                self._reject_stale(
+                    f"placement epoch rejected for {db}:{set_name}: frame "
+                    f"rode epoch {epoch}, current is {current}", current)
+            if slot is None or not (0 <= int(slot) < len(entry["slots"])):
+                self._reject_stale(
+                    f"routed frame for {db}:{set_name} carries no valid "
+                    f"shard slot", current)
+            sl = entry["slots"][int(slot)]
+            if sl["state"] == _placement.HANDOFF:
+                return "handoff"
+            if sl["addr"] == self.advertise_addr:
+                return "local"
+            self._reject_stale(
+                f"slot {slot} of {db}:{set_name} is owned by {sl['addr']}, "
+                f"not this daemon", current)
+        reg = self.shard_registration(db, set_name)
+        if reg is not None and (epoch is None or int(epoch) != reg["epoch"]):
+            self._reject_stale(
+                f"placement epoch rejected for {db}:{set_name}: frame rode "
+                f"epoch {epoch}, shard registered {reg['epoch']}",
+                reg["epoch"])
+        return "local"
+
+    @staticmethod
+    def _reject_stale(message: str, epoch) -> None:
+        obs.REGISTRY.counter("shard.epoch_rejects").inc()
+        raise PlacementStale(message, epoch=epoch)
+
+    def _pool_health_loop(self) -> None:
+        """The leader's shard liveness: heartbeat every worker over its own
+        short-timeout connection, evict into handoff after
+        ``heartbeat_misses`` failures, readmit (SHARD_RESYNC, then the
+        handoff drain) once it answers again."""
+        from netsdb_tpu_torch.serve.client import RemoteClient, RetryPolicy
+
+        probes: Dict[str, Any] = {}
+        misses: Dict[str, int] = {}
+        while not self._stop.wait(self.heartbeat_interval_s):
+            for addr in list(self._worker_addrs):
+                try:
+                    probe = probes.get(addr)
+                    if probe is None:
+                        probe = RemoteClient(
+                            addr, token=self.token,
+                            timeout=self.heartbeat_timeout_s,
+                            connect_timeout=self.heartbeat_timeout_s,
+                            retry=RetryPolicy(max_attempts=1))
+                        probes[addr] = probe
+                    probe.ping()
+                    misses[addr] = 0
+                    if self.shards.is_degraded(addr):
+                        self._try_readmit_shard(addr)
+                except Exception as e:  # noqa: BLE001 — counted below
+                    probe = probes.pop(addr, None)
+                    if probe is not None:
+                        probe.close()
+                    misses[addr] = misses.get(addr, 0) + 1
+                    if misses[addr] >= self.heartbeat_misses \
+                            and not self.shards.is_degraded(addr):
+                        misses[addr] = 0
+                        self._evict_shard(
+                            addr, f"{self.heartbeat_misses} missed "
+                                  f"heartbeats: {type(e).__name__}: {e}")
+        for probe in probes.values():
+            probe.close()
+
+    def _evict_shard(self, addr: str, reason: str) -> None:
+        """Degrade one worker: its slots flip to handoff (an epoch bump),
+        its ingest buffers here until readmit, and the live workers learn
+        the new epochs. Idempotent."""
+        self.shards.degrade(addr, reason)
+
+    def _push_epochs(self, exclude: Tuple[str, ...] = ()) -> None:
+        """Re-register the current epochs on every live worker (an epoch
+        bump is leader-local until this push). Best effort per worker: a
+        failed push leaves that worker answering typed retryable."""
+        sets_by_addr: Dict[str, list] = {}
+        for db, s in self.placement.sets():
+            entry = self.placement.entry(db, s)
+            for i, sl in enumerate(entry["slots"]):
+                if sl["addr"] == self.advertise_addr \
+                        or sl["addr"] in exclude \
+                        or sl["state"] != _placement.LIVE:
+                    continue
+                sets_by_addr.setdefault(sl["addr"], []).append(
+                    {"db": db, "set": s, "slot": i,
+                     "epoch": entry["epoch"]})
+        for addr, sets in sets_by_addr.items():
+            try:
+                self.shards.peer_request(addr, MsgType.SHARD_RESYNC,
+                                         {"sets": sets})
+            except Exception as e:  # noqa: BLE001 — best-effort push
+                del e
+                self.shards.drop_client(addr)
+
+    def _try_readmit_shard(self, addr: str) -> bool:
+        """Readmit one degraded worker: re-register its epochs
+        (SHARD_RESYNC; a failure degrades it again), push the bumped
+        epochs to the rest of the pool, then drain only its own buffered
+        batches (their tokens make a retried drain safe)."""
+        try:
+            self.placement.readmit_addr(addr)
+            sets = []
+            for db, s in self.placement.sets_for_addr(addr):
+                entry = self.placement.entry(db, s)
+                for i, sl in enumerate(entry["slots"]):
+                    if sl["addr"] == addr:
+                        sets.append({"db": db, "set": s, "slot": i,
+                                     "epoch": entry["epoch"]})
+            if sets:
+                self.shards.peer_request(addr, MsgType.SHARD_RESYNC,
+                                         {"sets": sets})
+                self._push_epochs(exclude=(addr,))
+                self.shards.drain_handoff(addr)
+            self.shards.clear_degraded(addr)
+            obs.REGISTRY.counter("shard.readmits").inc()
+            return True
+        except Exception as e:  # noqa: BLE001 — degraded again, retried
+            self.shards.degrade(addr, f"readmit failed: "
+                                      f"{type(e).__name__}: {e}")
+            return False
+
+    def _on_placement(self, p):
+        """The placement map (what a client's stale-map retry reads)."""
+        return MsgType.OK, self.placement.to_wire()
+
+    def _on_subplan(self, p):
+        """A shard's side of scatter-gather: one pushed subplan over this
+        daemon's pages (admission happened at the coordinator)."""
+        return MsgType.OK, _shard.execute_subplan(self, p), CODEC_PICKLE
+
+    def _on_shuffle_put(self, p):
+        """One inbound bucket of a distributed shuffle."""
+        cols = p.get("cols")
+        nbytes = sum(np.asarray(v).nbytes for v in (cols or {}).values())
+        obs.REGISTRY.counter("shard.shuffle_parts").inc()
+        if nbytes:
+            obs.REGISTRY.counter("shard.shuffle_bytes").inc(nbytes)
+        self._shuffle.put(p["sid"], p["side"], int(p["slot"]), cols,
+                          p.get("dicts"))
+        return MsgType.OK, {}
+
+    def _on_shard_resync(self, p):
+        """Leader → worker: register the placement epochs of this
+        daemon's slots (the metadata half of a readmit; the data half is
+        the handoff drain). The reconcile form (``prune``) belongs to HA
+        (ROADMAP.md A7 part 2)."""
+        if p.get("prune"):
+            raise NotImplementedError(
+                "SHARD_RESYNC prune (the HA restart reconcile) is not "
+                "ported yet: ROADMAP.md A7 part 2")
+        for s in p.get("sets", ()):
+            self._register_shard(s["db"], s["set"], s["slot"], s["epoch"])
+        return MsgType.OK, {"sets": len(p.get("sets", ()))}
+
+    def _on_reshard(self, p):
+        """RESHARD: the ``view`` op answers the placement table
+        (:meth:`placement_view`); moving slots, the rebalancer's status
+        and adding workers are rebalancing, ROADMAP.md A7 part 2."""
+        if p.get("op") == "view":
+            return MsgType.OK, self.placement_view(), CODEC_PICKLE
+        raise NotImplementedError(
+            f"RESHARD op {p.get('op')!r} (rebalancing) is not ported yet: "
+            f"ROADMAP.md A7 part 2")
+
+    def placement_view(self) -> Dict[str, Any]:
+        """The per-slot ownership table of every sharded set joined with
+        each slot's local bytes (one best-effort COLLECT_STATS fan-out),
+        and the per-member totals. The load-heat columns read the
+        attribution ledger (ROADMAP.md A8) and the rebalancer's status
+        is rebalancing (A7 part 2): neither is here."""
+        sizes: Dict[Tuple[str, str], int] = {}
+        for scope, st in self.library.collect_stats().items():
+            sizes[(self.advertise_addr, scope)] = int(
+                (st or {}).get("nbytes", 0) or 0)
+        for addr, reply in self.shards.fanout(
+                MsgType.COLLECT_STATS, {"local_only": True}).items():
+            if isinstance(reply, dict) and "error" not in reply:
+                for scope, st in (reply.get("sets") or {}).items():
+                    sizes[(addr, scope)] = int((st or {}).get("nbytes", 0)
+                                               or 0)
+        sets_out = []
+        for db, s in self.placement.sets():
+            e = self.placement.entry(db, s)
+            scope = f"{db}:{s}"
+            sets_out.append({
+                "db": db, "set": s, "mode": e["mode"], "key": e["key"],
+                "epoch": e["epoch"],
+                "slots": [{"slot": i, "addr": sl["addr"],
+                           "state": sl["state"],
+                           "nbytes": sizes.get((sl["addr"], scope), 0)}
+                          for i, sl in enumerate(e["slots"])]})
+        members = [self.advertise_addr] + list(self._worker_addrs)
+        return {"epoch": self.placement.to_wire()["epoch"],
+                "members": [{
+                    "addr": a, "degraded": self.shards.is_degraded(a),
+                    "nbytes": sum(n for (ad, _sc), n in sizes.items()
+                                  if ad == a),
+                    "slots": sum(1 for so in sets_out for sl in so["slots"]
+                                 if sl["addr"] == a
+                                 and sl["state"] == _placement.LIVE)}
+                    for a in members],
+                "sets": sets_out}
+
 
 def run_daemon(config: Configuration, host: str = "127.0.0.1",
                port: int = 8108, token: Optional[str] = None,
-               max_jobs: Optional[int] = None, device=None) -> int:
+               max_jobs: Optional[int] = None, device=None,
+               workers: Optional[list] = None, **kwargs) -> int:
     """Start a daemon, print its bound address on a line of its own,
-    and block until shutdown. SIGUSR1 writes every thread's stack to
+    and block until shutdown. ``workers`` makes it a pool leader over
+    those shard daemons (start them first); ``kwargs`` go to
+    :class:`ServeController`. SIGUSR1 writes every thread's stack to
     stderr."""
     import faulthandler
     import signal
 
     faulthandler.register(signal.SIGUSR1, all_threads=True)
     ctl = ServeController(config, host=host, port=port, token=token,
-                          max_jobs=max_jobs, device=device)
+                          max_jobs=max_jobs, device=device, workers=workers,
+                          **kwargs)
     bound = ctl.start()
     print(f"serving on {host}:{bound}", flush=True)
     ctl.serve_forever()
@@ -1319,19 +1869,23 @@ def main(argv=None) -> int:
     ap.add_argument("--max-jobs", type=int, default=None)
     ap.add_argument("--device", default=None,
                     help="the device the daemon owns (default cuda)")
-    for flag in ("--followers", "--workers", "--ha-peers"):
+    ap.add_argument("--workers", default=None,
+                    help="comma-separated shard daemon addresses: this "
+                         "daemon leads their pool")
+    for flag in ("--followers", "--ha-peers"):
         ap.add_argument(flag, default=None,
-                        help="daemon pools: ROADMAP.md A7 part 2")
+                        help="mirroring and HA: ROADMAP.md A7 part 2")
     args = ap.parse_args(argv)
-    if args.followers or args.workers or args.ha_peers:
+    if args.followers or args.ha_peers:
         raise NotImplementedError(
-            "--followers/--workers/--ha-peers: the daemon pool is not "
-            "ported yet: ROADMAP.md A7 part 2")
+            "--followers/--ha-peers: mirroring and HA are not ported yet: "
+            "ROADMAP.md A7 part 2")
     config = (Configuration(root_dir=args.root) if args.root
               else Configuration())
+    workers = [a for a in (args.workers or "").split(",") if a]
     return run_daemon(config, host=args.host, port=args.port,
                       token=args.token, max_jobs=args.max_jobs,
-                      device=args.device)
+                      device=args.device, workers=workers or None)
 
 
 if __name__ == "__main__":

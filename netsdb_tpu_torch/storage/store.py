@@ -98,11 +98,15 @@ LIST_SCAN_TYPES = frozenset({"tensor4d"})
 EVICTION_POLICIES = ("lru", "mru", "random")
 
 _write_listeners: List[Callable[[str], None]] = []
+# numbers the stores of this process (several daemons of a pool may share
+# one process, with the same set names)
+_store_ids = itertools.count(1)
 
 
 def on_set_write(fn: Callable[[str], None]) -> None:
-    """Call ``fn(str(ident))`` whenever a set's content changes, or the
-    set is evicted or removed."""
+    """Call ``fn(scope)`` whenever a set's content changes, or the set is
+    evicted or removed; ``scope`` is :meth:`SetStore.program_scope` of
+    the set."""
     if fn not in _write_listeners:
         _write_listeners.append(fn)
 
@@ -220,6 +224,7 @@ class SetStore:
         self._device_cache = None
         self._gen = itertools.count()
         self._version_ctr = itertools.count(1)
+        self._scope_tag = f"@{next(_store_ids)}"
         # sets holding a PooledTensor (dedup/pool.py): pool accounting
         # scans these only
         self._pooled: set = set()
@@ -281,10 +286,10 @@ class SetStore:
         s.last_access = time.time()
         if s.items is not None and s.storage == "memory":
             s.nbytes = sum(_item_nbytes(i) for i in s.items)
-        _announce(s.ident)
+        _announce(self.program_scope(s.ident))
         for other in self._sets.values():  # readers of this set's storage
             if other.alias_of == s.ident:
-                _announce(other.ident)
+                _announce(self.program_scope(other.ident))
 
     def _bind_cache(self, pc, ident: SetIdentifier) -> None:
         """Bind a store-owned paged relation to the device cache (grace
@@ -292,6 +297,15 @@ class SetStore:
         pc.devcache = self.device_cache()
         pc.cache_scope = str(ident)
         pc.cache_version_fn = functools.partial(self.version_of, ident)
+        pc.program_scope = self.program_scope(ident)
+
+    def program_scope(self, ident: SetIdentifier) -> str:
+        """The set's name in the compiled-program cache: ``db:set`` of
+        this store. Versions count per store, so two stores of one
+        process (two daemons of a pool, with the same set names) never
+        share a program variant that reads a set in place, and a write in
+        one never drops the other's."""
+        return f"{ident}{self._scope_tag}"
 
     def version_of(self, ident: SetIdentifier) -> int:
         """The set's write version (0: unknown set); a set aliasing
@@ -363,7 +377,7 @@ class SetStore:
             path = self._spill_path(ident)
             if os.path.exists(path):
                 os.remove(path)
-        _announce(ident)
+        _announce(self.program_scope(ident))
         self._drop_pages(dead)
 
     def clear_set(self, ident: SetIdentifier) -> None:
@@ -993,7 +1007,7 @@ class SetStore:
             s.items = None
             s.nbytes = 0
             self.stats.evictions += 1
-            _announce(s.ident)
+            _announce(self.program_scope(s.ident))
             if s.ident in self._pooled:
                 # the last set holding a pool releases it: credit the
                 # bytes, or the loop evicts everyone else too

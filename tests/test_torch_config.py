@@ -68,13 +68,14 @@ def _away(default):
     return default + "x"
 
 
-#: knobs of the one-daemon serving slice: raised until it was ported,
-#: accepted away from their defaults since
+#: knobs of the serving slices (one daemon, then its shard pool): raised
+#: until they were ported, accepted away from their defaults since
 SERVING_PORTED = ("decode_batch_max", "model_dedup", "sched_affinity",
                   "sched_affinity_wait_s", "sched_aging_every",
                   "sched_coalesce", "sched_coalesce_done_max",
                   "sched_coalesce_done_ttl_s", "sched_lane_quota",
-                  "sched_lanes", "session_state_bytes", "session_ttl_s")
+                  "sched_lanes", "session_state_bytes", "session_ttl_s",
+                  "shard_handoff_bytes")
 
 
 @pytest.mark.parametrize("name", sorted(set(_LATER) | set(SERVING_PORTED)))
@@ -116,7 +117,8 @@ def test_later_knobs_name_their_roadmap_items():
             assert items[name] == "A8", name
     assert not any(n.startswith("session_") or n in SERVING_PORTED
                    for n in items)
-    assert items["shard_handoff_bytes"] == "A7 part 2"
+    assert "shard_handoff_bytes" not in items  # the shard pool's buffer
+    assert items["ha_mutlog"] == "A7 part 2"
     assert items["device_cache_pin_auto"] == "A7 part 2"
     assert items["lock_witness"] == "A8"
     assert all(items[n] == "A8" for n in items if n.startswith("obs_"))

@@ -109,7 +109,7 @@ def test_single_device_workload_and_dedup_modules_import_no_jax():
     ("summa_participants", 4, "A4"), ("sched_feedback", True, "A8"),
     ("sched_slo_shed", True, "A8"), ("ha_election_timeout_s", 1.0, "A7"),
     ("ha_mutlog", True, "A7"), ("rebalance", True, "A7"),
-    ("device_cache_pin_auto", True, "A7"), ("shard_handoff_bytes", 1, "A7"),
+    ("device_cache_pin_auto", True, "A7"), ("rebalance_windows", 5, "A7"),
     ("obs_enabled", False, "A8"), ("obs_trace_sample", 4, "A8"),
     ("lock_witness", True, "A8")])
 def test_later_configuration_knobs_raise(knob, value, item):

@@ -108,11 +108,12 @@ def test_object_roundtrip_and_errors(server):
         with pytest.raises(RemoteError, match="ROADMAP.md A8"):
             c._request(MsgType.GET_TRACE, {})
         with pytest.raises(RemoteError, match="ROADMAP.md A7 part 2"):
-            c._request(MsgType.PLACEMENT, {})
+            c._request(MsgType.RESHARD, {"op": "status"},
+                       codec=CODEC_PICKLE)
         with pytest.raises(NotImplementedError, match="A7 part 2"):
             c.register_type("T", "m:f", source="x = 1")
-        with pytest.raises(RemoteError, match="A7 part 2"):
-            c.create_set("db", "sharded", placement="hash")
+        with pytest.raises(NotImplementedError, match="A7 part 2"):
+            c.add_worker("127.0.0.1:1")
     finally:
         c.close()
 
@@ -148,7 +149,8 @@ def test_pickle_refused_when_disabled(tmp_path):
 
 def test_pool_topologies_raise_naming_their_item(tmp_path):
     cfg = Configuration(root_dir=str(tmp_path / "x"))
-    for kw in (dict(followers=["127.0.0.1:1"]), dict(workers=["a:1"]),
+    for kw in (dict(followers=["127.0.0.1:1"]),
+               dict(workers=["a:1"], followers=["b:1"]),
                dict(ha_peers=["a:1"])):
         with pytest.raises(NotImplementedError, match="A7 part 2"):
             ServeController(cfg, port=0, device="cpu", **kw)
