@@ -10,7 +10,8 @@ phase 1, the SF 10 tables made resident on a card client, and phase
 12; ``--rows-only``: phases 1 and 13; ``--compiled-only``: phases 1 and
 14, TPC-H at ``COMPILED_ONLY_SF``; ``--workloads-only``: phases 1 and
 15; ``--serve-only``: phases 1 and 16; ``--pool-only``: phases 1 and
-17.)
+17; ``--mesh-only``: phase 1, the SF 10 tables made resident on a card
+client, and phase 18.)
 
 Every phase runs with the compiled-program cache in use and
 ``plan_fusion`` on, the port's defaults: a resident job is one CUDA
@@ -252,6 +253,30 @@ Phases (any failure raises and the exit code is non-zero):
    daemon's busy seconds and peak reserved memory and the card's used
    memory are printed, every line with the card's name and power limit;
    every process is killed whatever happens.
+18. the in-process mesh on the card: 4 virtual positions of card 0 (the
+   reference's ``mesh4``). The four collectives at bench.py's first FF
+   layer (integer-valued A 16384 x 1024, B 1024 x 4096), each byte-equal
+   to one ``torch.matmul`` (or the unsharded tensor); Ulysses at phase
+   5's shape (batch 2, seq 16384, 8 heads, head dim 128, causal) in f32
+   and bf16, B1 launched once per position a call, held to one B1 call
+   over the whole tensor and (f32) to f64 head by head within
+   ``SP_TOL``, timed beside the ring (B2); SUMMA at micro_bench's gate
+   (65 536 x 512 paged, rhs 512 x 256, integer-valued) 1-d and 2x2, each
+   byte-equal to the single-position stream, a position's staged bytes
+   about 1/4 of the replicated arm's, a warm rerun reading no page; FF
+   at bench.py's width with paged weights and ``distributed_matmul``
+   (every paged node through SUMMA, held to f64 and to one position);
+   ``reshard_set`` of a warm 200 000-row placed table and
+   ``reshard_summa_layout`` of FF's w1 (1-d → 2x2 → 1-d), no page read;
+   the ten suite queries over placed SF 10 sets (lineitem and orders
+   row-sharded, the rest replicated) against the one-position resident
+   client (integers exactly, floats within rtol 1e-5, atol 1e-3), a paged
+   and placed lineitem's Q01 and Q06 cold and warm; ``shuffle_q03`` and
+   ``q03_row_sink_for`` against the resident Q03, ``Partition`` over the
+   placed orders, ``distributed_top_k`` over 60 M scores against
+   ``torch.topk``; the peak reserved memory, the card's used memory, the
+   programs captured and replayed, and every fallback with its reason
+   (a placed request's fails the phase).
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
@@ -263,8 +288,9 @@ layer request, B2 16 times an SP request) and around phase 15 (both 0);
 phase 16's launches are the daemon's own counters, read before and
 after through COLLECT_STATS (B1 at least once a served layer request,
 B2 never), and phase 17's the pool daemons' and the solo's summed the
-same way, and this process's around the in-process pool (both 0). The
-last line is the contract's device record.
+same way, and this process's around the in-process pool (both 0); around
+phase 18 (B1 4 times a Ulysses call, B2 never; the comparisons' launches
+are taken back out). The last line is the contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -6193,6 +6219,687 @@ def phase_pool(pk: dict, smi: str, device: str = "cuda",
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- phase 18 ------------------------------------------------------------
+MESH_POSITIONS = 4       # the reference's mesh4, virtual positions of card 0
+MESH_COLL = dict(m=16384, k=1024, n=4096)   # bench.py's first FF layer
+MESH_ULYSSES = dict(batch=2, seq=16384, heads=8, dim=128)  # phase 5's shape
+MESH_ULYSSES_CALLS = 3
+MESH_SUMMA = dict(rows=65_536, k=512, cols=256, row_block=4096,
+                  table_rows=200_000)       # micro_bench.bench_summa
+MESH_TOPK = dict(n=60_000_000, k=10)        # phase 15's top-k scores
+MESH_REL_RTOL, MESH_REL_ATOL = 1e-5, 1e-3   # tests/test_placement_api.py
+MESH_FF_RTOL = 1e-5      # distributed FF vs the one-position request ...
+MESH_FF_ATOL = 1e-7      # ... with this floor for probabilities near 0
+MESH_SUMMA_HEADROOM = 1.35  # tests/test_summa.py: padding over 1/N
+
+
+def _mesh_ints(gen, shape, device="cuda"):
+    """Integer-valued f32 in [-8, 8): every product and partial sum here
+    is exact in f32, so any summation order gives the same bytes."""
+    import torch
+
+    return torch.randint(-8, 8, shape, generator=gen, device=device,
+                         dtype=torch.int32).to(torch.float32)
+
+
+def _mesh_collectives(mesh, gen, card) -> dict:
+    """The four collectives at bench.py's first FF layer, each byte-equal
+    to one product (or the unsharded tensor) on one position."""
+    import torch
+
+    from netsdb_tpu_torch.ops.common import full_f32_precision
+    from netsdb_tpu_torch.parallel import collectives as C
+
+    s = MESH_COLL
+    a = _mesh_ints(gen, (s["m"], s["k"]))
+    b = _mesh_ints(gen, (s["k"], s["n"]))
+    full_f32_precision()
+    want = torch.matmul(a, b)
+    one_ms = time_ms(lambda: torch.matmul(a, b), iters=5, warmup=1)
+    out = {"one_position_ms": one_ms}
+    runs = {
+        "matmul_psum": (lambda: C.matmul_psum(a, b, mesh, "data"), want),
+        "matmul_psum_scatter": (
+            lambda: C.matmul_psum_scatter(a, b, mesh, "data"), want),
+        "matmul_allgather": (
+            lambda: C.matmul_allgather(a, b, mesh, "data"), want),
+        "all_to_all_resharding": (
+            lambda: C.all_to_all_resharding(a, mesh, "data", 0, 1), a)}
+    for name, (run, ref) in runs.items():
+        got = run().to_dense()
+        if not torch.equal(got, ref):
+            bad = int((got != ref).sum())
+            raise RuntimeError(f"[mesh] {name}: {bad} entries differ from "
+                               f"one position")
+        ms = time_ms(run, iters=5, warmup=1)
+        out[name] = ms
+        print(f"[mesh] {name} {s['m']}x{s['k']}x{s['n']}: byte-equal, "
+              f"{ms:.3f} ms (one torch.matmul {one_ms:.3f} ms) | {card}")
+    return out
+
+
+def _mesh_ulysses(mesh, card, pk) -> tuple:
+    """Ulysses at phase 5's SP shape in f32 and bf16: the main path's
+    calls (B1 launched once per position), then held to one B1 call over
+    the whole (B, H, S, D), f32 to f64 head by head, and timed beside the
+    ring (B2) at the same shape. Returns the results and the two
+    kernels' launches on the main path."""
+    import torch
+
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+    from netsdb_tpu_torch.parallel.ring import (ring_attention,
+                                                ulysses_attention)
+
+    s = MESH_ULYSSES
+    b, h, sq, d = s["batch"], s["heads"], s["seq"], s["dim"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    out, launches = {}, [0, 0]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q, k, v = (torch.randn((b, h, sq, d), generator=gen, device="cuda",
+                               dtype=torch.float32).to(dtype)
+                   for _ in range(3))
+        # the main path: counted launches
+        b1, b2 = flash_attention.launches, flash_attention_step.launches
+        ys, times = [], []
+        for _ in range(MESH_ULYSSES_CALLS):
+            y, ms = _timed(lambda: ulysses_attention(q, k, v, mesh, "data"),
+                           "cuda")
+            ys.append(y)
+            times.append(ms)
+        got_b1 = flash_attention.launches - b1
+        got_b2 = flash_attention_step.launches - b2
+        launches[0] += got_b1
+        launches[1] += got_b2
+        if got_b1 != MESH_POSITIONS * MESH_ULYSSES_CALLS or got_b2:
+            raise RuntimeError(
+                f"[mesh] Ulysses {dname}: B1 {got_b1} launches (want "
+                f"{MESH_POSITIONS} a call), B2 {got_b2}")
+        saved = (flash_attention.launches, flash_attention_step.launches)
+        dense = ys[-1].to_dense()
+        one = flash_attention(q, k, v, causal=True)
+        one_ms = time_ms(lambda: flash_attention(q, k, v, causal=True),
+                         iters=3, warmup=1)
+        diff = (dense.float() - one.float()).abs().max().item()
+        equal = torch.equal(dense, one)
+        row = {"ms": min(times), "one_call_ms": one_ms,
+               "byte_equal_one_call": equal, "max_abs_vs_one_call": diff,
+               "bound_ms": attention_bound_ms(b, h, sq, d, True, dname,
+                                              pk)[0]}
+        if not torch.isfinite(dense).all():
+            raise RuntimeError(f"[mesh] Ulysses {dname}: non-finite output")
+        if dtype == torch.float32:
+            if not diff <= F32_TOL:
+                raise RuntimeError(f"[mesh] Ulysses f32 vs one B1 call: "
+                                   f"{diff}")
+            pos = torch.arange(sq, device="cuda")
+            worst = 0.0
+            for bi in range(b):
+                for hi in range(h):
+                    for r0 in range(0, sq, 4096):
+                        ex = attention_f64(
+                            q[bi, hi][None, r0:r0 + 4096], k[bi, hi][None],
+                            v[bi, hi][None], pos[r0:r0 + 4096], pos, True,
+                            d ** -0.5)[0]
+                        worst = max(worst, (dense[bi, hi, r0:r0 + 4096]
+                                            .double() - ex).abs().max()
+                                    .item())
+            row["f64_err"] = worst
+            if not worst <= SP_TOL:
+                raise RuntimeError(f"[mesh] Ulysses f32 vs f64: {worst} > "
+                                   f"{SP_TOL}")
+            ring_ms = time_ms(lambda: ring_attention(
+                q, k, v, mesh, "data", impl="flash"), iters=2, warmup=1)
+            row["ring_ms"] = ring_ms
+        elif not diff <= BF16_TOL:
+            raise RuntimeError(f"[mesh] Ulysses bf16 vs one B1 call: {diff}")
+        flash_attention.launches, flash_attention_step.launches = saved
+        out[dname] = row
+        print(f"[mesh] Ulysses {dname} ({b}, {h}, {sq}, {d}) causal: "
+              f"{row['ms']:.3f} ms, {MESH_POSITIONS} B1 launches a call; one "
+              f"B1 call {one_ms:.3f} ms, byte-equal {equal} (max abs "
+              f"{diff:.3e}); f64 err {row.get('f64_err', 'n/a')}; ring (B2) "
+              f"{row.get('ring_ms', 'n/a')} ms; bound "
+              f"{row['bound_ms']:.3f} ms | {card}")
+        del q, k, v, ys, dense, one
+    return out, tuple(launches)
+
+
+def _mesh_summa(root, devices, card) -> dict:
+    """(a) micro_bench.bench_summa's gate: M 65 536 x 512 paged, rhs 512 x
+    256, integer-valued; 1-d over the positions and the 2x2 grid, each
+    byte-equal to the single-position stream, staged bytes a position
+    about 1/4 of the replicated arm's, a warm rerun reading no page."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.parallel import summa as S
+    from netsdb_tpu_torch.storage.devcache import DeviceBlockCache
+    from netsdb_tpu_torch.storage.paged import PagedTensorStore
+
+    s = MESH_SUMMA
+    rng = np.random.default_rng(SEED + 19)
+    m = rng.integers(-8, 8, (s["rows"], s["k"])).astype(np.float32)
+    rhs = torch.from_numpy(rng.integers(-8, 8, (s["k"], s["cols"])).astype(
+        np.float32)).cuda()
+    pts = PagedTensorStore(Configuration(root_dir=root,
+                                         page_size_bytes=16 << 20))
+    try:
+        pts.put("m", m, row_block=s["row_block"])
+        base, base_ms = _timed(lambda: pts.matmul_streamed("m", rhs), "cuda")
+        replicated = m.nbytes + rhs.numel() * 4  # every position stages all
+        out = {"stream_ms": base_ms, "replicated_bytes": replicated}
+        cache = DeviceBlockCache(1 << 30, partial=True)
+        for label, run in (
+                ("1d", lambda **kw: S.summa_matmul_streamed(
+                    pts, "m", rhs, devices=devices, **kw)),
+                ("2x2", lambda **kw: S.summa_grid_matmul_streamed(
+                    pts, "m", rhs, devices=devices, grid=(2, 2), **kw))):
+            stats = {}
+            got, ms = _timed(lambda: run(stats_out=stats), "cuda")
+            if not torch.equal(got, base):
+                raise RuntimeError(f"[mesh] SUMMA {label} is not byte-equal "
+                                   f"to the single-position stream")
+            per = stats["staged_bytes_per_participant"]
+            frac = max(per.values()) / replicated
+            if frac > MESH_SUMMA_HEADROOM / MESH_POSITIONS:
+                raise RuntimeError(f"[mesh] SUMMA {label}: a position "
+                                   f"staged {frac:.3f} of the replicated arm")
+            run(cache=cache, cache_scope=f"summa-{label}")  # cold: installs
+            reads0 = pts.stats()["page_reads"]
+            warm, warm_ms = _timed(lambda: run(
+                cache=cache, cache_scope=f"summa-{label}"), "cuda")
+            reads = pts.stats()["page_reads"] - reads0
+            if reads or not torch.equal(warm, base):
+                raise RuntimeError(f"[mesh] SUMMA {label} warm: {reads} "
+                                   f"pages read")
+            out[label] = {"ms": ms, "warm_ms": warm_ms, "rounds":
+                          stats["rounds"], "staged_fraction": frac,
+                          "warm_page_reads": reads}
+            print(f"[mesh] SUMMA {label} {s['rows']}x{s['k']}x{s['cols']}: "
+                  f"byte-equal, {ms:.3f} ms cold, {warm_ms:.3f} ms warm "
+                  f"({reads} pages), stream {base_ms:.3f} ms, a position "
+                  f"staged {frac:.4f} of the replicated arm's {replicated} "
+                  f"B | {card}")
+        return out
+    finally:
+        pts.close()
+
+
+def _mesh_ff(root, card) -> dict:
+    """(b) FF at bench.py's width with w1 and wo paged in phase 7's pages,
+    ``distributed_matmul=True``: every paged node through SUMMA (the
+    rounds counted), held to f64 and to the same request on one
+    position."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch import Client, obs
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.models.ff import FFModel
+
+    features, hidden, labels, batch = 1024, 4096, 1024, 16384
+    x = np.random.default_rng(SEED + 20).standard_normal(
+        (batch, features), dtype=np.float32)
+    clients = {}
+    for tag, kw in (("dist", dict(distributed_matmul=True,
+                                  summa_participants=MESH_POSITIONS)),
+                    ("one", {})):
+        c = Client(Configuration(root_dir=f"{root}/{tag}",
+                                 page_size_bytes=PAGE_BYTES,
+                                 page_pool_bytes=POOL_BYTES, **kw))
+        m = FFModel(db="ff_mesh", block=(512, 512))
+        m.setup(c, storages={"w1": "paged", "wo": "paged"})
+        m.load_random_weights(c, features, hidden, labels, seed=SEED)
+        m.load_inputs(c, x)
+        clients[tag] = (c, m)
+    ref = FFModel(db="ff_mesh_ref", block=(512, 512))
+    c_one = clients["one"][0]
+    ref.setup(c_one)
+    ref.load_random_weights(c_one, features, hidden, labels, seed=SEED)
+    p = ref.params_from_store(c_one)
+    w1, b1, wo, bo = (t.to_dense().double() for t in (p.w1, p.b1, p.wo,
+                                                      p.bo))
+    xd = torch.as_tensor(x, device="cuda").double()
+    exact = torch.softmax(wo @ torch.relu(w1 @ xd.T + b1) + bo, dim=0)
+    c, m = clients["dist"]
+    ps = c.store.page_store()
+    from netsdb_tpu_torch.storage.store import SetIdentifier
+
+    want_rounds = 0
+    for s in ("w1", "wo"):
+        pm = next(i for i in c.store.get_items(SetIdentifier("ff_mesh", s))
+                  if type(i).__name__ == "_PagedMatrix")
+        want_rounds += math.ceil(ps.num_blocks(pm.name) / MESH_POSITIONS)
+    out = {}
+    for tag in ("dist", "one"):
+        cc, mm = clients[tag]
+        r0 = obs.REGISTRY.counter("summa.rounds").value
+        first, _ = _timed(lambda: mm.inference(cc).to_dense(), "cuda")
+        got, ms = _timed(lambda: mm.inference(cc).to_dense(), "cuda")
+        rounds = obs.REGISTRY.counter("summa.rounds").value - r0
+        if tag == "dist" and rounds != 2 * want_rounds:
+            raise RuntimeError(f"[mesh] distributed FF: {rounds} SUMMA "
+                               f"rounds over two requests, want "
+                               f"{2 * want_rounds} (every paged node)")
+        err = (got.double() - exact).abs().max().item()
+        if not err <= FF_TOL:
+            raise RuntimeError(f"[mesh] FF {tag}: {err} against f64")
+        out[tag] = {"ms": ms, "f64_err": err, "rounds": rounds,
+                    "out": got}
+    rel = ((out["dist"]["out"] - out["one"]["out"]).abs()
+           - MESH_FF_RTOL * out["one"]["out"].abs()).max().item()
+    if not rel <= MESH_FF_ATOL:
+        raise RuntimeError(f"[mesh] distributed FF vs one position: "
+                           f"{rel} over rtol {MESH_FF_RTOL}")
+    for tag in out:
+        del out[tag]["out"]
+    print(f"[mesh] FF paged 16384x1024->4096->1024 with distributed_matmul: "
+          f"{out['dist']['ms']:.3f} ms ({out['dist']['rounds']} SUMMA "
+          f"rounds in 2 requests, f64 err {out['dist']['f64_err']:.3e}); "
+          f"one position {out['one']['ms']:.3f} ms | {card}")
+    out["clients"] = clients
+    return out
+
+
+def _mesh_reshard(root, ff, devices, card) -> dict:
+    """(4) A warm placed two-column table (200 000 rows, paged) sharded →
+    replicated through ``reshard_set`` against dropping its cache and
+    re-staging it; the FF weight set 1-d → 2x2 → 1-d through
+    ``reshard_summa_layout``. Each move reads no arena page and keeps the
+    values."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.parallel.placement import Placement, gather_table
+    from netsdb_tpu_torch.parallel.reshard import (reshard_set,
+                                                   reshard_summa_layout)
+    from netsdb_tpu_torch.parallel.summa import (summa_grid_matmul_streamed,
+                                                 summa_matmul_streamed)
+    from netsdb_tpu_torch.relational.outofcore import PagedColumns
+    from netsdb_tpu_torch.relational.table import ColumnTable
+    from netsdb_tpu_torch.storage.store import SetIdentifier
+
+    src = Placement.data_parallel(ndim=1, n_devices=MESH_POSITIONS)
+    dst = Placement.replicated(ndim=1, n_devices=MESH_POSITIONS)
+    rng = np.random.default_rng(SEED + 21)
+    n = MESH_SUMMA["table_rows"]
+    cols = {"k": rng.integers(0, 1000, n).astype(np.int32),
+            "v": rng.integers(-8, 8, n).astype(np.float32)}
+    c = Client(Configuration(root_dir=f"{root}/table",
+                             page_size_bytes=64 << 10))
+    c.create_database("d")
+    c.create_set("d", "t", type_name="table", storage="paged",
+                 placement=src)
+    c.send_table("d", "t", ColumnTable.from_columns(cols, device="cpu"))
+    ident = SetIdentifier("d", "t")
+    pc = next(i for i in c.store.get_items(ident)
+              if isinstance(i, PagedColumns))
+
+    def consume(placement):
+        total = None
+        with contextlib.closing(pc.stream_tables(placement=placement)) as st:
+            for t in st:
+                g = gather_table(t)
+                s = torch.where(g.mask(), g["v"], 0.0).sum()
+                total = s if total is None else total + s
+        return float(total)
+
+    before = consume(src)  # cold: installs the sharded layout's blocks
+    pages0 = pc.pages_streamed
+    rep, ms = _timed(lambda: reshard_set(c.store, ident, dst), "cuda")
+    after = consume(dst)
+    moved_pages = pc.pages_streamed - pages0
+    if moved_pages or after != before or after != float(cols["v"].sum()):
+        raise RuntimeError(f"[mesh] reshard_set: {moved_pages} pages read, "
+                           f"sum {after} vs {before}")
+    c.store.device_cache().invalidate(pc.cache_scope)
+    restage, restage_ms = _timed(lambda: consume(dst), "cuda")
+    out = {"table": {"steps": rep.labels(), "blocks": rep.blocks_moved,
+                     "bytes": rep.bytes_moved, "ms": ms,
+                     "restage_ms": restage_ms, "page_reads": moved_pages}}
+    print(f"[mesh] reshard_set {n} rows sharded -> replicated: "
+          f"{rep.labels()} {rep.blocks_moved} blocks {rep.bytes_moved} B in "
+          f"{ms:.3f} ms, 0 pages read; re-staging instead "
+          f"{restage_ms:.3f} ms | {card}")
+
+    fc, fm = ff["clients"]["dist"]
+    ident = SetIdentifier("ff_mesh", "w1")
+    ps = fc.store.page_store()
+    pm = next(i for i in fc.store.get_items(ident)
+              if type(i).__name__ == "_PagedMatrix")
+    x = fc.get_tensor("ff_mesh", "inputs").to_dense().t().contiguous()
+    cache = fc.store.device_cache()
+    base = fm.inference(fc).to_dense()
+    reads0 = ps.stats()["page_reads"]
+    pre = summa_matmul_streamed(ps, pm.name, x, devices=devices, cache=cache,
+                                cache_scope=str(ident))
+    rep1, ms1 = _timed(lambda: reshard_summa_layout(
+        fc.store, ident, devices, devices, dst_grid=(2, 2)), "cuda")
+    grid = summa_grid_matmul_streamed(ps, pm.name, x, devices=devices,
+                                      grid=(2, 2), cache=cache,
+                                      cache_scope=str(ident))
+    rep2, ms2 = _timed(lambda: reshard_summa_layout(
+        fc.store, ident, devices, devices, src_grid=(2, 2)), "cuda")
+    back = fm.inference(fc).to_dense()
+    reads = ps.stats()["page_reads"] - reads0
+    # the grid sums the same kp-slices in the same order as the 1-d run,
+    # over half the columns a product (cuBLAS may tile those otherwise)
+    grid_err = (grid - pre).abs().max().item()
+    if reads or not torch.equal(back, base) or not torch.allclose(
+            grid, pre, rtol=1e-5, atol=1e-4):
+        raise RuntimeError(f"[mesh] reshard_summa_layout: {reads} pages "
+                           f"read, grid vs 1-d {grid_err}, or FF moved")
+    out["summa_layout"] = {"to_grid": {"blocks": rep1.blocks_moved,
+                                       "bytes": rep1.bytes_moved,
+                                       "ms": ms1},
+                           "to_1d": {"blocks": rep2.blocks_moved,
+                                     "bytes": rep2.bytes_moved, "ms": ms2},
+                           "page_reads": reads, "grid_vs_1d": grid_err}
+    c.store.page_store().close()
+    print(f"[mesh] reshard_summa_layout FF w1 1d -> 2x2 -> 1d: "
+          f"{rep1.blocks_moved} + {rep2.blocks_moved} blocks, "
+          f"{rep1.bytes_moved + rep2.bytes_moved} B, {ms1:.3f} + {ms2:.3f} "
+          f"ms, 0 pages read, FF output unchanged, 2x2 product within "
+          f"{grid_err:.3e} of the 1-d one | {card}")
+    return out
+
+
+def _mesh_placed_client(host, placement_of, device="cuda", cfg=None,
+                        paged=()):
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    c = Client(cfg or Configuration(), device=device)
+    c.create_database("tpch")
+    for n, (cols, dicts) in host.items():
+        if placement_of(n) is None:
+            continue
+        c.create_set("tpch", n, type_name="table", placement=placement_of(n),
+                     storage="paged" if n in paged else "memory")
+        c.send_table("tpch", n, ColumnTable.from_columns(cols, dicts,
+                                                         device="cpu"))
+    return c
+
+
+def _mesh_hold(name, got, want) -> float:
+    """Integers exactly, floats within rtol 1e-5 / atol 1e-3."""
+    import numpy as np
+
+    worst = 0.0
+    for (label, a), (_, b) in zip(_leaves(got), _leaves(want)):
+        if a.shape != b.shape:
+            raise RuntimeError(f"[mesh] {name}.{label}: {a.shape} vs "
+                               f"{b.shape}")
+        if b.dtype.kind in "biu":
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"[mesh] {name}.{label}: integers differ")
+            continue
+        if not np.allclose(a, b, rtol=MESH_REL_RTOL, atol=MESH_REL_ATOL):
+            raise RuntimeError(f"[mesh] {name}.{label}: beyond rtol "
+                               f"{MESH_REL_RTOL} atol {MESH_REL_ATOL}")
+        worst = max(worst, _rel_err(a, b))
+    return worst
+
+
+def _mesh_tpch(state, root, card) -> dict:
+    """(5) The ten suite queries over placed SF 10 sets (lineitem, orders
+    row-sharded over the positions, the rest replicated) against the
+    one-position resident client; then a paged and placed lineitem (64 MiB
+    pages, 1 GiB pool): Q01 and Q06 cold and warm."""
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.parallel.placement import Placement
+    from netsdb_tpu_torch.relational import dag
+    from netsdb_tpu_torch.relational.dag import FACT_TABLES
+    from netsdb_tpu_torch.storage.store import SetIdentifier
+
+    host, one = state["host"], state["card"]
+
+    def placement_of(n):
+        return (Placement.data_parallel(ndim=1, n_devices=MESH_POSITIONS)
+                if n in FACT_TABLES
+                else Placement.replicated(ndim=1, n_devices=MESH_POSITIONS))
+
+    placed, ingest_ms = _timed(lambda: _mesh_placed_client(host,
+                                                           placement_of),
+                               "cuda")
+    print(f"[mesh] placed SF {TPCH_SF} sets ingested in {ingest_ms:.1f} ms "
+          f"| {card}")
+    out = {"ingest_ms": ingest_ms, "queries": {}}
+    for q in sorted(dag._QUERY_TABLES):
+        want, one_ms = _timed(lambda: dag.run_query(
+            one, dag.suite_sink_for(one, "tpch", q), job_name=f"m1-{q}"),
+            "cuda")
+        _, one_ms = _timed(lambda: dag.run_query(
+            one, dag.suite_sink_for(one, "tpch", q), job_name=f"m1-{q}"),
+            "cuda")
+        sink = dag.suite_sink_for(placed, "tpch", q)
+        _, first_ms = _timed(lambda: dag.run_query(placed, sink,
+                                                   job_name=f"m4-{q}"),
+                             "cuda")
+        got, ms = _timed(lambda: dag.run_query(placed, sink,
+                                               job_name=f"m4-{q}"), "cuda")
+        err = _mesh_hold(q, got, want)
+        out["queries"][q] = {"ms": ms, "first_ms": first_ms,
+                             "one_position_ms": one_ms, "rel_err": err}
+        print(f"[mesh] placed {q}: {ms:.3f} ms ({first_ms:.3f} first), one "
+              f"position {one_ms:.3f} ms, max rel err {err:.3e} | {card}")
+
+    cfg = Configuration(root_dir=f"{root}/paged",
+                        page_size_bytes=PAGED_REL_PAGE_BYTES,
+                        page_pool_bytes=PAGED_REL_POOL_BYTES,
+                        device_cache_bytes=PAGED_REL_CACHE_BYTES)
+    paged, pms = _timed(lambda: _mesh_placed_client(
+        host, lambda n: placement_of(n) if n == "lineitem" else None,
+        cfg=cfg, paged=("lineitem",)), "cuda")
+    pc = paged.store.paged_relation(SetIdentifier("tpch", "lineitem"))
+    out["paged"] = {"ingest_ms": pms}
+    try:
+        for q in ("q01", "q06"):
+            sink = dag.suite_sink_for(paged, "tpch", q)
+            want = dag.run_query(one, dag.suite_sink_for(one, "tpch", q),
+                                 job_name=f"m1-{q}")
+            rec = {}
+            for kind in ("cold", "warm"):
+                if kind == "cold":
+                    paged.store.device_cache().invalidate(pc.cache_scope)
+                p0 = pc.pages_streamed
+                got, ms = _timed(lambda: dag.run_query(
+                    paged, sink, job_name=f"mp-{q}"), "cuda")
+                rec[kind] = {"ms": ms, "pages": pc.pages_streamed - p0,
+                             "rel_err": _mesh_hold(f"paged {q}", got, want)}
+            if rec["warm"]["pages"]:
+                raise RuntimeError(f"[mesh] paged placed {q} warm read "
+                                   f"{rec['warm']['pages']} pages")
+            out["paged"][q] = rec
+            print(f"[mesh] paged+placed {q}: cold {rec['cold']['ms']:.3f} ms "
+                  f"({rec['cold']['pages']} pages), warm "
+                  f"{rec['warm']['ms']:.3f} ms (0 pages), chunks sharded "
+                  f"over {MESH_POSITIONS} | {card}")
+    finally:
+        paged.store.page_store().close()
+        paged.store.device_cache().resize(0)  # its placed chunks
+    return out, placed
+
+
+def _mesh_shuffle(state, placed, mesh, card) -> dict:
+    """(6) The row shuffle at SF 10: ``shuffle_q03`` and
+    ``q03_row_sink_for`` against the resident Q03, ``Partition`` over the
+    placed orders, ``distributed_top_k`` over 60 M scores against
+    ``torch.topk``."""
+    import torch
+
+    from netsdb_tpu_torch.parallel.mesh import ShardedTensor
+    from netsdb_tpu_torch.plan import computations as C
+    from netsdb_tpu_torch.plan.executor import execute_computations
+    from netsdb_tpu_torch.relational import dag
+    from netsdb_tpu_torch.relational import shuffle as S
+    from netsdb_tpu_torch.relational.queries import cq03
+
+    one = state["card"]
+    tables = {n: one.get_table("tpch", n)
+              for n in ("customer", "orders", "lineitem")}
+    want, one_ms = _timed(lambda: cq03(tables), "cuda")
+
+    def same(name, got):
+        if [r["okey"] for r in got] != [r["okey"] for r in want] or \
+                [r["odate"] for r in got] != [r["odate"] for r in want]:
+            raise RuntimeError(f"[mesh] {name}: rows differ from the "
+                               f"resident Q03")
+        err = max(abs(g["revenue"] - w["revenue"]) / abs(w["revenue"])
+                  for g, w in zip(got, want))
+        if not err <= MESH_REL_RTOL:
+            raise RuntimeError(f"[mesh] {name}: revenues off by {err}")
+        return err
+
+    got, ms = _timed(lambda: S.shuffle_q03(tables, mesh), "cuda")
+    out = {"shuffle_q03": {"ms": ms, "rel_err": same("shuffle_q03", got)},
+           "resident_q03_ms": one_ms}
+    sink = S.q03_row_sink_for(placed, "tpch")
+    got, ms = _timed(lambda: dag.run_query(placed, sink), "cuda")
+    out["q03_row_sink"] = {"ms": ms, "rel_err": same("q03_row_sink", got)}
+    print(f"[mesh] shuffle_q03 {out['shuffle_q03']['ms']:.3f} ms, "
+          f"q03_row_sink_for {ms:.3f} ms, resident Q03 {one_ms:.3f} ms: "
+          f"same rows | {card}")
+
+    part = C.WriteSet(C.Partition(C.ScanSet("tpch", "orders"), "o_orderkey",
+                                  MESH_POSITIONS), "tpch", "orders_parts")
+    rows, ms = _timed(lambda: next(iter(execute_computations(
+        placed, [part], materialize=False).values())), "cuda")
+    n = MESH_POSITIONS
+    per = rows.rows_per_shard
+    bad = 0
+    for i in range(n):
+        cols, valid = rows.local(i)
+        bad += int(((torch.remainder(cols["o_orderkey"], n) != i)
+                    & valid).sum())
+    live = int(rows.valid.to_dense().sum())
+    if int(rows.overflow) or bad or live != len(state["host"]["orders"][0][
+            "o_orderkey"]):
+        raise RuntimeError(f"[mesh] Partition: overflow {int(rows.overflow)}"
+                           f", {bad} misplaced, {live} rows")
+    out["partition"] = {"ms": ms, "overflow": 0, "rows_per_shard": per}
+    print(f"[mesh] Partition(o_orderkey, {n}) over the placed orders: "
+          f"{ms:.3f} ms, overflow 0, every key on shard key % {n} | {card}")
+
+    s = MESH_TOPK
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    # normal scores: the top ten of 60 M lie far apart (uniform f32 ones
+    # would tie, and torch.topk orders ties as it likes)
+    scores = torch.randn(s["n"], generator=gen, device="cuda")
+    sharded = ShardedTensor.from_dense(scores, mesh, ("data",))
+    (vals, keys, ok), ms = _timed(lambda: S.distributed_top_k(
+        mesh, "data", sharded, s["k"]), "cuda")
+    ref, ref_ms = _timed(lambda: torch.topk(scores, s["k"]), "cuda")
+    per = s["n"] // n
+    pos = torch.remainder(keys, n).long() * per + torch.div(
+        keys, n, rounding_mode="floor").long()
+    if not (torch.equal(vals, ref.values) and torch.equal(pos, ref.indices)
+            and bool(ok.all())):
+        raise RuntimeError("[mesh] distributed_top_k differs from "
+                           "torch.topk")
+    out["top_k"] = {"ms": ms, "torch_topk_ms": ref_ms}
+    print(f"[mesh] distributed_top_k {s['n']} scores k {s['k']}: {ms:.3f} "
+          f"ms, torch.topk {ref_ms:.3f} ms: same values and indices | "
+          f"{card}")
+    return out
+
+
+def phase_mesh(pk: dict, smi: str, state: dict) -> tuple:
+    """Phase 18: the in-process mesh on the card, inside
+    ``virtual_devices(4, "cuda:0")``. Returns the results and the two
+    kernels' launches on its main path (the comparisons' launches are not
+    counted)."""
+    import tempfile
+
+    import torch
+
+    from netsdb_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+    from netsdb_tpu_torch.plan import programs
+    from netsdb_tpu_torch.relational import sharded
+
+    t0 = time.perf_counter()
+    out = {}
+    progs0 = programs.program_stats()
+    fallbacks0 = len(programs.fallback_log())
+    torch.cuda.reset_peak_memory_stats()
+    with virtual_devices(MESH_POSITIONS, "cuda:0") as devs, \
+            tempfile.TemporaryDirectory(prefix="netsdb_mesh_") as root:
+        devices = list(devs)
+        mesh = make_mesh((MESH_POSITIONS,), ("data",))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+        out["collectives"] = _mesh_collectives(mesh, gen, smi)
+        _wl_free("cuda")
+        out["ulysses"], launches = _mesh_ulysses(mesh, smi, pk)
+        _wl_free("cuda")
+        out["summa"] = _mesh_summa(f"{root}/summa", devices, smi)
+        ff = _mesh_ff(f"{root}/ff", smi)
+        out["reshard"] = _mesh_reshard(root, ff, devices, smi)
+        for c, _m in ff.pop("clients").values():
+            c.store.page_store().close()
+        out["ff"] = ff
+        _wl_free("cuda")
+        out["tpch"], placed = _mesh_tpch(state, root, smi)
+        _wl_free("cuda")
+        out["shuffle"] = _mesh_shuffle(state, placed, mesh, smi)
+        del placed
+        _wl_free("cuda")
+    progs = programs.program_stats()
+    fallbacks = programs.fallback_log()[fallbacks0:]
+    mesh_fallbacks = sharded.fallback_log()
+    out["memory"] = {
+        "peak_reserved_mib": torch.cuda.max_memory_reserved() / 2**20,
+        "card_used": subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(),
+        "captures": progs["captures"] - progs0["captures"],
+        "replays": progs["replays"] - progs0["replays"]}
+    out["fallbacks"] = {"programs": fallbacks, "placed": mesh_fallbacks}
+    print(f"[mesh] peak reserved {out['memory']['peak_reserved_mib']:.0f} "
+          f"MiB, card used {out['memory']['card_used']}, programs captured "
+          f"{out['memory']['captures']} replayed {out['memory']['replays']}"
+          f" | {smi}")
+    for f in fallbacks:
+        print(f"[mesh] program fallback: {f}")
+    for f in mesh_fallbacks:
+        print(f"[mesh] placed-relation fallback: {f}")
+    if mesh_fallbacks:
+        raise RuntimeError(f"[mesh] placed requests fell back: "
+                           f"{mesh_fallbacks}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[mesh] phase 18 took {out['seconds']:.1f} s | {smi}")
+    return out, launches
+
+
+def mesh_path(pk: dict, smi: str, state: dict) -> dict:
+    """Phase 18 between launch counts set to 0 and read: Ulysses launches
+    B1 once per position a call, B2 never."""
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+
+    flash_attention.launches = flash_attention_step.launches = 0
+    out, launches = phase_mesh(pk, smi, state)
+    got = (flash_attention.launches, flash_attention_step.launches)
+    print(f"[mesh] launches on this path: flash_attention {got[0]}, "
+          f"flash_attention_step {got[1]}")
+    if got != launches or got[0] == 0 or got[1] != 0:
+        raise RuntimeError(f"[mesh] launches {got}: Ulysses must launch B1 "
+                           f"and nothing B2 (counted {launches})")
+    out["launches"] = {"flash_attention": got[0],
+                       "flash_attention_step": got[1]}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6276,6 +6983,12 @@ def main() -> int:
         print(json.dumps({"pool": phase_pool(pk, smi), "card": smi},
                          default=str))
         return 0
+    if "--mesh-only" in sys.argv[1:]:
+        # phase 18 alone, the same way, over its own SF 10 tables
+        state = _resident_card(TPCH_SF)
+        print(json.dumps({"mesh": mesh_path(pk, smi, state), "card": smi},
+                         default=str))
+        return 0
     b1 = phase_kernels(pk)
     b2 = phase_step_kernel(pk)
 
@@ -6310,6 +7023,9 @@ def main() -> int:
         paged_relations = paged_relations_path(pk, rel_state)
         rows = rows_path(pk)
         compiled = compiled_path(rel_state)
+        _close_paged(rel_state.pop("paged", None))
+        _wl_free("cuda")
+        mesh = mesh_path(pk, smi, rel_state)
     finally:
         _close_paged(rel_state.get("paged"))
     del rel_state
@@ -6328,7 +7044,8 @@ def main() -> int:
                       "la": la, "relational": relational,
                       "paged_relations": paged_relations, "rows": rows,
                       "compiled": compiled, "workloads": workloads,
-                      "serve": serve, "pool": pool, "card": smi},
+                      "serve": serve, "pool": pool, "mesh": mesh,
+                      "card": smi},
                      default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
@@ -6350,7 +7067,8 @@ def main() -> int:
                     "compiled": compiled["launches"]["flash_attention"],
                     "workloads": workloads["launches"]["flash_attention"],
                     "served": serve["launches"]["flash_attention"],
-                    "pool": pool_launches["flash_attention"]},
+                    "pool": pool_launches["flash_attention"],
+                    "mesh": mesh["launches"]["flash_attention"]},
                    b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
@@ -6360,7 +7078,8 @@ def main() -> int:
                     "workloads":
                         workloads["launches"]["flash_attention_step"],
                     "served": serve["launches"]["flash_attention_step"],
-                    "pool": pool_launches["flash_attention_step"]},
+                    "pool": pool_launches["flash_attention_step"],
+                    "mesh": mesh["launches"]["flash_attention_step"]},
                    b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

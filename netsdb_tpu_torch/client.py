@@ -127,9 +127,11 @@ class Client:
         conv model's image sets); ``type_name="table"`` a relation set
         for :meth:`send_table`. A paged relation keeps its columns as
         row-chunk pages of the arena, and queries stream it through
-        nodes that carry a relational ``fold``; a paged and placed
-        relation raises (ROADMAP.md A4), as does a placed relation when
-        data arrives. ``type_name="objects"`` columnarises what
+        nodes that carry a relational ``fold``. A placed relation set
+        lays out what :meth:`send_table` sends over the mesh (rows padded
+        to the shard granularity, a validity mask, fact tables
+        row-sharded, dimensions replicated), and a paged and placed one
+        shards each streamed chunk. ``type_name="objects"`` columnarises what
         :meth:`send_data` sends (a paged ``objects`` set pages the table).
 
         ``eviction`` (``"lru"``, ``"mru"`` or ``"random"``) orders the set
@@ -152,12 +154,6 @@ class Client:
         if storage not in ("memory", "paged"):
             raise ValueError(f"storage must be 'memory' or 'paged', "
                              f"got {storage!r}")
-        if storage == "paged" and type_name == "table" and \
-                placement is not None:
-            raise NotImplementedError(
-                "create_set(type_name='table', storage='paged', "
-                "placement=...): chunks sharded over a mesh are not ported "
-                "yet: ROADMAP.md A4")
         if persistence not in ("transient", "persistent"):
             raise ValueError(f"persistence must be 'transient' or "
                              f"'persistent', got {persistence!r}")

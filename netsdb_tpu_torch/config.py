@@ -14,12 +14,6 @@ import torch
 # knobs of the reference that belong to later items of ROADMAP.md A:
 # setting one away from its default raises, naming the item
 _LATER = {
-    # A4: meshes and the distributed matmul
-    "mesh_shape": (None, "A4"),
-    "mesh_axis_names": (("data", "model"), "A4"),
-    "distributed_matmul": (False, "A4"),
-    "summa_participants": (None, "A4"),
-    "summa_grid": (None, "A4"),
     # A7 part 2: the daemon pool — pin auto-sizing from the attribution
     # ledger, HA, rebalancing
     "device_cache_pin_auto": (False, "A7 part 2"),
@@ -90,8 +84,17 @@ class Configuration:
     no budget) splitting a region whose staged-bytes estimate exceeds it.
     ``obs_explain`` records an EXPLAIN tree for every traced query.
 
+    The distributed matmul keeps the reference's knobs and defaults:
+    ``distributed_matmul`` (off) routes a streamed matmul over a paged
+    operand through SUMMA over ``summa_participants`` positions (None:
+    every visible one), on the ``summa_grid`` processor grid (``"PRxPC"``
+    or a pair; None: the 1-d mesh) when it fits
+    (``parallel/summa.py``; a malformed grid raises where it is read).
+
     Knobs that no in-process path of the reference reads either, taken
-    as given: ``compute_dtype``, ``accum_dtype`` and ``storage_dtype``
+    as given: ``mesh_shape`` and ``mesh_axis_names`` (meshes come from
+    placements and ``make_mesh``), ``compute_dtype``, ``accum_dtype`` and
+    ``storage_dtype``
     (dtypes are chosen per call, f32 by default), ``log_level`` and
     ``num_threads`` (the served daemon's job slots). ``enable_compression``
     is taken as given too: the port's spill files are its own format,
@@ -112,8 +115,7 @@ class Configuration:
     ``session_state_bytes`` (>= 0); the decode runtime's
     ``decode_batch_max`` (>= 1) and ``model_dedup``.
 
-    Every knob of a later ROADMAP.md item (``_LATER``: meshes, the
-    daemon pool, the scheduler's feedback, the rest of obs, the lock
+    Every knob of a later ROADMAP.md item (``_LATER``: the daemon pool, the scheduler's feedback, the rest of obs, the lock
     witness) raises ``NotImplementedError`` naming its item when set
     away from its default."""
 
@@ -130,7 +132,7 @@ class Configuration:
     root_dir: str = dataclasses.field(
         default_factory=lambda: os.path.join(tempfile.gettempdir(),
                                              "netsdb_tpu_torch"))
-    # --- mesh defaults (A4) ---
+    # --- mesh defaults (read by no in-process path) ---
     mesh_shape: Optional[Tuple[int, ...]] = None
     mesh_axis_names: Tuple[str, ...] = ("data", "model")
     # --- staged streaming (plan/staging.py) ---
@@ -149,7 +151,7 @@ class Configuration:
     device_cache_partial: bool = True
     device_cache_pin_bytes: int = 0
     device_cache_dirty_log: int = 64
-    # --- distributed linear algebra (A4) ---
+    # --- distributed linear algebra (parallel/summa.py) ---
     distributed_matmul: bool = False
     summa_participants: Optional[int] = None
     summa_grid: Optional[str] = None

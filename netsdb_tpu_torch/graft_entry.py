@@ -10,7 +10,7 @@
 Both run on CUDA unless given ``device=``, and raise where there is no
 card. The reference's dry run also builds an n-device mesh and runs the
 sequence-, pipeline- and expert-parallel sections over placed sets; the
-port's multi-device work is ROADMAP.md A4, so ``n_devices > 1`` raises.
+port's multi-device work is ROADMAP.md A4 part 3, so ``n_devices > 1`` raises.
 """
 
 from __future__ import annotations
@@ -64,11 +64,11 @@ def dryrun_multichip(n_devices: int, device=None) -> float:
     with ``send_matrix``, params read back with ``params_from_store`` and
     ``get_tensor``, and one ``train_step``. Returns the step's loss;
     raises on a non-finite output or loss. More than one device is
-    ROADMAP.md A4."""
+    ROADMAP.md A4 part 3."""
     if n_devices != 1:
         raise NotImplementedError(
             f"dryrun_multichip({n_devices}): the port's dry run covers one "
-            f"device; meshes and placed training are ROADMAP.md A4")
+            f"device; meshes and placed training are ROADMAP.md A4 part 3")
     # the reference's shapes at one device: data and model axes of 1
     block, features, hidden, batch, labels = (8, 8), 16, 16, 16, 8
     rng = np.random.default_rng(0)

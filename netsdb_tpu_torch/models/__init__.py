@@ -3,7 +3,7 @@
 ``src/conv2d_memory_fusion``, ``src/LSTM``) and the transformer layer;
 counterpart of ``netsdb_tpu/models/__init__.py``. The mixture-of-experts
 layer runs on one device (``models.moe``; expert parallelism is
-ROADMAP.md A4); decode and the served pool are ROADMAP.md A5 and A7."""
+ROADMAP.md A4 part 3); decode and the served pool are ROADMAP.md A5 and A7."""
 
 from netsdb_tpu_torch.models.conv2d import Conv2DModel
 from netsdb_tpu_torch.models.ff import FFModel

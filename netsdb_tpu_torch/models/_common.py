@@ -30,7 +30,7 @@ def create_sets(client, db: str, sets: Iterable[str],
     if placed:
         raise NotImplementedError(
             f"placed sets {placed} of database {db!r}: these models run on "
-            f"one device; multi-device placement is ROADMAP.md A4")
+            f"one device; multi-device placement is ROADMAP.md A4 part 3")
     client.create_database(db)
     for s in sets:
         client.create_set(db, s, type_name=type_name)
@@ -44,7 +44,7 @@ def _tensor_of(value, what: str) -> torch.Tensor:
     if not isinstance(t, torch.Tensor):
         raise NotImplementedError(
             f"train_step: {what} is a {type(t).__name__}; training runs on "
-            f"tensors of one device (placed sets are ROADMAP.md A4)")
+            f"tensors of one device (placed sets are ROADMAP.md A4 part 3)")
     if t.is_inference():
         raise ValueError(
             f"train_step: {what} is an inference tensor (a set written by "

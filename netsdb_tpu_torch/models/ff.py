@@ -118,17 +118,28 @@ class FFModel:
         # paged weight set streams its row blocks through the same fn and
         # the output rows are concatenated (out_block gives the result
         # the resident path's blocks); resident sets ignore the fold
-        fold = TensorFold(mode="rows", out_block=(self.block[0],
-                                                  self.block[0]))
+        # the SUMMA declarations (fn(block, x) == block @ rhs(x)) route
+        # both weight streams through the distributed matmul under
+        # config.distributed_matmul — declared only under full-precision
+        # compute: SUMMA's panel accumulation reassociates the contraction
+        # (exact for integer-valued f32 operands, last-ulp otherwise)
+        wfold = TensorFold(mode="rows",
+                           out_block=(self.block[0], self.block[0]),
+                           summa_rhs=(lambda x: x.to_dense().t())
+                           if cd is None else None)
+        rfold = TensorFold(mode="rows",
+                           out_block=(self.block[0], self.block[0]),
+                           summa_rhs=(lambda y: y.to_dense())
+                           if cd is None else None)
         # FFTransposeMult + FFAggMatrix: w1 · inputsᵀ → (hidden x batch)
         h = Join(w1, inputs, fn=lambda w, x: matmul_t(w, x, cd,
                                                       accum_dtype=cd),
-                 label="FFTransposeMult", tensor_fold=fold)
+                 label="FFTransposeMult", tensor_fold=wfold)
         y1 = Join(h, b1, fn=lambda hh, bb: nn_ops.bias_relu(
             hh, bb, dropout_rate, generator), label="FFReluBiasSum")
         # FFInputLayerJoin + FFAggMatrix: wo · y1 → (labels x batch)
         yo_lin = Join(wo, y1, fn=lambda w, y: matmul(w, y, cd),
-                      label="FFInputLayerJoin", tensor_fold=fold)
+                      label="FFInputLayerJoin", tensor_fold=rfold)
         # FFTransposeBiasSum → FFRowAggregate → FFOutputLayer, fused
         out = Join(yo_lin, bo,
                    fn=lambda y, b: nn_ops.ff_output_layer(y, b, axis=0),

@@ -40,7 +40,7 @@ class LogRegModel:
 
     def setup(self, client, placements=None) -> None:
         """Create the database and its sets. A placement raises
-        ``NotImplementedError`` (ROADMAP.md A4)."""
+        ``NotImplementedError`` (ROADMAP.md A4 part 3)."""
         create_sets(client, self.db, self.SETS, placements)
 
     def load_weights(self, client, w, b: float) -> None:

@@ -38,7 +38,7 @@ class LSTMModel:
 
     def setup(self, client, placements=None) -> None:
         """Create the database, the 12 weight sets and the state sets. A
-        placement raises ``NotImplementedError`` (ROADMAP.md A4)."""
+        placement raises ``NotImplementedError`` (ROADMAP.md A4 part 3)."""
         create_sets(client, self.db,
                     self.weight_sets + ["x", "h", "c", "h_out", "c_out"],
                     placements)

@@ -1,5 +1,5 @@
 """Mixture-of-experts layer — counterpart of ``netsdb_tpu/models/moe.py``
-on one device (expert parallelism over a mesh is ROADMAP.md A4).
+on one device (expert parallelism over a mesh is ROADMAP.md A4 part 3).
 
 Top-1 switch routing with a capacity limit in the dispatch/combine
 formulation: dispatch (tokens → expert slots) and combine (expert
@@ -79,7 +79,7 @@ def moe_forward(params: MoEParams, x: torch.Tensor,
     if mesh is not None:
         raise NotImplementedError(
             "moe_forward(mesh=...): expert parallelism over a mesh is not "
-            "ported yet: ROADMAP.md A4")
+            "ported yet: ROADMAP.md A4 part 3")
     del expert_axis
     n_experts = params.w_gate.shape[1]
     r = route(params, x, capacity_factor)

@@ -28,7 +28,7 @@ class Word2VecModel:
 
     def setup(self, client, placements=None) -> None:
         """Create the database and its sets. A placement raises
-        ``NotImplementedError`` (ROADMAP.md A4)."""
+        ``NotImplementedError`` (ROADMAP.md A4 part 3)."""
         create_sets(client, self.db, self.SETS, placements)
 
     def load_embeddings(self, client, table) -> None:

@@ -364,12 +364,12 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention_step_plain`. ``flash_attention_step.launches``
     counts kernel launches. Operands that require grad under grad mode
     raise ``RuntimeError``: the carry is written in place, and this step
-    has no autograd node (sequence-parallel training, ROADMAP.md A4)."""
+    has no autograd node (sequence-parallel training, ROADMAP.md A4 part 3)."""
     if _needs_grad(q, k, v, acc, l, m):
         raise RuntimeError(
             "flash_attention_step (B2) writes its carry in place and has "
             "no autograd node; sequence-parallel training is not ported "
-            "(ROADMAP.md A4)")
+            "(ROADMAP.md A4 part 3)")
     _check_step_operands(q, k, v, acc, l, m)
     bh, s_q, d = q.shape
     scale = scale if scale is not None else d ** -0.5

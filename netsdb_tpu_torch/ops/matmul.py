@@ -5,9 +5,9 @@ plus an aggregation of the block products; on one card the whole
 join + aggregate is one dense product on the padded tensors. Zero
 padding is safe under contraction, so nothing is masked here; the output
 metadata keeps the logical shape. An operand whose data is sharded over
-a mesh (a staged block of a placed paged set) is gathered first: these
-products run on one device. (The reference's ``distributed=`` SUMMA
-branch belongs to the multi-GPU slice, ROADMAP.md A4.)
+a mesh (a staged block of a placed paged set) is gathered first.
+``matmul(distributed=True)`` runs the contraction through SUMMA over the
+visible positions (``parallel/summa.summa_matmul_resident``).
 """
 
 from __future__ import annotations
@@ -36,12 +36,39 @@ def _contract(ad, bd, a_pad_k, b_pad_k, k, compute_dtype, accum_dtype=None):
 
 def matmul(a: BlockedTensor, b: BlockedTensor,
            compute_dtype: Optional[str] = None,
-           accum_dtype: Optional[str] = None) -> BlockedTensor:
+           accum_dtype: Optional[str] = None,
+           distributed: Optional[bool] = None) -> BlockedTensor:
     """C = A·B (reference ``FFInputLayerJoin`` + ``FFAggMatrix``).
-    ``accum_dtype`` sets the output dtype (default f32)."""
+    ``accum_dtype`` sets the output dtype (default f32).
+
+    ``distributed=True`` routes the contraction through the SUMMA panel
+    engine over the visible positions of A's device type (A's rows split,
+    B's contraction panels broadcast per step, C tiles accumulated in
+    order) when there are at least 2 and the product is f32 (a caller
+    asking for reduced-precision compute or a non-f32 accumulator keeps
+    the one-device product, as in the reference; ``summa.single_position``
+    counts a request with fewer than 2 positions). None means False: the
+    port has no process-wide configuration for the knob to come from."""
     (m, ka), (kb, n) = a.shape, b.shape
     if ka != kb:
         raise ValueError(f"matmul contraction mismatch {a.shape} x {b.shape}")
+    if distributed and compute_dtype is None and accum_dtype is None:
+        from netsdb_tpu_torch import obs
+        from netsdb_tpu_torch.parallel import summa
+        from netsdb_tpu_torch.parallel.mesh import visible_devices
+
+        ad = _data(a)
+        devices = list(visible_devices(ad.device.type))
+        if len(devices) >= 2:
+            out = summa.summa_matmul_resident(ad[:m, :ka], _data(b)[:kb, :n],
+                                              devices=devices)
+            meta = BlockMeta((m, n), (a.meta.block_shape[0],
+                                      b.meta.block_shape[1]))
+            pad = (0, meta.padded_shape[1] - n, 0, meta.padded_shape[0] - m)
+            if any(pad):
+                out = torch.nn.functional.pad(out, pad)
+            return BlockedTensor(out, meta)
+        obs.REGISTRY.counter("summa.single_position").inc()
     out = _contract(_data(a), _data(b), a.meta.padded_shape[1],
                     b.meta.padded_shape[0], ka, compute_dtype, accum_dtype)
     meta = BlockMeta((m, n), (a.meta.block_shape[0], b.meta.block_shape[1]))

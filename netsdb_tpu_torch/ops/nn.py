@@ -16,11 +16,16 @@ import torch
 from netsdb_tpu_torch.core.blocked import BlockedTensor
 from netsdb_tpu_torch.ops import linalg
 from netsdb_tpu_torch.ops.common import neutral_fill, remask
+from netsdb_tpu_torch.parallel.mesh import ShardedTensor
 
 
 def _broadcast_bias(x: BlockedTensor, bias: BlockedTensor) -> torch.Tensor:
-    """Bias (n,) or (n,1) broadcast along x's columns, on padded data."""
+    """Bias (n,) or (n,1) broadcast along x's columns, on padded data (a
+    bias stored in a placed set is gathered: these ops run on one
+    device)."""
     b = bias.data
+    if isinstance(b, ShardedTensor):
+        b = b.to_dense()
     if b.ndim == 1:
         b = b[:, None]
     if b.shape[0] != x.data.shape[0]:

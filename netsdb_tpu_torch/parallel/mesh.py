@@ -6,16 +6,22 @@ process drives every position, as JAX's ``shard_map`` does: a
 :class:`ShardedTensor` (the counterpart of a ``jax.Array`` under a
 ``NamedSharding``) holds one tensor per position, and code that runs
 "per device" loops over the positions, each launching on its own
-position's device. Multi-process execution over NCCL is
-``parallel/distributed.py``, not ported yet (ROADMAP.md A4).
+position's device. The collectives over an axis are explicit functions
+of the positions' tensors (:func:`position_sum`, :func:`position_gather`,
+:func:`position_scatter`, :func:`position_all_to_all`): a reduction sums
+the partials in position order, a gather concatenates them, an
+all-to-all is a split and a concatenation. Positions on one device
+exchange tensors without a copy; positions on different cards copy with
+``Tensor.to``. Multi-process execution over NCCL is
+``parallel/distributed.py``, not ported yet (ROADMAP.md A4 part 3).
 
 Device positions default to the visible cards ``cuda:0..n-1`` (or the
 one CPU for CPU tensors). :func:`virtual_devices` makes ``n`` positions
-that share one physical device — the port's counterpart of the
-reference tests' 8 virtual CPU devices
-(``--xla_force_host_platform_device_count=8``). It is turned on only by
-an explicit ``with virtual_devices(n, device):`` and is never the
-default.
+that share one physical device (the first card unless the caller names
+another) — the port's counterpart of the reference tests' 8 virtual CPU
+devices (``--xla_force_host_platform_device_count=8``). It is turned on
+only by an explicit ``with virtual_devices(n, device):`` and is never
+the default.
 """
 
 from __future__ import annotations
@@ -95,18 +101,22 @@ def visible_devices(device_type: Optional[str] = None
 
 
 @contextlib.contextmanager
-def virtual_devices(n: int, device="cpu"
+def virtual_devices(n: int, device="cuda"
                     ) -> Iterator[Tuple[torch.device, ...]]:
     """Within the block, ``n`` mesh positions share the one physical
-    ``device``: placements, meshes and the default mesh resolve over
-    them, so a sharded path runs all its positions on one card (or the
-    CPU). The previous positions and default mesh come back on exit."""
+    ``device`` (the first card unless the caller asks for another, or
+    for the CPU): placements, meshes and the default mesh resolve over
+    them, so a sharded path runs all its positions on one card. The
+    previous positions and default mesh come back on exit. A CUDA device
+    without a visible card raises, as :func:`visible_devices` does."""
     global _virtual, _default_mesh
     if n < 1:
         raise ValueError(f"need at least one position, got {n}")
     dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", 0)
+    if dev.type == "cuda":
+        visible_devices("cuda")  # raises without a card
+        if dev.index is None:
+            dev = torch.device("cuda", 0)
     saved = (_virtual, _default_mesh)
     _virtual, _default_mesh = (dev,) * n, None
     try:
@@ -141,6 +151,74 @@ def default_mesh() -> Mesh:
 def set_default_mesh(mesh: Optional[Mesh]) -> None:
     global _default_mesh
     _default_mesh = mesh
+
+
+# --- collectives over the positions of one axis group -------------------
+
+def move(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: the same tensor when it is there already, else
+    a copy issued on the destination's current stream (the counterpart of
+    one ICI transfer)."""
+    if t.device == device:
+        return t
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            return t.to(device, non_blocking=True)
+    return t.to(device)
+
+
+def position_sum(parts: Sequence[torch.Tensor],
+                 device: Optional[torch.device] = None) -> torch.Tensor:
+    """The sum of the positions' partials on ``device`` (default: the
+    first position's), added in position order — ``((p0 + p1) + p2) +
+    ...`` — so two runs give the same bits whatever the devices."""
+    device = device if device is not None else parts[0].device
+    out = move(parts[0], device).clone()
+    for p in parts[1:]:
+        out += move(p, device)
+    return out
+
+
+def position_gather(parts: Sequence[torch.Tensor], dim: int = 0,
+                    device: Optional[torch.device] = None) -> torch.Tensor:
+    """The positions' blocks concatenated along ``dim`` in position order
+    on ``device`` (default: the first position's)."""
+    device = device if device is not None else parts[0].device
+    return torch.cat([move(p, device) for p in parts], dim=dim)
+
+
+def position_scatter(x: torch.Tensor, devices: Sequence[torch.device],
+                     dim: int = 0) -> List[torch.Tensor]:
+    """``x`` split into ``len(devices)`` equal blocks along ``dim``, block
+    ``i`` on ``devices[i]`` (contiguous)."""
+    n = len(devices)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of size {x.shape[dim]} does not "
+                         f"split into {n} parts")
+    return [move(b.contiguous(), d)
+            for b, d in zip(torch.chunk(x, n, dim=dim), devices)]
+
+
+def position_all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
+                        concat_dim: int) -> List[torch.Tensor]:
+    """The tiled all-to-all of one axis group: position ``i`` splits its
+    block into ``n`` along ``split_dim`` and sends piece ``j`` to position
+    ``j``, which concatenates the pieces it receives along
+    ``concat_dim`` in position order."""
+    n = len(parts)
+    pieces = [torch.chunk(p, n, dim=split_dim) for p in parts]
+    if any(p.shape[split_dim] % n for p in parts):
+        raise ValueError(f"dimension {split_dim} does not split into {n} "
+                         f"parts")
+    return [torch.cat([move(pieces[i][j], parts[j].device)
+                       for i in range(n)], dim=concat_dim).contiguous()
+            for j in range(n)]
+
+
+def group_shards(x: "ShardedTensor", group: Sequence[Index]
+                 ) -> List[torch.Tensor]:
+    """The tensors of ``x`` at the positions of one axis group."""
+    return [x.shards[p] for p in group]
 
 
 # Equal axes over equal devices give the SAME Mesh object.

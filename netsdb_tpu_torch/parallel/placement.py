@@ -9,6 +9,11 @@ placement is data, not device handles: it lives in the catalog as JSON
 (``to_meta``) and materialises the same :class:`~netsdb_tpu_torch.
 parallel.mesh.Mesh` for equal axes and devices (``mesh()``, cached).
 
+A relation set's placement lays its table out row by row
+(:func:`shard_table`): fact tables row-sharded, dimensions replicated.
+:func:`local_tables` gives each position's block, :func:`gather_table`
+the whole relation again.
+
 Degraded-hardware rule, as in the reference: if the process has fewer
 device positions than the declared mesh, the placement collapses to a
 trivial mesh of size 1 on every axis. Data stays correct; parallelism
@@ -113,6 +118,14 @@ class Placement:
                 total *= mesh.shape[ax]
         return total
 
+    def mesh_label(self, device_type: str = "cuda") -> str:
+        """The label plus the resolved mesh over the visible positions of
+        ``device_type`` (its shape and devices): two layouts of one
+        placement over different position sets label apart."""
+        mesh = self.mesh(visible_devices(device_type))
+        devs = ",".join(str(d) for d in mesh.devices.flat)
+        return f"{self.label()}{dict(mesh.shape)}[{devs}]"
+
     def label(self) -> str:
         """Human form, e.g. ``mesh[sp=4]:P(None,sp,None)``."""
         ax = ",".join(f"{n}={s}" for n, s in self.axes)
@@ -125,13 +138,13 @@ class Placement:
         visible positions of the value's device type. Tensors become
         :class:`ShardedTensor`s; a ``BlockedTensor`` keeps its blocks
         and gets sharded data (a dimension its padded shape cannot
-        divide stays replicated); other host objects are stored as they
-        are."""
-        if type(value).__name__ == "ColumnTable":
-            # row-sharded relations are relational/sharded.py
-            raise NotImplementedError(
-                "placing a relational ColumnTable (row-sharded relations) "
-                "is not ported yet: ROADMAP.md A4")
+        divide stays replicated); a ``ColumnTable`` gets row-sharded (or
+        replicated) columns (:func:`shard_table`); other host objects
+        are stored as they are."""
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        if isinstance(value, ColumnTable):
+            return shard_table(value, self)
         if isinstance(value, BlockedTensor):
             return shard_blocked(value, self.mesh(
                 visible_devices(value.device.type)), self.spec)
@@ -139,3 +152,135 @@ class Placement:
             return as_sharded(value, self.mesh(
                 visible_devices(value.device.type)), self.spec)
         return value
+
+
+def shard_table(table, placement: Placement, keep_stats: bool = False):
+    """A ``ColumnTable`` laid out by a 1-d placement over the mesh of the
+    visible positions of its device type (:func:`lay_out_table`). The
+    planner's statistics are those of the padded columns, as in the
+    reference (``keep_stats`` carries the source table's instead: a chunk
+    of a paged relation, whose statistics are the relation's)."""
+    if len(placement.spec) != 1:
+        raise ValueError(f"table placement needs a 1-d spec (rows); got "
+                         f"{placement.spec}")
+    if is_placed_table(table):
+        table = gather_table(table, strip=True)
+    mesh = placement.mesh(visible_devices(table.device.type))
+    out = lay_out_table(table, mesh, placement.spec, keep_stats)
+    out.__dict__["_placement"] = placement
+    return out
+
+
+def lay_out_table(table, mesh: Mesh, spec, keep_stats: bool = False):
+    """``table`` over ``mesh`` by a 1-d row ``spec``: the rows are padded
+    to the shard granularity with invalid rows (a sharded dimension
+    divides the position count), and every column and the validity mask
+    become :class:`ShardedTensor` s — row blocks over a sharded axis, a
+    whole copy (one per physical device) when replicated. The padding
+    rows are False in the mask, so every fold's ``_fold_mask`` turns them
+    into -1 keys and 0 measures."""
+    from netsdb_tpu_torch.relational.stats import analyze_table
+    from netsdb_tpu_torch.relational.table import _STATS_ATTR, ColumnTable
+
+    spec = tuple(spec)
+    n = table.num_rows
+    entry = spec[0]
+    div = (1 if entry is None else math.prod(
+        mesh.shape[a] for a in (entry if isinstance(entry, tuple)
+                                else (entry,))))
+    pad = (-n) % div
+    cols = {}
+    for name, col in table.cols.items():
+        if pad:
+            col = torch.cat([col, col.new_zeros((pad,) + col.shape[1:])])
+        cols[name] = col
+    valid = table.mask()
+    if pad:
+        valid = torch.cat([valid, valid.new_zeros((pad,))])
+    padded = ColumnTable(cols, table.dicts, valid)
+    stats = (dict(table.__dict__.get(_STATS_ATTR) or {}) if keep_stats
+             else dict(analyze_table(padded)))
+    out = ColumnTable({k: as_sharded(c, mesh, spec)
+                       for k, c in cols.items()}, table.dicts,
+                      as_sharded(valid, mesh, spec))
+    out.__dict__[_STATS_ATTR] = stats
+    out.__dict__["_source_rows"] = n
+    return out
+
+
+def is_placed_table(value: Any) -> bool:
+    """True for a ``ColumnTable`` whose columns are laid out over a mesh
+    (:func:`shard_table`)."""
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    return (isinstance(value, ColumnTable) and bool(value.cols)
+            and isinstance(next(iter(value.cols.values())), ShardedTensor))
+
+
+def table_layout(table) -> Tuple[Mesh, Tuple[Any, ...]]:
+    """The mesh and the row spec of a placed table."""
+    first = next(iter(table.cols.values()))
+    return first.mesh, first.spec
+
+
+def local_tables(table, rowid: bool = False) -> list:
+    """The placed table's block at each position, in position order: a
+    ``ColumnTable`` of the position's tensors (its rows, or a whole copy
+    when replicated). ``rowid`` adds a ``_rowid`` column of GLOBAL row
+    numbers where the table has none (folds arbitrate ties on them)."""
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    first = next(iter(table.cols.values()))
+    mesh = first.mesh
+    out = []
+    for idx in mesh.positions():
+        cols = {k: c.shards[idx] for k, c in table.cols.items()}
+        valid = table.valid.shards[idx] if table.valid is not None else None
+        if rowid and "_rowid" not in cols:
+            start = first.region(idx)[0].start
+            n = first.local_shape[0]
+            cols["_rowid"] = torch.arange(
+                start, start + n, dtype=torch.int32,
+                device=mesh.devices[idx])
+        out.append(ColumnTable(cols, table.dicts, valid))
+    return out
+
+
+def gather_table(table, strip: bool = False):
+    """A placed table gathered into one ``ColumnTable`` on its first
+    position's device (row blocks concatenated in position order), the
+    padding rows kept and masked invalid — or cut off with ``strip``
+    (the relation as it was sent; its statistics are then collected
+    anew)."""
+    from netsdb_tpu_torch.relational.table import _STATS_ATTR, ColumnTable
+
+    cols = {k: c.to_dense() for k, c in table.cols.items()}
+    valid = table.valid.to_dense() if table.valid is not None else None
+    rows = table.__dict__.get("_source_rows")
+    if strip and rows is not None:
+        cols = {k: c[:rows] for k, c in cols.items()}
+        valid = valid[:rows] if valid is not None else None
+        if valid is not None and bool(valid.all()):
+            valid = None
+        return ColumnTable(cols, table.dicts, valid)
+    out = ColumnTable(cols, table.dicts, valid)
+    stats = table.__dict__.get(_STATS_ATTR)
+    if stats is not None:
+        out.__dict__[_STATS_ATTR] = dict(stats)
+    return out
+
+
+def refuse_placed(client, db: str, set_name: str, what: str) -> None:
+    """Raise for a workload driver given a placed set: the placed
+    workloads run over a mesh in the reference and are ROADMAP.md A4
+    part 3 here (never silently on one position)."""
+    store = getattr(client, "store", None)
+    if store is None:
+        return
+    from netsdb_tpu_torch.storage.store import SetIdentifier
+
+    if store.placement_of(SetIdentifier(db, set_name)) is not None:
+        raise NotImplementedError(
+            f"{what} over the placed set {db}:{set_name} (the workload "
+            f"distributed over a mesh) is not ported yet: ROADMAP.md A4 "
+            f"part 3")

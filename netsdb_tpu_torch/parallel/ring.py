@@ -1,4 +1,4 @@
-"""Sequence parallelism: ring attention — counterpart of
+"""Sequence parallelism: ring attention and Ulysses — counterpart of
 ``netsdb_tpu/parallel/ring.py``.
 
 q/k/v are sharded on the sequence axis over a mesh axis; k/v chunks
@@ -6,7 +6,10 @@ rotate around the ring of positions while each position folds every
 arriving chunk into its queries' online-softmax carry. At step ``i``
 position ``p`` holds the chunk that originated at ``(p - i) % n``, so
 its own (diagonal) chunk comes first; causal masking uses the global
-offsets ``p * s_local`` and ``src * s_local``.
+offsets ``p * s_local`` and ``src * s_local``. Ulysses
+(:func:`ulysses_attention`) instead re-shards sequence → heads with one
+all-to-all per operand, runs full attention per head group, and
+re-shards back.
 
 One process drives every position (see :mod:`netsdb_tpu_torch.parallel.
 mesh`). The rotation is the counterpart of ``ppermute``: positions that
@@ -23,9 +26,12 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from netsdb_tpu_torch.ops.attention import NEG_INF, _block_attn
+from netsdb_tpu_torch.ops.attention import (NEG_INF, _block_attn,
+                                            attention_dispatch)
 from netsdb_tpu_torch.ops.cuda_kernels import flash_attention_step
-from netsdb_tpu_torch.parallel.mesh import Mesh, ShardedTensor, as_sharded
+from netsdb_tpu_torch.parallel.mesh import (Mesh, ShardedTensor, as_sharded,
+                                            group_shards,
+                                            position_all_to_all)
 
 
 def _rotate(chunks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -144,8 +150,29 @@ def ring_attention(q, k, v, mesh: Mesh, axis: str = "data",
 
 
 def ulysses_attention(q, k, v, mesh: Mesh, axis: str = "data",
-                      causal: bool = True, scale: Optional[float] = None):
-    """Ulysses (all-to-all) sequence parallelism is not ported yet."""
-    raise NotImplementedError(
-        "ulysses_attention (all-to-all sequence parallelism) is not "
-        "ported yet: ROADMAP.md A4")
+                      causal: bool = True,
+                      scale: Optional[float] = None) -> ShardedTensor:
+    """Ulysses sequence parallelism: q/k/v (B, H, S, D) sequence-sharded
+    over ``axis`` (a dense tensor is sharded first) go through one
+    all-to-all each to head-sharded (B, H/n, S, D), every position runs
+    full attention over the whole sequence for its heads through
+    ``attention_dispatch`` (the flash kernel, B1, on a CUDA tensor; the
+    plain attention on the CPU), and one all-to-all takes the output back
+    to sequence-sharded. The heads must divide the axis size."""
+    n = mesh.shape[axis]
+    if q.shape[1] % n != 0:
+        raise ValueError(f"heads {q.shape[1]} not divisible by mesh axis "
+                         f"{axis}={n}")
+    q, k, v = (as_sharded(t, mesh, (None, None, axis, None))
+               for t in (q, k, v))
+    out = np.empty(mesh.devices.shape, dtype=object)
+    for group in mesh.axis_groups(axis):
+        # seq → heads: split the heads, concatenate the sequence
+        qh, kh, vh = (position_all_to_all(group_shards(t, group), 1, 2)
+                      for t in (q, k, v))
+        oh = [attention_dispatch(a, b, c, causal=causal, scale=scale)
+              for a, b, c in zip(qh, kh, vh)]
+        # heads → seq: split the sequence, concatenate the heads
+        for p, o in zip(group, position_all_to_all(oh, 2, 1)):
+            out[p] = o
+    return ShardedTensor(out, mesh, q.spec, q.shape)

@@ -190,7 +190,12 @@ class Join(Computation):
     ``fold`` + ``fold_src``: with ``fn=None`` the node evaluates the
     fold's whole path over input ``fold_src`` (0 left, 1 right, the
     probe or fact side), the other input passed as resident values
-    (gather tuples flattened)."""
+    (gather tuples flattened).
+
+    ``rowwise=True`` declares ``fn`` row-decomposable in its left input
+    (the right one read whole): over a row-sharded placed left input
+    each mesh position joins its own rows and the result stays placed
+    (``relational/sharded.dispatch_placed``)."""
 
     op_kind = "Join"
 
@@ -202,8 +207,10 @@ class Join(Computation):
                  label: str = "", fold=None, fold_src: int = 0,
                  on: Optional[tuple] = None,
                  take: Optional[Sequence[str]] = None,
-                 tensor_fold=None, passthrough: bool = False):
+                 tensor_fold=None, passthrough: bool = False,
+                 rowwise: bool = False):
         super().__init__([left, right])
+        self.rowwise = rowwise
         self.on = tuple(on) if on else None
         self.take = take
         self.left_key = left_key
@@ -307,29 +314,48 @@ class Partition(Computation):
     made from this node is co-partitioned with any set dispatched with
     the same key function. Output: ``{partition_id: [records]}``.
 
-    ``key_fn`` given as a column name is the mesh row shuffle of a
-    placed relation in the reference; it raises (ROADMAP.md A4)."""
+    ``key_fn`` given as a COLUMN NAME over a placed ``ColumnTable`` input
+    is the mesh row shuffle: the node lowers to
+    ``relational.shuffle.hash_repartition`` on the mesh the set's
+    placement put the columns on (the reference's partition stage
+    shipping rows to their owning workers, ``PipelineStage.cc:1652-1728``)
+    and gives a ``ShardedRows`` for a downstream ``local_join`` or
+    aggregate stage."""
 
     op_kind = "Partition"
 
     def __init__(self, input_: Computation, key_fn,
-                 num_partitions: int, label: str = ""):
+                 num_partitions: int, label: str = "",
+                 slack: float = 2.0):
         super().__init__([input_])
         if num_partitions < 1:
             raise ValueError(f"num_partitions must be >= 1, got "
                              f"{num_partitions}")
         self.key_fn = key_fn
         self.num_partitions = num_partitions
-        self.traceable = False  # host routing runs as it comes
+        self.slack = slack
+        self.traceable = False  # host routing and the shuffle run as they come
         self.label = label or (key_fn if isinstance(key_fn, str)
                                else getattr(key_fn, "__name__", "partition"))
 
     def evaluate(self, items):
         if isinstance(self.key_fn, str):
-            raise NotImplementedError(
-                f"Partition on column {self.key_fn!r} is the mesh row "
-                f"shuffle of a placed relation, which is not ported yet: "
-                f"ROADMAP.md A4")
+            from netsdb_tpu_torch.relational.shuffle import hash_repartition
+            from netsdb_tpu_torch.relational.table import ColumnTable
+
+            if not isinstance(items, ColumnTable):
+                raise TypeError(
+                    f"Partition on column {self.key_fn!r} needs a "
+                    f"ColumnTable input; got {type(items).__name__}")
+            mesh, axis = _mesh_of_table(items)
+            if mesh.shape[axis] != self.num_partitions:
+                raise ValueError(
+                    f"Partition declared {self.num_partitions} "
+                    f"partitions but the set's placement meshes "
+                    f"{mesh.shape[axis]} shards on {axis!r}")
+            return hash_repartition(mesh, axis, dict(items.cols),
+                                    self.key_fn, self.slack,
+                                    valid=items.valid)
         from netsdb_tpu_torch.storage.dispatcher import HashPolicy
 
         parts = HashPolicy(self.key_fn).partition(items,
@@ -339,6 +365,22 @@ class Partition(Computation):
     def plan_atom(self) -> str:
         return (f"{self.output_name} <= PARTITION("
                 f"{self.inputs[0].output_name}, '{self.label}')")
+
+
+def _mesh_of_table(table):
+    """(mesh, axis) a placed ColumnTable's rows are sharded over — read
+    off its columns, so DAG nodes never take a hand mesh."""
+    from netsdb_tpu_torch.parallel.placement import (is_placed_table,
+                                                     table_layout)
+
+    if is_placed_table(table):
+        mesh, spec = table_layout(table)
+        entry = spec[0]
+        if entry is not None:
+            return mesh, (entry if isinstance(entry, str) else entry[0])
+    raise ValueError(
+        "device Partition needs a placed (mesh-sharded) input set — "
+        "create the set with a row-sharding Placement")
 
 
 class WriteSet(Computation):

@@ -72,7 +72,8 @@ import torch
 
 from netsdb_tpu_torch import obs
 from netsdb_tpu_torch.core.blocked import BlockedTensor, BlockMeta
-from netsdb_tpu_torch.parallel.mesh import ShardedTensor
+from netsdb_tpu_torch.parallel.mesh import ShardedTensor, visible_devices
+from netsdb_tpu_torch.parallel.placement import is_placed_table
 from netsdb_tpu_torch.plan import fusion, programs, staging
 from netsdb_tpu_torch.plan.computations import (Aggregate, Apply,
                                                 Computation, Filter, Join,
@@ -218,6 +219,14 @@ def _program_safe_values(vals) -> bool:
     return all(ok(v) for v in vals)
 
 
+def _has_placed(value: Any) -> bool:
+    """A placed relation (row-sharded or replicated over a mesh), also
+    inside a gather tuple."""
+    if isinstance(value, tuple):
+        return any(_has_placed(v) for v in value)
+    return is_placed_table(value)
+
+
 def _has_paged(value: Any) -> bool:
     if isinstance(value, PagedTensor):
         return True
@@ -280,6 +289,46 @@ def _assembled(pc: PagedColumns) -> ColumnTable:
     return table
 
 
+def _summa_tensor_route(tfold, pt: PagedTensor, others) -> Any:
+    """The ``config.distributed_matmul`` plan leg (reference
+    ``executor._summa_tensor_route``): a rows-mode node whose
+    :class:`~netsdb_tpu_torch.plan.fold.TensorFold` declares
+    ``summa_rhs`` (``fn(block, *others) == block @ summa_rhs(*others)``)
+    skips the per-block loop; ``PagedTensorStore.matmul_streamed`` — the
+    one place the routing is decided — runs it through SUMMA (each
+    participant staging only its panel of the paged operand), or through
+    the single-position stream with fewer than 2 participants. Returns
+    the assembled BlockedTensor, or None when the route does not apply
+    (knob off, no declaration, or a declared RHS that does not fit)."""
+    rhs_fn = getattr(tfold, "summa_rhs", None)
+    if rhs_fn is None or not pt.store.config.distributed_matmul:
+        return None
+    rhs = rhs_fn(*others)
+    if rhs is None:
+        return None
+    rhs = rhs.to_dense() if isinstance(rhs, BlockedTensor) else \
+        torch.as_tensor(rhs)
+    (_rows, k), _blk, _dtype = pt.store.meta(pt.name)
+    if rhs.dim() != 2 or rhs.shape[0] != k:
+        return None  # the declaration does not fit these inputs
+    cache, scope = pt.devcache, pt.cache_scope
+    stats: Dict[str, Any] = {}
+    with obs.span("executor.tensor_summa", "executor") as sp, pt.rw.read():
+        dense = pt.store.matmul_streamed(
+            pt.name, rhs, device=pt.device, devcache=cache,
+            cache_scope=None if scope is None else str(scope[0]),
+            cache_version=None if scope is None else scope[1],
+            stats_out=stats)
+        if sp is not None:
+            sp.counters["summa.participants"] = stats.get("participants", 0)
+            sp.counters["summa.rounds"] = stats.get("rounds", 0)
+    obs.operators.op_add("summa.participants", stats.get("participants", 0))
+    obs.operators.op_add("summa.rounds", stats.get("rounds", 0))
+    if tfold.out_block is not None:
+        return _reblock(dense, tfold.out_block)
+    return _reblock(dense, tuple(dense.shape))
+
+
 def _run_tensor_stream(node, tfold, in_vals: List[Any], src: int,
                        step_jit=None) -> Any:
     """Stream the paged tensor ``in_vals[src]`` through ``node``: only the
@@ -303,6 +352,10 @@ def _run_tensor_stream(node, tfold, in_vals: List[Any], src: int,
     memory."""
     pt: PagedTensor = in_vals[src]
     others = [v for i, v in enumerate(in_vals) if i != src]
+    if tfold.mode == "rows":
+        routed = _summa_tensor_route(tfold, pt, others)
+        if routed is not None:
+            return routed
     cfg = pt.store.config
     depth = cfg.stage_depth
     rb = pt.store.meta(pt.name)[1][0]  # nominal rows per block
@@ -391,25 +444,46 @@ def _fold_steps(fold, step_jit):
             for pidx, (init, step) in enumerate(fold.passes)]
 
 
-def _run_fold_once(fold, pc: PagedColumns, resident, step_jit=None) -> Any:
+def _run_fold_once(fold, pc: PagedColumns, resident, step_jit=None,
+                   placed: bool = True) -> Any:
     """One (possibly multi-pass) fold over a paged relation's chunk
     stream: every pass re-streams the relation. Steps may update their
     own state in place and never write a chunk (cached chunks belong to
-    the device cache)."""
+    the device cache). A placed relation (``placed`` and a placement on
+    the set) streams placed chunks: each position's rows of a chunk are
+    one step (``relational.sharded.step_placed``), the residents laid
+    out per position, and finalize runs on the first position's."""
+    from netsdb_tpu_torch.relational import sharded
+
     state = None
+    placement = pc.placement() if placed else None
+    views = None
+    if placement is not None:
+        views = sharded.position_residents(
+            resident, placement.mesh(visible_devices(pc.device.type)))
+    else:
+        resident = sharded.gathered(resident)
     with obs.span("executor.fold_stream", "executor") as sp:
         n = 0
         for init, step in _fold_steps(fold, step_jit):
-            state = init(state, pc, *resident)
+            state = init(state, pc, *(resident if views is None
+                                      else views[0]))
             # closing: a step that raises releases the stream's read lock
-            with contextlib.closing(pc.stream_tables()) as chunks:
+            with contextlib.closing(
+                    pc.stream_tables(placement=placement)) as chunks:
                 for chunk in chunks:
-                    state = step(state, chunk, *resident)
+                    if views is None:
+                        state = step(state, chunk, *resident)
+                    else:
+                        state = sharded.step_placed(step, state, chunk,
+                                                    views)
                     n += 1
         if sp is not None:
             sp.counters["chunks"] = n
     obs.operators.op_add("chunks", n)
-    return fold.finalize(state, pc, *resident)
+    if views is None:
+        return fold.finalize(state, pc, *resident)
+    return fold.finalize(sharded.moved(state, pc.device), pc, *views[0])
 
 
 def _pad_table_rows(t: ColumnTable, rows: int) -> ColumnTable:
@@ -534,14 +608,24 @@ def _run_fold(fold, pc: PagedColumns, resident, step_jit=None) -> Any:
             for i, v in enumerate(resident)]
     if bi is None:
         return _run_fold_once(fold, pc, tuple(rest), step_jit)
+    # a paged build side: the probe streams unplaced and placed residents
+    # are gathered; a placed probe is a counted fallback
+    from netsdb_tpu_torch.relational import sharded
+
+    if pc.placement() is not None:
+        sharded.note_fallback(f"fold over {pc.name}",
+                              "a paged build side: the placed probe "
+                              "streamed unplaced")
+    rest = list(sharded.gathered(rest))
     build_pc = resident[bi]
     if keyed and fold.probe_key is not None and build_pc.num_pages() > 1:
         return _run_fold_grace(fold, pc, rest, bi, build_pc, step_jit)
     out = None
-    with contextlib.closing(build_pc.stream_tables()) as btabs:
+    with contextlib.closing(build_pc.stream_tables(placement=None)) as btabs:
         for btab in btabs:
             rest[bi] = btab
-            part = _run_fold_once(fold, pc, tuple(rest), step_jit)
+            part = _run_fold_once(fold, pc, tuple(rest), step_jit,
+                                  placed=False)
             out = part if out is None else fold.merge(out, part)
     return out
 
@@ -580,6 +664,10 @@ def _dispatch(node, in_vals: List[Any], device, demote: _Demoter,
     if getattr(node, "passthrough", False):
         return _eval_node(node, in_vals, device)
     in_vals = [demote(v) for v in in_vals]
+    if any(_has_placed(v) for v in in_vals):
+        from netsdb_tpu_torch.relational import sharded
+
+        return sharded.dispatch_placed(node, in_vals, device, _eval_node)
     paged = [i for i, v in enumerate(in_vals) if _has_paged(v)]
     if paged:
         tfold = getattr(node, "tensor_fold", None)
@@ -744,6 +832,11 @@ def _execute_streamed(client, plan: LogicalPlan,
         args = [values[i] for i in in_ids]
         if not _program_safe_values(args):
             fusion.fallback("spine inputs not program-safe")
+            return False
+        if any(_has_placed(a) for a in args):
+            # placed relations run node by node (per position or by
+            # their fold, relational/sharded.dispatch_placed)
+            fusion.fallback("spine inputs placed over a mesh")
             return False
         out_ids = [nid for nid in reg.node_ids
                    if not consumers.get(nid)

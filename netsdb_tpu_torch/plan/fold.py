@@ -41,9 +41,9 @@ class TensorFold:
       the node's other inputs in order.
 
     ``summa_rhs`` (rows mode) declares ``fn(block, *others) == block @
-    summa_rhs(*others)`` for the distributed matmul of the reference; it
-    is accepted and ignored, since ``Configuration(distributed_matmul=
-    True)`` belongs to ROADMAP.md A4 and raises there.
+    summa_rhs(*others)``: under ``Configuration(distributed_matmul=True)``
+    the executor then runs the stream as one SUMMA matmul
+    (``plan/executor._summa_tensor_route``).
     """
 
     mode: str = "rows"

@@ -217,6 +217,11 @@ def _flatten(x: Any, leaves: List[torch.Tensor]) -> Any:
         return ("ST", _Mesh(x.mesh), x.spec, x.shape, tuple(index))
     if isinstance(x, ColumnTable):
         names = tuple(x.cols)
+        if any(isinstance(x.cols[n], ShardedTensor) for n in names):
+            # a placed relation: each column (and the mask) as its shards
+            return ("PCT", names, _Dicts(x.dicts),
+                    tuple(_flatten(x.cols[n], leaves) for n in names),
+                    None if x.valid is None else _flatten(x.valid, leaves))
         leaves.extend(x.cols[n] for n in names)
         if x.valid is not None:
             leaves.append(x.valid)
@@ -249,6 +254,10 @@ def _unflatten(tree: Any, it) -> Any:
     if kind == "CT":
         cols = {n: next(it) for n in tree[1]}
         valid = next(it) if tree[3] else None
+        return ColumnTable(cols, tree[2].dicts, valid)
+    if kind == "PCT":
+        cols = {n: _unflatten(t, it) for n, t in zip(tree[1], tree[3])}
+        valid = _unflatten(tree[4], it) if tree[4] is not None else None
         return ColumnTable(cols, tree[2].dicts, valid)
     if kind == "tuple":
         return tuple(_unflatten(t, it) for t in tree[1])
@@ -871,6 +880,11 @@ def _uncapturable(trees, leaves) -> str:
             return f"non-tensor input {opaque[0]}"
     if any(not t.is_cuda for t in leaves):
         return "host tensor input"
+    cards = {t.device for t in leaves}
+    if len(cards) > 1:
+        # one graph captures on one device's stream: mesh positions on
+        # several physical cards run as they come
+        return f"inputs on {len(cards)} cards (mesh positions span cards)"
     if torch.is_grad_enabled() and any(t.requires_grad for t in leaves):
         return "inputs require grad"
     return ""

@@ -241,9 +241,10 @@ def _tensors(value) -> Iterator[torch.Tensor]:
     if isinstance(value, torch.Tensor):
         yield value
     elif isinstance(getattr(value, "cols", None), dict):  # ColumnTable
-        yield from value.cols.values()
+        for c in value.cols.values():
+            yield from _tensors(c)
         if value.valid is not None:
-            yield value.valid
+            yield from _tensors(value.valid)
     elif isinstance(value, (tuple, list)):
         for v in value:
             yield from _tensors(v)

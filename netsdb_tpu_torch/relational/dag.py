@@ -54,9 +54,12 @@ def _q03_filter_node(db: str, segment_code: int, d: int, jp_cust,
                                cust_ok, plan=jp_cust)
         return orders.filter(chit & (orders["o_orderdate"] < d))
 
+    # row-decomposable in orders: over a placed orders each position
+    # filters its own rows
     return Join(ScanSet(db, orders_set), ScanSet(db, customer_set),
                 fn=filter_orders,
-                label=f"q03filter:{segment_code}:{d}:{jp_cust.key_space}")
+                label=f"q03filter:{segment_code}:{d}:{jp_cust.key_space}",
+                rowwise=True)
 
 
 def q01_sink(db: str, lineitem_set: str = "lineitem",

@@ -86,6 +86,10 @@ class PagedColumns:
         self.cache_scope = None
         self.cache_version_fn = None
         self.program_scope = None  # the store's name of the set for programs
+        # the store's placement of the set (None: unplaced), read when a
+        # stream starts: a placed relation's chunks are sharded over its
+        # mesh
+        self.placement_fn = None
         # this handle's own write count, part of every whole-run key
         self._mutations = 0
 
@@ -413,18 +417,27 @@ class PagedColumns:
             key = key + (("cols",) + tuple(sorted(columns)),)
         return cache, key
 
-    def partial_base_key(self, kind: str, columns=None) -> tuple:
+    def placement(self):
+        """The set's placement as the store has it now (None: unplaced)."""
+        return self.placement_fn() if self.placement_fn is not None else None
+
+    def partial_base_key(self, kind: str, columns=None,
+                         placement=None) -> tuple:
         """The block entries' base key of one stream shape: ``(scope,
         kind, bucket)`` without write version (block freshness is the
-        dirty ranges' job), plus a ``frozenset`` of the projected columns
-        for a projected stream — the marker per-column invalidation
-        reads."""
+        dirty ranges' job), the mesh label of a placed stream (chunks
+        sharded over one mesh never serve another), plus a ``frozenset``
+        of the projected columns for a projected stream — the marker
+        per-column invalidation reads."""
         base = (self.cache_scope, kind, self.pad_rows())
+        if placement is not None:
+            base = base + (placement.mesh_label(self.device.type),)
         if columns is not None:
             base = base + (frozenset(columns),)
         return base
 
-    def _partial_plan(self, kind: str, prefetch, columns=None):
+    def _partial_plan(self, kind: str, prefetch, columns=None,
+                      placement=None):
         """The block-granular cache plan of one stream, or None (cache
         off, whole-run mode, or an unbound relation)."""
         from netsdb_tpu_torch.plan.staging import PartialPlan
@@ -436,13 +449,15 @@ class PagedColumns:
         ranges = self.block_ranges()
         if not ranges:
             return None
-        return PartialPlan(cache, self.partial_base_key(kind, columns),
+        return PartialPlan(cache,
+                           self.partial_base_key(kind, columns, placement),
                            ranges,
                            lambda idxs: self._raw_stream(
                                prefetch, blocks=idxs, columns=columns))
 
     def stream_tables(self, prefetch: Optional[int] = None,
-                      columns: Optional[List[str]] = None):
+                      columns: Optional[List[str]] = None,
+                      placement="set"):
         """The page feed of the DAG path: a stream of chunk
         :class:`~netsdb_tpu_torch.relational.table.ColumnTable` s on the
         relation's device, validity-masked, with a ``_rowid`` column of
@@ -454,9 +469,17 @@ class PagedColumns:
         partial mode (the default) each cached block range is served
         from device memory and only the gaps read pages and stage; in
         whole-run mode a warm stream replays the run. Cached chunks are
-        owned by the cache: fold steps never write them."""
+        owned by the cache: fold steps never write them.
+
+        ``placement`` (default: the set's own, None for none) shards each
+        chunk over its mesh as it lands (``placement.shard_table``, the
+        relation's statistics kept): a placed relation streams as placed
+        chunks, cached under the placement's mesh label."""
+        from netsdb_tpu_torch.parallel.placement import shard_table
         from netsdb_tpu_torch.plan.staging import stage_stream
 
+        if placement == "set":
+            placement = self.placement()
         dicts = self.dicts
         if columns is not None:
             dicts = {k: v for k, v in dicts.items() if k in columns}
@@ -467,20 +490,26 @@ class PagedColumns:
             cols, valid, start = placer(item)
             cols["_rowid"] = torch.arange(
                 valid.shape[0], dtype=torch.int32, device=valid.device) + start
-            return ColumnTable(cols, dicts, valid)
+            chunk = ColumnTable(cols, dicts, valid)
+            if placement is not None:
+                chunk = shard_table(inject_stats(chunk, self.stats),
+                                    placement, keep_stats=True)
+            return chunk
 
         depth = self.store.config.stage_depth
         name = f"tables:{self.name}"
-        partial = self._partial_plan("tables", prefetch, columns)
+        partial = self._partial_plan("tables", prefetch, columns, placement)
         if partial is not None:
             return stage_stream(None, place, depth=depth, name=name,
                                 partial=partial, uploader=uploader)
-        cache, key = self._cache_ref("tables", columns)
+        kind = ("tables" if placement is None
+                else ("tables", placement.mesh_label(self.device.type)))
+        cache, key = self._cache_ref(kind, columns)
         return stage_stream(
             self._raw_stream(prefetch, columns=columns), place, depth=depth,
             name=name, cache=cache, cache_key=key, uploader=uploader,
             cache_validator=None if cache is None else (
-                lambda: self._cache_ref("tables", columns)[1] == key))
+                lambda: self._cache_ref(kind, columns)[1] == key))
 
     def stream_host_tables(self, prefetch: Optional[int] = None
                            ) -> Iterator[ColumnTable]:

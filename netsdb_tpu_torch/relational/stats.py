@@ -57,7 +57,10 @@ class ColumnStats:
 
 def analyze_array(arr, distinct: bool = False) -> ColumnStats:
     """Min/max of a numpy array or a tensor, and the distinct count when
-    asked. A tensor is reduced where it lives."""
+    asked. A tensor is reduced where it lives (a placed column on its
+    first position, gathered)."""
+    if hasattr(arr, "shards"):
+        arr = arr.to_dense()
     if isinstance(arr, torch.Tensor):
         a = arr.detach()
         if a.numel() == 0:
@@ -115,8 +118,8 @@ def key_space(table: ColumnTable, col: str) -> int:
 
 
 def _is_int_or_bool(t: torch.Tensor) -> bool:
-    return t.dtype == torch.bool or not (t.is_floating_point()
-                                         or t.is_complex())
+    return t.dtype == torch.bool or not (t.dtype.is_floating_point
+                                         or t.dtype.is_complex)
 
 
 def analyze_table(table: ColumnTable,

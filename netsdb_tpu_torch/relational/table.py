@@ -212,6 +212,9 @@ class ColumnTable:
         table's device; the result is memoised on the table."""
         if self.valid is None:
             return self
+        whole = self._whole()  # a placed table: the relation it lays out
+        if whole is not self:
+            return whole.compact()
         cached = self.__dict__.get("_compacted")
         if cached is not None:
             return cached
@@ -246,9 +249,22 @@ class ColumnTable:
         return ColumnTable(cols, dicts, self.valid)
 
     # --- persistence --------------------------------------------------
+    def _whole(self) -> "ColumnTable":
+        """A table placed over a mesh gathered as it was sent; any other
+        table as it is."""
+        from netsdb_tpu_torch.parallel.placement import (gather_table,
+                                                         is_placed_table)
+
+        return gather_table(self, strip=True) if is_placed_table(self) \
+            else self
+
     def __getstate__(self):
         """Pickle through host numpy; unpickling puts the columns on the
-        CPU (the store moves them to its device)."""
+        CPU (the store moves them to its device). A placed table pickles
+        as the relation it lays out."""
+        whole = self._whole()
+        if whole is not self:
+            return whole.__getstate__()
         return {"cols": {n: c.detach().cpu().numpy()
                          for n, c in self.cols.items()},
                 "dicts": self.dicts,
@@ -266,6 +282,9 @@ class ColumnTable:
     def to_rows(self, date_cols: Sequence[str] = ()) -> List[Dict[str, Any]]:
         """Decode to row dicts, invalid rows dropped. Host-side: for
         tests and result iteration, not the hot path."""
+        whole = self._whole()
+        if whole is not self:
+            return whole.to_rows(date_cols)
         host = {n: c.detach().cpu().numpy() for n, c in self.cols.items()}
         ok = self.mask().detach().cpu().numpy()
         out = []

@@ -503,7 +503,8 @@ class PagedTensorStore:
     def matmul_streamed(self, name: str, rhs, device=None,
                         stage_depth: Optional[int] = None,
                         devcache=None, cache_scope: Optional[str] = None,
-                        cache_version: Optional[int] = None
+                        cache_version: Optional[int] = None,
+                        stats_out: Optional[Dict[str, Any]] = None
                         ) -> torch.Tensor:
         """``M @ rhs`` with M streamed page by page through ``device``
         (default: ``rhs``'s device). One block, ``rhs`` and the staged
@@ -513,12 +514,38 @@ class PagedTensorStore:
         ``cache_scope`` (store-owned sets), the staged blocks install
         into the device block cache (block by block in partial mode;
         as one run keyed by ``cache_version`` otherwise) and a warm call
-        reads no page. Returns the product on the device, in f32."""
+        reads no page. Returns the product on the device, in f32.
+
+        With ``config.distributed_matmul`` the stream routes through
+        SUMMA instead — the one place that routing is decided: over the
+        ``config.summa_grid`` grid when it fits the participants
+        (``summa.participants``: the visible positions of the device's
+        type, capped at ``config.summa_participants``), else over the
+        1-d mesh when there are at least 2; with fewer, this stream runs
+        and ``summa.single_position`` counts it. ``stats_out`` receives
+        the SUMMA run's statistics."""
         from netsdb_tpu_torch.ops.common import full_f32_precision
         from netsdb_tpu_torch.plan import staging
 
         rhs = torch.as_tensor(rhs)
         device = torch.device(device if device is not None else rhs.device)
+        if getattr(self.config, "distributed_matmul", False):
+            from netsdb_tpu_torch import obs
+            from netsdb_tpu_torch.parallel import summa
+
+            devices = summa.participants(self.config, device.type)
+            grid = summa.grid_shape(self.config, len(devices))
+            kw = dict(stage_depth=stage_depth, cache=devcache,
+                      cache_scope=cache_scope, stats_out=stats_out)
+            if grid is not None:
+                return summa.summa_grid_matmul_streamed(
+                    self, name, rhs, devices=devices, grid=grid, **kw)
+            if len(devices) >= 2:
+                return summa.summa_matmul_streamed(self, name, rhs,
+                                                   devices=devices, **kw)
+            obs.REGISTRY.counter("summa.single_position").inc()
+            if stats_out is not None:
+                stats_out.update(participants=1, rounds=0)
         rhs = rhs.to(device)
         cfg = self.config
         depth = cfg.stage_depth if stage_depth is None else stage_depth

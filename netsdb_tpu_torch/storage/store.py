@@ -188,10 +188,10 @@ def _item_nbytes(item: Any) -> int:
     if resident is not None:  # slot grid; the shared pool counts once,
         return int(resident)  # in SetStore.live_pool_bytes
     cols = getattr(item, "cols", None)
-    if isinstance(cols, dict):  # ColumnTable
-        n = sum(c.numel() * c.element_size() for c in cols.values())
+    if isinstance(cols, dict):  # ColumnTable (placed columns: each shard)
+        n = sum(_item_nbytes(c) for c in cols.values())
         valid = getattr(item, "valid", None)
-        return n + (valid.numel() if valid is not None else 0)
+        return n + (_item_nbytes(valid) if valid is not None else 0)
     return 256
 
 
@@ -298,14 +298,21 @@ class SetStore:
         pc.cache_scope = str(ident)
         pc.cache_version_fn = functools.partial(self.version_of, ident)
         pc.program_scope = self.program_scope(ident)
+        pc.placement_fn = functools.partial(self.placement_of, ident)
 
     def program_scope(self, ident: SetIdentifier) -> str:
         """The set's name in the compiled-program cache: ``db:set`` of
         this store. Versions count per store, so two stores of one
         process (two daemons of a pool, with the same set names) never
         share a program variant that reads a set in place, and a write in
-        one never drops the other's."""
-        return f"{ident}{self._scope_tag}"
+        one never drops the other's. A placed set's name carries its mesh
+        label (placement, mesh shape and positions), so a variant over 4
+        positions never replays one over 1."""
+        s = self._sets.get(ident)
+        pl = s.placement if s is not None else None
+        if pl is None:
+            return f"{ident}{self._scope_tag}"
+        return f"{ident}{self._scope_tag}@{pl.mesh_label(self.device.type)}"
 
     def version_of(self, ident: SetIdentifier) -> int:
         """The set's write version (0: unknown set); a set aliasing
@@ -345,6 +352,26 @@ class SetStore:
                     s.items = [placement.apply(i)
                                for i in self._items_locked(s)]
                 self._touch(s)
+
+    def set_placement(self, ident: SetIdentifier, placement,
+                      items: Optional[List[Any]] = None) -> None:
+        """Swap a set's declared placement without re-staging its data —
+        the commit step of ``parallel/reshard.reshard_set``, which has
+        already moved the device-resident blocks (or the resident
+        ``items``, passed here) through collective steps. The content is
+        unchanged, so no write version moves and no dirty range is
+        logged: blocks cached under the new layout's key stay matchable.
+        The programs that read the set's old items in place are
+        dropped."""
+        with self._lock:
+            s = self._writable(ident)
+            old_scope = self.program_scope(ident)
+            s.placement = placement
+            if items is not None:
+                s.items = list(items)
+                s.nbytes = sum(_item_nbytes(i) for i in s.items)
+            s.last_access = time.time()
+        _announce(old_scope)
 
     def storage_of(self, ident: SetIdentifier) -> str:
         s = self._sets.get(ident)
@@ -656,7 +683,10 @@ class SetStore:
                     f"{ident} holds {len(items)} items ({len(tables)} "
                     f"tables); appending would drop the rest")
             table = table.to(self.device)
-            new = concat_tables(tables[0], table) if tables else table
+            # a placed relation appends as the relation it lays out and is
+            # placed again (a table appended to carries no padding rows)
+            base = tables[0]._whole() if tables else None
+            new = concat_tables(base, table) if tables else table
             s.items = self._placed(s, [new])
             self._touch(s)
             self._maybe_evict(exclude=ident)

@@ -18,7 +18,7 @@ through ``Client.execute_computations``:
 The chunk and block plumbing is host work over numpy records, as the
 reference's per-tuple lambdas are; each assembled matrix is uploaded
 once. Records keep numpy data; the matrices live on the client's
-device. Sets placed over a mesh (``placements=``) are ROADMAP.md A4.
+device. Sets placed over a mesh (``placements=``) are ROADMAP.md A4 part 3.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ class ConvFusionPipeline:
         if placements:
             raise NotImplementedError(
                 "ConvFusionPipeline.setup(placements=...): placed conv "
-                "sets are not ported yet: ROADMAP.md A4")
+                "sets are not ported yet: ROADMAP.md A4 part 3")
         self.device = client.device
         client.create_database(self.db)
         for s in self.SETS:

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from netsdb_tpu_torch.parallel.placement import refuse_placed
 from netsdb_tpu_torch.core.blocked import BlockedTensor
 from netsdb_tpu_torch.ops.common import full_f32_precision
 from netsdb_tpu_torch.storage.store import SetIdentifier
@@ -97,6 +98,7 @@ def gmm_on_set(client, db: str, set_name: str, k: int, iters: int = 20,
     """Set driver: points from a tensor set; means, variances and weights
     written back side by side as one tensor set (k x 2d+1) of the same
     block shape."""
+    refuse_placed(client, db, set_name, "gmm_on_set")
     pts = client.get_tensor(db, set_name)
     state, resp = gmm_em(pts.to_dense(), k, iters, seed=seed)
     if not client.set_exists(db, out_set):

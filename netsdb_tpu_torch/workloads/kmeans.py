@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from netsdb_tpu_torch.parallel.placement import refuse_placed
 from netsdb_tpu_torch.core.blocked import BlockedTensor
 from netsdb_tpu_torch.ops.common import full_f32_precision
 from netsdb_tpu_torch.storage.store import SetIdentifier
@@ -85,6 +86,7 @@ def kmeans_on_set(client, db: str, set_name: str, k: int, iters: int = 10,
     """Set driver (``TestKMeans``'s shape): points from a tensor set (n x
     d), the centroids written back as a tensor set of the same block
     shape."""
+    refuse_placed(client, db, set_name, "kmeans_on_set")
     pts = client.get_tensor(db, set_name)
     cents, assign = kmeans(pts.to_dense(), k, iters, seed=seed)
     if not client.set_exists(db, out_set):

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from netsdb_tpu_torch.parallel.placement import refuse_placed
 from netsdb_tpu_torch.core.blocked import BlockedTensor
 from netsdb_tpu_torch.ops.common import full_f32_precision
 from netsdb_tpu_torch.storage.store import SetIdentifier
@@ -82,6 +83,7 @@ def lda_on_set(client, db: str, set_name: str, k: int, iters: int = 50,
                out_set: str = "lda_topics", seed: int = 0) -> LDAState:
     """Set driver: the count matrix from a tensor set; φ (topic-word)
     written back as a tensor set of the same block shape."""
+    refuse_placed(client, db, set_name, "lda_on_set")
     counts = client.get_tensor(db, set_name)
     state = lda_em(counts.to_dense(), k, iters, alpha, beta, seed=seed)
     if not client.set_exists(db, out_set):

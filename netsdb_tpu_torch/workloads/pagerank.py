@@ -18,6 +18,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from netsdb_tpu_torch.parallel.placement import refuse_placed
 from netsdb_tpu_torch.config import resolve_device
 from netsdb_tpu_torch.relational.table import ColumnTable
 
@@ -75,6 +76,7 @@ def pagerank_on_set(client, db: str, links_set: str, num_nodes: int,
     """Set driver: the links set holds (src, dst) pairs (the reference's
     ``Link`` objects), run on the client's device; the ranks are written
     as (url, rank) pairs."""
+    refuse_placed(client, db, links_set, "pagerank_on_set")
     edges: Iterable = list(client.get_set_iterator(db, links_set))
     pairs = np.asarray([(e[0], e[1]) for e in edges],
                        np.int64).reshape(-1, 2)
@@ -91,6 +93,7 @@ def pagerank_on_table_set(client, db: str, links_set: str, num_nodes: int,
     """Relation driver: the link relation is a stored ``ColumnTable``
     {src, dst}. Rows that are invalid or carry a -1 endpoint contribute
     nothing; as in the reference, this driver drops dangling mass."""
+    refuse_placed(client, db, links_set, "pagerank_on_table_set")
     from netsdb_tpu_torch.relational.dag import _fold_mask
 
     t: ColumnTable = _fold_mask(client.get_table(db, links_set))

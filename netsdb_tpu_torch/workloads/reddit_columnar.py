@@ -17,8 +17,8 @@ over the relational kernels on the tables' device:
 - the per-author count and the 2 × 11 label-partition grid as segment
   counts.
 
-The distributed three-way join over a mesh (``sharded_three_way``)
-raises (ROADMAP.md A4).
+The distributed three-way join (``sharded_three_way``) runs over a mesh
+with the row shuffle of ``relational/shuffle.py``.
 """
 
 from __future__ import annotations
@@ -202,14 +202,64 @@ def three_way_sink_for(client, db: str = "redditc",
     return WriteSet(node, db, output_set)
 
 
-def sharded_three_way(tables: Dict[str, ColumnTable], mesh, axis="data"):
-    """The distributed three-way join (comments fact-sharded, each
-    dimension broadcast or hash-repartitioned over a mesh): not ported
-    yet."""
-    raise NotImplementedError(
-        "sharded_three_way (the three-way join over a device mesh, with "
-        "the hash-repartition row shuffle) is not ported yet: "
-        "ROADMAP.md A4")
+def sharded_three_way(tables: Dict[str, ColumnTable], mesh, axis="data",
+                      slack: float = 2.0):
+    """The distributed form: comments fact-sharded; each dimension side
+    placed by the planner — broadcast (a LUT probe inside each shard, the
+    common case for author and sub dimension tables) or the
+    hash-repartition ROW shuffle (``relational/shuffle.hash_join``) when a
+    side is fact-scale. Returns a ``ShardedRows`` with the columns of the
+    local join."""
+    from netsdb_tpu_torch.relational import shuffle as S
+    from netsdb_tpu_torch.relational.stats import key_space
+
+    ct, at, st = tables["comments"], tables["authors"], tables["subs"]
+    # the broadcast branch replicates BOTH dimension sides — cost both
+    dim_bytes = 8 * (at.num_rows + st.num_rows)
+    if PLN.plan_distribution(dim_bytes, mesh.shape[axis]).strategy \
+            == "broadcast":
+        # dimension sides replicated: one local LUT probe per shard — the
+        # repartition only shards the fact
+        t = S.hash_repartition(mesh, axis, {n: ct[n] for n in ct.cols},
+                               "index", slack)
+        jp_a = PLN.plan_join(at, "author_id", ct, "author_id")
+        jp_s = PLN.plan_join(st, "sub_row", ct, "sub_id")
+        karma, subscribers, valid = [], [], []
+        for i in range(mesh.shape[axis]):
+            cols, v = t.local(i)
+            a_loc, s_loc = at.to(v.device), st.to(v.device)
+            aidx, ahit = K.pk_fk_join(a_loc["author_id"], cols["author_id"],
+                                      plan=jp_a)
+            sidx, shit = K.pk_fk_join(s_loc["sub_row"], cols["sub_id"],
+                                      plan=jp_s)
+            karma.append(K.take(a_loc["karma"], aidx))
+            subscribers.append(K.take(s_loc["subscribers"], sidx))
+            valid.append(v & ahit & shit)
+        out = dict(t.cols)
+        out["karma"] = S._sharded(mesh, axis, karma)
+        out["subscribers"] = S._sharded(mesh, axis, subscribers)
+        return S.ShardedRows(out, S._sharded(mesh, axis, valid), mesh, axis,
+                             t.overflow)
+    # fact-scale sides: chained row-output hash joins
+    j1 = S.hash_join(
+        mesh, axis,
+        build={"author_id": at["author_id"], "karma": at["karma"]},
+        build_key="author_id",
+        probe={n: ct[n] for n in ct.cols}, probe_key="author_id",
+        key_space=max(key_space(at, "author_id"),
+                      key_space(ct, "author_id")), slack=slack)
+    S.check_overflow(j1)
+    j2 = S.hash_join(
+        mesh, axis,
+        build={"sub_row": st["sub_row"],
+               "subscribers": st["subscribers"]},
+        build_key="sub_row",
+        probe=j1.cols, probe_key="sub_id",
+        key_space=max(key_space(st, "sub_row"),
+                      key_space(ct, "sub_id")),
+        slack=slack, probe_valid=j1.valid)
+    S.check_overflow(j2)
+    return j2
 
 
 # --------------------------------------------- label propagation

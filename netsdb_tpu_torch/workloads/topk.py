@@ -10,6 +10,7 @@ from typing import Any, Callable, List, Tuple
 
 import torch
 
+from netsdb_tpu_torch.parallel.placement import refuse_placed
 from netsdb_tpu_torch.relational import kernels as K
 from netsdb_tpu_torch.relational.table import ColumnTable
 
@@ -26,6 +27,7 @@ def top_k_on_set(client, db: str, set_name: str, k: int,
     """Score every item of a set with ``score`` on the host and keep the
     K best, scored on the client's device (reference TopK over arbitrary
     objects with a distance lambda)."""
+    refuse_placed(client, db, set_name, "top_k_on_set")
     items = list(client.get_set_iterator(db, set_name))
     if not items:
         return []
@@ -46,6 +48,7 @@ def top_k_on_table_set(client, db: str, set_name: str, score_col: str,
     """Relation driver: the scores are a column of a stored
     ``ColumnTable``; the k winners become a k-row relation {row, score},
     rows past the valid ones masked."""
+    refuse_placed(client, db, set_name, "top_k_on_table_set")
     t = client.get_table(db, set_name)
     scores = t[score_col]
     kk = min(k, scores.shape[0])

@@ -19,7 +19,7 @@ a few torch ops on the tables' device:
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -126,18 +126,29 @@ def _jaccard_core(member: torch.Tensor, query_vec: torch.Tensor, k: int
     return j.index_select(0, idx.long()), idx
 
 
+def _jaccard_shape(tables: Dict[str, ColumnTable],
+                   query_parts: Sequence[int]) -> Tuple[int, int]:
+    from netsdb_tpu_torch.relational.stats import key_space
+
+    n_cust = key_space(tables["customers"], "custKey")
+    n_parts = max(key_space(tables["triples"], "partKey"),
+                  max(query_parts, default=0) + 1)
+    return n_cust, n_parts
+
+
 def top_jaccard(tables: Dict[str, ColumnTable],
-                query_parts: Sequence[int], k: int = 5
+                query_parts: Sequence[int], k: int = 5,
+                member: Optional[torch.Tensor] = None
                 ) -> List[Tuple[float, int]]:
     """Top-k customers by Jaccard similarity of their part sets against
     ``query_parts``: ``[(score, custKey)]`` best first, ties by custKey
-    ascending."""
-    from netsdb_tpu_torch.relational.stats import key_space
-
+    ascending. ``member`` is the membership matrix when the caller built
+    it (over a mesh)."""
     t = tables["triples"]
-    n_cust = key_space(tables["customers"], "custKey")
-    n_parts = max(key_space(t, "partKey"), max(query_parts, default=0) + 1)
-    member = _membership_matrix(n_cust, n_parts, t["custKey"], t["partKey"])
+    n_cust, n_parts = _jaccard_shape(tables, query_parts)
+    if member is None:
+        member = _membership_matrix(n_cust, n_parts, t["custKey"],
+                                    t["partKey"])
     q = np.zeros((n_parts,), np.float32)
     for p in set(query_parts):
         q[p] = 1.0
@@ -214,30 +225,68 @@ def queries_on_sets(client, db: str = "tpchbench", threshold: int = 0,
     """The whole family against the stored relation sets ``customers``
     and ``triples`` of ``client`` (sent with ``send_table``): returns
     ``{selections, pair_counts, per_supplier, count, top_jaccard}``.
-    Placed sets (the reference's distributed run) raise (ROADMAP.md
-    A4)."""
+
+    Over placed sets (the reference's distributed run) the kernels run on
+    each mesh position's rows: the selections per customer block
+    (concatenated in position order, padding rows included, as the
+    reference's sharded masks are), the supplier counts and the
+    membership matrix as per-position partials combined in position order
+    (a sum, a maximum), the Jaccard top-k once over the merged matrix;
+    padding rows fold to -1 keys like every placed table's."""
+    from netsdb_tpu_torch.parallel.mesh import move
+    from netsdb_tpu_torch.parallel.placement import (is_placed_table,
+                                                     local_tables)
     from netsdb_tpu_torch.relational.dag import _fold_mask
     from netsdb_tpu_torch.relational.stats import analyze_table, inject_stats
-    from netsdb_tpu_torch.storage.store import SetIdentifier
 
     names = ("customers", "triples")
-    placed = [n for n in names
-              if client.store.placement_of(SetIdentifier(db, n)) is not None]
-    if placed:
-        raise NotImplementedError(
-            f"queries_on_sets over placed sets {placed} (the family run "
-            f"distributed over a mesh) is not ported yet: ROADMAP.md A4")
     raw = {n: client.get_table(db, n) for n in names}
-    cust_mask = raw["customers"].mask()
-    tables = {n: inject_stats(_fold_mask(t), analyze_table(t))
-              for n, t in raw.items()}
-    sels = tuple(m & cust_mask
-                 for m in selections(tables, threshold, segment))
-    pair, per = group_by_supplier(tables)
-    return {
-        "selections": sels,
-        "pair_counts": pair,
-        "per_supplier": per,
-        "count": int(cust_mask.sum()),
-        "top_jaccard": top_jaccard(tables, list(query_parts), k),
-    }
+    if not any(is_placed_table(t) for t in raw.values()):
+        cust_mask = raw["customers"].mask()
+        tables = {n: inject_stats(_fold_mask(t), analyze_table(t))
+                  for n, t in raw.items()}
+        sels = tuple(m & cust_mask
+                     for m in selections(tables, threshold, segment))
+        pair, per = group_by_supplier(tables)
+        return {"selections": sels, "pair_counts": pair,
+                "per_supplier": per, "count": int(cust_mask.sum()),
+                "top_jaccard": top_jaccard(tables, list(query_parts), k)}
+    stats = {n: analyze_table(t) for n, t in raw.items()}
+
+    def locals_of(n):
+        t = raw[n]
+        parts = local_tables(t) if is_placed_table(t) else [t]
+        if is_placed_table(t) and \
+                next(iter(t.cols.values())).spec[0] is None:
+            parts = parts[:1]  # replicated: one copy is the relation
+        return parts, [inject_stats(_fold_mask(p), stats[n]) for p in parts]
+
+    raw_custs, custs = locals_of("customers")
+    _, trips = locals_of("triples")
+    dev0 = custs[0].device
+    sels = None
+    count = 0
+    for r, c in zip(raw_custs, custs):
+        raw_mask = r.mask()
+        part = [move(s & raw_mask, dev0)
+                for s in selections({"customers": c}, threshold, segment)]
+        sels = part if sels is None else [torch.cat([a, b])
+                                          for a, b in zip(sels, part)]
+        count += int(raw_mask.sum())
+    whole = {"customers": custs[0], "triples": trips[0]}
+    n_cust, n_parts = _jaccard_shape(whole, list(query_parts))
+    pair = per = member = None
+    for t in trips:
+        tabs = {"customers": custs[0].to(t.device), "triples": t}
+        p, q = group_by_supplier(tabs)
+        m = _membership_matrix(n_cust, n_parts, t["custKey"], t["partKey"])
+        if pair is None:
+            pair, per, member = move(p, dev0), move(q, dev0), move(m, dev0)
+        else:
+            pair = pair + move(p, dev0)
+            per = per + move(q, dev0)
+            member = torch.maximum(member, move(m, dev0))
+    return {"selections": tuple(sels), "pair_counts": pair,
+            "per_supplier": per, "count": count,
+            "top_jaccard": top_jaccard(whole, list(query_parts), k,
+                                       member=member)}

@@ -78,9 +78,17 @@ SERVING_PORTED = ("decode_batch_max", "model_dedup", "sched_affinity",
                   "shard_handoff_bytes")
 
 
-@pytest.mark.parametrize("name", sorted(set(_LATER) | set(SERVING_PORTED)))
+#: knobs of the in-process mesh slice (ROADMAP.md A4 part 2): raised until
+#: they were ported, accepted away from their defaults since (the
+#: reference checks ``summa_grid`` where it is read, not here)
+MESH_PORTED = ("distributed_matmul", "mesh_axis_names", "mesh_shape",
+               "summa_grid", "summa_participants")
+
+
+@pytest.mark.parametrize("name", sorted(set(_LATER) | set(SERVING_PORTED)
+                                        | set(MESH_PORTED)))
 def test_each_later_knob_raises_naming_its_item(name, tmp_path):
-    if name in SERVING_PORTED:
+    if name in SERVING_PORTED or name in MESH_PORTED:
         assert name not in _LATER
         default = _default(next(f for f in REF_FIELDS if f.name == name))
         value = {"a": 2.0} if name == "sched_lanes" else _away(default)
@@ -107,9 +115,9 @@ def test_serving_knobs_keep_the_reference_checks(knob, value, tmp_path):
 
 def test_later_knobs_name_their_roadmap_items():
     items = {name: item for name, (_, item) in _LATER.items()}
-    for name in ("mesh_shape", "mesh_axis_names", "summa_participants",
-                 "distributed_matmul", "summa_grid"):
-        assert items[name] == "A4"
+    for name in MESH_PORTED:  # ported with the in-process mesh
+        assert name not in items
+    assert not any(item.startswith("A4") for item in items.values())
     for name in items:
         if name.startswith(("ha_", "rebalance")):
             assert items[name] == "A7 part 2", name

@@ -221,8 +221,13 @@ def test_create_set_options_the_port_cannot_honour_raise(clients, kwargs,
     have, and a paged and placed relation (A4), still raise."""
     _, pc = clients
     pc.create_database("d")
-    with pytest.raises(exc, match=item):
-        pc.create_set("d", "s", **kwargs)
+    if exc is NotImplementedError:
+        # a paged and placed relation was A4 and is ported
+        pc.create_set("d", "p", **kwargs)
+        assert pc.set_exists("d", "p")
+    else:
+        with pytest.raises(exc, match=item):
+            pc.create_set("d", "s", **kwargs)
     assert not pc.set_exists("d", "s")
     pc.create_set("d", "s", eviction="lru")  # the reference's default
     assert pc.set_exists("d", "s")

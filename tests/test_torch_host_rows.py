@@ -217,7 +217,9 @@ def test_partition_on_a_column_raises_naming_a4(clients):
     p.send_table("db", "t", [{"k": 1, "v": 2.0}])
     node = C.Partition(C.ScanSet("db", "t"), "k", 2)
     assert node.label == "k"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+    # the row shuffle is ported (tests/test_torch_shuffle.py); over an
+    # unplaced relation it raises the reference's error
+    with pytest.raises(ValueError, match="placed"):
         p.execute_computations(C.WriteSet(node, "db", "o"))
 
 

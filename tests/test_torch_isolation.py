@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     relational, bad = rest.rsplit("] ", 1)
     assert int(count) >= 62  # every module of the package was imported
     for mod in ("table", "kernels", "tuning", "stats", "planner", "queries",
-                "folds", "dag", "bench", "outofcore", "autojoin"):
+                "folds", "dag", "bench", "outofcore", "autojoin", "sharded",
+                "shuffle"):
         assert f"'netsdb_tpu_torch.relational.{mod}'" in relational
     assert bad == "[]", f"the port pulled in {bad}"
 
@@ -63,6 +64,30 @@ def test_host_record_modules_import_no_jax_and_nothing_of_the_jax_package():
             "netsdb_tpu_torch.workloads.tpch_bench_columnar",
             "netsdb_tpu_torch.workloads.reddit",
             "netsdb_tpu_torch.workloads.reddit_columnar"]
+    probe = ("import importlib, sys\n"
+             f"for m in {mods!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'netsdb_tpu' or "
+             "m.startswith('netsdb_tpu.')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_mesh_modules_import_no_jax_and_nothing_of_the_jax_package():
+    """The in-process mesh (collectives, Ulysses, SUMMA, resharding,
+    row-sharded relations and the row shuffle) on its own, in a fresh
+    interpreter."""
+    mods = ["netsdb_tpu_torch.parallel",
+            "netsdb_tpu_torch.parallel.collectives",
+            "netsdb_tpu_torch.parallel.ring",
+            "netsdb_tpu_torch.parallel.summa",
+            "netsdb_tpu_torch.parallel.reshard",
+            "netsdb_tpu_torch.relational.sharded",
+            "netsdb_tpu_torch.relational.shuffle"]
     probe = ("import importlib, sys\n"
              f"for m in {mods!r}:\n"
              "    importlib.import_module(m)\n"
@@ -113,6 +138,11 @@ def test_single_device_workload_and_dedup_modules_import_no_jax():
     ("obs_enabled", False, "A8"), ("obs_trace_sample", 4, "A8"),
     ("lock_witness", True, "A8")])
 def test_later_configuration_knobs_raise(knob, value, item):
+    """The A4 knobs (the mesh and SUMMA) were ported with the in-process
+    mesh and are taken as given; the others still raise."""
+    if item == "A4":
+        assert getattr(Configuration(**{knob: value}), knob) == value
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         Configuration(**{knob: value})
 
@@ -287,15 +317,22 @@ def port_client(tmp_path):
           placement=Placement.replicated()), NotImplementedError,
      "ROADMAP.md A4")])
 def test_out_of_slice_set_options_raise(port_client, kwargs, exc, item):
-    """A paged and placed relation is ROADMAP.md A4, and an eviction
-    policy the reference lacks is an error; set eviction (``lru``,
+    """A paged and placed relation (once ROADMAP.md A4) is ported, and an
+    eviction policy the reference lacks is an error; set eviction (``lru``,
     ``mru``, ``random``: ``tests/test_torch_eviction.py``), paged object
     sets (``tests/test_torch_paged_objects.py``), paged or persistent
     tensor sets (``tests/test_torch_paged_weights.py``), paged relations
     (``tests/test_torch_paged_relations.py``) and the dispatcher's
     ``partition_lambda`` are ported."""
-    with pytest.raises(exc, match=item):
+    if item == "ROADMAP.md A4":  # ported: the relation's chunks are placed
         port_client.create_set("d", "s", **kwargs)
+        port_client.send_table("d", "s", [{"k": 1, "v": 2.0}])
+        assert port_client.store.placement_of(SetIdentifier("d", "s")) \
+            == kwargs["placement"]
+        port_client.remove_set("d", "s")
+    else:
+        with pytest.raises(exc, match=item):
+            port_client.create_set("d", "s", **kwargs)
     assert not port_client.catalog.set_exists("d", "s")
     port_client.create_set("d", "s", storage="paged",
                            persistence="persistent")
@@ -323,10 +360,13 @@ def test_out_of_slice_client_features_raise(port_client, tmp_path):
     # any connection is tried
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7 part 2"):
         Client(address="localhost:1", replicas=["localhost:2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        Configuration(distributed_matmul=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        Configuration(summa_grid="2d")
+    # the distributed matmul's knobs are ported (tests/test_torch_summa.py);
+    # a malformed grid raises where it is read, as in the reference
+    assert Configuration(distributed_matmul=True).distributed_matmul
+    from netsdb_tpu_torch.parallel.summa import grid_shape
+
+    with pytest.raises(ValueError, match="PRxPC"):
+        grid_shape(Configuration(summa_grid="2d"), 4)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         Configuration(device_cache_pin_auto=True)
     # the dirty-range log of paged relations is ported: the knob bounds it
@@ -357,9 +397,10 @@ def test_out_of_slice_client_features_raise(port_client, tmp_path):
 
 
 def test_tensor_fold_is_not_ported():
-    """``tensor_fold`` is ported; its distributed branch (``summa_rhs``
-    under ``distributed_matmul``, ROADMAP.md A4) is not: the fold keeps
-    ``summa_rhs`` and the configuration that would use it raises."""
+    """``tensor_fold`` is ported, and so is its distributed branch (once
+    ROADMAP.md A4: ``summa_rhs`` under ``distributed_matmul``,
+    tests/test_torch_summa.py): the fold keeps ``summa_rhs`` and the
+    configuration that uses it is accepted."""
     scan = ScanSet("d", "s")
     fold = TensorFold(mode="rows", summa_rhs=lambda x: x)
     assert Apply(scan, lambda x: x, tensor_fold=fold).tensor_fold is fold
@@ -369,8 +410,9 @@ def test_tensor_fold_is_not_ported():
         TensorFold(mode="columns")
     with pytest.raises(ValueError, match="partial"):
         TensorFold(mode="reduce")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        Configuration(distributed_matmul=True)
+    assert fold.summa_rhs(3) == 3
+    assert Configuration(distributed_matmul=True,
+                         summa_participants=4).summa_participants == 4
 
 
 def test_model_setup_forwards_out_of_slice_options(port_client):

@@ -579,9 +579,11 @@ def test_paged_placed_relation_and_fusion_raise(tmp_path):
 
     c = Client(Configuration(root_dir=str(tmp_path / "x")), device="cpu")
     c.create_database("d")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        c.create_set("d", "t", type_name="table", storage="paged",
-                     placement=Placement.replicated())
+    # a paged and placed relation (once ROADMAP.md A4) is ported
+    c.create_set("d", "t", type_name="table", storage="paged",
+                 placement=Placement.replicated())
+    assert c.store.placement_of(SetIdentifier("d", "t")) == \
+        Placement.replicated()
     # fusion is ported and on by default, as in the reference
     assert Configuration().plan_fusion
     assert not Configuration(plan_fusion=False).plan_fusion

@@ -217,8 +217,20 @@ def test_sharded_tensor_checks_and_gathers():
 
 
 def test_placing_a_column_table_is_not_ported():
-    """Row-sharded relations are ``relational/sharded.py``: ROADMAP.md A4."""
-    table = ColumnTable.from_rows([{"a": 1}, {"a": 2}])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        Placement.data_parallel().apply(table)
+    """Row-sharded relations were ROADMAP.md A4 and are ported: a
+    placement over 4 positions pads 6 rows to 8, every column and the
+    mask row-sharded, the padding rows invalid; host objects pass."""
+    from netsdb_tpu_torch.parallel.placement import (gather_table,
+                                                     is_placed_table)
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    table = ColumnTable.from_rows([{"a": i} for i in range(6)],
+                                  device="cpu")
+    with virtual_devices(4, "cpu"):
+        placed = Placement.data_parallel().apply(table)
+    assert is_placed_table(placed)
+    assert placed.num_rows == 8
+    assert len({id(s) for s in placed["a"].shards.flat}) == 4
+    assert placed.valid.to_dense().tolist() == [True] * 6 + [False] * 2
+    assert gather_table(placed, strip=True).to_rows() == table.to_rows()
     assert Placement.data_parallel().apply("host object") == "host object"

@@ -234,9 +234,38 @@ def test_three_way_sink_matches_the_reference_over_stored_sets(tmp_path,
         np.testing.assert_array_equal(got[col].numpy(), _np(want[col]))
 
 
-def test_sharded_three_way_raises_naming_a4(tables):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        RC.sharded_three_way(tables[1], mesh=None)
+def test_sharded_three_way_raises_naming_a4(tables, monkeypatch):
+    """``sharded_three_way`` (once ROADMAP.md A4, now ported) over 4
+    virtual positions, in both planner branches, gives the reference's
+    joined rows over its 4-device mesh: the same valid rows with the same
+    karma and subscribers."""
+    import jax
+    from jax.sharding import Mesh
+
+    from netsdb_tpu.relational import planner as JPLN
+    from netsdb_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+    from netsdb_tpu_torch.relational import planner as PLN
+
+    def rows(t, valid):
+        ok = np.asarray(valid)
+        return sorted(zip(*(np.asarray(t[c])[ok].tolist()
+                            for c in ("index", "karma", "subscribers"))))
+
+    jmesh = Mesh(np.asarray(jax.devices()[:4]), ("data",))
+    for strategy in (None, "partition"):
+        if strategy is not None:
+            monkeypatch.setattr(JPLN, "plan_distribution",
+                                lambda *a, **k: JPLN.DistPlan("partition"))
+            monkeypatch.setattr(PLN, "plan_distribution",
+                                lambda *a, **k: PLN.DistPlan("partition"))
+        want = JRC.sharded_three_way(tables[0], jmesh)
+        with virtual_devices(4, "cpu"):
+            got = RC.sharded_three_way(tables[1], make_mesh((4,), ("data",)))
+        assert int(got.overflow) == int(want.overflow) == 0
+        gcols = {c: v.to_dense().numpy() for c, v in got.cols.items()}
+        assert set(gcols) == set(want.cols)
+        assert rows(gcols, got.valid.to_dense().numpy()) == \
+            rows(want.cols, want.valid)
 
 
 def test_bench_label_propagation_runs_on_the_cpu():

@@ -138,6 +138,17 @@ def test_ring_over_one_axis_of_a_two_axis_mesh():
 
 
 def test_ulysses_is_not_ported(mesh8):
-    arrays = [torch.from_numpy(a) for a in qkv((1, 8, 64, 8))]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        ring.ulysses_attention(*arrays, mesh8, axis="sp")
+    """Ulysses was ROADMAP.md A4 and is ported: over the 8 positions it
+    equals the reference's over its 8 devices (tests/test_torch_ulysses.py
+    covers the rest)."""
+    from netsdb_tpu.parallel.ring import ulysses_attention as julysses
+
+    arrays = qkv((1, 8, 64, 8))
+    out = ring.ulysses_attention(*(torch.from_numpy(a) for a in arrays),
+                                 mesh8, axis="sp")
+    mesh = jmake_mesh((8,), ("sp",))
+    spec = NamedSharding(mesh, P(None, None, "sp", None))
+    want = julysses(*(jax.device_put(jnp.asarray(a), spec) for a in arrays),
+                    mesh, axis="sp")
+    np.testing.assert_allclose(out.to_dense().numpy(), np.asarray(want),
+                               **TOL)

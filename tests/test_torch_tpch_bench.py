@@ -186,13 +186,44 @@ def test_host_dags_hold_against_queries_on_sets(tmp_path, customers):
 
 
 def test_queries_on_placed_sets_raise_naming_a4(tmp_path, customers):
-    p = Client(Configuration(root_dir=str(tmp_path / "port")), device="cpu")
-    p.create_database("tpchbench")
-    p.create_set("tpchbench", "customers", type_name="table",
-                 placement=Placement.data_parallel(ndim=1))
-    p.create_set("tpchbench", "triples", type_name="table")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        BC.queries_on_sets(p)
+    """``queries_on_sets`` over placed sets (once ROADMAP.md A4, now
+    ported): both sets row-sharded over 8 positions, as the reference's
+    over its 8 CPU devices — the selections over the padded rows, the
+    supplier counts, the count and the Jaccard top-k equal the
+    reference's."""
+    from netsdb_tpu.parallel.placement import Placement as JPlacement
+    from netsdb_tpu_torch.parallel.mesh import virtual_devices
+
+    j = JaxClient(JaxConfiguration(root_dir=str(tmp_path / "jax")))
+    j.create_database("tpchbench")
+    jt = JBC.columnarize(customers)
+    for name, t in jt.items():
+        j.create_set("tpchbench", name, type_name="table",
+                     placement=JPlacement.data_parallel(ndim=1))
+        j.send_table("tpchbench", name, t)
+    query = [1, 3, 5, 7, 11]
+    want = JBC.queries_on_sets(j, threshold=25, query_parts=query, k=4)
+    with virtual_devices(8, "cpu"):
+        p = Client(Configuration(root_dir=str(tmp_path / "port")),
+                   device="cpu")
+        p.create_database("tpchbench")
+        for name, t in BC.columnarize(customers, device="cpu").items():
+            p.create_set("tpchbench", name, type_name="table",
+                         placement=Placement.data_parallel(ndim=1))
+            p.send_table("tpchbench", name, t)
+        got = BC.queries_on_sets(p, threshold=25, query_parts=query, k=4)
+    for g, w in zip(got["selections"], want["selections"]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(got["pair_counts"].numpy(),
+                                  np.asarray(want["pair_counts"]))
+    np.testing.assert_array_equal(got["per_supplier"].numpy(),
+                                  np.asarray(want["per_supplier"]))
+    assert got["count"] == want["count"] == len(customers)
+    assert [c for _, c in got["top_jaccard"]] == \
+        [c for _, c in want["top_jaccard"]]
+    np.testing.assert_allclose([s for s, _ in got["top_jaccard"]],
+                               [s for s, _ in want["top_jaccard"]],
+                               rtol=RTOL)
 
 
 def test_bench_runs_on_the_cpu():
