@@ -11,7 +11,7 @@ phase 1, the SF 10 tables made resident on a card client, and phase
 14, TPC-H at ``COMPILED_ONLY_SF``; ``--workloads-only``: phases 1 and
 15; ``--serve-only``: phases 1 and 16; ``--pool-only``: phases 1 and
 17; ``--mesh-only``: phase 1, the SF 10 tables made resident on a card
-client, and phase 18.)
+client, and phase 18; ``--multichip-only``: phases 1 and 19.)
 
 Every phase runs with the compiled-program cache in use and
 ``plan_fusion`` on, the port's defaults: a resident job is one CUDA
@@ -276,13 +276,36 @@ Phases (any failure raises and the exit code is non-zero):
    placed orders, ``distributed_top_k`` over 60 M scores against
    ``torch.topk``; the peak reserved memory, the card's used memory, the
    programs captured and replayed, and every fallback with its reason
-   (a placed request's fails the phase).
+   (a placed request's fails the phase);
+19. the rest of the mesh in one process, on 4 virtual positions of card
+   0, each request held to the same request on one position (sets
+   unplaced, on the same card) and its ms printed beside that one's:
+   the pipeline (``MC_PIPELINE``: 4 stages of tanh(x W + b) at d 4096,
+   8 microbatches of 2048 rows), byte-equal to the stages run in turn
+   and within ``MC_PP_ATOL`` of f64; expert-parallel MoE at phase 15's
+   widths (32 experts a position) within ``MC_MOE_RTOL`` of ``mesh=None``
+   and ``moe_atol`` of f64, with the dropped tokens; logistic regression,
+   word2vec (the reference test's row-sharded table, and replicated)
+   and the LSTM at phase 8's widths with the reference tests'
+   placements, against f64 at ``MODEL_TOLS``; three data-parallel FF
+   training steps at phase 9's size (``check_step`` against f64, the
+   replicas bit-identical, loss and params against the one-position
+   steps); k-means (from the planted centres), GMM and LDA (from one
+   start), ``pagerank_on_table_set``, ``top_k_on_table_set`` and the
+   conv pipeline at phase 15's sizes over row-sharded sets, at
+   ``WL_TOLS``; ``dryrun_multichip(4)``, its scalars against the same
+   sections on one position, then ``dryrun_multichip`` at 2 and 8
+   positions (B2 at head dim 8 and seq 16 and 64). Every gather of a placed tensor is printed
+   with its reason, and a data-parallel request that gathers fails the
+   phase; then the peak reserved memory, the card's used memory and the
+   programs captured and replayed.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
 just before phase 5's requests and read just after them, again
 around each model's paged requests in phase 7, around phase 8, where
-both must read 0, around phase 9 (B1 once a layer step, B2 never) and
+both must read 0, around phase 9 (B1 once a layer step and once in the
+one-position dry run, B2 never) and
 around phases 10, 11, 12 and 13 (both 0), around phase 14 (B1 once a
 layer request, B2 16 times an SP request) and around phase 15 (both 0);
 phase 16's launches are the daemon's own counters, read before and
@@ -290,7 +313,8 @@ after through COLLECT_STATS (B1 at least once a served layer request,
 B2 never), and phase 17's the pool daemons' and the solo's summed the
 same way, and this process's around the in-process pool (both 0); around
 phase 18 (B1 4 times a Ulysses call, B2 never; the comparisons' launches
-are taken back out). The last line is the contract's device record.
+are taken back out); and around phase 19's ``dryrun_multichip(4)`` (B2
+at least once, its ring; B1 never). The last line is the contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -1823,9 +1847,10 @@ def phase_train() -> tuple:
                                    y.double())
 
     # the port's entry point for the reference's dry run
-    loss, ms = request(lambda: dryrun_multichip(1))
+    dry, ms = request(lambda: dryrun_multichip(1))
+    loss = dry["loss"]
     print(f"[train] graft_entry.dryrun_multichip(1): loss {loss:.6f} in "
-          f"{ms:.3f} ms")
+          f"{ms:.3f} ms; sections {dry}")
     out["dryrun_loss"] = loss
 
     def p50(name):
@@ -1845,9 +1870,11 @@ def phase_train() -> tuple:
 
 def train_path() -> dict:
     """Phase 9 between launch counts set to 0 and read: the layer's three
-    steps launch B1 three times and B2 never; FF, logreg and the dry run
-    launch neither. One step of each model is profiled after the read,
-    with B1's share of the layer's step."""
+    steps launch B1 three times and B2 never; FF and logreg launch
+    neither, and the dry run at one position launches B1 once (its
+    sequence-parallel section over a one-position mesh is the layer's
+    single-device forward). One step of each model is profiled after the
+    read, with B1's share of the layer's step."""
     from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
                                                    flash_attention_step)
 
@@ -1856,9 +1883,10 @@ def train_path() -> dict:
     launches = (flash_attention.launches, flash_attention_step.launches)
     print(f"[train] launches on this path: flash_attention {launches[0]}, "
           f"flash_attention_step {launches[1]}")
-    if launches != (TRAIN_STEPS, 0):
+    if launches != (TRAIN_STEPS + 1, 0):
         raise RuntimeError(f"the training path launched (B1, B2) = "
-                           f"{launches}, want ({TRAIN_STEPS}, 0)")
+                           f"{launches}, want ({TRAIN_STEPS + 1}, 0)")
+    out["path_b1_launches"] = launches[0]
     rows = phase_profile(profiled, top=5)["transformer train_step"]
     busy = sum(ms for ms, _ in rows)
     b1 = sum(ms for ms, key in rows if "fold_kernel" in key)
@@ -6900,6 +6928,666 @@ def mesh_path(pk: dict, smi: str, state: dict) -> dict:
     return out
 
 
+# --- phase 19 ------------------------------------------------------------
+# the rest of the mesh in one process, on 4 virtual positions of card 0:
+# the pipeline at bench.py's FF hidden width (4 stages of d 4096, its
+# 16384-row batch as 8 microbatches of 2048), expert-parallel MoE at phase
+# 15's Switch-Base-128 widths (32 experts a position), the model families
+# at phase 8's widths with the reference tests' placements, FF training at
+# phase 9's size, the workloads at phase 15's sizes over row-sharded sets,
+# and dryrun_multichip(4). Every request also runs on one position (sets
+# unplaced, on the same card) and is held to it.
+MC_POSITIONS = 4
+MC_PIPELINE = dict(stages=4, d=4096, micro=8, rows=2048)
+MC_PP_ATOL = 1e-4       # the pipeline against f64
+MC_MOE_RTOL = 1e-5      # expert-parallel MoE against mesh=None
+MC_DRYRUN_RTOL = 1e-5   # the dry run's sums against its one-position run
+MC_DRYRUN_SP_RTOL = 1e-4  # ... the ring (B2) against one B1 call
+_MC_GATHERS: dict = {}
+
+
+def _mc_timed(run, device) -> tuple:
+    """(output, ms) of a request after one untimed run of it: the first
+    call of a shape pays for the library's and the allocator's first
+    use (and the placed request runs before the one it is held to)."""
+    run()
+    return _timed(run, device)
+
+
+def _mc_gathers(name, data_parallel: bool) -> list:
+    """The gathers ``name`` logged (then the log is cleared); a
+    data-parallel request must log none."""
+    from netsdb_tpu_torch.parallel.mesh import clear_gather_log, gather_log
+
+    log = gather_log()
+    clear_gather_log()
+    _MC_GATHERS[name] = log
+    for e in log:
+        print(f"[multichip] {name}: gather {e['op']} x{e['gathers']} "
+              f"({e['bytes']} B): {e['reason']}")
+    if data_parallel and log:
+        raise RuntimeError(f"[multichip] the data-parallel request {name} "
+                           f"gathered: {log}")
+    return log
+
+
+def _mc_row(out, name, ms, ms1, card, **extra) -> dict:
+    row = {"ms": ms, "one_position_ms": ms1, **extra}
+    out[name] = row
+    more = "".join(f", {k} {v:.3e}" if isinstance(v, float) else
+                   f", {k} {v}" for k, v in extra.items())
+    print(f"[multichip] {name}: {ms:.3f} ms on {MC_POSITIONS} positions, "
+          f"{ms1:.3f} ms on one{more} | {card}")
+    return row
+
+
+def _mc_hold(name, ok, detail) -> None:
+    if not ok:
+        raise RuntimeError(f"[multichip] {name}: {detail}")
+
+
+def _mc_pipeline(out, root, card, pk, device) -> None:
+    import torch
+
+    from netsdb_tpu_torch.ops.common import full_f32_precision
+    from netsdb_tpu_torch.parallel.mesh import make_mesh
+    from netsdb_tpu_torch.parallel.pipeline import pipeline_apply
+
+    s = MC_PIPELINE
+    g = _wl_gen(device, 30)
+    d = s["d"]
+    params = {"w": torch.randn(s["stages"], d, d, generator=g,
+                               device=device) * d ** -0.5,
+              "b": torch.randn(s["stages"], d, generator=g,
+                               device=device) * 0.1}
+    xs = torch.randn(s["micro"], s["rows"], d, generator=g, device=device)
+
+    def stage(p, x):
+        full_f32_precision()
+        return torch.tanh(torch.addmm(p["b"], x, p["w"]))
+
+    def sequential():
+        ys = xs
+        for i in range(s["stages"]):
+            p = {k: v[i] for k, v in params.items()}
+            ys = torch.stack([stage(p, x) for x in ys])
+        return ys
+
+    mesh = make_mesh((MC_POSITIONS,), ("pp",))
+    got, ms = _mc_timed(
+        lambda: pipeline_apply(stage, params, xs, mesh, "pp"), device)
+    want, ms1 = _mc_timed(sequential, device)
+    same = all(torch.equal(t, want) for t in got.shards.flat)
+    y64 = xs.double()
+    for i in range(s["stages"]):
+        y64 = torch.tanh(y64 @ params["w"][i].double()
+                         + params["b"][i].double())
+    err = (got.first().double() - y64).abs().max().item()
+    flops = 2.0 * s["micro"] * s["rows"] * d * d * s["stages"]
+    nbytes = 4.0 * (params["w"].numel() + 2 * xs.numel())
+    bound = bounds_ms(flops, nbytes, "float32", pk)
+    _mc_row(out, "pipeline", ms, ms1, card, byte_equal=same, f64_err=err,
+            bound_ms=bound[0], bound_by=bound[1])
+    _mc_hold("pipeline", same and err <= MC_PP_ATOL,
+             f"byte-equal to the sequential loop {same}, f64 err {err}")
+    _mc_gathers("pipeline", True)
+
+
+def _mc_moe(out, root, card, pk, device) -> None:
+    import torch
+
+    moe = __import__("netsdb_tpu_torch.models.moe", fromlist=["x"])
+    from netsdb_tpu_torch.parallel.mesh import make_mesh
+
+    s = WL_SIZES["moe"]
+    d, hd, ne, t = s["d"], s["hidden"], s["experts"], s["tokens"]
+    g = _wl_gen(device, 8)
+    params = moe.MoEParams(
+        w_gate=torch.randn(d, ne, generator=g, device=device) * d ** -0.5,
+        w_up=torch.randn(ne, d, hd, generator=g, device=device) * d ** -0.5,
+        w_down=torch.randn(ne, hd, d, generator=g, device=device)
+        * hd ** -0.5)
+    x = torch.randn(t, d, generator=g, device=device)
+    cf = s["capacity_factor"]
+    mesh = make_mesh((MC_POSITIONS,), ("model",))
+    ep, ms = _mc_timed(
+        lambda: moe.moe_forward(params, x, cf, mesh, "model"), device)
+    base, ms1 = _mc_timed(lambda: moe.moe_forward(params, x, cf), device)
+    same = torch.equal(ep, base)
+    rel = _rel(ep, base) if not same else 0.0
+    p64 = moe.MoEParams(*(p.double() for p in (params.w_gate, params.w_up,
+                                               params.w_down)))
+    err = (ep.double() - moe.moe_forward(p64, x.double(), cf)).abs().max()
+    dropped = int((~moe.route(params, x, cf).keep).sum())
+    _mc_row(out, "moe expert-parallel", ms, ms1, card, byte_equal=same,
+            rel_err=rel, f64_err=err.item(), dropped_tokens=dropped,
+            experts_a_position=ne // MC_POSITIONS)
+    _mc_hold("moe", rel <= MC_MOE_RTOL and err.item() <= WL_TOLS["moe_atol"],
+             f"rel err to mesh=None {rel}, f64 err {err.item()}")
+    _mc_gathers("moe", True)
+
+
+def _mc_each(root, name, layouts, device):
+    """(client, layout) for the placed request, then for the one-position
+    one: each client made when its turn comes and held by the caller
+    alone, so ``del`` frees it."""
+    for tag, layout in zip(("placed", "one"), layouts):
+        yield _wl_client(device, f"{root}/{name}-{tag}"), layout
+
+
+def _mc_families(out, root, card, pk, device) -> None:
+    import torch
+
+    from netsdb_tpu_torch.models import LogRegModel, LSTMModel, Word2VecModel
+    from netsdb_tpu_torch.parallel.placed_ops import dense
+    from netsdb_tpu_torch.parallel.placement import Placement
+
+    g = torch.Generator(device=device).manual_seed(SEED + 31)
+    dp, rep = Placement.data_parallel(ndim=2), Placement.replicated()
+    features, rows = MODEL_SIZES["logreg"].values()
+    w = torch.randn(features, generator=g, device=device) * features ** -0.5
+    x = torch.randn(rows, features, generator=g, device=device)
+    ref = torch.sigmoid(x.double() @ w.double() + 0.1)[None, :]
+    res = []
+    for c, pl in _mc_each(root, "logreg", ({"inputs": dp}, None), device):
+        m = LogRegModel(block=(512, 512))
+        m.setup(c, placements=pl)
+        m.load_weights(c, w, 0.1)
+        m.load_inputs(c, x)
+        res.append(_mc_timed(lambda m=m, c=c: m.inference(c), device))
+    _mc_gathers("logreg", True)
+    got, one = (dense(r[0]) for r in res)
+    err = (got.double() - ref).abs().max().item()
+    _mc_row(out, "logreg inputs data-parallel", res[0][1], res[1][1], card,
+            f64_err=err, diff_to_one=(got - one).abs().max().item())
+    _mc_hold("logreg", err <= MODEL_TOLS["logreg"], f"f64 err {err}")
+    del x, res, got, one
+
+    vocab, dim, n_ids, _segs, dag_rows = MODEL_SIZES["word2vec"].values()
+    table = torch.randn(vocab, dim, generator=g, device=device)
+    ids = torch.randint(0, vocab, (n_ids,), generator=g, device=device)
+    rows64 = table.double()[ids]
+    placed, one = (_wl_client(device, f"{root}/word2vec-{tag}")
+                   for tag in ("placed", "one"))
+    layouts = {"reference": {"weights": dp, "inputs": dp},
+               "data-parallel": {"weights": rep, "inputs": dp}}
+    solo = Word2VecModel(block=(512, 512))
+    solo.setup(one)
+    solo.load_embeddings(one, table)
+    solo.load_onehot_inputs(one, ids[:dag_rows], vocab)
+    want, ms1 = _mc_timed(lambda: solo.inference(one), device)
+    for tag, pls in layouts.items():
+        m = Word2VecModel(db=f"w2v_{tag[:3]}", block=(512, 512))
+        m.setup(placed, placements=pls)
+        m.load_embeddings(placed, table)
+        m.load_onehot_inputs(placed, ids[:dag_rows], vocab)
+        got, ms = _mc_timed(lambda m=m: m.inference(placed), device)
+        _mc_gathers(f"word2vec one-hot DAG ({tag})", tag == "data-parallel")
+        got = dense(got)
+        err = (got.double() - rows64[:dag_rows]).abs().max().item()
+        _mc_row(out, f"word2vec one-hot DAG ({tag})", ms, ms1, card,
+                f64_err=err, equal_to_one=torch.equal(got, dense(want)))
+        _mc_hold("word2vec", err <= MODEL_TOLS["word2vec"], f"f64 err {err}")
+        if tag == "reference":
+            look, ms = _mc_timed(lambda m=m: m.lookup(placed, ids), device)
+            _mc_gathers("word2vec lookup (rows sharded)", True)
+            _, ms1l = _mc_timed(lambda: solo.lookup(one, ids), device)
+            err = (look.double() - rows64).abs().max().item()
+            _mc_row(out, "word2vec lookup (rows sharded)", ms, ms1l, card,
+                    f64_err=err)
+            _mc_hold("word2vec lookup", err == 0.0, f"f64 err {err}")
+    del placed, one, table, rows64, want
+
+    hidden, inp, batch, _steps, lblock = MODEL_SIZES["lstm"].values()
+    lw = {}
+    for gate in "ifco":
+        lw[f"w_{gate}"] = torch.randn(hidden, inp, generator=g,
+                                      device=device) * inp ** -0.5
+        lw[f"u_{gate}"] = torch.randn(hidden, hidden, generator=g,
+                                      device=device) * hidden ** -0.5
+        lw[f"b_{gate}"] = torch.randn(hidden, generator=g,
+                                      device=device) * 0.1
+    h0 = torch.randn(hidden, batch, generator=g, device=device) * 0.5
+    c0 = torch.randn(hidden, batch, generator=g, device=device) * 0.5
+    x0 = torch.randn(inp, batch, generator=g, device=device)
+    ref = lstm_f64(lw, h0, c0, x0[None])
+    cols = Placement((("data", 0),), (None, "data"))
+    pls = {f"w_{gate}": dp for gate in "ifco"}
+    pls.update({"h": cols, "c": cols})
+    res = []
+    for c, pl in _mc_each(root, "lstm", (pls, None), device):
+        m = LSTMModel(block=(lblock, lblock))
+        m.setup(c, placements=pl)
+        m.load_weights(c, lw)
+        m.load_state(c, h0, c0)
+        res.append(_mc_timed(lambda m=m, c=c: m.step(c, x0), device))
+        if pl is not None:
+            _mc_gathers("lstm step (reference placements)", False)
+    (hp, cp), (hs, cs) = ([dense(t) for t in r[0]] for r in res)
+    err = max((hp.double() - ref[0]).abs().max().item(),
+              (cp.double() - ref[1]).abs().max().item())
+    diff = max((hp - hs).abs().max().item(), (cp - cs).abs().max().item())
+    _mc_row(out, "lstm step (reference placements)", res[0][1], res[1][1],
+            card, f64_err=err, diff_to_one=diff)
+    _mc_hold("lstm", err <= MODEL_TOLS["lstm"] and diff <= MODEL_TOLS["lstm"],
+             f"f64 err {err}, diff to one position {diff}")
+
+
+def _mc_whole(params):
+    """Placed params as plain BlockedTensors (a replicated value's first
+    shard: nothing moves)."""
+    import dataclasses
+
+    from netsdb_tpu_torch.parallel import placed_ops
+
+    return dataclasses.replace(params, **{
+        f.name: getattr(params, f.name).with_data(placed_ops.whole(
+            getattr(params, f.name).data, "check"))
+        for f in dataclasses.fields(params)})
+
+
+def _mc_train(out, root, card, pk, device) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from netsdb_tpu_torch.models import FFModel
+    from netsdb_tpu_torch.parallel.placement import Placement
+
+    batch, features, hidden, labels = TRAIN_SIZES["ff"].values()
+    g = torch.Generator(device=device).manual_seed(SEED + 32)
+    x = torch.randn(batch, features, generator=g, device=device)
+    onehot = F.one_hot(torch.randint(0, labels, (batch,), generator=g,
+                                     device=device), labels).T.float()
+    rep = Placement.replicated()
+    cols = Placement((("data", 0),), (None, "data"))
+    layouts = ({"inputs": Placement.data_parallel(ndim=2), "w1": rep,
+                "b1": rep, "wo": rep, "bo": rep, "labels": cols}, None)
+    runs = []
+    for c, pls in _mc_each(root, "train", layouts, device):
+        m = FFModel(db="ff_mc", block=(512, 512))
+        m.setup(c, placements=pls)
+        m.load_random_weights(c, features, hidden, labels, seed=SEED)
+        m.load_inputs(c, x)
+        c.create_set(m.db, "labels", placement=(pls or {}).get("labels"))
+        c.send_matrix(m.db, "labels", onehot, (512, 512))
+        p = m.params_from_store(c)
+        args = (c.get_tensor(m.db, "inputs"), c.get_tensor(m.db, "labels"))
+        steps = []
+        for step in range(TRAIN_STEPS):
+            (new, loss), ms = _mc_timed(
+                lambda p=p: m.train_step(p, *args, lr=0.1), device)
+            rec = check_step(f"ff {'placed' if pls else 'one position'}",
+                             step, ms, _mc_whole(p), _mc_whole(new), loss,
+                             0.1, ff_loss64, x.double(), onehot.double())
+            if pls:
+                for f in ("w1", "b1", "wo", "bo"):
+                    d = getattr(new, f).data
+                    _mc_hold("ff training replicas", all(
+                        torch.equal(t, d.first()) for t in d.shards.flat),
+                        f"{f}'s replicas differ after step {step}")
+            steps.append((rec, _mc_whole(new)))
+            p = new
+        if pls:
+            _mc_gathers("ff train_step (data-parallel)", True)
+        runs.append(steps)
+    for step, ((a, pa), (b, pb)) in enumerate(zip(*runs)):
+        loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        diff = max((getattr(pa, f).data - getattr(pb, f).data).abs().max()
+                   .item() for f in ("w1", "b1", "wo", "bo"))
+        limit = max(a[f]["limit"] for f in ("w1", "b1", "wo", "bo"))
+        _mc_row(out, f"ff train_step {step} (data-parallel)", a["ms"],
+                b["ms"], card, loss_rel_to_one=loss_rel,
+                param_diff_to_one=diff, limit=limit)
+        _mc_hold("ff training", loss_rel <= TRAIN_LOSS_RTOL
+                 and diff <= 2 * limit,
+                 f"step {step}: loss rel {loss_rel}, params diff {diff}")
+
+
+def _mc_matrix(c, name, data, block, placement):
+    c.create_database("wl")
+    c.create_set("wl", name, placement=placement)
+    c.send_matrix("wl", name, data, block)
+
+
+def _mc_workloads(out, root, card, pk, device) -> None:
+    import numpy as np
+    import torch
+
+    wl = {m: __import__(f"netsdb_tpu_torch.workloads.{m}", fromlist=["x"])
+          for m in ("kmeans", "gmm", "lda", "pagerank", "topk",
+                    "conv_fusion")}
+    from netsdb_tpu_torch.parallel.placed_ops import row_blocks
+    from netsdb_tpu_torch.parallel.placement import Placement
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    dp = Placement.data_parallel(ndim=2)
+    s = WL_SIZES["kmeans"]
+    pts, _, centres = _wl_blobs(s["n"], s["d"], s["k"], device, 1,
+                                spread=1.5)
+    res, planted = [], []
+    for c, pl in _mc_each(root, "kmeans", (dp, None), device):
+        _mc_matrix(c, "points", pts, s["block"], pl)
+        res.append(_mc_timed(lambda c=c: wl["kmeans"].kmeans_on_set(
+            c, "wl", "points", s["k"], s["iters"], seed=SEED), device))
+        # what the driver runs, over the same row blocks, from the
+        # planted centres
+        blocks = row_blocks(c.get_tensor("wl", "points"), "kmeans")
+        planted.append(_mc_timed(lambda b=blocks: wl["kmeans"].kmeans_blocks(
+            b, s["k"], s["iters"], init_centroids=centres), device))
+        if pl is not None:
+            _mc_gathers("kmeans_on_set", True)
+        del blocks
+    p64 = pts.double()
+    del pts
+    # both drivers draw the same random start, whose split clusters
+    # drift apart with the partial sums' last bits (as f32 and f64 do in
+    # phase 15): held by the objective, the differences counted
+    (cp, ap), (cs, as_) = (r[0] for r in res)
+    moved, rel = int((ap != as_).sum()), _row_rel(cp, cs)
+    obj, obj1 = _inertia(p64, cp, ap), _inertia(p64, cs, as_)
+    obj_rel = abs(obj - obj1) / obj1
+    del p64
+    _mc_row(out, "kmeans_on_set", res[0][1], res[1][1], card,
+            inertia_rel_to_one=obj_rel, cent_row_rel=rel,
+            assignments_differ=moved)
+    _mc_hold("kmeans_on_set", obj_rel <= WL_TOLS["kmeans_cent_rtol"],
+             f"inertia rel {obj_rel}; {moved} assignments differ, "
+             f"centroids row rel {rel}")
+    # from the planted centres every point's nearest centroid is clear:
+    # the assignments must be equal
+    (cp, ap), (cs, as_) = (r[0] for r in planted)
+    moved, rel = int((ap != as_).sum()), _row_rel(cp, cs)
+    _mc_row(out, "kmeans_blocks (planted start)", planted[0][1],
+            planted[1][1], card, cent_row_rel=rel, assignments_differ=moved)
+    _mc_hold("kmeans (planted start)", moved == 0
+             and rel <= WL_TOLS["kmeans_cent_rtol"],
+             f"{moved} assignments differ, centroids row rel {rel}")
+    del res, planted, cp, ap, cs, as_
+    _wl_free(device)
+
+    s = WL_SIZES["gmm"]
+    pts, _, _ = _wl_blobs(s["n"], s["d"], s["k"], device, 2, spread=3.0)
+    res = []
+    for c, pl in _mc_each(root, "gmm", (dp, None), device):
+        _mc_matrix(c, "points", pts, s["block"], pl)
+        res.append(_mc_timed(lambda c=c: wl["gmm"].gmm_on_set(
+            c, "wl", "points", s["k"], s["iters"], seed=SEED), device))
+        if pl is not None:
+            _mc_gathers("gmm_on_set", True)
+    (sp, rp), (ss, rs) = (r[0] for r in res)
+    errs = {f: _rel(getattr(sp, f), getattr(ss, f))
+            for f in ("means", "variances", "weights")}
+    ll = wl["gmm"].gmm_log_likelihood(pts, sp).item()
+    ll1 = wl["gmm"].gmm_log_likelihood(pts, ss).item()
+    ll_rel = abs(ll - ll1) / abs(ll1)
+    _mc_row(out, "gmm_on_set", res[0][1], res[1][1], card,
+            max_rel_to_one=max(errs.values()), ll_rel_to_one=ll_rel)
+    _mc_hold("gmm", max(errs.values()) <= WL_TOLS["gmm_rtol"]
+             and ll_rel <= WL_TOLS["gmm_ll_rtol"], f"{errs}, ll {ll_rel}")
+    del pts, res, rp, rs
+    _wl_free(device)
+
+    s = WL_SIZES["lda"]
+    g = _wl_gen(device, 3)
+    topics = torch.rand(s["k"], s["vocab"], generator=g, device=device) ** 8
+    topics /= topics.sum(1, keepdim=True)
+    mix = torch.rand(s["docs"], s["k"], generator=g, device=device) ** 4
+    mix /= mix.sum(1, keepdim=True)
+    counts = torch.poisson((mix @ topics).mul_(s["doc_len"]), generator=g)
+    del topics, mix
+    res = []
+    for c, pl in _mc_each(root, "lda", (dp, None), device):
+        _mc_matrix(c, "counts", counts, s["block"], pl)
+        res.append(_mc_timed(lambda c=c: wl["lda"].lda_on_set(
+            c, "wl", "counts", s["k"], s["iters"], seed=SEED), device))
+        if pl is not None:
+            _mc_gathers("lda_on_set", True)
+        del c
+        _wl_free(device)
+    sp, ss = res[0][0], res[1][0]
+    perp = wl["lda"].lda_perplexity(counts, sp).item()
+    perp1 = wl["lda"].lda_perplexity(counts, ss).item()
+    p_rel = abs(perp - perp1) / perp1
+    th = (sp.doc_topic - ss.doc_topic).abs().max().item()
+    ph = (sp.topic_word - ss.topic_word).abs().max().item()
+    _mc_row(out, "lda_on_set", res[0][1], res[1][1], card,
+            perplexity_rel_to_one=p_rel, theta_abs=th, phi_abs=ph)
+    _mc_hold("lda", p_rel <= WL_TOLS["lda_perp_rtol"]
+             and max(th, ph) <= WL_TOLS["lda_atol"],
+             f"perplexity rel {p_rel}, theta {th}, phi {ph}")
+    del counts, res, sp, ss
+    _wl_free(device)
+
+    s = WL_SIZES["pagerank"]
+    src, dst = _wl_edges(s["nodes"], s["edges"], device, 4)
+    res = []
+    for c, pl in _mc_each(root, "pagerank",
+                          (Placement.data_parallel(ndim=1), None), device):
+        c.create_database("wl")
+        c.create_set("wl", "links", type_name="table", placement=pl)
+        c.send_table("wl", "links", ColumnTable({"src": src, "dst": dst}))
+        res.append(_mc_timed(lambda c=c: wl["pagerank"].pagerank_on_table_set(
+            c, "wl", "links", s["nodes"], iters=s["iters"]), device))
+        if pl is not None:
+            _mc_gathers("pagerank_on_table_set", True)
+        del c
+    rel = float(np.abs(res[0][0] - res[1][0]).max()
+                / np.abs(res[1][0]).max())
+    _mc_row(out, "pagerank_on_table_set", res[0][1], res[1][1], card,
+            rel_to_one=rel)
+    _mc_hold("pagerank", rel <= WL_TOLS["pagerank_rtol"], f"rel {rel}")
+    del src, dst, res
+    _wl_free(device)
+
+    s = WL_SIZES["topk_table"]
+    g = _wl_gen(device, 6)
+    scores = torch.randint(0, 1000, (s["rows"],), generator=g,
+                           device=device).to(torch.float32) / 10
+    res = []
+    for c, pl in _mc_each(root, "topk",
+                          (Placement.data_parallel(ndim=1), None), device):
+        c.create_database("wl")
+        c.create_set("wl", "lineitem", type_name="table", placement=pl)
+        c.send_table("wl", "lineitem", ColumnTable({"score": scores}))
+        res.append(_mc_timed(lambda c=c: wl["topk"].top_k_on_table_set(
+            c, "wl", "lineitem", "score", s["k"]), device))
+        if pl is not None:
+            _mc_gathers("top_k_on_table_set", True)
+        del c
+    (tp, _), (ts, _) = res
+    same = all(torch.equal(tp[f].cpu(), ts[f].cpu()) for f in ("row",
+                                                               "score"))
+    _mc_row(out, "top_k_on_table_set", res[0][1], res[1][1], card,
+            equal_to_one=same, rows=tp["row"].cpu().tolist())
+    _mc_hold("top-k", same, "the winners differ from one position's")
+    del scores, res
+    _wl_free(device)
+
+    s = WL_SIZES["conv"]
+    rng = np.random.default_rng(SEED + 7)
+    images = rng.standard_normal((s["n"], s["c"], s["h"], s["w"]),
+                                 dtype=np.float32)
+    kernels = rng.standard_normal((s["o"], s["c"], s["ksize"], s["ksize"]),
+                                  dtype=np.float32) * 0.1
+    bias = rng.standard_normal(s["o"], dtype=np.float32)
+    res = []
+    for c, pl in _mc_each(root, "conv", ({"image_flat": dp,
+                       "kernel_flat": Placement.replicated()}, None), device):
+        pipe = wl["conv_fusion"].ConvFusionPipeline(
+            db="convfuse", kernel_size=s["ksize"], block=s["block"])
+        pipe.setup(c, placements=pl)
+        res.append(_mc_timed(lambda pipe=pipe, c=c: pipe.run(
+            c, images, kernels, bias), device))
+        if pl is not None:
+            _mc_gathers("ConvFusionPipeline.run", True)
+        del c
+    got = np.stack([im.data for im in res[0][0]])
+    one = np.stack([im.data for im in res[1][0]])
+    ref = _conv_f64(images, kernels, bias, device).cpu().numpy()
+    err = float(np.abs(got - ref).max())
+    diff = float(np.abs(got - one).max())
+    _mc_row(out, "ConvFusionPipeline.run", res[0][1], res[1][1], card,
+            f64_err=err, diff_to_one=diff)
+    _mc_hold("conv", err <= WL_TOLS["conv_atol"]
+             and diff <= WL_TOLS["conv_atol"], f"f64 {err}, one {diff}")
+
+
+def _mc_dryrun(out, card, device) -> tuple:
+    """``dryrun_multichip(4)`` between B1's and B2's counts set to 0 and
+    read; its scalars held to the same calls on one position. Returns
+    (B1's launches, B2's): on the card B2 runs the sequence-parallel
+    section's ring, B1 nothing."""
+    import torch
+
+    from netsdb_tpu_torch.graft_entry import (dryrun_multichip,
+                                              dryrun_sections)
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_step)
+
+    dryrun_multichip(MC_POSITIONS, device)  # warm, uncounted
+    flash_attention.launches = flash_attention_step.launches = 0
+    got, ms = _timed(lambda: dryrun_multichip(MC_POSITIONS, device), device)
+    b1, b2 = flash_attention.launches, flash_attention_step.launches
+    _mc_gathers("dryrun_multichip(4)", False)
+    one, ms1 = _mc_timed(lambda: dryrun_sections(MC_POSITIONS, device,
+                                               placed=False), device)
+    rel = {k: abs(got[k] - one[k]) / max(abs(one[k]), 1e-30)
+           for k in ("ff", "loss", "pp", "q06_revenue", "ep", "paged_ff",
+                     "sp")}
+    _mc_row(out, "dryrun_multichip(4)", ms, ms1, card, b1_launches=b1,
+            b2_launches=b2, q01_count=got["q01_count"],
+            q03_rows=got["q03_rows"], max_rel_to_one=max(rel.values()))
+    out["dryrun_multichip(4)"]["scalars"] = got
+    if torch.device(device).type == "cuda":
+        _mc_hold("dry run", b2 > 0 and b1 == 0,
+                 f"B1 {b1} and B2 {b2} launches (B2 must run, B1 never)")
+    _mc_hold("dry run", got["q01_count"] == one["q01_count"]
+             and got["q03_rows"] == one["q03_rows"]
+             and all(v <= (MC_DRYRUN_SP_RTOL if k == "sp"
+                           else MC_DRYRUN_RTOL) for k, v in rel.items()),
+             f"placed {got} against one position {one}")
+    # B2 at the dry run's head dim 8 and seq 8·n for the other n
+    for n in (2, 8):
+        flash_attention.launches = flash_attention_step.launches = 0
+        dryrun_multichip(n, device)
+        other = (flash_attention.launches, flash_attention_step.launches)
+        _mc_gathers(f"dryrun_multichip({n})", False)
+        print(f"[multichip] dryrun_multichip({n}): B1 {other[0]}, B2 "
+              f"{other[1]} launches | {card}")
+        out[f"dryrun_multichip({n}) launches"] = other
+        if torch.device(device).type == "cuda":
+            _mc_hold("dry run", other[1] > 0 and other[0] == 0,
+                     f"n = {n}: B1 {other[0]} and B2 {other[1]} launches")
+    return b1, b2
+
+
+def _mc_ring_steps(out, card, device) -> None:
+    """B2 held to its plain version elementwise at the dry run's ring
+    shapes, which phase 2 does not reach: bh 4 (4 heads), head dim 8
+    (B2 pads it to 64), chunks of 8 rows, each of n positions folding
+    the ring's chunks in its order (its own first, then from position
+    p - 1, p - 2, ...) at the ring's offsets, n = 2, 4 and 8, causal
+    and not; each chain also against an f64 attention. These launches
+    are comparisons and come after the dry run's counted window."""
+    import torch
+
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention_step,
+                                                   flash_attention_step_plain)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    bh, s_local, d = 4, 8, 8
+    worst = {"max_abs_err": 0.0, "f64_err": 0.0, "plain_f64_err": 0.0}
+    for n in (2, 4, 8):
+        q, k, v = (torch.randn(bh, n * s_local, d, generator=gen,
+                               device=device) for _ in range(3))
+        pos = torch.arange(n * s_local, device=device)
+        for causal in (True, False):
+            exact = attention_f64(q, k, v, pos, pos, causal, d ** -0.5)
+            for p in range(n):
+                rows = slice(p * s_local, (p + 1) * s_local)
+                chunks = [(k[:, src * s_local:(src + 1) * s_local],
+                           v[:, src * s_local:(src + 1) * s_local],
+                           p * s_local, src * s_local)
+                          for src in ((p - i) % n for i in range(n))]
+                qp = q[:, rows].contiguous()
+                chunks = [(a.contiguous(), b.contiguous(), qo, ko)
+                          for a, b, qo, ko in chunks]
+                got, _ = fold_chain(flash_attention_step, qp, chunks, causal)
+                ref, _ = fold_chain(flash_attention_step_plain, qp, chunks,
+                                    causal)
+                if not torch.isfinite(got).all():
+                    raise RuntimeError(f"[multichip] B2 at the dry run's "
+                                       f"shapes, n = {n}: non-finite")
+                err = (got - ref).abs().max().item()
+                f64 = (got.double() - exact[:, rows]).abs().max().item()
+                plain64 = (ref.double() - exact[:, rows]).abs().max().item()
+                worst = {"max_abs_err": max(worst["max_abs_err"], err),
+                         "f64_err": max(worst["f64_err"], f64),
+                         "plain_f64_err": max(worst["plain_f64_err"],
+                                              plain64)}
+                _mc_hold("B2 at the dry run's shapes", err <= F32_TOL
+                         and f64 <= max(F64_RATIO * plain64, F32_TOL),
+                         f"n = {n}, position {p}, causal {causal}: max abs "
+                         f"err {err} (limit {F32_TOL}), against f64 {f64} "
+                         f"(plain {plain64})")
+    out["ring steps at the dry run's shapes"] = worst
+    print(f"[multichip] B2 at the dry run's shapes (bh {bh}, d {d}, chunks "
+          f"of {s_local}, n = 2, 4, 8, causal and not): {json.dumps(worst)}"
+          f" (limit {F32_TOL}) | {card}")
+
+
+def phase_multichip(pk: dict, smi: str, device="cuda") -> dict:
+    """Phase 19: pipeline parallelism, expert-parallel MoE, the placed
+    model families, placed training, the workloads over placed sets and
+    the dry run, inside ``virtual_devices(4, device)`` (card 0 unless
+    the caller asks for another device, as a rehearsal on the CPU at
+    small sizes does), each request held to the same request on one
+    position. Returns the results and the dry run's launches."""
+    import tempfile
+
+    import torch
+
+    from netsdb_tpu_torch.parallel.mesh import (clear_gather_log,
+                                                gather_log, virtual_devices)
+    from netsdb_tpu_torch.plan import programs
+
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    out: dict = {}
+    _MC_GATHERS.clear()
+    clear_gather_log()
+    progs0 = programs.program_stats()
+    _wl_free(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with virtual_devices(MC_POSITIONS, "cuda:0" if cuda else device), \
+            tempfile.TemporaryDirectory(prefix="netsdb_mc_") as root:
+        for section in (_mc_pipeline, _mc_moe, _mc_families, _mc_train,
+                        _mc_workloads):
+            section(out, root, smi, pk, device)
+            _wl_free(device)
+        b1, b2 = _mc_dryrun(out, smi, device)
+        _mc_ring_steps(out, smi, device)
+    progs = programs.program_stats()
+    out["memory"] = {
+        "peak_reserved_mib": (torch.cuda.max_memory_reserved() / 2**20
+                              if cuda else "not measured (CPU)"),
+        "card_used": _card_memory() if cuda else "not measured (CPU)",
+        "captures": progs["captures"] - progs0["captures"],
+        "replays": progs["replays"] - progs0["replays"]}
+    out["gathers"] = {k: v for k, v in _MC_GATHERS.items() if v}
+    out["launches"] = {"flash_attention": b1, "flash_attention_step": b2}
+    print(f"[multichip] peak reserved {out['memory']['peak_reserved_mib']}"
+          f" MiB, card used {out['memory']['card_used']}, programs "
+          f"captured {out['memory']['captures']} replayed "
+          f"{out['memory']['replays']} | {smi}")
+    print(f"[multichip] requests that gathered: {sorted(out['gathers'])}; "
+          f"left in the log: {gather_log()}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[multichip] phase 19 took {out['seconds']:.1f} s | {smi}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6983,6 +7671,11 @@ def main() -> int:
         print(json.dumps({"pool": phase_pool(pk, smi), "card": smi},
                          default=str))
         return 0
+    if "--multichip-only" in sys.argv[1:]:
+        # phase 19 alone, the same way
+        print(json.dumps({"multichip": phase_multichip(pk, smi),
+                          "card": smi}, default=str))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # phase 18 alone, the same way, over its own SF 10 tables
         state = _resident_card(TPCH_SF)
@@ -7029,6 +7722,7 @@ def main() -> int:
     finally:
         _close_paged(rel_state.get("paged"))
     del rel_state
+    multichip = phase_multichip(pk, smi)
     workloads = workloads_path(pk)
     serve = phase_serve(pk, smi)
     pool = phase_pool(pk, smi)
@@ -7045,7 +7739,7 @@ def main() -> int:
                       "paged_relations": paged_relations, "rows": rows,
                       "compiled": compiled, "workloads": workloads,
                       "serve": serve, "pool": pool, "mesh": mesh,
-                      "card": smi},
+                      "multichip": multichip, "card": smi},
                      default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
@@ -7063,12 +7757,13 @@ def main() -> int:
                    "netsdb_tpu_torch/csrc/flash_attention.cu",
                    "netsdb_tpu/ops/pallas_kernels.py:211",
                    {"inference": b1_launches,
-                    "training": train["transformer_b1_launches"],
+                    "training": train["path_b1_launches"],
                     "compiled": compiled["launches"]["flash_attention"],
                     "workloads": workloads["launches"]["flash_attention"],
                     "served": serve["launches"]["flash_attention"],
                     "pool": pool_launches["flash_attention"],
-                    "mesh": mesh["launches"]["flash_attention"]},
+                    "mesh": mesh["launches"]["flash_attention"],
+                    "multichip": multichip["launches"]["flash_attention"]},
                    b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
@@ -7079,7 +7774,9 @@ def main() -> int:
                         workloads["launches"]["flash_attention_step"],
                     "served": serve["launches"]["flash_attention_step"],
                     "pool": pool_launches["flash_attention_step"],
-                    "mesh": mesh["launches"]["flash_attention_step"]},
+                    "mesh": mesh["launches"]["flash_attention_step"],
+                    "multichip":
+                        multichip["launches"]["flash_attention_step"]},
                    b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from netsdb_tpu_torch.core.blocked import BlockedTensor
-from netsdb_tpu_torch.models._common import as_f32, create_sets, sgd_step
+from netsdb_tpu_torch.models._common import (as_f32, create_sets, rows_like,
+                                             sgd_step)
 from netsdb_tpu_torch.ops import nn as nn_ops
 from netsdb_tpu_torch.ops.matmul import matmul_t
 from netsdb_tpu_torch.plan.computations import Join, ScanSet, WriteSet
@@ -39,8 +40,9 @@ class LogRegModel:
         self.compute_dtype = compute_dtype
 
     def setup(self, client, placements=None) -> None:
-        """Create the database and its sets. A placement raises
-        ``NotImplementedError`` (ROADMAP.md A4 part 3)."""
+        """Create the database and its sets; ``placements`` maps a set
+        name to its Placement (the inference DAG runs over the placed
+        sets through the same ``execute_computations``)."""
         create_sets(client, self.db, self.SETS, placements)
 
     def load_weights(self, client, w, b: float) -> None:
@@ -83,9 +85,11 @@ class LogRegModel:
              y) -> torch.Tensor:
         """Binary cross-entropy in its stable form, ``max(z, 0) - z·y +
         log1p(exp(-|z|))``, averaged over the batch; ``y`` is (batch,) in
-        {0, 1}."""
+        {0, 1}, or those values as a 1-d BlockedTensor (``rows_like``)."""
         z = matmul_t(params.w, x, self.compute_dtype)
         logits = z.to_dense().reshape(-1) + params.b.data[0, 0]
+        if isinstance(y, BlockedTensor):
+            y = y.to_dense()
         y = torch.as_tensor(y, dtype=logits.dtype, device=logits.device)
         return torch.mean(torch.clamp_min(logits, 0) - logits * y
                           + torch.log1p(torch.exp(-logits.abs())))
@@ -93,5 +97,9 @@ class LogRegModel:
     def train_step(self, params: LogRegParams, x: BlockedTensor, y,
                    lr: float = 0.5) -> Tuple[LogRegParams, torch.Tensor]:
         """One SGD step over w's and b's padded data; returns ``(new
-        params, loss)``."""
+        params, loss)``. Over a placed ``x`` the labels are laid out like
+        its rows, so a data-parallel step gives each position its own."""
+        if not isinstance(y, BlockedTensor) and not isinstance(
+                x.data, torch.Tensor):
+            y = rows_like(y, x)
         return sgd_step(self.loss, params, lr, x, y)

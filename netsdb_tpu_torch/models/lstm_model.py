@@ -37,8 +37,9 @@ class LSTMModel:
                 + [f"b_{g}" for g in _GATES])
 
     def setup(self, client, placements=None) -> None:
-        """Create the database, the 12 weight sets and the state sets. A
-        placement raises ``NotImplementedError`` (ROADMAP.md A4 part 3)."""
+        """Create the database, the 12 weight sets and the state sets;
+        ``placements`` maps a set name to its Placement (the cell then runs
+        by the placed-op rule, ``parallel/placed_ops``)."""
         create_sets(client, self.db,
                     self.weight_sets + ["x", "h", "c", "h_out", "c_out"],
                     placements)

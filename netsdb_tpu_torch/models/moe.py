@@ -1,5 +1,5 @@
-"""Mixture-of-experts layer — counterpart of ``netsdb_tpu/models/moe.py``
-on one device (expert parallelism over a mesh is ROADMAP.md A4 part 3).
+"""Mixture-of-experts layer — counterpart of ``netsdb_tpu/models/moe.py``,
+on one device or expert-parallel over a mesh axis.
 
 Top-1 switch routing with a capacity limit in the dispatch/combine
 formulation: dispatch (tokens → expert slots) and combine (expert
@@ -7,6 +7,14 @@ outputs → tokens) are one-hot tensors, so the experts run as batched
 products (f32, TF32 off: the reference's ``Precision.HIGHEST``). A token
 past its expert's capacity is dropped (its output row is 0). The GELU is
 the tanh approximation, ``jax.nn.gelu``'s default.
+
+Over a mesh (``moe_forward(mesh=...)``, the reference's sharding
+constraint of the expert dimension on ``expert_axis``) routing runs
+once, the dispatch, ``w_up`` and ``w_down`` are split by expert over the
+axis, each position runs its experts' two products, and the combine sums
+the positions' partials in position order. A token has one non-zero
+term in the combine (and a slot one in the dispatch), so the split
+changes no sum; only the batched products run over fewer experts.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ import torch.nn.functional as F
 
 from netsdb_tpu_torch.config import resolve_device
 from netsdb_tpu_torch.ops.common import full_f32_precision, hi_einsum
+from netsdb_tpu_torch.parallel.mesh import move, position_sum
 
 
 @dataclasses.dataclass
@@ -75,13 +84,14 @@ def route(params: MoEParams, x: torch.Tensor,
 def moe_forward(params: MoEParams, x: torch.Tensor,
                 capacity_factor: float = 2.0, mesh=None,
                 expert_axis: str = "model") -> torch.Tensor:
-    """x (tokens, d) → (tokens, d)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_forward(mesh=...): expert parallelism over a mesh is not "
-            "ported yet: ROADMAP.md A4 part 3")
-    del expert_axis
+    """x (tokens, d) → (tokens, d). With ``mesh``, the experts are split
+    over ``expert_axis`` (whose size must divide the expert count); the
+    result is on x's device either way."""
     n_experts = params.w_gate.shape[1]
+    if mesh is not None and n_experts % mesh.shape[expert_axis]:
+        raise ValueError(
+            f"{n_experts} experts do not split over {expert_axis}="
+            f"{mesh.shape[expert_axis]} positions")
     r = route(params, x, capacity_factor)
     # a position past capacity one-hots to a zero row in the reference;
     # F.one_hot refuses it, so clamp and let ``keep`` zero the row
@@ -91,10 +101,26 @@ def moe_forward(params: MoEParams, x: torch.Tensor,
                 * slot[:, None, :])
     dispatch = dispatch * r.keep.to(x.dtype)[:, None, None]
     combine = dispatch * r.gate.to(x.dtype)[:, None, None]
+    if mesh is None:
+        return _experts(dispatch, combine, x, params.w_up, params.w_down)
+    group = mesh.axis_groups(expert_axis)[0]
+    per = n_experts // len(group)
+    parts = []
+    for i, pos in enumerate(group):
+        dev, e = mesh.devices[pos], slice(i * per, (i + 1) * per)
+        parts.append(_experts(*(move(t, dev) for t in (
+            dispatch[:, e], combine[:, e], x, params.w_up[e],
+            params.w_down[e]))))
+    return position_sum(parts, x.device)
+
+
+def _experts(dispatch, combine, x, w_up, w_down) -> torch.Tensor:
+    """The experts' products for the experts of ``w_up``/``w_down`` (the
+    matching slice of dispatch and combine): (tokens, d)."""
     expert_in = hi_einsum("tec,td->ecd", dispatch, x)
-    h = F.gelu(hi_einsum("ecd,edh->ech", expert_in, params.w_up),
+    h = F.gelu(hi_einsum("ecd,edh->ech", expert_in, w_up),
                approximate="tanh")
-    expert_out = hi_einsum("ech,ehd->ecd", h, params.w_down)
+    expert_out = hi_einsum("ech,ehd->ecd", h, w_down)
     return hi_einsum("tec,ecd->td", combine, expert_out)
 
 

@@ -36,6 +36,7 @@ from netsdb_tpu_torch.ops.attention import (attention_dispatch, merge_heads,
                                             merge_project, mha_forward,
                                             qkv_project, split_qkv_heads)
 from netsdb_tpu_torch.ops.common import full_f32_precision, hi_einsum
+from netsdb_tpu_torch.parallel import placed_ops
 from netsdb_tpu_torch.parallel.mesh import (Mesh, ShardedTensor, as_sharded,
                                             visible_devices)
 from netsdb_tpu_torch.parallel.placement import Placement
@@ -54,8 +55,10 @@ class TransformerLayerParams:
 
 
 def _dense(t):
-    """A tensor from a tensor or a sharded value (gathered)."""
-    return t.to_dense() if isinstance(t, ShardedTensor) else t
+    """A tensor from a tensor or a sharded value: a replicated value's
+    first shard, anything else gathered and counted (the single-device
+    forward and the staged nodes run on one device)."""
+    return placed_ops.whole(t, "transformer-layer")
 
 
 def _contract_partial(carry, start: int, block, acts: torch.Tensor):
@@ -77,6 +80,8 @@ def _contract_partial(carry, start: int, block, acts: torch.Tensor):
 
 def _weight(w) -> torch.Tensor:
     """A resident weight set's value as a dense tensor."""
+    if isinstance(w, ShardedTensor):
+        return _dense(w)
     return _dense(w.to_dense() if hasattr(w, "to_dense") else w)
 
 

@@ -27,8 +27,9 @@ class Word2VecModel:
         self.compute_dtype = compute_dtype
 
     def setup(self, client, placements=None) -> None:
-        """Create the database and its sets. A placement raises
-        ``NotImplementedError`` (ROADMAP.md A4 part 3)."""
+        """Create the database and its sets; ``placements`` maps a set
+        name to its Placement (the inference DAG runs over the placed
+        sets through the same ``execute_computations``)."""
         create_sets(client, self.db, self.SETS, placements)
 
     def load_embeddings(self, client, table) -> None:

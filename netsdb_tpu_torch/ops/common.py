@@ -96,10 +96,14 @@ def hi_einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
 
 
 def remask(t: BlockedTensor) -> BlockedTensor:
-    """Zero the padded margin (needed after non-zero-preserving ops)."""
+    """Zero the padded margin (needed after non-zero-preserving ops).
+    Placed data is masked per position (``parallel/placed_ops``)."""
     if not t.meta.is_padded:
         return t
-    return t.with_data(t.data * t.mask(t.data.dtype))
+    from netsdb_tpu_torch.parallel import placed_ops
+
+    return t.with_data(placed_ops.elementwise(
+        torch.mul, t.data, t.mask(t.data.dtype), op="remask"))
 
 
 def neutral_fill(t: BlockedTensor, fill: float) -> torch.Tensor:
@@ -107,6 +111,9 @@ def neutral_fill(t: BlockedTensor, fill: float) -> torch.Tensor:
     reductions where zero is not neutral)."""
     if not t.meta.is_padded:
         return t.data
-    return torch.where(t.mask(torch.bool), t.data,
-                       torch.full((), fill, dtype=t.data.dtype,
-                                  device=t.data.device))
+    from netsdb_tpu_torch.parallel import placed_ops
+
+    return placed_ops.elementwise(
+        lambda d, m: torch.where(m, d, torch.full((), fill, dtype=d.dtype,
+                                                  device=d.device)),
+        t.data, t.mask(torch.bool), op="neutral_fill")

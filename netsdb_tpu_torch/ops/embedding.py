@@ -8,7 +8,8 @@ variant ``EmbeddingLookupSparse``/``EmbeddingSegment``. Both are kept:
 the matmul form is what the relational planner produces (cuBLAS at full
 f32, so a one-hot product picks rows exactly), the gather form is what a
 serving loop should run (``index_select``; the sparse form adds the rows
-of a segment with ``index_add_``).
+of a segment with ``index_add_``). A table placed with its rows sharded
+looks up per position (``parallel/placed_ops.take_rows``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from netsdb_tpu_torch.core.blocked import BlockedTensor, as_torch_dtype
 from netsdb_tpu_torch.ops.common import defer_check
 from netsdb_tpu_torch.ops.linalg import transpose
 from netsdb_tpu_torch.ops.matmul import matmul_t
+from netsdb_tpu_torch.parallel import placed_ops
 
 
 def _ids(ids, device, bound: int, what: str) -> torch.Tensor:
@@ -70,14 +72,21 @@ def embedding_matmul(weights: BlockedTensor, onehot: BlockedTensor,
     return matmul_t(onehot, transpose(weights), compute_dtype)
 
 
+def _rows(weights: BlockedTensor, idx: torch.Tensor,
+          op: str) -> torch.Tensor:
+    """The table's logical rows ``idx`` (its padded columns cut off)."""
+    rows = placed_ops.take_rows(weights.data, idx, op)
+    dim = weights.shape[1]
+    return rows if rows.shape[1] == dim else rows[:, :dim].contiguous()
+
+
 def embedding_lookup(weights: BlockedTensor, ids) -> torch.Tensor:
     """Gather path: rows of the (vocab x dim) table by id, numerically
     identical to the one-hot matmul. Returns logical (ids..., dim): the
     padded columns are sliced off."""
-    table = weights.to_dense()
-    idx = _ids(ids, table.device, table.shape[0], "ids")
-    return table.index_select(0, idx.reshape(-1)).reshape(
-        *idx.shape, table.shape[1])
+    idx = _ids(ids, weights.device, weights.shape[0], "ids")
+    return _rows(weights, idx.reshape(-1), "embedding_lookup").reshape(
+        *idx.shape, weights.shape[1])
 
 
 def embedding_lookup_sparse(weights: BlockedTensor, ids, segment_ids,
@@ -90,11 +99,10 @@ def embedding_lookup_sparse(weights: BlockedTensor, ids, segment_ids,
     (its count is clamped at 1, as in the reference)."""
     if combiner not in ("sum", "mean", "sqrtn"):
         raise ValueError(combiner)
-    table = weights.to_dense()
-    rows = table.index_select(
-        0, _ids(ids, table.device, table.shape[0], "ids"))  # (nnz, dim)
-    seg = _ids(segment_ids, table.device, num_segments, "segment_ids")
-    summed = torch.zeros((num_segments, table.shape[1]), dtype=rows.dtype,
+    rows = _rows(weights, _ids(ids, weights.device, weights.shape[0], "ids"),
+                 "embedding_lookup_sparse")  # (nnz, dim)
+    seg = _ids(segment_ids, rows.device, num_segments, "segment_ids")
+    summed = torch.zeros((num_segments, weights.shape[1]), dtype=rows.dtype,
                          device=rows.device).index_add_(0, seg, rows)
     if combiner == "sum":
         return summed

@@ -10,7 +10,11 @@ chain, and a sequence is a Python loop over steps where the JAX package
 runs ``lax.scan``.
 
 Layout follows the reference: activations are (features x batch); W_* is
-(hidden x input), U_* (hidden x hidden), biases (hidden x 1).
+(hidden x input), U_* (hidden x hidden), biases (hidden x 1). Placed
+weights and states run by the rule of ``parallel/placed_ops``: each
+product and each elementwise step per position where the layouts allow
+it, a counted gather where they do not (row-sharded ``w_*`` against
+column-sharded states meet in the gate sums).
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ from netsdb_tpu_torch.core.blocked import (BlockedTensor, BlockMeta,
                                            as_torch_dtype)
 from netsdb_tpu_torch.ops.common import remask
 from netsdb_tpu_torch.ops.matmul import matmul
+from netsdb_tpu_torch.parallel import placed_ops
+
+_ACT = {"sigmoid": torch.sigmoid, "tanh": torch.tanh}
 
 
 @dataclasses.dataclass
@@ -48,12 +55,18 @@ class LSTMParams:
 def three_way_sum(wx: BlockedTensor, uh: BlockedTensor, b: BlockedTensor,
                   activation: str) -> torch.Tensor:
     """gate = act(wx + uh + b) — reference ``LSTMThreeWaySum`` join."""
-    z = wx.data + uh.data + (b.data if b.data.ndim == 2 else b.data[:, None])
-    if activation == "sigmoid":
-        return torch.sigmoid(z)
-    if activation == "tanh":
-        return torch.tanh(z)
-    raise ValueError(activation)
+    if activation not in _ACT:
+        raise ValueError(activation)
+    act = _ACT[activation]
+    bd = b.data if b.data.ndim == 2 else placed_ops.whole(
+        b.data, "three_way_sum")[:, None]
+    return placed_ops.elementwise(lambda x, u, c: act(x + u + c), wx.data,
+                                  uh.data, bd, op="three_way_sum")
+
+
+def _cast(t: BlockedTensor, dtype) -> BlockedTensor:
+    return t.with_data(placed_ops.elementwise(lambda d: d.to(dtype), t.data,
+                                              op="cast"))
 
 
 def lstm_cell(params: LSTMParams, x: BlockedTensor, h: BlockedTensor,
@@ -68,7 +81,7 @@ def lstm_cell(params: LSTMParams, x: BlockedTensor, h: BlockedTensor,
     hx = h
     if compute_dtype is not None:
         cd = as_torch_dtype(compute_dtype)
-        x, hx = (t.with_data(t.data.to(cd)) for t in (x, h))
+        x, hx = _cast(x, cd), _cast(h, cd)
 
     def mm(w, v):
         return matmul(w, v, compute_dtype)
@@ -81,10 +94,13 @@ def lstm_cell(params: LSTMParams, x: BlockedTensor, h: BlockedTensor,
                       "tanh")
     o = three_way_sum(mm(params.w_o, x), mm(params.u_o, hx), params.b_o,
                       "sigmoid")
-    c_new = f * c.data + i * g  # reference LSTMTwoSum + LSTMHiddenState
-    h_new = o * torch.tanh(c_new)
-    return (remask(h.with_data(h_new.to(h.data.dtype))),
-            remask(c.with_data(c_new.to(c.data.dtype))))
+    # reference LSTMTwoSum + LSTMHiddenState
+    c_new = placed_ops.elementwise(lambda ff, cc, ii, gg: ff * cc + ii * gg,
+                                   f, c.data, i, g, op="lstm_two_sum")
+    h_new = placed_ops.elementwise(lambda oo, cn: oo * torch.tanh(cn), o,
+                                   c_new, op="lstm_hidden_state")
+    return (remask(_cast(h.with_data(h_new), h.data.dtype)),
+            remask(_cast(c.with_data(c_new), c.data.dtype)))
 
 
 def lstm_unroll(params: LSTMParams, xs: torch.Tensor, h0: BlockedTensor,
@@ -99,8 +115,7 @@ def lstm_unroll(params: LSTMParams, xs: torch.Tensor, h0: BlockedTensor,
         cd = as_torch_dtype(compute_dtype)
         xs = xs.to(cd)
         params = dataclasses.replace(params, **{
-            f.name: getattr(params, f.name).with_data(
-                getattr(params, f.name).data.to(cd))
+            f.name: _cast(getattr(params, f.name), cd)
             for f in dataclasses.fields(params) if f.name[0] in "wu"})
     x_meta = BlockMeta(
         (params.w_i.shape[1], h0.shape[1]),

@@ -4,8 +4,9 @@ netsDB computes C = A·Bᵀ as a join of blocks on the contraction index
 plus an aggregation of the block products; on one card the whole
 join + aggregate is one dense product on the padded tensors. Zero
 padding is safe under contraction, so nothing is masked here; the output
-metadata keeps the logical shape. An operand whose data is sharded over
-a mesh (a staged block of a placed paged set) is gathered first.
+metadata keeps the logical shape. Operands whose data is placed over a
+mesh multiply by the rule of ``parallel/placed_ops`` (per position, the
+position-order psum, or a counted gather).
 ``matmul(distributed=True)`` runs the contraction through SUMMA over the
 visible positions (``parallel/summa.summa_matmul_resident``).
 """
@@ -16,22 +17,22 @@ from typing import Optional
 
 import torch
 
-from netsdb_tpu_torch.core.blocked import BlockMeta, BlockedTensor
+from netsdb_tpu_torch.core.blocked import (BlockMeta, BlockedTensor,
+                                           as_torch_dtype)
 from netsdb_tpu_torch.ops.common import mxu_dot
-from netsdb_tpu_torch.parallel.mesh import ShardedTensor
+from netsdb_tpu_torch.parallel import placed_ops
 
 
-def _data(t: BlockedTensor) -> torch.Tensor:
-    return t.data.to_dense() if isinstance(t.data, ShardedTensor) else t.data
-
-
-def _contract(ad, bd, a_pad_k, b_pad_k, k, compute_dtype, accum_dtype=None):
+def _contract(ad, bd, a_pad_k, b_pad_k, k, compute_dtype, accum_dtype=None,
+              op="matmul"):
     # align contraction extents when block granularities differ
     if a_pad_k != b_pad_k:
-        ad = ad[..., :k]
+        ad = ad[:, :k]
         bd = bd[:k, :]
-    return mxu_dot(ad, bd, compute_dtype,
-                   accum_dtype=accum_dtype or torch.float32)
+    accum = accum_dtype or torch.float32
+    return placed_ops.matmul(
+        ad, bd, lambda x, y: mxu_dot(x, y, compute_dtype), op=op,
+        out_dtype=as_torch_dtype(accum))
 
 
 def matmul(a: BlockedTensor, b: BlockedTensor,
@@ -57,10 +58,13 @@ def matmul(a: BlockedTensor, b: BlockedTensor,
         from netsdb_tpu_torch.parallel import summa
         from netsdb_tpu_torch.parallel.mesh import visible_devices
 
-        ad = _data(a)
+        ad = placed_ops.whole(a.data, "matmul(distributed)",
+                              "SUMMA takes whole operands")
         devices = list(visible_devices(ad.device.type))
         if len(devices) >= 2:
-            out = summa.summa_matmul_resident(ad[:m, :ka], _data(b)[:kb, :n],
+            bd = placed_ops.whole(b.data, "matmul(distributed)",
+                                  "SUMMA takes whole operands")
+            out = summa.summa_matmul_resident(ad[:m, :ka], bd[:kb, :n],
                                               devices=devices)
             meta = BlockMeta((m, n), (a.meta.block_shape[0],
                                       b.meta.block_shape[1]))
@@ -69,7 +73,7 @@ def matmul(a: BlockedTensor, b: BlockedTensor,
                 out = torch.nn.functional.pad(out, pad)
             return BlockedTensor(out, meta)
         obs.REGISTRY.counter("summa.single_position").inc()
-    out = _contract(_data(a), _data(b), a.meta.padded_shape[1],
+    out = _contract(a.data, b.data, a.meta.padded_shape[1],
                     b.meta.padded_shape[0], ka, compute_dtype, accum_dtype)
     meta = BlockMeta((m, n), (a.meta.block_shape[0], b.meta.block_shape[1]))
     return BlockedTensor(out, meta)
@@ -82,8 +86,9 @@ def matmul_t(a: BlockedTensor, b: BlockedTensor,
     (m, ka), (n, kb) = a.shape, b.shape
     if ka != kb:
         raise ValueError(f"matmul_t contraction mismatch {a.shape} x {b.shape}")
-    out = _contract(_data(a), _data(b).t(), a.meta.padded_shape[1],
-                    b.meta.padded_shape[1], ka, compute_dtype, accum_dtype)
+    out = _contract(a.data, b.data.t(), a.meta.padded_shape[1],
+                    b.meta.padded_shape[1], ka, compute_dtype, accum_dtype,
+                    op="matmul_t")
     meta = BlockMeta((m, n), (a.meta.block_shape[0], b.meta.block_shape[0]))
     return BlockedTensor(out, meta)
 
@@ -104,12 +109,13 @@ def t_matmul(a: BlockedTensor, b: BlockedTensor,
     if ka != kb:
         raise ValueError(f"t_matmul contraction mismatch {a.shape} x "
                          f"{b.shape}")
-    ad, bd = _data(a), _data(b)
+    ad = placed_ops.whole(a.data, "t_matmul")
+    bd = placed_ops.whole(b.data, "t_matmul")
     if compute_dtype is None and ad.dtype == torch.float32:
         wide = ad.double()
         ad, bd = wide, (wide if b is a else bd.double())
     out = _contract(ad.t(), bd, a.meta.padded_shape[0],
-                    b.meta.padded_shape[0], ka, compute_dtype)
+                    b.meta.padded_shape[0], ka, compute_dtype, op="t_matmul")
     meta = BlockMeta((m, n), (a.meta.block_shape[1], b.meta.block_shape[1]))
     return BlockedTensor(out, meta)
 

@@ -12,8 +12,16 @@ of the positions' tensors (:func:`position_sum`, :func:`position_gather`,
 the partials in position order, a gather concatenates them, an
 all-to-all is a split and a concatenation. Positions on one device
 exchange tensors without a copy; positions on different cards copy with
-``Tensor.to``. Multi-process execution over NCCL is
-``parallel/distributed.py``, not ported yet (ROADMAP.md A4 part 3).
+``Tensor.to``. Processes joined over NCCL are not ported yet
+(``parallel/distributed.py`` ports the single-process half; ROADMAP.md
+A4 part 3).
+
+An op over placed operands follows one rule (``parallel/placed_ops.py``):
+per position where the layouts allow it, else a gather onto the first
+position. Every such gather goes through :func:`gather_placed`, which
+logs it with the op and its reason (:func:`gather_log`) and counts it in
+``mesh.fallbacks``; :meth:`ShardedTensor.to_dense` is the caller's own,
+explicit gather (reading a result) and is not logged.
 
 Device positions default to the visible cards ``cuda:0..n-1`` (or the
 one CPU for CPU tensors). :func:`virtual_devices` makes ``n`` positions
@@ -26,6 +34,7 @@ the default.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 import threading
@@ -151,6 +160,47 @@ def default_mesh() -> Mesh:
 def set_default_mesh(mesh: Optional[Mesh]) -> None:
     global _default_mesh
     _default_mesh = mesh
+
+
+# --- counted gathers of placed tensors -----------------------------------
+
+_gather_mu = threading.Lock()
+_gathers: "collections.OrderedDict[Tuple[str, str], Dict[str, Any]]" = \
+    collections.OrderedDict()
+_GATHER_LOG_CAP = 256
+
+
+def gather_placed(x: "ShardedTensor", op: str, reason: str) -> torch.Tensor:
+    """``x`` gathered onto its first position's device because ``op``
+    cannot run per position (``reason`` names the layouts): logged and
+    counted (``mesh.fallbacks``), never silent."""
+    from netsdb_tpu_torch import obs
+
+    key = (op, reason)
+    with _gather_mu:
+        ent = _gathers.get(key)
+        if ent is None:
+            ent = _gathers[key] = {"op": op, "reason": reason, "gathers": 0,
+                                   "bytes": 0}
+            while len(_gathers) > _GATHER_LOG_CAP:
+                _gathers.popitem(last=False)
+        ent["gathers"] += 1
+        ent["bytes"] += math.prod(x.shape) * x.dtype.itemsize
+    obs.REGISTRY.counter("mesh.fallbacks").inc()
+    return x.to_dense()
+
+
+def gather_log() -> List[Dict[str, Any]]:
+    """Every op that gathered placed tensors onto one position: the op,
+    the reason (the operands' layouts), the operands it gathered and
+    their logical bytes."""
+    with _gather_mu:
+        return [dict(v) for v in _gathers.values()]
+
+
+def clear_gather_log() -> None:
+    with _gather_mu:
+        _gathers.clear()
 
 
 # --- collectives over the positions of one axis group -------------------
@@ -349,18 +399,19 @@ class ShardedTensor:
 
     def region(self, idx: Index) -> Tuple[slice, ...]:
         """The block of the logical tensor held at position ``idx``."""
-        pos = dict(zip(self.mesh.axis_names, idx))
-        out = []
-        for dim, entry in enumerate(self.spec):
-            part = 0
-            for a in _axes_of(entry):
-                part = part * self.mesh.shape[a] + pos[a]
-            size = self.shape[dim] // self.parts(dim)
-            out.append(slice(part * size, (part + 1) * size))
-        return tuple(out)
+        return region_of(self.mesh, self.spec, self.shape, idx)
 
     def first(self) -> torch.Tensor:
         return self.shards.flat[0]
+
+    def distinct_positions(self) -> List[Index]:
+        """One position per distinct block of the logical tensor, in the
+        order of the blocks' starts (row-major): positions that hold a
+        replica of a block already listed are left out."""
+        first: Dict[Tuple[int, ...], Index] = {}
+        for idx in self.mesh.positions():
+            first.setdefault(tuple(s.start for s in self.region(idx)), idx)
+        return [first[k] for k in sorted(first)]
 
     def __getitem__(self, region: Tuple[slice, ...]) -> Any:
         """A block of leading slices. Cutting replicated dimensions
@@ -371,7 +422,8 @@ class ShardedTensor:
         if any(sp.step != 1 for sp in spans) or any(
                 e is not None and len(sp) != s
                 for e, sp, s in zip(self.spec, spans, self.shape)):
-            return self.to_dense()[region]
+            return gather_placed(self, "slice", f"{region} cuts a sharded "
+                                 f"dimension of {self.layout()}")[region]
         cut: Dict[int, torch.Tensor] = {}
         shards = np.empty(self.shards.shape, dtype=object)
         for idx in self.mesh.positions():
@@ -384,25 +436,59 @@ class ShardedTensor:
         return ShardedTensor(shards, self.mesh, self.spec,
                              [len(sp) for sp in spans])
 
+    def t(self) -> "ShardedTensor":
+        """The transpose of a 2-d value: each shard's transposed view,
+        the spec's entries swapped (no data moves)."""
+        if self.ndim != 2:
+            raise ValueError(f"t() of a {self.ndim}-d sharded value")
+        views: Dict[int, torch.Tensor] = {}
+        shards = np.empty(self.shards.shape, dtype=object)
+        for idx in self.mesh.positions():
+            t = self.shards[idx]
+            shards[idx] = views.setdefault(id(t), t.t())
+        return ShardedTensor(shards, self.mesh, self.spec[::-1],
+                             self.shape[::-1])
+
+    def layout(self) -> str:
+        """The spec over the mesh's axes, e.g. ``P(data,None)@{data: 4}``
+        (the reason a gather names)."""
+        sp = ",".join("None" if e is None else "+".join(_axes_of(e))
+                      for e in self.spec)
+        return f"P({sp})@{self.mesh.shape}"
+
     def to_dense(self) -> torch.Tensor:
-        """The logical tensor, gathered onto the first position's device.
-        A value held whole at each position returns its first shard
-        without a copy."""
+        """The logical tensor, gathered onto the first position's device:
+        the caller's explicit read, not logged (an op that gathers calls
+        :func:`gather_placed`). A value held whole at each position
+        returns its first shard without a copy."""
         if all(self.parts(d) == 1 for d in range(self.ndim)):
             return self.first()
         out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
-        done = set()
-        for idx in self.mesh.positions():
-            region = self.region(idx)
-            key = tuple((s.start, s.stop) for s in region)
-            if key not in done:
-                out[region].copy_(self.shards[idx])
-                done.add(key)
+        for idx in self.distinct_positions():
+            out[self.region(idx)].copy_(self.shards[idx])
         return out
 
     def __repr__(self) -> str:
         return (f"ShardedTensor(shape={self.shape}, spec={self.spec}, "
                 f"mesh={self.mesh.shape}, dtype={self.dtype})")
+
+
+def region_of(mesh: Mesh, spec: Sequence[Any], shape: Sequence[int],
+              idx: Index) -> Tuple[slice, ...]:
+    """The block of a logical tensor of ``shape`` laid out by ``spec``
+    over ``mesh`` that position ``idx`` holds (a dimension split over
+    axes (a1, a2, ...) takes its part index from the positions on those
+    axes, a1 major)."""
+    pos = dict(zip(mesh.axis_names, idx))
+    out = []
+    for dim, entry in enumerate(spec):
+        part, parts = 0, 1
+        for a in _axes_of(entry):
+            part = part * mesh.shape[a] + pos[a]
+            parts *= mesh.shape[a]
+        size = shape[dim] // parts
+        out.append(slice(part * size, (part + 1) * size))
+    return tuple(out)
 
 
 def as_sharded(x: Any, mesh: Mesh, spec: Sequence[Any]) -> ShardedTensor:

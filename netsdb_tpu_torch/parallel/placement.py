@@ -246,6 +246,18 @@ def local_tables(table, rowid: bool = False) -> list:
     return out
 
 
+def row_tables(table) -> list:
+    """A relation's rows as tables in row order, for a driver that works
+    block by block: one per distinct row block of a placed table (each
+    position's, on its device; positions that hold a replica are left
+    out, and a replicated table gives one), or the table itself."""
+    if not is_placed_table(table):
+        return [table]
+    first = next(iter(table.cols.values()))
+    local = dict(zip(first.mesh.positions(), local_tables(table)))
+    return [local[idx] for idx in first.distinct_positions()]
+
+
 def gather_table(table, strip: bool = False):
     """A placed table gathered into one ``ColumnTable`` on its first
     position's device (row blocks concatenated in position order), the
@@ -268,19 +280,3 @@ def gather_table(table, strip: bool = False):
     if stats is not None:
         out.__dict__[_STATS_ATTR] = dict(stats)
     return out
-
-
-def refuse_placed(client, db: str, set_name: str, what: str) -> None:
-    """Raise for a workload driver given a placed set: the placed
-    workloads run over a mesh in the reference and are ROADMAP.md A4
-    part 3 here (never silently on one position)."""
-    store = getattr(client, "store", None)
-    if store is None:
-        return
-    from netsdb_tpu_torch.storage.store import SetIdentifier
-
-    if store.placement_of(SetIdentifier(db, set_name)) is not None:
-        raise NotImplementedError(
-            f"{what} over the placed set {db}:{set_name} (the workload "
-            f"distributed over a mesh) is not ported yet: ROADMAP.md A4 "
-            f"part 3")

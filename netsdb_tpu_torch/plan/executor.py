@@ -72,6 +72,7 @@ import torch
 
 from netsdb_tpu_torch import obs
 from netsdb_tpu_torch.core.blocked import BlockedTensor, BlockMeta
+from netsdb_tpu_torch.parallel import placed_ops
 from netsdb_tpu_torch.parallel.mesh import ShardedTensor, visible_devices
 from netsdb_tpu_torch.parallel.placement import is_placed_table
 from netsdb_tpu_torch.plan import fusion, programs, staging
@@ -413,6 +414,11 @@ def _run_tensor_stream(node, tfold, in_vals: List[Any], src: int,
                 if isinstance(out, BlockedTensor):
                     blocked = True
                     out = out.to_dense()
+                # a placed block's product: the output rows are assembled
+                # on one device (a replicated product moves nothing)
+                out = placed_ops.whole(out, f"tensor stream:{node.label}",
+                                       "the stream assembles its rows on "
+                                       "one device")
                 if dense is None:
                     dense = out.new_empty((total,) + tuple(out.shape[1:]))
                 # before the next step: a program's output is its graph's

@@ -202,7 +202,7 @@ def _flatten(x: Any, leaves: List[torch.Tensor]) -> Any:
         return "T"
     if isinstance(x, BlockedTensor):
         if not isinstance(x.data, torch.Tensor):  # a placed, sharded one
-            return _flatten(x.data, leaves)
+            return ("PBT", x.meta, _flatten(x.data, leaves))
         leaves.append(x.data)
         return ("BT", x.meta)
     if isinstance(x, ShardedTensor):
@@ -251,6 +251,8 @@ def _unflatten(tree: Any, it) -> Any:
     kind = tree[0]
     if kind == "BT":
         return BlockedTensor(next(it), tree[1])
+    if kind == "PBT":
+        return BlockedTensor(_unflatten(tree[2], it), tree[1])
     if kind == "CT":
         cols = {n: next(it) for n in tree[1]}
         valid = next(it) if tree[3] else None

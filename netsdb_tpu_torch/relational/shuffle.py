@@ -35,7 +35,8 @@ import torch
 from netsdb_tpu_torch import obs
 from netsdb_tpu_torch.parallel.mesh import (Mesh, ShardedTensor, move,
                                             position_all_to_all,
-                                            position_gather, position_sum)
+                                            position_gather, position_sum,
+                                            visible_devices)
 from netsdb_tpu_torch.relational import kernels as K
 from netsdb_tpu_torch.relational.planner import JoinPlan
 from netsdb_tpu_torch.relational.sharded import shard_fact_columns
@@ -499,7 +500,7 @@ def q03_row_sink_for(client, db: str, segment: str = "BUILDING",
                 "q03_row_sink_for needs a placed lineitem set (the "
                 "Partition nodes shuffle on its mesh) — or pass n_parts "
                 "explicitly when building from a RemoteClient")
-        n_parts = pl.axis_size()
+        n_parts = pl.axis_size(visible_devices(store.device.type))
     jp_cust = JoinPlan("lut", cust_ks)
 
     def filter_orders(orders: ColumnTable, cust: ColumnTable) -> ColumnTable:

@@ -241,6 +241,13 @@ class SetStore:
                     self.config, pool_bytes=self.config.page_pool_bytes)
             return self._page_store
 
+    def close(self) -> None:
+        """Close the page store, where one was made (its arena and page
+        files); the resident sets stay readable."""
+        with self._lock:
+            if self._page_store is not None:
+                self._page_store.close()
+
     def device_cache(self):
         """The cross-query :class:`~netsdb_tpu_torch.storage.devcache.
         DeviceBlockCache`, budgeted by ``config.device_cache_bytes``."""

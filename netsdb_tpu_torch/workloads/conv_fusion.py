@@ -18,7 +18,11 @@ through ``Client.execute_computations``:
 The chunk and block plumbing is host work over numpy records, as the
 reference's per-tuple lambdas are; each assembled matrix is uploaded
 once. Records keep numpy data; the matrices live on the client's
-device. Sets placed over a mesh (``placements=``) are ROADMAP.md A4 part 3.
+device. With ``setup(placements=...)`` the flattened matrices are stored
+placed (``image_flat`` row-sharded, ``kernel_flat`` replicated, as the
+reference's test places them): the one ``matmul_t`` program then runs
+per position, and the reassembly reads each position's rows to the
+host.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 from netsdb_tpu_torch.config import resolve_device
 from netsdb_tpu_torch.core.blocked import BlockedTensor
 from netsdb_tpu_torch.ops.matmul import matmul_t
+from netsdb_tpu_torch.parallel.placed_ops import host_array
 from netsdb_tpu_torch.plan.computations import (
     Aggregate, Apply, Join, MultiApply, ScanSet, WriteSet)
 
@@ -104,14 +109,16 @@ class ConvFusionPipeline:
     # -- setup / load ---------------------------------------------------
 
     def setup(self, client, placements=None) -> None:
-        if placements:
-            raise NotImplementedError(
-                "ConvFusionPipeline.setup(placements=...): placed conv "
-                "sets are not ported yet: ROADMAP.md A4 part 3")
+        """``placements``: set name → Placement. The compute-heavy sets
+        are ``image_flat`` (windows × flat width: row-shard it) and
+        ``kernel_flat`` (replicate it: the broadcast side of the join);
+        the record sets are host objects and keep no placement. A set
+        created before keeps its placement."""
         self.device = client.device
         client.create_database(self.db)
         for s in self.SETS:
-            client.create_set(self.db, s)
+            client.create_set(self.db, s,
+                              placement=(placements or {}).get(s))
 
     def load(self, client, images: np.ndarray, kernels: np.ndarray,
              bias: Optional[np.ndarray] = None) -> None:
@@ -240,7 +247,7 @@ class ConvFusionPipeline:
         windows = out_h * out_w
 
         def to_images(res: BlockedTensor) -> List[Image]:
-            dense = _host(res.to_dense())[:, :num_filters]
+            dense = host_array(res)[:, :num_filters]
             n = dense.shape[0] // windows
             return [Image(i, dense[i * windows:(i + 1) * windows]
                           .reshape(out_h, out_w, num_filters)

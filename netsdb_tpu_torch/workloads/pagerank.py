@@ -8,7 +8,9 @@ target with ``index_add_``, in f32 (the reference's dtype). An id out of
 ``[0, num_nodes)`` raises ``IndexError`` (``segment_sum`` drops it; on
 the card ``index_add_`` would assert). The table driver folds the
 relation's validity into -1 endpoints and masks those rows before any
-index is used, as the reference does.
+index is used, as the reference does. Over a row-sharded placed link
+relation each position forms its rows' contributions and the partial
+sums are added in position order.
 """
 
 from __future__ import annotations
@@ -18,9 +20,9 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from netsdb_tpu_torch.parallel.placement import refuse_placed
 from netsdb_tpu_torch.config import resolve_device
-from netsdb_tpu_torch.relational.table import ColumnTable
+from netsdb_tpu_torch.parallel.mesh import move, position_sum
+from netsdb_tpu_torch.parallel.placement import row_tables
 
 
 def _ids(ids, device) -> torch.Tensor:
@@ -75,8 +77,8 @@ def pagerank_on_set(client, db: str, links_set: str, num_nodes: int,
                     out_set: str = "ranks") -> np.ndarray:
     """Set driver: the links set holds (src, dst) pairs (the reference's
     ``Link`` objects), run on the client's device; the ranks are written
-    as (url, rank) pairs."""
-    refuse_placed(client, db, links_set, "pagerank_on_set")
+    as (url, rank) pairs (a placed object set holds the same host
+    records)."""
     edges: Iterable = list(client.get_set_iterator(db, links_set))
     pairs = np.asarray([(e[0], e[1]) for e in edges],
                        np.int64).reshape(-1, 2)
@@ -91,27 +93,40 @@ def pagerank_on_table_set(client, db: str, links_set: str, num_nodes: int,
                           damping: float = 0.85, iters: int = 20,
                           out_set: str = "ranks") -> np.ndarray:
     """Relation driver: the link relation is a stored ``ColumnTable``
-    {src, dst}. Rows that are invalid or carry a -1 endpoint contribute
-    nothing; as in the reference, this driver drops dangling mass."""
-    refuse_placed(client, db, links_set, "pagerank_on_table_set")
+    {src, dst}, resident or placed (row-sharded: each position's rows
+    contribute, the partial sums added in position order). Rows that are
+    invalid or carry a -1 endpoint contribute nothing; as in the
+    reference, this driver drops dangling mass."""
     from netsdb_tpu_torch.relational.dag import _fold_mask
 
-    t: ColumnTable = _fold_mask(client.get_table(db, links_set))
-    s = t["src"].to(torch.int64)
-    d = t["dst"].to(torch.int64)
-    ok = (s >= 0) & (d >= 0)
-    sc = torch.where(ok, s, 0)
-    dc = torch.where(ok, d, 0)
-    _check_range(sc, num_nodes, "src")
-    _check_range(dc, num_nodes, "dst")
-    deg = torch.zeros(num_nodes, dtype=torch.float32,
-                      device=s.device).index_add_(0, sc, ok.to(torch.float32))
+    blocks = []
+    for t in row_tables(client.get_table(db, links_set)):
+        t = _fold_mask(t)
+        s = t["src"].to(torch.int64)
+        d = t["dst"].to(torch.int64)
+        ok = (s >= 0) & (d >= 0)
+        sc = torch.where(ok, s, 0)
+        dc = torch.where(ok, d, 0)
+        _check_range(sc, num_nodes, "src")
+        _check_range(dc, num_nodes, "dst")
+        blocks.append((ok, sc, dc))
+    dev = blocks[0][0].device
+    deg = position_sum([
+        torch.zeros(num_nodes, dtype=torch.float32, device=sc.device)
+        .index_add_(0, sc, ok.to(torch.float32))
+        for ok, sc, _ in blocks], dev)
     safe = deg.clamp_min(1.0)
     rank = torch.full((num_nodes,), 1.0 / num_nodes, dtype=torch.float32,
-                      device=s.device)
+                      device=dev)
     for _ in range(iters):
-        contrib = torch.where(ok, (rank / safe).index_select(0, sc), 0.0)
-        agg = torch.zeros_like(rank).index_add_(0, dc, contrib)
+        parts = []
+        for ok, sc, dc in blocks:
+            share = move(rank / safe, sc.device)
+            contrib = torch.where(ok, share.index_select(0, sc), 0.0)
+            parts.append(torch.zeros(num_nodes, dtype=torch.float32,
+                                     device=sc.device)
+                         .index_add_(0, dc, contrib))
+        agg = position_sum(parts, dev)
         rank = (1.0 - damping) / num_nodes + damping * agg
     ranks = rank.cpu().numpy()
     _write_ranks(client, db, out_set, ranks)

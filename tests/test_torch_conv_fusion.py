@@ -108,8 +108,37 @@ def test_conv_job_compiled_equals_node_by_node(port, small_case):
                for k in executor.compiled_cache_keys())
 
 
-def test_placements_raise_naming_a4(port):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        cf.ConvFusionPipeline(db="cf5").setup(port, placements={
+def test_placements_raise_naming_a4(port, tmp_path):
+    """Placed conv sets once raised naming ROADMAP.md A4 part 3; they are
+    ported: ``image_flat`` row-sharded and ``kernel_flat`` replicated
+    over 4 positions give the unplaced run's images bit for bit (each
+    position's rows are the same products), with no gather. A placement
+    that is no Placement still raises."""
+    from netsdb_tpu_torch.parallel.mesh import (clear_gather_log,
+                                                gather_log, virtual_devices)
+    from netsdb_tpu_torch.parallel.placement import Placement
+
+    rng = np.random.default_rng(8)
+    images = rng.standard_normal((3, 3, 12, 12)).astype(np.float32)
+    kernels = rng.standard_normal((4, 3, 5, 5)).astype(np.float32)
+    solo = cf.ConvFusionPipeline(db="cf5", kernel_size=5, block=(16, 16))
+    solo.setup(port)
+    want = solo.run(port, images, kernels)
+    clear_gather_log()
+    with virtual_devices(4, "cpu"):
+        c = Client(Configuration(root_dir=str(tmp_path / "placed")),
+                   device="cpu")
+        placed = cf.ConvFusionPipeline(db="cf5", kernel_size=5,
+                                       block=(16, 16))
+        placed.setup(c, placements={
+            "image_flat": Placement.data_parallel(ndim=2),
+            "kernel_flat": Placement.replicated()})
+        got = placed.run(c, images, kernels)
+        assert c.get_tensor("cf5", "image_flat").data.parts(0) == 4
+    assert gather_log() == []
+    assert [i.key for i in got] == [i.key for i in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.data, w.data)
+    with pytest.raises(TypeError, match="placement"):
+        cf.ConvFusionPipeline(db="cf6").setup(port, placements={
             "image_flat": object()})
-    assert not port.catalog.database_exists("cf5")

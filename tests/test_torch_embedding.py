@@ -295,8 +295,22 @@ def test_plans_have_the_reference_labels():
                                          (Word2VecModel, "weights"),
                                          (LSTMModel, "w_i")])
 def test_placements_raise_naming_a4(port_client, cls, placed):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        cls().setup(port_client, placements={placed: Placement.replicated()})
-    assert not port_client.catalog.database_exists(cls().db)
+    """Placed model sets once raised naming ROADMAP.md A4 part 3; they are
+    ported: a placement creates the set placed over the mesh (the catalog
+    keeps it under "sharding"), and None an unplaced set. The placed
+    requests' parity is ``tests/test_torch_placed_workloads.py``."""
+    from netsdb_tpu_torch.parallel.mesh import virtual_devices
+    from netsdb_tpu_torch.storage.store import SetIdentifier
+
+    with virtual_devices(4, "cpu"):
+        c = Client(Configuration(root_dir=port_client.config.root_dir
+                                 + "-placed"), device="cpu")
+        cls().setup(c, placements={placed: Placement.replicated()})
+        assert c.store.placement_of(SetIdentifier(cls().db, placed)) == \
+            Placement.replicated()
+        assert c.catalog.get_set(cls().db, placed)["meta"]["sharding"] == \
+            Placement.replicated().to_meta()
     cls().setup(port_client, placements={placed: None})
     assert port_client.catalog.set_exists(cls().db, placed)
+    assert port_client.store.placement_of(
+        SetIdentifier(cls().db, placed)) is None

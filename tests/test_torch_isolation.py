@@ -147,16 +147,29 @@ def test_later_configuration_knobs_raise(knob, value, item):
         Configuration(**{knob: value})
 
 
-def test_placed_conv_fusion_and_expert_parallel_moe_raise(port_client):
+def test_placed_conv_fusion_and_expert_parallel_moe_raise(tmp_path):
+    """Both once raised naming ROADMAP.md A4 part 3 and are ported: a
+    placed conv set is created placed on the CPU positions asked for,
+    and expert-parallel MoE runs on them (equal to ``mesh=None``)."""
     from netsdb_tpu_torch.models.moe import init_moe_params, moe_forward
+    from netsdb_tpu_torch.parallel.mesh import make_mesh, virtual_devices
     from netsdb_tpu_torch.workloads.conv_fusion import ConvFusionPipeline
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        ConvFusionPipeline(db="cf").setup(port_client, placements={
-            "image_flat": Placement.data_parallel(ndim=2)})
     params = init_moe_params(4, 8, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        moe_forward(params, torch.zeros(4, 4), mesh=object())
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (6, 4)).astype(np.float32))
+    with virtual_devices(2, "cpu"):
+        c = Client(Configuration(root_dir=str(tmp_path)), device="cpu")
+        ConvFusionPipeline(db="cf").setup(c, placements={
+            "image_flat": Placement.data_parallel(ndim=2)})
+        pl = c.store.placement_of(SetIdentifier("cf", "image_flat"))
+        assert pl == Placement.data_parallel(ndim=2)
+        assert all(d.type == "cpu" for d in pl.mesh().devices.flat)
+        ep = moe_forward(params, x, 2.0, make_mesh((2,), ("model",)),
+                         "model")
+    np.testing.assert_allclose(ep.numpy(),
+                               moe_forward(params, x, 2.0).numpy(),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_new_entry_points_default_to_cuda_and_never_fall_back():

@@ -1,8 +1,10 @@
 """The mixture-of-experts layer of the port against the reference's
 (``netsdb_tpu/models/moe.py``) on one device: ``moe_forward`` with
 ``mesh=None`` and the dense oracle, the params carried across as numpy,
-within 1e-5; dropped tokens give zero rows; a mesh raises naming A4."""
+within 1e-5; dropped tokens give zero rows; and expert parallelism over
+a mesh."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,9 +77,30 @@ def test_capacity_overflow_drops_tokens_to_zero_rows():
 
 
 def test_mesh_raises_naming_a4():
-    _, pp = _params(8, 16, 2, seed=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        moe.moe_forward(pp, torch.zeros(4, 8), mesh=object())
+    """``moe_forward(mesh=)`` once raised naming ROADMAP.md A4; expert
+    parallelism is ported: over a (data 2, model 4) mesh it equals the
+    reference's expert-parallel run and the port's ``mesh=None`` within
+    1e-5 (the combine's sums have one non-zero term each; the batched
+    products over fewer experts may take another kernel), and a model
+    axis that does not divide the experts raises."""
+    from netsdb_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from netsdb_tpu_torch.parallel.mesh import make_mesh, virtual_devices
+
+    jp, pp = _params(16, 32, 8, seed=3)
+    x = _x(64, 16, 4)
+    jmesh = jmake_mesh((2, 4), ("data", "model"))
+    want = np.asarray(jax.jit(lambda p, xx: jmoe.moe_forward(
+        p, xx, 4.0, jmesh, "model"))(jp, jnp.asarray(x)))
+    _, six = _params(16, 32, 6, seed=3)
+    with virtual_devices(8, "cpu"):
+        mesh = make_mesh((2, 4), ("data", "model"))
+        got = moe.moe_forward(pp, torch.from_numpy(x), 4.0, mesh, "model")
+        with pytest.raises(ValueError, match="do not split"):
+            moe.moe_forward(six, torch.from_numpy(x), 4.0, mesh, "model")
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(
+        got.numpy(), moe.moe_forward(pp, torch.from_numpy(x), 4.0).numpy(),
+        rtol=TOL, atol=1e-6)
 
 
 def test_init_defaults_to_cuda_and_never_falls_back():
