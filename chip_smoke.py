@@ -11,7 +11,8 @@ phase 1, the SF 10 tables made resident on a card client, and phase
 14, TPC-H at ``COMPILED_ONLY_SF``; ``--workloads-only``: phases 1 and
 15; ``--serve-only``: phases 1 and 16; ``--pool-only``: phases 1 and
 17; ``--mesh-only``: phase 1, the SF 10 tables made resident on a card
-client, and phase 18; ``--multichip-only``: phases 1 and 19.)
+client, and phase 18; ``--multichip-only``: phases 1 and 19;
+``--obs-only``: phases 1 and 20.)
 
 Every phase runs with the compiled-program cache in use and
 ``plan_fusion`` on, the port's defaults: a resident job is one CUDA
@@ -241,7 +242,9 @@ Phases (any failure raises and the exit code is non-zero):
    Q01 scatters byte-equal to solo, ``relational.dag.q01_sink`` over a
    float table of the same placement (ints exact, floats within rtol
    1e-5), the shuffle join (2048 orders, 400 000 lineitems, hash-placed)
-   byte-equal to solo with its 24 buckets counted. Then a worker is
+   byte-equal to solo with its 24 buckets counted; the last Q01
+   scatter's GET_TRACE profile at the leader must carry every worker's
+   profiles under the same query id (``shards``). Then a worker is
    stopped, a scatter started and the worker killed: the client gets the
    typed retryable refusal and the output set keeps its rows; an append
    buffers for the dead slot; the worker restarts on its port, reloads
@@ -298,7 +301,31 @@ Phases (any failure raises and the exit code is non-zero):
    positions (B2 at head dim 8 and seq 16 and 64). Every gather of a placed tensor is printed
    with its reason, and a data-parallel request that gathers fails the
    phase; then the peak reserved memory, the card's used memory and the
-   programs captured and replayed.
+   programs captured and replayed;
+20. the daemon's observability (``OBS_SIZES``): one daemon in its own
+   process with per-query ``torch.profiler`` sessions
+   (``obs_device_profile_dir``), a slow-query threshold under a layer
+   request, a 0.5 s telemetry history, the scheduler's feedback (every
+   ``OBS_FEEDBACK_EVERY`` admissions) and SLO shedding. Two clients with
+   their own identities ship their traces: one runs phase 3's FF (3
+   requests), paged Q01 at SF 0.2 (cold, capturing, warm) and phase 4's
+   layer (3 requests, B1 once each in the daemon), the other a 128-step
+   LSTM decode session traced 1 in 8 steps; every output held to its
+   phase-16 limit. Each traced request's GET_TRACE profile must hold a
+   ``server.decode`` span first, the dispatch and the executor (or the
+   decode batch), the merged client section whose top-level spans are
+   within 20% of the request's wall time, and the host/device split, with
+   no profiler or device-time error; the paged Q01 must show staging or
+   device-cache counters. Each layer request's device profile (its
+   Chrome trace under the query id) must show B1 exactly once; its B1
+   time is printed beside the trace's ``device.est_s``. The OpenMetrics
+   scrape must parse, carry both clients' labels and count exactly the
+   workload frames this process sent; HEALTH the default objectives with
+   burn rates; the slow-query log every layer request within its bound;
+   the scheduler at least one reseed (its lane weights printed). Then
+   the same warm FF and layer requests against a daemon with tracing on
+   and one with it off, in turns: both p50s and their ratio, printed,
+   not gated.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
@@ -314,7 +341,9 @@ B2 never), and phase 17's the pool daemons' and the solo's summed the
 same way, and this process's around the in-process pool (both 0); around
 phase 18 (B1 4 times a Ulysses call, B2 never; the comparisons' launches
 are taken back out); and around phase 19's ``dryrun_multichip(4)`` (B2
-at least once, its ring; B1 never). The last line is the contract's device record.
+at least once, its ring; B1 never); phase 20's are the observed
+daemon's own counters (B1 once a layer request, B2 never). The last
+line is the contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -5821,6 +5850,10 @@ def _pool_scaleout(pool_c, solo, daemon_clients, s, card) -> dict:
                                                        - t0)
     sink = scaleout_q01_sink("d")
     rows = {}
+    from netsdb_tpu_torch import obs
+
+    seen = {p["qid"] for p in obs.DEFAULT_RING.last()}
+    pool_qid = None
     for name, c in (("pool", pool_c), ("solo", solo)):
         ms = []
         for q in range(s["queries"] + 1):  # the first builds the programs
@@ -5828,6 +5861,9 @@ def _pool_scaleout(pool_c, solo, daemon_clients, s, card) -> dict:
             c.execute_computations(sink, job_name="scale-q01",
                                    fetch_results=False)
             ms.append((time.perf_counter() - t0) * 1e3)
+            qid = _obs_new_qid(seen)
+            if name == "pool":
+                pool_qid = qid
             got = _scale_rows(c, "d", "scale_q01_out")
             if q and got != rows.setdefault(name, got):
                 raise RuntimeError(f"{name} Q01 request {q} changed its rows")
@@ -5836,6 +5872,22 @@ def _pool_scaleout(pool_c, solo, daemon_clients, s, card) -> dict:
     if rows["pool"] != rows["solo"] or len(rows["pool"]) != 6:
         raise RuntimeError(f"scatter Q01 {rows['pool']} != solo "
                            f"{rows['solo']}")
+    # the last scatter's trace: every worker's subplan under its qid
+    workers = [c.current_address for c in daemon_clients[1:]]
+    (prof,) = [p for p in pool_c.get_trace(qid=pool_qid)["profiles"]
+               if p["origin"] == "server"]
+    sections = prof.get("shards") or {}
+    if any(not sections.get(w) or any(sp["qid"] != pool_qid
+                                      for sp in sections[w])
+           for w in workers):
+        raise RuntimeError(f"scatter Q01 {pool_qid}: the leader's trace "
+                           f"lacks a worker's section: {sorted(sections)} "
+                           f"of {workers}")
+    out["trace_shards"] = {w: [round(sp["total_s"] * 1e3, 3)
+                               for sp in sections[w]] for w in workers}
+    print(f"[pool] scatter Q01 trace {pool_qid}: leader {prof['total_s'] * 1e3:.3f}"
+          f" ms; worker sections under the same qid (ms) "
+          f"{out['trace_shards']} ({card})")
     # the real relational/dag.q01_sink over the same placement
     ftable = _pool_float_table(s["rows"], SEED + 3)
     f_rows = {}
@@ -7588,6 +7640,674 @@ def phase_multichip(pk: dict, smi: str, device="cuda") -> dict:
     return out
 
 
+# --- phase 20: the daemon's observability on the card ---------------------
+# phase 16's sizes (phase 3's FF, phase 4's layer, phase 16's LSTM decode
+# width and paged Q01 at SF 0.2); the decode session's client traces 1 in
+# ``sample`` steps (the others pay no trace), the other client every request
+OBS_SIZES = {"ff": dict(batch=16384, features=1024, hidden=4096,
+                        labels=1024, block=512, requests=3),
+             "layer": dict(embed=1024, heads=8, batch=2, seq=4096,
+                           requests=3),
+             "decode": dict(hidden=1024, heads=8, kv_max=64, steps=128,
+                            sample=8),
+             "paged": dict(sf=0.2, requests=3),
+             "onoff": dict(warmup=2, requests=5)}
+OBS_SLOW_QUERY_S = 0.005   # under a served layer request: each is logged
+OBS_SLOWLOG_ENTRIES = 16
+OBS_HISTORY_S = 0.5
+OBS_FEEDBACK_EVERY = 4     # admissions between two lane reseeds
+OBS_SPAN_TOL = 0.2         # tests/test_obs_serve.py:63-107
+OBS_BUDGET_S = 60.0
+OBS_TIMEOUT_S = 120.0      # bounds every request to a daemon
+
+# a daemon of the phase: run_daemon on Configuration(root_dir, **json)
+_OBS_MAIN = (
+    "import json, sys\n"
+    "from netsdb_tpu_torch.config import Configuration\n"
+    "from netsdb_tpu_torch.serve.server import run_daemon\n"
+    "sys.exit(run_daemon(Configuration(root_dir=sys.argv[1], "
+    "**json.loads(sys.argv[3])), port=0, device=sys.argv[2]))\n")
+
+#: frames a daemon does not count as workload: the introspection frames
+#: and the ones that never reach its dispatch (the handshake, bulk
+#: ingest's conversation, shutdown)
+_OBS_UNCOUNTED = ("PING", "COLLECT_STATS", "GET_TRACE", "PUT_TRACE",
+                  "HEALTH", "GET_METRICS", "HELLO", "BULK_BEGIN",
+                  "BULK_CHUNK", "BULK_COMMIT", "SHUTDOWN")
+
+
+class _FrameCounter:
+    """Counts the frames this process sends to one daemon by type (a
+    wrapper around the wire client's ``send_frame``; restored by
+    ``close``)."""
+
+    def __init__(self, addr: str):
+        import threading
+
+        from netsdb_tpu_torch.serve import client as wire
+
+        self._wire = wire
+        self._orig = wire.send_frame
+        self._port = int(addr.rpartition(":")[2])
+        self._mu = threading.Lock()
+        self.by_type: dict = {}
+
+        def counted(sock, typ, *a, **kw):
+            try:
+                mine = sock.getpeername()[1] == self._port
+            except OSError:
+                mine = False
+            if mine:
+                with self._mu:
+                    name = getattr(typ, "name", str(typ))
+                    self.by_type[name] = self.by_type.get(name, 0) + 1
+            return self._orig(sock, typ, *a, **kw)
+
+        wire.send_frame = counted
+
+    def workload(self) -> int:
+        with self._mu:
+            return sum(n for t, n in self.by_type.items()
+                       if t not in _OBS_UNCOUNTED)
+
+    def close(self) -> None:
+        self._wire.send_frame = self._orig
+
+
+def _obs_new_qid(seen: set):
+    """The query id of the client trace just finished, if the last
+    request was traced (the wire client pushes every trace it opens to
+    this process's ring)."""
+    from netsdb_tpu_torch import obs
+
+    for p in reversed(obs.DEFAULT_RING.last()):
+        if p["origin"] == "client" and p["qid"] not in seen:
+            seen.add(p["qid"])
+            return p["qid"]
+    return None
+
+
+def _obs_profile_kernels(path: str) -> dict:
+    """The kernels of one query's ``torch.profiler`` Chrome trace: every
+    kernel event's name and µs, and B1's (``fold_kernel<..., false>``
+    of ``csrc/flash_fold_mma.cuh``, launched by ``flash_attention.cu``)
+    and B2's (``..., true>``) launches and device ms."""
+    import json
+    import os
+
+    with open(os.path.join(path, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [(e.get("name", ""), float(e.get("dur", 0.0)))
+               for e in events if e.get("cat") == "kernel"]
+    b1 = [d for n, d in kernels if "fold_kernel<" in n and "false>" in n]
+    b2 = [d for n, d in kernels if "fold_kernel<" in n and "true>" in n]
+    return {"kernels": len(kernels),
+            "device_ms": sum(d for _, d in kernels) / 1e3,
+            "b1_launches": len(b1), "b1_ms": sum(b1) / 1e3,
+            "b2_launches": len(b2)}
+
+
+def _obs_check(client, qid: str, wall_s: float, kind: str,
+               executor: bool) -> dict:
+    """One traced request's GET_TRACE profile, after the client's spans
+    shipped: spans from client send to the executor (``executor``) or the
+    decode batch, the client's top-level spans within OBS_SPAN_TOL of the
+    request's wall time, the merged client section and the host/device
+    split. Returns what the phase prints."""
+    reply = client.get_trace(qid=qid)
+    if "followers" in reply:
+        raise RuntimeError("GET_TRACE answered a followers section")
+    profs = [p for p in reply["profiles"] if p["origin"] == "server"]
+    if len(profs) != 1:
+        raise RuntimeError(f"{kind} {qid}: {len(profs)} server profiles")
+    sp = profs[0]
+    names = [s["name"] for s in sp["spans"]]
+    frame = "GENERATE" if kind == "decode" else "EXECUTE_COMPUTATIONS"
+    first = sp["spans"][0] if sp["spans"] else {}
+    if first.get("name") != "server.decode" or first.get("start_s") != 0:
+        raise RuntimeError(f"{kind} {qid}: no server.decode span first: "
+                           f"{names}")
+    want = [f"server.dispatch:{frame}"]
+    want.append("executor." if executor else "session.")
+    for w in want:
+        if not any(n.startswith(w) for n in names):
+            raise RuntimeError(f"{kind} {qid}: no {w} span in {names}")
+    cs = sp.get("client")
+    if not cs or {"client.send", "client.wait"} - {
+            s["name"] for s in cs["spans"]}:
+        raise RuntimeError(f"{kind} {qid}: no merged client section")
+    span_sum = sum(s["duration_s"] for s in cs["spans"] if s["depth"] == 0)
+    if abs(span_sum - wall_s) > OBS_SPAN_TOL * wall_s:
+        raise RuntimeError(f"{kind} {qid}: client spans {span_sum:.4f} s "
+                           f"against a wall of {wall_s:.4f} s")
+    hd = sp.get("host_device")
+    if not hd or abs(hd["device_est_s"] + hd["host_s"] - sp["total_s"]) \
+            > 1e-9 + 1e-9 * sp["total_s"]:
+        raise RuntimeError(f"{kind} {qid}: host/device split {hd}")
+    meta = sp.get("meta") or {}
+    for key in ("device_profile_error", "device_time_error"):
+        if key in meta:
+            raise RuntimeError(f"{kind} {qid}: {key}: {meta[key]}")
+    return {"qid": qid, "wall_ms": wall_s * 1e3,
+            "client_span_ms": span_sum * 1e3,
+            "server_ms": sp["total_s"] * 1e3,
+            "device_est_ms": sp["counters"].get("device.est_s", 0.0) * 1e3,
+            "host_ms": hd["host_s"] * 1e3,
+            "counters": sp["counters"],
+            "spans": [(s["name"], round(s["duration_s"] * 1e3, 3))
+                      for s in sp["spans"]],
+            "device_profile": meta.get("device_profile"),
+            "client": meta.get("client")}
+
+
+def _obs_ff(c, s, device, seen, card) -> list:
+    """FF at phase 3's size through the observed daemon: each request
+    timed around its EXECUTE alone, its output then fetched and held to
+    f64 (FF_TOL)."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.models.ff import FFModel
+
+    blk = (s["block"], s["block"])
+    m = FFModel(db="obs_ff", block=blk)
+    m.setup(c)
+    rng = np.random.default_rng(SEED)
+    f, h, lab = s["features"], s["hidden"], s["labels"]
+    weights = (rng.standard_normal((h, f), dtype=np.float32)
+               * np.sqrt(2.0 / f),
+               rng.standard_normal((h,), dtype=np.float32) * 0.01,
+               rng.standard_normal((lab, h), dtype=np.float32)
+               * np.sqrt(2.0 / h),
+               rng.standard_normal((lab,), dtype=np.float32) * 0.01)
+    m.load_weights(c, *weights)
+    w1, b1, wo, bo = (torch.as_tensor(w, device=device).double()
+                      for w in weights)
+    sink = m.build_inference_dag()
+    out = []
+    for _ in range(s["requests"]):
+        x = rng.standard_normal((s["batch"], f), dtype=np.float32)
+        m.load_inputs(c, x)
+        t0 = time.perf_counter()
+        c.execute_computations(sink, job_name="obs-ff", fetch_results=False)
+        wall = time.perf_counter() - t0
+        qid = _obs_new_qid(seen)
+        t0 = time.perf_counter()
+        got = c.get_tensor("obs_ff", "output").to_dense()
+        fetch = time.perf_counter() - t0
+        xd = torch.as_tensor(x, device=device).double()
+        ref = torch.softmax(wo @ torch.relu(w1 @ xd.T + b1[:, None])
+                            + bo[:, None], dim=0)
+        if got.shape != (lab, s["batch"]) or not np.isfinite(got).all():
+            raise RuntimeError(f"observed FF output {got.shape} wrong or "
+                               f"non-finite")
+        err = float((torch.as_tensor(got, device=device).double()
+                     - ref).abs().max())
+        if not err <= FF_TOL:
+            raise RuntimeError(f"observed FF: max abs err {err} > {FF_TOL}")
+        out.append({"qid": qid, "wall_s": wall, "max_abs_err": err,
+                    "fetch_ms": fetch * 1e3})
+        print(f"[obs] ff request {wall * 1e3:.3f} ms (its {got.nbytes / 2 ** 20:.1f}"
+              f" MiB result fetched after in {fetch * 1e3:.3f} ms), qid "
+              f"{qid}, max abs err {err:.3e} vs f64 ({card})")
+    return out
+
+
+def _obs_layer(c, s, device, seen, card) -> list:
+    """The layer at phase 4's size through the observed daemon (B1 once a
+    request in its process), each output held to the layer with the plain
+    attention (LAYER_TOL)."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.ops.attention import merge_project, qkv_project
+    from netsdb_tpu_torch.ops.cuda_kernels import flash_attention_plain
+
+    heads = s["heads"]
+    rm = TransformerLayerModel(db="obs_layer", num_heads=heads)
+    lm = TransformerLayerModel(db="obs_layer", num_heads=heads)
+    local = Client(device=device)
+    rm.setup(c)
+    lm.setup(local)
+    rm.load_random_weights(c, embed=s["embed"], seed=SEED)
+    lm.load_random_weights(local, embed=s["embed"], seed=SEED)
+    p = lm.params_from_store(local)
+    rng = np.random.default_rng(SEED + 2)
+    sink = rm.build_forward_dag(c)
+    out = []
+    for _ in range(s["requests"]):
+        x = rng.standard_normal((s["batch"], s["seq"], s["embed"]),
+                                dtype=np.float32)
+        rm.load_inputs(c, x)
+        k0 = c.collect_stats()["metrics"]["kernels"]
+        t0 = time.perf_counter()
+        c.execute_computations(sink, job_name="obs-layer",
+                               fetch_results=False)
+        wall = time.perf_counter() - t0
+        qid = _obs_new_qid(seen)
+        k1 = c.collect_stats()["metrics"]["kernels"]
+        n = k1["flash_attention"] - k0["flash_attention"]
+        if device == "cuda" and n != 1:
+            raise RuntimeError(f"the observed layer request launched "
+                               f"flash_attention {n} times, not once")
+        t0 = time.perf_counter()
+        (y,) = list(c.get_set_iterator("obs_layer", "y"))
+        fetch = time.perf_counter() - t0
+        with torch.inference_mode():
+            xt = torch.as_tensor(x, device=device)
+            q, k, v = (t.contiguous() for t in
+                       qkv_project(lm._ln(xt), p.w_qkv, heads))
+            x1 = xt + merge_project(flash_attention_plain(q, k, v),
+                                    p.w_out)
+            ref = x1 + lm._mlp(lm._ln(x1), p)
+        y = torch.as_tensor(y).to(device)
+        if tuple(y.shape) != tuple(ref.shape) or not torch.isfinite(y).all():
+            raise RuntimeError(f"observed layer output {tuple(y.shape)} "
+                               f"wrong or non-finite")
+        err = float((y - ref).abs().max())
+        if not err <= LAYER_TOL:
+            raise RuntimeError(f"observed layer: max abs err {err} > "
+                               f"{LAYER_TOL}")
+        out.append({"qid": qid, "wall_s": wall, "max_abs_err": err,
+                    "b1_launches": n, "fetch_ms": fetch * 1e3})
+        print(f"[obs] layer request {wall * 1e3:.3f} ms (its result fetched "
+              f"after in {fetch * 1e3:.3f} ms), qid {qid}, max abs err "
+              f"{err:.3e}, B1 launches in the daemon {n} ({card})")
+    del local
+    return out
+
+
+def _obs_decode(c, s, device, seen, card) -> list:
+    """One decode session of ``steps`` LSTM steps through a
+    SessionHandle (its client traces 1 in ``sample``), the outputs held
+    to the f64 oracle; returns the traced steps."""
+    import numpy as np
+
+    from netsdb_tpu_torch.models import decode as dec
+
+    hidden, heads = s["hidden"], s["heads"]
+    dec.deploy_decode_model(c, "obs_dec", kind="lstm", hidden=hidden,
+                            heads=heads, seed=SEED + 3)
+    xs = np.random.default_rng(SEED + 16).standard_normal(
+        (1, s["steps"], hidden)).astype(np.float32)
+    got = np.zeros(xs.shape, np.float32)
+    traced = []
+    h = c.open_session("obs_dec", kind="lstm", heads=heads)
+    try:
+        for t in range(s["steps"]):
+            t0 = time.perf_counter()
+            got[0, t] = h.generate(xs[0, t], deadline_s=OBS_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            qid = _obs_new_qid(seen)
+            if qid is not None:
+                traced.append({"qid": qid, "wall_s": wall, "step": t})
+    finally:
+        h.close()
+    oracle = _decode_oracle("lstm", dec.decode_weights(
+        "lstm", hidden, heads, SEED + 3), xs, heads, s["kv_max"], device)
+    err = float(np.abs(got.astype(np.float64) - oracle).max())
+    if not err <= SERVE_DECODE_TOLS["lstm"] or not np.isfinite(got).all():
+        raise RuntimeError(f"observed decode: max abs err {err} vs f64")
+    want = s["steps"] // s["sample"]
+    if len(traced) != want:
+        raise RuntimeError(f"{len(traced)} of {s['steps']} steps traced, "
+                           f"not 1 in {s['sample']} ({want})")
+    print(f"[obs] decode: 1 session x {s['steps']} steps, {len(traced)} "
+          f"traced (1 in {s['sample']}), max abs err {err:.3e} vs f64 "
+          f"({card})")
+    for row in traced:
+        row["max_abs_err"] = err
+    return traced
+
+
+def _obs_q01(c, s, device, seen, card) -> list:
+    """Paged Q01 at SF 0.2 as phase 16 runs it (cold, capturing, warm),
+    each result held to the plan run node by node in this process."""
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.relational import bench as rbench
+    from netsdb_tpu_torch.relational import dag
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    db = "obs_tpch"
+    cols, dicts = rbench.generate_host(sf=s["sf"], seed=SEED)["lineitem"]
+    local = Client(device=device)
+    for cl, storage in ((c, "paged"), (local, "memory")):
+        cl.create_database(db)
+        cl.create_set(db, "lineitem", type_name="table", storage=storage)
+        cl.send_table(db, "lineitem", ColumnTable.from_columns(
+            cols, dicts, device="cpu"))
+    ref = node_by_node(local, dag.q01_sink(db))
+    del local
+    out = []
+    for i in range(s["requests"]):
+        t0 = time.perf_counter()
+        c.execute_computations(dag.q01_sink(db), job_name="obs-q01",
+                               fetch_results=False)
+        wall = time.perf_counter() - t0
+        qid = _obs_new_qid(seen)
+        (table,) = list(c.get_set_iterator(db, "q01_out"))
+        err = _hold(f"observed q01 {i}", table, ref)
+        out.append({"qid": qid, "wall_s": wall, "max_rel_err": err})
+        print(f"[obs] paged q01 request {wall * 1e3:.3f} ms, qid {qid}, max "
+              f"rel err {err:.3e} vs node by node ({card})")
+    return out
+
+
+def _obs_onoff(addr_on: str, addr_off: str, s: dict, sizes: dict, device,
+               card) -> dict:
+    """The same warm FF and layer requests against a daemon with
+    ``obs_enabled`` on (this client tracing and shipping every request)
+    and one with it off (the client's tracing off too), in turns: the
+    p50 of each and their ratio. Printed, not gated: host times vary
+    between calls."""
+    import numpy as np
+
+    from netsdb_tpu_torch import obs
+    from netsdb_tpu_torch.models.ff import FFModel
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    fs, ls = sizes["ff"], sizes["layer"]
+    rng = np.random.default_rng(SEED + 5)
+    x_ff = rng.standard_normal((fs["batch"], fs["features"]),
+                               dtype=np.float32)
+    x_layer = rng.standard_normal((ls["batch"], ls["seq"], ls["embed"]),
+                                  dtype=np.float32)
+    clients, sinks = {}, {}
+    try:
+        for mode, addr in (("on", addr_on), ("off", addr_off)):
+            cl = RemoteClient(addr, timeout=OBS_TIMEOUT_S,
+                              connect_timeout=30.0, client_id=f"obs-{mode}",
+                              ship_traces=True)
+            clients[mode] = cl
+            fm = FFModel(db="onoff_ff", block=(fs["block"], fs["block"]))
+            fm.setup(cl)
+            fm.load_random_weights(cl, features=fs["features"],
+                                   hidden=fs["hidden"], labels=fs["labels"],
+                                   seed=SEED)
+            fm.load_inputs(cl, x_ff)
+            lm = TransformerLayerModel(db="onoff_layer",
+                                       num_heads=ls["heads"])
+            lm.setup(cl)
+            lm.load_random_weights(cl, embed=ls["embed"], seed=SEED)
+            lm.load_inputs(cl, x_layer)
+            sinks[mode] = {"ff": fm.build_inference_dag(),
+                           "layer": lm.build_forward_dag(cl)}
+        ms = {(m, k): [] for m in ("on", "off") for k in ("ff", "layer")}
+        for i in range(s["warmup"] + s["requests"]):
+            for kind in ("ff", "layer"):
+                for mode in (("on", "off") if i % 2 else ("off", "on")):
+                    obs.set_enabled(mode == "on")
+                    try:
+                        t0 = time.perf_counter()
+                        clients[mode].execute_computations(
+                            sinks[mode][kind], job_name=f"onoff-{kind}",
+                            fetch_results=False)
+                        dt = (time.perf_counter() - t0) * 1e3
+                    finally:
+                        obs.set_enabled(True)
+                    if i >= s["warmup"]:
+                        ms[(mode, kind)].append(dt)
+        clients["on"].flush_traces(30.0)
+    finally:
+        for cl in clients.values():
+            cl.close()
+    out = {}
+    for kind in ("ff", "layer"):
+        on, off = _p50(ms[("on", kind)]), _p50(ms[("off", kind)])
+        out[kind] = {"on_ms": ms[("on", kind)], "off_ms": ms[("off", kind)],
+                     "on_p50_ms": on, "off_p50_ms": off, "ratio": on / off}
+        print(f"[obs] tracing on/off, warm {kind}: p50 {on:.3f} ms on, "
+              f"{off:.3f} ms off, ratio {on / off:.3f} over "
+              f"{s['requests']} requests each, in turns ({card})")
+    return out
+
+
+def phase_obs(pk: dict, smi: str, device: str = "cuda",
+              sizes: Optional[dict] = None) -> dict:
+    """Phase 20: the daemon's observability. One daemon in its own
+    process (``OBS_SIZES``) with per-query device profiles, a low
+    slow-query threshold, a 0.5 s telemetry history, the scheduler's
+    feedback and SLO shedding; two clients with their own identities
+    and shipped traces run warm FF, paged Q01 and three layer requests
+    (one client) and a 128-step decode session (the other). Every
+    request is held to its phase-16 limit and its GET_TRACE profile is
+    checked (``_obs_check``); the layer's device profiles must show B1
+    once; the OpenMetrics scrape, HEALTH, the slow-query log and the
+    lanes' reseed are checked; then tracing on against off on two more
+    daemons."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from netsdb_tpu_torch import obs
+    from netsdb_tpu_torch.obs.export import parse_openmetrics
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    del pk
+    s = {k: dict(v, **((sizes or {}).get(k, {})))
+         for k, v in OBS_SIZES.items()}
+    card = smi
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="netsdb_obs_")
+    prof_dir = os.path.join(root, "profiles")
+    page = {"page_size_bytes": SERVE_PAGE_BYTES}
+    configs = {
+        "observed": dict(page, obs_device_profile_dir=prof_dir,
+                         obs_slow_query_s=OBS_SLOW_QUERY_S,
+                         obs_slowlog_entries=OBS_SLOWLOG_ENTRIES,
+                         obs_history_interval_s=OBS_HISTORY_S,
+                         sched_feedback=True,
+                         sched_feedback_every=OBS_FEEDBACK_EVERY,
+                         sched_slo_shed=True),
+        "on": dict(page), "off": dict(page, obs_enabled=False)}
+    procs, logs, addrs, clients = {}, {}, {}, []
+    counter = None
+    try:
+        for name, cfg in configs.items():  # all three start together
+            logs[name] = os.path.join(root, f"{name}.log")
+            procs[name] = _daemon_popen(
+                _OBS_MAIN, [os.path.join(root, name), device,
+                            json.dumps(cfg)], logs[name])
+        for name in configs:
+            addrs[name] = _daemon_addr(procs[name], logs[name])
+        addr = addrs["observed"]
+        print(f"[obs] daemons observed {addr}, on {addrs['on']}, off "
+              f"{addrs['off']}: {time.perf_counter() - t0:.1f} s to listen "
+              f"({card})")
+        counter = _FrameCounter(addr)
+        a = RemoteClient(addr, timeout=OBS_TIMEOUT_S, connect_timeout=30.0,
+                         client_id="obs-a", ship_traces=True)
+        b = RemoteClient(addr, timeout=OBS_TIMEOUT_S, connect_timeout=30.0,
+                         client_id="obs-b", ship_traces=True,
+                         trace_sample=s["decode"]["sample"])
+        clients += [a, b]
+        k_start = a.collect_stats()["metrics"]["kernels"]
+        seen = {p["qid"] for p in obs.DEFAULT_RING.last()}
+        runs = {"ff": _obs_ff(a, s["ff"], device, seen, card),
+                "decode": _obs_decode(b, s["decode"], device, seen, card),
+                "q01": _obs_q01(a, s["paged"], device, seen, card),
+                "layer": _obs_layer(a, s["layer"], device, seen, card)}
+        for cl in (a, b):
+            if not cl.flush_traces(60.0):
+                raise RuntimeError("the client traces did not ship")
+        out: dict = {"requests": {}}
+        for kind, rows in runs.items():
+            for row in rows:
+                if row["qid"] is None:
+                    raise RuntimeError(f"{kind}: a request was not traced")
+                chk = _obs_check(b if kind == "decode" else a, row["qid"],
+                                 row["wall_s"], kind, kind != "decode")
+                if kind == "q01" and not any(
+                        k.startswith(("stage.", "devcache."))
+                        for k in chk["counters"]):
+                    raise RuntimeError(f"paged q01 {row['qid']}: no staging "
+                                       f"or device-cache counter: "
+                                       f"{chk['counters']}")
+                row.update(chk)
+            out["requests"][kind] = rows
+            r = rows[-1]
+            print(f"[obs] {kind}: wall {r['wall_ms']:.3f} ms, client spans "
+                  f"{r['client_span_ms']:.3f} ms, server {r['server_ms']:.3f}"
+                  f" ms (device est {r['device_est_ms']:.3f}, host "
+                  f"{r['host_ms']:.3f}); spans (ms) {r['spans']} ({card})")
+        # the layer's device profiles: B1 exactly once, beside device.est_s
+        prof_rows = []
+        for row in runs["layer"]:
+            path = row["device_profile"]
+            if not path or not os.path.isdir(path):
+                raise RuntimeError(f"layer {row['qid']}: no device profile "
+                                   f"({path})")
+            if os.path.basename(path) != row["qid"]:
+                raise RuntimeError(f"device profile {path} not under qid")
+            k = _obs_profile_kernels(path)
+            if device == "cuda" and (k["b1_launches"] != 1
+                                     or k["b2_launches"]):
+                raise RuntimeError(f"layer {row['qid']}: the device profile "
+                                   f"shows B1 {k['b1_launches']} times and "
+                                   f"B2 {k['b2_launches']}, not 1 and 0")
+            row["profile"] = k
+            prof_rows.append(k)
+            print(f"[obs] layer {row['qid']} device profile: {k['kernels']} "
+                  f"kernels, {k['device_ms']:.3f} ms of kernels, B1 "
+                  f"{k['b1_launches']} launch {k['b1_ms']:.3f} ms; the "
+                  f"trace's device.est_s {row['device_est_ms']:.3f} ms "
+                  f"({card})")
+        out["ff_profiles"] = []
+        for row in runs["ff"]:
+            k = _obs_profile_kernels(row["device_profile"])
+            out["ff_profiles"].append(k)
+            print(f"[obs] ff {row['qid']} device profile: {k['kernels']} "
+                  f"kernels, {k['device_ms']:.3f} ms; device.est_s "
+                  f"{row['device_est_ms']:.3f} ms ({card})")
+        # GET_METRICS as OpenMetrics: both clients, no OBS frame counted
+        deadline = time.perf_counter() + 10.0
+        while True:  # the request counters tick after each reply
+            text = a.get_metrics(format="openmetrics")["text"]
+            fams = parse_openmetrics(text)
+            served = fams["netsdb_serve_requests_total"]["samples"][0][2]
+            if served >= counter.workload() \
+                    or time.perf_counter() > deadline:
+                break
+            time.sleep(0.1)
+        if int(served) != counter.workload():
+            raise RuntimeError(f"serve.requests {served} != {counter.workload()}"
+                               f" workload frames sent {counter.by_type}")
+        labels = {lab.get("client") for _n, lab, _v in
+                  fams["netsdb_attrib_requests_total"]["samples"]}
+        if not {"obs-a", "obs-b"} <= labels:
+            raise RuntimeError(f"attribution labels {labels}")
+        structured = a.get_metrics(window_s=60.0)
+        out["metrics"] = {"families": len(fams), "serve_requests": served,
+                          "frames_sent": dict(counter.by_type),
+                          "history": structured["history"],
+                          "derived": structured["deltas"].get("derived")}
+        print(f"[obs] OpenMetrics: {len(fams)} families parse; "
+              f"serve.requests {int(served)} = workload frames sent "
+              f"{counter.workload()}; clients {sorted(labels)}; history "
+              f"{structured['history']}; rates "
+              f"{structured['deltas'].get('derived')} ({card})")
+        # HEALTH: the default objectives with burn rates
+        h = a.health()
+        objs = {o["name"]: o for o in h["objectives"]}
+        if {"availability", "request_p99_s", "devcache_hit_rate",
+                "staging_wait_fraction"} - set(objs):
+            raise RuntimeError(f"HEALTH objectives {sorted(objs)}")
+        for o in objs.values():
+            if not o["windows"] or any("burn_rate" not in w
+                                       for w in o["windows"].values()):
+                raise RuntimeError(f"objective {o['name']}: {o['windows']}")
+        out["health"] = {n: {"value": o["value"],
+                             "worst_burn_rate": o["worst_burn_rate"],
+                             "breached": o["breached"]}
+                         for n, o in objs.items()}
+        out["health_events"] = h["events"]
+        print(f"[obs] HEALTH: {out['health']}; events {h['events']} "
+              f"({card})")
+        # the slow-query log: the layer requests, within its bound
+        slow = a.get_trace(slow=True)
+        slow_qids = [p["qid"] for p in slow["profiles"]]
+        missing = [r["qid"] for r in runs["layer"]
+                   if r["qid"] not in slow_qids]
+        if missing or len(slow_qids) > OBS_SLOWLOG_ENTRIES \
+                or slow["slowlog"]["entries"] > OBS_SLOWLOG_ENTRIES:
+            raise RuntimeError(f"slowlog {slow['slowlog']} lacks the layer "
+                               f"requests {missing} or holds too many")
+        out["slowlog"] = slow["slowlog"]
+        print(f"[obs] slowlog: {slow['slowlog']['entries']} entries (bound "
+              f"{OBS_SLOWLOG_ENTRIES}), every layer request among them "
+              f"({card})")
+        # the scheduler reseeded its lanes from the ledger
+        st = a.collect_stats()
+        reseeds = st["metrics"]["counters"].get("sched.feedback_reseeds", 0)
+        weights = {n: ln.get("weight") for n, ln in
+                   st["metrics"]["sched"]["lanes"].items()}
+        if reseeds < 1:
+            raise RuntimeError(f"the scheduler never reseeded: {weights}")
+        out["sched"] = {"reseeds": reseeds, "weights": weights,
+                        "shed_events": st["metrics"]["counters"].get(
+                            "sched.shed_events", 0)}
+        print(f"[obs] scheduler: {reseeds} reseeds, lane weights {weights}, "
+              f"shed events {out['sched']['shed_events']} ({card})")
+        k_end = st["metrics"]["kernels"]
+        out["launches"] = {k: k_end[k] - k_start[k] for k in k_end}
+        want_b1 = s["layer"]["requests"] if device == "cuda" else 0
+        if out["launches"].get("flash_attention", 0) != want_b1 \
+                or out["launches"].get("flash_attention_step", 0):
+            raise RuntimeError(f"observed daemon launches "
+                               f"{out['launches']}: B1 once a layer "
+                               f"request, B2 never")
+        counter.close()
+        counter = None
+        out["onoff"] = _obs_onoff(addrs["on"], addrs["off"], s["onoff"], s,
+                                  device, card)
+        out["seconds"] = time.perf_counter() - t0
+        print(f"[obs] daemon launches {out['launches']}; phase 20 took "
+              f"{out['seconds']:.1f} s ({card})")
+        if out["seconds"] > OBS_BUDGET_S:
+            print(f"[obs] WARNING: phase 20 took {out['seconds']:.1f} s, "
+                  f"over its {OBS_BUDGET_S} s budget")
+        return out
+    except BaseException:
+        for name, proc in procs.items():
+            if proc.poll() is None:
+                import signal
+
+                proc.send_signal(signal.SIGUSR1)
+        time.sleep(1.0)
+        for name, log in logs.items():
+            try:
+                with open(log) as f:
+                    print(f"[obs] daemon {name} log:\n" + f.read()[-6000:])
+            except OSError:
+                pass
+        raise
+    finally:
+        if counter is not None:
+            counter.close()
+        for cl in clients:
+            cl.close()
+        for name, proc in procs.items():
+            stopper = None
+            try:
+                if name in addrs:
+                    stopper = RemoteClient(addrs[name], timeout=30.0,
+                                           connect_timeout=10.0)
+            except Exception:  # noqa: BLE001 — the kill below stops it
+                stopper = None
+            _serve_stop(proc, stopper)
+            if stopper is not None:
+                stopper.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -7671,6 +8391,11 @@ def main() -> int:
         print(json.dumps({"pool": phase_pool(pk, smi), "card": smi},
                          default=str))
         return 0
+    if "--obs-only" in sys.argv[1:]:
+        # phase 20 alone, the same way
+        print(json.dumps({"obs": phase_obs(pk, smi), "card": smi},
+                         default=str))
+        return 0
     if "--multichip-only" in sys.argv[1:]:
         # phase 19 alone, the same way
         print(json.dumps({"multichip": phase_multichip(pk, smi),
@@ -7726,6 +8451,7 @@ def main() -> int:
     workloads = workloads_path(pk)
     serve = phase_serve(pk, smi)
     pool = phase_pool(pk, smi)
+    observed = phase_obs(pk, smi)
     pool_launches = {
         k: pool["launches"].get(k, 0) + pool["inproc"]["launches"][i]
         for i, k in enumerate(("flash_attention", "flash_attention_step"))}
@@ -7739,7 +8465,8 @@ def main() -> int:
                       "paged_relations": paged_relations, "rows": rows,
                       "compiled": compiled, "workloads": workloads,
                       "serve": serve, "pool": pool, "mesh": mesh,
-                      "multichip": multichip, "card": smi},
+                      "multichip": multichip, "obs": observed,
+                      "card": smi},
                      default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
@@ -7763,7 +8490,9 @@ def main() -> int:
                     "served": serve["launches"]["flash_attention"],
                     "pool": pool_launches["flash_attention"],
                     "mesh": mesh["launches"]["flash_attention"],
-                    "multichip": multichip["launches"]["flash_attention"]},
+                    "multichip": multichip["launches"]["flash_attention"],
+                    "observability":
+                        observed["launches"]["flash_attention"]},
                    b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
@@ -7776,7 +8505,9 @@ def main() -> int:
                     "pool": pool_launches["flash_attention_step"],
                     "mesh": mesh["launches"]["flash_attention_step"],
                     "multichip":
-                        multichip["launches"]["flash_attention_step"]},
+                        multichip["launches"]["flash_attention_step"],
+                    "observability":
+                        observed["launches"]["flash_attention_step"]},
                    b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

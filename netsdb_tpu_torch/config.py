@@ -23,21 +23,7 @@ _LATER = {
     "rebalance_max_bytes_per_round": (64 * 1024 * 1024, "A7 part 2"),
     "ha_election_timeout_s": (5.0, "A7 part 2"),
     "ha_mutlog": (False, "A7 part 2"),
-    # A8: the scheduler's feedback loop and SLO shedding read obs.attrib
-    # and obs.slo
-    "sched_feedback": (False, "A8"),
-    "sched_feedback_every": (64, "A8"),
-    "sched_slo_shed": (False, "A8"),
-    # A8: the parts of obs/ the port does not have yet, the lock witness
-    "obs_enabled": (True, "A8"),
-    "obs_trace_ring": (64, "A8"),
-    "obs_hist_samples": (512, "A8"),
-    "obs_trace_sample": (1, "A8"),
-    "obs_slow_query_s": (5.0, "A8"),
-    "obs_slowlog_entries": (64, "A8"),
-    "obs_device_profile_dir": (None, "A8"),
-    "obs_history_interval_s": (5.0, "A8"),
-    "obs_history_len": (120, "A8"),
+    # A8: the lock-order witness
     "lock_witness": (False, "A8"),
 }
 
@@ -115,8 +101,24 @@ class Configuration:
     ``session_state_bytes`` (>= 0); the decode runtime's
     ``decode_batch_max`` (>= 1) and ``model_dedup``.
 
-    Every knob of a later ROADMAP.md item (``_LATER``: the daemon pool, the scheduler's feedback, the rest of obs, the lock
-    witness) raises ``NotImplementedError`` naming its item when set
+    Observability keeps the reference's knobs and defaults: the served
+    daemon traces queries unless ``obs_enabled`` is off, keeps the last
+    ``obs_trace_ring`` profiles, mints a query id for 1 in
+    ``obs_trace_sample`` (>= 1) client requests, logs a profile of
+    ``obs_slow_query_s`` or more to ``<root_dir>/slowlog/`` (at most
+    ``obs_slowlog_entries`` files), profiles traced queries with
+    ``torch.profiler`` into ``obs_device_profile_dir`` when set, and
+    snapshots the registry every ``obs_history_interval_s`` (0: no
+    thread) into a ring of ``obs_history_len`` readings.
+    ``obs_hist_samples`` is taken as given: the registry's histograms
+    keep 512 samples, and the reference reads the knob nowhere either.
+    ``sched_feedback`` reseeds the scheduler's lane weights and quotas
+    from the attribution and operator ledgers every
+    ``sched_feedback_every`` admissions; ``sched_slo_shed`` halves the
+    heaviest lane's quota while an objective breaches on every window.
+
+    Every knob of a later ROADMAP.md item (``_LATER``: the daemon pool,
+    the lock witness) raises ``NotImplementedError`` naming its item when set
     away from its default."""
 
     # --- tensor blocking ---
@@ -219,6 +221,9 @@ class Configuration:
             raise NotImplementedError(
                 "Configuration(compilation_cache_dir=<dir>): a persisted "
                 "compiled plan is not ported yet: ROADMAP.md A8")
+        if self.obs_trace_sample < 1:
+            raise ValueError(f"obs_trace_sample must be >= 1, got "
+                             f"{self.obs_trace_sample!r}")
         if self.device_cache_dirty_log < 1:
             raise ValueError(f"device_cache_dirty_log must be at least 1, "
                              f"got {self.device_cache_dirty_log!r}")

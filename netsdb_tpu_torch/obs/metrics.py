@@ -13,9 +13,9 @@ instruments that every layer reports into —
 
 Standard library only: one lock-guarded add per tick, and a snapshot of
 plain ints, floats, strings and dicts, so the serve layer's
-COLLECT_STATS frame ships it as it is. The telemetry history and the
-OpenMetrics export that read :meth:`MetricsRegistry.numeric_snapshot`
-belong to ROADMAP.md A8."""
+COLLECT_STATS frame ships it as it is. The telemetry history
+(``obs/history.py``) rings :meth:`MetricsRegistry.numeric_snapshot`; the
+OpenMetrics export (``obs/export.py``) renders :meth:`snapshot`."""
 
 from __future__ import annotations
 

@@ -325,9 +325,18 @@ def _summa_tensor_route(tfold, pt: PagedTensor, others) -> Any:
             sp.counters["summa.rounds"] = stats.get("rounds", 0)
     obs.operators.op_add("summa.participants", stats.get("participants", 0))
     obs.operators.op_add("summa.rounds", stats.get("rounds", 0))
+    _account_chunks(stats.get("rounds", 0), scope)
     if tfold.out_block is not None:
         return _reblock(dense, tfold.out_block)
     return _reblock(dense, tuple(dense.shape))
+
+
+def _account_chunks(n: int, scope) -> None:
+    """Book a paged tensor's blocks (or SUMMA rounds) as
+    ``executor.chunks`` of its set (``scope``: the handle's (set,
+    version) cache scope, or None)."""
+    obs.attrib.account("executor.chunks", n,
+                       scope=None if scope is None else str(scope[0]))
 
 
 def _run_tensor_stream(node, tfold, in_vals: List[Any], src: int,
@@ -408,9 +417,15 @@ def _run_tensor_stream(node, tfold, in_vals: List[Any], src: int,
                  if step_jit is not None else step)
         total = pt.store.meta(pt.name)[0][0]
         dense, blocked, off = None, False, 0
-        with stream(place) as blocks:
+        clock = obs.DeviceClock(pt.device)
+        nblk = 0
+        with obs.span("executor.tensor_rows", "executor") as sp, \
+                stream(place) as blocks:
             for n, block in blocks:
+                mark = clock.start()
                 out = jstep(block, *others)
+                clock.stop(mark)
+                nblk += 1
                 if isinstance(out, BlockedTensor):
                     blocked = True
                     out = out.to_dense()
@@ -424,6 +439,10 @@ def _run_tensor_stream(node, tfold, in_vals: List[Any], src: int,
                 # before the next step: a program's output is its graph's
                 dense[off:off + n].copy_(out[:n])
                 off += n
+            if sp is not None:
+                sp.counters["blocks"] = nblk
+            clock.commit(sp)
+        _account_chunks(nblk, scope)
         if tfold.out_block is not None:
             return _reblock(dense, tfold.out_block)
         return _reblock(dense, tuple(dense.shape)) if blocked else dense
@@ -433,9 +452,19 @@ def _run_tensor_stream(node, tfold, in_vals: List[Any], src: int,
         return start, upload(block)
 
     carry = None
-    with stream(place) as blocks:
+    clock = obs.DeviceClock(pt.device)
+    nblk = 0
+    with obs.span("executor.tensor_reduce", "executor") as sp, \
+            stream(place) as blocks:
         for start, block in blocks:
+            mark = clock.start()
             carry = tfold.partial(carry, start, block, *others)
+            clock.stop(mark)
+            nblk += 1
+        if sp is not None:
+            sp.counters["blocks"] = nblk
+        clock.commit(sp)
+    _account_chunks(nblk, scope)
     if tfold.finalize is not None:
         return tfold.finalize(carry, *others)
     return carry
@@ -469,6 +498,7 @@ def _run_fold_once(fold, pc: PagedColumns, resident, step_jit=None,
             resident, placement.mesh(visible_devices(pc.device.type)))
     else:
         resident = sharded.gathered(resident)
+    clock = obs.DeviceClock(pc.device)
     with obs.span("executor.fold_stream", "executor") as sp:
         n = 0
         for init, step in _fold_steps(fold, step_jit):
@@ -478,15 +508,19 @@ def _run_fold_once(fold, pc: PagedColumns, resident, step_jit=None,
             with contextlib.closing(
                     pc.stream_tables(placement=placement)) as chunks:
                 for chunk in chunks:
+                    mark = clock.start()
                     if views is None:
                         state = step(state, chunk, *resident)
                     else:
                         state = sharded.step_placed(step, state, chunk,
                                                     views)
+                    clock.stop(mark)
                     n += 1
         if sp is not None:
             sp.counters["chunks"] = n
+        clock.commit(sp)
     obs.operators.op_add("chunks", n)
+    obs.attrib.account("executor.chunks", n, scope=pc.cache_scope)
     if views is None:
         return fold.finalize(state, pc, *resident)
     return fold.finalize(sharded.moved(state, pc.device), pc, *views[0])
@@ -555,6 +589,7 @@ def _run_fold_grace(fold, pc: PagedColumns, rest, bi: int,
                     name=f"grace-build:{build_pc.name}",
                     uploader=uploader)) as builds:
             npairs = nchunks = 0
+            clock = obs.DeviceClock(pc.device)
             for p, btab in builds:
                 part_res = list(rest)
                 part_res[bi] = btab
@@ -568,7 +603,9 @@ def _run_fold_grace(fold, pc: PagedColumns, rest, bi: int,
                     with contextlib.closing(
                             _part_chunks(probe_parts[p])) as chunks:
                         for chunk in chunks:
+                            mark = clock.start()
                             state = step(state, chunk, *part_res)
+                            clock.stop(mark)
                             nchunks += 1
                 part = fold.finalize(state, pc, *part_res)
                 out = part if out is None else fold.merge(out, part)
@@ -576,8 +613,11 @@ def _run_fold_grace(fold, pc: PagedColumns, rest, bi: int,
             if gsp is not None:
                 gsp.counters["pairs"] = npairs
                 gsp.counters["chunks"] = nchunks
+            clock.commit(gsp)
         obs.operators.op_add("chunks", nchunks)
         obs.operators.op_add("pairs", npairs)
+        # a join-heavy client's chunks book like any other fold's
+        obs.attrib.account("executor.chunks", nchunks, scope=pc.cache_scope)
     finally:
         # after the build stager was joined: no upload reads them now
         for prt in build_parts + probe_parts:
@@ -868,7 +908,11 @@ def _execute_streamed(client, plan: LogicalPlan,
                if recorder is not None else contextlib.nullcontext())
         with obs.span("executor.fusion_region", "executor") as sp, \
                 ctx as opr:
+            clock = obs.DeviceClock(device)
+            mark = clock.start()
             outs = prog(*args)
+            clock.stop(mark)
+            clock.commit(sp)
             if sp is not None:
                 sp.counters["nodes"] = len(nodes)
             if opr is not None:
@@ -1091,11 +1135,15 @@ def _run_whole_plan(client, plan: LogicalPlan, scans: Dict[int, Any],
                    if not isinstance(n, (ScanSet, WriteSet))])
     args = {canon[nid]: v for nid, v in scans.items()}
     with obs.span("executor.whole_plan_jit", "executor") as sp:
+        clock = obs.DeviceClock(device)
         t0 = time.perf_counter()
+        mark = clock.start()
         out_list = prog(args)
+        clock.stop(mark)
         wall = time.perf_counter() - t0
         if sp is not None:
             sp.counters["wall_s"] = wall
+        clock.commit(sp)
     if recorder is not None:
         # one program ran every node: the tree keeps the plan's shape,
         # nodes marked fused, under one root with the program's time

@@ -42,6 +42,14 @@ the reference. The reference's donated fold accumulators have no
 counterpart here: the executor accumulates into its carry in place.
 Counters (chunks, bytes, copies, wait seconds, cached runs) are kept per
 stream (``StagedStream.stats``) and for the module (:func:`counters`).
+As in the reference, each chunk handed to a consumer also ticks the
+metrics registry (``staging.chunks``, ``staging.bytes`` and the
+``staging.wait_s`` histogram the staging-wait SLO reads), the query
+trace captured on the consumer's thread (``stage.chunks``,
+``stage.bytes``, ``stage.wait_s``; a run served wholly from the device
+cache adds ``stage.cached_runs``), the plan node being recorded and,
+for a set's stream, the per-(client, set) attribution ledger
+(``staged_chunks``, ``staged_bytes``).
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from netsdb_tpu_torch import obs
 from netsdb_tpu_torch.storage.devcache import _value_nbytes, to_device
 
 # ---------------------------------------------------------------------
@@ -320,6 +329,10 @@ def active_count() -> int:
         return len(_stagers)
 
 
+obs.REGISTRY.register_collector(
+    "staging", lambda: {"active_stagers": active_count()})
+
+
 def _stage_put(q: "queue.Queue", stop: threading.Event, item) -> bool:
     """Bounded put that gives up once the consumer closed the stream."""
     while not stop.is_set():
@@ -332,7 +345,7 @@ def _stage_put(q: "queue.Queue", stop: threading.Event, item) -> bool:
 
 
 def _stage_worker(source, place, q: "queue.Queue", stop: threading.Event,
-                  on_complete, uploader) -> None:
+                  on_complete, uploader, want_nbytes: bool) -> None:
     """The staging thread. A free function over explicit state, never a
     bound method: the thread must not keep its StagedStream alive, or an
     abandoned stream could never be collected. ``on_complete`` runs only
@@ -343,8 +356,10 @@ def _stage_worker(source, place, q: "queue.Queue", stop: threading.Event,
             for item in source:
                 if stop.is_set():
                     return
-                if not _stage_put(q, stop,
-                                  (_ITEM, _place_one(place, item, uploader))):
+                placed, fence = _place_one(place, item, uploader)
+                # sized here, overlapped with the consumer's compute
+                nbytes = _value_nbytes(placed) if want_nbytes else None
+                if not _stage_put(q, stop, (_ITEM, (placed, fence, nbytes))):
                     return  # the consumer abandoned the stream
         finally:
             # the worker owns the source: close it here, so its locks
@@ -366,12 +381,16 @@ class StagedStream:
     thread; ``depth <= 0`` places inline on the consumer's thread (no
     overlap, same results). ``uploader`` (a :class:`BlockUploader`)
     gives ``place`` its copy stream and orders each block for the
-    consumer."""
+    consumer. ``scope`` ("db:set") names the set the attribution ledger
+    books the staged bytes to (None: a temporary, unattributed); the
+    trace, the client identity and the plan node are captured here, on
+    the consumer's thread."""
 
     def __init__(self, source: Iterable, place: Callable[[Any], Any],
                  depth: int = 2, name: str = "stage",
                  on_complete: Optional[Callable[[], None]] = None,
-                 uploader: Optional[BlockUploader] = None):
+                 uploader: Optional[BlockUploader] = None,
+                 scope: Optional[str] = None):
         self._source = iter(source)
         self._place = place
         self._depth = int(depth)
@@ -380,6 +399,12 @@ class StagedStream:
         self._on_complete = on_complete
         self._uploader = uploader
         self.stats = {"chunks": 0, "wait_s": 0.0}
+        self._trace = obs.current_trace()
+        self._scope = scope
+        self._client = obs.attrib.current_client()
+        self._op = obs.operators.current_op()
+        self._want_nbytes = (scope is not None or self._trace is not None
+                             or self._op is not None)
         self._thread: Optional[threading.Thread] = None
         if self._depth > 0:
             self._q: "queue.Queue" = queue.Queue(maxsize=self._depth)
@@ -387,7 +412,7 @@ class StagedStream:
             self._thread = threading.Thread(
                 target=_stage_worker,
                 args=(self._source, place, self._q, self._stop, on_complete,
-                      uploader),
+                      uploader, self._want_nbytes),
                 daemon=True, name=f"netsdb-stage-{name}")
             with _stagers_lock:
                 _stagers[:] = [t for t in _stagers if t.is_alive()]
@@ -397,12 +422,40 @@ class StagedStream:
     def __iter__(self) -> Iterator[Any]:
         return self
 
-    def _deliver(self, placed, fence, wait_s: float):
+    def _deliver(self, placed, fence, nbytes: Optional[int], wait_s: float):
         _hand_over(placed, fence, self._uploader)
         self.stats["chunks"] += 1
         self.stats["wait_s"] += wait_s
         _count(chunks=1, wait_s=wait_s)
+        self._account(nbytes, wait_s)
         return placed
+
+    def _account(self, nbytes: Optional[int], wait_s: float) -> None:
+        """One chunk's ticks (module docstring); ``nbytes`` was sized on
+        the staging thread."""
+        obs.REGISTRY.counter("staging.chunks").inc()
+        if nbytes:
+            obs.REGISTRY.counter("staging.bytes").inc(int(nbytes))
+        if wait_s > 0:
+            obs.REGISTRY.histogram("staging.wait_s").observe(wait_s)
+        if self._op is not None:
+            self._op.add("stage.chunks")
+            if nbytes:
+                self._op.add("stage.bytes", nbytes)
+            if wait_s > 0:
+                self._op.add("stage.wait_s", wait_s)
+        if self._scope is not None:
+            obs.attrib.account("staged_chunks", 1, scope=self._scope,
+                               client=self._client)
+            obs.attrib.account("staged_bytes", nbytes or 0,
+                               scope=self._scope, client=self._client)
+        tr = self._trace
+        if tr is None:
+            return
+        tr.add("stage.chunks")
+        tr.add("stage.bytes", nbytes or 0)
+        if wait_s > 0:
+            tr.add("stage.wait_s", wait_s)
 
     def __next__(self):
         if self._closed:
@@ -417,8 +470,10 @@ class StagedStream:
                 finally:
                     self.close()
                 raise
-            return self._deliver(*_place_one(self._place, item,
-                                             self._uploader), 0.0)
+            placed, fence = _place_one(self._place, item, self._uploader)
+            return self._deliver(
+                placed, fence,
+                _value_nbytes(placed) if self._want_nbytes else None, 0.0)
         t0 = time.perf_counter()
         while True:
             try:
@@ -501,6 +556,7 @@ class _CacheRecorder:
     larger than the cache streams with only ``depth`` blocks live."""
 
     def __init__(self, cache, key, place, validator=None, uploader=None):
+        self._client = obs.attrib.current_client()
         self._cache = cache
         self._key = key
         self._place = place
@@ -529,7 +585,7 @@ class _CacheRecorder:
         if self._uploader is not None:
             self._uploader.settle()  # install only landed blocks
         self._cache.install(self._key, self._blocks,
-                            validator=self._validator)
+                            validator=self._validator, client=self._client)
 
 
 class PartialPlan:
@@ -557,6 +613,7 @@ class _BlockInstaller:
 
     def __init__(self, cache, base_key, gap_ranges, epoch, place,
                  uploader=None):
+        self._client = obs.attrib.current_client()
         self._cache = cache
         self._base_key = base_key
         self._gaps = list(gap_ranges)  # consumed in order
@@ -590,7 +647,8 @@ class _BlockInstaller:
     def complete(self) -> None:
         self._flush()
         if self._installed == len(self._gaps):
-            self._cache.record_run_install()
+            self._cache.record_run_install(str(self._base_key[0]),
+                                           client=self._client)
 
 
 class _StitchedStream:
@@ -598,11 +656,12 @@ class _StitchedStream:
     cached ranges come from device memory (no page read, no copy), gap
     ranges through the normal pipeline; the consumer sees one stream."""
 
-    def __init__(self, segments, staged, cache):
+    def __init__(self, segments, staged, cache, scope: str):
         # segments: [("hit", block) | ("gap", None)] in block order
         self._segments = segments
         self._staged = staged
         self._cache = cache
+        self._scope = scope
         self._i = 0
         self._closed = False
         # a contiguous run of cached blocks is one stitched range
@@ -622,7 +681,8 @@ class _StitchedStream:
         kind, block = self._segments[self._i]
         self._i += 1
         if kind == "hit":
-            self._cache.tick_partial(1, self._pending_ranges)
+            self._cache.tick_partial(1, self._pending_ranges,
+                                     scope=self._scope)
             self._pending_ranges = 0
             _count(chunks=1)
             return _used_here(block)
@@ -644,33 +704,43 @@ class _StitchedStream:
             self.close()
 
 
+def _cached_run_hit() -> None:
+    """A run served wholly from the device cache: the query profile's
+    zero-transfer marker, on the consuming plan node too."""
+    _count(cached_runs=1)
+    obs.add("stage.cached_runs")
+    obs.operators.op_add("stage.cached_runs")
+
+
 def _stage_partial(plan: PartialPlan, place, depth: int, name: str,
-                   uploader):
+                   uploader, scope: Optional[str]):
     """The partial-cache leg of :func:`stage_stream`: consult, stitch,
     install as blocks stream."""
+    scope = scope if scope is not None else str(plan.base_key[0])
     epoch, covered = plan.cache.plan_ranges(plan.base_key, plan.ranges)
     gaps = [i for i, r in enumerate(plan.ranges) if r not in covered]
     if not gaps:
-        _count(cached_runs=1)
+        _cached_run_hit()
         return _StitchedStream([("hit", covered[r]) for r in plan.ranges],
-                               None, plan.cache)
+                               None, plan.cache, scope)
     rec = _BlockInstaller(plan.cache, plan.base_key,
                           [plan.ranges[i] for i in gaps], epoch, place,
                           uploader)
     staged = StagedStream(plan.source_for(gaps), rec, depth=depth,
                           name=name, on_complete=rec.complete,
-                          uploader=uploader)
+                          uploader=uploader, scope=scope)
     if not covered:
         return staged
     return _StitchedStream([("hit", covered[r]) if r in covered
                             else ("gap", None) for r in plan.ranges],
-                           staged, plan.cache)
+                           staged, plan.cache, scope)
 
 
 def stage_stream(source: Optional[Iterable], place: Callable[[Any], Any],
                  depth: int = 2, name: str = "stage", cache=None,
                  cache_key=None, cache_validator=None, partial=None,
-                 uploader: Optional[BlockUploader] = None):
+                 uploader: Optional[BlockUploader] = None,
+                 scope: Optional[str] = None):
     """Wrap ``source`` so that ``place`` runs up to ``depth`` items ahead
     on a background thread — the one constructor every streamed
     consumer goes through.
@@ -681,20 +751,27 @@ def stage_stream(source: Optional[Iterable], place: Callable[[Any], Any],
     (``cache_validator``, no-arg -> bool, re-checks the key at install
     time). ``partial`` (a :class:`PartialPlan`) takes the block-granular
     path instead, ignoring ``source``. ``uploader`` gives ``place`` its
-    copy stream (see :class:`BlockUploader`)."""
+    copy stream (see :class:`BlockUploader`). ``scope`` ("db:set") is the
+    set the attribution ledger books the staged bytes to; it defaults to
+    the cache key's first part, and a stream with neither (a grace-hash
+    spill) is unattributed."""
     if partial is not None and partial.cache.enabled \
             and partial.cache.partial and partial.ranges:
-        return _stage_partial(partial, place, depth, name, uploader)
+        return _stage_partial(partial, place, depth, name, uploader, scope)
     if partial is not None and source is None:
         source = partial.source_for(None)
+    if scope is None and cache_key is not None:
+        scope = str(cache_key[0])
     if cache is not None and cache_key is not None and cache.enabled:
         hit = cache.get(cache_key)
         if hit is not None:
-            _count(cached_runs=1, chunks=len(hit))
+            _count(chunks=len(hit))
+            _cached_run_hit()
             return _CachedRun(hit)
         rec = _CacheRecorder(cache, cache_key, place, cache_validator,
                              uploader)
         return StagedStream(source, rec, depth=depth, name=name,
-                            on_complete=rec.complete, uploader=uploader)
+                            on_complete=rec.complete, uploader=uploader,
+                            scope=scope)
     return StagedStream(source, place, depth=depth, name=name,
-                        uploader=uploader)
+                        uploader=uploader, scope=scope)

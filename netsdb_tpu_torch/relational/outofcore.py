@@ -35,6 +35,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from netsdb_tpu_torch import obs
 from netsdb_tpu_torch.config import resolve_device
 from netsdb_tpu_torch.relational.stats import (ColumnStats, analyze_array,
                                                inject_stats)
@@ -527,6 +528,10 @@ class PagedColumns:
         """The whole relation as one table of CPU columns, assembled on
         the host (the flush path and ``get_table``): device memory is
         never touched."""
+        with obs.span(f"ooc.host_assemble:{self.name}", "storage"):
+            return self._to_host_table()
+
+    def _to_host_table(self) -> ColumnTable:
         parts: Dict[str, List[np.ndarray]] = {}
         n_done = 0
         with self.rw.read():
@@ -639,7 +644,9 @@ def partition_by_key(pc: PagedColumns, key: str, nparts: int,
 
     want = None if columns is None else sorted(set(columns) | {key})
     # the page matrices unpadded, projected: whole rows move per partition
-    with contextlib.closing(pc._raw_stream(prefetch=2, columns=want)) as raw:
+    with obs.span(f"ooc.partition:{pc.name}", "storage"), \
+            contextlib.closing(pc._raw_stream(prefetch=2,
+                                              columns=want)) as raw:
         for start, n, blocks in raw:
             kv = next(b[:, names.index(key)] for names, b in blocks
                       if key in names)

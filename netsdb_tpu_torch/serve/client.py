@@ -32,16 +32,24 @@ parallel, each slot's batch under its own idempotency token. A refusal
 for a stale epoch (``PlacementStaleError``) re-reads the map and
 re-routes at once.
 
+Query-shaped requests (``TRACED_TYPES``) carry a query id minted 1 in
+``trace_sample`` (``obs.QidSampler``) and run inside a client-side trace
+(``client.send`` and ``client.wait`` spans); the daemon traces its part
+under the same id. With ``ship_traces`` the finished client profile is
+shipped to the daemon (PUT_TRACE) by a background thread over its own
+connection, so GET_TRACE (:meth:`RemoteClient.get_trace`) returns one
+merged profile; :meth:`RemoteClient.flush_traces` waits for the queue.
+
 Replicas with hedged reads, HA failover, rebalancing (``add_worker``,
 ``rebalance_status``) and type-source shipping belong to ROADMAP.md A7
-part 2, the trace export (GET_TRACE, PUT_TRACE, GET_METRICS) to A8: each
-raises ``NotImplementedError`` naming its item."""
+part 2: each raises ``NotImplementedError`` naming its item."""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import pickle
+import queue as _queue
 import random
 import socket
 import threading
@@ -83,6 +91,7 @@ from netsdb_tpu_torch.serve.protocol import (
     PROTO_VERSION,
     PY_KEY,
     PY_TAG,
+    QUERY_ID_KEY,
     SESSION_KEY,
     SHARD_SLOT_KEY,
     MsgType,
@@ -93,6 +102,12 @@ from netsdb_tpu_torch.serve.protocol import (
 )
 from netsdb_tpu_torch.utils.locks import TrackedLock
 from netsdb_tpu_torch.utils.timing import deadline_after, seconds_left
+
+#: frame types that open a client-side trace and mint the query id the
+#: daemon's trace joins on (decode steps trace too)
+TRACED_TYPES = frozenset({MsgType.EXECUTE_COMPUTATIONS,
+                          MsgType.EXECUTE_PLAN,
+                          MsgType.GENERATE})
 
 
 @dataclasses.dataclass
@@ -207,17 +222,19 @@ class RemoteClient:
         ingest streams ~``ingest_chunk_bytes`` chunks with up to
         ``ingest_window`` in flight. ``client_id`` rides every frame
         (the scheduler's default lane); ``lane`` names a scheduler lane.
-        ``trace_sample`` and ``ship_traces`` concern the client half of
-        query traces, which ship to the daemon's trace ring (ROADMAP.md
-        A8): no trace is minted. ``replicas``, ``hedge_delay_s``,
-        ``failover`` and ``chaos`` raise (ROADMAP.md A7 part 2)."""
+        ``trace_sample``: a query id (and so an end-to-end trace) for 1
+        in N query-shaped requests (None: ``Configuration``'s
+        ``obs_trace_sample``, 1). ``ship_traces``: ship each finished
+        client trace to the daemon (PUT_TRACE) from a background thread,
+        best effort — a lost ship costs the client section, never the
+        request. ``replicas``, ``hedge_delay_s``, ``failover`` and
+        ``chaos`` raise (ROADMAP.md A7 part 2)."""
         for name, value in (("replicas", replicas),
                             ("hedge_delay_s", hedge_delay_s),
                             ("failover", failover), ("chaos", chaos)):
             if value:
                 _later(f"RemoteClient({name}=...) (replicas, hedged reads, "
                        f"failover, fault injection)", "A7 part 2")
-        del trace_sample, ship_traces
         host, _, port = address.rpartition(":")
         self.host = host or "127.0.0.1"
         self.port = int(port)
@@ -237,6 +254,18 @@ class RemoteClient:
         self.ingest_chunk_bytes = max(64 << 10, int(ingest_chunk_bytes))
         self.client_id = client_id
         self.lane = lane
+        if trace_sample is None:
+            from netsdb_tpu_torch.config import Configuration
+
+            trace_sample = Configuration.obs_trace_sample
+        self._trace_sample = max(1, int(trace_sample))
+        # this client's own sampling phase (obs.QidSampler)
+        self._qid_sampler = obs.QidSampler()
+        self.ship_traces = bool(ship_traces)
+        # the PUT_TRACE shipper, started with the first shipped trace
+        self._ship_mu = TrackedLock("RemoteClient._ship_mu")
+        self._ship_q: Optional["_queue.Queue"] = None
+        self._ship_thread: Optional[threading.Thread] = None
         #: True when the daemon named this interpreter in its HELLO
         #: reply: the pickle codec is usable
         self.pickle_ok = False
@@ -422,7 +451,9 @@ class RemoteClient:
                  deadline_s: Optional[float] = None) -> Any:
         """One logical request: an idempotency token on mutating frames
         (the same for every attempt), the client identity and lane on
-        every frame, then :meth:`_retry_driver`."""
+        every frame, a sampled query id on query-shaped frames, then
+        :meth:`_retry_driver`. A traced request ships its client profile
+        afterwards (``ship_traces``)."""
         self._check_codec(codec)
         if isinstance(payload, dict):
             extra = {}
@@ -435,6 +466,14 @@ class RemoteClient:
             if extra:
                 payload = dict(payload)
                 payload.update(extra)
+        qid = None
+        if msg_type in TRACED_TYPES and isinstance(payload, dict) \
+                and QUERY_ID_KEY not in payload and obs.enabled():
+            # one id per logical query (retries reuse it)
+            qid = self._qid_sampler.sample(self._trace_sample)
+            if qid is not None:
+                payload = dict(payload)
+                payload[QUERY_ID_KEY] = qid
         oneshot = self._stream_owner == threading.get_ident()
 
         def attempt(io_timeout):
@@ -444,7 +483,80 @@ class RemoteClient:
             return self._request_once(msg_type, payload, codec,
                                       io_timeout=io_timeout)
 
-        return self._retry_driver(attempt, deadline_s)
+        if qid is None:
+            return self._retry_driver(attempt, deadline_s)
+        with obs.trace(qid, origin="client") as tr:
+            out = self._retry_driver(attempt, deadline_s)
+        if tr is not None and self.ship_traces:
+            self._ship_trace(qid, tr)
+        return out
+
+    def _ship_trace(self, qid: str, tr) -> None:
+        """Queue a finished client trace for the shipper thread — never
+        on the caller's path. A full queue drops the profile
+        (``serve.client.trace_ship_dropped``)."""
+        with self._ship_mu:
+            if self._ship_q is None:
+                self._ship_q = _queue.Queue(maxsize=64)
+                self._ship_thread = threading.Thread(
+                    target=self._ship_loop, args=(self._ship_q,),
+                    daemon=True, name="netsdb-torch-trace-ship")
+                self._ship_thread.start()
+            q = self._ship_q
+        try:
+            q.put_nowait({"qid": qid, "profile": tr.profile_dict})
+        except _queue.Full:
+            obs.REGISTRY.counter("serve.client.trace_ship_dropped").inc()
+
+    def _ship_loop(self, q: "_queue.Queue") -> None:
+        """The shipper: PUT_TRACE each queued profile over its own
+        connection (the request connection and its lock stay untouched),
+        re-dialling after a failure; failures are counted. Ends at the
+        None that :meth:`close` queues."""
+        sock = None
+        try:
+            while True:
+                item = q.get()
+                try:
+                    if item is None:
+                        return
+                    try:
+                        if sock is None:
+                            sock = self._dial()
+                        send_frame(sock, MsgType.PUT_TRACE, item,
+                                   CODEC_MSGPACK)
+                        typ, reply = self._recv_reply(sock)
+                        if typ == MsgType.ERR:
+                            raise classify_remote(reply)
+                        obs.REGISTRY.counter(
+                            "serve.client.traces_shipped").inc()
+                    except Exception as e:  # noqa: BLE001 — counted
+                        obs.REGISTRY.counter(
+                            "serve.client.trace_ship_failures").inc()
+                        del e
+                        if sock is not None:
+                            sock.close()
+                            sock = None
+                finally:
+                    q.task_done()
+        finally:
+            if sock is not None:
+                sock.close()
+
+    def flush_traces(self, timeout_s: float = 5.0) -> bool:
+        """Wait until every queued client trace has shipped (or failed),
+        up to ``timeout_s``; True when the queue drained."""
+        q = self._ship_q
+        if q is None:
+            return True
+        deadline = deadline_after(timeout_s)
+        with q.all_tasks_done:
+            while q.unfinished_tasks:
+                left = seconds_left(deadline)
+                if left <= 0:
+                    return False
+                q.all_tasks_done.wait(left)
+        return True
 
     # --- windowed bulk ingest (BULK_BEGIN/CHUNK/COMMIT) ---------------
     def _bulk_once(self, sock: socket.socket, begin: dict, chunk_fn) -> Any:
@@ -544,6 +656,17 @@ class RemoteClient:
                 pass
 
     def close(self) -> None:
+        with self._ship_mu:
+            q, t = self._ship_q, self._ship_thread
+            self._ship_q = self._ship_thread = None
+        if q is not None:
+            # a bounded grace for ships in flight, then the shipper ends
+            try:
+                q.put_nowait(None)
+            except _queue.Full:
+                pass
+            if t is not None:
+                t.join(timeout=2.0)
         with self._placement_mu:
             shard_clients = list(self._shard_clients.values())
             self._shard_clients.clear()
@@ -1292,15 +1415,28 @@ class RemoteClient:
     def health(self) -> Dict[str, Any]:
         return self._request(MsgType.HEALTH, {})
 
-    def get_trace(self, *args, **kwargs):
-        _later("get_trace (the daemon's trace ring)", "A8")
+    def get_trace(self, last: Optional[int] = None,
+                  qid: Optional[str] = None,
+                  slow: bool = False) -> Dict[str, Any]:
+        """Finished query profiles from the daemon's ring, newest last:
+        the last ``last``, or one query's (``qid``). A profile whose
+        client shipped its spans carries them as ``client``; on a pool
+        leader each carries its workers' profiles under ``shards``.
+        ``slow=True`` reads the daemon's slow-query log instead."""
+        return self._request(MsgType.GET_TRACE,
+                             {"last": last, "qid": qid, "slow": bool(slow)})
 
-    def flush_traces(self, timeout_s: float = 5.0) -> bool:
-        """No client trace ships (ROADMAP.md A8): nothing to wait for."""
-        return True
-
-    def get_metrics(self, *args, **kwargs):
-        _later("get_metrics (telemetry history and export)", "A8")
+    def get_metrics(self, format: Optional[str] = None,
+                    window_s: Optional[float] = None) -> Dict[str, Any]:
+        """The daemon's registry snapshot with the telemetry history's
+        summary and rates over ``window_s``; ``format="openmetrics"``:
+        the Prometheus text exposition instead (``{"text": ...}``)."""
+        payload: Dict[str, Any] = {}
+        if format:
+            payload["format"] = format
+        if window_s is not None:
+            payload["window_s"] = float(window_s)
+        return self._request(MsgType.GET_METRICS, payload)
 
     def placement_view(self) -> Dict[str, Any]:
         """The leader's live placement table: per-slot owner, state and

@@ -21,14 +21,17 @@ Decisions are observable: ``sched.*`` metrics in the registry, a
 ``sched`` collector section in COLLECT_STATS, and per-query trace
 annotations and ``server.sched.*`` spans.
 
-This is the port's copy of ``netsdb_tpu/serve/sched/``; the feedback,
-shedding and pin auto-sizing passes raise (see :class:`QueryScheduler`).
+This is the port's copy of ``netsdb_tpu/serve/sched/``, with the
+feedback loop (lane weights and quotas reseeded from the attribution and
+operator ledgers) and the SLO load shedding; pin auto-sizing and the
+rebalance cadence raise (see :class:`QueryScheduler`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import threading
 from typing import Any, Dict, Iterable, Optional
 
 from netsdb_tpu_torch import obs
@@ -43,6 +46,7 @@ from netsdb_tpu_torch.serve.sched.queue import (  # noqa: F401 — re-exported
     AdmissionTicket,
     LaneScheduler,
 )
+from netsdb_tpu_torch.utils.locks import TrackedLock
 
 #: the dispatch-extent lane hint (LANE_KEY popped off the frame) — the
 #: same zero-plumbing propagation the client identity uses
@@ -74,12 +78,16 @@ class QueryScheduler:
     affinity behind one object, exported as the registry's ``sched``
     collector section.
 
-    The reference's feedback loop (lane weights and quotas reseeded from
-    the attribution and operator ledgers), its SLO load shedding, the
-    pin-budget auto-sizing and the rebalance cadence read ``obs.attrib``,
-    ``obs.slo`` and the shard pool: asking for any of them raises
-    ``NotImplementedError`` naming its ROADMAP.md item. The pure
-    formulas they would apply are ported (``sched/feedback.py``)."""
+    ``feedback=True`` reseeds the lane weights and quotas from the
+    attribution and operator ledgers every ``feedback_every`` admissions
+    (``sched/feedback.py``'s formula); ``slo_source`` (a no-arg callable
+    naming the objectives breached on every window, ``SLOEngine.
+    breached_objectives``) halves the heaviest lane's quota while any
+    breach lasts. Both run on the same cadence, on a background thread
+    off the admission path. The pin-budget auto-sizing (``pin_auto``)
+    and the rebalance cadence (``rebalance_cb``) belong to the daemon
+    pool and raise ``NotImplementedError`` naming ROADMAP.md A7 part
+    2."""
 
     def __init__(self, slots: int,
                  lanes: Optional[Dict[str, float]] = None,
@@ -92,17 +100,21 @@ class QueryScheduler:
                  cache_probe=None,
                  feedback: bool = False, feedback_every: int = 64,
                  slo_source=None, pin_auto=None, rebalance_cb=None):
-        if feedback or slo_source is not None or pin_auto is not None:
+        if pin_auto is not None or rebalance_cb is not None:
             raise NotImplementedError(
-                "scheduler feedback, SLO shedding and pin auto-sizing read "
-                "the attribution ledger and obs.slo, which are not ported "
-                "yet: ROADMAP.md A8")
-        if rebalance_cb is not None:
-            raise NotImplementedError(
-                "the rebalance cadence needs the shard pool: ROADMAP.md A7 "
+                "pin-budget auto-sizing and the rebalance cadence belong to "
+                "the daemon pool, which is not ported yet: ROADMAP.md A7 "
                 "part 2")
         self.lanes = LaneScheduler(slots, lanes=lanes, quota=quota,
                                    aging_every=aging_every)
+        self.feedback_enabled = bool(feedback)
+        self.shed_enabled = slo_source is not None
+        self._slo_source = slo_source
+        self._feedback_every = max(int(feedback_every or 0), 1)
+        self._base_quota = max(int(quota or 0), 0)
+        self._fb_mu = TrackedLock("sched.QueryScheduler._fb_mu")
+        self._fb_count = 0
+        self._fb_running = False
         self.coalesce_enabled = bool(coalesce)
         self.coalesce_wait_s = coalesce_wait_s
         self._coalesce = CoalesceTable(
@@ -116,7 +128,77 @@ class QueryScheduler:
     # --- lanes --------------------------------------------------------
     def acquire(self, lane: Optional[str],
                 timeout_s: float) -> AdmissionTicket:
+        if self.feedback_enabled or self.shed_enabled:
+            self._maybe_feedback()
         return self.lanes.acquire(lane, timeout_s)
+
+    def _maybe_feedback(self) -> None:
+        with self._fb_mu:
+            self._fb_count += 1
+            due = (self._fb_count % self._feedback_every == 0
+                   and not self._fb_running)
+            if due:
+                self._fb_running = True
+        if due:
+            # off the admission path: the ledger snapshots and the
+            # reseed must not become a periodic latency spike
+            threading.Thread(target=self._feedback_bg, daemon=True,
+                             name="netsdb-torch-sched-feedback").start()
+
+    def _feedback_bg(self) -> None:
+        try:
+            if self.feedback_enabled:
+                self.refresh_feedback()
+            if self.shed_enabled:
+                self.refresh_shed()
+        finally:
+            with self._fb_mu:
+                self._fb_running = False
+
+    def refresh_shed(self):
+        """One load-shedding check (``sched/feedback.py``): an objective
+        breached on every window halves the heaviest non-reserved lane's
+        quota and ticks ``sched.shed_events``; no breach lifts every shed.
+        Returns the lane shed by this check, else None."""
+        from netsdb_tpu_torch.serve.sched import feedback as _feedback
+
+        try:
+            breached = list(self._slo_source() or ())
+        except Exception as e:  # noqa: BLE001 — a broken probe must
+            del e              # never wedge admission; skip the check
+            return None
+        if not breached:
+            self.lanes.unshed()
+            return None
+        if self.lanes.shed_lanes():
+            return None  # one shed at a time; wait for recovery
+        snap = self.lanes.snapshot()
+        lane = _feedback.pick_shed_lane(snap.get("lanes", {}),
+                                        reserved=self.lanes.reserved_lanes)
+        if lane is None:
+            return None
+        if self.lanes.shed(lane, _feedback.SHED_FACTOR,
+                           _feedback.SHED_MIN_QUOTA) is None:
+            return None
+        obs.REGISTRY.counter("sched.shed_events").inc()
+        return lane
+
+    def refresh_feedback(self):
+        """Reseed the lane weights and quotas from the attribution and
+        operator ledgers (``sched/feedback.py``'s formula). Returns
+        (weights, quotas), empty when no lane cleared the evidence
+        floor."""
+        from netsdb_tpu_torch.serve.sched import feedback as _feedback
+
+        weights, quotas = _feedback.seed_lanes(
+            obs.attrib.LEDGER.snapshot(),
+            obs.operators.LEDGER.snapshot(),
+            base_quota=self._base_quota,
+            reserved=self.lanes.reserved_lanes)
+        if weights:
+            self.lanes.reseed(weights, quotas)
+            obs.REGISTRY.counter("sched.feedback_reseeds").inc()
+        return weights, quotas
 
     def release(self, ticket: AdmissionTicket) -> None:
         self.lanes.release(ticket)

@@ -28,9 +28,27 @@ the handoff drain). The map and the handoff buffer live in memory.
 Followers and mirroring, HA, rebalancing (RESHARD, except its ``view``
 op), chaos and their frames (RESYNC_FOLLOWER, HA_STATE, TOKEN_ALIAS,
 LOCAL_SHARDS) belong to ROADMAP.md A7 part 2, and so does shipping a
-type's module source; the trace ring and telemetry export (GET_TRACE,
-PUT_TRACE, GET_METRICS) belong to A8. Each raises ``NotImplementedError``
-naming its item.
+type's module source. Each raises ``NotImplementedError`` naming its
+item.
+
+**Observability.** A frame carrying a client-minted query id opens a
+query trace on this daemon's own ring (``obs_trace_ring`` profiles):
+the trace is back-dated by the frame's decode time (a ``server.decode``
+span), carries the client's identity, and every layer below reports
+into it — the dispatch, the scheduler, the executor's loops with their
+device time, staging and the device cache. With
+``obs_device_profile_dir`` set, a traced query also runs under a
+``torch.profiler`` session (one at a time; a concurrent query skips it)
+whose directory joins the profile as ``meta.device_profile``; a trace
+of ``obs_slow_query_s`` or more lands in the on-disk slow-query log.
+Every workload frame ticks the request counters and the latency
+histogram the SLO engine judges (introspection frames, ``OBS_FRAMES``,
+do not) and is attributed per (client, set). GET_TRACE reads the ring
+(on a pool leader with each worker's sections merged by query id under
+``shards``) or the slow-query log, PUT_TRACE merges a client's shipped
+spans, HEALTH evaluates the objectives, and GET_METRICS ships the
+registry with the telemetry history's rates, or as OpenMetrics text.
+``obs_enabled=False`` turns tracing off.
 
 Run it as ``python -m netsdb_tpu_torch.serve.server --port 0 --root DIR
 [--device cpu]``, or call :func:`run_daemon` with a ``Configuration``:
@@ -40,7 +58,6 @@ then serves until SHUTDOWN."""
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import importlib
 import inspect
 import itertools
@@ -103,21 +120,13 @@ from netsdb_tpu_torch.utils.timing import deadline_after, seconds_left, wall_now
 #: introspection frames — outside the serve.requests counters and the
 #: serve.request_s histogram (monitoring must not move what it reads)
 OBS_FRAMES = frozenset({MsgType.PING, MsgType.COLLECT_STATS,
-                        MsgType.HEALTH})
+                        MsgType.GET_TRACE, MsgType.PUT_TRACE,
+                        MsgType.HEALTH, MsgType.GET_METRICS})
 
 #: frames of the pool topologies not ported yet (followers, HA)
 POOL_FRAMES = frozenset({
     MsgType.RESYNC_FOLLOWER, MsgType.HA_STATE, MsgType.TOKEN_ALIAS,
     MsgType.LOCAL_SHARDS})
-
-#: frames of the trace ring and the telemetry export
-OBS_EXPORT_FRAMES = frozenset({MsgType.GET_TRACE, MsgType.PUT_TRACE,
-                               MsgType.GET_METRICS})
-
-#: the frame's client identity for the handler's dynamic extent (the
-#: default scheduler lane)
-_client_var: "contextvars.ContextVar[Optional[str]]" = \
-    contextvars.ContextVar("netsdb_torch_client", default=None)
 
 
 def resolve_entry_point(entry: str) -> Any:
@@ -495,6 +504,27 @@ class ServeController:
             self, handoff_max_bytes=self.config.shard_handoff_bytes)
         self._shuffle = _shard.ShuffleInbox()
         self.sessions = _sessions.SessionManager(self)
+        # observability: this daemon's ring of finished profiles (its
+        # own, so two daemons of one process keep theirs apart), the SLO
+        # engine, the telemetry history (its thread starts with the
+        # listener and is joined at shutdown), the slow-query log and
+        # the optional per-query device profiles, one session at a time
+        from netsdb_tpu_torch.obs.history import TelemetryHistory
+        from netsdb_tpu_torch.obs.slo import SLOEngine
+        from netsdb_tpu_torch.obs.slowlog import SlowQueryLog
+
+        cfg = self.config
+        self._obs_enabled = bool(cfg.obs_enabled)
+        self.trace_ring = obs.TraceRing(cfg.obs_trace_ring or 64)
+        self.slo = SLOEngine()
+        self.history = TelemetryHistory(
+            capacity=cfg.obs_history_len or 0,
+            interval_s=cfg.obs_history_interval_s or 0.0)
+        self.slowlog = SlowQueryLog(cfg.root_dir,
+                                    capacity=cfg.obs_slowlog_entries or 64,
+                                    threshold_s=cfg.obs_slow_query_s)
+        self._device_profile_dir = cfg.obs_device_profile_dir
+        self._profiler_mu = TrackedLock("ServeController._profiler_mu")
         self.sched = _sched.QueryScheduler(
             slots=max_jobs or self.config.num_threads,
             lanes=self.config.sched_lanes,
@@ -506,7 +536,12 @@ class ServeController:
             coalesce_wait_s=mirror_ack_timeout_s or 300.0,
             coalesce_done_ttl_s=self.config.sched_coalesce_done_ttl_s,
             coalesce_done_max=self.config.sched_coalesce_done_max,
-            cache_probe=self._devcache_warm)
+            cache_probe=self._devcache_warm,
+            feedback=cfg.sched_feedback,
+            feedback_every=cfg.sched_feedback_every,
+            # load shedding while an objective breaches on every window
+            slo_source=(self.slo.breached_objectives
+                        if cfg.sched_slo_shed else None))
         self._job_seq = itertools.count(1)
         self._jobs: Dict[int, Dict[str, Any]] = {}
         self._jobs_lock = TrackedLock("ServeController._jobs_lock")
@@ -552,11 +587,12 @@ class ServeController:
             MsgType.SESSION_OPEN: self.sessions.handle_open,
             MsgType.GENERATE: self.sessions.handle_generate,
             MsgType.SESSION_CLOSE: self.sessions.handle_close,
+            MsgType.GET_TRACE: self._on_get_trace,
+            MsgType.PUT_TRACE: self._on_put_trace,
+            MsgType.GET_METRICS: self._on_get_metrics,
         }
         for typ in POOL_FRAMES:
             self.handlers[typ] = self._refuse("A7 part 2", typ)
-        for typ in OBS_EXPORT_FRAMES:
-            self.handlers[typ] = self._refuse("A8", typ)
 
     @staticmethod
     def _refuse(item: str, typ: MsgType) -> Callable:
@@ -579,6 +615,8 @@ class ServeController:
                              name="netsdb-torch-serve-accept")
         t.start()
         self._threads.append(t)
+        if (self.config.obs_history_len or 0) >= 2:
+            self.history.start()
         if self._worker_addrs:
             self._pool_thread = threading.Thread(
                 target=self._pool_health_loop, daemon=True,
@@ -601,6 +639,8 @@ class ServeController:
     def shutdown(self) -> None:
         self._stop.set()
         self.sessions.stop()
+        # joined: no history thread outlives its daemon
+        self.history.stop()
         self.shards.close()
         obs.REGISTRY.unregister_collector("sched", self.sched.snapshot)
         self._idem.close()
@@ -680,6 +720,7 @@ class ServeController:
                         conn, mid_frame_timeout=self.frame_timeout_s)
                 except (ProtocolError, ConnectionError, OSError):
                     return
+                t_dec = time.perf_counter()
                 try:
                     payload = self._decode(raw, codec_in, segs, pickle_ok,
                                            hello)
@@ -702,7 +743,9 @@ class ServeController:
                     if not self._handle_bulk(conn, payload, pickle_ok):
                         return
                     continue
-                if not self._dispatch_frame(conn, typ, payload):
+                if not self._dispatch_frame(
+                        conn, typ, payload,
+                        decode_s=time.perf_counter() - t_dec):
                     return
 
     def _decode(self, raw, codec_in, segs, pickle_ok: bool, hello) -> Any:
@@ -741,11 +784,16 @@ class ServeController:
         except OSError:
             return False
 
-    def _dispatch_frame(self, conn, typ, payload) -> bool:
+    def _dispatch_frame(self, conn, typ, payload,
+                        decode_s: float = 0.0) -> bool:
         """Execute one decoded request frame and send its reply; False
-        when the connection is dead. A retry of a completed mutating
-        frame (same idempotency token) replays the cached reply."""
-        meta = {}
+        when the connection is dead. A frame carrying a client-minted
+        query id runs inside a trace on this daemon's ring (module
+        docstring): back-dated by ``decode_s`` with a ``server.decode``
+        span, annotated with the client, under a device profile when one
+        is asked for and free, and logged to the slow-query log after it
+        closes."""
+        meta: Dict[str, Any] = {}
         if isinstance(payload, dict):
             for key in (QUERY_ID_KEY, CLIENT_ID_KEY, LANE_KEY,
                         IDEMPOTENCY_KEY, HA_TERM_KEY):
@@ -753,6 +801,85 @@ class ServeController:
             if payload.pop(SESSION_KEY, None) is not None \
                     and meta[LANE_KEY] is None:
                 meta[LANE_KEY] = DECODE_LANE
+        qid = meta.get(QUERY_ID_KEY)
+        if qid is None or not self._obs_enabled:
+            return self._dispatch_traced(conn, typ, payload, meta)
+        with obs.trace(str(qid), origin="server",
+                       ring=self.trace_ring) as tr:
+            if tr is not None:
+                # the decode finished before the trace opened: the span
+                # takes [0, decode_s] ahead of the dispatch, and the
+                # total covers it
+                tr.backdate(decode_s)
+                tr.record("server.decode", decode_s, "serve", start_s=0.0)
+                tr.add("frame.decode_s", decode_s)
+                if meta.get(CLIENT_ID_KEY) is not None:
+                    tr.annotate("client", str(meta[CLIENT_ID_KEY]))
+            with self._maybe_device_profile(tr):
+                ok = self._dispatch_traced(conn, typ, payload, meta)
+        if tr is not None:
+            self._maybe_slowlog(tr)
+        return ok
+
+    @contextlib.contextmanager
+    def _maybe_device_profile(self, tr):
+        """A ``torch.profiler`` session for one traced query
+        (``obs_device_profile_dir``), written under ``<dir>/<qid>/``.
+        One at a time: a concurrent traced query skips it instead of
+        queueing behind the profiler. A profiler failure is annotated on
+        the trace (``device_profile_error``) and never fails the
+        query."""
+        if (tr is None or not self._device_profile_dir
+                or not self._profiler_mu.acquire(blocking=False)):
+            yield
+            return
+        sess = None
+        try:
+            try:
+                from netsdb_tpu_torch.utils.profiling import \
+                    qid_profile_session
+
+                sess = qid_profile_session(tr.qid, self._device_profile_dir,
+                                           self.device)
+                tr.annotate("device_profile", sess.__enter__())
+            except Exception as e:  # noqa: BLE001 — annotated, not fatal
+                tr.annotate("device_profile_error",
+                            f"{type(e).__name__}: {e}")
+                sess = None
+            try:
+                yield
+            finally:
+                if sess is not None:
+                    try:
+                        sess.__exit__(None, None, None)
+                    except Exception as e:  # noqa: BLE001 — annotated
+                        tr.annotate("device_profile_error",
+                                    f"{type(e).__name__}: {e}")
+        finally:
+            self._profiler_mu.release()
+
+    def _maybe_slowlog(self, tr) -> None:
+        """Log a just-closed trace of ``obs_slow_query_s`` or more, from
+        its ringed copy (which already holds a client section that came
+        before the push). Never fails the request path."""
+        try:
+            thr = self.slowlog.threshold_s
+            if not thr or tr.total_s is None or tr.total_s < thr:
+                return
+            ringed = self.trace_ring.find(tr.qid)
+            self.slowlog.maybe_record(ringed[-1] if ringed
+                                      else tr.profile())
+        except Exception as e:  # noqa: BLE001 — counted, never fatal
+            obs.REGISTRY.counter("obs.slowlog_errors").inc()
+            del e
+
+    def _dispatch_traced(self, conn, typ, payload, meta) -> bool:
+        """The dispatch body, inside the trace if there is one. A retry
+        of a completed mutating frame (same idempotency token) replays
+        the cached reply. A workload frame observes ``serve.request_s``
+        at its reply (a stream at its first frame) and ticks
+        ``serve.requests`` and ``serve.requests_ok`` at its outcome;
+        introspection frames tick nothing."""
         t0 = None if typ in OBS_FRAMES else time.perf_counter()
         observed = [False]
 
@@ -798,7 +925,8 @@ class ServeController:
                 mark()
                 done(True)
                 return True
-            self._send_reply(conn, *out)
+            with obs.span("server.reply", "serve"):
+                self._send_reply(conn, *out)
             mark()
             done(True)
             return True
@@ -814,16 +942,24 @@ class ServeController:
     def _execute_frame(self, typ, payload, token, client=None, lane=None):
         """Run one request's handler with the idempotency-token
         lifecycle (the caller already claimed ``token``): the token is
-        finished or aborted exactly once. EXECUTE frames pass the
-        scheduler's coalesce point first."""
+        finished or aborted exactly once. The frame is attributed to its
+        client (and set) and the client identity is installed for the
+        handler's extent, so every layer below books under it. EXECUTE
+        frames pass the scheduler's coalesce point first."""
         handler = self.handlers.get(typ)
+        if client is not None or isinstance(payload, dict):
+            scope = None
+            if isinstance(payload, dict) and payload.get("db") \
+                    and payload.get("set"):
+                scope = f"{payload['db']}:{payload['set']}"
+            obs.attrib.account("requests", 1, scope=scope, client=client)
         try:
             if handler is None:
                 raise ProtocolError(f"no handler for {typ!r}")
-            reset = (_client_var.set(client),
-                     _sessions.idem_token.set(token))
+            reset = _sessions.idem_token.set(token)
             try:
-                with _sched.lane_context(lane):
+                with obs.attrib.client_context(client), \
+                        _sched.lane_context(lane):
                     if typ in self.COALESCED_FRAMES:
                         out = self.sched.coalesced(
                             typ, payload, lambda: handler(payload),
@@ -831,8 +967,7 @@ class ServeController:
                     else:
                         out = handler(payload)
             finally:
-                _sessions.idem_token.reset(reset[1])
-                _client_var.reset(reset[0])
+                _sessions.idem_token.reset(reset)
         except BaseException:
             if token is not None:
                 self._idem.abort(token)
@@ -982,7 +1117,7 @@ class ServeController:
             self._jobs[job_id] = rec
             while len(self._jobs) > 1024:
                 self._jobs.pop(next(iter(self._jobs)))
-        lane = _sched.current_lane() or _client_var.get()
+        lane = _sched.current_lane() or obs.attrib.current_client()
         try:
             with obs.span("server.sched.admit", "serve"):
                 ticket = self.sched.acquire(
@@ -1393,12 +1528,17 @@ class ServeController:
         coordinator slot's tree as ``operators`` and the per-shard forest
         as ``shard_operators``."""
         explain = bool(p.get("explain"))
+        tr = obs.current_trace()
+        qid = tr.qid if tr is not None else None
+        client = obs.attrib.current_client()
         holder: Dict[str, Any] = {}
 
         def run():
+            # the subplans carry the query id: each worker traces its
+            # part under it, and GET_TRACE merges them by qid
             results, shard_ops = self.shards.scatter_execute(
                 sinks, job_name, materialize=p.get("materialize", True),
-                explain=explain, client_id=_client_var.get())
+                explain=explain, qid=qid, client_id=client)
             if p.get("sync", True):
                 self._sync_results(results)
             holder["ops"] = shard_ops
@@ -1507,12 +1647,17 @@ class ServeController:
         return MsgType.OK, out
 
     def _on_health(self, p):
-        """Liveness and load of this daemon (and of a leader's workers,
-        under ``shards``, with the pool's membership under ``pool``). The
-        SLO objectives with their burn rates and the slow-query log are
-        ROADMAP.md A8: ``objectives`` and ``events`` stay empty until
-        then."""
-        out = {"objectives": {}, "events": [], "slowlog": None,
+        """The SLO and health readout: every objective evaluated with its
+        multi-window burn rates (``obs/slo.py``), the recent breach and
+        recovery events, the slow-query log's summary, and this daemon's
+        load; a leader adds each worker's under ``shards`` (best effort:
+        a slow worker reports an error entry and is never evicted by a
+        read) and the pool's membership under ``pool``. Followers are
+        not ported (ROADMAP.md A7 part 2): ``followers_status`` is
+        None."""
+        out = {"objectives": self.slo.evaluate(),
+               "events": self.slo.events(),
+               "slowlog": self.slowlog.summary(),
                "followers_status": None, "serve": self._serve_stats(),
                "sessions_open": self.sessions.table.count(),
                "sched": self.sched.snapshot()}
@@ -1526,6 +1671,97 @@ class ServeController:
                            "placement_epoch":
                                self.placement.to_wire()["epoch"]}
         return MsgType.OK, out
+
+    def _on_put_trace(self, p):
+        """The client half of a traced query, shipped after its reply:
+        merged into the qid's ringed profile (or held until the profile
+        is pushed) and into its slow-query log entry as the ``client``
+        section. An unmatched qid is counted, not an error."""
+        prof = p.get("profile")
+        if not isinstance(prof, dict):
+            raise ProtocolError("PUT_TRACE needs a profile dict")
+        qid = str(p.get("qid") or prof.get("qid") or "")
+        merged = slow = False
+        if qid and self._obs_enabled:
+            merged = self.trace_ring.merge_section(qid, "client", prof)
+            try:
+                # a slow query was logged when its trace closed, before
+                # this section existed: rewrite the entry
+                slow = self.slowlog.merge_section(qid, "client", prof)
+            except Exception as e:  # noqa: BLE001 — counted, never fatal
+                obs.REGISTRY.counter("obs.slowlog_errors").inc()
+                del e
+        obs.REGISTRY.counter("obs.put_trace.merged" if merged
+                             else "obs.put_trace.unmatched").inc()
+        return MsgType.OK, {"merged": merged, "slowlog_merged": slow}
+
+    def _on_get_trace(self, p):
+        """The last N finished profiles of this daemon's ring, or one
+        query's (``qid``); ``slow: true`` reads the slow-query log
+        instead (the qid filter applies before the last-N cut). On a
+        pool leader each profile carries, under ``shards``, the profiles
+        its workers recorded under the same qid (a scatter-gather's
+        subplans), and the workers' replies ride under ``shards``.
+        Followers are not ported (ROADMAP.md A7 part 2): the reply has
+        no ``followers`` key."""
+        n = p.get("last")
+        qid = p.get("qid")
+        if p.get("slow"):
+            profiles = self.slowlog.entries()
+            if qid:
+                profiles = [pr for pr in profiles
+                            if pr.get("qid") == str(qid)]
+            if n:
+                profiles = profiles[-int(n):]
+            return MsgType.OK, {"profiles": profiles,
+                                "enabled": self._obs_enabled,
+                                "slowlog": self.slowlog.summary()}
+        if qid:
+            profiles = self.trace_ring.find(str(qid))
+        else:
+            profiles = self.trace_ring.last(int(n) if n else None)
+        out: Dict[str, Any] = {"profiles": profiles,
+                               "enabled": self._obs_enabled}
+        if not p.get("local_only"):
+            replies = self.shards.fanout(
+                MsgType.GET_TRACE, {"local_only": True, "qid": qid,
+                                    "last": n})
+            if replies:
+                merged = []
+                for prof in out["profiles"]:
+                    sections = {
+                        addr: [fp for fp in reply.get("profiles", ())
+                               if fp.get("qid") == prof.get("qid")]
+                        for addr, reply in replies.items()
+                        if "error" not in reply}
+                    sections = {a: v for a, v in sections.items() if v}
+                    if sections:
+                        prof = {**prof, "shards": sections}
+                    merged.append(prof)
+                out["profiles"] = merged
+                out["shards"] = replies
+        return MsgType.OK, out
+
+    def _on_get_metrics(self, p):
+        """Continuous telemetry: the registry snapshot with the
+        telemetry history's summary and rates over ``window_s``
+        (``obs/history.py``), or with ``format="openmetrics"`` the
+        Prometheus text exposition (``obs/export.py``) of the same
+        snapshot, attribution labels included. A reading is taken
+        first, so a poller gets rates as fresh as its own cadence."""
+        from netsdb_tpu_torch.obs import export as _export
+
+        self.history.observe()
+        snapshot = obs.REGISTRY.snapshot()
+        if p.get("format") == "openmetrics":
+            return MsgType.OK, {"format": "openmetrics",
+                                "text": _export.to_openmetrics(snapshot)}
+        window = p.get("window_s")
+        return MsgType.OK, {
+            "metrics": snapshot,
+            "history": self.history.summary(),
+            "deltas": self.history.deltas(float(window) if window
+                                          else None)}
 
     def _on_analyze_set(self, p):
         """Planner statistics computed where the data lives: the
@@ -1797,9 +2033,9 @@ class ServeController:
     def placement_view(self) -> Dict[str, Any]:
         """The per-slot ownership table of every sharded set joined with
         each slot's local bytes (one best-effort COLLECT_STATS fan-out),
-        and the per-member totals. The load-heat columns read the
-        attribution ledger (ROADMAP.md A8) and the rebalancer's status
-        is rebalancing (A7 part 2): neither is here."""
+        and the per-member totals. The load-heat columns and the
+        rebalancer's status belong to rebalancing (ROADMAP.md A7 part
+        2): neither is here."""
         sizes: Dict[Tuple[str, str], int] = {}
         for scope, st in self.library.collect_stats().items():
             sizes[(self.advertise_addr, scope)] = int(

@@ -36,6 +36,12 @@ mutable entry per ``(session, model, layer)``, TTL'd, sharing the LRU
 order and the byte budget with the blocks. Eviction and TTL expiry hand
 the entry to the registered spill callback (the session arena) instead
 of losing it; a close drops it without a spill.
+
+Every lookup, install and served block ticks the metrics registry
+(``devcache.lookups``/``hits``/``misses``/``installs``/``partial_hits``,
+which the hit-rate objective and the telemetry history read), the
+current query trace and the per-(client, set) attribution ledger, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -99,6 +105,21 @@ def _metrics():
     from netsdb_tpu_torch.obs import REGISTRY
 
     return REGISTRY
+
+
+def _tick(name: str, scope: str, n: int = 1, lookup: bool = False,
+          client: Optional[str] = None) -> None:
+    """One device-cache event on the registry, the current trace, the
+    plan node being recorded and the attribution ledger."""
+    from netsdb_tpu_torch import obs
+
+    if lookup:
+        obs.REGISTRY.counter("devcache.lookups").inc()
+    obs.REGISTRY.counter(name).inc(n)
+    obs.add(name, n)
+    if name != "devcache.installs":
+        obs.operators.op_add(name, n)
+    obs.attrib.account(name, n, scope=scope, client=client)
 
 
 def _is_block_key(key: Tuple) -> bool:
@@ -190,10 +211,12 @@ class DeviceBlockCache:
             entry = self._entries.get(key)
             if entry is None:
                 self._stats["misses"] += 1
-                return None
-            self._entries.move_to_end(key)
-            self._stats["hits"] += 1
-            return entry[0]
+            else:
+                self._entries.move_to_end(key)
+                self._stats["hits"] += 1
+        _tick("devcache.misses" if entry is None else "devcache.hits",
+              str(key[0]), lookup=True)
+        return None if entry is None else entry[0]
 
     def make_room(self, nbytes: int) -> None:
         """Evict LRU entries until ``nbytes`` fit under the budget — called
@@ -209,10 +232,12 @@ class DeviceBlockCache:
             if self.enabled:
                 self._stats["rejected"] += 1
 
-    def install(self, key: Tuple, blocks: List[Any], validator=None) -> bool:
+    def install(self, key: Tuple, blocks: List[Any], validator=None,
+                client: Optional[str] = None) -> bool:
         """Insert one complete run; False when it exceeds the budget or
         ``validator`` (evaluated under the cache lock) says the key is
-        no longer current."""
+        no longer current. ``client`` is the identity the install is
+        attributed to (captured on the consumer's thread)."""
         nbytes = _value_nbytes(blocks)
         with self._mu:
             if not self.enabled or nbytes > self._budget:
@@ -229,7 +254,8 @@ class DeviceBlockCache:
             self._bytes += nbytes
             self._by_scope.setdefault(str(key[0]), set()).add(key)
             self._stats["installs"] += 1
-            return True
+        _tick("devcache.installs", str(key[0]), client=client)
+        return True
 
     def _evict_to_fit_locked(self, incoming: int) -> None:
         # one pass in LRU order, skipping pinned block entries
@@ -246,6 +272,8 @@ class DeviceBlockCache:
         for key in victims:
             self._drop_entry_locked(key)
             self._stats["evictions"] += 1
+        if victims:
+            _metrics().counter("devcache.evictions").inc(len(victims))
 
     def _drop_entry_locked(self, key: Tuple) -> bool:
         entry = self._entries.pop(key, None)
@@ -315,7 +343,9 @@ class DeviceBlockCache:
                     covered[(int(rng[0]), int(rng[1]))] = entry[0][0]
             full = bool(ranges) and len(covered) == len(ranges)
             self._stats["hits" if full else "misses"] += 1
-            return epoch, covered
+        _tick("devcache.hits" if full else "devcache.misses", scope,
+              lookup=True)
+        return epoch, covered
 
     def install_block(self, base_key: Tuple, rng: Tuple[int, int],
                       block: Any, epoch: int) -> bool:
@@ -355,19 +385,30 @@ class DeviceBlockCache:
             self._stats["pinned_bytes"] = self._pinned_bytes
             return True
 
-    def record_run_install(self) -> None:
-        """Count one run-level install once a stream's installer landed
-        every gap block of its run."""
+    def record_run_install(self, scope: str = "",
+                           client: Optional[str] = None) -> None:
+        """Count one run-level install of ``scope`` once a stream's
+        installer landed every gap block of its run."""
         with self._mu:
-            if self.enabled and self.partial:
-                self._stats["installs"] += 1
+            if not (self.enabled and self.partial):
+                return
+            self._stats["installs"] += 1
+        _tick("devcache.installs", str(scope), client=client)
 
-    def tick_partial(self, blocks_served: int, stitched_ranges: int) -> None:
-        """Count blocks a stitched stream served from the cache."""
+    def tick_partial(self, blocks_served: int, stitched_ranges: int,
+                     scope: str = "") -> None:
+        """Count blocks a stitched stream of ``scope`` served from the
+        cache (attributed as ``devcache.partial_hits``: the ledger's
+        ``devcache.hits`` stays one per stream)."""
         with self._mu:
             if "partial_hits" in self._stats:
                 self._stats["partial_hits"] += int(blocks_served)
                 self._stats["stitched_ranges"] += int(stitched_ranges)
+        if blocks_served > 0:
+            _tick("devcache.partial_hits", str(scope), int(blocks_served))
+        if stitched_ranges > 0:
+            _metrics().counter("devcache.stitched_ranges").inc(
+                int(stitched_ranges))
 
     def coverage(self, scope: str) -> Tuple[int, Optional[int]]:
         """(covered prefix rows, total rows) — the longest contiguous
@@ -436,6 +477,10 @@ class DeviceBlockCache:
                 self._stats["dirty_invalidations"] += dirty
                 self._stats["pinned_bytes"] = self._pinned_bytes
             self._stats["invalidations"] += dropped
+        if dropped:
+            _metrics().counter("devcache.invalidations").inc(dropped)
+        if dirty:
+            _metrics().counter("devcache.dirty_invalidations").inc(dirty)
         return dropped
 
     def invalidate(self, scope: str) -> int:
@@ -456,7 +501,9 @@ class DeviceBlockCache:
             self._stats["invalidations"] += dropped
             if "pinned_bytes" in self._stats:
                 self._stats["pinned_bytes"] = self._pinned_bytes
-            return dropped
+        if dropped:
+            _metrics().counter("devcache.invalidations").inc(dropped)
+        return dropped
 
     def clear(self) -> int:
         """Drop everything (bumping every cached scope's epoch)."""
@@ -511,6 +558,10 @@ class DeviceBlockCache:
                 "deadline": time.monotonic() + float(ttl_s),
                 "ttl": float(ttl_s)}
             self._stats["installs"] += 1
+        from netsdb_tpu_torch import obs
+
+        obs.REGISTRY.counter("devcache.installs").inc()
+        obs.attrib.account("devcache.installs", scope=key[0])
         self._publish_session_bytes()
         return True
 

@@ -435,14 +435,81 @@ def test_affinity_gate_overlapping_cold_sets_share_one_installer(pkg):
 
 
 def test_feedback_and_shedding_raise_naming_a8():
+    """Feedback and SLO shedding were ported with the observability part
+    of A8 and are accepted; pin auto-sizing and the rebalance cadence
+    belong to the daemon pool and raise naming A7 part 2."""
     from netsdb_tpu_torch.serve.sched import QueryScheduler
 
-    for kw in (dict(feedback=True), dict(slo_source=lambda: ()),
-               dict(pin_auto=lambda: None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
+    s = QueryScheduler(slots=1, feedback=True, slo_source=lambda: ())
+    assert s.feedback_enabled and s.shed_enabled
+    for kw in (dict(pin_auto=lambda: None), dict(rebalance_cb=lambda: None)):
+        with pytest.raises(NotImplementedError, match="A7 part 2"):
             QueryScheduler(slots=1, **kw)
-    with pytest.raises(NotImplementedError, match="A7 part 2"):
-        QueryScheduler(slots=1, rebalance_cb=lambda: None)
+
+
+def _populate_ledgers(o):
+    """The reference test's ledgers: a light and a 500x heavier client."""
+    o.attrib.LEDGER.reset()
+    for _ in range(20):
+        o.attrib.account("requests", 1, scope="d:a", client="lightc")
+        o.attrib.account("executor.chunks", 1, scope="d:a", client="lightc")
+        o.attrib.account("requests", 1, scope="d:a", client="heavyc")
+        o.attrib.account("executor.chunks", 500, scope="d:a",
+                         client="heavyc")
+    o.operators.LEDGER.add("j", "apply:x",
+                           {"wall_s": 1.0, "counters": {"chunks": 1000}})
+
+
+def test_feedback_loop_end_to_end():
+    """``sched_feedback`` wires the ledgers into the live lane weights:
+    the same ledgers give the same weights and quotas on both packages,
+    the reseed is counted, and the light client out-weighs the heavy."""
+    from netsdb_tpu import obs as ref_obs
+    from netsdb_tpu.serve.sched import QueryScheduler as RefScheduler
+    from netsdb_tpu_torch import obs
+    from netsdb_tpu_torch.serve.sched import QueryScheduler
+
+    out = {}
+    for side, o, cls in (("ref", ref_obs, RefScheduler),
+                         ("port", obs, QueryScheduler)):
+        _populate_ledgers(o)
+        sched = cls(slots=2, quota=10, feedback=True, feedback_every=4)
+        before = o.REGISTRY.counter("sched.feedback_reseeds").value
+        weights, quotas = sched.refresh_feedback()
+        assert o.REGISTRY.counter("sched.feedback_reseeds").value == \
+            before + 1
+        out[side] = (weights, quotas)
+        o.attrib.LEDGER.reset()
+    assert out["port"] == out["ref"]
+    weights, quotas = out["port"]
+    assert weights["lightc"] > weights["heavyc"]
+    assert quotas["lightc"] > quotas["heavyc"]
+
+
+def test_slo_shedding_halves_the_heaviest_lane_until_recovery():
+    """A breached objective halves the heaviest lane's quota once (the
+    same lane on both packages); recovery lifts it."""
+    from netsdb_tpu.serve.sched import QueryScheduler as RefScheduler
+    from netsdb_tpu_torch.serve.sched import QueryScheduler
+
+    out = {}
+    for side, cls in (("ref", RefScheduler), ("port", QueryScheduler)):
+        breached = ["availability"]
+        sched = cls(slots=1, quota=8, slo_source=lambda: breached)
+        for lane, n in (("a", 1), ("b", 3)):
+            for _ in range(n):
+                sched.release(sched.acquire(lane, timeout_s=5.0))
+        shed = sched.refresh_shed()
+        again = sched.refresh_shed()  # one shed at a time
+        quota = sched.lanes._quota_for_locked(shed)
+        breached.clear()
+        sched.refresh_shed()
+        out[side] = (shed, again, quota, sched.lanes.shed_lanes(),
+                     sched.lanes._quota_for_locked(shed))
+    assert out["port"] == out["ref"]
+    shed, again, quota, after, restored = out["port"]
+    assert shed is not None and again is None
+    assert quota < restored and after == []
 
 
 # --- through a daemon ---------------------------------------------------
