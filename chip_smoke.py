@@ -12,7 +12,7 @@ phase 1, the SF 10 tables made resident on a card client, and phase
 15; ``--serve-only``: phases 1 and 16; ``--pool-only``: phases 1 and
 17; ``--mesh-only``: phase 1, the SF 10 tables made resident on a card
 client, and phase 18; ``--multichip-only``: phases 1 and 19;
-``--obs-only``: phases 1 and 20.)
+``--obs-only``: phases 1 and 20; ``--ha-only``: phases 1 and 21.)
 
 Every phase runs with the compiled-program cache in use and
 ``plan_fusion`` on, the port's defaults: a resident job is one CUDA
@@ -326,6 +326,31 @@ Phases (any failure raises and the exit code is non-zero):
    the same warm FF and layer requests against a daemon with tracing on
    and one with it off, in turns: both p50s and their ratio, printed,
    not gated.
+21. replication and failover (``HA_SIZES``): daemons A, B and C, each
+   in its own process on card 0 (``run_daemon`` with ``ha_mutlog``, HA
+   armed over [A, B, C] with a ``HA_ELECTION_S`` election window and the
+   ``HA_LINKS`` heartbeats), A mirroring to B and C. Phase 3's FF and
+   phase 4's layer, three requests each through A: every output read
+   from A, B and C directly is byte-equal, FF within ``FF_TOL`` of f64
+   and the layer within ``LAYER_TOL`` of plain attention, B1 once a
+   layer request in each daemon (A's COLLECT_STATS with its followers'
+   sections); the mirrored p50s beside phase 16's solo ones (printed,
+   not gated: the three daemons share the card). Hedged reads of FF's
+   output from a client with replicas [B, C], warm and with A's
+   STREAM_ITEM replies delayed by its injector: byte-equal to the
+   unhedged read, a hedge won, the p50s and ``hedge_delay_s()``
+   printed. C SIGKILLed while numbered batches stream through A (a
+   typed ``FollowerDegraded`` retried by ``send_data``), restarted on
+   its root (its store rebuilt from its base snapshot and a bounded tail
+   of its applied log) and readmitted by log replay,
+   then SIGKILLed and restarted on an empty root and readmitted by a
+   snapshot; after each, every set of C hashes equal to A's. A
+   SIGKILLed while a failover client streams batches: B leads at term 2,
+   every acknowledged batch is in B and C exactly once (counts and a
+   checksum), a layer EXECUTE on B launches B1 once in B and in C and
+   equals the output before the kill. A restarted on its root refuses a
+   write with a typed ``NotLeader`` naming B and term 2. Every daemon is
+   stopped and every process joined whatever happens.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
@@ -342,7 +367,10 @@ same way, and this process's around the in-process pool (both 0); around
 phase 18 (B1 4 times a Ulysses call, B2 never; the comparisons' launches
 are taken back out); and around phase 19's ``dryrun_multichip(4)`` (B2
 at least once, its ring; B1 never); phase 20's are the observed
-daemon's own counters (B1 once a layer request, B2 never). The last
+daemon's own counters (B1 once a layer request, B2 never), and phase
+21's the daemons' own counters around the mirrored layer requests (B1
+once a request in each of A, B and C) and around the layer request on
+the promoted leader (once in B, once in its follower C). The last
 line is the contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
@@ -8308,6 +8336,745 @@ def phase_obs(pk: dict, smi: str, device: str = "cuda",
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- phase 21: replication and failover on the card ----------------------
+# three daemons A, B, C on card 0, each in its own process, HA armed over
+# [A, B, C], A mirroring to B and C, the mutation log on; the widths of
+# phases 3 and 4
+HA_SIZES = {"ff": dict(batch=16384, features=1024, hidden=4096,
+                       labels=1024, block=512, requests=3),
+            "layer": dict(embed=1024, heads=8, batch=2, seq=4096,
+                          requests=3),
+            "hedge": dict(warm=8, plain=5, delayed=3, delay_s=2.0),
+            "batches": dict(rows=64, before_kill=8, total=24),
+            "failover": dict(rows=64, before_kill=8, total=24)}
+# shrunk windows (the reference's tests shrink them too): probes every
+# 0.2 s, a follower evicted after 2 misses, a leader replaced after 1.5 s
+HA_LINKS = dict(heartbeat_interval_s=0.2, heartbeat_timeout_s=2.0,
+                heartbeat_misses=2, mirror_ack_timeout_s=120.0,
+                resync_grace_s=60.0, resync_timeout_s=120.0)
+HA_ELECTION_S = 1.5
+HA_TIMEOUT_S = 120.0      # bounds every request to a daemon
+HA_WAIT_S = 120.0         # bounds every wait for a readmission or election
+HA_BUDGET_S = 150.0
+
+# a daemon of phase 21: run_daemon with the mutation log and the shrunk
+# windows; argv is root, device, a JSON of run_daemon's keywords. With
+# "chaos" the daemon carries an injector that a file <root>/arm.json arms
+# with {"n", "delay_s"}: n scripted delays of its STREAM_ITEM replies
+_HA_MAIN = (
+    "import json, os, sys, threading, time\n"
+    "from netsdb_tpu_torch.config import Configuration\n"
+    "from netsdb_tpu_torch.serve.chaos import ChaosInjector\n"
+    "from netsdb_tpu_torch.serve.protocol import MsgType\n"
+    "from netsdb_tpu_torch.serve.server import run_daemon\n"
+    "kw = json.loads(sys.argv[3])\n"
+    "cfg = Configuration(root_dir=sys.argv[1], ha_mutlog=True, "
+    "ha_election_timeout_s=kw.pop('election_s'))\n"
+    "chaos = ChaosInjector() if kw.pop('chaos') else None\n"
+    "arm = os.path.join(sys.argv[1], 'arm.json')\n"
+    "def watch():\n"
+    "    while True:\n"
+    "        if os.path.exists(arm):\n"
+    "            with open(arm) as f:\n"
+    "                a = json.load(f)\n"
+    "            for _ in range(a['n']):\n"
+    "                chaos.arm('delay', types=[MsgType.STREAM_ITEM], "
+    "delay_s=a['delay_s'])\n"
+    "            os.remove(arm)\n"
+    "        time.sleep(0.02)\n"
+    "if chaos is not None:\n"
+    "    threading.Thread(target=watch, daemon=True).start()\n"
+    "sys.exit(run_daemon(cfg, device=sys.argv[2], chaos=chaos, **kw))\n")
+
+
+def _ha_free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _ha_start(name, root, port, device, peers, followers, logs, procs,
+              chaos=False):
+    """Start one daemon of the phase (``procs[name]``); returns its
+    process."""
+    import os
+
+    kw = dict(HA_LINKS, port=port, ha_peers=peers, followers=followers,
+              election_s=HA_ELECTION_S, chaos=chaos)
+    logs[name] = os.path.join(os.path.dirname(root), f"{name}.log")
+    procs[name] = _daemon_popen(_HA_MAIN, [root, device, json.dumps(kw)],
+                                logs[name])
+    return procs[name]
+
+
+def _ha_canon(v):
+    """A host value in a canonical, comparable form (tensors and arrays
+    by dtype, shape and bytes)."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.parallel.mesh import ShardedTensor
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    if isinstance(v, ShardedTensor):
+        return ("st", repr(v.spec), _ha_canon(v.to_dense()))
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return ("t", str(v.dtype), tuple(v.shape),
+                v.contiguous().view(torch.uint8).numpy().tobytes())
+    if isinstance(v, np.ndarray):
+        return ("a", v.dtype.str, v.shape, v.tobytes())
+    if isinstance(v, ColumnTable):
+        return ("ct", {k: _ha_canon(c) for k, c in v.cols.items()},
+                {k: list(d) for k, d in v.dicts.items()})
+    if isinstance(v, dict):
+        return ("d", sorted((repr(k), _ha_canon(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return ("l", [_ha_canon(x) for x in v])
+    return ("v", repr(v))
+
+
+def _ha_digest(client) -> dict:
+    """Every set of a daemon: its sha256 over the canonical form of what
+    it holds (a tensor set's dense matrix, else its items)."""
+    import hashlib
+    import pickle
+
+    from netsdb_tpu_torch.serve.client import RemoteError
+
+    out = {}
+    for db, s in sorted(client.list_sets()):
+        try:
+            val = ("tensor", _ha_canon(client.get_tensor(db, s).to_dense()))
+        except RemoteError:
+            val = ("items", _ha_canon(list(client.get_set_iterator(db, s))))
+        out[f"{db}:{s}"] = hashlib.sha256(
+            pickle.dumps(val, protocol=4)).hexdigest()
+    return out
+
+
+def _ha_same_store(name, a, c, card) -> int:
+    da, dc = _ha_digest(a), _ha_digest(c)
+    if da != dc:
+        diff = sorted(k for k in set(da) | set(dc)
+                      if da.get(k) != dc.get(k))
+        raise RuntimeError(f"{name}: C's store differs from A's in {diff}")
+    print(f"[ha] {name}: C holds A's {len(da)} sets byte for byte ({card})")
+    return len(da)
+
+
+def _ha_mirror_state(client) -> dict:
+    return client.collect_stats().get("mirror") or {}
+
+
+def _ha_wait(what, pred, timeout_s=HA_WAIT_S):
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"phase 21: {what} within {timeout_s} s")
+        time.sleep(0.1)
+
+
+def _ha_mirrored(a, direct, names, s, device, card) -> dict:
+    """Step 1: FF and the layer through A, mirrored to B and C. Each
+    output read from the three daemons directly is byte-equal, FF is held
+    to f64 and the layer to plain attention (phase 16's limits); B1
+    launches once a layer request in every daemon (read through A's
+    COLLECT_STATS, which carries its followers')."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.models.ff import FFModel
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.ops.attention import merge_project, qkv_project
+    from netsdb_tpu_torch.ops.cuda_kernels import flash_attention_plain
+
+    out = {}
+    f = s["ff"]
+    blk = (f["block"], f["block"])
+    ff = FFModel(db="ha_ff", block=blk)
+    ff.setup(a)
+    rng = np.random.default_rng(SEED)
+    fe, hi, lab = f["features"], f["hidden"], f["labels"]
+    weights = (rng.standard_normal((hi, fe), dtype=np.float32)
+               * np.sqrt(2.0 / fe),
+               rng.standard_normal((hi,), dtype=np.float32) * 0.01,
+               rng.standard_normal((lab, hi), dtype=np.float32)
+               * np.sqrt(2.0 / hi),
+               rng.standard_normal((lab,), dtype=np.float32) * 0.01)
+    ff.load_weights(a, *weights)
+    w1, b1, wo, bo = (torch.as_tensor(w, device=device).double()
+                      for w in weights)
+    b1, bo = b1[:, None], bo[:, None]
+    sink = ff.build_inference_dag()
+    rng = np.random.default_rng(SEED + 1)
+    ms, errs = [], []
+    for _ in range(f["requests"]):
+        x = rng.standard_normal((f["batch"], fe), dtype=np.float32)
+        ff.load_inputs(a, x)
+        t0 = time.perf_counter()
+        (ident, _), = a.execute_computations(sink, job_name="ha-ff",
+                                             fetch_results=False).items()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs = {n: c.get_tensor(*ident).to_dense()
+                for n, c in direct.items()}
+        if len({o.tobytes() for o in outs.values()}) != 1:
+            raise RuntimeError("mirrored FF: the outputs of A, B and C "
+                               "differ")
+        got = outs["A"]
+        xd = torch.as_tensor(x, device=device).double()
+        ref = torch.softmax(wo @ torch.relu(w1 @ xd.T + b1) + bo, dim=0)
+        if got.shape != (lab, f["batch"]) or not np.isfinite(got).all():
+            raise RuntimeError(f"mirrored FF output {got.shape} is wrong")
+        err = float((torch.as_tensor(got, device=device).double()
+                     - ref).abs().max())
+        if not err <= FF_TOL:
+            raise RuntimeError(f"mirrored FF: max abs err {err} > {FF_TOL}")
+        errs.append(err)
+        print(f"[ha] mirrored ff request {ms[-1]:.3f} ms, A = B = C byte "
+              f"for byte, max_abs_err {err:.3e} ({card})")
+    out["ff"] = {"ms": ms, "p50_ms": _p50(ms), "max_abs_err": max(errs),
+                 "output": list(ident)}
+
+    la = s["layer"]
+    heads = la["heads"]
+    lm = TransformerLayerModel(db="ha_layer", num_heads=heads)
+    lm.setup(a)
+    lm.load_random_weights(a, embed=la["embed"], seed=SEED)
+    local = Client(device=device)
+    ref_model = TransformerLayerModel(db="ha_layer", num_heads=heads)
+    ref_model.setup(local)
+    ref_model.load_random_weights(local, embed=la["embed"], seed=SEED)
+    p = ref_model.params_from_store(local)
+    k0 = _ha_kernels(a, names)
+    rng = np.random.default_rng(SEED + 2)
+    ms, errs, y_last = [], [], None
+    for _ in range(la["requests"]):
+        x = rng.standard_normal((la["batch"], la["seq"], la["embed"]),
+                                dtype=np.float32)
+        lm.load_inputs(a, x)
+        t0 = time.perf_counter()
+        a.execute_computations(lm.build_forward_dag(a), job_name="ha-layer",
+                               fetch_results=False)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        ys = {n: list(c.get_set_iterator("ha_layer", "y"))[0]
+              for n, c in direct.items()}
+        if len({_ha_canon(y)[3] for y in ys.values()}) != 1:
+            raise RuntimeError("mirrored layer: the outputs of A, B and C "
+                               "differ")
+        with torch.inference_mode():
+            xt = torch.as_tensor(x, device=device)
+            q, k, v = (t.contiguous() for t in
+                       qkv_project(ref_model._ln(xt), p.w_qkv, heads))
+            x1 = xt + merge_project(flash_attention_plain(q, k, v), p.w_out)
+            ref = x1 + ref_model._mlp(ref_model._ln(x1), p)
+        y = torch.as_tensor(ys["A"]).to(device)
+        if tuple(y.shape) != tuple(ref.shape) or not torch.isfinite(y).all():
+            raise RuntimeError(f"mirrored layer output {tuple(y.shape)} is "
+                               f"wrong or non-finite")
+        err = float((y - ref).abs().max())
+        if not err <= LAYER_TOL:
+            raise RuntimeError(f"mirrored layer: max abs err {err} > "
+                               f"{LAYER_TOL}")
+        errs.append(err)
+        y_last = ys["A"]
+        print(f"[ha] mirrored layer request {ms[-1]:.3f} ms, A = B = C "
+              f"byte for byte, max_abs_err {err:.3e} ({card})")
+    del local
+    k1 = _ha_kernels(a, names)
+    b1 = {n: k1[n]["flash_attention"] - k0[n]["flash_attention"]
+          for n in k1}
+    b2 = {n: k1[n]["flash_attention_step"] - k0[n]["flash_attention_step"]
+          for n in k1}
+    want = la["requests"] if device == "cuda" else 0
+    if any(v != want for v in b1.values()) or any(b2.values()):
+        raise RuntimeError(f"mirrored layer: B1 launches {b1} (want {want} "
+                           f"in each daemon), B2 {b2}")
+    print(f"[ha] B1 launches in A, B, C over the layer requests: {b1} "
+          f"({card})")
+    out["applied_log"] = {}
+    for n in ("B", "C"):
+        lg = direct[n].collect_stats()["applied_log"]
+        comp = lg["compaction"]
+        out["applied_log"][n] = lg
+        print(f"[ha] {n}'s applied log: {lg['frames']} frames, "
+              f"{lg['bytes']} bytes on its base; "
+              + (f"last compaction {comp['frames']} frames, "
+                 f"{comp['log_bytes']} logged bytes into a "
+                 f"{comp['snapshot_bytes']} byte snapshot in "
+                 f"{comp['seconds'] * 1e3:.1f} ms" if comp
+                 else "no compaction yet")
+              + f" ({card})")
+    out["layer"] = {"ms": ms, "p50_ms": _p50(ms), "max_abs_err": max(errs),
+                    "b1_launches": b1, "b2_launches": b2}
+    out["y_last"] = y_last
+    return out
+
+
+def _ha_kernels(a, names: dict) -> dict:
+    """The kernel counters of A and of each follower, by daemon name
+    (``names``: address → name), through A's COLLECT_STATS, which
+    carries its followers' sections."""
+    st = a.collect_stats()
+    out = {"A": st["metrics"]["kernels"]}
+    for addr, fst in (st.get("followers") or {}).items():
+        if "error" in fst:
+            raise RuntimeError(f"follower {addr} did not answer: {fst}")
+        out[names[addr]] = fst["metrics"]["kernels"]
+    if sorted(out) != ["A", "B", "C"]:
+        raise RuntimeError(f"A's COLLECT_STATS lacks a follower: "
+                           f"{sorted(out)}")
+    return out
+
+
+def _ha_hedged(addrs, roots, mirrored, s, card) -> dict:
+    """Step 2: hedged reads of FF's output. Unhedged reads of A set the
+    baseline; a client with replicas [B, C] reads it warm, then while A's
+    STREAM_ITEM replies are delayed (its injector armed through its
+    root); every reply byte-equal to the unhedged one."""
+    import json as _json
+    import os
+
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    h = s["hedge"]
+    ident = mirrored["ff"]["output"]
+    plain = RemoteClient(addrs["A"], timeout=HA_TIMEOUT_S)
+    hedged = RemoteClient(addrs["A"], replicas=[addrs["B"], addrs["C"]],
+                          timeout=HA_TIMEOUT_S)
+    try:
+        def read(c):
+            t0 = time.perf_counter()
+            t = c.get_tensor_chunked(*ident)
+            return (time.perf_counter() - t0) * 1e3, t.to_dense().tobytes()
+
+        base = [read(plain) for _ in range(h["plain"])]
+        want = base[0][1]
+        mib = len(want) / (1 << 20)
+        warm = [read(hedged) for _ in range(h["warm"])]
+        trigger = hedged.hedge_delay_s()
+        won0 = hedged.hedges_won
+        arm = os.path.join(roots["A"], "arm.json")
+        with open(arm + ".tmp", "w") as f:
+            _json.dump({"n": h["delayed"], "delay_s": h["delay_s"]}, f)
+        os.replace(arm + ".tmp", arm)
+        _ha_wait("A's injector armed", lambda: not os.path.exists(arm), 30)
+        delayed = [read(hedged) for _ in range(h["delayed"])]
+        for _ms, got in warm + delayed:
+            if got != want:
+                raise RuntimeError("a hedged read differs from the "
+                                   "unhedged one")
+        won = hedged.hedges_won - won0
+        if won < 1:
+            raise RuntimeError(f"no hedge won while A's replies were "
+                               f"delayed {h['delay_s']} s")
+        out = {"plain_p50_ms": _p50([m for m, _ in base]),
+               "hedged_p50_ms": _p50([m for m, _ in warm]),
+               "delayed_p50_ms": _p50([m for m, _ in delayed]),
+               "hedge_delay_s": trigger, "hedges_issued":
+                   hedged.hedges_issued, "hedges_won": hedged.hedges_won,
+               "won_while_delayed": won,
+               "read_latency": hedged.read_latency_stats()}
+        print(f"[ha] hedged reads of FF's output ({mib:.1f} MiB): "
+              f"unhedged p50 "
+              f"{out['plain_p50_ms']:.3f} ms, hedged p50 "
+              f"{out['hedged_p50_ms']:.3f} ms, with A delayed "
+              f"{h['delay_s']} s p50 {out['delayed_p50_ms']:.3f} ms; "
+              f"hedge_delay_s() {trigger:.4f} s; hedges won {won} of "
+              f"{h['delayed']} delayed reads, every reply byte-equal "
+              f"({card})")
+        return out
+    finally:
+        plain.close()
+        hedged.close()
+
+
+def _ha_batches_ok(client, db, set_name, acked, rows) -> dict:
+    """Each acknowledged batch exactly once: row counts and the sum of
+    the rows' values."""
+    items = list(client.get_set_iterator(db, set_name))
+    per = {}
+    for it in items:
+        per[it["b"]] = per.get(it["b"], 0) + 1
+    want = {b: rows for b in acked}
+    total = sum(it["v"] for it in items)
+    want_total = sum(b * 1000 * rows + rows * (rows - 1) // 2
+                     for b in acked)
+    if per != want or total != want_total:
+        raise RuntimeError(f"{set_name}: batches {per} (want {rows} rows "
+                           f"of each of {sorted(acked)}), checksum {total} "
+                           f"(want {want_total})")
+    return {"batches": len(per), "rows": len(items), "checksum": total}
+
+
+def _ha_follower_killed(addrs, ports, roots, root, device, peers, procs,
+                        logs, direct, s, card) -> dict:
+    """Step 3: C SIGKILLed while numbered batches stream through A (a
+    typed FollowerDegraded is retried by ``send_data``'s own policy),
+    restarted on its root (rebuilt from its base snapshot and a bounded
+    tail of its applied log) and readmitted by log replay; then
+    SIGKILLed again, restarted on an empty root and readmitted by a
+    snapshot. After each readmission every set of C holds A's bytes."""
+    import os
+    import threading
+
+    from netsdb_tpu_torch.serve.client import RemoteClient, RetryPolicy
+    from netsdb_tpu_torch.serve.server import ServeController
+
+    b = s["batches"]
+    a = direct["A"]
+    a.create_set("ha", "batches", type_name="object")
+    writer = RemoteClient(addrs["A"], timeout=HA_TIMEOUT_S,
+                          retry=RetryPolicy(max_attempts=400,
+                                            base_delay_s=0.05,
+                                            max_delay_s=0.25,
+                                            deadline_s=HA_WAIT_S))
+    acked = []
+    killed = threading.Event()
+    errors = []
+
+    def stream():
+        try:
+            for i in range(b["total"]):
+                if i == b["before_kill"]:
+                    killed.wait(HA_WAIT_S)
+                writer.send_data("ha", "batches",
+                                 [{"b": i, "r": r, "v": i * 1000 + r}
+                                  for r in range(b["rows"])])
+                acked.append(i)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    last = (_ha_mirror_state(a).get("last_resync") or {}).get("seq", 0)
+    t = threading.Thread(target=stream, daemon=True)
+    t.start()
+    _ha_wait("the first batches", lambda: len(acked) >= b["before_kill"])
+    procs["C"].kill()
+    procs["C"].wait(30)
+    killed.set()
+    t.join(HA_WAIT_S)
+    writer.close()
+    counts = dict(writer.retries_by_error)
+    if errors or t.is_alive():
+        raise RuntimeError(f"batches stalled with C dead: {errors}")
+    if counts.get("FollowerDegradedError", 0) < 1:
+        raise RuntimeError(f"no FollowerDegraded was seen when C died: "
+                           f"{counts}")
+    print(f"[ha] C killed after {b['before_kill']} batches: all "
+          f"{len(acked)} acknowledged, refusals retried {counts} ({card})")
+    out = {"refusals": counts}
+    _ha_batches_ok(a, "ha", "batches", acked, b["rows"])
+    for name, croot in (("log", roots["C"]),
+                        ("snapshot", os.path.join(root, "C-empty"))):
+        if name == "snapshot":
+            procs["C"].kill()
+            procs["C"].wait(30)
+        t0 = time.perf_counter()
+        _ha_start("C", croot, ports["C"], device, peers, None, logs, procs)
+        _daemon_addr(procs["C"], logs["C"])
+        started = time.perf_counter() - t0
+
+        def readmitted():
+            m = _ha_mirror_state(a)
+            r = m.get("last_resync") or {}
+            return (r if addrs["C"] in m.get("active", ())
+                    and r.get("seq", 0) > last
+                    and r.get("addr") == addrs["C"] else None)
+
+        r = _ha_wait(f"C readmitted by {name}", readmitted)
+        last = r["seq"]
+        if r["mode"] != name:
+            raise RuntimeError(f"C was readmitted by {r['mode']}, not by "
+                               f"{name}: {r}")
+        wall = time.perf_counter() - t0
+        if direct.get("C") is not None:
+            direct["C"].close()
+        direct["C"] = RemoteClient(addrs["C"], timeout=HA_TIMEOUT_S)
+        nsets = _ha_same_store(f"readmitted by {name}", a, direct["C"],
+                               card)
+        row = dict(r, start_s=started, readmit_wall_s=wall, sets=nsets)
+        if name == "snapshot":
+            row["mb_per_s"] = r["bytes"] / r["stream_s"] / 1e6
+            print(f"[ha] C on an empty root: started in {started:.1f} s, "
+                  f"snapshot of {r['bytes']} bytes in "
+                  f"{r['total_s'] * 1e3:.1f} ms, A's writes held that long "
+                  f"(streamed {r['stream_s'] * 1e3:.1f} ms, "
+                  f"{row['mb_per_s']:.1f} MB/s), readmitted {wall:.1f} s "
+                  f"after its start ({card})")
+        else:
+            rebuilt = direct["C"].collect_stats()["applied_log"]["restore"]
+            if rebuilt is None or rebuilt["frames"] \
+                    >= ServeController.applied_log_max_frames:
+                raise RuntimeError(f"C on its root replayed no bounded "
+                                   f"tail of its applied log: {rebuilt}")
+            row["applied_restore"] = rebuilt
+            print(f"[ha] C on its root: started in {started:.1f} s, its "
+                  f"store rebuilt in {rebuilt['seconds'] * 1e3:.1f} ms (a "
+                  f"{rebuilt['snapshot_bytes']} byte base and "
+                  f"{rebuilt['frames']} logged frames, "
+                  f"{rebuilt['log_bytes']} bytes), then {r['frames']} "
+                  f"frames ({r['bytes']} bytes) replayed from its applied "
+                  f"offset in {r['total_s'] * 1e3:.1f} ms, A's writes held "
+                  f"that long ({card})")
+        out[name] = row
+    return out
+
+
+def _ha_leader_killed(addrs, procs, direct, mirrored, s, device,
+                      card) -> dict:
+    """Step 4: A SIGKILLed while a failover client streams numbered
+    batches: B promotes (term 2) within the election window; every
+    acknowledged batch is in B and C exactly once; a layer EXECUTE on B
+    launches B1 once (and once on its follower C) and equals the output
+    before the kill byte for byte."""
+    import threading
+
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.serve.client import RemoteClient, RetryPolicy
+
+    f = s["failover"]
+    a = direct["A"]
+    a.create_set("ha", "failover", type_name="object")
+    client = RemoteClient(addrs["A"], failover=[addrs["B"], addrs["C"]],
+                          timeout=HA_TIMEOUT_S,
+                          retry=RetryPolicy(max_attempts=400,
+                                            base_delay_s=0.05,
+                                            max_delay_s=0.25))
+    acked, ack_t, errors = [], {}, []
+    killed = threading.Event()
+
+    def stream():
+        try:
+            for i in range(f["total"]):
+                if i == f["before_kill"]:
+                    killed.wait(HA_WAIT_S)
+                client.send_data("ha", "failover",
+                                 [{"b": i, "r": r, "v": i * 1000 + r}
+                                  for r in range(f["rows"])])
+                ack_t[i] = time.perf_counter()
+                acked.append(i)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    t = threading.Thread(target=stream, daemon=True)
+    t.start()
+    _ha_wait("the batches before the kill",
+             lambda: len(acked) >= f["before_kill"])
+    t_kill = time.perf_counter()
+    procs["A"].kill()
+    procs["A"].wait(30)
+    killed.set()
+    t.join(HA_WAIT_S)
+    if errors or t.is_alive():
+        raise RuntimeError(f"the failover stream stalled: {errors}")
+    direct["A"].close()
+    direct["A"] = None
+    b = direct["B"]
+    ha = b.ping().get("ha") or {}
+    if ha.get("role") != "leader" or ha.get("term") != 2:
+        raise RuntimeError(f"B did not lead at term 2 after the kill: {ha}")
+    first = ack_t[f["before_kill"]] - t_kill
+    checks = {n: _ha_batches_ok(direct[n], "ha", "failover", acked,
+                                f["rows"]) for n in ("B", "C")}
+    k0 = {n: direct[n].collect_stats()["metrics"]["kernels"]
+          for n in ("B", "C")}
+    lm = TransformerLayerModel(db="ha_layer", num_heads=s["layer"]["heads"])
+    t0 = time.perf_counter()
+    b.execute_computations(lm.build_forward_dag(b), job_name="ha-layer-b",
+                           fetch_results=False)
+    layer_ms = (time.perf_counter() - t0) * 1e3
+    k1 = {n: direct[n].collect_stats()["metrics"]["kernels"]
+          for n in ("B", "C")}
+    launches = {n: k1[n]["flash_attention"] - k0[n]["flash_attention"]
+                for n in k1}
+    b2 = {n: k1[n]["flash_attention_step"] - k0[n]["flash_attention_step"]
+          for n in k1}
+    want = 1 if device == "cuda" else 0
+    if launches != {"B": want, "C": want} or any(b2.values()):
+        raise RuntimeError(f"the layer on the promoted leader launched B1 "
+                           f"{launches} (want {want} in B and C), B2 {b2}")
+    want_y = _ha_canon(mirrored["y_last"])
+    for n in ("B", "C"):
+        y = list(direct[n].get_set_iterator("ha_layer", "y"))[0]
+        if _ha_canon(y) != want_y:
+            raise RuntimeError(f"the layer on the promoted leader: {n}'s "
+                               f"output differs from the one before the "
+                               f"kill")
+    out = {"term": ha["term"], "kill_to_first_ack_s": first,
+           "failovers": client.failovers, "batches": checks,
+           "layer_ms": layer_ms, "b1_launches": launches,
+           "b2_launches": b2}
+    client.close()
+    print(f"[ha] A killed after {f['before_kill']} batches: B leads at term "
+          f"2, the first write acknowledged {first * 1e3:.1f} ms after the "
+          f"kill (election window {HA_ELECTION_S} s); all {len(acked)} "
+          f"acknowledged batches once in B and in C {checks['B']}; the "
+          f"layer on B {layer_ms:.3f} ms, B1 {launches}, output equal to "
+          f"the one before the kill ({card})")
+    return out
+
+
+def _ha_deposed(addrs, ports, roots, device, peers, procs, logs,
+                card) -> dict:
+    """Step 5: A restarted on its root: its first write is fenced by its
+    followers, it steps down, and the client gets a typed NotLeader
+    naming B and term 2 (twice: the second refused before it applies)."""
+    from netsdb_tpu_torch.serve.client import (NotLeaderError, RemoteClient,
+                                               RetryPolicy)
+
+    _ha_start("A", roots["A"], ports["A"], device, peers,
+              [addrs["B"], addrs["C"]], logs, procs)
+    _daemon_addr(procs["A"], logs["A"])
+    c = RemoteClient(addrs["A"], timeout=HA_TIMEOUT_S,
+                     retry=RetryPolicy(max_attempts=1))
+    try:
+        seen = []
+        for _ in range(2):
+            try:
+                c.create_database("ha_stale")
+            except NotLeaderError as e:
+                seen.append((e.leader_addr, e.term))
+                continue
+            raise RuntimeError("the restarted deposed leader took a write")
+        if seen != [(addrs["B"], 2)] * 2:
+            raise RuntimeError(f"the refusals named {seen}, not "
+                               f"({addrs['B']}, 2)")
+        ha = c.ping().get("ha") or {}
+        if ha.get("role") != "follower" or ha.get("term") != 2:
+            raise RuntimeError(f"the restarted A did not step down: {ha}")
+    finally:
+        c.close()
+    print(f"[ha] A restarted on its root: a write refused with NotLeader "
+          f"naming {addrs['B']} and term 2, A stepped down to follower "
+          f"({card})")
+    return {"refusals": seen, "role": ha["role"]}
+
+
+def phase_ha(pk: dict, smi: str, device: str = "cuda",
+             sizes: Optional[dict] = None,
+             solo: Optional[dict] = None) -> dict:
+    """Phase 21: replication and failover. Daemons A, B and C in their
+    own processes on card 0, HA armed over [A, B, C] (election
+    ``HA_ELECTION_S``, ``HA_LINKS``), A mirroring to B and C, the mutation
+    log on in all three: mirrored FF and layer requests (``_ha_mirrored``),
+    hedged reads (``_ha_hedged``), a follower killed and readmitted twice
+    (``_ha_follower_killed``), the leader killed (``_ha_leader_killed``)
+    and the deposed leader restarted (``_ha_deposed``). ``solo`` is phase
+    16's result, whose p50s are printed beside the mirrored ones. The
+    three daemons share one card: a mirrored request's wall holds the
+    followers' work on the same SMs, not a replica's on its own card."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    del pk
+    s = {k: dict(v, **((sizes or {}).get(k, {})))
+         for k, v in HA_SIZES.items()}
+    card = smi
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="netsdb_ha_")
+    names = ("A", "B", "C")
+    ports = dict(zip(names, _ha_free_ports(3)))
+    addrs = {n: f"127.0.0.1:{ports[n]}" for n in names}
+    roots = {n: os.path.join(root, n) for n in names}
+    peers = [addrs[n] for n in names]
+    procs, logs, direct = {}, {}, {}
+    try:
+        for n in names:  # all three start together
+            _ha_start(n, roots[n], ports[n], device, peers,
+                      [addrs["B"], addrs["C"]] if n == "A" else None,
+                      logs, procs, chaos=n == "A")
+        for n in names:
+            _daemon_addr(procs[n], logs[n])
+            direct[n] = RemoteClient(addrs[n], timeout=HA_TIMEOUT_S,
+                                     connect_timeout=30.0)
+        print(f"[ha] daemons A {addrs['A']} (leader, followers B and C), "
+              f"B {addrs['B']}, C {addrs['C']}, HA over [A, B, C]: "
+              f"{time.perf_counter() - t0:.1f} s to listen; three processes "
+              f"on one card ({card})")
+        a = direct["A"]
+        a.create_database("ha")
+        out = {"mirrored": _ha_mirrored(
+            a, direct, {addrs[n]: n for n in names}, s, device, card)}
+        y_last = out["mirrored"].pop("y_last")
+        for key in ("ff", "layer"):
+            solo_p50 = ((solo or {}).get(key) or {}).get("p50_ms")
+            print(f"[ha] {key}: mirrored EXECUTE p50 "
+                  f"{out['mirrored'][key]['p50_ms']:.3f} ms (A with B and "
+                  f"C on the same card, no result fetched) beside phase "
+                  f"16's solo p50 "
+                  + (f"{solo_p50:.3f} ms (its requests fetch their result)"
+                     if solo_p50 is not None
+                     else "(phase 16 not run in this call)")
+                  + f" ({card})")
+        out["hedged"] = _ha_hedged(addrs, roots, out["mirrored"], s, card)
+        out["follower_killed"] = _ha_follower_killed(
+            addrs, ports, roots, root, device, peers, procs, logs, direct,
+            s, card)
+        out["leader_killed"] = _ha_leader_killed(
+            addrs, procs, direct, {"y_last": y_last}, s, device, card)
+        out["deposed"] = _ha_deposed(addrs, ports, roots, device, peers,
+                                     procs, logs, card)
+        b1, b2 = (sum(out["mirrored"]["layer"][key].values())
+                  + sum(out["leader_killed"][key].values())
+                  for key in ("b1_launches", "b2_launches"))
+        out["launches"] = {"flash_attention": b1, "flash_attention_step": b2}
+        out["seconds"] = time.perf_counter() - t0
+        print(f"[ha] B1 launched {b1} times, B2 {b2} times in the daemons' "
+              f"counted windows; phase 21 took {out['seconds']:.1f} s ({card})")
+        if out["seconds"] > HA_BUDGET_S:
+            print(f"[ha] WARNING: phase 21 took {out['seconds']:.1f} s, "
+                  f"over its {HA_BUDGET_S} s budget")
+        return out
+    except BaseException:
+        for n, proc in procs.items():
+            if proc.poll() is None:
+                import signal
+
+                proc.send_signal(signal.SIGUSR1)
+        time.sleep(1.0)
+        for n, log in logs.items():
+            try:
+                with open(log) as f:
+                    print(f"[ha] daemon {n} log:\n" + f.read()[-6000:])
+            except OSError:
+                pass
+        raise
+    finally:
+        for c in direct.values():
+            if c is not None:
+                c.close()
+        for n, proc in procs.items():
+            stopper = None
+            if proc.poll() is None:
+                try:
+                    stopper = RemoteClient(addrs[n], timeout=30.0,
+                                           connect_timeout=10.0)
+                except Exception:  # noqa: BLE001 — the kill below stops it
+                    stopper = None
+            _serve_stop(proc, stopper)
+            if stopper is not None:
+                stopper.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -8396,6 +9163,11 @@ def main() -> int:
         print(json.dumps({"obs": phase_obs(pk, smi), "card": smi},
                          default=str))
         return 0
+    if "--ha-only" in sys.argv[1:]:
+        # phase 21 alone, the same way
+        print(json.dumps({"ha": phase_ha(pk, smi), "card": smi},
+                         default=str))
+        return 0
     if "--multichip-only" in sys.argv[1:]:
         # phase 19 alone, the same way
         print(json.dumps({"multichip": phase_multichip(pk, smi),
@@ -8452,6 +9224,7 @@ def main() -> int:
     serve = phase_serve(pk, smi)
     pool = phase_pool(pk, smi)
     observed = phase_obs(pk, smi)
+    replicated = phase_ha(pk, smi, solo=serve)
     pool_launches = {
         k: pool["launches"].get(k, 0) + pool["inproc"]["launches"][i]
         for i, k in enumerate(("flash_attention", "flash_attention_step"))}
@@ -8466,7 +9239,7 @@ def main() -> int:
                       "compiled": compiled, "workloads": workloads,
                       "serve": serve, "pool": pool, "mesh": mesh,
                       "multichip": multichip, "obs": observed,
-                      "card": smi},
+                      "ha": replicated, "card": smi},
                      default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
@@ -8492,7 +9265,9 @@ def main() -> int:
                     "mesh": mesh["launches"]["flash_attention"],
                     "multichip": multichip["launches"]["flash_attention"],
                     "observability":
-                        observed["launches"]["flash_attention"]},
+                        observed["launches"]["flash_attention"],
+                    "replication":
+                        replicated["launches"]["flash_attention"]},
                    b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
@@ -8507,7 +9282,9 @@ def main() -> int:
                     "multichip":
                         multichip["launches"]["flash_attention_step"],
                     "observability":
-                        observed["launches"]["flash_attention_step"]},
+                        observed["launches"]["flash_attention_step"],
+                    "replication":
+                        replicated["launches"]["flash_attention_step"]},
                    b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

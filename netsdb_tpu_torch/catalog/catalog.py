@@ -14,7 +14,7 @@ import os
 import sqlite3
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS databases (
@@ -63,6 +63,12 @@ class Catalog:
             cur = self._conn.execute(
                 "SELECT 1 FROM databases WHERE name = ?", (name,))
             return cur.fetchone() is not None
+
+    def list_databases(self) -> List[str]:
+        with self._lock:
+            cur = self._conn.execute(
+                "SELECT name FROM databases ORDER BY name")
+            return [r[0] for r in cur.fetchall()]
 
     # --- sets ---------------------------------------------------------
     def create_set(self, db_name: str, set_name: str,
@@ -134,3 +140,11 @@ class Catalog:
                 "SELECT entry_point FROM types WHERE type_name = ?",
                 (type_name,)).fetchone()
         return row[0] if row else None
+
+    def list_types(self) -> List[Dict]:
+        """Every registered type as ``{"type", "entry_point"}``."""
+        with self._lock:
+            cur = self._conn.execute(
+                "SELECT type_name, entry_point FROM types")
+            return [{"type": r[0], "entry_point": r[1]}
+                    for r in cur.fetchall()]

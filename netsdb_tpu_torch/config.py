@@ -15,14 +15,12 @@ import torch
 # setting one away from its default raises, naming the item
 _LATER = {
     # A7 part 2: the daemon pool — pin auto-sizing from the attribution
-    # ledger, HA, rebalancing
+    # ledger, rebalancing
     "device_cache_pin_auto": (False, "A7 part 2"),
     "rebalance": (False, "A7 part 2"),
     "rebalance_skew_ratio": (2.0, "A7 part 2"),
     "rebalance_windows": (3, "A7 part 2"),
     "rebalance_max_bytes_per_round": (64 * 1024 * 1024, "A7 part 2"),
-    "ha_election_timeout_s": (5.0, "A7 part 2"),
-    "ha_mutlog": (False, "A7 part 2"),
     # A8: the lock-order witness
     "lock_witness": (False, "A8"),
 }
@@ -99,7 +97,17 @@ class Configuration:
     ``sched_lane_quota``, ``sched_aging_every``, ``sched_coalesce*`` and
     ``sched_affinity*``; the sessions' ``session_ttl_s`` (> 0) and
     ``session_state_bytes`` (>= 0); the decode runtime's
-    ``decode_batch_max`` (>= 1) and ``model_dedup``.
+    ``decode_batch_max`` (>= 1) and ``model_dedup``. Replication and
+    failover keep theirs: ``ha_election_timeout_s`` is the window every
+    earlier succession peer must stay dead before a follower promotes
+    (``ServeController.arm_ha``), and ``ha_mutlog`` turns on the durable
+    mutation log (``storage/mutlog.py``): mirrored frames are logged for
+    log-replay resync, and the placement map and the handoff buffer
+    persist across a leader restart. The log flushes to the operating
+    system on every append without ``fsync`` (the reference's default):
+    it survives a process crash, and a power loss that drops its last
+    records costs a re-execution under their idempotency tokens, never
+    a divergence.
 
     Observability keeps the reference's knobs and defaults: the served
     daemon traces queries unless ``obs_enabled`` is off, keeps the last
@@ -170,8 +178,8 @@ class Configuration:
     obs_explain: bool = True
     obs_history_interval_s: float = 5.0
     obs_history_len: int = 120
-    # --- serving (one daemon and its shard pool; the other pool knobs
-    # are A7 part 2) ---
+    # --- serving (one daemon, its shard pool, followers and HA; the
+    # rebalancing knobs are A7 part 2) ---
     sched_lanes: Optional[Dict[str, float]] = None
     sched_lane_quota: int = 0
     sched_aging_every: int = 8

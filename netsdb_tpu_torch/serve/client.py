@@ -40,9 +40,19 @@ shipped to the daemon (PUT_TRACE) by a background thread over its own
 connection, so GET_TRACE (:meth:`RemoteClient.get_trace`) returns one
 merged profile; :meth:`RemoteClient.flush_traces` waits for the queue.
 
-Replicas with hedged reads, HA failover, rebalancing (``add_worker``,
-``rebalance_status``) and type-source shipping belong to ROADMAP.md A7
-part 2: each raises ``NotImplementedError`` naming its item."""
+With ``replicas`` (daemons holding the same data: a leader's followers)
+idempotent reads hedge: when the primary's reply has not landed after
+:meth:`RemoteClient.hedge_delay_s` (the observed p99 of this client's
+reads, or the knob), the same request goes to a replica and the first
+answer wins; a stream hedges its first item. Mutations never hedge.
+With ``failover`` (the HA succession list) a typed ``NotLeader`` that
+names the leader re-points the client there at once, and a lost
+connection rotates through the candidates under the retry backoff,
+which doubles as the wait for an election.
+
+Rebalancing (``add_worker``, ``rebalance_status``) and type-source
+shipping belong to ROADMAP.md A7 part 2: each raises
+``NotImplementedError`` naming its item."""
 
 from __future__ import annotations
 
@@ -227,14 +237,12 @@ class RemoteClient:
         ``obs_trace_sample``, 1). ``ship_traces``: ship each finished
         client trace to the daemon (PUT_TRACE) from a background thread,
         best effort — a lost ship costs the client section, never the
-        request. ``replicas``, ``hedge_delay_s``, ``failover`` and
-        ``chaos`` raise (ROADMAP.md A7 part 2)."""
-        for name, value in (("replicas", replicas),
-                            ("hedge_delay_s", hedge_delay_s),
-                            ("failover", failover), ("chaos", chaos)):
-            if value:
-                _later(f"RemoteClient({name}=...) (replicas, hedged reads, "
-                       f"failover, fault injection)", "A7 part 2")
+        request. ``replicas``: daemons holding the same data, which
+        idempotent reads hedge to after ``hedge_delay_s`` (None: the
+        adaptive p99 trigger). ``failover``: candidate leader addresses
+        (the HA succession list). ``chaos``: a
+        :class:`~netsdb_tpu_torch.serve.chaos.ChaosInjector` faulting
+        this client's frames (tests)."""
         host, _, port = address.rpartition(":")
         self.host = host or "127.0.0.1"
         self.port = int(port)
@@ -245,11 +253,13 @@ class RemoteClient:
         self._connect_timeout = (connect_timeout if connect_timeout
                                  is not None else timeout)
         self._retry = retry or RetryPolicy()
+        self._chaos = chaos
         self._rng = random.Random(seed)
         #: attempts of the last logical request; retries over the
-        #: client's lifetime
+        #: client's lifetime, in all and by the refusal's type name
         self.last_attempts = 0
         self.total_retries = 0
+        self.retries_by_error: Dict[str, int] = {}
         self.ingest_window = max(1, int(ingest_window))
         self.ingest_chunk_bytes = max(64 << 10, int(ingest_chunk_bytes))
         self.client_id = client_id
@@ -269,6 +279,8 @@ class RemoteClient:
         #: True when the daemon named this interpreter in its HELLO
         #: reply: the pickle codec is usable
         self.pickle_ok = False
+        self.daemon_incarnation: Optional[str] = None
+        self.daemon_applied: Optional[list] = None
         # the thread driving a streaming reply: its nested requests take
         # a one-shot side connection
         self._stream_owner: Optional[int] = None
@@ -281,6 +293,20 @@ class RemoteClient:
         self._placement_fetch_mu = TrackedLock(
             "RemoteClient._placement_fetch_mu")
         self._refreshing_placement: Optional[int] = None
+        # hedged reads: the replica ring and this client's read
+        # latencies (the trigger quantiles over them; every observation
+        # also lands in the registry's serve.client.read_latency_s)
+        self._replicas = list(replicas or [])
+        self._hedge_delay_s = hedge_delay_s
+        self._read_hist = obs.Histogram(max_samples=256)
+        self._hedge_rr = 0
+        self.hedges_issued = 0
+        self.hedges_won = 0
+        # failover: candidate leaders and the rotation cursor; the
+        # number of times this client re-pointed at another daemon
+        self._failover = list(failover or [])
+        self._failover_idx = 0
+        self.failovers = 0
         self._connect()
 
     # --- transport ----------------------------------------------------
@@ -288,14 +314,20 @@ class RemoteClient:
     def current_address(self) -> str:
         return f"{self.host}:{self.port}"
 
-    def _dial(self, budget_s: Optional[float] = None) -> socket.socket:
-        """Open and handshake one connection. HELLO carries
-        ``PROTO_VERSION`` (a mismatch either way is the fatal
-        :class:`ProtocolVersionError`) and this interpreter's tag."""
+    def _dial(self, budget_s: Optional[float] = None,
+              address: Optional[str] = None) -> socket.socket:
+        """Open and handshake one connection (to ``address``, a replica,
+        else this client's daemon). HELLO carries ``PROTO_VERSION`` (a
+        mismatch either way is the fatal :class:`ProtocolVersionError`)
+        and this interpreter's tag."""
+        host, port = self.host, self.port
+        if address is not None:
+            h, _, p = address.rpartition(":")
+            host, port = (h or "127.0.0.1"), int(p)
         ct = self._connect_timeout
         if budget_s is not None:
             ct = budget_s if ct is None else min(ct, budget_s)
-        s = socket.create_connection((self.host, self.port), timeout=ct)
+        s = socket.create_connection((host, port), timeout=ct)
         try:
             s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             send_frame(s, MsgType.HELLO, {"token": self.token,
@@ -307,10 +339,15 @@ class RemoteClient:
             if reply.get("version") != PROTO_VERSION:
                 raise ProtocolVersionError(
                     "ProtocolVersionError",
-                    f"daemon at {self.host}:{self.port} speaks wire format "
+                    f"daemon at {host}:{port} speaks wire format "
                     f"v{reply.get('version')}; this client is "
                     f"v{PROTO_VERSION} — mixed versions are refused")
-            self.pickle_ok = reply.get(PY_KEY) == PY_TAG
+            if address is None:
+                self.pickle_ok = reply.get(PY_KEY) == PY_TAG
+                # the daemon process's identity and, on a follower that
+                # keeps an applied log, the leader-log position it holds
+                self.daemon_incarnation = reply.get("incarnation")
+                self.daemon_applied = reply.get("mirror_applied")
             if isinstance(reply.get("placement"), dict):
                 # a pool leader ships its placement map in the handshake
                 with self._placement_mu:
@@ -338,14 +375,16 @@ class RemoteClient:
                 type(e).__name__, f"reply body failed to decode: {e}") from e
 
     def _oneshot_request(self, msg_type: MsgType, payload: Any, codec: int,
-                         io_timeout: Optional[float] = None) -> Any:
+                         io_timeout: Optional[float] = None,
+                         address: Optional[str] = None) -> Any:
         """One request over a throwaway connection — for a thread that
-        is mid-stream on the main connection."""
-        s = self._dial(io_timeout)
+        is mid-stream on the main connection, and for a hedge to a
+        replica (``address``)."""
+        s = self._dial(io_timeout, address=address)
         try:
             if io_timeout is not None:
                 s.settimeout(io_timeout)
-            send_frame(s, msg_type, payload, codec)
+            send_frame(s, msg_type, payload, codec, chaos=self._chaos)
             typ, reply = self._recv_reply(s)
         finally:
             s.close()
@@ -365,7 +404,8 @@ class RemoteClient:
                 if io_timeout is not None:
                     self._sock.settimeout(io_timeout)
                 with obs.span("client.send", "client"):
-                    send_frame(self._sock, msg_type, payload, codec)
+                    send_frame(self._sock, msg_type, payload, codec,
+                               chaos=self._chaos)
                 with obs.span("client.wait", "client"):
                     typ, reply = self._recv_reply(self._sock)
                 if io_timeout is not None:
@@ -414,13 +454,29 @@ class RemoteClient:
                 failure = ConnectionLostError(type(e).__name__, str(e))
             if attempt >= policy.max_attempts:
                 raise failure
+            if isinstance(failure, NotLeaderError):
+                addr = getattr(failure, "leader_addr", None)
+                if addr:
+                    # the refusal names the leader: re-point and retry at
+                    # once (a redirect, not congestion)
+                    self._switch_address(addr)
+                    attempt += 1
+                    self._count_retry(failure)
+                    continue
+                # mid-election: the backoff below is the bounded wait,
+                # rotating candidates meanwhile
+                self._rotate_failover()
+            elif isinstance(failure, (ConnectionLostError,
+                                      RemoteTimeoutError)) \
+                    and self._failover:
+                # the daemon died outright: walk the succession list
+                self._rotate_failover()
             if isinstance(failure, PlacementStaleError):
                 # the frame rode an out-of-date map: re-read it and retry
                 # at once (the refusal is deterministic, not congestion)
                 self._refresh_placement()
                 attempt += 1
-                self.total_retries += 1
-                obs.REGISTRY.counter("serve.client.retries").inc()
+                self._count_retry(failure)
                 continue
             delay = policy.backoff_s(attempt, self._rng)
             hint = getattr(failure, "retry_after_s", None)
@@ -435,8 +491,13 @@ class RemoteClient:
                 ) from failure
             time.sleep(delay)
             attempt += 1
-            self.total_retries += 1
-            obs.REGISTRY.counter("serve.client.retries").inc()
+            self._count_retry(failure)
+
+    def _count_retry(self, failure: BaseException) -> None:
+        name = type(failure).__name__
+        self.retries_by_error[name] = self.retries_by_error.get(name, 0) + 1
+        self.total_retries += 1
+        obs.REGISTRY.counter("serve.client.retries").inc()
 
     def _check_codec(self, codec: int) -> None:
         if codec == CODEC_PICKLE and not self.pickle_ok:
@@ -480,6 +541,10 @@ class RemoteClient:
             if oneshot:
                 return self._oneshot_request(msg_type, payload, codec,
                                              io_timeout=io_timeout)
+            if self._replicas and msg_type not in MUTATING_TYPES \
+                    and msg_type != MsgType.SHUTDOWN:
+                return self._request_hedged(msg_type, payload, codec,
+                                            io_timeout=io_timeout)
             return self._request_once(msg_type, payload, codec,
                                       io_timeout=io_timeout)
 
@@ -565,7 +630,7 @@ class RemoteClient:
         decoded it), COMMIT, whose reply is the op's reply. A BEGIN
         answered without ``go`` is the daemon replaying a completed
         execution (a retry after a lost final reply)."""
-        send_frame(sock, MsgType.BULK_BEGIN, begin)
+        send_frame(sock, MsgType.BULK_BEGIN, begin, chaos=self._chaos)
         typ, reply = self._recv_reply(sock)
         if typ == MsgType.ERR:
             raise classify_remote(reply)
@@ -574,7 +639,7 @@ class RemoteClient:
         seq = unacked = 0
         for chunk in chunk_fn():
             chunk["seq"] = seq
-            send_frame(sock, MsgType.BULK_CHUNK, chunk)
+            send_frame(sock, MsgType.BULK_CHUNK, chunk, chaos=self._chaos)
             seq += 1
             unacked += 1
             while unacked >= self.ingest_window:
@@ -587,7 +652,8 @@ class RemoteClient:
             if typ == MsgType.ERR:
                 raise classify_remote(ack)
             unacked -= 1
-        send_frame(sock, MsgType.BULK_COMMIT, {"chunks": seq})
+        send_frame(sock, MsgType.BULK_COMMIT, {"chunks": seq},
+                   chaos=self._chaos)
         typ, reply = self._recv_reply(sock)
         if typ == MsgType.ERR:
             raise classify_remote(reply)
@@ -632,6 +698,87 @@ class RemoteClient:
 
         return self._retry_driver(attempt, deadline_s)
 
+    # --- hedged reads -------------------------------------------------
+    def _observe_read_latency(self, dt: float) -> None:
+        """One read's latency, into this client's histogram (what
+        :meth:`hedge_delay_s` quantiles over) and the registry's
+        ``serve.client.read_latency_s`` (what COLLECT_STATS ships)."""
+        self._read_hist.observe(dt)
+        obs.REGISTRY.histogram("serve.client.read_latency_s").observe(dt)
+
+    def hedge_delay_s(self) -> float:
+        """The hedge trigger: the ``hedge_delay_s`` knob when set, else
+        the p99 of this client's recent read latencies once it has 8,
+        else 50 ms."""
+        if self._hedge_delay_s is not None:
+            return self._hedge_delay_s
+        if self._read_hist.sample_count >= 8:
+            p99 = self._read_hist.quantile(0.99)
+            if p99 is not None:
+                return p99
+        return 0.05
+
+    def read_latency_stats(self) -> Dict[str, Any]:
+        """Summary of this client's read latencies (the histogram the
+        hedge trigger reads)."""
+        return self._read_hist.summary()
+
+    def _request_hedged(self, msg_type: MsgType, payload: Any, codec: int,
+                        io_timeout: Optional[float] = None) -> Any:
+        """One attempt of an idempotent read with hedging: the primary
+        runs on the persistent connection (on a short-lived thread, so
+        it can be timed); if its reply has not landed within
+        :meth:`hedge_delay_s`, the same request goes to the next replica
+        over a one-shot connection and the first success wins. A winning
+        hedge force-closes the primary's socket, releasing its thread
+        and the connection lock. Failures surface as an unhedged
+        attempt's would."""
+        t0 = time.perf_counter()
+        results: "_queue.Queue" = _queue.Queue()
+
+        def attempt(tag, fn):
+            try:
+                results.put((tag, None, fn()))
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                results.put((tag, e, None))
+
+        threading.Thread(
+            target=attempt, daemon=True,
+            args=("primary", lambda: self._request_once(
+                msg_type, payload, codec, io_timeout=io_timeout)),
+        ).start()
+        try:
+            tag, err, val = results.get(timeout=self.hedge_delay_s())
+        except _queue.Empty:
+            self.hedges_issued += 1
+            obs.REGISTRY.counter("serve.client.hedges_issued").inc()
+            addr = self._replicas[self._hedge_rr % len(self._replicas)]
+            self._hedge_rr += 1
+            threading.Thread(
+                target=attempt, daemon=True,
+                args=("hedge", lambda: self._oneshot_request(
+                    msg_type, payload, codec, io_timeout=io_timeout,
+                    address=addr)),
+            ).start()
+            tag, err, val = results.get()
+            if err is not None:
+                # the first to answer failed: wait for the other
+                tag2, err2, val2 = results.get()
+                if err2 is None:
+                    tag, err, val = tag2, None, val2
+                elif tag == "hedge":
+                    tag, err = "primary", err2  # the primary's error wins
+        if err is not None:
+            raise err
+        if tag == "hedge":
+            self.hedges_won += 1
+            obs.REGISTRY.counter("serve.client.hedges_won").inc()
+            # release the primary; its socket is dropped here or by its
+            # own failure
+            self._force_close()
+        self._observe_read_latency(time.perf_counter() - t0)
+        return val
+
     def _drop_connection(self) -> None:
         s, self._sock = self._sock, None
         if s is not None:
@@ -640,20 +787,51 @@ class RemoteClient:
             except OSError:
                 pass
 
+    def _switch_address(self, address: str) -> None:
+        """Re-point this client at another daemon (a ``NotLeader`` named
+        it, or the failover rotation picked it): the persistent
+        connection drops and the next attempt dials the new address. The
+        placement cache stays: its epochs validate it."""
+        host, _, port = address.rpartition(":")
+        with self._lock:
+            if (host or "127.0.0.1") == self.host and int(port) == self.port:
+                return
+            self.host = host or "127.0.0.1"
+            self.port = int(port)
+            self._drop_connection()
+        self.failovers += 1
+
+    def _rotate_failover(self) -> None:
+        """Move to the next failover candidate other than the current
+        address (no-op without a candidate list)."""
+        n = len(self._failover)
+        for _ in range(n):
+            cand = self._failover[self._failover_idx % n]
+            self._failover_idx += 1
+            h, _, p = cand.rpartition(":")
+            if (h or "127.0.0.1") != self.host or int(p) != self.port:
+                self._switch_address(cand)
+                return
+
     def _force_close(self) -> None:
         """Unstick an in-flight request from another thread: shut the
-        socket down without taking ``_lock`` (the stuck thread holds
-        it), so its blocking recv fails at once."""
+        socket down without waiting for ``_lock`` (the stuck thread holds
+        it), so its blocking recv or send fails at once. The descriptor
+        is closed only by a thread holding the lock — here when no
+        request is in flight, else by the failing request itself — so a
+        late send of that request can never land on a descriptor the
+        process has reused for another connection."""
         s = self._sock
         if s is not None:
             try:
                 s.shutdown(socket.SHUT_RDWR)
             except OSError:
                 pass
+        if self._lock.acquire(blocking=False):
             try:
-                s.close()
-            except OSError:
-                pass
+                self._drop_connection()
+            finally:
+                self._lock.release()
 
     def close(self) -> None:
         with self._ship_mu:
@@ -933,8 +1111,7 @@ class RemoteClient:
                 # with the refresh at the top of the next round
                 time.sleep(policy.backoff_s(attempt, self._rng))
             attempt += 1
-            self.total_retries += 1
-            obs.REGISTRY.counter("serve.client.retries").inc()
+            self._count_retry(next(iter(errors.values())))
 
     # --- data path ----------------------------------------------------
     def _item_chunks(self, items: list, chunk_bytes: int):
@@ -1273,7 +1450,7 @@ class RemoteClient:
 
     def _stream_frames(self, sock: socket.socket, msg_type: MsgType,
                        payload: Any) -> Iterator[Any]:
-        send_frame(sock, msg_type, payload)
+        send_frame(sock, msg_type, payload, chaos=self._chaos)
         while True:
             typ, reply = self._recv_reply(sock)
             if typ == MsgType.STREAM_END:
@@ -1281,6 +1458,97 @@ class RemoteClient:
             if typ == MsgType.ERR:
                 raise classify_remote(reply)
             yield reply
+
+    def _stream_hedged(self, msg_type: MsgType,
+                       payload: Any) -> Iterator[Any]:
+        """A streaming read that hedges its first item: the primary
+        opens the stream on a connection of its own; if its first frame
+        has not landed within :meth:`hedge_delay_s`, the same request
+        goes to the next replica, and the connection that delivers a
+        first frame first wins — the loser's socket is closed at once,
+        so at most one duplicated first frame crosses the wire. The
+        winner's stream is then read inline. The persistent connection
+        stays free for nested requests."""
+        first_q: "_queue.Queue" = _queue.Queue()
+        socks: Dict[str, socket.socket] = {}
+        cancelled: set = set()
+        state_lock = threading.Lock()
+
+        def opener(tag: str, address: Optional[str]) -> None:
+            s = None
+            try:
+                s = self._dial(address=address)
+                with state_lock:
+                    if tag in cancelled:
+                        s.close()
+                        return
+                    socks[tag] = s
+                send_frame(s, msg_type, payload, chaos=self._chaos)
+                typ, reply = self._recv_reply(s)
+                first_q.put((tag, typ, reply, None))
+            except BaseException as e:  # noqa: BLE001 — surfaced below
+                with state_lock:
+                    socks.pop(tag, None)
+                if s is not None:
+                    s.close()
+                first_q.put((tag, None, None, e))
+
+        threading.Thread(target=opener, daemon=True,
+                         args=("primary", None)).start()
+        t0 = time.perf_counter()
+        try:
+            winner = first_q.get(timeout=self.hedge_delay_s())
+            legs = 1 if winner[0] == "primary" else 2
+        except _queue.Empty:
+            self.hedges_issued += 1
+            obs.REGISTRY.counter("serve.client.hedges_issued").inc()
+            addr = self._replicas[self._hedge_rr % len(self._replicas)]
+            self._hedge_rr += 1
+            threading.Thread(target=opener, daemon=True,
+                             args=("hedge", addr)).start()
+            legs = 2
+            winner = first_q.get()
+            if winner[3] is not None:
+                # the first to answer failed: wait for the other; on a
+                # double failure the primary's error wins
+                other = first_q.get()
+                legs = 0
+                if other[3] is None or winner[0] == "hedge":
+                    winner = other
+        tag, typ, frame, err = winner
+        if legs:
+            # cancel the loser: close its socket, or mark it so a leg
+            # not yet dialled closes itself
+            with state_lock:
+                for other_tag in ("primary", "hedge"):
+                    if other_tag == tag:
+                        continue
+                    cancelled.add(other_tag)
+                    s = socks.pop(other_tag, None)
+                    if s is not None:
+                        try:
+                            s.shutdown(socket.SHUT_RDWR)
+                        except OSError:
+                            pass
+                        s.close()
+        if err is not None:
+            raise err
+        if tag == "hedge":
+            self.hedges_won += 1
+            obs.REGISTRY.counter("serve.client.hedges_won").inc()
+        self._observe_read_latency(time.perf_counter() - t0)
+        with state_lock:
+            sock = socks.pop(tag)
+        try:
+            while True:
+                if typ == MsgType.STREAM_END:
+                    return
+                if typ == MsgType.ERR:
+                    raise classify_remote(frame)
+                yield frame
+                typ, frame = self._recv_reply(sock)
+        finally:
+            sock.close()
 
     def _stream(self, msg_type: MsgType, payload: Any) -> Iterator[Any]:
         """A streaming request: yield each STREAM_ITEM payload until
@@ -1290,6 +1558,9 @@ class RemoteClient:
         if self.client_id is not None and CLIENT_ID_KEY not in payload:
             payload = dict(payload)
             payload[CLIENT_ID_KEY] = str(self.client_id)
+        if self._replicas and self._stream_owner != threading.get_ident():
+            yield from self._stream_hedged(msg_type, payload)
+            return
         if self._stream_owner == threading.get_ident():
             s = self._dial()
             try:
@@ -1444,16 +1715,25 @@ class RemoteClient:
         return self._request(MsgType.RESHARD, {"op": "view"},
                              codec=CODEC_PICKLE)
 
-    def hedge_delay_s(self) -> float:
-        _later("hedge_delay_s (hedged reads over replicas)", "A7 part 2")
-
-    def read_latency_stats(self) -> Dict[str, Any]:
-        _later("read_latency_stats (hedged reads over replicas)",
-               "A7 part 2")
-
     def resync_follower(self, snapshot_blob, step: int,
-                        chunk_bytes: int = 8 << 20):
-        _later("resync_follower (follower resync)", "A7 part 2")
+                        chunk_bytes: int = 8 << 20,
+                        mutlog_pos: Optional[list] = None) -> Dict[str, Any]:
+        """Stream a leader's store snapshot (``checkpoint.dumps_store``
+        bytes) to this daemon in bounded frames under the windowed-ack
+        pipeline: a follower resync with no shared filesystem. Chunks
+        are slices of the blob riding out of band (no copies here).
+        ``mutlog_pos``: the leader-log position the snapshot holds."""
+        mv = memoryview(snapshot_blob).cast("B")
+
+        def chunks():
+            for off in range(0, max(mv.nbytes, 1), chunk_bytes):
+                yield {"blob": np.frombuffer(mv[off:off + chunk_bytes],
+                                             np.uint8)}
+
+        meta: Dict[str, Any] = {"step": int(step), "nbytes": mv.nbytes}
+        if mutlog_pos is not None:
+            meta["mutlog_pos"] = list(mutlog_pos)
+        return self._bulk_request(MsgType.RESYNC_FOLLOWER, meta, chunks)
 
     def rebalance_status(self):
         _later("rebalance_status (shard rebalancing)", "A7 part 2")

@@ -32,8 +32,10 @@ extra field and names none, so a port client talking to it sends codec
 0 frames only; the port's daemon refuses codec 1 from a peer that named
 no tag or another one.
 
-The chaos hook of the reference (fault injection into frames) belongs to
-ROADMAP.md A7 part 2: ``chaos`` is accepted as None only.
+``send_frame`` and ``recv_frame_raw`` take an optional ``chaos``
+(:class:`~netsdb_tpu_torch.serve.chaos.ChaosInjector`) that may drop,
+delay, corrupt or truncate the frame; without one the hook is a single
+``is None`` check.
 
 Security note: codec 1 executes code on deserialization, exactly like
 the reference's ``registerType`` shipping .so binaries; the serve layer
@@ -302,6 +304,13 @@ PLACEMENT_EPOCH_KEY = "__pepoch__"
 #: every existing frame stays byte-identical.
 HA_TERM_KEY = "__term__"
 
+#: payload key (the port's own) of a mirrored frame's position in the
+#: leader's mutation log: ``[log id, END offset]``. A follower that keeps
+#: its own applied log (``ha_mutlog``) records it, reports the last one
+#: in its HELLO reply (``mirror_applied``), and so resumes by log replay
+#: from what it holds even across a restart on its root.
+MUTLOG_POS_KEY = "__mpos__"
+
 #: payload key carrying the target shard SLOT index on routed ingest.
 #: A slot in handoff state routes to the LEADER with this key intact:
 #: the leader buffers the batch for the degraded shard and drains it
@@ -513,13 +522,6 @@ def _pack_segtable(segments: Sequence[memoryview]) -> bytes:
     return bytes(out)
 
 
-def _no_chaos(chaos) -> None:
-    if chaos is not None:
-        raise NotImplementedError(
-            "frame fault injection (serve/chaos.py) is not ported yet: "
-            "ROADMAP.md A7 part 2")
-
-
 def _sendmsg_all(sock: socket.socket, parts: Sequence[Any]) -> None:
     """ONE vectored send for header + segment table + body + segments
     (scatter-gather: the kernel walks the iovecs, no host-side
@@ -553,12 +555,13 @@ def _sendmsg_all(sock: socket.socket, parts: Sequence[Any]) -> None:
 
 def send_frame(sock: socket.socket, msg_type: int, payload: Any,
                codec: int = CODEC_MSGPACK, chaos=None) -> None:
-    """Send one frame (``chaos``: None only, see the module docstring).
+    """Send one frame. ``chaos``: an optional
+    :class:`~netsdb_tpu_torch.serve.chaos.ChaosInjector` that may drop,
+    delay, corrupt or truncate it (tests only).
 
     The msgpack codec auto-upgrades to codec 2 (out-of-band segments)
     when the payload holds arrays ≥ :data:`OOB_MIN_BYTES`; everything
     goes out as one vectored ``sendmsg`` either way."""
-    _no_chaos(chaos)
     segments: List[memoryview] = []
     if codec in (CODEC_MSGPACK, CODEC_MSGPACK_OOB):
         # a caller echoing a RECEIVED frame's wire codec may pass
@@ -572,6 +575,10 @@ def send_frame(sock: socket.socket, msg_type: int, payload: Any,
         wire_codec = codec
     header = _HEADER.pack(MAGIC, wire_codec, int(msg_type), len(body))
     segtable = _pack_segtable(segments) if segments else b""
+    if chaos is not None:
+        header, segtable, body, segments = chaos.on_send(
+            sock, int(msg_type), header, body,
+            segtable=segtable, segments=segments)
     _sendmsg_all(sock, [header, segtable, body, *segments])
 
 
@@ -640,8 +647,9 @@ def recv_frame_raw(sock: socket.socket, chaos=None,
     the first header byte lands the rest of header + body + segments
     must arrive within the timeout or the read fails typed (server
     worker threads pass this so a hung peer can never wedge a handler
-    thread)."""
-    _no_chaos(chaos)
+    thread). ``chaos`` may fault the read before it starts."""
+    if chaos is not None:
+        chaos.on_recv(sock)
     header = _recv_exact(sock, _HEADER.size, mid_timeout=mid_frame_timeout)
     magic, codec, msg_type, body_len = _HEADER.unpack(header)
     if magic != MAGIC:

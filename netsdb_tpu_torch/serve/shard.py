@@ -28,8 +28,9 @@ evicts an unreachable shard from the placement (an epoch bump) and
 surfaces the typed retryable ``ShardUnavailable``/``PlacementStale`` —
 never a partial or doubled merge.
 
-The handoff buffer for degraded slots lives in memory. Its disk shadow
-(``ha_mutlog``, :meth:`ShardPool.load_spill`) and the session weights a
+The handoff buffer for degraded slots lives in memory; with
+``ha_mutlog`` it also spills to a mutation log, and a restarted leader
+rebuilds it (:meth:`ShardPool.load_spill`). The session weights a
 departed worker held belong to ROADMAP.md A7 part 2.
 """
 
@@ -51,6 +52,7 @@ from netsdb_tpu_torch.serve.protocol import (
     CLIENT_ID_KEY,
     CODEC_MSGPACK,
     CODEC_PICKLE,
+    HA_TERM_KEY,
     IDEMPOTENCY_KEY,
     PLACEMENT_EPOCH_KEY,
     QUERY_ID_KEY,
@@ -65,14 +67,17 @@ _shuffle_ids = itertools.count(1)
 
 def _host_tree(value: Any) -> Any:
     """A fold state or output with every tensor on the host (what rides
-    the wire)."""
+    the wire); a placed tensor as its logical tensor."""
     from netsdb_tpu_torch.core.blocked import BlockedTensor
+    from netsdb_tpu_torch.parallel.mesh import ShardedTensor
     from netsdb_tpu_torch.relational.table import ColumnTable
 
+    if isinstance(value, ShardedTensor):
+        return value.to_dense().detach().cpu()
     if isinstance(value, torch.Tensor):
         return value.detach().cpu()
     if isinstance(value, BlockedTensor):
-        return BlockedTensor(value.data.detach().cpu(), value.meta)
+        return BlockedTensor(_host_tree(value.data), value.meta)
     if isinstance(value, ColumnTable):
         return value.to("cpu")
     if isinstance(value, tuple) and not hasattr(value, "_fields"):
@@ -449,7 +454,8 @@ class ShardPool:
     point. Workers carry one too (no workers of their own) as the
     connection cache the shuffle dials through."""
 
-    def __init__(self, ctl, handoff_max_bytes: int = 256 << 20):
+    def __init__(self, ctl, handoff_max_bytes: int = 256 << 20,
+                 spill=None):
         self.ctl = ctl
         self._mu = TrackedLock("serve.ShardPool._mu")
         self._clients: Dict[str, Any] = {}
@@ -460,6 +466,10 @@ class ShardPool:
                             List[Tuple[str, dict]]] = {}
         self._handoff_bytes = 0
         self._handoff_max = int(handoff_max_bytes)
+        # the buffer's disk copy (a MutationLog, ``ha_mutlog``): every
+        # put, drain and purge appends a record under _mu, so a restarted
+        # leader rebuilds the buffer (load_spill); None keeps it in memory
+        self._spill = spill
 
     # --- connections --------------------------------------------------
     def _dial(self, addr: str):
@@ -512,6 +522,8 @@ class ShardPool:
         with self._mu:
             clients = list(self._clients.values())
             self._clients.clear()
+            if self._spill is not None:
+                self._spill.close()
         for c in clients:
             c.close()
 
@@ -528,10 +540,15 @@ class ShardPool:
             # the bump is leader-local until the surviving workers
             # re-register under it (best effort)
             self.ctl._push_epochs(exclude=(addr,))
+        # every membership change replicates (and, under ha_mutlog,
+        # persists) the map: a follower promoted mid-outage must know
+        # which slots are in handoff
+        self.ctl._replicate_placement()
 
     def note_degraded(self, addr: str, reason: str) -> None:
-        """Record-only degrade (the map already holds the slot in
-        handoff): the health loop then runs the normal readmit."""
+        """Record-only degrade (a restarted leader's map already holds
+        the slot in handoff; a full :meth:`degrade` would bump its epoch
+        again): the health loop then runs the normal readmit."""
         with self._mu:
             self._degraded.setdefault(addr, reason)
 
@@ -576,6 +593,11 @@ class ShardPool:
                     slot=slot)
             self._handoff.setdefault(key, []).append(rec)
             self._handoff_bytes += nbytes
+            if self._spill is not None:
+                # under _mu: the spill's record order is the buffer's
+                self._spill.append({"op": "put", "key": list(key),
+                                    "token": token,
+                                    "payload": dict(payload)})
         # the buffer-vs-readmit race: if the slot went live while this
         # frame was in flight, the drain may already have run — pull the
         # batch back and refuse typed (the client re-routes); if the
@@ -591,6 +613,10 @@ class ShardPool:
                     self._handoff_bytes -= nbytes
                     if not cur:
                         self._handoff.pop(key, None)
+                    if self._spill is not None:
+                        self._spill.append({"op": "unput",
+                                            "key": list(key),
+                                            "token": token})
                     raise PlacementStale(
                         f"slot {slot} of {db}:{set_name} readmitted "
                         f"mid-buffer; re-route to the live shard",
@@ -621,6 +647,9 @@ class ShardPool:
                 dropped += len(gone)
                 self._handoff_bytes -= sum(self._payload_bytes(p)
                                            for _, p in gone)
+            if dropped and self._spill is not None:
+                self._spill.append({"op": "purge", "db": db,
+                                    "set": set_name})
         return dropped
 
     def drain_handoff(self, addr: str) -> int:
@@ -646,6 +675,10 @@ class ShardPool:
                         fwd[SHARD_SLOT_KEY] = i
                         if token:
                             fwd[IDEMPOTENCY_KEY] = token
+                        if self.ctl._ha is not None:
+                            # a drain is a peer frame: a shard under a
+                            # newer leader fences a deposed one's drain
+                            fwd[HA_TERM_KEY] = self.ctl._ha.term
                         self.peer_request(addr, MsgType.SEND_DATA, fwd,
                                           CODEC_PICKLE)
                         drained += 1
@@ -659,17 +692,58 @@ class ShardPool:
                             self._handoff[key] = rest
                         else:
                             self._handoff.pop(key, None)
+                        if self._spill is not None:
+                            self._spill.append(
+                                {"op": "drain", "key": list(key),
+                                 "n": len(batches)})
+                            if not self._handoff:
+                                # nothing pending: the spill's history
+                                # is dead weight
+                                self._spill.truncate()
         if drained:
             obs.REGISTRY.counter("shard.handoff_drained").inc(drained)
         return drained
 
     def load_spill(self) -> int:
-        """Rebuild the buffer from its ``ha_mutlog`` spill after a leader
-        restart: the spill is the durable mutation log of ROADMAP.md A7
-        part 2 (HA), not ported yet."""
-        raise NotImplementedError(
-            "the handoff buffer's ha_mutlog spill is not ported yet: "
-            "ROADMAP.md A7 part 2")
+        """Rebuild the buffer from its spill after a leader restart
+        (``ha_mutlog``): put, unput, drain and purge replay in order, and
+        what survives is exactly what was buffered and undelivered when
+        the daemon died. Returns the pending batch count."""
+        if self._spill is None:
+            return 0
+        with self._mu:
+            self._handoff.clear()
+            for _end, rec in self._spill.replay():
+                op = rec.get("op")
+                if op == "put":
+                    self._handoff.setdefault(tuple(rec["key"]), []).append(
+                        (rec.get("token"), rec["payload"]))
+                elif op == "unput":
+                    key = tuple(rec["key"])
+                    cur = self._handoff.get(key, [])
+                    for j in range(len(cur) - 1, -1, -1):
+                        if cur[j][0] == rec.get("token"):
+                            cur.pop(j)
+                            break
+                    if not cur:
+                        self._handoff.pop(key, None)
+                elif op == "drain":
+                    key = tuple(rec["key"])
+                    rest = self._handoff.get(key, [])[
+                        int(rec.get("n") or 0):]
+                    if rest:
+                        self._handoff[key] = rest
+                    else:
+                        self._handoff.pop(key, None)
+                elif op == "purge":
+                    for key in [k for k in self._handoff
+                                if k[0] == rec.get("db")
+                                and k[1] == rec.get("set")]:
+                        self._handoff.pop(key)
+            self._handoff_bytes = sum(self._payload_bytes(p)
+                                      for batches in self._handoff.values()
+                                      for _, p in batches)
+            return sum(len(b) for b in self._handoff.values())
 
     # --- read fan-out (stats and health sections) ---------------------
     def fanout(self, typ, payload) -> Dict[str, Any]:

@@ -818,6 +818,29 @@ class SetStore:
                                       cache_scope=str(ident),
                                       cache_version=version)
 
+    def restore_paged_matrix(self, ident: SetIdentifier, blocks,
+                             row_block: int) -> None:
+        """Rebuild a paged tensor set from its arena pages — the
+        RESYNC_FOLLOWER replay path. ``blocks`` are the leader's row
+        blocks in order; each is written as its own arena page (ragged
+        blocks are fine: readers take a page's rows from its size), so
+        the matrix never materialises densely on the follower."""
+        with self._lock:
+            s = self._writable(ident)
+            dead = list(s.items or [])
+            if not blocks:
+                s.items = []
+                s.nbytes = 0
+            else:
+                name = f"{s.ident}#g{next(self._gen)}.mat"
+                ps = self.page_store()
+                for i, b in enumerate(blocks):
+                    ps.put(name, np.ascontiguousarray(b),
+                           row_block=max(int(row_block), 1), append=i > 0)
+                s.items = [_PagedMatrix(name)]
+            self._touch(s)
+        self._drop_pages(dead)
+
     # --- dedup (reference addSharedMapping, SharedTensorBlockSet) -----
     def add_shared_mapping(self, private: SetIdentifier,
                            shared: SetIdentifier,

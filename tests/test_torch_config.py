@@ -93,11 +93,18 @@ OBS_PORTED = ("obs_device_profile_dir", "obs_enabled", "obs_hist_samples",
               "obs_trace_sample", "sched_feedback", "sched_feedback_every",
               "sched_slo_shed")
 
+#: knobs of the replication slice (ROADMAP.md A7 part 2, followers and
+#: HA): raised until they were ported, accepted away from their defaults
+#: since
+HA_PORTED = ("ha_election_timeout_s", "ha_mutlog")
+
 
 @pytest.mark.parametrize("name", sorted(set(_LATER) | set(SERVING_PORTED)
-                                        | set(MESH_PORTED) | set(OBS_PORTED)))
+                                        | set(MESH_PORTED) | set(OBS_PORTED)
+                                        | set(HA_PORTED)))
 def test_each_later_knob_raises_naming_its_item(name, tmp_path):
-    if name in SERVING_PORTED or name in MESH_PORTED or name in OBS_PORTED:
+    if name in SERVING_PORTED or name in MESH_PORTED or name in OBS_PORTED \
+            or name in HA_PORTED:
         assert name not in _LATER
         default = _default(next(f for f in REF_FIELDS if f.name == name))
         value = {"a": 2.0} if name == "sched_lanes" else _away(default)
@@ -135,7 +142,7 @@ def test_later_knobs_name_their_roadmap_items():
     assert not any(n.startswith("session_") or n in SERVING_PORTED
                    or n in OBS_PORTED for n in items)
     assert "shard_handoff_bytes" not in items  # the shard pool's buffer
-    assert items["ha_mutlog"] == "A7 part 2"
+    assert not any(n in items for n in HA_PORTED)  # followers and HA
     assert items["device_cache_pin_auto"] == "A7 part 2"
     assert items["lock_witness"] == "A8"
     assert "obs_explain" not in items  # read by obs/operators.py

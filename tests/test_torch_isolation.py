@@ -101,6 +101,29 @@ def test_mesh_modules_import_no_jax_and_nothing_of_the_jax_package():
     assert proc.stdout.strip() == "[]"
 
 
+def test_replication_modules_import_no_jax_and_nothing_of_the_jax_package():
+    """The replication slice's own copies of host-only reference code —
+    fault injection, HA terms, the mutation log and checkpoints — and
+    the daemon that uses them, on their own in a fresh interpreter (the
+    package-wide probe above walks them too)."""
+    mods = ["netsdb_tpu_torch.serve.chaos",
+            "netsdb_tpu_torch.serve.ha",
+            "netsdb_tpu_torch.storage.mutlog",
+            "netsdb_tpu_torch.storage.checkpoint",
+            "netsdb_tpu_torch.serve.server"]
+    probe = ("import importlib, sys\n"
+             f"for m in {mods!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'netsdb_tpu' or "
+             "m.startswith('netsdb_tpu.')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 def test_single_device_workload_and_dedup_modules_import_no_jax():
     """The workloads of ROADMAP.md A8 part 1, the MoE layer, the sampler
     and the dedup package on their own, in a fresh interpreter."""
@@ -140,9 +163,11 @@ def test_single_device_workload_and_dedup_modules_import_no_jax():
 def test_later_configuration_knobs_raise(knob, value, item):
     """The A4 knobs (the mesh and SUMMA) were ported with the in-process
     mesh, and the observability knobs and the scheduler's feedback with
-    the observability part of A8: both are taken as given. The lock
-    witness (the rest of A8) and the A7 knobs still raise."""
-    if item == "A4" or (item == "A8" and knob != "lock_witness"):
+    the observability part of A8, the HA knobs with the replication part
+    of A7: all are taken as given. The lock witness (the rest of A8) and
+    the rebalancing knobs of A7 still raise."""
+    if item == "A4" or (item == "A8" and knob != "lock_witness") \
+            or knob.startswith("ha_"):
         assert getattr(Configuration(**{knob: value}), knob) == value
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
@@ -377,10 +402,10 @@ def test_out_of_slice_set_options_raise(port_client, kwargs, exc, item):
 
 def test_out_of_slice_client_features_raise(port_client, tmp_path):
     # Client(address=) is the served client (tests/test_torch_serve.py);
-    # replicas with hedged reads are the daemon pool's, and raise before
-    # any connection is tried
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7 part 2"):
-        Client(address="localhost:1", replicas=["localhost:2"])
+    # replicas with hedged reads are ported (tests/test_torch_serve_
+    # dataplane.py) and need an address to hedge from
+    with pytest.raises(ValueError, match="replicas= needs address="):
+        Client(replicas=["localhost:2"])
     # the distributed matmul's knobs are ported (tests/test_torch_summa.py);
     # a malformed grid raises where it is read, as in the reference
     assert Configuration(distributed_matmul=True).distributed_matmul

@@ -1,7 +1,8 @@
 """The served daemon's observability on the CPU: the reference's
-``tests/test_obs_serve.py`` cases that need no follower, replica or
-``cli.py``, run against a port daemon in this process (``port=0``,
-``device="cpu"``, shut down in ``finally``), then the port's own: a
+``tests/test_obs_serve.py`` cases that need no ``cli.py``, run against
+port daemons in this process (``port=0``, ``device="cpu"``, shut down in
+``finally``) — a leader and its follower merging the follower's
+sections, and the hedge estimator among them — then the port's own: a
 ``torch.profiler`` device profile per traced query, a two-daemon shard
 pool whose leader merges its worker's trace sections by query id, the
 scheduler's feedback through the daemon, and the reference's
@@ -520,3 +521,160 @@ def test_reference_client_reads_the_port_daemons_obs_frames(tmp_path):
     assert set(rmetrics["deltas"]) == set(pmetrics["deltas"])
     assert ptext["format"] == rtext["format"] == "openmetrics"
     parse_openmetrics(ptext["text"])
+
+
+# --- followers: the merged sections and the hedge estimator ------------
+
+def _pair(tmp_path, **leader_kw):
+    fctl = _daemon(tmp_path, name="f")
+    try:
+        mctl = ServeController(
+            Configuration(root_dir=str(tmp_path / "m"), **PAGED), port=0,
+            device="cpu", followers=[fctl.advertise_addr], **leader_kw)
+        mctl.start()
+    except BaseException:
+        fctl.shutdown()
+        raise
+    return mctl, fctl
+
+
+def test_mirrored_pair_merged_stats_and_qid_across_the_hop(tmp_path):
+    """COLLECT_STATS through a leader carries its follower's sections (a
+    mirrored write's device-cache invalidation on the follower shows from
+    the leader), and the query id survives the mirror hop: the leader's
+    GET_TRACE profile carries the follower's under the same qid."""
+    mctl, fctl = _pair(tmp_path)
+    faddr = fctl.advertise_addr
+    try:
+        c = _remote(mctl.advertise_addr)
+        _load_lineitem(c, n=800)
+        _execute_q06(c)
+        _execute_q06(c)
+        assert fctl.library.store.device_cache().stats()["installs"] >= 1
+        reply = c.get_trace(last=1)
+        (prof,) = reply["profiles"]
+        assert prof["origin"] == "server"
+        assert faddr in reply["followers"]
+        fsections = prof.get("followers") or {}
+        assert faddr in fsections, prof
+        assert all(fp["qid"] == prof["qid"] for fp in fsections[faddr])
+        assert fctl.trace_ring.find(prof["qid"])
+        c.send_table("d", "lineitem", _li_table(800, 7))
+        st = c.collect_stats()
+        assert faddr in st["followers"]
+        fdc = st["followers"][faddr]["device_cache"]
+        assert fdc["invalidations"] >= 1
+        assert fdc == fctl.library.store.device_cache().stats()
+        assert "metrics" in st["followers"][faddr]
+        assert st["mirror"]["active"] == [faddr]
+        c.close()
+    finally:
+        mctl.shutdown()
+        fctl.shutdown()
+
+
+def test_health_and_attribution_merge_across_leader_follower(tmp_path):
+    mctl, fctl = _pair(tmp_path)
+    faddr = fctl.advertise_addr
+    try:
+        c = _remote(mctl.advertise_addr, client_id="tenant-c")
+        _load_lineitem(c, n=800)
+        _execute_q06(c)
+        h = c.health()
+        assert h["followers_status"]["active"] == [faddr]
+        fh = h["followers"][faddr]
+        assert {"availability", "request_p99_s"} <= {
+            o["name"] for o in fh["objectives"]}
+        assert "slowlog" in fh
+        fattr = c.collect_stats()["followers"][faddr]["metrics"][
+            "attribution"]
+        assert "tenant-c" in fattr
+        c.close()
+    finally:
+        mctl.shutdown()
+        fctl.shutdown()
+
+
+def test_health_fanout_best_effort_never_evicts_degraded_follower(
+        tmp_path):
+    """A follower whose HEALTH and COLLECT_STATS hang past the leader's
+    fan-out deadline is reported with an error entry and never evicted
+    by a read (liveness is the heartbeat loop's, configured away)."""
+    mctl, fctl = _pair(tmp_path, heartbeat_interval_s=3600.0,
+                       frame_timeout_s=1.0)
+    faddr = fctl.advertise_addr
+    try:
+        c = _remote(mctl.advertise_addr)
+        c.create_database("d")  # dials the follower link
+        assert faddr in mctl.follower_status()["active"]
+
+        def wedged(p):
+            time.sleep(3.0)
+            return MsgType.OK, {}
+
+        fctl.handlers[MsgType.HEALTH] = wedged
+        fctl.handlers[MsgType.COLLECT_STATS] = wedged
+        h = c.health()
+        assert "error" in h["followers"][faddr]
+        st = c.collect_stats()
+        assert "error" in st["followers"][faddr]
+        status = mctl.follower_status()
+        assert faddr in status["active"] and faddr not in status["degraded"]
+        c.close()
+    finally:
+        mctl.shutdown()
+        fctl.shutdown()
+
+
+def test_get_metrics_merges_follower_samples(tmp_path):
+    """GET_METRICS through a leader: the structured reply carries the
+    follower's snapshot under ``followers``, and the OpenMetrics text
+    its samples under a ``follower`` label."""
+    mctl, fctl = _pair(tmp_path)
+    faddr = fctl.advertise_addr
+    try:
+        c = _remote(mctl.advertise_addr)
+        _load_lineitem(c, n=800)
+        _execute_q06(c)
+        m = c.get_metrics()
+        assert "counters" in m["followers"][faddr]["metrics"]
+        text = c.get_metrics(format="openmetrics")["text"]
+        fams = parse_openmetrics(text)
+        labelled = [lab for fam in fams.values()
+                    for _name, lab, _v in fam["samples"]
+                    if lab.get("follower") == faddr]
+        assert labelled, "no follower-labelled sample"
+        c.close()
+    finally:
+        mctl.shutdown()
+        fctl.shutdown()
+
+
+def test_hedge_estimator_backed_by_shared_histogram(daemon):
+    """``hedge_delay_s`` quantiles over the client's bounded histogram,
+    whose every observation also lands in the registry histogram that
+    COLLECT_STATS ships."""
+    ctl, addr = daemon
+    before = obs.REGISTRY.histogram("serve.client.read_latency_s").count
+    c = _remote(addr, replicas=[addr])
+    assert c.hedge_delay_s() == pytest.approx(0.05)
+    for i in range(20):
+        c._observe_read_latency(0.001 * (i + 1))
+    assert c.read_latency_stats()["count"] == 20
+    assert c.hedge_delay_s() == c._read_hist.quantile(0.99)
+    assert 0.015 <= c.hedge_delay_s() <= 0.020
+    shared = obs.REGISTRY.histogram("serve.client.read_latency_s")
+    assert shared.count - before == 20
+    c._hedge_delay_s = 0.3
+    assert c.hedge_delay_s() == 0.3
+    c.close()
+
+
+def test_hedged_read_observes_latency_through_histogram(daemon):
+    ctl, addr = daemon
+    c = _remote(addr, replicas=[addr], hedge_delay_s=5.0)
+    _load_lineitem(c, n=500)
+    assert c.set_exists("d", "lineitem")  # an idempotent, hedged read
+    assert c._read_hist.count >= 1
+    assert c.read_latency_stats()["count"] == c._read_hist.count
+    c.close()

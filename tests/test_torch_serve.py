@@ -105,10 +105,12 @@ def test_object_roundtrip_and_errors(server):
         with pytest.raises(RemoteError, match="does not exist"):
             c.create_set("nodb", "s")
         # out-of-slice frames raise typed, naming their item (GET_TRACE
-        # is answered since the observability slice)
+        # is answered since the observability slice, HA_STATE since the
+        # replication slice: an unarmed daemon says so)
         assert c._request(MsgType.GET_TRACE, {})["enabled"] is True
-        with pytest.raises(RemoteError, match="ROADMAP.md A7 part 2"):
-            c._request(MsgType.HA_STATE, {})
+        assert c._request(MsgType.HA_STATE, {}) == {"armed": False}
+        with pytest.raises(RemoteError, match="ROADMAP.md A4 part 3"):
+            c._request(MsgType.LOCAL_SHARDS, {})
         with pytest.raises(RemoteError, match="ROADMAP.md A7 part 2"):
             c._request(MsgType.RESHARD, {"op": "status"},
                        codec=CODEC_PICKLE)
@@ -150,16 +152,31 @@ def test_pickle_refused_when_disabled(tmp_path):
 
 
 def test_pool_topologies_raise_naming_their_item(tmp_path):
+    """Followers, HA peers, replicas and failover lists are taken since
+    the replication slice (a daemon with followers or HA peers builds
+    without dialling anyone); what stays out still raises naming its
+    item: rebalancing and type-source shipping (A7 part 2)."""
     cfg = Configuration(root_dir=str(tmp_path / "x"))
     for kw in (dict(followers=["127.0.0.1:1"]),
                dict(workers=["a:1"], followers=["b:1"]),
                dict(ha_peers=["a:1"])):
-        with pytest.raises(NotImplementedError, match="A7 part 2"):
-            ServeController(cfg, port=0, device="cpu", **kw)
-    for kw in (dict(replicas=["a:1"]), dict(failover=["a:1"]),
-               dict(hedge_delay_s=0.1)):
-        with pytest.raises(NotImplementedError, match="A7 part 2"):
-            RemoteClient("127.0.0.1:1", **kw)
+        ctl = ServeController(cfg, port=0, device="cpu", **kw)
+        assert ctl._follower_addrs == kw.get("followers", [])
+        assert ctl._ha_peers == kw.get("ha_peers", [])
+        ctl.shutdown()
+    ctl = ServeController(cfg, port=0, device="cpu")
+    ctl.start()
+    try:
+        c = RemoteClient(ctl.advertise_addr, replicas=["a:1"],
+                         failover=["a:1"], hedge_delay_s=0.1, timeout=30)
+        assert c.hedge_delay_s() == 0.1
+        for call in (lambda: c.add_worker("a:1"), c.rebalance_status,
+                     lambda: c.register_type("T", "m:f", source="x=1")):
+            with pytest.raises(NotImplementedError, match="A7 part 2"):
+                call()
+        c.close()
+    finally:
+        ctl.shutdown()
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -167,11 +184,15 @@ def test_pool_topologies_raise_naming_their_item(tmp_path):
     ("heartbeat_misses", 5), ("resync_grace_s", 1.0),
     ("resync_timeout_s", 10.0)])
 def test_follower_link_knobs_raise_naming_their_item(tmp_path, knob, value):
-    """The follower links' knobs are accepted at their defaults and
-    refused, naming the item, anywhere else."""
+    """The follower links' knobs, refused until the replication slice,
+    are taken now and land where the health and resync paths read
+    them."""
     cfg = Configuration(root_dir=str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match=f"{knob}.*A7 part 2"):
-        ServeController(cfg, port=0, device="cpu", **{knob: value})
+    ctl = ServeController(cfg, port=0, device="cpu", **{knob: value})
+    try:
+        assert getattr(ctl, knob) == value
+    finally:
+        ctl.shutdown()
 
 
 def test_repeated_remote_requests_trace_once(tmp_path):

@@ -3,9 +3,10 @@ the reference's ``tests/test_serve_dataplane.py``: out-of-band tensor
 framing (one vectored send, no copies, checksummed segments, writable
 arrays on receive), the typed refusal of another wire version, and the
 windowed pipelined ingest, held to the reference's local ``Client`` on
-the same inputs. Follower resync and hedged reads are ROADMAP.md A7
-part 2. Every daemon listens on port 0 and is shut down in
-``finally``; every client has a socket timeout."""
+the same inputs; then the replication slice's cases: a follower resync
+streamed over the wire between disjoint roots, and hedged reads and
+streams over a replica. Every daemon listens on port 0 and is shut down
+in ``finally``; every client has a socket timeout."""
 
 import socket
 import struct
@@ -272,10 +273,216 @@ def test_bulk_ingest_refused_without_pickle_is_typed_fatal(tmp_path):
             c.send_data("d", "s", [1] * 200, pipeline=True)
         assert not ei.value.retryable
         assert c.last_attempts == 1
-        # the follower resync conversation is the daemon pool's
-        with pytest.raises(RemoteError, match="not bulk-streamable"):
+        # the follower resync conversation streams, and its restore
+        # executes pickle: refused typed and fatal at COMMIT
+        with pytest.raises(RemoteError, match="RESYNC_FOLLOWER refused") \
+                as ei:
             c._bulk_request(MsgType.RESYNC_FOLLOWER, {"nbytes": 1},
                             lambda: iter(()))
+        assert not ei.value.retryable and c.last_attempts == 1
         c.close()
     finally:
+        ctl.shutdown()
+
+
+# --- the replication slice: wire-streamed resync and hedged reads ------
+
+def _wait_reattached(mctl, timeout_s=20.0):
+    import time
+
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        st = mctl.follower_status()
+        if st["active"] and not st["degraded"]:
+            return
+        time.sleep(0.05)
+    raise AssertionError(
+        f"follower never reattached: {mctl.follower_status()}")
+
+
+def test_resync_streams_snapshot_over_wire_no_shared_fs(tmp_path,
+                                                        monkeypatch):
+    """Leader and follower with disjoint roots: the follower's restore
+    never reads a checkpoint path — the snapshot arrives over the wire
+    in bounded frames (here 4 KiB chunks)."""
+    from netsdb_tpu_torch.serve.chaos import ChaosInjector
+    from netsdb_tpu_torch.serve.client import RetryPolicy
+    from netsdb_tpu_torch.storage import checkpoint
+
+    def no_fs_load(*a, **k):
+        raise AssertionError("resync must stream over the wire")
+
+    monkeypatch.setattr(checkpoint, "load_store", no_fs_load)
+    chunks = []
+    real = RemoteClient.resync_follower
+
+    def small_chunks(self, blob, step, chunk_bytes=8 << 20, **kw):
+        chunks.append(len(blob))
+        return real(self, blob, step, chunk_bytes=4096, **kw)
+
+    monkeypatch.setattr(RemoteClient, "resync_follower", small_chunks)
+    fchaos = ChaosInjector()
+    fctl = ServeController(
+        Configuration(root_dir=str(tmp_path / "follower_root")), port=0,
+        device="cpu")
+    fctl.start()
+    mctl = ServeController(
+        Configuration(root_dir=str(tmp_path / "leader_root")), port=0,
+        device="cpu", followers=[fctl.advertise_addr],
+        follower_chaos=fchaos, heartbeat_interval_s=0.1,
+        heartbeat_timeout_s=0.5, heartbeat_misses=2,
+        mirror_ack_timeout_s=0.5, resync_grace_s=2.0)
+    mctl.start()
+    try:
+        c = RemoteClient(mctl.advertise_addr, timeout=TIMEOUT,
+                         retry=RetryPolicy(max_attempts=5,
+                                           base_delay_s=0.01))
+        c.create_database("d")
+        c.create_set("d", "w")
+        a = np.random.default_rng(7).standard_normal((64, 64)).astype(
+            np.float32)
+        c.send_matrix("d", "w", a, (32, 32))
+        fchaos.arm("kill")
+        c.create_set("d", "other", type_name="object")  # the mirror dies
+        _wait_reattached(mctl)
+        assert fctl.last_resync_mode == "wire"
+        assert chunks and chunks[0] > 4096  # it took several chunks
+        np.testing.assert_array_equal(
+            fctl.library.get_tensor("d", "w").to_dense().numpy(), a)
+        c.close()
+    finally:
+        mctl.shutdown()
+        fctl.shutdown()
+
+
+def test_hedged_read_fires_after_delay_and_wins(tmp_path):
+    """A stalled primary reply: the read hedges to the replica after the
+    hedge delay and returns its answer long before the primary's would
+    land. Mutations never hedge."""
+    import time
+
+    from netsdb_tpu_torch.serve.chaos import ChaosInjector
+    from netsdb_tpu_torch.serve.client import RetryPolicy
+
+    pchaos = ChaosInjector()
+    primary = ServeController(Configuration(root_dir=str(tmp_path / "p")),
+                              port=0, device="cpu", chaos=pchaos)
+    primary.start()
+    replica = ServeController(Configuration(root_dir=str(tmp_path / "r")),
+                              port=0, device="cpu")
+    replica.start()
+    try:
+        a = np.arange(96 * 96, dtype=np.float32).reshape(96, 96)
+        for ctl in (primary, replica):
+            boot = RemoteClient(ctl.advertise_addr, timeout=TIMEOUT)
+            boot.create_database("d")
+            boot.create_set("d", "w")
+            boot.send_matrix("d", "w", a, (32, 32))
+            boot.close()
+        c = RemoteClient(primary.advertise_addr,
+                         replicas=[replica.advertise_addr],
+                         hedge_delay_s=0.05, timeout=TIMEOUT,
+                         retry=RetryPolicy(max_attempts=2,
+                                           base_delay_s=0.01))
+        pchaos.arm("delay", delay_s=1.5)
+        t0 = time.monotonic()
+        t = c.get_tensor("d", "w")
+        elapsed = time.monotonic() - t0
+        np.testing.assert_array_equal(t.to_dense(), a)
+        assert elapsed < 1.0
+        assert c.hedges_issued == 1 and c.hedges_won == 1
+        pchaos.arm("delay", delay_s=0.3)
+        c.create_set("d", "w2")
+        assert c.hedges_issued == 1
+        c.close()
+    finally:
+        primary.shutdown()
+        replica.shutdown()
+
+
+def test_hedge_delay_adapts_to_observed_p99(daemon):
+    ctl, _ = daemon
+    c = RemoteClient(ctl.advertise_addr, replicas=[ctl.advertise_addr],
+                     timeout=TIMEOUT)
+    assert c.hedge_delay_s() == pytest.approx(0.05)
+    for _ in range(16):
+        c.ping()
+    assert 0 < c.hedge_delay_s() < 0.05
+    c.close()
+
+
+@pytest.fixture()
+def replica_pair(tmp_path):
+    """Two daemons holding the same items; the primary's injector stalls
+    its stream frames on demand."""
+    from netsdb_tpu_torch.serve.chaos import ChaosInjector
+
+    chaos = ChaosInjector()
+    ctl1 = ServeController(Configuration(root_dir=str(tmp_path / "a")),
+                           port=0, device="cpu", chaos=chaos)
+    ctl2 = ServeController(Configuration(root_dir=str(tmp_path / "b")),
+                           port=0, device="cpu")
+    ctl1.start()
+    ctl2.start()
+    items = [{"i": i, "pad": "x" * 200} for i in range(50)]
+    try:
+        for ctl in (ctl1, ctl2):
+            rc = RemoteClient(ctl.advertise_addr, timeout=TIMEOUT)
+            rc.create_database("d")
+            rc.create_set("d", "s", type_name="object")
+            rc.send_data("d", "s", items, pipeline=False)
+            rc.close()
+        yield ctl1.advertise_addr, ctl2.advertise_addr, chaos, items
+    finally:
+        ctl1.shutdown()
+        ctl2.shutdown()
+
+
+@pytest.mark.parametrize("stall,hedge_s", [(True, 0.05), (False, 2.0)])
+def test_scan_stream_hedges_only_a_slow_first_item(replica_pair, stall,
+                                                   hedge_s):
+    """A stalled first stream frame is hedged and the replica's stream
+    wins; a fast primary is never hedged (the reference's two
+    first-item cases)."""
+    a1, a2, chaos, items = replica_pair
+    if stall:
+        chaos.arm("delay", types=[int(MsgType.STREAM_ITEM)], delay_s=0.8)
+    rc = RemoteClient(a1, replicas=[a2], hedge_delay_s=hedge_s,
+                      timeout=TIMEOUT)
+    assert list(rc.scan_stream("d", "s")) == items
+    if stall:
+        assert rc.hedges_issued >= 1 and rc.hedges_won >= 1
+    else:
+        assert rc.hedges_issued == 0
+    rc.close()
+
+
+def test_hedged_stream_supports_nested_requests(replica_pair):
+    a1, a2, _chaos, items = replica_pair
+    rc = RemoteClient(a1, replicas=[a2], hedge_delay_s=0.5, timeout=TIMEOUT)
+    seen = 0
+    for _item in rc.scan_stream("d", "s"):
+        if seen == 0:
+            rc.ping()
+            assert len(list(rc.scan_stream("d", "s"))) == len(items)
+        seen += 1
+    assert seen == len(items)
+    rc.close()
+
+
+def test_hedged_stream_both_replicas_down_raises(tmp_path):
+    ctl = ServeController(Configuration(root_dir=str(tmp_path / "only")),
+                          port=0, device="cpu")
+    ctl.start()
+    rc = RemoteClient(ctl.advertise_addr, replicas=["127.0.0.1:1"],
+                      hedge_delay_s=0.05, timeout=TIMEOUT)
+    try:
+        rc.create_database("d")
+        rc.create_set("d", "s", type_name="object")
+        rc.send_data("d", "s", [1], pipeline=False)
+        ctl.shutdown()
+        with pytest.raises((RemoteError, OSError)):
+            list(rc.scan_stream("d", "s"))
+    finally:
+        rc.close()
         ctl.shutdown()

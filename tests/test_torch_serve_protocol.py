@@ -158,8 +158,18 @@ def test_frame_header_and_types_are_the_reference_wire():
         {m.name: int(m) for m in ref_protocol.MsgType}
     assert protocol.MUTATING_TYPES == frozenset(
         protocol.MsgType[m.name] for m in ref_protocol.MUTATING_TYPES)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7 part 2"):
-        protocol.send_frame(None, protocol.MsgType.PING, {}, chaos=object())
+    # the chaos hook is live: a scripted drop tears the frame down
+    from netsdb_tpu_torch.serve.chaos import ChaosInjector
+
+    a, b = socket.socketpair()
+    try:
+        chaos = ChaosInjector().arm("drop")
+        with pytest.raises(ConnectionResetError, match="dropped"):
+            protocol.send_frame(a, protocol.MsgType.PING, {}, chaos=chaos)
+        assert chaos.faults == [("drop", "send", int(protocol.MsgType.PING))]
+    finally:
+        a.close()
+        b.close()
 
 
 # --- the function pickler ---------------------------------------------
