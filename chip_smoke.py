@@ -109,7 +109,8 @@ Phases (any failure raises and the exit code is non-zero):
    with ``storage="paged"`` into an arena of ``PAGED_REL_POOL_BYTES`` in
    pages of ``PAGED_REL_PAGE_BYTES`` (it spills), the other tables
    resident. Per suite query a cold request (device cache resized to
-   0), one that installs the blocks and two warm ones, each held to the
+   0), one that installs the blocks and two warm ones (Q12, whose grace
+   hash partitions again every request, one), each held to the
    same sink on phase 11's resident card client (``_hold``, Q03's
    top-10 rule); each prints its ms, pages read, spills and loads,
    staged bytes and copy GB/s, chunks, host syncs (sync debug mode),
@@ -351,6 +352,34 @@ Phases (any failure raises and the exit code is non-zero):
    equals the output before the kill. A restarted on its root refuses a
    write with a typed ``NotLeader`` naming B and term 2. Every daemon is
    stopped and every process joined whatever happens.
+22. the rest of the daemon pool (``REST_SIZES``), each daemon in its own
+   process on card 0, every port picked first. Rebalancing: a leader and
+   2 workers with ``rebalance=True`` hold serve_bench.py's scale-out
+   tables range-placed (hot 6 M rows, cold 600 000); 3 readers stream
+   them 80/20 and an appender adds batches while a third worker joins
+   with ``add_worker(campaign=True)``: every move (bytes, ms, MB/s) and
+   the epoch printed, 0 failed requests, rows and checksums exact with
+   the appends, the integer Q01 byte-equal before and after (hot's
+   against an in-process client holding the same rows); then
+   ``Rebalancer.advise`` on an in-process pool with a regressing
+   measure reverts every move. Sessions on the workers at phase 16's
+   decode sizes (12 × 128 steps, LSTM and layer): one moved live at step
+   32 (``op=move``), and, for the LSTM, the worker holding most sessions
+   SIGKILLed at step 64 once its sessions' state was pushed home, so
+   they revive at the leader; 0 failed requests, every output bit-equal
+   to fresh sessions that never moved and within ``SERVE_DECODE_TOLS``
+   of f64, GENERATE p50/p99 and the handles' re-points printed. Shipped
+   types: a torch UDF registered with its source and one shipped from a
+   file module (``ship_module=True``), bound by ``execute_plan`` on a
+   leader that cannot import them and, after a snapshot resync, on its
+   follower (started after the registrations): each equal to the UDF in
+   this process. The SP layer at phase 5's size behind a daemon started
+   inside ``virtual_devices(4, "cuda:0")``: 3 requests, B2 exactly 16
+   launches a request and B1 none in that daemon (its COLLECT_STATS),
+   each output within ``SP_TOL`` of the in-process ``forward_sp``
+   through the plain ring step and, on batch row 0, within
+   ``F64_RATIO`` times the plain version's error against the layer in
+   float64; served tokens/s beside in-process.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
@@ -370,8 +399,10 @@ at least once, its ring; B1 never); phase 20's are the observed
 daemon's own counters (B1 once a layer request, B2 never), and phase
 21's the daemons' own counters around the mirrored layer requests (B1
 once a request in each of A, B and C) and around the layer request on
-the promoted leader (once in B, once in its follower C). The last
-line is the contract's device record.
+the promoted leader (once in B, once in its follower C); phase 22's are
+the pool daemons' own counters around rebalancing (both 0) and the SP
+daemon's around its requests (B2 16 times a request, B1 never). The
+last line is the contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -2450,7 +2481,8 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
     capped at PAGED_REL_POOL_BYTES), the other tables resident, all
     through ``send_table`` into one card client. Per query one cold
     request (device cache resized to 0), one that installs the blocks
-    (cache resized to PAGED_REL_CACHE_BYTES) and two warm ones, each held
+    (cache resized to PAGED_REL_CACHE_BYTES) and two warm ones (one for
+    Q12), each held
     to the same sink on phase 11's resident card client (``_hold``, and
     Q03's top-10 rule); warm requests must read no page and stage no
     byte, except Q12, which takes the one-pass grace hash over the paged
@@ -2502,7 +2534,11 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
 
         def drive(q, sink, ref, grace=False) -> dict:
             recs = []
-            for kind in ("cold", "install", "warm", "warm"):
+            # the grace hash partitions again on every request (about 17
+            # s at SF 10), so Q12 takes one warm request, the rest two
+            kinds = ("cold", "install", "warm") + (() if grace
+                                                   else ("warm",))
+            for kind in kinds:
                 if kind == "cold":
                     cache.resize(0)
                 elif kind == "install":
@@ -3837,6 +3873,8 @@ def _compiled_paged(paged, resident, host, out) -> None:
     from netsdb_tpu_torch.relational import dag
     from netsdb_tpu_torch.storage.store import SetIdentifier
 
+    fused_out = {}  # each plan's fused warm output, held to the resident
+
     def both(name, client, run, hold, regions_needed=False) -> dict:
         rows, outs = {}, {}
         for fusion in (True, False):
@@ -3892,6 +3930,7 @@ def _compiled_paged(paged, resident, host, out) -> None:
                                    f"{regions} regions formed")
         client.store.config.plan_fusion = True
         rows["max_err"] = hold(outs[True], outs[False])
+        fused_out[name] = outs[True]
         return rows
 
     client = paged["client"]
@@ -3909,7 +3948,7 @@ def _compiled_paged(paged, resident, host, out) -> None:
             k = {"k": 11} if q == "q03" else {}
             ref = dag.run_query(resident, dag.suite_sink_for(
                 resident, "tpch", q, **k))
-            hold(dag.run_query(client, sink), ref)
+            hold(fused_out[q], ref)
         except Exception as e:  # noqa: BLE001 — raised at the phase's end
             print(f"[compiled] paged {q}: FAILED: {type(e).__name__}: {e}")
             _COMPILED_FAILURES.append(f"paged {q}: {e}")
@@ -9075,6 +9114,880 @@ def phase_ha(pk: dict, smi: str, device: str = "cuda",
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- phase 22: the rest of the daemon pool -------------------------------
+# rebalancing at serve_bench.py's scale-out rows (:661, :794: 6 M hot and
+# 600 000 cold rows, five int32 columns); decode at phase 16's sizes; the
+# SP layer at phase 5's size behind a daemon with 4 virtual positions
+REST_SIZES = {"rebalance": dict(hot_rows=6_000_000, cold_rows=600_000,
+                                readers=3, append_rows=20_000,
+                                advise_rows=600_000),
+              "sessions": dict(hidden=1024, heads=8, kv_max=64, sessions=12,
+                               steps=128, ttl_s=0.5),
+              "types": dict(rows=4096, cols=1024, block=512),
+              "sp": dict(embed=1024, heads=8, batch=2, seq=16384,
+                         positions=4, requests=3)}
+REST_BUDGET_S = 90.0
+REST_TIMEOUT_S = 300.0      # bounds every request to a daemon
+REST_WAIT_S = 60.0          # bounds every wait for a spill or a resync
+REST_LINKS = dict(heartbeat_interval_s=0.2, heartbeat_timeout_s=2.0,
+                  heartbeat_misses=2, mirror_ack_timeout_s=300.0,
+                  resync_grace_s=5.0)
+# the shipped UDF: a torch module no daemon can import
+REST_UDF_SRC = (
+    "import torch\n"
+    "def udf(t):\n"
+    "    return t.with_data(torch.tanh(t.data) * t.data + 0.5 * t.data)\n")
+REST_PLAN = "\n".join(["in <= SCAN('types', 'm')",
+                       "u <= APPLY(in, 'udf')",
+                       "out <= OUTPUT(u, 'types', 'u')"])
+
+# a daemon of the phase: run_daemon on the Configuration fields and the
+# ServeController arguments in argv[3] (JSON), inside ``positions``
+# virtual positions of the device when that is not 0
+_REST_MAIN = (
+    "import json, sys\n"
+    "from netsdb_tpu_torch.config import Configuration\n"
+    "from netsdb_tpu_torch.parallel.mesh import virtual_devices\n"
+    "from netsdb_tpu_torch.serve.server import run_daemon\n"
+    "kw = json.loads(sys.argv[3])\n"
+    "cfg = Configuration(root_dir=sys.argv[1], **kw.pop('config'))\n"
+    "n = kw.pop('positions')\n"
+    "if n:\n"
+    "    with virtual_devices(n, sys.argv[2]):\n"
+    "        sys.exit(run_daemon(cfg, device=sys.argv[2], **kw))\n"
+    "sys.exit(run_daemon(cfg, device=sys.argv[2], **kw))\n")
+
+
+def _rest_start(name, root, device, port, kw, logs, procs):
+    """Start daemon ``name`` of the phase on ``port`` (``procs[name]``)."""
+    import os
+
+    logs[name] = os.path.join(os.path.dirname(root), f"{name}.log")
+    procs[name] = _daemon_popen(
+        _REST_MAIN, [root, device, json.dumps(dict(kw, port=port))],
+        logs[name])
+    return procs[name]
+
+
+def _rest_client(addr, attempts: int = 400):
+    """A client of the phase: typed retryable refusals (a seal, a stale
+    map, a follower resync) are retried, so a failed request is one that
+    escaped them."""
+    from netsdb_tpu_torch.serve.client import RemoteClient, RetryPolicy
+
+    return RemoteClient(addr, timeout=REST_TIMEOUT_S, connect_timeout=30.0,
+                        retry=RetryPolicy(max_attempts=attempts,
+                                          base_delay_s=0.02,
+                                          max_delay_s=0.25))
+
+
+def _rest_wait(what, pred, timeout_s=REST_WAIT_S):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    raise RuntimeError(f"timed out after {timeout_s} s waiting for {what}")
+
+
+def _rest_checksum(t) -> int:
+    import numpy as np
+
+    return int(np.asarray(t["l_price"].cpu(), dtype=np.int64).sum())
+
+
+def _rest_rebalance(addr, w3, s, device, card) -> dict:
+    """A leader and 2 workers with ``rebalance=True``: ``hot`` and ``cold``
+    range-placed, 3 readers on an 80/20 hot/cold mix of streamed reads
+    and an appender running while a third worker joins with its
+    campaign. Zero failed requests, exact rows and checksums, and the
+    integer Q01 byte-equal before and after (hot's against an in-process
+    client holding the same rows)."""
+    import threading
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.workloads.serve_bench import (_scale_rows,
+                                                        scaleout_q01_sink,
+                                                        scaleout_table)
+
+    c = _rest_client(addr)
+    hot = scaleout_table(s["hot_rows"])
+    cold = scaleout_table(s["cold_rows"], seed=1)
+    payload_mb = {n: sum(int(v.nbytes) for v in t.cols.values()) / 2 ** 20
+                  for n, t in (("hot", hot), ("cold", cold))}
+    try:
+        c.create_database("d")
+        for name, t in (("hot", hot), ("cold", cold)):
+            c.create_set("d", name, type_name="table", placement="range")
+            c.send_table("d", name, t)
+
+        def q01(client, name, job, **kw):
+            client.execute_computations(
+                scaleout_q01_sink("d", lineitem_set=name,
+                                  output_set=f"q01_{name}"),
+                job_name=job, **kw)
+            return _scale_rows(client, "d", f"q01_{name}")
+
+        before = {n: q01(c, n, f"rest-q01-{n}", fetch_results=False)
+                  for n in ("hot", "cold")}
+        epoch0 = c.rebalance_status()["epoch"]
+        stop = threading.Event()
+        failures, reads, appended = [], {"hot": 0, "cold": 0}, []
+
+        def reader(i):
+            rc = _rest_client(addr)
+            n = i
+            try:
+                while not stop.is_set():
+                    name = "cold" if n % 5 == 0 else "hot"
+                    n += 1
+                    try:
+                        t = rc.get_table_streamed("d", name)
+                        want = s["hot_rows"] if name == "hot" \
+                            else s["cold_rows"]
+                        if t.num_rows < want:
+                            failures.append(f"{name}: {t.num_rows} rows")
+                        reads[name] += 1
+                    except Exception as e:  # noqa: BLE001 — counted
+                        failures.append(f"read {name}: {e!r}")
+            finally:
+                rc.close()
+
+        def appender():
+            ac = _rest_client(addr)
+            k = 0
+            try:
+                while not stop.is_set():
+                    batch = scaleout_table(s["append_rows"], seed=100 + k)
+                    k += 1
+                    try:
+                        ac.send_table("d", "hot", batch, append=True)
+                        appended.append(batch)
+                    except Exception as e:  # noqa: BLE001 — counted
+                        failures.append(f"append: {e!r}")
+            finally:
+                ac.close()
+
+        threads = [threading.Thread(target=reader, args=(i,), daemon=True)
+                   for i in range(s["readers"])]
+        threads.append(threading.Thread(target=appender, daemon=True))
+        for t in threads:
+            t.start()
+        time.sleep(0.5)
+        t0 = time.perf_counter()
+        res = c.add_worker(w3, campaign=True)
+        campaign_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.5)  # reads and appends under the new map
+        stop.set()
+        for t in threads:
+            t.join(REST_TIMEOUT_S)
+        if any(t.is_alive() for t in threads):
+            raise RuntimeError("a reader or the appender did not stop")
+        moves = [m for m in (res.get("moves") or []) if m.get("ok")]
+        if failures or not moves \
+                or any(not m.get("ok") for m in res.get("moves") or []):
+            raise RuntimeError(f"rebalancing: failed requests "
+                               f"{failures[:3]} ({len(failures)}), "
+                               f"moves {res.get('moves')}")
+        status = c.rebalance_status()
+        view = c.placement_view()
+        if not any(m["addr"] == w3 and m["slots"] >= 1
+                   for m in view["members"]):
+            raise RuntimeError(f"the new worker owns no slot: "
+                               f"{view['members']}")
+        back = c.get_table_streamed("d", "hot")
+        want_rows = s["hot_rows"] + s["append_rows"] * len(appended)
+        want_sum = _rest_checksum(hot) + sum(_rest_checksum(b)
+                                             for b in appended)
+        if back.num_rows != want_rows or _rest_checksum(back) != want_sum:
+            raise RuntimeError(f"hot after the campaign: {back.num_rows} "
+                               f"rows (want {want_rows}), checksum "
+                               f"{_rest_checksum(back)} (want {want_sum})")
+        backc = c.get_table_streamed("d", "cold")
+        if backc.num_rows != s["cold_rows"] \
+                or _rest_checksum(backc) != _rest_checksum(cold):
+            raise RuntimeError("cold after the campaign is not exact")
+        after = {n: q01(c, n, f"rest-q01-{n}-after", fetch_results=False)
+                 for n in ("hot", "cold")}
+        # hot's rows with its appends, in one in-process client
+        local = Client(Configuration(), device=device)
+        local.create_database("d")
+        local.create_set("d", "hot", type_name="table")
+        local.send_table("d", "hot", hot)
+        for b in appended:
+            local.send_table("d", "hot", b, append=True)
+        want_hot = q01(local, "hot", "rest-q01-local")
+        del local
+        if after["cold"] != before["cold"] or after["hot"] != want_hot \
+                or len(after["hot"]) != 6:
+            raise RuntimeError(f"Q01 over the pool changed across the "
+                               f"campaign: cold {after['cold'] == before['cold']}"
+                               f", hot {after['hot'] == want_hot}")
+    finally:
+        c.close()
+    rows = [{"set": m["set"], "slot": m["slot"], "src": m["src"],
+             "dst": m["dst"], "bytes": int(m.get("nbytes", 0)),
+             "ms": round(m["ms"], 3),
+             "mb_per_s": (m.get("nbytes", 0) / 2 ** 20) / (m["ms"] / 1e3)}
+            for m in moves]
+    out = {"hot_mb": payload_mb["hot"], "cold_mb": payload_mb["cold"],
+           "moves": rows, "campaign_ms": campaign_ms,
+           "epoch_before": epoch0, "epoch_after": status["epoch"],
+           "reads": reads, "appends": len(appended), "failed_requests": 0,
+           "skew_ratio_after": view["skew_ratio"],
+           "q01_byte_equal": True}
+    for m in rows:
+        print(f"[rest] move {m['set']}[{m['slot']}] {m['src']} -> "
+              f"{m['dst']}: {m['bytes']} bytes in {m['ms']:.3f} ms, "
+              f"{m['mb_per_s']:.1f} MB/s ({card})")
+    print(f"[rest] rebalancing: hot {payload_mb['hot']:.1f} MiB, cold "
+          f"{payload_mb['cold']:.1f} MiB; campaign {len(rows)} moves in "
+          f"{campaign_ms:.1f} ms, epoch {epoch0} -> {status['epoch']}; "
+          f"reads {reads}, {len(appended)} appends of {s['append_rows']} "
+          f"rows, 0 failed; rows, checksums and Q01 exact ({card})")
+    return out
+
+
+def _rest_advise(s, device, card) -> dict:
+    """``Rebalancer.advise`` on an in-process pool on the card: a leader
+    and one worker, a second worker joining without a campaign, then the
+    advisor with a measure that regresses (a plain callable, 2.0 then
+    1.0): every move reverts to the pre-campaign ownership, rows
+    exact."""
+    import os
+    import shutil
+    import tempfile
+
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.serve.server import ServeController
+    from netsdb_tpu_torch.workloads.serve_bench import scaleout_table
+
+    root = tempfile.mkdtemp(prefix="netsdb_rest_advise_")
+    daemons = []
+    try:
+        def start(name, **kw):
+            d = ServeController(Configuration(
+                root_dir=os.path.join(root, name), rebalance=True),
+                port=0, device=device, **kw)
+            d.start()
+            daemons.append(d)
+            return d
+
+        w1 = start("w1")
+        lead = start("lead", workers=[w1.advertise_addr],
+                     heartbeat_interval_s=60.0)
+        w2 = start("w2")
+        c = _rest_client(lead.advertise_addr)
+        try:
+            c.create_database("d")
+            for name, rows in (("hot", s["advise_rows"]),
+                               ("cold", s["advise_rows"] // 10)):
+                c.create_set("d", name, type_name="table",
+                             placement="range")
+                c.send_table("d", name, scaleout_table(rows, seed=3))
+            c.add_worker(w2.advertise_addr, campaign=False)
+            owners0 = {n: [sl["addr"] for sl in
+                           lead.placement.entry("d", n)["slots"]]
+                       for n in ("hot", "cold")}
+            seq = iter([2.0, 1.0])  # after < before: revert
+            t0 = time.perf_counter()
+            res = lead.rebalancer.advise(lambda: next(seq))
+            ms = (time.perf_counter() - t0) * 1e3
+            owners1 = {n: [sl["addr"] for sl in
+                           lead.placement.entry("d", n)["slots"]]
+                       for n in ("hot", "cold")}
+            if res["decision"] != "revert" or not res["moves"] \
+                    or owners1 != owners0:
+                raise RuntimeError(f"advise did not revert: {res}, "
+                                   f"{owners0} -> {owners1}")
+            rows = {n: c.get_table_streamed("d", n).num_rows
+                    for n in ("hot", "cold")}
+            if rows != {"hot": s["advise_rows"],
+                        "cold": s["advise_rows"] // 10}:
+                raise RuntimeError(f"rows after the revert: {rows}")
+        finally:
+            c.close()
+    finally:
+        for d in daemons:
+            d.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[rest] advise: {len(res['moves'])} moves committed then "
+          f"reverted on a regressing measure in {ms:.1f} ms; ownership and "
+          f"rows as before ({card})")
+    return {"decision": res["decision"], "moves": len(res["moves"]),
+            "ms": ms}
+
+
+def _rest_sessions(addr, worker_procs, s, device, card) -> dict:
+    """Decode sessions on the pool's workers at phase 16's sizes: placed
+    by sid hash, one moved live mid-decode (``op=move``), and, for the
+    first model, one worker (of ``worker_procs``: address → process)
+    killed after its sessions' state was pushed home, so they revive at
+    the leader. Zero failed requests, every output bit-equal to a
+    session that never moved, and within ``SERVE_DECODE_TOLS`` of
+    f64."""
+    import threading
+
+    import numpy as np
+
+    from netsdb_tpu_torch.models import decode as dec
+    from netsdb_tpu_torch.serve.protocol import MsgType
+
+    n, steps, hidden, heads = (s["sessions"], s["steps"], s["hidden"],
+                               s["heads"])
+    half = steps // 2
+    lead = _rest_client(addr)
+    rng = np.random.default_rng(SEED + 22)
+    out = {}
+    victim_addr = None
+    try:
+        for kind, db, seed in (("lstm", "rest_lstm", SEED + 5),
+                               ("transformer_layer", "rest_layer",
+                                SEED + 6)):
+            dec.deploy_decode_model(lead, db, kind=kind, hidden=hidden,
+                                    heads=heads, seed=seed)
+            dense = dec.decode_weights(kind, hidden, heads, seed)
+            xs = rng.standard_normal((n, steps, hidden)).astype(np.float32)
+
+            def run_pass(t_range, handles, got, lat, errors, hook=None):
+                barrier = threading.Barrier(len(handles))
+
+                def drive(i):
+                    try:
+                        barrier.wait(60)
+                        for t in t_range:
+                            t0 = time.perf_counter()
+                            got[i, t] = handles[i].generate(
+                                xs[i, t], deadline_s=REST_TIMEOUT_S)
+                            lat.append((time.perf_counter() - t0) * 1e3)
+                            if hook is not None and i == 0:
+                                hook(t)
+                    except Exception as e:  # noqa: BLE001 — raised below
+                        errors.append((i, repr(e)))
+
+                threads = [threading.Thread(target=drive, args=(i,))
+                           for i in range(len(handles))]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join(REST_TIMEOUT_S)
+                if errors or any(th.is_alive() for th in threads):
+                    raise RuntimeError(f"{kind} sessions failed: "
+                                       f"{errors[:3]} ({len(errors)})")
+
+            clients = [_rest_client(addr) for _ in range(n)]
+            try:
+                handles = [cl.open_session(db, kind=kind, heads=heads)
+                           for cl in clients]
+                owners = [h.owner for h in handles]
+                if addr in owners:
+                    raise RuntimeError(f"{kind}: a session was placed on "
+                                       f"the leader: {owners}")
+                got = np.zeros(xs.shape, np.float32)
+                lat, errors = [], []
+                live = sorted(m["addr"] for m in
+                              lead.placement_view()["members"]
+                              if m["addr"] != addr)
+                src = owners[0]
+                dst = next(w for w in live if w != src)
+                moved = threading.Event()
+
+                def move_hook(t):
+                    if t == half // 2 and not moved.is_set():
+                        moved.set()
+                        lead._request(MsgType.SESSION_OPEN,
+                                      {"op": "move", "sid": handles[0].sid,
+                                       "to": dst})
+
+                t0 = time.perf_counter()
+                run_pass(range(half), handles, got, lat, errors, move_hook)
+                revived = []
+                if victim_addr is None:
+                    # the worker with the most sessions, the move's
+                    # target aside; idle past the TTL, every worker
+                    # spills and pushes its state home, and the leader's
+                    # table then holds each session at step ``half``
+                    victim_addr = max(
+                        (w for w in live if w != dst),
+                        key=lambda w: sum(h.owner == w for h in handles))
+                    revived = [h.sid for h in handles
+                               if h.owner == victim_addr]
+                    if not revived:
+                        raise RuntimeError(f"{kind}: no worker but the "
+                                           f"move's target holds sessions")
+
+                    def pushed():
+                        rows = {r["sid"]: r for r in
+                                lead.collect_stats()["sessions"]["sessions"]}
+                        return all(rows[sid]["steps"] == half
+                                   for sid in revived)
+
+                    _rest_wait(f"{kind} state pushed home", pushed)
+                    worker_procs[victim_addr].kill()
+                    worker_procs[victim_addr].wait(30)
+                lat_after = []
+                run_pass(range(half, steps), handles, got, lat_after, errors)
+                wall = time.perf_counter() - t0
+                if any(h.steps != steps for h in handles) \
+                        or handles[0].owner != dst:
+                    raise RuntimeError(f"{kind}: steps "
+                                       f"{[h.steps for h in handles]}, "
+                                       f"moved owner {handles[0].owner}")
+                moves = sum(h.moves for h in handles)
+                owners_after = [h.owner for h in handles]
+                for h in handles:
+                    h.close()
+                # the same xs through fresh sessions that never move
+                fresh = [cl.open_session(db, kind=kind, heads=heads)
+                         for cl in clients]
+                want = np.zeros(xs.shape, np.float32)
+                run_pass(range(steps), fresh, want, [], [])
+                for h in fresh:
+                    h.close()
+            finally:
+                for cl in clients:
+                    cl.close()
+            if got.tobytes() != want.tobytes():
+                bad = [i for i in range(n)
+                       if got[i].tobytes() != want[i].tobytes()]
+                raise RuntimeError(
+                    f"{kind}: sessions {bad} differ from sessions that "
+                    f"never moved by {np.abs(got - want).max():.3e}")
+            oracle = _decode_oracle(kind, dense, xs, heads, s["kv_max"],
+                                    device)
+            err = float(np.abs(got.astype(np.float64) - oracle).max())
+            if not err <= SERVE_DECODE_TOLS[kind] \
+                    or not np.isfinite(got).all():
+                raise RuntimeError(f"{kind} decode: max abs err {err} vs "
+                                   f"f64 > {SERVE_DECODE_TOLS[kind]}")
+            both = lat + lat_after
+            out[kind] = {
+                "steps_per_s": n * steps / wall,
+                "generate_p50_ms": _p50(both),
+                "generate_p99_ms": float(np.percentile(both, 99)),
+                "generate_p99_before_kill_ms": float(np.percentile(lat, 99)),
+                "revive_ms": max(lat_after) if revived else None,
+                "moves": moves, "revived": len(revived),
+                "owners": {a: owners_after.count(a)
+                           for a in sorted(set(owners_after))},
+                "max_abs_err": err, "failed_requests": 0,
+                "bit_equal_to_unmoved": True}
+            print(f"[rest] sessions {kind}: {n} x {steps} steps on workers "
+                  f"{sorted(set(owners))}, one moved live, "
+                  f"{len(revived)} revived at the leader after their "
+                  f"worker's death; {moves} re-points, 0 failed; "
+                  f"GENERATE p50 {out[kind]['generate_p50_ms']:.3f} ms "
+                  f"p99 {out[kind]['generate_p99_ms']:.3f} ms (p99 before "
+                  f"the kill {out[kind]['generate_p99_before_kill_ms']:.3f}"
+                  f" ms, slowest step after it {out[kind]['revive_ms']} "
+                  f"ms); bit-equal "
+                  f"to unmoved sessions, max abs err vs f64 {err:.3e} "
+                  f"({card})")
+    finally:
+        lead.close()
+    out["victim"] = victim_addr
+    return out
+
+
+def _rest_udf_run(client, type_name, want, job) -> float:
+    """``REST_PLAN`` bound to ``type_name`` on a daemon; its output must
+    equal ``want`` (the UDF in this process) bit for bit. Returns ms."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    res = client.execute_plan(REST_PLAN, {"udf": type_name}, job_name=job)
+    ms = (time.perf_counter() - t0) * 1e3
+    got = np.asarray(next(iter(res.values())).to_dense())
+    if got.shape != want.shape or got.tobytes() != want.tobytes():
+        raise RuntimeError(f"{job}: the shipped UDF differs from in "
+                           f"process by {np.abs(got - want).max():.3e}")
+    return ms
+
+
+def _rest_types(tl_addr, restart_tf, moddir, s, device, card) -> dict:
+    """Shipped types on the leader: a torch UDF registered with its source
+    and one shipped from a file module (``ship_module=True``), both bound
+    by ``execute_plan`` on a daemon that cannot import them (and, by the
+    mirror, on its follower), each equal to the UDF in this process.
+    Then ``restart_tf`` kills the follower and starts it again on an
+    empty root, which the leader resyncs by snapshot while the phase
+    goes on (:func:`_rest_types_follower` checks it)."""
+    import importlib
+    import os
+
+    import numpy as np
+    import torch
+
+    mod_src = f"netsdb_rest_udf_src_{os.getpid()}"
+    mod_file = f"netsdb_rest_udf_file_{os.getpid()}"
+    with open(os.path.join(moddir, f"{mod_file}.py"), "w") as f:
+        f.write(REST_UDF_SRC)
+    a = np.random.default_rng(SEED + 23).standard_normal(
+        (s["rows"], s["cols"])).astype(np.float32)
+    at = torch.as_tensor(a, device=device)
+    want = (torch.tanh(at) * at + 0.5 * at).cpu().numpy()
+    out = {"want": want}
+    tl = _rest_client(tl_addr)
+    try:
+        tl.create_database("types")
+        tl.create_set("types", "m")
+        tl.send_matrix("types", "m", a, (s["block"], s["block"]))
+        tl.register_type("RestUdf", f"{mod_src}:udf", source=REST_UDF_SRC)
+        sys.path.insert(0, moddir)
+        try:
+            tl.register_type("RestFileUdf", f"{mod_file}:udf",
+                             ship_module=True)
+        finally:
+            sys.path.remove(moddir)
+            importlib.invalidate_caches()
+        for t in ("RestUdf", "RestFileUdf"):
+            out[f"leader_{t}_ms"] = _rest_udf_run(tl, t, want, f"rest-{t}")
+    finally:
+        tl.close()
+    restart_tf()
+    print(f"[rest] shipped types: a source and a file module bound on the "
+          f"leader ({out['leader_RestUdf_ms']:.1f}, "
+          f"{out['leader_RestFileUdf_ms']:.1f} ms), each equal to the UDF "
+          f"in process; the follower restarted on an empty root ({card})")
+    return out
+
+
+def _rest_types_follower(tl_addr, tf_addr, types, card) -> dict:
+    """The follower restarted by :func:`_rest_types`, resynced by a
+    snapshot (the leader's ``last_resync``): both shipped types bind
+    there from the type rows the snapshot carried, each equal to the
+    UDF in this process."""
+    tl = _rest_client(tl_addr)
+    try:
+        def resynced():
+            mirror = tl.collect_stats().get("mirror") or {}
+            return tf_addr in mirror.get("active", ()) \
+                and (mirror.get("last_resync") or {}).get("mode") \
+                == "snapshot"
+
+        _rest_wait("the follower's snapshot resync", resynced)
+        resync = tl.collect_stats()["mirror"]["last_resync"]
+    finally:
+        tl.close()
+    out = {"resync": {k: resync.get(k) for k in ("mode", "bytes",
+                                                   "seconds")}}
+    fc = _rest_client(tf_addr)
+    try:
+        for t in ("RestUdf", "RestFileUdf"):
+            out[f"follower_{t}_ms"] = _rest_udf_run(
+                fc, t, types["want"], f"rest-f-{t}")
+    finally:
+        fc.close()
+    print(f"[rest] shipped types on the follower resynced by snapshot "
+          f"({resync.get('bytes')} bytes): bound "
+          f"({out['follower_RestUdf_ms']:.1f}, "
+          f"{out['follower_RestFileUdf_ms']:.1f} ms), each equal to the "
+          f"UDF in process ({card})")
+    return out
+
+
+def _rest_layer_f64(w, x0, heads):
+    """The layer on one batch row in float64 on the card, from its
+    definition (layer norm without affine terms, causal softmax
+    attention, tanh-gelu MLP), head by head in query chunks."""
+    import torch
+
+    p = {k: v.double() for k, v in w.items()}
+
+    def ln(t):
+        mu = t.mean(-1, keepdim=True)
+        var = ((t - mu) ** 2).mean(-1, keepdim=True)
+        return (t - mu) / torch.sqrt(var + 1e-5)
+
+    x = x0.double()
+    s, e = x.shape
+    d = e // heads
+    qkv = ln(x) @ p["w_qkv"]
+    q, k, v = (t.reshape(s, heads, d).transpose(0, 1)
+               for t in qkv.chunk(3, dim=-1))
+    att = torch.empty(heads, s, d, dtype=torch.float64, device=x.device)
+    pos = torch.arange(s, device=x.device)
+    for i in range(0, s, 2048):
+        logits = (q[:, i:i + 2048] @ k.transpose(1, 2)) * d ** -0.5
+        mask = pos[None, :] > pos[i:i + 2048, None]
+        logits = logits.masked_fill(mask, float("-inf"))
+        att[:, i:i + 2048] = torch.softmax(logits, -1) @ v
+    x1 = x + att.transpose(0, 1).reshape(s, e) @ p["w_out"]
+    h = torch.nn.functional.gelu(ln(x1) @ p["w_up"], approximate="tanh")
+    return x1 + h @ p["w_down"]
+
+
+def _rest_sp(sp_addr, s, device, card) -> dict:
+    """The SP layer behind a daemon whose process runs inside 4 virtual
+    positions of the card: 3 requests over placed sets, B2 counted in
+    the daemon through COLLECT_STATS (16 a request, B1 none); each
+    output within ``SP_TOL`` of the in-process ``forward_sp`` through
+    the plain ring step, and, on batch row 0, within ``F64_RATIO`` of
+    the plain version's error against f64."""
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.parallel import ring
+    from netsdb_tpu_torch.parallel.mesh import (virtual_devices,
+                                                visible_devices)
+    from netsdb_tpu_torch.parallel.placement import Placement
+    from netsdb_tpu_torch.weights import transformer_params_from_numpy
+
+    embed, heads, batch, seq, n = (s["embed"], s["heads"], s["batch"],
+                                   s["seq"], s["positions"])
+    axes = (("sp", n),)
+    replicated = {w: Placement(axes, (None, None))
+                  for w in TransformerLayerModel.SETS}
+    seq_sharded = Placement(axes, (None, "sp", None))
+    rng = np.random.default_rng(SEED + 24)
+    xs = [rng.standard_normal((batch, seq, embed), dtype=np.float32)
+          for _ in range(s["requests"])]
+    c = _rest_client(sp_addr)
+    served, rates = [], []
+    try:
+        model = TransformerLayerModel(db="rest_sp", num_heads=heads)
+        model.setup(c, placements=replicated)
+        model.load_random_weights(c, embed=embed, seed=SEED)
+        k0 = dict(c.collect_stats()["metrics"]["kernels"])
+        for x in xs:
+            model.load_inputs(c, x, placement=seq_sharded)
+            t0 = time.perf_counter()
+            (y,) = model.serve_forward(c, placement=seq_sharded)
+            dt = time.perf_counter() - t0
+            y = np.asarray(y)
+            if y.shape != (batch, seq, embed) or not np.isfinite(y).all():
+                raise RuntimeError(f"served SP output {y.shape} is not "
+                                   f"finite or not the input's shape")
+            served.append(y)
+            rates.append(batch * seq / dt)
+        k1 = dict(c.collect_stats()["metrics"]["kernels"])
+    finally:
+        c.close()
+    launches = {k: k1.get(k, 0) - k0.get(k, 0)
+                for k in ("flash_attention", "flash_attention_step")}
+    per_request = n * n
+    want = ({"flash_attention": 0,
+             "flash_attention_step": per_request * s["requests"]}
+            if device == "cuda" else
+            {"flash_attention": 0, "flash_attention_step": 0})
+    if launches != want:
+        raise RuntimeError(f"the SP daemon launched {launches}, not {want} "
+                           f"({per_request} B2 launches a request)")
+    # in process, inside the same positions: the B2 ring's rate through
+    # the same DAG, then ``forward_sp`` called directly (outside the
+    # program cache, so nothing replays a captured B2 ring) with the
+    # ring's plain step, the naive fold, which the outputs are held to
+    r = np.random.default_rng(SEED)  # load_random_weights' draws
+    w = {name: r.standard_normal(shape).astype(np.float32) * embed ** -0.5
+         for name, shape in (("w_qkv", (embed, 3 * embed)),
+                             ("w_out", (embed, embed)),
+                             ("w_up", (embed, 4 * embed)),
+                             ("w_down", (4 * embed, embed)))}
+    errs, f64, ip_rates = [], {}, []
+    saved = ring.auto_impl
+    with virtual_devices(n, device if device == "cpu" else "cuda:0"):
+        ip = Client(Configuration(), device=device)
+        m = TransformerLayerModel(db="rest_sp", num_heads=heads)
+        m.setup(ip, placements=replicated)
+        m.load_random_weights(ip, embed=embed, seed=SEED)
+        params = transformer_params_from_numpy(w, device=device)
+        mesh = seq_sharded.mesh(visible_devices(
+            "cpu" if device == "cpu" else "cuda"))
+        try:
+            for x, y in zip(xs, served):
+                m.load_inputs(ip, x, placement=seq_sharded)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.serve_forward(ip)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                ip_rates.append(batch * seq / (time.perf_counter() - t0))
+                ring.auto_impl = lambda dev: "naive"
+                try:
+                    with torch.inference_mode():
+                        plain = m.forward_sp(
+                            params, torch.as_tensor(x, device=device), mesh,
+                            "sp").to_dense()
+                finally:
+                    ring.auto_impl = saved
+                yt = torch.as_tensor(y, device=plain.device)
+                errs.append(float((yt - plain).abs().max()))
+                if not f64:
+                    # batch row 0 against the layer in float64
+                    exact = _rest_layer_f64(
+                        {k: torch.as_tensor(v, device=plain.device)
+                         for k, v in w.items()},
+                        torch.as_tensor(x[0], device=plain.device), heads)
+                    f64 = {"served": float((yt[0].double()
+                                            - exact).abs().max()),
+                           "plain": float((plain[0].double()
+                                           - exact).abs().max())}
+                    del exact
+                del plain, yt
+        finally:
+            ring.auto_impl = saved
+            del ip
+    if max(errs) > SP_TOL or f64["served"] > max(
+            F64_RATIO * f64["plain"], 1e-6):
+        raise RuntimeError(f"served SP layer: max abs err {max(errs)} vs "
+                           f"the plain ring (limit {SP_TOL}); vs f64 "
+                           f"{f64['served']} against the plain ring's "
+                           f"{f64['plain']}")
+    print(f"[rest] SP behind a daemon ({n} virtual positions): "
+          f"{[round(r, 1) for r in rates]} tokens/s served vs "
+          f"{[round(r, 1) for r in ip_rates]} in process; B2 launches in "
+          f"the daemon {launches['flash_attention_step']} "
+          f"({per_request} a request), B1 {launches['flash_attention']}; "
+          f"max abs err vs the plain ring {max(errs):.3e}, vs f64 "
+          f"{f64['served']:.3e} (plain {f64['plain']:.3e}) ({card})")
+    return {"tokens_per_s": rates, "in_process_tokens_per_s": ip_rates,
+            "launches": launches, "max_abs_err": max(errs),
+            "f64_err": f64, "ms": batch * seq / rates[-1] * 1e3}
+
+
+def phase_pool_rest(pk: dict, smi: str, device: str = "cuda",
+                    sizes: Optional[dict] = None) -> dict:
+    """Phase 22: the rest of the daemon pool (``REST_SIZES``), each daemon
+    in its own process on the card — rebalancing a pool under live
+    traffic, decode sessions on its workers with a live move and a
+    worker's death, shipped types bound on a leader and on a follower
+    resynced by snapshot, and the SP layer behind a daemon (B2 in the
+    daemon) — plus the advisor's revert on an in-process pool."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    del pk
+    s = {k: dict(v, **((sizes or {}).get(k, {})))
+         for k, v in REST_SIZES.items()}
+    card = smi
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="netsdb_rest_")
+    moddir = os.path.join(root, "mods")
+    os.makedirs(moddir)
+    names = ("lead", "w1", "w2", "w3", "tl", "tf", "sp")
+    ports = dict(zip(names, _ha_free_ports(len(names))))
+    addrs = {n: f"127.0.0.1:{p}" for n, p in ports.items()}
+    roots = {n: os.path.join(root, n) for n in names}
+    procs, logs = {}, {}
+    pool_cfg = {"rebalance": True, "session_ttl_s": s["sessions"]["ttl_s"]}
+    kws = {"w1": dict(config=pool_cfg, positions=0, **REST_LINKS),
+           "w2": dict(config=pool_cfg, positions=0, **REST_LINKS),
+           "w3": dict(config=pool_cfg, positions=0, **REST_LINKS),
+           "lead": dict(config=pool_cfg, positions=0,
+                        workers=[addrs["w1"], addrs["w2"]], **REST_LINKS),
+           "tl": dict(config={}, positions=0, followers=[addrs["tf"]],
+                      **REST_LINKS),
+           "tf": dict(config={}, positions=0, **REST_LINKS),
+           "sp": dict(config={}, positions=s["sp"]["positions"])}
+    try:
+        for name in ("w1", "w2", "w3", "lead", "tf", "tl", "sp"):
+            _rest_start(name, roots[name], device, ports[name], kws[name],
+                        logs, procs)
+        for name in ("w1", "w2", "w3", "lead", "tf", "tl", "sp"):
+            got = _daemon_addr(procs[name], logs[name])
+            if got != addrs[name]:
+                raise RuntimeError(f"{name} listens on {got}, not "
+                                   f"{addrs[name]}")
+        print(f"[rest] leader {addrs['lead']}, workers {addrs['w1']} "
+              f"{addrs['w2']} (+{addrs['w3']}), types leader "
+              f"{addrs['tl']} and follower {addrs['tf']}, SP daemon "
+              f"{addrs['sp']}: "
+              f"{time.perf_counter() - t0:.1f} s to listen ({card})")
+        out = {}
+
+        def restart_tf():
+            procs["tf"].kill()
+            procs["tf"].wait(30)
+            _rest_start("tf", roots["tf"] + "-empty", device, ports["tf"],
+                        kws["tf"], logs, procs)
+
+        part_s = {"start": time.perf_counter() - t0}
+
+        def part(name, run):
+            t1 = time.perf_counter()
+            out[name] = run()
+            part_s[name] = time.perf_counter() - t1
+
+        kernels0 = {n: dict(_rest_client_stats(addrs[n]))
+                    for n in ("lead", "w1", "w2", "w3")}
+        part("types", lambda: _rest_types(addrs["tl"], restart_tf, moddir,
+                                          s["types"], device, card))
+        part("rebalance", lambda: _rest_rebalance(
+            addrs["lead"], addrs["w3"], s["rebalance"], device, card))
+        part("advise", lambda: _rest_advise(s["rebalance"], device, card))
+        pool_kernels = {}
+        for n in ("lead", "w1", "w2", "w3"):
+            for k, v in _rest_client_stats(addrs[n]).items():
+                pool_kernels[k] = pool_kernels.get(k, 0) + v \
+                    - kernels0[n].get(k, 0)
+        part("sessions", lambda: _rest_sessions(
+            addrs["lead"], {addrs[n]: procs[n] for n in ("w1", "w2", "w3")},
+            s["sessions"], device, card))
+        part("sp", lambda: _rest_sp(addrs["sp"], s["sp"], device, card))
+        if _daemon_addr(procs["tf"], logs["tf"]) != addrs["tf"]:
+            raise RuntimeError("the restarted follower took another port")
+        part("types_follower", lambda: _rest_types_follower(
+            addrs["tl"], addrs["tf"], out["types"], card))
+        out["types"].pop("want")
+        out["part_s"] = part_s
+        if any(pool_kernels.values()):
+            raise RuntimeError(f"the rebalancing pool launched a "
+                               f"hand-written kernel: {pool_kernels}")
+        out["launches"] = dict(out["sp"]["launches"])
+        out["wall_s"] = time.perf_counter() - t0
+        print(f"[rest] phase 22 wall {out['wall_s']:.1f} s, by part "
+              f"{ {k: round(v, 1) for k, v in part_s.items()} } ({card})")
+        if out["wall_s"] > REST_BUDGET_S:
+            print(f"[rest] WARNING: phase 22 took {out['wall_s']:.1f} s, "
+                  f"over its {REST_BUDGET_S} s budget")
+        return out
+    except BaseException:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGUSR1)
+        time.sleep(1.0)
+        for name, log in logs.items():
+            try:
+                with open(log) as f:
+                    print(f"[rest] daemon {name} log:\n" + f.read()[-6000:])
+            except OSError:
+                pass
+        raise
+    finally:
+        for name, proc in procs.items():
+            if proc.poll() is None:
+                try:
+                    c = _rest_client(addrs[name], attempts=1)
+                    c.shutdown_server()
+                    c.close()
+                    proc.wait(30)
+                except Exception:  # noqa: BLE001 — the kill below
+                    pass
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(30)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _rest_client_stats(addr) -> dict:
+    c = _rest_client(addr)
+    try:
+        return dict(c.collect_stats()["metrics"]["kernels"])
+    finally:
+        c.close()
+
+
 def main() -> int:
     try:
         import torch
@@ -9163,6 +10076,11 @@ def main() -> int:
         print(json.dumps({"obs": phase_obs(pk, smi), "card": smi},
                          default=str))
         return 0
+    if "--pool-rest-only" in sys.argv[1:]:
+        # phase 22 alone, the same way
+        print(json.dumps({"pool_rest": phase_pool_rest(pk, smi),
+                          "card": smi}, default=str))
+        return 0
     if "--ha-only" in sys.argv[1:]:
         # phase 21 alone, the same way
         print(json.dumps({"ha": phase_ha(pk, smi), "card": smi},
@@ -9225,6 +10143,7 @@ def main() -> int:
     pool = phase_pool(pk, smi)
     observed = phase_obs(pk, smi)
     replicated = phase_ha(pk, smi, solo=serve)
+    rest = phase_pool_rest(pk, smi)
     pool_launches = {
         k: pool["launches"].get(k, 0) + pool["inproc"]["launches"][i]
         for i, k in enumerate(("flash_attention", "flash_attention_step"))}
@@ -9239,7 +10158,7 @@ def main() -> int:
                       "compiled": compiled, "workloads": workloads,
                       "serve": serve, "pool": pool, "mesh": mesh,
                       "multichip": multichip, "obs": observed,
-                      "ha": replicated, "card": smi},
+                      "ha": replicated, "pool_rest": rest, "card": smi},
                      default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
@@ -9267,7 +10186,8 @@ def main() -> int:
                     "observability":
                         observed["launches"]["flash_attention"],
                     "replication":
-                        replicated["launches"]["flash_attention"]},
+                        replicated["launches"]["flash_attention"],
+                    "pool_rest": rest["launches"]["flash_attention"]},
                    b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
@@ -9284,7 +10204,8 @@ def main() -> int:
                     "observability":
                         observed["launches"]["flash_attention_step"],
                     "replication":
-                        replicated["launches"]["flash_attention_step"]},
+                        replicated["launches"]["flash_attention_step"],
+                    "pool_rest": rest["launches"]["flash_attention_step"]},
                    b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 The port's own copy of ``netsdb_tpu/catalog/catalog.py`` (host-only
 code, copied so the port never imports the JAX package), cut to what
 the ported path uses: the reference ``PDBCatalog``'s database, set and
-type rows (``src/catalog/headers/PDBCatalog.h:45-50``). Shipping type
-source and mesh-node rows stay with the serving slice (ROADMAP.md A7).
+type rows (``src/catalog/headers/PDBCatalog.h:45-50``) — a type row may
+carry its module's source, shipped to daemons that never installed it —
+and the mesh-node rows.
 """
 
 from __future__ import annotations
@@ -33,7 +34,14 @@ CREATE TABLE IF NOT EXISTS sets (
 CREATE TABLE IF NOT EXISTS types (
     type_name TEXT PRIMARY KEY,
     entry_point TEXT NOT NULL,
-    registered_at REAL NOT NULL
+    registered_at REAL NOT NULL,
+    source TEXT
+);
+CREATE TABLE IF NOT EXISTS nodes (
+    node_id INTEGER PRIMARY KEY,
+    address TEXT NOT NULL,
+    num_devices INTEGER NOT NULL,
+    device_kind TEXT NOT NULL
 );
 """
 
@@ -48,6 +56,11 @@ class Catalog:
         self._lock = threading.Lock()
         with self._lock:
             self._conn.executescript(_SCHEMA)
+            # a catalog written before type rows carried their source
+            try:
+                self._conn.execute("ALTER TABLE types ADD COLUMN source TEXT")
+            except sqlite3.OperationalError:
+                pass  # the column is there
             self._conn.commit()
 
     # --- databases ----------------------------------------------------
@@ -126,11 +139,18 @@ class Catalog:
         self.update_set_meta(db_name, set_name, info["meta"])
 
     # --- types (Python entry points in place of the reference's .so) --
-    def register_type(self, type_name: str, entry_point: str) -> None:
+    def register_type(self, type_name: str, entry_point: str,
+                      source: Optional[str] = None) -> None:
+        """``source`` (optional Python module text) is the reference
+        catalog's replicated user-type .so (``PDBCatalog.h:45-50``): a
+        daemon loads it when the entry point's module is not installed
+        there."""
         with self._lock:
             self._conn.execute(
-                "INSERT OR REPLACE INTO types VALUES (?, ?, ?)",
-                (type_name, entry_point, time.time()))
+                "INSERT OR REPLACE INTO types "
+                "(type_name, entry_point, registered_at, source) "
+                "VALUES (?, ?, ?, ?)",
+                (type_name, entry_point, time.time(), source))
             self._conn.commit()
 
     def get_type(self, type_name: str) -> Optional[str]:
@@ -141,6 +161,14 @@ class Catalog:
                 (type_name,)).fetchone()
         return row[0] if row else None
 
+    def get_type_source(self, type_name: str) -> Optional[str]:
+        """The module source shipped with ``type_name``, or None."""
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT source FROM types WHERE type_name = ?",
+                (type_name,)).fetchone()
+        return row[0] if row else None
+
     def list_types(self) -> List[Dict]:
         """Every registered type as ``{"type", "entry_point"}``."""
         with self._lock:
@@ -148,3 +176,35 @@ class Catalog:
                 "SELECT type_name, entry_point FROM types")
             return [{"type": r[0], "entry_point": r[1]}
                     for r in cur.fetchall()]
+
+    # --- nodes (the reference's PDBCatalogNode / conf/serverlist) -----
+    def register_node(self, node_id: int, address: str, num_devices: int,
+                      device_kind: str) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT OR REPLACE INTO nodes VALUES (?, ?, ?, ?)",
+                (node_id, address, num_devices, device_kind))
+            self._conn.commit()
+
+    def list_nodes(self) -> List[Dict]:
+        with self._lock:
+            cur = self._conn.execute(
+                "SELECT node_id, address, num_devices, device_kind "
+                "FROM nodes")
+            return [{"node_id": r[0], "address": r[1],
+                     "num_devices": r[2], "device_kind": r[3]}
+                    for r in cur.fetchall()]
+
+
+def read_module_source(entry_point: str) -> str:
+    """The source text of an entry point's importable module — the
+    client's half of shipping a type (``register_type(ship_module=
+    True)``; the reference reads the .so bytes off disk)."""
+    import importlib.util
+
+    spec = importlib.util.find_spec(entry_point.partition(":")[0])
+    if spec is None or spec.origin is None:
+        raise ImportError(
+            f"ship_module: cannot locate source for {entry_point!r}")
+    with open(spec.origin, "r") as f:
+        return f.read()

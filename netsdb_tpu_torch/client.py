@@ -189,10 +189,20 @@ class Client:
     def set_exists(self, db: str, set_name: str) -> bool:
         return self.catalog.set_exists(db, set_name)
 
-    def register_type(self, type_name: str, entry_point: str) -> None:
+    def register_type(self, type_name: str, entry_point: str,
+                      source: Optional[str] = None,
+                      ship_module: bool = False) -> None:
         """Register an op/model implementation by dotted import path
-        (reference registerType of a user-type .so)."""
-        self.catalog.register_type(type_name, entry_point)
+        (reference registerType of a user-type .so). ``source`` ships
+        the module's code with the type, so a daemon that never
+        installed the module can still bind it (the reference's
+        replicated .so, ``PDBCatalog.h:45-50``); ``ship_module=True``
+        reads it off the locally importable module."""
+        if ship_module and source is None:
+            from netsdb_tpu_torch.catalog.catalog import read_module_source
+
+            source = read_module_source(entry_point)
+        self.catalog.register_type(type_name, entry_point, source=source)
 
     # --- data path ----------------------------------------------------
     def _on_device(self, item: Any) -> Any:

@@ -14,13 +14,6 @@ import torch
 # knobs of the reference that belong to later items of ROADMAP.md A:
 # setting one away from its default raises, naming the item
 _LATER = {
-    # A7 part 2: the daemon pool — pin auto-sizing from the attribution
-    # ledger, rebalancing
-    "device_cache_pin_auto": (False, "A7 part 2"),
-    "rebalance": (False, "A7 part 2"),
-    "rebalance_skew_ratio": (2.0, "A7 part 2"),
-    "rebalance_windows": (3, "A7 part 2"),
-    "rebalance_max_bytes_per_round": (64 * 1024 * 1024, "A7 part 2"),
     # A8: the lock-order witness
     "lock_witness": (False, "A8"),
 }
@@ -125,8 +118,16 @@ class Configuration:
     ``sched_feedback_every`` admissions; ``sched_slo_shed`` halves the
     heaviest lane's quota while an objective breaches on every window.
 
-    Every knob of a later ROADMAP.md item (``_LATER``: the daemon pool,
-    the lock witness) raises ``NotImplementedError`` naming its item when set
+    ``rebalance`` turns on live shard rebalancing on a pool leader
+    (``serve/rebalance.py``): a skew verdict over ``rebalance_windows``
+    feedback windows above ``rebalance_skew_ratio`` (or a pool change)
+    plans a round of slot moves of at most
+    ``rebalance_max_bytes_per_round``; ``device_cache_pin_auto`` sizes
+    the device cache's head-pin budget from the attribution ledger on
+    the same cadence.
+
+    Every knob of a later ROADMAP.md item (``_LATER``: the lock witness)
+    raises ``NotImplementedError`` naming its item when set
     away from its default."""
 
     # --- tensor blocking ---
@@ -178,8 +179,8 @@ class Configuration:
     obs_explain: bool = True
     obs_history_interval_s: float = 5.0
     obs_history_len: int = 120
-    # --- serving (one daemon, its shard pool, followers and HA; the
-    # rebalancing knobs are A7 part 2) ---
+    # --- serving (one daemon, its shard pool with live rebalancing,
+    # followers and HA) ---
     sched_lanes: Optional[Dict[str, float]] = None
     sched_lane_quota: int = 0
     sched_aging_every: int = 8
@@ -244,6 +245,16 @@ class Configuration:
         if self.fusion_mapper not in ("optimal", "greedy"):
             raise ValueError(f"fusion_mapper must be 'optimal' or "
                              f"'greedy', got {self.fusion_mapper!r}")
+        if self.rebalance_skew_ratio <= 1.0:
+            raise ValueError(f"rebalance_skew_ratio must be > 1.0, got "
+                             f"{self.rebalance_skew_ratio!r}")
+        if self.rebalance_windows < 1:
+            raise ValueError(f"rebalance_windows must be >= 1, got "
+                             f"{self.rebalance_windows!r}")
+        if self.rebalance_max_bytes_per_round < 0:
+            raise ValueError(f"rebalance_max_bytes_per_round must be "
+                             f">= 0, got "
+                             f"{self.rebalance_max_bytes_per_round!r}")
         if self.session_ttl_s <= 0:
             raise ValueError(f"session_ttl_s must be > 0, got "
                              f"{self.session_ttl_s!r}")

@@ -85,6 +85,20 @@ def _weight(w) -> torch.Tensor:
     return _dense(w.to_dense() if hasattr(w, "to_dense") else w)
 
 
+def _daemon_mesh(placement: Placement, axis: str, x) -> Optional[Mesh]:
+    """The mesh a placement resolves to on the daemon running the body:
+    over the positions visible to the device type of the stored input
+    ``x`` there (its virtual positions too). None on a mesh of size 1
+    along ``axis`` (the degraded-hardware rule, as in the process that
+    built the DAG)."""
+    if isinstance(x, ShardedTensor):
+        dev = next(iter(x.shards.flat)).device
+    else:
+        dev = _dense(x).device
+    mesh = placement.mesh(visible_devices(dev.type))
+    return None if mesh.shape[axis] == 1 else mesh
+
+
 class _LocalWeights:
     """Each mesh position's copy of a weight: a replicated sharded
     weight on the same mesh gives its own shard; anything else is
@@ -229,33 +243,43 @@ class TransformerLayerModel:
         same DAG either way: distribution is decided by how the sets
         were created. ``placement`` defaults to the input set's (a
         RemoteClient has no store: remote callers pass the placement
-        they created the set with)."""
+        they created the set with).
+
+        Behind a RemoteClient the body's closure carries the placement
+        and its axis, never a mesh: the mesh is resolved on the daemon,
+        over the daemon's own positions, when the body runs (a mesh of
+        the client's process would name its devices). The program key
+        pins it there: the scanned input set's program scope names the
+        mesh its placement resolves to on the daemon."""
         if placement is None and hasattr(client, "store"):
             placement = client.store.placement_of(
                 SetIdentifier(self.db, input_set))
         mesh: Optional[Mesh] = None
         axis = None
+        remote = None  # the placement a daemon resolves its mesh from
         sharded_axes = [a for a in (placement.spec if placement else ())
                         if a is not None]
         if sharded_axes:
-            if not hasattr(client, "device"):
-                raise NotImplementedError(
-                    "a sequence-parallel layer over a daemon (a placed "
-                    "input set behind a RemoteClient) is not ported yet: "
-                    "ROADMAP.md A7 part 2")
-            mesh = placement.mesh(visible_devices(client.device.type))
             ax = sharded_axes[0]
             axis = ax[0] if isinstance(ax, tuple) else ax
-            if mesh.shape[axis] == 1:
-                mesh = axis = None  # degraded single-device mesh
+            if hasattr(client, "device"):
+                mesh = placement.mesh(visible_devices(client.device.type))
+                if mesh.shape[axis] == 1:
+                    mesh = axis = None  # degraded single-device mesh
+            else:
+                remote = placement
+        mesh_tag = (None if mesh is None else
+                    (tuple(mesh.shape.items()),
+                     tuple(str(d) for d in mesh.devices.flat)))
 
         def fwd(gathered, w_down_bt):
             x, wq, wo, wu = gathered
             p = TransformerLayerParams(
                 w_qkv=wq.to_dense(), w_out=wo.to_dense(),
                 w_up=wu.to_dense(), w_down=w_down_bt.to_dense())
-            if mesh is not None:
-                return self.forward_sp(p, x, mesh, axis, causal=causal)
+            m = mesh if remote is None else _daemon_mesh(remote, axis, x)
+            if m is not None:
+                return self.forward_sp(p, x, m, axis, causal=causal)
             p = TransformerLayerParams(
                 **{f.name: _dense(getattr(p, f.name))
                    for f in dataclasses.fields(p)})
@@ -270,9 +294,13 @@ class TransformerLayerModel:
         g3 = Join(g2, ScanSet(self.db, "w_up"),
                   fn=lambda a, b: a + (b,), label="gather:w_up",
                   passthrough=True)
+        # the body closes over the mesh (or, remote, the placement it
+        # resolves), so the plan's label pins both: a same-shaped DAG
+        # built for another mesh must not reuse a stale closure
+        tag = mesh_tag if remote is None else remote.label()
         out = Join(g3, ScanSet(self.db, "w_down"), fn=fwd,
                    label=f"transformer-fwd:{self.num_heads}:{causal}:"
-                         f"{axis}")
+                         f"{axis}:{tag}")
         return WriteSet(out, self.db, output_set)
 
     def build_forward_dag_staged(self, input_set: str = "x",

@@ -50,9 +50,10 @@ names the leader re-points the client there at once, and a lost
 connection rotates through the candidates under the retry backoff,
 which doubles as the wait for an election.
 
-Rebalancing (``add_worker``, ``rebalance_status``) and type-source
-shipping belong to ROADMAP.md A7 part 2: each raises
-``NotImplementedError`` naming its item."""
+A pool leader grows live (:meth:`RemoteClient.add_worker`, with the
+rebalancer's campaign) and reports its moves
+(:meth:`RemoteClient.rebalance_status`); a session handle follows its
+session across owners (:class:`SessionHandle`)."""
 
 from __future__ import annotations
 
@@ -191,10 +192,6 @@ class RemoteIdent(Tuple[str, str]):
 
     def __str__(self) -> str:
         return f"{self[0]}:{self[1]}"
-
-
-def _later(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md {item}")
 
 
 def _host_array(v) -> np.ndarray:
@@ -445,6 +442,12 @@ class RemoteClient:
                 return attempt_fn(io_timeout)
             except RemoteError as e:
                 if not e.retryable:
+                    raise
+                if isinstance(e, SessionMovedError) \
+                        and getattr(e, "owner_addr", None):
+                    # the refusal names the session's owner: this daemon
+                    # answers the same until the session handle re-points,
+                    # so retrying here only delays it
                     raise
                 failure: RemoteError = e
             except (socket.timeout, TimeoutError) as e:
@@ -922,14 +925,18 @@ class RemoteClient:
     def register_type(self, type_name: str, entry_point: str,
                       source: Optional[str] = None,
                       ship_module: bool = False) -> None:
-        """Register an entry point the daemon can import; shipping the
-        module's source (``source``/``ship_module``) raises."""
-        if source is not None or ship_module:
-            _later("register_type(source=..., ship_module=...)",
-                   "A7 part 2")
+        """``source``/``ship_module`` ship the type's module code to the
+        daemon (the reference's .so replication on registerType), so
+        EXECUTE_PLAN can bind types the daemon never installed. Shipped
+        source is code the daemon executes: the same trust boundary as
+        the pickle codec."""
+        if ship_module and source is None:
+            from netsdb_tpu_torch.catalog.catalog import read_module_source
+
+            source = read_module_source(entry_point)
         self._request(MsgType.REGISTER_TYPE,
                       {"type_name": type_name, "entry_point": entry_point,
-                       "source": None})
+                       "source": source})
 
     # --- placement-aware routing (shard pools) -------------------------
     def _refresh_placement(self) -> None:
@@ -1735,18 +1742,48 @@ class RemoteClient:
             meta["mutlog_pos"] = list(mutlog_pos)
         return self._bulk_request(MsgType.RESYNC_FOLLOWER, meta, chunks)
 
-    def rebalance_status(self):
-        _later("rebalance_status (shard rebalancing)", "A7 part 2")
+    def rebalance_status(self) -> Dict[str, Any]:
+        """The rebalancer's own state (enabled, running, last skew
+        ratio, streak, epoch and the move log), without the per-slot
+        join."""
+        return self._request(MsgType.RESHARD, {"op": "status"},
+                             codec=CODEC_PICKLE)
 
-    def add_worker(self, addr: str, campaign: bool = True):
-        _later("add_worker (shard rebalancing)", "A7 part 2")
+    def add_worker(self, addr: str,
+                   campaign: bool = True) -> Dict[str, Any]:
+        """Register one new pool worker on a live leader (the scale-out
+        path the rebalancer treats as a forced trigger).
+        ``campaign=False`` registers without moving anything."""
+        return self._request(
+            MsgType.RESHARD,
+            {"op": "add_worker", "addr": str(addr),
+             "campaign": bool(campaign)}, codec=CODEC_PICKLE)
 
 
 class SessionHandle:
-    """Client-side handle of one interactive decode session. Each
-    logical step mints one idempotency token and resends it on every
-    retry, so an applied-but-unanswered step is answered from the
-    daemon's record instead of advancing the state twice."""
+    """Client-side handle for one interactive decode session.
+
+    Stickiness: ``generate`` targets the session's OWNER directly —
+    the main client when the leader owns it, a cached single-attempt
+    shard connection when a pool worker does. Every hop the session
+    takes shows up as a typed retryable signal, and the handle owns
+    the re-pointing loop (the shard clients are deliberately
+    max_attempts=1, so no nested retry fights it):
+
+    * ``SessionMoved`` — the refusal NAMES the new owner: re-point and
+      retry immediately.
+    * ``NotLeader`` — the leader moved: follow the named leader (or
+      the main client's failover rotation) and re-LOOKUP the owner.
+    * connection loss / timeout / other retryables — the owner (or
+      mid-election leader) died: re-LOOKUP through the main client,
+      whose own retry driver rides the succession list, then retry
+      here with jittered backoff.
+
+    Each logical step mints ONE idempotency token and resends it
+    across every re-route, so an applied-but-unanswered step dedupes
+    at whichever daemon applied it instead of double-advancing the
+    state, and a step re-applied by a NEW owner after failover
+    recomputes bit-identically from the last durable state."""
 
     def __init__(self, client: RemoteClient, sid: str, db: str,
                  kind: str, owner: Optional[str] = None,
@@ -1758,27 +1795,96 @@ class SessionHandle:
         self.owner = owner or client.current_address
         self.spec = spec or {}
         self.steps = int(steps)
-        self.moves = 0  # owner re-points (sessions on workers: A7 part 2)
+        self.moves = 0  # typed re-points this handle performed
+        self._rng = random.Random(sid)
         self._closed = False
 
+    def _target(self) -> RemoteClient:
+        if self.owner == self._client.current_address:
+            return self._client
+        return self._client._shard_client(self.owner)
+
+    def _lookup(self) -> str:
+        """Ask the (current) leader who owns the session — riding the
+        main client's NotLeader/failover handling, and healing a
+        dead-owner record leader-side."""
+        rep = self._client._request(
+            MsgType.SESSION_OPEN,
+            {"op": "lookup", "sid": self.sid, "db": self.db})
+        owner = rep.get("owner") or self._client.current_address
+        if owner != self.owner:
+            self.moves += 1
+        self.owner = owner
+        return owner
+
     def generate(self, x, deadline_s: float = 30.0) -> np.ndarray:
-        """One decode step: the model's output row for this session,
-        retried under ``deadline_s`` with one token for the step."""
+        """One decode step: returns the model's output row for this
+        session. Retries typed-retryable failures (owner moves,
+        failovers, deaths) under ``deadline_s`` with ONE idempotency
+        token for the whole logical step."""
         if self._closed:
             raise RuntimeError(f"session {self.sid!r} is closed")
         payload = {"db": self.db, "set": self.sid, "sid": self.sid,
                    "x": np.asarray(_host_array(x), np.float32),
                    SESSION_KEY: self.sid,
                    IDEMPOTENCY_KEY: uuid.uuid4().hex}
-        rep = self._client._request(MsgType.GENERATE, payload,
-                                    codec=CODEC_PICKLE,
-                                    deadline_s=deadline_s)
-        self.steps = int(rep.get("steps", self.steps + 1))
-        return np.asarray(rep["y"])
+        deadline = deadline_after(deadline_s)
+        attempt = 0
+        while True:
+            attempt += 1
+            try:
+                rep = self._target()._request(
+                    MsgType.GENERATE, dict(payload),
+                    codec=CODEC_PICKLE)
+                new_owner = rep.get("owner")
+                if new_owner and new_owner != self.owner:
+                    self.moves += 1
+                    self.owner = new_owner
+                self.steps = int(rep.get("steps", self.steps + 1))
+                return np.asarray(rep["y"])
+            except SessionMovedError as e:
+                self.moves += 1
+                self.owner = getattr(e, "owner_addr", None) or \
+                    self._safe_lookup(deadline, e)
+            except NotLeaderError as e:
+                addr = getattr(e, "leader_addr", None)
+                if addr:
+                    self._client._switch_address(addr)
+                else:
+                    self._client._rotate_failover()
+                self._safe_lookup(deadline, e)
+            except SessionUnknownError:
+                raise
+            except (RetryableRemoteError, ConnectionLostError,
+                    RemoteTimeoutError, ConnectionError, OSError,
+                    DeadlineExceededError) as e:
+                # owner died or is mid-election: bounded backoff, then
+                # re-discover through the main client's failover path
+                if seconds_left(deadline) <= 0:
+                    raise
+                time.sleep(min(0.5, 0.05 * attempt
+                               * (1.0 + self._rng.random())))
+                self._safe_lookup(deadline, e)
+            if seconds_left(deadline) <= 0:
+                raise DeadlineExceededError(
+                    "DeadlineExceeded",
+                    f"generate deadline of {deadline_s}s exhausted "
+                    f"after {attempt} attempt(s)")
+
+    def _safe_lookup(self, deadline, cause) -> str:
+        """Owner re-discovery that tolerates the election window: a
+        failed lookup keeps the current owner and lets the outer loop
+        back off and try again (bounded by the step's deadline)."""
+        try:
+            return self._lookup()
+        except (RemoteError, ConnectionError, OSError):
+            if seconds_left(deadline) <= 0:
+                raise cause
+            return self.owner
 
     def close(self, deadline_s: float = 10.0) -> bool:
-        """Close the session on the daemon (idempotent; the TTL sweep
-        collects what a lost close leaves)."""
+        """Close the session everywhere (idempotent; the daemon's TTL
+        sweep collects anything a lost close leaves behind)."""
         if self._closed:
             return False
         self._closed = True

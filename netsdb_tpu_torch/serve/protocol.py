@@ -38,9 +38,11 @@ delay, corrupt or truncate the frame; without one the hook is a single
 ``is None`` check.
 
 Security note: codec 1 executes code on deserialization, exactly like
-the reference's ``registerType`` shipping .so binaries; the serve layer
-is a trusted-cluster control plane, and an optional shared token (HELLO)
-gates connections.
+the reference's ``registerType`` shipping .so binaries. The same boundary
+applies to REGISTER_TYPE frames carrying module ``source``, executed
+daemon-side when EXECUTE_PLAN first binds the type
+(``server.resolve_entry_point``). The serve layer is a trusted-cluster
+control plane, and an optional shared token (HELLO) gates connections.
 """
 
 from __future__ import annotations

@@ -23,8 +23,8 @@ annotations and ``server.sched.*`` spans.
 
 This is the port's copy of ``netsdb_tpu/serve/sched/``, with the
 feedback loop (lane weights and quotas reseeded from the attribution and
-operator ledgers) and the SLO load shedding; pin auto-sizing and the
-rebalance cadence raise (see :class:`QueryScheduler`).
+operator ledgers), the SLO load shedding, and the pin auto-sizing and
+rebalance hooks on the same cadence (see :class:`QueryScheduler`).
 """
 
 from __future__ import annotations
@@ -84,10 +84,10 @@ class QueryScheduler:
     naming the objectives breached on every window, ``SLOEngine.
     breached_objectives``) halves the heaviest lane's quota while any
     breach lasts. Both run on the same cadence, on a background thread
-    off the admission path. The pin-budget auto-sizing (``pin_auto``)
-    and the rebalance cadence (``rebalance_cb``) belong to the daemon
-    pool and raise ``NotImplementedError`` naming ROADMAP.md A7 part
-    2."""
+    off the admission path. ``pin_auto`` (the device cache's pin-budget
+    auto-sizing) and ``rebalance_cb`` (one rebalance skew check,
+    ``serve/rebalance.py``) are no-arg callables run on that cadence and
+    thread too; a failing one skips its pass."""
 
     def __init__(self, slots: int,
                  lanes: Optional[Dict[str, float]] = None,
@@ -100,11 +100,6 @@ class QueryScheduler:
                  cache_probe=None,
                  feedback: bool = False, feedback_every: int = 64,
                  slo_source=None, pin_auto=None, rebalance_cb=None):
-        if pin_auto is not None or rebalance_cb is not None:
-            raise NotImplementedError(
-                "pin-budget auto-sizing and the rebalance cadence belong to "
-                "the daemon pool, which is not ported yet: ROADMAP.md A7 "
-                "part 2")
         self.lanes = LaneScheduler(slots, lanes=lanes, quota=quota,
                                    aging_every=aging_every)
         self.feedback_enabled = bool(feedback)
@@ -115,6 +110,11 @@ class QueryScheduler:
         self._fb_mu = TrackedLock("sched.QueryScheduler._fb_mu")
         self._fb_count = 0
         self._fb_running = False
+        # pin-budget auto-sizing (``device_cache_pin_auto``) and one
+        # rebalance skew check (``rebalance``): no-arg callables run on
+        # the same cadence and thread
+        self._pin_auto_cb = pin_auto
+        self._rebalance_cb = rebalance_cb
         self.coalesce_enabled = bool(coalesce)
         self.coalesce_wait_s = coalesce_wait_s
         self._coalesce = CoalesceTable(
@@ -128,7 +128,9 @@ class QueryScheduler:
     # --- lanes --------------------------------------------------------
     def acquire(self, lane: Optional[str],
                 timeout_s: float) -> AdmissionTicket:
-        if self.feedback_enabled or self.shed_enabled:
+        if self.feedback_enabled or self.shed_enabled \
+                or self._pin_auto_cb is not None \
+                or self._rebalance_cb is not None:
             self._maybe_feedback()
         return self.lanes.acquire(lane, timeout_s)
 
@@ -151,6 +153,12 @@ class QueryScheduler:
                 self.refresh_feedback()
             if self.shed_enabled:
                 self.refresh_shed()
+            for cb in (self._pin_auto_cb, self._rebalance_cb):
+                if cb is not None:
+                    try:
+                        cb()
+                    except Exception as e:  # noqa: BLE001 — a broken
+                        del e  # probe must never wedge admission
         finally:
             with self._fb_mu:
                 self._fb_running = False

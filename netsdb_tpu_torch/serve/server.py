@@ -64,10 +64,22 @@ mutation answered from the idempotency cache is mirrored again (the
 followers dedupe it by its token), so a follower that missed a frame its
 leader applied before a failover gets it with the client's retry.
 
-Rebalancing (RESHARD, except its ``view`` op) and shipping a type's
-module source belong to ROADMAP.md A7 part 2, the SPMD follower and its
-LOCAL_SHARDS frame to A4 part 3; each raises ``NotImplementedError``
-naming its item.
+**Rebalancing.** With ``config.rebalance`` a pool leader moves shard
+slots live (``serve/rebalance.py``): a skew detector on the scheduler's
+feedback cadence (or a pool change: ``add_worker``, an eviction) plans a
+byte-bounded round, and each move copies the source partition to the
+destination over RESHARD, write-seals the source (routed writes answer
+the typed retryable ``ShardUnavailable``, reads keep serving), drains
+the tail, verifies the row count and commits with one epoch bump; the
+dropped source leaves a tombstone, so a frame riding the old map is
+refused ``PlacementStale``. Decode sessions live on pool workers too
+(``serve/sessions.py``: placed by sid hash, moved live, revived from the
+state a worker pushes home). A type registered with its module source
+binds on a daemon that never installed the module
+(:func:`resolve_entry_point`).
+
+The SPMD follower and its LOCAL_SHARDS frame belong to ROADMAP.md A4
+part 3 and raise ``NotImplementedError`` naming it.
 
 **Observability.** A frame carrying a client-minted query id opens a
 query trace on this daemon's own ring (``obs_trace_ring`` profiles):
@@ -97,6 +109,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib
+import importlib.util
 import inspect
 import itertools
 import os
@@ -116,6 +129,7 @@ from netsdb_tpu_torch import obs
 from netsdb_tpu_torch.client import Client
 from netsdb_tpu_torch.config import Configuration
 from netsdb_tpu_torch.serve import placement as _placement
+from netsdb_tpu_torch.serve import rebalance as _rebalance
 from netsdb_tpu_torch.serve import sched as _sched
 from netsdb_tpu_torch.serve import sessions as _sessions
 from netsdb_tpu_torch.serve import shard as _shard
@@ -170,11 +184,37 @@ OBS_FRAMES = frozenset({MsgType.PING, MsgType.COLLECT_STATS,
 
 
 
-def resolve_entry_point(entry: str) -> Any:
+#: one bind of shipped source at a time: two handler threads binding one
+#: type must not exec its module twice
+_ship_mu = threading.Lock()
+
+
+def resolve_entry_point(entry: str, source: Optional[str] = None) -> Any:
     """'pkg.mod:attr' → the live object (the reference's loading of a
-    registered type, with the module importable here)."""
+    registered type and fixing up its vtable, ``VTableMap.h:36-80``).
+
+    ``source``: module text shipped through the catalog. When the module
+    is not importable here, it is exec'd into a fresh module under the
+    shipped name, registered in ``sys.modules`` so later binds and
+    imports see it (the daemon-side ``dlopen`` of a replicated .so,
+    ``PDBCatalog.h:45-50``). TRUST BOUNDARY: executing shipped source is
+    code execution by design, exactly like the pickle codec and the
+    reference's .so shipping — the serve layer is a trusted-cluster
+    control plane behind the HELLO token."""
     mod_name, _, attr = entry.partition(":")
-    obj: Any = importlib.import_module(mod_name)
+    try:
+        obj: Any = importlib.import_module(mod_name)
+    except ModuleNotFoundError:
+        if source is None:
+            raise
+        with _ship_mu:
+            obj = sys.modules.get(mod_name)
+            if obj is None:
+                spec = importlib.util.spec_from_loader(mod_name, loader=None)
+                obj = importlib.util.module_from_spec(spec)
+                exec(compile(source, f"<registered:{mod_name}>", "exec"),
+                     obj.__dict__)
+                sys.modules[mod_name] = obj
     for part in attr.split(".") if attr else []:
         obj = getattr(obj, part)
     return obj
@@ -185,8 +225,13 @@ def _to_host(value: Any) -> Any:
     tensors and tables keep their class; their pickles then load on a
     machine without a card)."""
     from netsdb_tpu_torch.core.blocked import BlockedTensor
+    from netsdb_tpu_torch.parallel.mesh import ShardedTensor
     from netsdb_tpu_torch.relational.table import ColumnTable
 
+    if isinstance(value, ShardedTensor):
+        # a placed value (the sequence-parallel layer's output): its
+        # logical tensor, as the reference's reply holds the gathered array
+        return value.to_dense().detach().cpu()
     if isinstance(value, torch.Tensor):
         return value.detach().cpu()
     if isinstance(value, BlockedTensor):
@@ -814,9 +859,14 @@ class ServeController:
         self._worker_addrs: List[str] = list(workers or [])
         self.placement = _placement.PlacementMap()
         self._shard_sets: Dict[Tuple[str, str], Dict[str, int]] = {}
-        # registrations a reconcile pushed away (SHARD_RESYNC prune):
-        # routed frames for them refuse typed
-        self._pruned: set = set()
+        # live-rebalance move state (serve/rebalance.py), under
+        # _shard_mu: write seals ((db, set) → monotonic expiry; a sealed
+        # slot answers routed writes typed retryable while reads keep
+        # serving) and tombstones (scopes whose local copy a committed
+        # move or a reconcile prune dropped: routed frames for them
+        # refuse typed)
+        self._reshard_seals: Dict[Tuple[str, str], float] = {}
+        self._reshard_moved: set = set()
         self._shard_mu = TrackedLock("ServeController._shard_mu")
         self._pool_thread: Optional[threading.Thread] = None
         #: this daemon's address — rewritten by start() once the port
@@ -842,6 +892,9 @@ class ServeController:
             self, handoff_max_bytes=self.config.shard_handoff_bytes,
             spill=spill)
         self._shuffle = _shard.ShuffleInbox()
+        # the rebalancing loop's leader-side driver: skew detector, move
+        # planner and executor (a no-op until config.rebalance)
+        self.rebalancer = _rebalance.Rebalancer(self)
         self.sessions = _sessions.SessionManager(self)
         # observability: this daemon's ring of finished profiles (its
         # own, so two daemons of one process keep theirs apart), the SLO
@@ -880,7 +933,14 @@ class ServeController:
             feedback_every=cfg.sched_feedback_every,
             # load shedding while an objective breaches on every window
             slo_source=(self.slo.breached_objectives
-                        if cfg.sched_slo_shed else None))
+                        if cfg.sched_slo_shed else None),
+            # the device cache's pin budget from the attribution ledger
+            pin_auto=(self._refresh_pin_auto
+                      if cfg.device_cache_pin_auto else None),
+            # one skew-detector pass per feedback window: the cadence the
+            # rebalancing loop rides
+            rebalance_cb=(self.rebalancer.check
+                          if cfg.rebalance else None))
         self._job_seq = itertools.count(1)
         self._jobs: Dict[int, Dict[str, Any]] = {}
         self._jobs_lock = TrackedLock("ServeController._jobs_lock")
@@ -1076,6 +1136,11 @@ class ServeController:
                 if old_addr and old_addr != self.advertise_addr:
                     self.placement.rebind_addr(old_addr,
                                                self.advertise_addr)
+                # the reconcile push: workers re-register under the
+                # persisted (post-move) epochs and registrations the map
+                # no longer grants are pruned — a restart mid-rebalance
+                # resumes from the committed map, with any undropped
+                # source copy retired here
                 self._push_epochs(prune=True)
         if self.shards.load_spill():
             owners = set()
@@ -1645,6 +1710,20 @@ class ServeController:
         except FollowerDegraded as e:
             del e
 
+    def _refresh_pin_auto(self) -> None:
+        """One pin-budget auto-sizing pass (``device_cache_pin_auto``, on
+        the scheduler's feedback cadence): the attribution ledger's
+        hot-set table → ``feedback.pin_budget`` → the device cache's pin
+        budget, marked ``pin_auto`` in its stats."""
+        from netsdb_tpu_torch.serve.sched import feedback as _feedback
+
+        cache = self.library.store.device_cache()
+        if not (cache.enabled and cache.partial):
+            return
+        cache.set_pin_budget(
+            _feedback.pin_budget(obs.attrib.LEDGER.snapshot(),
+                                 cache.budget_bytes), auto=True)
+
     def _execute_frame(self, typ, payload, token, client=None, lane=None,
                        qid=None, term=None, codec=CODEC_MSGPACK, pos=None):
         """Run one request's handler with the idempotency-token
@@ -2166,9 +2245,9 @@ class ServeController:
         its records, both re-paged on the follower; a paged matrix as
         its ordered arena page blocks (never dense); a placed set as its
         logical values with its placement, which the restore applies
-        again. A type row carries its entry point; its ``source`` stays
-        None, since shipping a type's module source is not ported
-        (ROADMAP.md A7 part 2)."""
+        again. A type row carries its entry point and its shipped module
+        source, so a follower resynced from the snapshot binds the same
+        types."""
         from netsdb_tpu_torch.core.blocked import BlockedTensor
         from netsdb_tpu_torch.relational.outofcore import PagedColumns
         from netsdb_tpu_torch.relational.table import ColumnTable
@@ -2178,7 +2257,8 @@ class ServeController:
         cat = self.library.catalog
         store = self.library.store
         types = [{"type": t["type"], "entry_point": t["entry_point"],
-                  "source": None} for t in cat.list_types()]
+                  "source": cat.get_type_source(t["type"])}
+                 for t in cat.list_types()]
         sets = []
         for ident in store.list_sets():
             meta = cat.get_set(ident.db, ident.set) or {}
@@ -2258,7 +2338,8 @@ class ServeController:
         for db in snap["databases"]:
             lib.create_database(db)
         for t in snap.get("types", []):
-            lib.register_type(t["type"], t["entry_point"])
+            lib.register_type(t["type"], t["entry_point"],
+                              source=t.get("source"))
         restored = 0
         for entry in snap["sets"]:
             db, name = entry["db"], entry["set"]
@@ -2633,16 +2714,20 @@ class ServeController:
                                      self.library.store.list_sets()]}
 
     def _on_register_type(self, p):
-        if p.get("source") is not None:
-            raise NotImplementedError(
-                "register_type(source=...): shipping a type's module "
-                "source is not ported yet: ROADMAP.md A7 part 2")
-        self.library.register_type(p["type_name"], p["entry_point"])
+        self.library.register_type(p["type_name"], p["entry_point"],
+                                   source=p.get("source"))
         return MsgType.OK, {}
 
     def _resolve_registered(self, name_or_entry: str) -> Any:
-        entry = self.library.catalog.get_type(name_or_entry)
-        return resolve_entry_point(entry or name_or_entry)
+        """A registered type name through the catalog (with the module
+        source shipped for it, if any); anything else is a raw entry
+        point."""
+        cat = self.library.catalog
+        entry = cat.get_type(name_or_entry)
+        if entry is not None:
+            return resolve_entry_point(entry,
+                                       cat.get_type_source(name_or_entry))
+        return resolve_entry_point(name_or_entry)
 
     def _on_send_data(self, p):
         epoch = p.pop(PLACEMENT_EPOCH_KEY, None)
@@ -2855,6 +2940,7 @@ class ServeController:
     @staticmethod
     def _result_summaries(results: Dict[SetIdentifier, Any]) -> dict:
         from netsdb_tpu_torch.core.blocked import BlockedTensor
+        from netsdb_tpu_torch.parallel.mesh import ShardedTensor
         from netsdb_tpu_torch.relational.table import ColumnTable
 
         out = {}
@@ -2870,8 +2956,9 @@ class ServeController:
                                    "columns": sorted(val.cols)}
             elif isinstance(val, dict):
                 out[str(ident)] = {"kind": "map", "count": len(val)}
-            elif isinstance(val, torch.Tensor):
-                # a set holding one plain tensor (the layer's output)
+            elif isinstance(val, (torch.Tensor, ShardedTensor)):
+                # a set holding one tensor (the layer's output, sharded
+                # over the daemon's mesh by a sequence-parallel body)
                 out[str(ident)] = {"kind": "objects", "count": 1}
             else:
                 out[str(ident)] = {"kind": "objects",
@@ -3289,26 +3376,38 @@ class ServeController:
             if sl["state"] == _placement.HANDOFF:
                 return "handoff"
             if sl["addr"] == self.advertise_addr:
+                if _rebalance.sealed(self, db, set_name):
+                    raise ShardUnavailable(
+                        f"slot {slot} of {db}:{set_name} is write-sealed "
+                        f"for rebalancing; retry after the move commits",
+                        slot=int(slot), epoch=current)
                 return "local"
             self._reject_stale(
                 f"slot {slot} of {db}:{set_name} is owned by {sl['addr']}, "
                 f"not this daemon", current)
         reg = self.shard_registration(db, set_name)
-        if reg is not None and (epoch is None or int(epoch) != reg["epoch"]):
-            self._reject_stale(
-                f"placement epoch rejected for {db}:{set_name}: frame rode "
-                f"epoch {epoch}, shard registered {reg['epoch']}",
-                reg["epoch"])
-        if reg is None and epoch is not None:
-            with self._shard_mu:
-                pruned = (db, set_name) in self._pruned
-            if pruned:
-                # a restart or promotion reconcile took this slot away:
-                # a frame riding the old map must not apply into the
-                # cleared set
+        if reg is not None:  # this daemon holds one slot
+            # the seal outranks the epoch check: a mid-move source answers
+            # retryable even to a correctly routed frame, so the tail
+            # drained after the seal makes the copy's row count exact
+            if _rebalance.sealed(self, db, set_name):
+                raise ShardUnavailable(
+                    f"shard slot of {db}:{set_name} is write-sealed for "
+                    f"rebalancing; retry after the move commits",
+                    slot=reg["slot"], epoch=reg["epoch"])
+            if epoch is None or int(epoch) != reg["epoch"]:
                 self._reject_stale(
-                    f"shard slot of {db}:{set_name} no longer lives on "
-                    f"this daemon; re-fetch the placement map", None)
+                    f"placement epoch rejected for {db}:{set_name}: frame "
+                    f"rode epoch {epoch}, shard registered {reg['epoch']}",
+                    reg["epoch"])
+        elif epoch is not None \
+                and _rebalance.tombstoned(self, db, set_name):
+            # a committed move (or a restart or promotion reconcile) took
+            # this slot away: a frame riding the old map must not apply
+            # into the cleared set
+            self._reject_stale(
+                f"shard slot of {db}:{set_name} moved away from this "
+                f"daemon; re-fetch the placement map", None)
         return "local"
 
     @staticmethod
@@ -3351,14 +3450,26 @@ class ServeController:
                         self._evict_shard(
                             addr, f"{self.heartbeat_misses} missed "
                                   f"heartbeats: {type(e).__name__}: {e}")
+            if self.config.rebalance:
+                # liveness for the rebalancing loop on a pool with no
+                # query traffic (the feedback cadence fires on
+                # admissions): a no-op unless a verdict or a pool change
+                # is pending
+                try:
+                    self.rebalancer.check()
+                except Exception as e:  # noqa: BLE001 — a broken planner
+                    del e  # must never kill the heartbeat loop
         for probe in probes.values():
             probe.close()
 
     def _evict_shard(self, addr: str, reason: str) -> None:
         """Degrade one worker: its slots flip to handoff (an epoch bump),
         its ingest buffers here until readmit, and the live workers learn
-        the new epochs. Idempotent."""
+        the new epochs. Idempotent. A membership change is a rebalance
+        trigger too: the remaining live members re-plan on the next
+        check without waiting out the sustained windows."""
         self.shards.degrade(addr, reason)
+        self.rebalancer.pool_changed()
 
     def _push_epochs(self, exclude: Tuple[str, ...] = (),
                      prune: bool = False) -> None:
@@ -3467,7 +3578,8 @@ class ServeController:
                 stale = [k for k in self._shard_sets if k not in keep]
                 for k in stale:
                     del self._shard_sets[k]
-                    self._pruned.add(k)
+                    self._reshard_seals.pop(k, None)
+                    self._reshard_moved.add(k)
             for db, set_name in stale:
                 try:
                     self.library.clear_set(db, set_name)
@@ -3476,53 +3588,42 @@ class ServeController:
         return MsgType.OK, {"sets": len(p.get("sets", ()))}
 
     def _on_reshard(self, p):
-        """RESHARD: the ``view`` op answers the placement table
-        (:meth:`placement_view`); moving slots, the rebalancer's status
-        and adding workers are rebalancing, ROADMAP.md A7 part 2."""
-        if p.get("op") == "view":
-            return MsgType.OK, self.placement_view(), CODEC_PICKLE
-        raise NotImplementedError(
-            f"RESHARD op {p.get('op')!r} (rebalancing) is not ported yet: "
-            f"ROADMAP.md A7 part 2")
+        """The RESHARD frame (``serve/rebalance.py``): worker ops run one
+        leg of a slot move against this daemon's local state; the admin
+        ops (``status``, ``view``, ``check``, ``add_worker``) drive the
+        leader's campaign. Every reply is a pickle: partitions ride it."""
+        op = p.get("op")
+        if op == "status":
+            return MsgType.OK, self.rebalancer.status(), CODEC_PICKLE
+        if op == "view":
+            return (MsgType.OK, self.rebalancer.placement_view(),
+                    CODEC_PICKLE)
+        if op == "check":
+            moves = self.rebalancer.check(force=bool(p.get("force")))
+            return MsgType.OK, {"moves": moves}, CODEC_PICKLE
+        if op == "add_worker":
+            return (MsgType.OK,
+                    self.add_worker(p["addr"],
+                                    campaign=bool(p.get("campaign", True))),
+                    CODEC_PICKLE)
+        return MsgType.OK, _rebalance.handle_reshard(self, p), CODEC_PICKLE
 
-    def placement_view(self) -> Dict[str, Any]:
-        """The per-slot ownership table of every sharded set joined with
-        each slot's local bytes (one best-effort COLLECT_STATS fan-out),
-        and the per-member totals. The load-heat columns and the
-        rebalancer's status belong to rebalancing (ROADMAP.md A7 part
-        2): neither is here."""
-        sizes: Dict[Tuple[str, str], int] = {}
-        for scope, st in self.library.collect_stats().items():
-            sizes[(self.advertise_addr, scope)] = int(
-                (st or {}).get("nbytes", 0) or 0)
-        for addr, reply in self.shards.fanout(
-                MsgType.COLLECT_STATS, {"local_only": True}).items():
-            if isinstance(reply, dict) and "error" not in reply:
-                for scope, st in (reply.get("sets") or {}).items():
-                    sizes[(addr, scope)] = int((st or {}).get("nbytes", 0)
-                                               or 0)
-        sets_out = []
-        for db, s in self.placement.sets():
-            e = self.placement.entry(db, s)
-            scope = f"{db}:{s}"
-            sets_out.append({
-                "db": db, "set": s, "mode": e["mode"], "key": e["key"],
-                "epoch": e["epoch"],
-                "slots": [{"slot": i, "addr": sl["addr"],
-                           "state": sl["state"],
-                           "nbytes": sizes.get((sl["addr"], scope), 0)}
-                          for i, sl in enumerate(e["slots"])]})
-        members = [self.advertise_addr] + list(self._worker_addrs)
-        return {"epoch": self.placement.to_wire()["epoch"],
-                "members": [{
-                    "addr": a, "degraded": self.shards.is_degraded(a),
-                    "nbytes": sum(n for (ad, _sc), n in sizes.items()
-                                  if ad == a),
-                    "slots": sum(1 for so in sets_out for sl in so["slots"]
-                                 if sl["addr"] == a
-                                 and sl["state"] == _placement.LIVE)}
-                    for a in members],
-                "sets": sets_out}
+    def add_worker(self, addr: str, campaign: bool = True) -> Dict[str, Any]:
+        """Register one new pool worker on a live leader. The health loop
+        heartbeats it at once; the rebalancer treats the growth as a
+        forced trigger — with ``config.rebalance`` on, a move round runs
+        now and the reply carries its results. ``campaign=False``
+        registers only, leaving the move decision to a later pass (the
+        advisor's measured commit or revert)."""
+        addr = str(addr)
+        if addr != self.advertise_addr and addr not in self._worker_addrs:
+            self._worker_addrs.append(addr)
+        self._start_pool_threads()
+        self.rebalancer.pool_changed()
+        moves = None
+        if campaign and self.config.rebalance:
+            moves = self.rebalancer.check()
+        return {"workers": list(self._worker_addrs), "moves": moves}
 
 
 def run_daemon(config: Configuration, host: str = "127.0.0.1",

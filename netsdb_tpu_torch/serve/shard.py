@@ -30,8 +30,9 @@ never a partial or doubled merge.
 
 The handoff buffer for degraded slots lives in memory; with
 ``ha_mutlog`` it also spills to a mutation log, and a restarted leader
-rebuilds it (:meth:`ShardPool.load_spill`). The session weights a
-departed worker held belong to ROADMAP.md A7 part 2.
+rebuilds it (:meth:`ShardPool.load_spill`). A degraded member's
+record of the decode-model weights shipped to it is dropped
+(:meth:`ShardPool.degrade`): a restarted worker no longer holds them.
 """
 
 from __future__ import annotations
@@ -528,12 +529,21 @@ class ShardPool:
             c.close()
 
     # --- degraded bookkeeping ----------------------------------------
+    def _forget_session_weights(self, addr: str) -> None:
+        """A member left (or came back): the session manager's record of
+        the weights shipped to it is stale — a restarted worker no longer
+        holds the models, and a weightless adopt there would fail."""
+        sessions = getattr(self.ctl, "sessions", None)
+        if sessions is not None:
+            sessions.forget_owner(addr)
+
     def degrade(self, addr: str, reason: str) -> None:
         with self._mu:
             fresh = addr not in self._degraded
             self._degraded[addr] = reason
         if fresh:
             obs.REGISTRY.counter("shard.evictions").inc()
+        self._forget_session_weights(addr)
         changed = self.ctl.placement.degrade_addr(addr)
         self.drop_client(addr)
         if changed:

@@ -157,6 +157,9 @@ class DeviceBlockCache:
         self._pin_hw: Dict[Tuple, int] = {}
         # base key -> total rows of the set at its last plan
         self._totals: Dict[Tuple, int] = {}
+        # True while the feedback loop (``device_cache_pin_auto``) drives
+        # the pin budget rather than the static knob
+        self._pin_auto = False
         # session entries: key -> {"deadline", "ttl", "expired"}; the
         # session_* stats stay hidden until the session lane is wired
         self._session_meta: Dict[Tuple, Dict[str, Any]] = {}
@@ -184,13 +187,16 @@ class DeviceBlockCache:
                 self._unpin_all_locked()
             self._evict_to_fit_locked(0)
 
-    def set_pin_budget(self, pin_bytes: int) -> None:
+    def set_pin_budget(self, pin_bytes: int, auto: bool = False) -> None:
         """Re-point the head-pin budget (partial mode); shrinking below
-        the pinned total lifts every pin."""
+        the pinned total lifts every pin. ``auto`` marks the feedback
+        loop (``device_cache_pin_auto``) as the budget's driver in
+        :meth:`stats`."""
         with self._mu:
             if not self.partial:
                 return
             self._pin_budget = max(int(pin_bytes or 0), 0)
+            self._pin_auto = bool(auto)
             if self._pinned_bytes > self._pin_budget:
                 self._unpin_all_locked()
 
@@ -662,5 +668,8 @@ class DeviceBlockCache:
                     self._entries[k][1] for k in self._session_meta
                     if k in self._entries)
             if self.partial:
+                # who drives the head-pin budget: the knob or the
+                # feedback loop
                 out["pin_budget_bytes"] = self._pin_budget
+                out["pin_auto"] = self._pin_auto
             return out

@@ -98,13 +98,21 @@ OBS_PORTED = ("obs_device_profile_dir", "obs_enabled", "obs_hist_samples",
 #: since
 HA_PORTED = ("ha_election_timeout_s", "ha_mutlog")
 
+#: knobs of the rest of the daemon pool (ROADMAP.md A7 part 2: live
+#: rebalancing and pin auto-sizing): raised until they were ported,
+#: accepted away from their defaults since
+POOL_PORTED = ("device_cache_pin_auto", "rebalance",
+               "rebalance_max_bytes_per_round", "rebalance_skew_ratio",
+               "rebalance_windows")
+
 
 @pytest.mark.parametrize("name", sorted(set(_LATER) | set(SERVING_PORTED)
                                         | set(MESH_PORTED) | set(OBS_PORTED)
-                                        | set(HA_PORTED)))
+                                        | set(HA_PORTED)
+                                        | set(POOL_PORTED)))
 def test_each_later_knob_raises_naming_its_item(name, tmp_path):
     if name in SERVING_PORTED or name in MESH_PORTED or name in OBS_PORTED \
-            or name in HA_PORTED:
+            or name in HA_PORTED or name in POOL_PORTED:
         assert name not in _LATER
         default = _default(next(f for f in REF_FIELDS if f.name == name))
         value = {"a": 2.0} if name == "sched_lanes" else _away(default)
@@ -119,7 +127,8 @@ def test_each_later_knob_raises_naming_its_item(name, tmp_path):
 
 @pytest.mark.parametrize("knob,value", [
     ("session_ttl_s", 0.0), ("session_state_bytes", -1),
-    ("decode_batch_max", 0)])
+    ("decode_batch_max", 0), ("rebalance_skew_ratio", 1.0),
+    ("rebalance_windows", 0), ("rebalance_max_bytes_per_round", -1)])
 def test_serving_knobs_keep_the_reference_checks(knob, value, tmp_path):
     from netsdb_tpu.config import Configuration as Ref
 
@@ -134,16 +143,16 @@ def test_later_knobs_name_their_roadmap_items():
     for name in MESH_PORTED:  # ported with the in-process mesh
         assert name not in items
     assert not any(item.startswith("A4") for item in items.values())
-    for name in items:
-        if name.startswith(("ha_", "rebalance")):
-            assert items[name] == "A7 part 2", name
+    # the daemon pool's knobs (HA, rebalancing, pin auto-sizing) are
+    # ported: none is left to raise
+    assert not any(n.startswith(("ha_", "rebalance")) for n in items)
     # the observability slice ported obs/ and the scheduler's feedback
     assert not any(n.startswith(("sched_", "obs_")) for n in items)
     assert not any(n.startswith("session_") or n in SERVING_PORTED
                    or n in OBS_PORTED for n in items)
     assert "shard_handoff_bytes" not in items  # the shard pool's buffer
     assert not any(n in items for n in HA_PORTED)  # followers and HA
-    assert items["device_cache_pin_auto"] == "A7 part 2"
+    assert "device_cache_pin_auto" not in items
     assert items["lock_witness"] == "A8"
     assert "obs_explain" not in items  # read by obs/operators.py
 

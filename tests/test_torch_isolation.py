@@ -164,10 +164,10 @@ def test_later_configuration_knobs_raise(knob, value, item):
     """The A4 knobs (the mesh and SUMMA) were ported with the in-process
     mesh, and the observability knobs and the scheduler's feedback with
     the observability part of A8, the HA knobs with the replication part
-    of A7: all are taken as given. The lock witness (the rest of A8) and
-    the rebalancing knobs of A7 still raise."""
-    if item == "A4" or (item == "A8" and knob != "lock_witness") \
-            or knob.startswith("ha_"):
+    of A7 and the rebalancing and pin auto-sizing knobs with the rest of
+    the daemon pool: all are taken as given. The lock witness (the rest
+    of A8) still raises."""
+    if item in ("A4", "A7") or (item == "A8" and knob != "lock_witness"):
         assert getattr(Configuration(**{knob: value}), knob) == value
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
@@ -413,8 +413,8 @@ def test_out_of_slice_client_features_raise(port_client, tmp_path):
 
     with pytest.raises(ValueError, match="PRxPC"):
         grid_shape(Configuration(summa_grid="2d"), 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        Configuration(device_cache_pin_auto=True)
+    # the pin budget's auto-sizing is ported with the daemon pool
+    assert Configuration(device_cache_pin_auto=True).device_cache_pin_auto
     # the dirty-range log of paged relations is ported: the knob bounds it
     # (tests/test_torch_paged_relations.py::test_dirty_log_is_bounded)
     assert Configuration(device_cache_dirty_log=8).device_cache_dirty_log \

@@ -436,15 +436,26 @@ def test_affinity_gate_overlapping_cold_sets_share_one_installer(pkg):
 
 def test_feedback_and_shedding_raise_naming_a8():
     """Feedback and SLO shedding were ported with the observability part
-    of A8 and are accepted; pin auto-sizing and the rebalance cadence
-    belong to the daemon pool and raise naming A7 part 2."""
+    of A8 and are accepted; pin auto-sizing and the rebalance cadence,
+    ported with the daemon pool, run on the same cadence off the
+    admission path (a failing hook skips its pass)."""
     from netsdb_tpu_torch.serve.sched import QueryScheduler
 
     s = QueryScheduler(slots=1, feedback=True, slo_source=lambda: ())
     assert s.feedback_enabled and s.shed_enabled
-    for kw in (dict(pin_auto=lambda: None), dict(rebalance_cb=lambda: None)):
-        with pytest.raises(NotImplementedError, match="A7 part 2"):
-            QueryScheduler(slots=1, **kw)
+    for name in ("pin_auto", "rebalance_cb"):
+        calls = threading.Event()
+
+        def hook():
+            calls.set()
+            raise RuntimeError("a broken probe")
+
+        q = QueryScheduler(slots=1, feedback_every=2, **{name: hook})
+        assert not q.feedback_enabled and not q.shed_enabled
+        for _ in range(2):
+            q.release(q.acquire(None, 5.0))
+        assert calls.wait(10.0), name
+        q.release(q.acquire(None, 5.0))  # admission goes on
 
 
 def _populate_ledgers(o):

@@ -91,7 +91,7 @@ def test_matrix_roundtrip(server):
 
 
 def test_object_roundtrip_and_errors(server):
-    _, addr = server
+    ctl, addr = server
     c = _remote(addr)
     try:
         c.create_database("db")
@@ -106,18 +106,19 @@ def test_object_roundtrip_and_errors(server):
             c.create_set("nodb", "s")
         # out-of-slice frames raise typed, naming their item (GET_TRACE
         # is answered since the observability slice, HA_STATE since the
-        # replication slice: an unarmed daemon says so)
+        # replication slice: an unarmed daemon says so; RESHARD, shipped
+        # type sources and add_worker since the daemon-pool slice)
         assert c._request(MsgType.GET_TRACE, {})["enabled"] is True
         assert c._request(MsgType.HA_STATE, {}) == {"armed": False}
         with pytest.raises(RemoteError, match="ROADMAP.md A4 part 3"):
             c._request(MsgType.LOCAL_SHARDS, {})
-        with pytest.raises(RemoteError, match="ROADMAP.md A7 part 2"):
-            c._request(MsgType.RESHARD, {"op": "status"},
-                       codec=CODEC_PICKLE)
-        with pytest.raises(NotImplementedError, match="A7 part 2"):
-            c.register_type("T", "m:f", source="x = 1")
-        with pytest.raises(NotImplementedError, match="A7 part 2"):
-            c.add_worker("127.0.0.1:1")
+        status = c._request(MsgType.RESHARD, {"op": "status"},
+                            codec=CODEC_PICKLE)
+        assert status["enabled"] is False and status["moves"] == []
+        c.register_type("T", "m:f", source="x = 1")
+        assert ctl.library.catalog.get_type_source("T") == "x = 1"
+        grown = c.add_worker("127.0.0.1:1", campaign=False)
+        assert grown == {"workers": ["127.0.0.1:1"], "moves": None}
     finally:
         c.close()
 
@@ -154,8 +155,9 @@ def test_pickle_refused_when_disabled(tmp_path):
 def test_pool_topologies_raise_naming_their_item(tmp_path):
     """Followers, HA peers, replicas and failover lists are taken since
     the replication slice (a daemon with followers or HA peers builds
-    without dialling anyone); what stays out still raises naming its
-    item: rebalancing and type-source shipping (A7 part 2)."""
+    without dialling anyone); rebalancing and type-source shipping since
+    the daemon-pool slice: ``add_worker``, ``rebalance_status`` and a
+    shipped source each answer."""
     cfg = Configuration(root_dir=str(tmp_path / "x"))
     for kw in (dict(followers=["127.0.0.1:1"]),
                dict(workers=["a:1"], followers=["b:1"]),
@@ -170,10 +172,10 @@ def test_pool_topologies_raise_naming_their_item(tmp_path):
         c = RemoteClient(ctl.advertise_addr, replicas=["a:1"],
                          failover=["a:1"], hedge_delay_s=0.1, timeout=30)
         assert c.hedge_delay_s() == 0.1
-        for call in (lambda: c.add_worker("a:1"), c.rebalance_status,
-                     lambda: c.register_type("T", "m:f", source="x=1")):
-            with pytest.raises(NotImplementedError, match="A7 part 2"):
-                call()
+        assert c.add_worker("a:1", campaign=False)["workers"] == ["a:1"]
+        assert c.rebalance_status()["running"] is False
+        c.register_type("T", "m:f", source="x=1")
+        assert ctl.library.catalog.get_type_source("T") == "x=1"
         c.close()
     finally:
         ctl.shutdown()

@@ -5,8 +5,9 @@ runs with one step program, no arena read on warm steps, TTL expiry
 under pressure, two fine-tuned models sharing pages exactly, and an
 oversized state layer spilling without loss. The batcher cases run
 through both packages' ``DecodeBatcher``. Sessions on pool workers and
-live moves (ROADMAP.md A7 part 2) raise typed. Every daemon listens on
-port 0 and is shut down in ``finally``; every wait is bounded."""
+live moves are ``tests/test_torch_sessions_pool.py``'s. Every daemon
+listens on port 0 and is shut down in ``finally``; every wait is
+bounded."""
 
 import contextlib
 import threading
@@ -367,17 +368,35 @@ def test_oversized_state_layer_spills_to_arena_not_lost(tmp_path):
 
 
 def test_oversized_session_state_and_pool_ops_are_refused(tmp_path):
+    """An oversized state is refused; the pool ops, ported with sessions
+    on workers, answer on one daemon: ``move``/``handoff`` of an unknown
+    session raise ``SessionUnknown``, ``spill`` merges state into the
+    arena, ``adopt`` takes a session over, and ``forget_owner`` drops the
+    shipped-weights record of a member."""
     with _daemon(tmp_path, session_state_bytes=256) as ctl:
         c = _remote(ctl)
         try:
             deploy_decode_model(c, "m1", kind="lstm", hidden=HID, seed=1)
             with pytest.raises(RemoteError, match="session_state_bytes"):
                 c.open_session("m1", kind="lstm")
-            for op in ("adopt", "move", "handoff", "spill"):
-                with pytest.raises(RemoteError, match="A7 part 2"):
+            for op in ("move", "handoff"):
+                with pytest.raises(SessionUnknownError, match="unknown"):
                     c._request(MsgType.SESSION_OPEN,
-                               {"op": op, "sid": "s", "db": "m1"})
-            with pytest.raises(NotImplementedError, match="A7 part 2"):
-                ctl.sessions.forget_owner("127.0.0.1:1")
+                               {"op": op, "sid": "s", "db": "m1",
+                                "to": ctl.advertise_addr})
+            rep = c._request(MsgType.SESSION_OPEN,
+                             {"op": "spill", "sid": "s", "db": "m1",
+                              "state": {"layers": {}, "steps": 2}},
+                             codec=CODEC_PICKLE)
+            assert rep["steps"] == 2
+            rep = c._request(MsgType.SESSION_OPEN,
+                             {"op": "adopt", "sid": "s2", "db": "m1",
+                              "kind": "lstm"}, codec=CODEC_PICKLE)
+            assert rep == {"sid": "s2", "owner": ctl.advertise_addr,
+                           "steps": 0}
+            with ctl.sessions._shipped_mu:
+                ctl.sessions._shipped.add(("127.0.0.1:1", "m1"))
+            ctl.sessions.forget_owner("127.0.0.1:1")
+            assert not ctl.sessions._shipped
         finally:
             c.close()

@@ -168,3 +168,44 @@ def test_mesh_of_one_position_runs_the_single_device_forward(tmp_path):
     _, solo = run_port(tmp_path, "solo", None, None, x)
     assert isinstance(out, torch.Tensor)
     torch.testing.assert_close(out, solo)
+
+
+def test_sp_layer_behind_a_daemon_matches_jax(tmp_path):
+    """The layer over placed sets behind a RemoteClient: the DAG carries
+    the placement, the daemon (in this process, inside 4 virtual CPU
+    positions) resolves the mesh over its own positions and runs the
+    ring; the output equals the reference's in-process ``forward_sp`` on
+    the same numpy weights within 1e-3, and the daemon's stored output
+    is sharded over its 4 positions."""
+    from jax.sharding import Mesh as JMesh
+
+    from netsdb_tpu_torch.serve.client import RemoteClient
+    from netsdb_tpu_torch.serve.server import ServeController
+
+    embed, heads, seq = 64, 4, 64
+    w = params(embed, seed=11)
+    x = np.random.default_rng(12).standard_normal(
+        (2, seq, embed)).astype(np.float32)
+    jmesh = JMesh(np.array(jax.devices()[:4]), ("sp",))
+    jp = JaxParams(**{n: jnp.asarray(a) for n, a in w.items()})
+    ref = np.asarray(JaxLayer(num_heads=heads).forward_sp(
+        jp, jnp.asarray(x), jmesh, axis="sp", causal=True))
+    placements, x_placement = sp_placements(Placement, 4)
+    with virtual_devices(4, "cpu"):
+        ctl = ServeController(Configuration(root_dir=str(tmp_path / "d")),
+                              port=0, device="cpu")
+        ctl.start()
+        try:
+            c = RemoteClient(ctl.advertise_addr, timeout=120)
+            m = TransformerLayerModel(db="tl", num_heads=heads)
+            m.setup(c, placements=placements)
+            for name, a in w.items():
+                c.send_matrix("tl", name, a, (embed, embed))
+            m.load_inputs(c, x, placement=x_placement)
+            (out,) = m.serve_forward(c, placement=x_placement)
+            (item,) = ctl.library.store.get_items(SetIdentifier("tl", "y"))
+            c.close()
+        finally:
+            ctl.shutdown()
+    assert isinstance(item, ShardedTensor) and item.mesh.shape == {"sp": 4}
+    np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-3, atol=1e-3)
