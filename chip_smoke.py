@@ -12,7 +12,8 @@ phase 1, the SF 10 tables made resident on a card client, and phase
 15; ``--serve-only``: phases 1 and 16; ``--pool-only``: phases 1 and
 17; ``--mesh-only``: phase 1, the SF 10 tables made resident on a card
 client, and phase 18; ``--multichip-only``: phases 1 and 19;
-``--obs-only``: phases 1 and 20; ``--ha-only``: phases 1 and 21.)
+``--obs-only``: phases 1 and 20; ``--ha-only``: phases 1 and 21;
+``--pool-rest-only``: phases 1 and 22; ``--cli-only``: phases 1 and 23.)
 
 Every phase runs with the compiled-program cache in use and
 ``plan_fusion`` on, the port's defaults: a resident job is one CUDA
@@ -110,7 +111,8 @@ Phases (any failure raises and the exit code is non-zero):
    pages of ``PAGED_REL_PAGE_BYTES`` (it spills), the other tables
    resident. Per suite query a cold request (device cache resized to
    0), one that installs the blocks and two warm ones (Q12, whose grace
-   hash partitions again every request, one), each held to the
+   hash partitions again every request, the cold one only: phase 14
+   runs it warm), each held to the
    same sink on phase 11's resident card client (``_hold``, Q03's
    top-10 rule); each prints its ms, pages read, spills and loads,
    staged bytes and copy GB/s, chunks, host syncs (sync debug mode),
@@ -123,7 +125,7 @@ Phases (any failure raises and the exit code is non-zero):
    Q03 through ``q03_build_sink`` into a paged set and
    ``q03_probe_sink``; one cold request under the profiler (uploads
    pinned, on a stream the fold's kernels do not use) and one warm
-   request of each query (busy share, top three kernels).
+   request of each query but Q12 (busy share, top three kernels).
 
 13. the host-record relational path (``ROWS_SIZES``): the ten row TPC-H
    DAGs (``workloads.tpch``, micro scale 20, about 9 000 lineitems) on a
@@ -169,9 +171,10 @@ Phases (any failure raises and the exit code is non-zero):
    held to node by node. Then warm paged Q01, Q03 and Q12 on phase 12's
    client, the mixed spine plan and the graft chain of
    ``_region_plans`` (which must form regions) and a paged FF (also
-   node by node), with ``plan_fusion`` on and off (ms, chunks, host ms
-   per chunk, regions formed, captures, replays), the two settings'
-   results equal and no measured request capturing.
+   node by node), with ``plan_fusion`` on and off (Q12, which forms no
+   region, on only; ms, chunks, host ms per chunk, regions formed,
+   captures, replays), the two settings' results equal and no measured
+   request capturing.
 
 15. the single-device workloads, MoE and dedup (``WL_SIZES``), each
    through the port's ``Client`` on the card: ``kmeans_on_set`` (4 M x
@@ -187,7 +190,9 @@ Phases (any failure raises and the exit code is non-zero):
    ``moe_forward`` at Switch-Base-128's widths (4096 tokens, 128
    experts), ``dedup_resident`` over two FF models at bench.py's widths
    (one block in 8 changed) and ``bench_lsh_zoo()``. Each request
-   ``WL_REQUESTS`` times (ms, p50, its bound by bytes or operations, peak
+   ``WL_REQUESTS`` times (once: ``kmeans init=sample`` and the
+   host-bound ``pagerank_on_table_set`` and ``ConvFusionPipeline.run``,
+   requests of seconds) (ms, p50, its bound by bytes or operations, peak
    memory) and once under the profiler (busy share, top five kernels);
    each held to the same function in float64 on the card from the same
    seed and initial state (``WL_TOLS``): k-means assignments equal
@@ -380,6 +385,32 @@ Phases (any failure raises and the exit code is non-zero):
    through the plain ring step and, on batch row 0, within
    ``F64_RATIO`` times the plain version's error against the layer in
    float64; served tokens/s beside in-process.
+23. the command line (``CLI_SIZES``): ``python -m netsdb_tpu_torch
+   info`` in its own process (the card's name, process_count 1);
+   ``selftest`` in this process under ``witness_scope(raise_on_cycle=
+   True)`` (20/20 steps ``[ok]``, placement-arm included, witness edges
+   > 0 and 0 violations); ``serve`` in its own process (the reference
+   CLI's flags), 3 layer requests of phase 16's size through a
+   ``RemoteClient`` (B1 3 times in the daemon), ``obs --health --json``
+   (no objective breached) and ``obs --top --iterations 1`` (rendered
+   from GET_METRICS); ``bench_attention`` at 1024…8192 (naive, B1 and
+   the library's flash kernel, ``flash_vs_sdpa`` printed; the ceiling
+   guard off), ``bench_ring_fold`` (B2, 8 chunks of 1024) and
+   ``bench_transformer_layer`` at 4096 and 8192, B1's and B2's launches
+   equal to the calls their timing loops made, and each kernel held to
+   its plain version once at each of those shapes on the benches' own
+   inputs (``BF16_TOL``, ``BF16_ROW_TOL``); ``ab-bench --advisor
+   drl`` and ``bench_distribution_ab(advisor_kind="rule")``, every arm
+   applied and measured; a process of its own builds the kernels cold
+   into a fresh ``compilation_cache_dir`` and exports the FF forward
+   and the TPC-H suite (``plan/aot.py``) beside its own results, then a
+   fresh process given that directory loads both artifacts within
+   ``CLI_FF_TOL`` and ``CLI_SUITE_TOLS`` of those results and runs one
+   B1 call with no nvcc (load ms and first-B1 ms cold against warm
+   printed); ``conv-bench --iters 5`` and ``model-bench`` at the
+   reference's scale 1.0, each command's seconds printed. ``info``, the
+   exporting process and ``serve`` start with the phase and run beside
+   ``selftest``.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
@@ -401,8 +432,11 @@ daemon's own counters (B1 once a layer request, B2 never), and phase
 once a request in each of A, B and C) and around the layer request on
 the promoted leader (once in B, once in its follower C); phase 22's are
 the pool daemons' own counters around rebalancing (both 0) and the SP
-daemon's around its requests (B2 16 times a request, B1 never). The
-last line is the contract's device record.
+daemon's around its requests (B2 16 times a request, B1 never); phase
+23's are this process's around its benches (B1 once a B1 call of the
+attention bench's and once a layer forward of the transformer bench's
+timing loops, B2 once a chunk of the ring fold's). The last line is the
+contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -2481,8 +2515,9 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
     capped at PAGED_REL_POOL_BYTES), the other tables resident, all
     through ``send_table`` into one card client. Per query one cold
     request (device cache resized to 0), one that installs the blocks
-    (cache resized to PAGED_REL_CACHE_BYTES) and two warm ones (one for
-    Q12), each held
+    (cache resized to PAGED_REL_CACHE_BYTES) and two warm ones (Q12, a
+    request of seconds that partitions alike every time, the cold one
+    only; phase 14 runs it warm), each held
     to the same sink on phase 11's resident card client (``_hold``, and
     Q03's top-10 rule); warm requests must read no page and stage no
     byte, except Q12, which takes the one-pass grace hash over the paged
@@ -2490,7 +2525,7 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
     pages). Then Q03 through ``q03_build_sink`` into a paged build set
     and ``q03_probe_sink``. One cold request under the profiler (copy
     streams, pinned source, rate) and, right after its warm requests, one
-    warm request of each query (busy share, top three kernels)."""
+    warm request of each query but Q12 (busy share, top three kernels)."""
     import tempfile
 
     import numpy as np
@@ -2535,9 +2570,12 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
         def drive(q, sink, ref, grace=False) -> dict:
             recs = []
             # the grace hash partitions again on every request (about 17
-            # s at SF 10), so Q12 takes one warm request, the rest two
-            kinds = ("cold", "install", "warm") + (() if grace
-                                                   else ("warm",))
+            # s at SF 10), so a later request of Q12 repeats the cold one:
+            # Q12 takes the cold request only (phase 14 runs it warm on
+            # this client, three times), the rest a cold, an install and
+            # two warm
+            kinds = (("cold",) if grace
+                     else ("cold", "install", "warm", "warm"))
             for kind in kinds:
                 if kind == "cold":
                     cache.resize(0)
@@ -2582,7 +2620,7 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
                         f"{q}: a warm request read {rec['page_reads']} pages "
                         f"and staged {rec['staged_bytes']} bytes")
             return {"requests": recs, "cold_ms": cold["ms"],
-                    "install_ms": recs[1]["ms"],
+                    "install_ms": None if grace else recs[1]["ms"],
                     "warm_ms": [r["ms"] for r in warm],
                     "cold_peak_above_mib": cold["peak_above_mib"],
                     "cold_captures": cold["captures"],
@@ -2600,11 +2638,12 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
                 print(f"[tpch-paged] q12 took the one-pass grace hash over "
                       f"orders' {rels['orders'].num_pages()} pages: probe "
                       f"passes {[r['lineitem_passes'] for r in out[q]['requests']]}")
-            rows = phase_profile({f"tpch-paged {q} warm": (
-                lambda s=sink: dag.run_query(client, s),
-                out[q]["warm_ms"][-1])}, top=3)
-            out[q]["profile_top3"] = [(ms, key[:60]) for ms, key in
-                                      next(iter(rows.values()), [])[:3]]
+            if not grace:
+                rows = phase_profile({f"tpch-paged {q} warm": (
+                    lambda s=sink: dag.run_query(client, s),
+                    out[q]["warm_ms"][-1])}, top=3)
+                out[q]["profile_top3"] = [(ms, key[:60]) for ms, key in
+                                          next(iter(rows.values()), [])[:3]]
             if not profile_done:
                 # one cold request under the profiler: where the uploads
                 # ran, from what memory, at what rate
@@ -3168,8 +3207,12 @@ def rows_path(pk: dict) -> dict:
 # warm requests of each compiled request; the resident requests that must
 # be captured whole, with no fallback; TPC-H's scale under --compiled-only
 # (the full run reuses phase 11's and phase 12's clients at TPCH_SF); the
-# paged queries run with plan_fusion on and off
+# paged queries run with plan_fusion on and off (Q12, which forms no
+# region, on only)
 COMPILED_WARM = 3
+# the least share of the node-by-node run's device time that a profiled
+# graph replay must show to count as traced whole
+TRACED_SHARE = 0.8
 MUST_CAPTURE = ("ff", "transformer", "logreg", "la gram", "la linreg",
                 "la matmul")
 COMPILED_ONLY_SF = 1
@@ -3274,10 +3317,13 @@ def _compiled_request(name, run, nbn, hold, kernel=None) -> dict:
     del outs
     graph_ms, kernels = _device_profile(run)
     nbn_busy_ms, _ = _device_profile(nbn)
-    # the profiler may not see the kernels a graph replays (CUPTI traces
-    # them only in some sessions): then the same kernels, launched one
-    # by one in the node-by-node run, give the device time
-    traced = graph_ms >= 0.5 * nbn_busy_ms
+    # the profiler may not see the kernels a graph replays, or see only
+    # some of them (CUPTI traces them only in some sessions; the layer's
+    # replay shows 47-55% of its kernels' time, without B1): then the
+    # same kernels, launched one by one in the node-by-node run, give
+    # the device time. A whole trace reads 84-103% of it, a partial one
+    # at most 56% (H100 80GB HBM3, 700 W)
+    traced = graph_ms >= TRACED_SHARE * nbn_busy_ms
     busy_ms = graph_ms if traced else nbn_busy_ms
     fallbacks = _new_fallbacks(fb0)
     p50 = sorted(warm)[len(warm) // 2]
@@ -3858,11 +3904,11 @@ def _region_plans(client, host) -> dict:
 def _compiled_paged(paged, resident, host, out) -> None:
     """Warm paged Q01, Q03 and Q12, the two region plans of
     :func:`_region_plans` and the paged FF, each with plan_fusion on and
-    off: ms, chunks, host ms per chunk (the request's ms less the
-    device's busy ms, over its chunks), regions formed, captures and
-    replays; the two settings' results must be equal, the region plans
-    must form regions with fusion on only, and no measured request may
-    capture."""
+    off (Q12 on only: it must form no region): ms, chunks, host ms per
+    chunk (the request's ms less the device's busy ms, over its chunks),
+    regions formed, captures and replays; the two settings' results must
+    be equal, the region plans must form regions with fusion on only,
+    and no measured request may capture."""
     import numpy as np
     import tempfile
 
@@ -3875,9 +3921,10 @@ def _compiled_paged(paged, resident, host, out) -> None:
 
     fused_out = {}  # each plan's fused warm output, held to the resident
 
-    def both(name, client, run, hold, regions_needed=False) -> dict:
+    def both(name, client, run, hold, regions_needed=False,
+             no_regions=False, settings=(True, False)) -> dict:
         rows, outs = {}, {}
-        for fusion in (True, False):
+        for fusion in settings:
             client.store.config.plan_fusion = fusion
             # this setting's programs are built by the first request and
             # its stream steps captured by the second
@@ -3925,11 +3972,13 @@ def _compiled_paged(paged, resident, host, out) -> None:
             if c2["captures"] != c1["captures"]:
                 raise RuntimeError(f"paged {name}: a warm request captured "
                                    f"{c2['captures'] - c1['captures']}")
-            if regions_needed and (regions > 0) != fusion:
+            if (regions_needed and (regions > 0) != fusion
+                    or no_regions and regions):
                 raise RuntimeError(f"paged {name} plan_fusion={fusion}: "
                                    f"{regions} regions formed")
         client.store.config.plan_fusion = True
-        rows["max_err"] = hold(outs[True], outs[False])
+        if False in outs:
+            rows["max_err"] = hold(outs[True], outs[False])
         fused_out[name] = outs[True]
         return rows
 
@@ -3943,8 +3992,13 @@ def _compiled_paged(paged, resident, host, out) -> None:
             return _hold(q, got, ref)
 
         try:
+            # Q12 forms no region (its one-pass grace hash runs as it is
+            # under either setting; held here), so it runs with fusion on
+            # only: its three requests, each a host partition pass over
+            # the paged orders, are not repeated
             out[f"paged_{q}"] = both(q, client, lambda s=sink: dag.run_query(
-                client, s), hold)
+                client, s), hold, no_regions=q == "q12",
+                settings=(True,) if q == "q12" else (True, False))
             k = {"k": 11} if q == "q03" else {}
             ref = dag.run_query(resident, dag.suite_sink_for(
                 resident, "tpch", q, **k))
@@ -4426,7 +4480,7 @@ def _wl_pagerank(out, profiled, s, device, pk) -> None:
     ranks_t = _wl_request(
         out, profiled, "pagerank_on_table_set",
         lambda: pr.pagerank_on_table_set(c, "wl", "links", n, iters=iters),
-        device, bound)
+        device, bound, n=1)
     ranks = _wl_request(out, profiled, "pagerank",
                         lambda: pr.pagerank(src, dst, n, iters=iters),
                         device, bound)
@@ -4556,7 +4610,7 @@ def _wl_conv(out, profiled, s, device, pk) -> None:
     nbytes = 4.0 * (images.size + kernels.size + n * o * oh * ow)
     res = _wl_request(out, profiled, "ConvFusionPipeline.run",
                       lambda: pipe.run(c, images, kernels, bias), device,
-                      _wl_bound(flops, nbytes, pk))
+                      _wl_bound(flops, nbytes, pk), n=1)
     for job, ms in jobs.items():
         print(f"[workloads]   job {job}: host+device ms "
               f"{', '.join(f'{m:.1f}' for m in ms)}")
@@ -9988,6 +10042,556 @@ def _rest_client_stats(addr) -> dict:
         c.close()
 
 
+# --- phase 23: the command line ------------------------------------------
+# python -m netsdb_tpu_torch: info in its own process, selftest under the
+# lock witness, a daemon started by `serve` with `obs` against it, the
+# benches that carry B1 and B2 at the reference's defaults, the
+# self-learning loop, the exported programs and the kernel-library cache
+# in a fresh process, conv-bench (--iters 5: 3 timed calls of the CPU
+# baseline of the default 10, 3 slope repeats of 5) and model-bench at
+# the reference's default scale 1.0
+CLI_SIZES = {"attention": dict(seq_lens=(1024, 2048, 4096, 8192)),
+             "ring": dict(),
+             "transformer": dict(seq_lens=(4096, 8192)),
+             "distribution": dict(),
+             "aot_scale": 1,
+             "conv": ["--iters", "5"],
+             "model": []}
+CLI_BUDGET_S = 90.0
+# the benches' slope protocol: a 50 ms delta between the long and the short
+# loop (the reference's 0.2 s is set for its tunnel's noise; CUDA events
+# time the card's own stream)
+CLI_TIMING = dict(min_delta_seconds=0.05)
+CLI_FF_TOL = 1e-5                 # the exported FF against in-process
+CLI_SUITE_TOLS = (1e-5, 1e-4)     # the exported suite: rtol, atol
+
+# `python -m netsdb_tpu_torch <argv>` in a daemon-style process
+_CLI_MAIN = ("import runpy, sys\n"
+             "sys.argv[0] = 'netsdb_tpu_torch'\n"
+             "runpy.run_module('netsdb_tpu_torch', run_name='__main__')\n")
+
+# phase 23 part 6's exporting process: argv is an empty cache directory,
+# the artifact directory, the device and the TPC-H scale. A thread makes
+# its first B1 call, which builds the kernels there with nvcc (the cold
+# first call), while it exports the FF forward and the TPC-H suite beside
+# its own results; it prints one JSON line
+_EXPORT_MAIN = r'''
+import json, os, sys, threading, time
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+from netsdb_tpu_torch import graft_entry
+from netsdb_tpu_torch.client import Client
+from netsdb_tpu_torch.config import Configuration
+from netsdb_tpu_torch.ops import cuda_build, cuda_kernels
+from netsdb_tpu_torch.plan import aot
+from netsdb_tpu_torch.relational.queries import compile_suite, tables_from_rows
+from netsdb_tpu_torch.workloads import tpch
+cache, art, device, scale = sys.argv[1:5]
+Client(Configuration(compilation_cache_dir=cache), device=device)
+cold = {}
+
+def first_b1():
+    q = torch.randn(2, 8, 1024, 128, device=device, dtype=torch.bfloat16)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cuda_kernels.flash_attention(q, q, q)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    cold["ms"] = (time.perf_counter() - t0) * 1e3
+
+builder = threading.Thread(target=first_b1)
+builder.start()
+t0 = time.perf_counter()
+fn, args = graft_entry.entry(device=device)
+aot.save_exported(os.path.join(art, "ff.pt2"), fn, *args)
+np.save(os.path.join(art, "ff_want.npy"), fn(*args).data.cpu().numpy())
+t1 = time.perf_counter()
+tables = tables_from_rows(tpch.generate(scale=int(scale), seed=13),
+                          device=device)
+aot.export_tpch_suite(tables, os.path.join(art, "suite.pt2"))
+t2 = time.perf_counter()
+want = [t.cpu().numpy() for t in pytree.tree_leaves(compile_suite(tables)())]
+np.savez(os.path.join(art, "suite_want.npz"),
+         **{f"a{i}": w for i, w in enumerate(want)})
+t3 = time.perf_counter()
+builder.join()
+if "ms" not in cold:
+    raise SystemExit("the cold B1 call failed")
+print(json.dumps({"first_b1_ms": cold["ms"], "nvcc_runs": cuda_build.nvcc_runs,
+                  "ff_export_ms": (t1 - t0) * 1e3,
+                  "suite_export_ms": (t2 - t1) * 1e3,
+                  "suite_run_ms": (t3 - t2) * 1e3,
+                  "suite_leaves": len(want)}))
+'''
+
+# the fresh process of phase 23 part 6: argv is the cache directory, the
+# artifact directory, the device and the TPC-H scale. It loads both
+# exported programs, holds them to the parent's results, runs one B1 call
+# and prints one JSON line
+_AOT_MAIN = r'''
+import json, sys, time
+import numpy as np
+import torch
+t_start = time.perf_counter()
+from netsdb_tpu_torch import graft_entry
+from netsdb_tpu_torch.client import Client
+from netsdb_tpu_torch.config import Configuration
+from netsdb_tpu_torch.ops import cuda_build, cuda_kernels
+from netsdb_tpu_torch.plan import aot
+from netsdb_tpu_torch.relational.queries import tables_from_rows
+from netsdb_tpu_torch.workloads import tpch
+from torch.utils import _pytree as pytree
+cache, art, device, scale = sys.argv[1:5]
+Client(Configuration(compilation_cache_dir=cache), device=device)
+t0 = time.perf_counter()
+ff = aot.load_exported(art + "/ff.pt2")
+suite = aot.load_tpch_suite(art + "/suite.pt2", tables_from_rows(
+    tpch.generate(scale=int(scale), seed=13), device=device))
+load_ms = (time.perf_counter() - t0) * 1e3
+fn, args = graft_entry.entry(device=device)
+ff_err = float(np.abs(ff(*args).data.cpu().numpy()
+                      - np.load(art + "/ff_want.npy")).max())
+want = np.load(art + "/suite_want.npz")
+got = [t.cpu().numpy() for t in pytree.tree_leaves(suite())]
+worst = 0.0
+for i, g in enumerate(got):
+    w = want[f"a{i}"]
+    np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-4)
+    worst = max(worst, float(np.abs(g.astype(np.float64) - w).max())
+                if g.size else 0.0)
+q = torch.randn(2, 8, 1024, 128, device=device, dtype=torch.bfloat16)
+if device == "cuda":
+    torch.cuda.synchronize()
+t0 = time.perf_counter()
+cuda_kernels.flash_attention(q, q, q)
+if device == "cuda":
+    torch.cuda.synchronize()
+first_b1_ms = (time.perf_counter() - t0) * 1e3
+print(json.dumps({"load_ms": load_ms, "ff_max_abs_err": ff_err,
+                  "suite_leaves": len(got), "suite_max_abs_err": worst,
+                  "first_b1_ms": first_b1_ms,
+                  "b1_launches": cuda_kernels.flash_attention.launches,
+                  "nvcc_runs": cuda_build.nvcc_runs,
+                  "process_s": time.perf_counter() - t_start}))
+'''
+
+
+def _cli_run(argv) -> tuple:
+    """``cli.main(argv)`` in this process: (exit code, its stdout)."""
+    import contextlib
+    import io
+
+    from netsdb_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    return rc, buf.getvalue()
+
+
+def _cli_check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"phase 23: {what}")
+
+
+def _cli_witness_cost(n: int = 20_000) -> dict:
+    """Host ns for one nested pair of tracked acquisitions and releases,
+    with the witness off and on (the median of 3 runs each)."""
+    from netsdb_tpu_torch.utils import locks
+
+    a, b = locks.TrackedLock("cli.cost.A"), locks.TrackedLock("cli.cost.B")
+
+    def run() -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with a:
+                with b:
+                    pass
+        return (time.perf_counter() - t0) / n * 1e9
+
+    prev = locks.witness()
+    try:
+        locks.disable_witness()
+        off = sorted(run() for _ in range(3))[1]
+        with locks.witness_scope():
+            on = sorted(run() for _ in range(3))[1]
+    finally:
+        locks._WITNESS = prev
+    return {"off": off, "on": on}
+
+
+def _cli_benches(s, device, card) -> dict:
+    """Part 4: the attention, ring and layer benches; each kernel's
+    launches must equal the calls its timing loops made, and each must
+    agree with its plain version at each of the benches' shapes
+    (:func:`_cli_bench_holds`, after the launches are read)."""
+    from netsdb_tpu_torch.ops.cuda_kernels import kernel_launches
+    from netsdb_tpu_torch.workloads.attention_bench import (bench_attention,
+                                                            bench_ring_fold)
+    from netsdb_tpu_torch.workloads.transformer_bench import (
+        bench_transformer_layer)
+
+    k0 = kernel_launches()
+    att = bench_attention(assert_ceiling=False, device=device,
+                          **s["attention"], **CLI_TIMING)
+    ring = bench_ring_fold(device=device, **s["ring"], **CLI_TIMING)
+    layer = bench_transformer_layer(device=device, **s["transformer"],
+                                    **CLI_TIMING)
+    k1 = kernel_launches()
+    b1 = k1["flash_attention"] - k0["flash_attention"]
+    b2 = k1["flash_attention_step"] - k0["flash_attention_step"]
+    b1_calls = (sum(e["flash"]["calls"] for e in att.values())
+                + sum(e["calls"] for e in layer.values()))
+    for seq, e in att.items():
+        _cli_check("error" not in e["flash"], f"B1 erred at {seq}: {e}")
+        line = " ".join(
+            f"{name} {e[name].get('ms')} ms {e[name].get('tokens_per_sec')} "
+            f"tokens/s {e[name].get('tflops')} TFLOP/s"
+            if "error" not in e[name] else f"{name} error"
+            for name in ("naive", "flash", "sdpa_flash") if name in e)
+        print(f"[cli] attention-bench {seq}: {line}; flash_vs_sdpa "
+              f"{e.get('flash_vs_sdpa')} ({card})")
+    print(f"[cli] ring fold: {ring.get('ms')} ms "
+          f"{ring.get('tflops_actual')} TFLOP/s over {ring['n_chunks']} "
+          f"chunks of {ring['s_local']} ({card})")
+    for seq, e in layer.items():
+        print(f"[cli] transformer-bench {seq}: {e.get('ms')} ms "
+              f"{e.get('tokens_per_sec')} tokens/s {e.get('tflops')} "
+              f"TFLOP/s ({card})")
+    print(f"[cli] B1 launches {b1} for {b1_calls} calls, B2 {b2} for "
+          f"{ring['calls']} calls")
+    if device == "cuda":
+        _cli_check(b1 == b1_calls, f"B1 launched {b1} times for "
+                                   f"{b1_calls} calls")
+        _cli_check(b2 == ring["calls"], f"B2 launched {b2} times for "
+                                        f"{ring['calls']} calls")
+    return {"attention": att, "ring": ring, "transformer": layer,
+            "launches": {"flash_attention": b1, "flash_attention_step": b2},
+            "held": _cli_bench_holds(s, device, card)}
+
+
+def _cli_bench_holds(s, device, card) -> list:
+    """Part 4's kernels once at each of the benches' shapes, on the
+    benches' own inputs, against their plain versions (bf16: BF16_TOL
+    and BF16_ROW_TOL): B1 at each attention-bench length and on the q,
+    k, v the layer hands it at each transformer-bench length; B2 as the
+    ring-fold bench's chain against the same chain of plain steps."""
+    import torch
+
+    from netsdb_tpu_torch.ops.attention import qkv_project
+    from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
+                                                   flash_attention_plain,
+                                                   flash_attention_step_plain,
+                                                   resolve_blocks)
+    from netsdb_tpu_torch.workloads import attention_bench as ab
+    from netsdb_tpu_torch.workloads import transformer_bench as tb
+
+    rows = []
+
+    def hold(what, out, ref):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        row_err = (diff.amax(-1) / ref.float().abs().amax(-1)
+                   .clamp_min(1e-30)).max().item()
+        finite = bool(torch.isfinite(out.float()).all())
+        rows.append({"what": what, "max_abs_err": err,
+                     "max_row_rel_err": row_err})
+        print(f"[cli] held {what}: max abs err {err:.3e} (limit "
+              f"{BF16_TOL}), row-relative {row_err:.3e} (limit "
+              f"{BF16_ROW_TOL}) ({card})")
+        _cli_check(finite and err <= BF16_TOL and row_err <= BF16_ROW_TOL,
+                   f"{what} disagrees with its plain version: max abs err "
+                   f"{err}, row-relative {row_err}, finite {finite}")
+
+    def b1(what, q, k, v):
+        bq, bk = resolve_blocks(q.shape[2], None, None)
+        hold(f"B1 {what} {tuple(q.shape)}", flash_attention(q, k, v, True),
+             flash_attention_plain(q, k, v, True, block_q=bq, block_k=bk))
+
+    a = dict(batch=2, heads=8, head_dim=128, seed=0)
+    for _, qkv in ab.attention_inputs(s["attention"]["seq_lens"], **a,
+                                      device=device):
+        b1("attention-bench", *qkv)
+    r = dict(dict(n_chunks=8, s_local=1024), **s["ring"])
+    q, ks, vs = ab.ring_inputs(r["n_chunks"], r["s_local"], **a,
+                               device=device)
+    n, s_local = len(ks), q.shape[1]
+    ref, _ = fold_chain(flash_attention_step_plain, q, [
+        (ks[i], vs[i], (n - 1) * s_local, i * s_local) for i in range(n)],
+        True)
+    hold(f"B2 ring fold {n} x {tuple(q.shape)}", ab.ring_fold(q, ks, vs, n),
+         ref)
+    model, params, dev = tb.layer_model(device=device)
+    for _, x in tb.layer_inputs(s["transformer"]["seq_lens"], 2, 1024, 0,
+                                dev):
+        with torch.inference_mode():
+            q, k, v = (t.contiguous() for t in qkv_project(
+                model._ln(x), params.w_qkv, model.num_heads))
+            b1("in the transformer-bench layer", q, k, v)
+    return rows
+
+
+def _cli_serve_start(device, root):
+    """``python -m netsdb_tpu_torch serve`` in its own process on a port
+    picked first, with the reference CLI's flags only."""
+    import os
+
+    (port,) = _ha_free_ports(1)
+    log = os.path.join(root, "serve.log")
+    serve_args = ["serve", "--port", port, "--root",
+                  os.path.join(root, "daemon")]
+    if device != "cuda":
+        serve_args += ["--platform", device]
+    return _daemon_popen(_CLI_MAIN, serve_args, log), log
+
+
+def _cli_serve(proc, log, dev_args, s_layer, device, card) -> dict:
+    """Part 3: the daemon ``serve`` started, 3 layer requests of phase
+    16's size, then ``obs --health --json`` and ``obs --top``."""
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    remote = None
+    try:
+        addr = _daemon_addr(proc, log)
+        remote = RemoteClient(addr, timeout=SERVE_TIMEOUT_S,
+                              connect_timeout=30.0)
+        layer = _serve_layer(remote, Client(device=device), s_layer,
+                             device, card)
+        b1 = sum(layer["b1_launches"])
+        if device == "cuda":
+            _cli_check(b1 == s_layer["requests"],
+                       f"the CLI daemon launched B1 {b1} times for "
+                       f"{s_layer['requests']} layer requests")
+        rc, text = _cli_run(dev_args + ["obs", "--addr", addr, "--health",
+                                        "--json"])
+        health = json.loads(text)
+        breached = [o["name"] for o in health["objectives"]
+                    if o.get("breached")]
+        _cli_check(rc == 0 and health["objectives"] and not breached,
+                   f"HEALTH is not ok (rc {rc}, breached {breached})")
+        rc, top = _cli_run(dev_args + ["obs", "--addr", addr, "--top",
+                                       "--iterations", "1"])
+        _cli_check(rc == 0 and top.startswith("== top (history:")
+                   and "qps" in top, f"obs --top rendered {top!r}")
+        print(f"[cli] serve: {addr}, layer p50 {layer['p50_ms']:.3f} ms, "
+              f"B1 {b1} in the daemon, HEALTH {len(health['objectives'])} "
+              f"objectives none breached ({card})")
+        print("[cli] obs --top:\n" + top.rstrip())
+        return {"layer_ms": layer["ms"], "b1_launches": b1,
+                "objectives": [o["name"] for o in health["objectives"]]}
+    finally:
+        _serve_stop(proc, remote)
+        if remote is not None:
+            remote.close()
+
+
+def _cli_fresh(proc, n_leaves, cold, device, card) -> dict:
+    """Part 6: the fresh process's report, held to the requirements
+    (both artifacts within tolerance of the exporting process's
+    results, no nvcc, B1 once)."""
+    out, err = proc.communicate(timeout=600)
+    _cli_check(proc.returncode == 0,
+               f"the fresh process failed:\n{err[-4000:]}")
+    fresh = json.loads(out.strip().splitlines()[-1])
+    _cli_check(fresh["ff_max_abs_err"] <= CLI_FF_TOL,
+               f"the exported FF is {fresh['ff_max_abs_err']} off")
+    _cli_check(fresh["suite_leaves"] == n_leaves, "suite leaves differ")
+    if device == "cuda":
+        _cli_check(fresh["nvcc_runs"] == 0 and fresh["b1_launches"] == 1,
+                   f"the fresh process ran nvcc {fresh['nvcc_runs']} "
+                   f"times, B1 {fresh['b1_launches']} times")
+    print(f"[cli] aot: fresh process load {fresh['load_ms']:.1f} ms, FF "
+          f"err {fresh['ff_max_abs_err']:.3e}, suite err "
+          f"{fresh['suite_max_abs_err']:.3e} over {fresh['suite_leaves']} "
+          f"leaves, nvcc runs {fresh['nvcc_runs']}; export FF "
+          f"{cold['ff_export_ms']:.1f} ms, suite {cold['suite_export_ms']:.1f}"
+          f" ms; first B1 cold (build) {cold['first_b1_ms']:.1f} ms with "
+          f"{cold['nvcc_runs']} nvcc runs, warm (cache) "
+          f"{fresh['first_b1_ms']:.1f} ms ({card})")
+    return dict(fresh, cold=cold)
+
+
+def _cli_popen(script: str, args: list) -> subprocess.Popen:
+    """``python -c script *args`` from the repository root."""
+    import os
+
+    return subprocess.Popen(
+        [sys.executable, "-c", script] + [str(a) for a in args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def phase_cli(pk: dict, smi: str, device: str = "cuda",
+              sizes: Optional[dict] = None) -> dict:
+    """Phase 23: the command line (``CLI_SIZES``). The processes of
+    ``info``, the exporting process (the cold kernel build and both
+    exports) and ``serve`` start together at the beginning and run
+    while ``selftest``, the learning loop, the benches and
+    ``conv-bench`` run here (``info`` is read after the benches); the
+    served requests follow once the exporting process has ended (the
+    daemon's first request is a cold one, and HEALTH holds its p99 to
+    2 s), and the fresh process of the AOT part runs after them, beside
+    ``model-bench``. ``device="cpu"`` with small
+    ``sizes`` is its CPU rehearsal."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from netsdb_tpu_torch.utils.locks import witness_scope
+
+    s = dict(CLI_SIZES, **(sizes or {}))
+    card = smi
+    dev_args = [] if device == "cuda" else ["--device", device]
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="netsdb_cli_")
+    cache = os.path.join(root, "kernel_cache")
+    art = os.path.join(root, "artifacts")
+    os.makedirs(art)
+    out: dict = {"part_s": {}}
+    procs = []
+
+    def part(name, t0):
+        out["part_s"][name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    def bench_cmd(cmd, extra, t0):
+        rc, text = _cli_run(dev_args + [cmd] + extra)
+        _cli_check(rc == 0, f"{cmd} rc {rc}")
+        out[cmd] = json.loads(text)
+        t1 = part(cmd, t0)
+        print(f"[cli] {' '.join([cmd] + extra)} in "
+              f"{out['part_s'][cmd]:.1f} s: {json.dumps(out[cmd])} ({card})")
+        return t1
+
+    try:
+        info_p = _cli_popen(_CLI_MAIN, dev_args + ["info"])
+        procs.append(info_p)
+        export_p = _cli_popen(_EXPORT_MAIN, [cache, art, device,
+                                             s["aot_scale"]])
+        procs.append(export_p)
+        serve_p, serve_log = _cli_serve_start(device, root)
+        procs.append(serve_p)
+        t = time.perf_counter()
+
+        # 2. selftest under the witness, while those reach the card
+        with witness_scope(raise_on_cycle=True) as w:
+            rc, text = _cli_run(dev_args + ["selftest"])
+        print("\n".join(f"[cli] selftest {ln}" for ln in text.splitlines()))
+        rep = w.report()
+        oks = [ln for ln in text.splitlines() if ln.startswith("[ok]")]
+        _cli_check(rc == 0 and len(oks) == 20
+                   and "20/20 passed" in text
+                   and any("placement-arm" in ln for ln in oks),
+                   f"selftest rc {rc}:\n{text}")
+        _cli_check(rep["edges"] > 0 and not rep["violations"],
+                   f"the witness saw {rep}")
+        out["selftest_witness"] = {k: v for k, v in rep.items()
+                                   if k != "violations"}
+        out["witness_ns"] = _cli_witness_cost()
+        print(f"[cli] selftest 20/20 under the witness: {rep['edges']} "
+              f"edges, {rep['acquisitions']} acquisitions, 0 violations; "
+              f"a nested acquire and release pair costs "
+              f"{out['witness_ns']['off']:.0f} ns with the witness off, "
+              f"{out['witness_ns']['on']:.0f} ns on (host)")
+        t = part("selftest", t)
+
+        # 5. the self-learning loop
+        rc, text = _cli_run(dev_args + ["ab-bench", "--advisor", "drl"])
+        ab = json.loads(text)
+        _cli_check(rc == 0 and set(ab["mean_s"]) == {
+            lbl for lbl, _ in ab["rounds"]} and all(
+                v is not None for v in ab["mean_s"].values()),
+            f"ab-bench --advisor drl did not apply and measure every arm: "
+            f"{ab}")
+        from netsdb_tpu_torch.learning.ab_bench import bench_distribution_ab
+
+        dist = bench_distribution_ab(advisor_kind="rule", device=device,
+                                     **s["distribution"])
+        _cli_check(all(v is not None for v in dist["mean_s"].values())
+                   and len(dist["applied"]) == len(dist["rounds"]),
+                   f"distribution A/B: {dist}")
+        for name, r in (("ab-bench drl", ab), ("distribution rule", dist)):
+            print(f"[cli] {name}: rounds {r['rounds']}, means "
+                  f"{r['mean_s']}, winner {r['winner']}, converged "
+                  f"{r.get('converged')} ({card})")
+        out["learning"] = {"placement_drl": ab, "distribution_rule": dist}
+        t = part("learning", t)
+
+        # 4. the benches that carry the kernels
+        out["benches"] = _cli_benches(s, device, card)
+        t = part("benches", t)
+
+        # 1. info in its own process
+        info_out, info_err = info_p.communicate(timeout=300)
+        _cli_check(info_p.returncode == 0, f"info failed: {info_err}")
+        out["info"] = json.loads(info_out)
+        kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+        _cli_check(out["info"]["device_kind"] == kind
+                   and out["info"]["process_count"] == 1,
+                   f"info printed {out['info']}")
+        print(f"[cli] info: {out['info']['device_kind']}, process_count "
+              f"{out['info']['process_count']}")
+        t = part("info_wait", t)
+
+        # 7a. conv-bench, while the exporting process runs
+        t = bench_cmd("conv-bench", s["conv"], t)
+
+        # 6. the exported programs and the kernel-library cache: the
+        # exporting process (cold kernel build, then both exports) ran
+        # beside parts 2, 5, 4, 1 and 7a; the fresh process runs beside
+        # part 7b, after part 3, so that no process of the phase but the
+        # daemon's client runs beside the daemon's cold first request
+        cold_out, cold_err = export_p.communicate(timeout=600)
+        _cli_check(export_p.returncode == 0,
+                   f"the exporting process failed:\n{cold_err[-4000:]}")
+        cold = json.loads(cold_out.strip().splitlines()[-1])
+        if device == "cuda":
+            _cli_check(cold["nvcc_runs"] >= 1 and any(
+                f.endswith(".so") for f in os.listdir(cache)),
+                f"the cold build built nothing: {cold}")
+        t = part("aot_export_wait", t)
+
+        # 3. serve and obs
+        out["serve"] = _cli_serve(serve_p, serve_log, dev_args,
+                                  dict(SERVE_SIZES["layer"],
+                                       **s.get("layer", {})),
+                                  device, card)
+        t = part("serve_obs", t)
+
+        fresh_p = _cli_popen(_AOT_MAIN, [cache, art, device,
+                                         s["aot_scale"]])
+        procs.append(fresh_p)
+
+        # 7b. model-bench
+        t = bench_cmd("model-bench", s["model"], t)
+        out["aot"] = _cli_fresh(fresh_p, cold["suite_leaves"], cold, device,
+                                card)
+        part("aot_fresh_wait", t)
+
+        out["launches"] = out["benches"]["launches"]
+        out["wall_s"] = time.perf_counter() - t_phase
+        print(f"[cli] phase 23 wall {out['wall_s']:.1f} s, parts "
+              f"{ {k: round(v, 1) for k, v in out['part_s'].items()} } "
+              f"({card})")
+        if out["wall_s"] > CLI_BUDGET_S:
+            print(f"[cli] WARNING: phase 23 took {out['wall_s']:.1f} s, "
+                  f"over its {CLI_BUDGET_S} s budget")
+        return out
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -10081,6 +10685,11 @@ def main() -> int:
         print(json.dumps({"pool_rest": phase_pool_rest(pk, smi),
                           "card": smi}, default=str))
         return 0
+    if "--cli-only" in sys.argv[1:]:
+        # phase 23 alone, the same way
+        print(json.dumps({"cli": phase_cli(pk, smi), "card": smi},
+                         default=str))
+        return 0
     if "--ha-only" in sys.argv[1:]:
         # phase 21 alone, the same way
         print(json.dumps({"ha": phase_ha(pk, smi), "card": smi},
@@ -10097,8 +10706,18 @@ def main() -> int:
         print(json.dumps({"mesh": mesh_path(pk, smi, state), "card": smi},
                          default=str))
         return 0
-    b1 = phase_kernels(pk)
-    b2 = phase_step_kernel(pk)
+    walls = {}  # seconds of each phase (or group of phases), printed
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            walls[name] = round(time.perf_counter() - t0, 1)
+
+    t_main = time.perf_counter()
+    b1 = timed("2", phase_kernels, pk)
+    b2 = timed("2b", phase_step_kernel, pk)
 
     client = Client()
     flash_attention.launches = flash_attention_step.launches = 0
@@ -10122,28 +10741,33 @@ def main() -> int:
             "sp": (lambda: sp_model(sp_client)[0].serve_forward(sp_client),
                    sp["ms"])})
 
-    paged = phase_paged()
-    models = models_path()
-    train = train_path()
-    la = la_path()
-    relational, rel_state = relational_path(pk)
+    walls["3-6"] = round(time.perf_counter() - t_main - walls["2"]
+                         - walls["2b"], 1)
+    paged = timed("7", phase_paged)
+    models = timed("8", models_path)
+    train = timed("9", train_path)
+    la = timed("10", la_path)
+    relational, rel_state = timed("11", relational_path, pk)
     try:
-        paged_relations = paged_relations_path(pk, rel_state)
-        rows = rows_path(pk)
-        compiled = compiled_path(rel_state)
+        paged_relations = timed("12", paged_relations_path, pk, rel_state)
+        rows = timed("13", rows_path, pk)
+        compiled = timed("14", compiled_path, rel_state)
         _close_paged(rel_state.pop("paged", None))
         _wl_free("cuda")
-        mesh = mesh_path(pk, smi, rel_state)
+        mesh = timed("18", mesh_path, pk, smi, rel_state)
     finally:
         _close_paged(rel_state.get("paged"))
     del rel_state
-    multichip = phase_multichip(pk, smi)
-    workloads = workloads_path(pk)
-    serve = phase_serve(pk, smi)
-    pool = phase_pool(pk, smi)
-    observed = phase_obs(pk, smi)
-    replicated = phase_ha(pk, smi, solo=serve)
-    rest = phase_pool_rest(pk, smi)
+    multichip = timed("19", phase_multichip, pk, smi)
+    workloads = timed("15", workloads_path, pk)
+    serve = timed("16", phase_serve, pk, smi)
+    pool = timed("17", phase_pool, pk, smi)
+    observed = timed("20", phase_obs, pk, smi)
+    replicated = timed("21", phase_ha, pk, smi, solo=serve)
+    rest = timed("22", phase_pool_rest, pk, smi)
+    cli = timed("23", phase_cli, pk, smi)
+    print(f"[timing] phases (s): {json.dumps(walls)}; all "
+          f"{time.perf_counter() - t_main:.1f}")
     pool_launches = {
         k: pool["launches"].get(k, 0) + pool["inproc"]["launches"][i]
         for i, k in enumerate(("flash_attention", "flash_attention_step"))}
@@ -10158,7 +10782,8 @@ def main() -> int:
                       "compiled": compiled, "workloads": workloads,
                       "serve": serve, "pool": pool, "mesh": mesh,
                       "multichip": multichip, "obs": observed,
-                      "ha": replicated, "pool_rest": rest, "card": smi},
+                      "ha": replicated, "pool_rest": rest, "cli": cli,
+                      "card": smi},
                      default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
@@ -10187,7 +10812,8 @@ def main() -> int:
                         observed["launches"]["flash_attention"],
                     "replication":
                         replicated["launches"]["flash_attention"],
-                    "pool_rest": rest["launches"]["flash_attention"]},
+                    "pool_rest": rest["launches"]["flash_attention"],
+                    "cli": cli["launches"]["flash_attention"]},
                    b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
@@ -10205,7 +10831,8 @@ def main() -> int:
                         observed["launches"]["flash_attention_step"],
                     "replication":
                         replicated["launches"]["flash_attention_step"],
-                    "pool_rest": rest["launches"]["flash_attention_step"]},
+                    "pool_rest": rest["launches"]["flash_attention_step"],
+                    "cli": cli["launches"]["flash_attention_step"]},
                    b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

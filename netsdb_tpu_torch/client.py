@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from netsdb_tpu_torch.catalog.catalog import Catalog
-from netsdb_tpu_torch.config import Configuration, resolve_device
+from netsdb_tpu_torch.config import (Configuration, enable_compilation_cache,
+                                     resolve_device)
 from netsdb_tpu_torch.core.blocked import BlockedTensor, owned_tensor
 from netsdb_tpu_torch.parallel.mesh import visible_devices
 from netsdb_tpu_torch.parallel.placement import Placement
@@ -92,15 +93,36 @@ class Client:
         del address, token, replicas  # consumed by __new__
         self.config = config if config is not None else Configuration()
         self.device = resolve_device(device)
+        # the kernel libraries build into (and load from) the configured
+        # compilation cache
+        enable_compilation_cache(self.config)
         self.catalog = Catalog(catalog_path or ":memory:")
         self.store = SetStore(self.config, self.device)
         self._mesh = None
+        self._advisor = None  # the placement advisor (learning/)
+        self._advisor_key = "default"
+        self._advisor_arm = None  # the arm this client's DDL applied
 
     @property
     def mesh(self):
         """The mesh of the last ``create_set`` given a placement (None
         while every set is on one device)."""
         return self._mesh
+
+    # --- self-learning placement --------------------------------------
+    def set_placement_advisor(self, advisor, key: str = "default") -> None:
+        """Install a placement advisor (``learning.advisor.
+        PlacementAdvisor`` or ``learning.rl.DRLPlacementAdvisor``) that
+        the DDL and query paths consult, as the reference's
+        self-learning hooks at set creation and scheduling do. ``key``
+        names the workload whose measured history drives placement:
+        :meth:`create_set` applies the arm the advisor chooses for
+        ``key`` (a ``Placement`` under ``"placement"`` or the set's
+        name, or a block shape under ``"block"``), and
+        :meth:`execute_computations` records each job's elapsed time
+        against the arm that was applied."""
+        self._advisor = advisor
+        self._advisor_key = key
 
     # --- DDL ----------------------------------------------------------
     def create_database(self, db: str) -> None:
@@ -163,11 +185,44 @@ class Client:
         meta: Dict[str, Any] = {}
         if partition_lambda:
             meta["partition_lambda"] = partition_lambda
+        arm = (self._advisor.choose(self._advisor_key)
+               if self._advisor is not None else None)
+        if placement is None and arm is not None:
+            # an arm may carry the set's sharding (keyed "placement" or
+            # by the set's name): the arm is then the configuration in
+            # force for this DDL, and jobs record against it
+            spec = arm.specs.get("placement") or arm.specs.get(set_name)
+            if isinstance(spec, Placement):
+                placement = spec
+                self._advisor_arm = arm
+                self._advisor.db.record(
+                    f"{self._advisor_key}:decisions",
+                    plan_key=f"set:{db}.{set_name}", elapsed_s=0.0,
+                    config_label=arm.label)
         if placement is not None:
             # resolves the axes now: two size-0 axes raise before the
             # catalog row is written
             mesh = placement.mesh(visible_devices(self.device.type))
             meta["sharding"] = placement.to_meta()
+            # the placement-history row: the sharding DDL applied
+            from netsdb_tpu_torch.learning.history import get_history_db
+
+            get_history_db().record(
+                f"{db}.{set_name}:placement",
+                plan_key=f"set:{db}.{set_name}", elapsed_s=0.0,
+                config_label=placement.label())
+        if arm is not None and type_name == "tensor" \
+                and "block" in arm.specs:
+            # the arm's block shape (the reference's page-size knob)
+            # lands in the catalog, where send_matrix and the models
+            # read it; stashed only when the arm decided something for
+            # THIS set, so a later set does not re-tag the job
+            meta["placement"] = arm.label
+            meta["block_shape"] = list(arm.specs["block"])
+            self._advisor_arm = arm
+            self._advisor.db.record(f"{self._advisor_key}:decisions",
+                                    plan_key=f"set:{db}.{set_name}",
+                                    elapsed_s=0.0, config_label=arm.label)
         self.catalog.create_set(db, set_name, type_name, meta, persistence)
         ident = SetIdentifier(db, set_name)
         self.store.create_set(ident, placement=placement, storage=storage,
@@ -256,7 +311,14 @@ class Client:
         """Load a dense matrix as one blocked tensor on the client's
         device (reference ``FFMatrixUtil::load_matrix`` + sendData). A
         paged set pages it into the arena from the host instead; the
-        returned tensor is then the host copy."""
+        returned tensor is then the host copy. Block shape: the argument,
+        else the set's advisor-chosen block (catalog meta, written by
+        :meth:`create_set` under a placement advisor), else the
+        configuration's default."""
+        if block_shape is None:
+            cat = self.catalog.get_set(db, set_name)
+            if cat is not None and "placement" in cat["meta"]:
+                block_shape = cat["meta"].get("block_shape")
         block_shape = tuple(block_shape or self.config.default_block_shape)
         ident = SetIdentifier(db, set_name)
         paged = self.store.storage_of(ident) == "paged"
@@ -419,15 +481,31 @@ class Client:
         ``explain=True`` is the in-process EXPLAIN ANALYZE: every plan
         node's wall time, rows, program builds and fusion region are
         recorded (``obs/operators.py``) and the return becomes
-        ``(results, operators_tree)``."""
+        ``(results, operators_tree)``.
+
+        With a placement advisor installed, the job's elapsed time is
+        recorded against the arm whose placement this client's DDL
+        actually applied (:meth:`create_set` stashes it), never against
+        an arm that was merely chosen."""
         from netsdb_tpu_torch import obs
+        from netsdb_tpu_torch.learning.history import set_config_label
         from netsdb_tpu_torch.plan.executor import execute_computations
 
+        def run():
+            if self._advisor is None or self._advisor_arm is None:
+                return execute_computations(self, list(sinks),
+                                            job_name=job_name,
+                                            materialize=materialize)
+            set_config_label(self._advisor_arm.label)
+            try:
+                return execute_computations(self, list(sinks),
+                                            job_name=job_name,
+                                            materialize=materialize)
+            finally:
+                set_config_label("")  # no stale-arm tagging
+
         if not explain:
-            return execute_computations(self, list(sinks), job_name=job_name,
-                                        materialize=materialize)
+            return run()
         with obs.operators.explain_capture() as cap:
-            results = execute_computations(self, list(sinks),
-                                           job_name=job_name,
-                                           materialize=materialize)
+            results = run()
         return results, cap.get("operators")

@@ -11,14 +11,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-# knobs of the reference that belong to later items of ROADMAP.md A:
-# setting one away from its default raises, naming the item
-_LATER = {
-    # A8: the lock-order witness
-    "lock_witness": (False, "A8"),
-}
-
-
 def _compile_cache_default() -> Optional[str]:
     return os.environ.get("NETSDB_TPU_COMPILE_CACHE", "auto")
 
@@ -80,10 +72,17 @@ class Configuration:
     ``donate_fold_buffers`` has no counterpart: a fold step's state is
     updated in place by its program or replaced by the next step's
     output, and nothing is donated. None and False are accepted; True
-    raises ``ValueError``. ``compilation_cache_dir`` accepts ``"auto"``
-    and None (or ""): the port's programs are CUDA graphs of the process
-    and nothing is persisted; a directory raises ``NotImplementedError``
-    (the shippable compiled plan, ROADMAP.md A8).
+    raises ``ValueError``. ``compilation_cache_dir`` names where the
+    kernel libraries that ``ops/cuda_build.py`` compiles with nvcc are
+    built and loaded from (:func:`enable_compilation_cache`, called by
+    every ``Client``): a fresh process given the same directory loads
+    them and runs no nvcc. ``"auto"`` and None (or "") keep the
+    package's own build directory. CUDA graphs belong to their process
+    and are never persisted; ``plan/aot.py`` ships exported programs.
+
+    ``lock_witness`` arms the runtime lock-order witness
+    (``utils/locks.py``) when a store is built with it (a daemon's, too:
+    it builds its store from its configuration).
 
     The one-daemon serving knobs keep the reference's defaults and
     checks: the query scheduler's ``sched_lanes`` (lane weights),
@@ -124,11 +123,7 @@ class Configuration:
     plans a round of slot moves of at most
     ``rebalance_max_bytes_per_round``; ``device_cache_pin_auto`` sizes
     the device cache's head-pin budget from the attribution ledger on
-    the same cadence.
-
-    Every knob of a later ROADMAP.md item (``_LATER``: the lock witness)
-    raises ``NotImplementedError`` naming its item when set
-    away from its default."""
+    the same cadence."""
 
     # --- tensor blocking ---
     default_block_shape: Tuple[int, int] = (512, 512)
@@ -212,24 +207,11 @@ class Configuration:
         default_factory=_compile_cache_default)
 
     def __post_init__(self) -> None:
-        for name, (default, item) in _LATER.items():
-            value = getattr(self, name)
-            if isinstance(default, tuple) and isinstance(value, list):
-                value = tuple(value)
-            if value != default:
-                raise NotImplementedError(
-                    f"Configuration({name}=...) is not ported yet: "
-                    f"ROADMAP.md {item}")
         if self.donate_fold_buffers:
             raise ValueError(
                 "donate_fold_buffers=True has no counterpart in the port: "
                 "fold states are updated in place or replaced, never "
                 "donated")
-        if self.compilation_cache_dir not in (
-                None, "", "auto", _compile_cache_default()):
-            raise NotImplementedError(
-                "Configuration(compilation_cache_dir=<dir>): a persisted "
-                "compiled plan is not ported yet: ROADMAP.md A8")
         if self.obs_trace_sample < 1:
             raise ValueError(f"obs_trace_sample must be >= 1, got "
                              f"{self.obs_trace_sample!r}")
@@ -274,6 +256,30 @@ class Configuration:
 
     def ensure_dirs(self) -> None:
         os.makedirs(self.data_dir, exist_ok=True)
+
+
+def enable_compilation_cache(config: Optional[Configuration] = None
+                             ) -> Optional[str]:
+    """Point the kernel builds (``ops/cuda_build.py``) at the configured
+    compilation cache — the counterpart of the reference's persistent
+    XLA cache: what the port compiles once per machine is its CUDA
+    kernel libraries, keyed by a hash of their sources and flags, so a
+    fresh process given the same directory loads them and runs no nvcc.
+    ``"auto"``, None and "" keep the package's own build directory.
+    Re-entrant: a later call with another directory re-points the
+    builds there. Returns the active directory or None. CUDA graphs are
+    objects of their process and are not persisted."""
+    from netsdb_tpu_torch.ops import cuda_build
+
+    cfg = config if config is not None else Configuration()
+    path = cfg.compilation_cache_dir
+    if path in (None, "", "auto"):
+        path = None
+    else:
+        path = os.path.abspath(path)
+        os.makedirs(path, exist_ok=True)
+    cuda_build.set_build_dir(path)
+    return path
 
 
 def resolve_device(device=None) -> torch.device:

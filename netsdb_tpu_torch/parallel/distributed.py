@@ -64,11 +64,12 @@ def hybrid_mesh(ici_shape: Sequence[int],
                 (dcn_axis,) + tuple(ici_axes))
 
 
-def cluster_info() -> Dict:
+def cluster_info(device_type: Optional[str] = None) -> Dict:
     """The reference's ``getAllResources`` equivalent for the one
-    process: its index and count, its positions, their count and the
-    card's name (``"cpu"`` for CPU positions)."""
-    devices = visible_devices()
+    process: its index and count, its positions (of ``device_type``;
+    default: the cards), their count and the card's name (``"cpu"`` for
+    CPU positions)."""
+    devices = visible_devices(device_type)
     dev = devices[0]
     return {
         "process_index": 0,

@@ -1037,13 +1037,22 @@ def execute_computations(client, sinks: List[WriteSet],
     materialises the results into the store — the reference's OUTPUT
     sets. The job is recorded node by node into an EXPLAIN tree when the
     query is traced or an ``obs.operators.explain_capture`` is active
-    (an auto-split job records its components into one tree)."""
+    (an auto-split job records its components into one tree). Each run's
+    elapsed time is recorded into the history DB
+    (``learning.history.record_job``), which the placement advisors
+    learn from."""
+    from netsdb_tpu_torch.learning.history import record_job
+
+    t0 = time.perf_counter()
     with obs.operators.recording(job_name, client.store.config):
-        return _execute_computations(client, sinks, job_name, materialize)
+        results, plan = _execute_computations(client, sinks, job_name,
+                                              materialize)
+    record_job(job_name, plan, time.perf_counter() - t0)
+    return results
 
 
 def _execute_computations(client, sinks: List[WriteSet], job_name: str,
-                          materialize: bool) -> Dict[SetIdentifier, Any]:
+                          materialize: bool):
     with obs.span("planner.plan", "planner"):
         plan = plan_from_sinks(sinks)
     store = client.store
@@ -1062,7 +1071,7 @@ def _execute_computations(client, sinks: List[WriteSet], job_name: str,
                 out.update(execute_computations(
                     client, [s for s in plan.sinks if s not in resident],
                     job_name, materialize))
-                return out
+                return out, plan
     scans = scan_values(client, plan)
     scan_nodes = [n for n in plan.topo if isinstance(n, ScanSet)]
     any_paged = any(isinstance(v, (PagedColumns, PagedTensor, PagedObjects))
@@ -1113,7 +1122,7 @@ def _execute_computations(client, sinks: List[WriteSet], job_name: str,
                 store.add_data(ident, list(out.items()))
             else:
                 store.add_data(ident, list(out))
-    return results
+    return results, plan
 
 
 def _run_whole_plan(client, plan: LogicalPlan, scans: Dict[int, Any],

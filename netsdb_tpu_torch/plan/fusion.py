@@ -42,8 +42,14 @@ The mapper also owns the **scatter boundary**: a shard-side partial fold
 anchor-only region under the optimal mapper even with nothing to graft,
 and :func:`compile_scatter_merge` runs the coordinator's merge and
 finalize as one program of the executor's cache; both tick
-``fusion.distributed_regions``. Fusion arms of the placement advisor
-wait for ``learning/`` (ROADMAP.md A8).
+``fusion.distributed_regions``.
+
+Both knobs are also advisor **arms**: fusion on/off
+(:func:`~netsdb_tpu_torch.learning.advisor.fusion_candidates`) and the
+mapper, optimal against greedy as the rollback arm
+(:func:`~netsdb_tpu_torch.learning.advisor.mapper_candidates`), so the
+``learning/`` bandit A/Bs each decision per job the way it learns
+placements (``learning.ab_bench.bench_fusion_ab``, ``bench_mapper_ab``).
 """
 
 from __future__ import annotations

@@ -78,7 +78,7 @@ class PagedColumns:
         self.dicts = dicts or {}
         self.stats = stats or {}
         self.device = resolve_device(device)
-        self.rw = RWLock()
+        self.rw = RWLock(name="PagedColumns.rw")
         self.dropped = False
         # chunks read out of the arena over the relation's lifetime (the
         # grace hash's one-pass check reads it)

@@ -409,9 +409,13 @@ def handle_reshard(ctl, p: Dict[str, Any]) -> Dict[str, Any]:
         return {"rows": _local_rows(ctl, db, set_name)}
     if op == "seal":
         ttl = float(p.get("ttl_s", SEAL_TTL_S))
-        with ctl._shard_mu:
-            ctl._reshard_seals[key] = time.monotonic() + ttl
-        return {"rows": _local_rows(ctl, db, set_name)}
+        # under the set's write gate: a write that passed its placement
+        # check before the seal lands before the rows are counted, and
+        # every later one sees the seal
+        with ctl._write_gate(db, set_name):
+            with ctl._shard_mu:
+                ctl._reshard_seals[key] = time.monotonic() + ttl
+            return {"rows": _local_rows(ctl, db, set_name)}
     if op == "unseal":
         with ctl._shard_mu:
             ctl._reshard_seals.pop(key, None)

@@ -814,6 +814,11 @@ class ServeController:
         self._order = _RWOrder()
         self._set_locks: Dict[Tuple[str, str], TrackedLock] = {}
         self._set_locks_mu = TrackedLock("ServeController._set_locks_mu")
+        # per-set write gates: a write holds its set's gate from its
+        # placement check through its apply, and a rebalancing seal
+        # takes it (serve/rebalance.py), so every write that passed the
+        # check has landed when the seal reads the source's row count
+        self._write_gates: Dict[Tuple[str, str], TrackedLock] = {}
         # set while a follower resync holds the write path; mutating
         # frames wait for it (bounded by resync_grace_s)
         self._resync_idle = threading.Event()
@@ -2375,6 +2380,12 @@ class ServeController:
             return self._set_locks.setdefault(
                 (db, set_name), TrackedLock("ServeController._set_locks[]"))
 
+    def _write_gate(self, db: str, set_name: str) -> TrackedLock:
+        with self._set_locks_mu:
+            return self._write_gates.setdefault(
+                (db, set_name),
+                TrackedLock("ServeController._write_gates[]"))
+
     def _run_mirrored(self, typ, payload, codec, handler, token=None,
                       qid=None, client=None):
         """Run one mirrored frame here and on every follower, holding
@@ -2730,6 +2741,10 @@ class ServeController:
         return resolve_entry_point(name_or_entry)
 
     def _on_send_data(self, p):
+        with self._write_gate(p.get("db"), p.get("set")):
+            return self._send_data_gated(p)
+
+    def _send_data_gated(self, p):
         epoch = p.pop(PLACEMENT_EPOCH_KEY, None)
         slot = p.pop(SHARD_SLOT_KEY, None)
         if self._shard_route(p.get("db"), p.get("set"), epoch,
@@ -2752,6 +2767,10 @@ class ServeController:
         return MsgType.OK, {"count": len(p["items"])}
 
     def _on_send_matrix(self, p):
+        with self._write_gate(p.get("db"), p.get("set")):
+            return self._send_matrix_gated(p)
+
+    def _send_matrix_gated(self, p):
         # a batch-partitioned tensor set (the serving input) takes routed
         # frames like SEND_DATA: each slot ingests its contiguous rows
         epoch = p.pop(PLACEMENT_EPOCH_KEY, None)

@@ -175,7 +175,7 @@ class PagedObjects:
         self.store = store
         self.name = name
         self.num_items = num_items
-        self.rw = RWLock()
+        self.rw = RWLock(name="PagedObjects.rw")
         self._append_mu = threading.Lock()
         self.dropped = False
         store.backend.create_set(store._set_id(name))

@@ -89,7 +89,7 @@ from netsdb_tpu_torch.config import Configuration
 from netsdb_tpu_torch.core.blocked import BlockedTensor, BlockMeta
 from netsdb_tpu_torch.parallel.mesh import ShardedTensor
 from netsdb_tpu_torch.parallel.placement import Placement
-from netsdb_tpu_torch.utils.locks import RWLock
+from netsdb_tpu_torch.utils.locks import RWLock, TrackedRLock
 
 
 # set types whose scan is always the item list
@@ -146,7 +146,8 @@ class _PagedMatrix:
     pages of its successor) and its stream-versus-drop lock."""
 
     name: str
-    rw: RWLock = dataclasses.field(default_factory=RWLock)
+    rw: RWLock = dataclasses.field(
+        default_factory=lambda: RWLock(name="_PagedMatrix.rw"))
 
 
 @dataclasses.dataclass
@@ -219,7 +220,13 @@ class SetStore:
         self.max_host_bytes = max_host_bytes or self.config.shared_mem_bytes
         self.stats = CacheStats()
         self._sets: Dict[SetIdentifier, _StoredSet] = {}
-        self._lock = threading.RLock()
+        self._lock = TrackedRLock("SetStore._lock")
+        # the runtime lock-order witness (utils/locks.py), armed by the
+        # configuration
+        if self.config.lock_witness:
+            from netsdb_tpu_torch.utils.locks import enable_witness
+
+            enable_witness()
         self._page_store = None
         self._device_cache = None
         self._gen = itertools.count()

@@ -1,16 +1,18 @@
 """The port's ``Configuration`` against the reference's: every field of
 ``netsdb_tpu.config.Configuration`` is accepted at the reference's
-default, and every knob of a later ROADMAP.md item raises
-``NotImplementedError`` naming its item when set away from it. The
-one-daemon serving knobs (the scheduler's, the sessions', the decode
-runtime's) are ported, with the reference's checks."""
+default and away from it. Knobs of later ROADMAP.md items raised
+``NotImplementedError`` naming their item until they were ported; the
+last of them (the lock witness, a compilation-cache directory) are
+ported with ROADMAP.md A8, so none raises. The one-daemon serving knobs
+(the scheduler's, the sessions', the decode runtime's) are ported, with
+the reference's checks."""
 
 import dataclasses
 
 import pytest
 
 from netsdb_tpu.config import Configuration as JConfiguration
-from netsdb_tpu_torch.config import _LATER, Configuration
+from netsdb_tpu_torch.config import Configuration
 
 REF_FIELDS = dataclasses.fields(JConfiguration)
 
@@ -105,24 +107,22 @@ POOL_PORTED = ("device_cache_pin_auto", "rebalance",
                "rebalance_max_bytes_per_round", "rebalance_skew_ratio",
                "rebalance_windows")
 
+#: the lock witness (ROADMAP.md A8 item 1): raised until it was ported,
+#: accepted since (a store or daemon built with it arms the witness)
+WITNESS_PORTED = ("lock_witness",)
 
-@pytest.mark.parametrize("name", sorted(set(_LATER) | set(SERVING_PORTED)
+
+@pytest.mark.parametrize("name", sorted(set(SERVING_PORTED)
                                         | set(MESH_PORTED) | set(OBS_PORTED)
-                                        | set(HA_PORTED)
-                                        | set(POOL_PORTED)))
+                                        | set(HA_PORTED) | set(POOL_PORTED)
+                                        | set(WITNESS_PORTED)))
 def test_each_later_knob_raises_naming_its_item(name, tmp_path):
-    if name in SERVING_PORTED or name in MESH_PORTED or name in OBS_PORTED \
-            or name in HA_PORTED or name in POOL_PORTED:
-        assert name not in _LATER
-        default = _default(next(f for f in REF_FIELDS if f.name == name))
-        value = {"a": 2.0} if name == "sched_lanes" else _away(default)
-        cfg = Configuration(root_dir=str(tmp_path), **{name: value})
-        assert getattr(cfg, name) == value
-        return
-    default, item = _LATER[name]
-    with pytest.raises(NotImplementedError,
-                       match=f"{name}.*ROADMAP.md {item}"):
-        Configuration(root_dir=str(tmp_path), **{name: _away(default)})
+    """Every knob that once raised naming its item is accepted away from
+    its default now."""
+    default = _default(next(f for f in REF_FIELDS if f.name == name))
+    value = {"a": 2.0} if name == "sched_lanes" else _away(default)
+    cfg = Configuration(root_dir=str(tmp_path), **{name: value})
+    assert getattr(cfg, name) == value
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -138,23 +138,28 @@ def test_serving_knobs_keep_the_reference_checks(knob, value, tmp_path):
         Configuration(root_dir=str(tmp_path), **{knob: value})
 
 
-def test_later_knobs_name_their_roadmap_items():
-    items = {name: item for name, (_, item) in _LATER.items()}
-    for name in MESH_PORTED:  # ported with the in-process mesh
-        assert name not in items
-    assert not any(item.startswith("A4") for item in items.values())
-    # the daemon pool's knobs (HA, rebalancing, pin auto-sizing) are
-    # ported: none is left to raise
-    assert not any(n.startswith(("ha_", "rebalance")) for n in items)
-    # the observability slice ported obs/ and the scheduler's feedback
-    assert not any(n.startswith(("sched_", "obs_")) for n in items)
-    assert not any(n.startswith("session_") or n in SERVING_PORTED
-                   or n in OBS_PORTED for n in items)
-    assert "shard_handoff_bytes" not in items  # the shard pool's buffer
-    assert not any(n in items for n in HA_PORTED)  # followers and HA
-    assert "device_cache_pin_auto" not in items
-    assert items["lock_witness"] == "A8"
-    assert "obs_explain" not in items  # read by obs/operators.py
+def test_later_knobs_name_their_roadmap_items(tmp_path):
+    """No knob raises naming a ROADMAP.md item any more: every field of
+    the reference, each set away from its default, builds (the lock
+    witness, the last of A8's knobs, included)."""
+    import netsdb_tpu_torch.config as port_config
+
+    assert not hasattr(port_config, "_LATER")
+    for f in REF_FIELDS:
+        if f.name in ("root_dir", "donate_fold_buffers",
+                      "compilation_cache_dir") or f.name in (
+                          "bucket_density", "fusion_cost_source",
+                          "fusion_mapper", "rebalance_skew_ratio"):
+            continue  # paths, and knobs with a checked set of values
+        value = _away(_default(f))
+        if f.name == "sched_lanes":
+            value = {"a": 2.0}
+        elif f.name == "default_block_shape":
+            value = (64, 64)
+        cfg = Configuration(root_dir=str(tmp_path), **{f.name: value})
+        assert getattr(cfg, f.name) == value, f.name
+    assert Configuration(root_dir=str(tmp_path),
+                         lock_witness=True).lock_witness is True
 
 
 def test_donate_fold_buffers_and_compile_cache(tmp_path):
@@ -164,8 +169,20 @@ def test_donate_fold_buffers_and_compile_cache(tmp_path):
         Configuration(donate_fold_buffers=True)
     for ok in (None, "", "auto"):
         assert Configuration(compilation_cache_dir=ok) is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-        Configuration(compilation_cache_dir=str(tmp_path / "cc"))
+    # a directory is the kernel libraries' build cache (ROADMAP.md A8,
+    # ported): accepted, and where the builds go once a client is made
+    from netsdb_tpu_torch.client import Client
+    from netsdb_tpu_torch.config import enable_compilation_cache
+    from netsdb_tpu_torch.ops import cuda_build
+
+    cfg = Configuration(root_dir=str(tmp_path / "r"),
+                        compilation_cache_dir=str(tmp_path / "cc"))
+    assert cfg.compilation_cache_dir == str(tmp_path / "cc")
+    try:
+        Client(cfg, device="cpu")
+        assert cuda_build.build_dir() == tmp_path / "cc"
+    finally:
+        enable_compilation_cache(Configuration())
 
 
 def test_knobs_read_by_no_in_process_path_are_taken(tmp_path):

@@ -165,13 +165,10 @@ def test_later_configuration_knobs_raise(knob, value, item):
     mesh, and the observability knobs and the scheduler's feedback with
     the observability part of A8, the HA knobs with the replication part
     of A7 and the rebalancing and pin auto-sizing knobs with the rest of
-    the daemon pool: all are taken as given. The lock witness (the rest
-    of A8) still raises."""
-    if item in ("A4", "A7") or (item == "A8" and knob != "lock_witness"):
-        assert getattr(Configuration(**{knob: value}), knob) == value
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        Configuration(**{knob: value})
+    the daemon pool, and the lock witness with the rest of A8: all are
+    taken as given, and none raises any more."""
+    assert item in ("A4", "A7", "A8")
+    assert getattr(Configuration(**{knob: value}), knob) == value
 
 
 def test_placed_conv_fusion_and_expert_parallel_moe_raise(tmp_path):

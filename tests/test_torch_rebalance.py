@@ -249,6 +249,49 @@ def test_seal_blocks_routed_writes_and_expires(tmp_path):
             c.close()
 
 
+def test_seal_waits_for_a_write_past_its_placement_check(tmp_path):
+    """A write that passed its placement check before the seal lands
+    before the seal counts the source's rows: the move's tail then
+    carries it, and a committed move can never drop an acknowledged
+    batch. (Without the per-set write gate the seal answered the count
+    without the in-flight batch, which landed after the tail was pulled
+    and was dropped with the source.)"""
+    d = ServeController(Configuration(root_dir=str(tmp_path / "w")),
+                        port=0, device="cpu")
+    try:
+        d.library.create_database("d")
+        d.library.create_set("d", "t", type_name="table")
+        d.library.send_table("d", "t", scaleout_table(100))
+        entered, release = threading.Event(), threading.Event()
+        real = d.library.send_table
+
+        def slow_send_table(*a, **kw):
+            entered.set()  # past the placement check, mid-apply
+            release.wait(30)
+            return real(*a, **kw)
+
+        d.library.send_table = slow_send_table
+        writer = threading.Thread(target=d._on_send_data, args=(
+            {"db": "d", "set": "t", "items": scaleout_table(40, seed=5),
+             "as_table": True, "append": True},))
+        writer.start()
+        assert entered.wait(30)
+        sealed = {}
+        sealer = threading.Thread(target=lambda: sealed.update(
+            RB.handle_reshard(d, {"op": "seal", "db": "d", "set": "t"})))
+        sealer.start()
+        time.sleep(0.2)
+        assert sealer.is_alive(), "the seal did not wait for the write"
+        release.set()
+        writer.join(30)
+        sealer.join(30)
+        assert sealed["rows"] == 140
+        assert RB.sealed(d, "d", "t")
+    finally:
+        release.set()
+        d.shutdown()
+
+
 # --- pool growth under live traffic --------------------------------------
 
 def test_pool_growth_rebalances_with_zero_downtime(tmp_path):
