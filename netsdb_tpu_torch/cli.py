@@ -9,15 +9,16 @@ and printed JSON.
     python -m netsdb_tpu_torch selftest             # integratedTests.py
     python -m netsdb_tpu_torch serve --port 8108    # the resident daemon
     python -m netsdb_tpu_torch obs --addr H:P       # a daemon's readouts
+    python -m netsdb_tpu_torch micro-bench [--only n]  # serviceBenchmarks
+    python -m netsdb_tpu_torch serve-bench [--scale]   # serving benches
 
 Every command runs on the card unless asked for the CPU: the reference
 chooses its platform through ``JAX_PLATFORMS`` (and ``serve
 --platform``); here one top-level ``--device`` (default ``cuda``) goes
 to every command's client or daemon, and ``serve --platform cpu`` maps
 to it. Without a card and without ``--device cpu`` a command fails (it
-never carries on on the CPU). ``bench``, ``micro-bench``,
-``serve-bench`` and ``lint`` belong to later ROADMAP.md items and exit
-non-zero naming them.
+never carries on on the CPU). ``bench`` and ``lint`` belong to later
+ROADMAP.md items and exit non-zero naming them.
 """
 
 from __future__ import annotations
@@ -55,14 +56,89 @@ def _cmd_bench(args) -> int:
     return _later("the benchmark harness (bench)", "A9")
 
 
+def _bench_positions(device):
+    """The mesh the shuffle and SUMMA benches run over: the visible
+    positions of ``device``'s type when there are at least two, else 4
+    virtual positions of the one device (the reference forces 4 host
+    devices for ``--summa`` the same way)."""
+    import contextlib
+
+    from netsdb_tpu_torch.config import resolve_device
+    from netsdb_tpu_torch.parallel.mesh import (virtual_devices,
+                                                visible_devices)
+
+    dev = resolve_device(device)
+    if len(visible_devices(dev.type)) >= 2:
+        return contextlib.nullcontext()
+    return virtual_devices(4, dev)
+
+
+_MICRO_MODES = (("staging", "bench_staging"),
+                ("bucket_sweep", "bench_bucket_sweep"),
+                ("obs_overhead", "bench_obs_overhead"),
+                ("explain_overhead", "bench_explain_overhead"),
+                ("lint_overhead", "bench_lint_overhead"),
+                ("fusion", "bench_fusion"), ("summa", "bench_summa"))
+
+
 def _cmd_micro_bench(args) -> int:
-    return _later("micro-bench (workloads/micro_bench.py)",
-                  "A8 item 4, its rest")
+    from netsdb_tpu_torch.workloads import micro_bench
+
+    with _bench_positions(args.device):
+        for flag, fn in _MICRO_MODES:
+            if getattr(args, flag, False):
+                out = getattr(micro_bench, fn)(device=args.device)
+                print(json.dumps(out, indent=2, default=str))
+                return 0
+        names = None
+        if args.only is not None:
+            names = [n.strip() for n in args.only.split(",") if n.strip()]
+            if not names:
+                print(f"--only given but no benchmark names; available: "
+                      f"{', '.join(micro_bench.BENCHMARKS)}",
+                      file=sys.stderr)
+                return 2
+            unknown = [n for n in names if n not in micro_bench.BENCHMARKS]
+            if unknown:
+                print(f"unknown benchmark(s) {unknown}; available: "
+                      f"{', '.join(micro_bench.BENCHMARKS)}",
+                      file=sys.stderr)
+                return 2
+        micro_bench.run_all(names=names, device=args.device)
+    return 0
 
 
 def _cmd_serve_bench(args) -> int:
-    return _later("serve-bench (workloads/serve_bench.py's run_* benches)",
-                  "A8 item 4, its rest")
+    from netsdb_tpu_torch.workloads import serve_bench as sb
+
+    device = args.device
+    if getattr(args, "fusion_distributed", False):
+        out = sb.run_fusion_distributed_bench(
+            daemons=getattr(args, "daemons", 4), device=device)
+    elif getattr(args, "scale", False):
+        out = sb.run_scaleout_bench(daemons=getattr(args, "daemons", 4),
+                                    device=device)
+    elif getattr(args, "rebalance", False):
+        out = sb.run_rebalance_bench(daemons=getattr(args, "daemons", 4),
+                                     device=device)
+    elif getattr(args, "scheduler", False):
+        out = sb.run_scheduler_bench(
+            clients=args.clients if args.clients is not None else 8,
+            device=device)
+    elif getattr(args, "partial_cache", False):
+        out = sb.run_partial_cache_bench(device=device)
+    elif getattr(args, "device_cache", False):
+        out = sb.run_device_cache_bench(device=device)
+    elif getattr(args, "data_plane", False):
+        out = sb.run_data_plane_bench(table_mb=args.table_mb, device=device)
+    else:
+        out = sb.run_serve_bench(clients=args.clients
+                                 if args.clients is not None else 2,
+                                 jobs_per_client=args.jobs,
+                                 batch=args.batch, port=args.port,
+                                 platform=args.platform, device=device)
+    print(json.dumps(out, indent=2))
+    return 0
 
 
 def _cmd_lint(args) -> int:

@@ -257,6 +257,9 @@ def _tensors(value) -> Iterator[torch.Tensor]:
     elif isinstance(value, (tuple, list)):
         for v in value:
             yield from _tensors(v)
+    elif isinstance(value, dict):  # a chunk's columns by name
+        for v in value.values():
+            yield from _tensors(v)
     elif getattr(value, "shards", None) is not None:  # ShardedTensor
         yield from {id(t): t for t in value.shards.flat}.values()
     elif isinstance(getattr(value, "data", None), torch.Tensor):

@@ -953,6 +953,11 @@ class ServeController:
         self._busy_s = 0.0  # handler seconds of workload frames
         self._busy_mu = TrackedLock("ServeController._busy_mu")
         self._stop = threading.Event()
+        # shutdown runs once: a SHUTDOWN frame's handler and serve_forever
+        # (woken by the stop event) both call it, and the second waits
+        # for the first to finish
+        self._shutdown_mu = threading.Lock()
+        self._shut_down = False
         self._listener: Optional[socket.socket] = None
         self._conns: set = set()
         self._conns_mu = TrackedLock("ServeController._conns_mu")
@@ -1370,6 +1375,12 @@ class ServeController:
 
     def shutdown(self) -> None:
         self._stop.set()
+        with self._shutdown_mu:
+            if not self._shut_down:
+                self._shutdown_once()
+                self._shut_down = True
+
+    def _shutdown_once(self) -> None:
         self.sessions.stop()
         # joined: no history thread outlives its daemon
         self.history.stop()

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from netsdb_tpu_torch.config import Configuration
-from netsdb_tpu_torch.utils.locks import RWLock
+from netsdb_tpu_torch.utils.locks import RWLock, TrackedLock
 
 
 class _PyPageBackend:
@@ -278,7 +278,7 @@ class PagedTensorStore:
         self._layout: Dict[int, Tuple[list, list]] = {}
         # live prefetch readers, joined before the arena is freed
         self._readers: List[Tuple[threading.Thread, threading.Event]] = []
-        self._readers_lock = threading.Lock()
+        self._readers_lock = TrackedLock("PagedTensorStore._readers_lock")
         self._closed = False
         self._leaked = False
         self._reads = 0

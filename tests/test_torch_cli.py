@@ -3,8 +3,10 @@
 ``pdml`` print what the reference prints where both print the same
 fields; ``obs`` renders an in-process daemon's readouts with the
 reference's renderers' exact text; ``selftest`` passes all 20 steps;
-the commands of later ROADMAP.md items exit non-zero naming them; and
-without a card a command fails unless ``--device cpu`` is given.
+``micro-bench`` and ``serve-bench`` run each mode on the CPU at tiny
+sizes and print their JSON; the commands of later ROADMAP.md items exit
+non-zero naming them; and without a card a command fails unless
+``--device cpu`` is given.
 
 The reference's commands are called through their ``_cmd_*`` functions
 (not ``main``, which points jax's compile cache at the default root)
@@ -104,18 +106,126 @@ def test_selftest_passes_all_twenty_steps():
 
 
 @pytest.mark.parametrize("cmd,item", [("bench", "A9"),
-                                      ("micro-bench", "A8 item 4"),
-                                      ("serve-bench", "A8 item 4"),
                                       ("lint", "A8 item 6")])
 def test_later_commands_exit_nonzero_naming_their_item(cmd, item, capsys):
     assert cli.main(["--device", "cpu", cmd]) != 0
     assert f"ROADMAP.md {item}" in capsys.readouterr().err
 
 
+# the benches' tiny sizes for the command-line tests (the benches at these
+# sizes are held to the reference in tests/test_torch_micro_bench.py and
+# tests/test_torch_serve_bench*.py; here the command's wiring is)
+_MICRO_TINY = {
+    "staging": ("bench_staging", dict(rows=2048, cols=64, rhs_cols=16,
+                                      page_rows=256, pool_mb=4,
+                                      fold_rows=20_000, repeats=1),
+                "fold_staged_traces"),
+    "bucket-sweep": ("bench_bucket_sweep", dict(base=400, spread=0.5,
+                                                samples=10), "density4"),
+    "obs-overhead": ("bench_obs_overhead", dict(rows=30_000, page_rows=4096,
+                                                repeats=2),
+                     "accounting_overhead_pct"),
+    "explain-overhead": ("bench_explain_overhead",
+                         dict(rows=30_000, page_rows=4096, repeats=2),
+                         "off_path_overhead_pct"),
+    "lint-overhead": ("bench_lint_overhead", dict(rows=20_000,
+                                                  page_rows=4096, repeats=3),
+                      "acquisitions_per_run"),
+    "fusion": ("bench_fusion", dict(spine=4, dim_rows=4096, fact_rows=2000,
+                                    fold_rows=50_000, repeats=3, inner=1),
+               "plan_fusion_speedup"),
+    "summa": ("bench_summa", dict(rows=4096, k=64, cols=32, row_block=512,
+                                  table_rows=20_000, repeats=2),
+              "byte_equal"),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(_MICRO_TINY))
+def test_micro_bench_mode_on_the_cpu(mode, monkeypatch):
+    import functools
+
+    from netsdb_tpu_torch.workloads import micro_bench
+
+    fn, kw, key = _MICRO_TINY[mode]
+    monkeypatch.setattr(micro_bench, fn, functools.partial(
+        getattr(micro_bench, fn), **kw))
+    rc, text = _port("micro-bench", f"--{mode}")
+    out = json.loads(text)
+    assert rc == 0 and key in out
+    if mode == "summa":  # 4 virtual CPU positions, as the reference's 4
+        assert out["participants"] == 4 and out["byte_equal"] is True
+
+
+def test_micro_bench_only_on_the_cpu(capsys):
+    rc, text = _port("micro-bench", "--only",
+                     "int_groupby,arena_alloc,segment_sum,shuffle")
+    lines = text.splitlines()
+    assert rc == 0 and len(lines) == 4
+    assert all("ops/s" in ln for ln in lines)
+    assert lines[1].endswith("(native arena)")
+    assert lines[3].startswith(f"shuffle: {4 * (1 << 16)} ops")
+    assert cli.main(["--device", "cpu", "micro-bench", "--only",
+                     "nosuch"]) == 2
+    assert "unknown benchmark" in capsys.readouterr().err
+
+
+_SERVE_TINY = {
+    "device-cache": ("run_device_cache_bench",
+                     dict(rows=20_000, page_rows=2048, pool_mb=1, repeats=1,
+                          cache_mb=64), [], "warm_misses_flat"),
+    "partial-cache": ("run_partial_cache_bench",
+                      dict(rows=20_000, page_rows=2048, pool_mb=1,
+                           cache_mb=64, append_frac=0.05, cycles=1), [],
+                      "partial_zero_evictions"),
+    "scheduler": ("run_scheduler_bench", dict(rows=20_000, page_rows=2048,
+                                              pool_mb=1, cache_mb=64),
+                  ["--clients", "3"], "scheduler_on"),
+    "fusion-distributed": ("run_fusion_distributed_bench",
+                           dict(rows=20_000, queries=2), ["--daemons", "3"],
+                           "gates_ok"),
+    "data-plane": ("run_data_plane_bench", dict(chunk_mb=1, window=2,
+                                                hedge_reads=6),
+                   ["--table-mb", "1"], "hedged_reads"),
+    "scale": ("run_scaleout_bench", dict(rows=20_000, queries=1,
+                                         page_rows=2048, join_orders=64,
+                                         join_rows=2000),
+              ["--daemons", "2"], "q01_byte_equal"),
+    "rebalance": ("run_rebalance_bench", dict(rows=4000, clients=2,
+                                              measure_s=0.3, settle_s=0.2),
+                  ["--daemons", "2"], "totals_exact"),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(_SERVE_TINY))
+def test_serve_bench_mode_on_the_cpu(mode, monkeypatch):
+    import functools
+
+    from netsdb_tpu_torch.workloads import serve_bench
+
+    fn, kw, flags, key = _SERVE_TINY[mode]
+    monkeypatch.setattr(serve_bench, fn, functools.partial(
+        getattr(serve_bench, fn), **kw))
+    rc, text = _port("serve-bench", f"--{mode}", *flags)
+    out = json.loads(text)
+    assert rc == 0 and out[key] not in (False, None)
+
+
+def test_serve_bench_default_mode_on_the_cpu():
+    """A spawned daemon process (``--platform cpu``, the reference's
+    flag) and two client processes."""
+    rc, text = _port("serve-bench", "--clients", "2", "--jobs", "2",
+                     "--batch", "128", "--platform", "cpu")
+    out = json.loads(text)
+    assert rc == 0 and out["server_jobs_done"] >= 4
+    assert [r["jobs"] for r in out["per_client"]] == [2, 2]
+
+
 @pytest.mark.parametrize("argv", [["info"], ["demo-ff", "--batch", "8"],
                                   ["tpch", "--query", "q06"], ["selftest"],
                                   ["attention-bench", "--seqs", "64"],
-                                  ["serve", "--port", "0"]])
+                                  ["serve", "--port", "0"],
+                                  ["micro-bench", "--only", "int_groupby"],
+                                  ["serve-bench", "--device-cache"]])
 def test_without_a_card_a_command_fails(argv):
     if not NO_CARD:
         pytest.skip("a card is visible")

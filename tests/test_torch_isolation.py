@@ -101,6 +101,31 @@ def test_mesh_modules_import_no_jax_and_nothing_of_the_jax_package():
     assert proc.stdout.strip() == "[]"
 
 
+def test_bench_modules_import_no_jax_and_nothing_of_the_jax_package():
+    """The micro-benchmarks, the serving benches and the command line that
+    drives them, on their own in a fresh interpreter; the serve-bench
+    entry point's ``--help`` runs without either."""
+    mods = ["netsdb_tpu_torch.workloads.micro_bench",
+            "netsdb_tpu_torch.workloads.serve_bench",
+            "netsdb_tpu_torch.cli"]
+    probe = ("import importlib, sys\n"
+             f"for m in {mods!r}:\n"
+             "    importlib.import_module(m)\n"
+             "print(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith(('jax.', 'jaxlib')) or m == 'netsdb_tpu' or "
+             "m.startswith('netsdb_tpu.')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    helped = subprocess.run(
+        [sys.executable, "-m", "netsdb_tpu_torch.workloads.serve_bench",
+         "--help"], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert helped.returncode == 0 and "--sessions" in helped.stdout
+
+
 def test_replication_modules_import_no_jax_and_nothing_of_the_jax_package():
     """The replication slice's own copies of host-only reference code —
     fault injection, HA terms, the mutation log and checkpoints — and

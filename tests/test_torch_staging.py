@@ -205,3 +205,14 @@ def test_counters_count_chunks_bytes_and_copies(store):
     assert n == 10 and c["chunks"] == 10 and c["copies"] == 10
     assert c["bytes"] == m.nbytes and c["cached_runs"] == 0
     assert c["wait_s"] >= 0.0
+
+
+def test_a_chunk_hands_over_every_column_of_its_dict():
+    """``PagedColumns.stream()`` yields ``(columns by name, valid,
+    start)``: handing a chunk to the consumer's stream must reach the
+    columns inside the dict, or on the card the allocator hands a column's
+    memory to the next upload while the consumer's kernels still read it
+    (a device-side assert in a fold, ``chip_smoke.py`` phase 24)."""
+    k, q, valid = torch.zeros(4), torch.ones(4), torch.ones(4, dtype=bool)
+    got = list(staging._tensors(({"k": k, "qty": q}, valid, 0)))
+    assert [id(t) for t in got] == [id(k), id(q), id(valid)]
