@@ -14,7 +14,10 @@ phase 1, the SF 10 tables made resident on a card client, and phase
 client, and phase 18; ``--multichip-only``: phases 1 and 19;
 ``--obs-only``: phases 1 and 20; ``--ha-only``: phases 1 and 21;
 ``--pool-rest-only``: phases 1 and 22; ``--cli-only``: phases 1 and 23;
-``--benches-only``: phases 1 and 24.)
+``--benches-only``: phases 1 and 24; ``--lint-only``: ``selftest`` under
+the lock witness and phase 25, no kernel build. ``--obs-only --repeat
+N`` runs phase 20 N times, goes on past a failed run and fails at the
+end if any failed.)
 
 Every phase runs with the compiled-program cache in use and
 ``plan_fusion`` on, the port's defaults: a resident job is one CUDA
@@ -112,8 +115,8 @@ Phases (any failure raises and the exit code is non-zero):
    pages of ``PAGED_REL_PAGE_BYTES`` (it spills), the other tables
    resident. Per suite query a cold request (device cache resized to
    0), one that installs the blocks and two warm ones (Q12, whose grace
-   hash partitions again every request, the cold one only: phase 14
-   runs it warm), each held to the
+   hash partitions again every request, the cold one only), each held
+   to the
    same sink on phase 11's resident card client (``_hold``, Q03's
    top-10 rule); each prints its ms, pages read, spills and loads,
    staged bytes and copy GB/s, chunks, host syncs (sync debug mode),
@@ -169,13 +172,18 @@ Phases (any failure raises and the exit code is non-zero):
    shapes in the same db and job, a small and a large set rewritten with
    the same shape and in place, a set evicted and reloaded, the same
    labels with another constant, two threads building at once), each
-   held to node by node. Then warm paged Q01, Q03 and Q12 on phase 12's
+   held to node by node. Then warm paged Q01 and Q03 on phase 12's
    client, the mixed spine plan and the graft chain of
    ``_region_plans`` (which must form regions) and a paged FF (also
-   node by node), with ``plan_fusion`` on and off (Q12, which forms no
-   region, on only; ms, chunks, host ms per chunk, regions formed,
-   captures, replays), the two settings' results equal and no measured
-   request capturing.
+   node by node), with ``plan_fusion`` on and off (ms, chunks, host ms
+   per chunk, regions formed, captures, replays), the two settings'
+   results equal and no measured request capturing; and warm paged Q12
+   at ``Q12_SF`` on a client of its own (``_q12_clients``: pages cut in
+   proportion, so orders still spans several pages and Q12 takes the
+   one-pass grace hash) with ``plan_fusion`` on only: it must form no
+   region, its warm request must capture nothing and replay its fold
+   steps, and its output is held to a resident client at the same
+   scale.
 
 15. the single-device workloads, MoE and dedup (``WL_SIZES``), each
    through the port's ``Client`` on the card: ``kmeans_on_set`` (4 M x
@@ -423,6 +431,20 @@ Phases (any failure raises and the exit code is non-zero):
    execution with the scheduler on, the overhead benches' deterministic
    bounds, the native arena), a line per bench, the card's memory peak
    from ``nvidia-smi``.
+25. the static analysis over the port's own tree: ``python -m
+   netsdb_tpu_torch lint --json --baseline
+   netsdb_tpu_torch/docs/lint_baseline.json`` in its own process over
+   the committed tree, started beside phase 24's bench processes (it
+   needs no card; exit 0 and ``[]``, its host seconds from its start,
+   the modules parsed and the call-graph edges printed), and ``lint
+   --witness-coverage`` in this script's own process (``cli.main``)
+   over this run's lock-witness dumps
+   (``netsdb_tpu_torch/_build/witness/``: phase 23's ``selftest`` and
+   phase 17's in-process pool, each run under the witness): the static
+   edges, the runtime edges, the untested static edges and the static
+   blind spots, printed. Coverage gaps are reported, not failed; a
+   witness violation, or a runtime edge that closes a cycle with the
+   static graph, fails the phase.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
@@ -457,6 +479,7 @@ Without a CUDA card, or without the package beside it, it exits 2.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2531,7 +2554,7 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
     request (device cache resized to 0), one that installs the blocks
     (cache resized to PAGED_REL_CACHE_BYTES) and two warm ones (Q12, a
     request of seconds that partitions alike every time, the cold one
-    only; phase 14 runs it warm), each held
+    only), each held
     to the same sink on phase 11's resident card client (``_hold``, and
     Q03's top-10 rule); warm requests must read no page and stage no
     byte, except Q12, which takes the one-pass grace hash over the paged
@@ -2585,9 +2608,8 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
             recs = []
             # the grace hash partitions again on every request (about 17
             # s at SF 10), so a later request of Q12 repeats the cold one:
-            # Q12 takes the cold request only (phase 14 runs it warm on
-            # this client, three times), the rest a cold, an install and
-            # two warm
+            # Q12 takes the cold request only, the rest a cold, an install
+            # and two warm
             kinds = (("cold",) if grace
                      else ("cold", "install", "warm", "warm"))
             for kind in kinds:
@@ -2709,9 +2731,11 @@ def phase_paged_relations(pk: dict, state: dict, sf=TPCH_SF,
     return out
 
 
-def _paged_card(host, root, device="cuda") -> tuple:
+def _paged_card(host, root, device="cuda",
+                page_bytes=PAGED_REL_PAGE_BYTES,
+                pool_bytes=PAGED_REL_POOL_BYTES) -> tuple:
     """A card client over ``root`` with lineitem, orders and partsupp paged
-    (PAGED_REL_PAGE_BYTES pages in a PAGED_REL_POOL_BYTES arena, a
+    (``page_bytes`` pages in a ``pool_bytes`` arena, a
     PAGED_REL_CACHE_BYTES device cache) and the other tables resident;
     returns it and the ingest seconds."""
     from netsdb_tpu_torch import Client
@@ -2719,8 +2743,8 @@ def _paged_card(host, root, device="cuda") -> tuple:
     from netsdb_tpu_torch.relational.table import ColumnTable
 
     client = Client(Configuration(
-        root_dir=root, page_size_bytes=PAGED_REL_PAGE_BYTES,
-        page_pool_bytes=PAGED_REL_POOL_BYTES,
+        root_dir=root, page_size_bytes=page_bytes,
+        page_pool_bytes=pool_bytes,
         device_cache_bytes=PAGED_REL_CACHE_BYTES), device=device)
     client.create_database("tpch")
     t0 = time.perf_counter()
@@ -3221,8 +3245,7 @@ def rows_path(pk: dict) -> dict:
 # warm requests of each compiled request; the resident requests that must
 # be captured whole, with no fallback; TPC-H's scale under --compiled-only
 # (the full run reuses phase 11's and phase 12's clients at TPCH_SF); the
-# paged queries run with plan_fusion on and off (Q12, which forms no
-# region, on only)
+# paged queries run with plan_fusion on and off (Q12 on only, at Q12_SF)
 COMPILED_WARM = 3
 # the least share of the node-by-node run's device time that a profiled
 # graph replay must show to count as traced whole
@@ -3230,7 +3253,14 @@ TRACED_SHARE = 0.8
 MUST_CAPTURE = ("ff", "transformer", "logreg", "la gram", "la linreg",
                 "la matmul")
 COMPILED_ONLY_SF = 1
-COMPILED_PAGED = ("q01", "q03", "q12")
+COMPILED_PAGED = ("q01", "q03")
+# paged Q12 warm: its grace hash partitions on the host on every request
+# (about 19 s at TPCH_SF), so it runs at Q12_SF on a client of its own
+# whose pages and arena are cut in the same proportion: orders spans as
+# many pages as at TPCH_SF and the one-pass grace hash still runs
+Q12_SF = COMPILED_ONLY_SF
+Q12_PAGE_BYTES = PAGED_REL_PAGE_BYTES * Q12_SF // TPCH_SF
+Q12_POOL_BYTES = PAGED_REL_POOL_BYTES * Q12_SF // TPCH_SF
 
 
 def _program_counts() -> dict:
@@ -3927,10 +3957,33 @@ def _region_plans(client, host) -> dict:
     return {"mixed": (mixed, hold_mixed), "graft": (graft, hold_graft)}
 
 
+def _q12_clients(root) -> tuple:
+    """Q12's tables at Q12_SF from the seed: a card client over ``root``
+    with them paged (Q12_PAGE_BYTES pages in a Q12_POOL_BYTES arena) and
+    a card client with them resident, to hold it to."""
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.relational import dag
+    from netsdb_tpu_torch.relational.bench import generate_host
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    host = {n: t for n, t in generate_host(Q12_SF, SEED).items()
+            if n in dag._QUERY_TABLES["q12"]}
+    resident = Client(device="cuda")
+    resident.create_database("tpch")
+    for n, (cols, dicts) in host.items():
+        resident.create_set("tpch", n, type_name="table")
+        resident.send_table("tpch", n, ColumnTable.from_columns(
+            cols, dicts, device="cpu"))
+    paged, _ = _paged_card(host, root, page_bytes=Q12_PAGE_BYTES,
+                           pool_bytes=Q12_POOL_BYTES)
+    return paged, resident
+
+
 def _compiled_paged(paged, resident, host, out) -> None:
-    """Warm paged Q01, Q03 and Q12, the two region plans of
+    """Warm paged Q01 and Q03, the two region plans of
     :func:`_region_plans` and the paged FF, each with plan_fusion on and
-    off (Q12 on only: it must form no region): ms, chunks, host ms per
+    off, and paged Q12 at Q12_SF with it on only (it must form no
+    region): ms, chunks, host ms per
     chunk (the request's ms less the device's busy ms, over its chunks),
     regions formed, captures and replays; the two settings' results must
     be equal, the region plans must form regions with fusion on only,
@@ -4018,13 +4071,8 @@ def _compiled_paged(paged, resident, host, out) -> None:
             return _hold(q, got, ref)
 
         try:
-            # Q12 forms no region (its one-pass grace hash runs as it is
-            # under either setting; held here), so it runs with fusion on
-            # only: its three requests, each a host partition pass over
-            # the paged orders, are not repeated
             out[f"paged_{q}"] = both(q, client, lambda s=sink: dag.run_query(
-                client, s), hold, no_regions=q == "q12",
-                settings=(True,) if q == "q12" else (True, False))
+                client, s), hold)
             k = {"k": 11} if q == "q03" else {}
             ref = dag.run_query(resident, dag.suite_sink_for(
                 resident, "tpch", q, **k))
@@ -4032,6 +4080,35 @@ def _compiled_paged(paged, resident, host, out) -> None:
         except Exception as e:  # noqa: BLE001 — raised at the phase's end
             print(f"[compiled] paged {q}: FAILED: {type(e).__name__}: {e}")
             _COMPILED_FAILURES.append(f"paged {q}: {e}")
+
+    # Q12 forms no region (its one-pass grace hash runs as it is under
+    # either setting; held here), so it runs with fusion on only
+    root = tempfile.mkdtemp(prefix="netsdb_paged_q12_")
+    q12 = None
+    try:
+        q12, q12_ref = _q12_clients(root)
+        orders = q12.store.paged_relation(SetIdentifier("tpch", "orders"))
+        print(f"[compiled] paged q12 at SF {Q12_SF}: orders in "
+              f"{orders.num_pages()} pages of {Q12_PAGE_BYTES / 2**20:.1f} "
+              f"MiB")
+        if not orders.num_pages() > 1:
+            raise RuntimeError(f"orders in {orders.num_pages()} page: Q12 "
+                               f"would not take the grace hash")
+        sink = dag.suite_sink_for(q12, "tpch", "q12")
+        out["paged_q12"] = both(
+            "q12", q12, lambda: dag.run_query(q12, sink),
+            lambda got, ref: _hold("q12", got, ref), no_regions=True,
+            settings=(True,))
+        ref = dag.run_query(q12_ref, dag.suite_sink_for(q12_ref, "tpch",
+                                                        "q12"))
+        out["paged_q12"].update(sf=Q12_SF, orders_pages=orders.num_pages(),
+                                max_err=_hold("q12", fused_out["q12"], ref))
+        del q12_ref, ref
+    except Exception as e:  # noqa: BLE001 — raised at the phase's end
+        print(f"[compiled] paged q12: FAILED: {type(e).__name__}: {e}")
+        _COMPILED_FAILURES.append(f"paged q12: {e}")
+    finally:
+        _close_paged({"client": q12, "root": root})
 
     for name, (sink, hold) in _region_plans(client, host).items():
         try:
@@ -6410,7 +6487,13 @@ def phase_pool(pk: dict, smi: str, device: str = "cuda",
         out["failure"] = _pool_failure(pool_c, solo, procs, n - 1, roots,
                                        ports, device, logs, s["failure"],
                                        card)
-        out["inproc"] = _pool_inprocess(s["inproc"], device, card)
+        # the in-process daemons run under the lock witness (recording;
+        # phase 25 reads the dump and fails on a violation)
+        from netsdb_tpu_torch.utils.locks import witness_scope
+
+        with witness_scope() as w:
+            out["inproc"] = _pool_inprocess(s["inproc"], device, card)
+        out["witness_dump"] = _witness_dump(w, "pool_inproc")
         out["wall_s"] = time.perf_counter() - t0
         print(f"[pool] phase 17 wall {out['wall_s']:.1f} s ({card})")
         if out["wall_s"] > POOL_BUDGET_S:
@@ -7924,9 +8007,17 @@ def _obs_check(client, qid: str, wall_s: float, kind: str,
             s["name"] for s in cs["spans"]}:
         raise RuntimeError(f"{kind} {qid}: no merged client section")
     span_sum = sum(s["duration_s"] for s in cs["spans"] if s["depth"] == 0)
+    # where a wall outside the spans goes: inside the client's trace but
+    # in no span (the connection lock, a retry's backoff), or outside the
+    # trace altogether (the caller's own host work around the request)
+    trace_s = float(cs.get("total_s") or 0.0)
+    gaps = {"in_trace_ms": (trace_s - span_sum) * 1e3,
+            "outside_trace_ms": (wall_s - trace_s) * 1e3}
     if abs(span_sum - wall_s) > OBS_SPAN_TOL * wall_s:
         raise RuntimeError(f"{kind} {qid}: client spans {span_sum:.4f} s "
-                           f"against a wall of {wall_s:.4f} s")
+                           f"against a wall of {wall_s:.4f} s; the client "
+                           f"trace {trace_s:.4f} s, gaps {gaps}, client "
+                           f"spans {[(s['name'], s['depth'], s['duration_s']) for s in cs['spans']]}")
     hd = sp.get("host_device")
     if not hd or abs(hd["device_est_s"] + hd["host_s"] - sp["total_s"]) \
             > 1e-9 + 1e-9 * sp["total_s"]:
@@ -7936,7 +8027,7 @@ def _obs_check(client, qid: str, wall_s: float, kind: str,
         if key in meta:
             raise RuntimeError(f"{kind} {qid}: {key}: {meta[key]}")
     return {"qid": qid, "wall_ms": wall_s * 1e3,
-            "client_span_ms": span_sum * 1e3,
+            "client_span_ms": span_sum * 1e3, "gaps": gaps,
             "server_ms": sp["total_s"] * 1e3,
             "device_est_ms": sp["counters"].get("device.est_s", 0.0) * 1e3,
             "host_ms": hd["host_s"] * 1e3,
@@ -8089,7 +8180,8 @@ def _obs_decode(c, s, device, seen, card) -> list:
             wall = time.perf_counter() - t0
             qid = _obs_new_qid(seen)
             if qid is not None:
-                traced.append({"qid": qid, "wall_s": wall, "step": t})
+                traced.append({"qid": qid, "wall_s": wall, "step": t,
+                               "attempts": c.last_attempts})
     finally:
         h.close()
     oracle = _decode_oracle("lstm", dec.decode_weights(
@@ -8305,6 +8397,14 @@ def phase_obs(pk: dict, smi: str, device: str = "cuda",
                   f"{r['client_span_ms']:.3f} ms, server {r['server_ms']:.3f}"
                   f" ms (device est {r['device_est_ms']:.3f}, host "
                   f"{r['host_ms']:.3f}); spans (ms) {r['spans']} ({card})")
+            w = max(rows, key=lambda q: q["wall_ms"] - q["client_span_ms"])
+            print(f"[obs] {kind}: widest wall outside the client spans "
+                  f"{w['wall_ms'] - w['client_span_ms']:.3f} of "
+                  f"{w['wall_ms']:.3f} ms (qid {w['qid']}): "
+                  f"{w['gaps']['in_trace_ms']:.3f} ms in the client trace "
+                  f"outside its spans, {w['gaps']['outside_trace_ms']:.3f} "
+                  f"ms outside the trace, {w.get('attempts', 1)} "
+                  f"attempt(s) ({card})")
         # the layer's device profiles: B1 exactly once, beside device.est_s
         prof_rows = []
         for row in runs["layer"]:
@@ -10520,6 +10620,7 @@ def phase_cli(pk: dict, smi: str, device: str = "cuda",
                    f"the witness saw {rep}")
         out["selftest_witness"] = {k: v for k, v in rep.items()
                                    if k != "violations"}
+        out["witness_dump"] = _witness_dump(w, "selftest")
         out["witness_ns"] = _cli_witness_cost()
         print(f"[cli] selftest 20/20 under the witness: {rep['edges']} "
               f"edges, {rep['acquisitions']} acquisitions, 0 violations; "
@@ -10661,10 +10762,15 @@ BENCH_RUNS = (
 # line that carry a size (the command passes those to the function itself);
 # a bench not named runs at the reference's defaults. Phases 17 and 22
 # run the scale-out and rebalancing pools at full size, so here their
-# depth is cut: 3 timed cold queries a scale-out arm (of 6), rebalancing
-# windows of 3 s and a 2 s settle (of 6 and 4)
-BENCH_SIZES: dict = {"scale": {"queries": 3},
-                     "rebalance": {"measure_s": 3.0, "settle_s": 2.0}}
+# depth is cut: 2 timed cold queries a scale-out arm (of 6), rebalancing
+# windows of 3 s and a 2 s settle (of 6 and 4); and to keep the whole
+# script in its time, 3 queries a distributed-fusion arm (of 6), 4 jobs a
+# serving client (of 8) and 20 hedged reads (of 40)
+BENCH_SIZES: dict = {"scale": {"queries": 2},
+                     "rebalance": {"measure_s": 3.0, "settle_s": 2.0},
+                     "fusion_distributed": {"queries": 3},
+                     "serve": {"argv": ["--jobs", "4"]},
+                     "data_plane": {"hedge_reads": 20}}
 BENCH_BUDGET_S = 150.0
 BENCH_TIMEOUT_S = 600.0   # bounds each bench's process
 # the deterministic bounds the reference's tests hold
@@ -10946,6 +11052,163 @@ def phase_benches(pk: dict, smi: str, device: str = "cuda",
     return out
 
 
+# --- phase 25: the static analysis over the port's own tree -------------
+#: where this run's lock-witness dumps go (git-ignored, beside the
+#: kernels' build)
+WITNESS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "netsdb_tpu_torch", "_build", "witness")
+LINT_BASELINE = "netsdb_tpu_torch/docs/lint_baseline.json"
+LINT_TIMEOUT_S = 300.0
+
+
+def _witness_dump(w, name: str) -> str:
+    """Write witness ``w``'s edges (``LockWitness.dump``) under
+    WITNESS_DIR as ``<name>.json``; returns the path."""
+    os.makedirs(WITNESS_DIR, exist_ok=True)
+    path = os.path.join(WITNESS_DIR, f"{name}.json")
+    w.dump(path)
+    return path
+
+
+def _merge_witness_dumps(paths, out_path: str) -> dict:
+    """One dump holding every edge of ``paths`` (first sighting kept,
+    share modes united) and their summed totals."""
+    edges: dict = {}
+    total = {"acquisitions": 0, "dropped_edges": 0, "violations": 0}
+    for path in paths:
+        with open(path, encoding="utf-8") as f:
+            d = json.load(f)
+        for k in total:
+            total[k] += int(d.get(k, 0))
+        for e in d["edges"]:
+            key = (e["held"], e["acquired"])
+            if key in edges:
+                edges[key]["modes"] = sorted(set(edges[key]["modes"])
+                                             | set(e["modes"]))
+            else:
+                edges[key] = dict(e)
+    payload = dict(total, edges=[edges[k] for k in sorted(edges)])
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(payload, f, indent=1, sort_keys=True)
+    return payload
+
+
+def _runtime_cycles(report: dict) -> list:
+    """Every runtime edge (a, b) of a witness-coverage report whose
+    acquired rank reaches its held rank again over the static and the
+    runtime edges together: a cycle that edge closes."""
+    graph: dict = {}
+    runtime = [tuple(r["edge"]) for r in report["covered"]] + \
+        [tuple(r["edge"]) for r in report["dynamic_unpredicted"]]
+    for a, b in runtime + [tuple(r["edge"])
+                           for r in report["static_uncovered"]]:
+        graph.setdefault(a, set()).add(b)
+    cycles = []
+    for a, b in runtime:
+        seen, stack = {b}, [b]
+        while stack:
+            cur = stack.pop()
+            if cur == a:
+                cycles.append((a, b))
+                break
+            for nxt in graph.get(cur, ()):
+                if nxt not in seen:
+                    seen.add(nxt)
+                    stack.append(nxt)
+    return cycles
+
+
+def start_lint() -> tuple:
+    """The lint of phase 25 in its own process, started (it needs no card
+    and no dump, so the whole script starts it beside phase 24's bench
+    processes): ``(process, start time)``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-m", "netsdb_tpu_torch",
+                             "lint", "--json", "--baseline",
+                             LINT_BASELINE], cwd=here,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, time.perf_counter()
+
+
+def phase_lint(smi: str, dumps, started: Optional[tuple] = None) -> dict:
+    """Phase 25: ``python -m netsdb_tpu_torch lint --json --baseline
+    LINT_BASELINE`` over the committed tree in a process of its own
+    (``started`` by :func:`start_lint`, or started here; exit 0 and
+    ``[]`` or the phase fails) while this process runs ``lint
+    --witness-coverage --json`` (``cli.main``) over the union of this
+    run's witness dumps (``dumps``): the static edges, the runtime edges,
+    the static edges no run exercised and the runtime edges the static
+    graph missed, printed, beside the modules parsed and the call graph's
+    edges. Coverage gaps are reported; a witness violation, or a runtime
+    edge that closes a cycle with the static graph, fails the phase.
+    Seconds are host seconds, the lint's from its process's start."""
+    from netsdb_tpu_torch.analysis import lint as L
+    from netsdb_tpu_torch.obs.metrics import registry
+
+    card = smi
+    t0 = time.perf_counter()
+    merged = os.path.join(WITNESS_DIR, "card.json")
+    os.makedirs(WITNESS_DIR, exist_ok=True)
+    totals = _merge_witness_dumps(dumps, merged)
+    proc, t_lint = started if started is not None else start_lint()
+    out: dict = {"seconds": {}, "dumps": list(dumps)}
+    res = {}
+    try:
+        rc, text = _cli_run(["lint", "--witness-coverage", merged, "--json"])
+        out["seconds"]["coverage"] = time.perf_counter() - t0
+        res["coverage"] = (rc, text, "")
+        out["modules"] = len(L.load_project().modules)
+        out["callgraph_edges"] = int(
+            registry().snapshot()["gauges"]["analysis.callgraph_edges"])
+        text, err = proc.communicate(timeout=LINT_TIMEOUT_S)
+        out["seconds"]["lint"] = time.perf_counter() - t_lint
+        res["lint"] = (proc.returncode, text, err)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    rc, text, err = res["lint"]
+    findings = json.loads(text) if rc in (0, 1) else None
+    if rc != 0 or findings != []:
+        raise RuntimeError(f"phase 25: lint exit {rc}, findings "
+                           f"{findings}: {err[-2000:]}")
+    print(f"[lint] python -m netsdb_tpu_torch lint --json --baseline "
+          f"{LINT_BASELINE}: exit 0, [] in {out['seconds']['lint']:.2f} s "
+          f"(host); {out['modules']} modules parsed, "
+          f"{out['callgraph_edges']} call-graph edges ({card})")
+    rc, text, err = res["coverage"]
+    if rc != 0:
+        raise RuntimeError(f"phase 25: lint --witness-coverage exit {rc}: "
+                           f"{err[-2000:]}")
+    report = json.loads(text)
+    out["coverage"] = {
+        "static_edges": report["static_total"],
+        "runtime_edges": report["dynamic_total"],
+        "untested_static_edges": len(report["static_uncovered"]),
+        "static_blind_spots": len(report["dynamic_unpredicted"]),
+        "covered": [r["edge"] for r in report["covered"]],
+        "blind_spots": [r["edge"] for r in report["dynamic_unpredicted"]]}
+    out["witness"] = totals | {"edges": len(totals["edges"])}
+    cycles = _runtime_cycles(report)
+    print(f"[lint] witness coverage over {len(dumps)} dump(s) of this run "
+          f"({totals['acquisitions']} acquisitions, {totals['violations']} "
+          f"violations): {report['static_total']} static edges, "
+          f"{report['dynamic_total']} runtime edges, "
+          f"{len(report['static_uncovered'])} untested static edges, "
+          f"{len(report['dynamic_unpredicted'])} static blind spots; "
+          f"covered {out['coverage']['covered']}; blind spots "
+          f"{out['coverage']['blind_spots']} in "
+          f"{out['seconds']['coverage']:.2f} s (host) ({card})")
+    if totals["violations"] or cycles:
+        raise RuntimeError(f"phase 25: {totals['violations']} witness "
+                           f"violation(s); runtime edges closing a cycle "
+                           f"with the static graph: {cycles}")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[lint] phase 25 in {out['wall_s']:.1f} s (host) ({card})")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -10975,6 +11238,19 @@ def main() -> int:
           f"device {name} count {torch.cuda.device_count()}")
     pk = peaks(name)
 
+    if "--lint-only" in sys.argv[1:]:
+        # phase 25 alone (it builds no kernel): its witness dump comes
+        # from ``selftest`` run here under the witness, as phase 23 does
+        from netsdb_tpu_torch.utils.locks import witness_scope
+
+        with witness_scope(raise_on_cycle=True) as w:
+            rc, text = _cli_run(["selftest"])
+        if rc != 0 or "20/20 passed" not in text:
+            raise RuntimeError(f"selftest rc {rc}:\n{text}")
+        dump = _witness_dump(w, "selftest")
+        print(json.dumps({"lint": phase_lint(smi, [dump]), "card": smi},
+                         default=str))
+        return 0
     phase_build()
     if "--paged-only" in sys.argv[1:]:
         # phase 7 alone (for comparing trees); prints no contract line
@@ -11030,10 +11306,21 @@ def main() -> int:
                          default=str))
         return 0
     if "--obs-only" in sys.argv[1:]:
-        # phase 20 alone, the same way
-        print(json.dumps({"obs": phase_obs(pk, smi), "card": smi},
-                         default=str))
-        return 0
+        # phase 20 alone, the same way; ``--repeat N`` runs it N times,
+        # goes on past a failed run and fails at the end if any failed
+        argv = sys.argv[1:]
+        repeat = int(argv[argv.index("--repeat") + 1]) \
+            if "--repeat" in argv else 1
+        runs, failed = [], []
+        for i in range(repeat):
+            try:
+                runs.append(phase_obs(pk, smi))
+            except Exception as e:  # noqa: BLE001 — reported, then fails
+                failed.append(f"run {i + 1}: {type(e).__name__}: {e}")
+                print(f"[obs] run {i + 1} of {repeat} failed: {e}")
+        print(json.dumps({"obs": runs[-1] if runs else None,
+                          "failed": failed, "card": smi}, default=str))
+        return 1 if failed else 0
     if "--pool-rest-only" in sys.argv[1:]:
         # phase 22 alone, the same way
         print(json.dumps({"pool_rest": phase_pool_rest(pk, smi),
@@ -11125,7 +11412,15 @@ def main() -> int:
     replicated = timed("21", phase_ha, pk, smi, solo=serve)
     rest = timed("22", phase_pool_rest, pk, smi)
     cli = timed("23", phase_cli, pk, smi)
-    benches = timed("24", phase_benches, pk, smi)
+    started = start_lint()  # beside the bench processes (phase 25)
+    try:
+        benches = timed("24", phase_benches, pk, smi)
+    except BaseException:
+        started[0].kill()
+        started[0].wait(30)
+        raise
+    lint = timed("25", phase_lint, smi, [cli["witness_dump"],
+                                         pool["witness_dump"]], started)
     print(f"[timing] phases (s): {json.dumps(walls)}; all "
           f"{time.perf_counter() - t_main:.1f}")
     pool_launches = {
@@ -11143,7 +11438,7 @@ def main() -> int:
                       "serve": serve, "pool": pool, "mesh": mesh,
                       "multichip": multichip, "obs": observed,
                       "ha": replicated, "pool_rest": rest, "cli": cli,
-                      "benches": benches, "card": smi},
+                      "benches": benches, "lint": lint, "card": smi},
                      default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):

@@ -83,6 +83,14 @@ class Catalog:
                 "SELECT name FROM databases ORDER BY name")
             return [r[0] for r in cur.fetchall()]
 
+    def drop_database(self, name: str) -> None:
+        """Remove a database and every set registered under it."""
+        with self._lock:
+            self._conn.execute("DELETE FROM sets WHERE db_name = ?", (name,))
+            self._conn.execute("DELETE FROM databases WHERE name = ?",
+                               (name,))
+            self._conn.commit()
+
     # --- sets ---------------------------------------------------------
     def create_set(self, db_name: str, set_name: str,
                    type_name: str = "tensor", meta: Optional[Dict] = None,
@@ -111,6 +119,18 @@ class Catalog:
             return None
         return {"db": db_name, "set": set_name, "type": row[0],
                 "meta": json.loads(row[1]), "persistence": row[2]}
+
+    def list_sets(self, db_name: Optional[str] = None) -> List[Dict]:
+        """``{"db", "set"}`` of every registered set, or of one
+        database's."""
+        with self._lock:
+            if db_name is None:
+                cur = self._conn.execute("SELECT db_name, set_name FROM sets")
+            else:
+                cur = self._conn.execute(
+                    "SELECT db_name, set_name FROM sets WHERE db_name = ?",
+                    (db_name,))
+            return [{"db": r[0], "set": r[1]} for r in cur.fetchall()]
 
     def remove_set(self, db_name: str, set_name: str) -> None:
         with self._lock:
@@ -194,6 +214,10 @@ class Catalog:
             return [{"node_id": r[0], "address": r[1],
                      "num_devices": r[2], "device_kind": r[3]}
                     for r in cur.fetchall()]
+
+    def close(self) -> None:
+        with self._lock:
+            self._conn.close()
 
 
 def read_module_source(entry_point: str) -> str:

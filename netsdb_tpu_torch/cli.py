@@ -11,14 +11,16 @@ and printed JSON.
     python -m netsdb_tpu_torch obs --addr H:P       # a daemon's readouts
     python -m netsdb_tpu_torch micro-bench [--only n]  # serviceBenchmarks
     python -m netsdb_tpu_torch serve-bench [--scale]   # serving benches
+    python -m netsdb_tpu_torch lint [--json]        # the static analysis
 
 Every command runs on the card unless asked for the CPU: the reference
 chooses its platform through ``JAX_PLATFORMS`` (and ``serve
 --platform``); here one top-level ``--device`` (default ``cuda``) goes
 to every command's client or daemon, and ``serve --platform cpu`` maps
 to it. Without a card and without ``--device cpu`` a command fails (it
-never carries on on the CPU). ``bench`` and ``lint`` belong to later
-ROADMAP.md items and exit non-zero naming them.
+never carries on on the CPU). ``lint`` touches no device and runs
+anywhere. ``bench`` belongs to a later ROADMAP.md item and exits
+non-zero naming it.
 """
 
 from __future__ import annotations
@@ -142,7 +144,79 @@ def _cmd_serve_bench(args) -> int:
 
 
 def _cmd_lint(args) -> int:
-    return _later("lint (analysis/)", "A8 item 6")
+    """``lint`` — the one static-analysis entry point the tests and
+    humans share (``netsdb_tpu_torch/analysis/``): file:line:col
+    diagnostics over the port's own tree, ``--json`` for scripting,
+    exit 1 on any finding. It touches no device, so it runs with or
+    without a card and needs no ``--device cpu``."""
+    from netsdb_tpu_torch.analysis import lint as L
+
+    if args.list_rules:
+        for rule in L.all_rules():
+            print(f"{rule.id:<22} {rule.rationale}")
+        return 0
+    if args.witness_coverage:
+        from netsdb_tpu_torch.analysis import witnesscov as W
+
+        try:
+            dyn = W.load_witness_dump(args.witness_coverage)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            print(f"witness-coverage: cannot read "
+                  f"{args.witness_coverage}: {e}", file=sys.stderr)
+            return 2
+        report = W.coverage(dyn)
+        if args.json:
+            print(json.dumps(report, indent=2))
+        else:
+            print(W.render(report))
+        return 0  # a coverage REPORT, not a gate: no false failures
+    if args.fix:
+        from netsdb_tpu_torch.analysis import fix as F
+
+        res = F.run_fix(paths=args.paths or None, dry_run=args.dry_run)
+        if args.dry_run:
+            if res["diff"]:
+                print(res["diff"], end="")
+            print(f"lint --fix --dry-run: {res['fixed']} fix(es) in "
+                  f"{len(res['files'])} file(s), {res['skipped']} "
+                  f"skipped (safety gates)")
+            return 0
+        print(f"lint --fix: applied {res['fixed']} fix(es) in "
+              f"{len(res['files'])} file(s), {res['skipped']} "
+              f"skipped (safety gates)")
+        for rel in res["files"]:
+            print(f"  fixed: {rel}")
+        # fall through: report what remains after the rewrite
+    if args.write_baseline and not args.baseline:
+        print("--write-baseline requires --baseline FILE (where to "
+              "record the accepted findings)", file=sys.stderr)
+        return 2
+    try:
+        diags = L.run_lint(paths=args.paths or None,
+                           rules=args.rule or None)
+    except ValueError as e:  # unknown rule id
+        print(str(e), file=sys.stderr)
+        return 2
+    accepted = []
+    if args.baseline:
+        from netsdb_tpu_torch.analysis import baseline as B
+
+        if args.write_baseline:
+            n = B.write(diags, args.baseline)
+            print(f"lint: wrote {n} accepted finding(s) to "
+                  f"{args.baseline}")
+            return 0
+        diags, accepted = B.apply(diags, args.baseline)
+    if args.json:
+        print(json.dumps(L.to_json(diags), indent=2))
+    else:
+        for d in diags:
+            print(str(d))
+        tail = f", {len(accepted)} baselined" if accepted else ""
+        print(f"lint: {'FAIL' if diags else 'ok'} "
+              f"({len(diags)} finding(s), "
+              f"{len(L.rule_ids())} rule(s){tail})")
+    return 1 if diags else 0
 
 
 def _cmd_pdml(args) -> int:
@@ -843,11 +917,12 @@ def _render_explain(prof) -> None:
     print(f"qid={qid} [{prof.get('origin')}] "
           f"total={1e3 * (prof.get('total_s') or 0.0):.2f}ms")
     print(operators.render_tree(tree, total_s=prof.get("total_s")))
-    for addr, tree in sorted((prof.get("shard_operators") or {}).items()):
+    shard_ops = prof.get("shard_operators")
+    if shard_ops:
         # the distributed region tree: each shard's regions under the
         # coordinator's, all under one qid
-        print(f"-- shard {addr}:")
-        print(operators.render_tree(tree, total_s=prof.get("total_s")))
+        print(operators.render_shard_forest(
+            shard_ops, total_s=prof.get("total_s")))
     for addr, fprofs in sorted((prof.get("followers") or {}).items()):
         for fp in fprofs:
             if fp.get("operators"):
@@ -1403,15 +1478,14 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("lint",
                        help="static concurrency-correctness analysis "
-                            "(not ported yet: ROADMAP.md A8 item 6): "
-                            "AST rules — lock "
-                            "ordering, blocking-under-lock, resource "
-                            "discipline, and every ported guard — "
-                            "over the package tree; exit 1 on any "
-                            "finding")
+                            "(netsdb_tpu_torch/analysis/): AST rules — "
+                            "lock ordering, blocking-under-lock, "
+                            "resource discipline, and every ported "
+                            "guard — over the package tree; exit 1 on "
+                            "any finding; touches no device")
     p.add_argument("paths", nargs="*",
                    help="explicit files to lint (default: the whole "
-                        "package; per-rule directory "
+                        "netsdb_tpu_torch/ package; per-rule directory "
                         "scoping applies either way)")
     p.add_argument("--rule", action="append", metavar="RULE_ID",
                    help="run only this rule (repeatable)")
@@ -1428,7 +1502,8 @@ def main(argv=None) -> int:
                    help="with --fix: print the unified diff instead "
                         "of writing files")
     p.add_argument("--baseline", metavar="FILE", default=None,
-                   help="findings ratchet (docs/lint_baseline.json): "
+                   help="findings ratchet (netsdb_tpu_torch/docs/"
+                        "lint_baseline.json): "
                         "findings recorded there are accepted, new "
                         "findings fail, and a stale entry is itself "
                         "a finding — the file only shrinks")
@@ -1439,8 +1514,8 @@ def main(argv=None) -> int:
     p.add_argument("--witness-coverage", metavar="DUMP", default=None,
                    help="reconcile the static lock-order graph with "
                         "a runtime witness dump (utils/locks."
-                        "LockWitness.dump, written by the tier-1 "
-                        "conftest under NETSDB_WITNESS_DUMP): "
+                        "LockWitness.dump; chip_smoke.py phase 23 "
+                        "writes one from the card): "
                         "statically-possible-but-never-exercised "
                         "edges report as untested concurrency, "
                         "runtime edges the static graph missed as "

@@ -251,12 +251,19 @@ class Configuration:
                              f"got {self.fusion_stage_budget_bytes!r}")
 
     @property
+    def catalog_path(self) -> str:
+        return os.path.join(self.root_dir, "catalog.sqlite")
+
+    @property
     def data_dir(self) -> str:
         return os.path.join(self.root_dir, "data")
 
     def ensure_dirs(self) -> None:
         os.makedirs(self.data_dir, exist_ok=True)
 
+
+
+DEFAULT_CONFIG = Configuration()
 
 def enable_compilation_cache(config: Optional[Configuration] = None
                              ) -> Optional[str]:

@@ -16,7 +16,7 @@ from typing import Optional, Union
 
 import numpy as np
 
-from netsdb_tpu_torch.native.build import build_library
+from netsdb_tpu_torch.native.build import NativeBuildError, build_library
 
 _POLICIES = {"lru": 0, "mru": 1, "random": 2}
 _STATS = ("hits", "misses", "evictions", "spills", "loads",
@@ -59,6 +59,17 @@ def _load() -> ctypes.CDLL:
         lib.ps_stats.argtypes = [vp, ctypes.POINTER(u64)]
         _lib = lib
         return lib
+
+
+def native_available() -> bool:
+    """Whether the native page store builds and loads here. The probe
+    builds the library on its first call; a failed build answers False
+    (and :class:`NativePageStore` raises with the compiler's error)."""
+    try:
+        _load()
+    except (NativeBuildError, OSError):
+        return False
+    return True
 
 
 def _as_bytes(payload: Union[bytes, np.ndarray]) -> np.ndarray:

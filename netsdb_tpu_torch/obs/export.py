@@ -42,6 +42,35 @@ ATTRIB_METRICS = (
 )
 
 
+#: counters the port mints that the reference does not (its follower
+#: resync and applied log, the in-process mesh, the shuffle and the
+#: single-position SUMMA): catalogued so the scrape exports them
+PORT_ONLY_COUNTERS = (
+    ("mesh.all_gathers", "row-sharded relations all-gathered for a "
+                         "non-rowwise node"),
+    ("mesh.fallbacks", "placed operands gathered by an op with no "
+                       "placed rule (parallel/mesh.gather_log)"),
+    ("mesh.placed_chunks", "relation chunks run per mesh position"),
+    ("mesh.placed_folds", "folds run per mesh position"),
+    ("mesh.rowwise_nodes", "rowwise plan nodes run per mesh position"),
+    ("serve.applied_compactions", "follower applied-log compactions into "
+                                  "a new base snapshot"),
+    ("serve.applied_frames_restored", "applied-log frames replayed on a "
+                                      "follower's restart"),
+    ("serve.follower_evictions", "followers evicted by the leader"),
+    ("serve.follower_readmits", "evicted followers readmitted"),
+    ("serve.remirrored_retries", "cached retries of a mirrored frame "
+                                 "mirrored again"),
+    ("serve.resync.frames_replayed", "frames replayed by log resyncs"),
+    ("serve.resync.log_replays", "follower resyncs by log replay"),
+    ("serve.resync.snapshot_bytes", "bytes shipped by snapshot resyncs"),
+    ("serve.resync.snapshots", "follower resyncs by snapshot"),
+    ("shuffle.repartitions", "hash repartitions of a relation"),
+    ("summa.single_position", "streamed matmuls that ran on one "
+                              "position (no SUMMA grid)"),
+)
+
+
 def _catalog() -> Dict[str, Tuple[str, str]]:
     """name → (type, help) for every exported metric."""
     counters = (
@@ -313,7 +342,7 @@ def _catalog() -> Dict[str, Tuple[str, str]]:
                            "host->device upload"),
     )
     out: Dict[str, Tuple[str, str]] = {}
-    for name, help_ in counters:
+    for name, help_ in counters + PORT_ONLY_COUNTERS:
         out[name] = ("counter", help_)
     for name, help_ in gauges:
         out[name] = ("gauge", help_)

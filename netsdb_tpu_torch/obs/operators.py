@@ -485,3 +485,20 @@ def render_tree(tree: Dict[str, Any],
     for r in roots:
         walk(r, 0, seen)
     return "\n".join(lines)
+
+
+def render_shard_forest(shard_ops: Optional[Dict[str, Any]],
+                        total_s: Optional[float] = None) -> str:
+    """Text rendering of a scatter-gather query's per-shard EXPLAIN
+    forest (``shard_operators``): each member's subplan tree rendered by
+    the same :func:`render_tree` the coordinator tree gets, so region
+    ids, boundary markers and the streaming-anchor annotation read alike
+    across the distributed tree. Members sort by address."""
+    if not shard_ops:
+        return "(no shard operator forest)"
+    parts = []
+    for addr in sorted(shard_ops):
+        tree = shard_ops[addr] or {}
+        parts.append(f"-- shard {addr}")
+        parts.append(render_tree(tree, total_s))
+    return "\n".join(parts)

@@ -1,9 +1,9 @@
 """Logical planner — counterpart of ``netsdb_tpu/plan/planner.py``:
-topo-sort the DAG from its sinks and keep shared subgraphs once. The
-executor compiles whole plans and fusion regions itself
-(``plan/executor.py``, ``plan/fusion.py``), so the planner cuts no
-stages. The TCAP-like
-dump stays the debuggable plan artifact."""
+topo-sort the DAG from its sinks and keep shared subgraphs once, and
+list each sink's stage (the nodes from its scans to it). The executor
+compiles whole plans and fusion regions itself (``plan/executor.py``,
+``plan/fusion.py``); the stages describe the plan. The TCAP-like dump
+stays the debuggable plan artifact."""
 
 from __future__ import annotations
 
@@ -14,9 +14,24 @@ from netsdb_tpu_torch.plan.computations import Computation, ScanSet, WriteSet
 
 
 @dataclasses.dataclass
+class JobStage:
+    """One materialization unit (the reference's ``TupleSetJobStage``):
+    the topo slice of nodes from scans to one sink."""
+
+    stage_id: int
+    sink: WriteSet
+    nodes: List[Computation]  # topo order, sink last
+
+    @property
+    def scans(self) -> List[ScanSet]:
+        return [n for n in self.nodes if isinstance(n, ScanSet)]
+
+
+@dataclasses.dataclass
 class LogicalPlan:
     sinks: List[WriteSet]
     topo: List[Computation]  # whole-DAG topo order
+    stages: List[JobStage]
 
     def to_plan_string(self) -> str:
         """TCAP-like textual dump (test/debug surface)."""
@@ -72,4 +87,7 @@ def plan_from_sinks(sinks: Sequence[WriteSet]) -> LogicalPlan:
     for s in sinks:
         if not isinstance(s, WriteSet):
             raise TypeError(f"sink {s!r} is not a WriteSet")
-    return LogicalPlan(sinks=list(sinks), topo=_topo_sort(sinks))
+    stages = [JobStage(stage_id=i, sink=sink, nodes=_topo_sort([sink]))
+              for i, sink in enumerate(sinks)]
+    return LogicalPlan(sinks=list(sinks), topo=_topo_sort(sinks),
+                       stages=stages)

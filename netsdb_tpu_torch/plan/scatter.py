@@ -447,6 +447,7 @@ def merge_tensor_chain(gather: dict, parts: List[Any], device=None) -> Any:
         np.ascontiguousarray(p)) for p in parts]
     dense = torch.cat(ts, dim=int(gather.get("axis", 0)))
     if device is not None:
+        # lint: disable=device-put-direct -- the gathered result moves to the caller's device once; it is a merge output, not a stored block the device cache serves
         dense = dense.to(device)
     block = gather.get("block")
     if block:

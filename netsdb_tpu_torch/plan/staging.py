@@ -336,6 +336,41 @@ obs.REGISTRY.register_collector(
     "staging", lambda: {"active_stagers": active_count()})
 
 
+# --- event log (tests; off, it costs one flag read) -----------------
+# A flat ordered log of staging milestones: ("place", name, seq) when a
+# stream's Nth item finished placing (its upload is issued), ("end",
+# name, None) when a stream's source is exhausted, ("close", name, None)
+# when the consumer saw the end or closed the stream, ("cache_hit",
+# name, None) when a run is served from the device cache. The grace-hash
+# overlap test reads the ORDER: pair i+1's build "place" must come
+# before pair i's probe "close".
+_events: list = []
+_events_on = False
+_events_lock = threading.Lock()
+
+
+def trace_events(on: bool) -> None:
+    """Turn the staging event log on or off, clearing it either way."""
+    global _events_on
+    with _events_lock:
+        _events.clear()
+        _events_on = bool(on)
+
+
+def events() -> list:
+    """The event log so far, in emission order."""
+    with _events_lock:
+        return list(_events)
+
+
+def _emit(kind: str, name: str, seq: Optional[int] = None) -> None:
+    if not _events_on:
+        return
+    with _events_lock:
+        if _events_on:
+            _events.append((kind, name, seq))
+
+
 def _stage_put(q: "queue.Queue", stop: threading.Event, item) -> bool:
     """Bounded put that gives up once the consumer closed the stream."""
     while not stop.is_set():
@@ -348,18 +383,22 @@ def _stage_put(q: "queue.Queue", stop: threading.Event, item) -> bool:
 
 
 def _stage_worker(source, place, q: "queue.Queue", stop: threading.Event,
-                  on_complete, uploader, want_nbytes: bool) -> None:
+                  on_complete, uploader, want_nbytes: bool,
+                  name: str = "stage") -> None:
     """The staging thread. A free function over explicit state, never a
     bound method: the thread must not keep its StagedStream alive, or an
     abandoned stream could never be collected. ``on_complete`` runs only
     when the source is exhausted (a truncated run is never installed);
     its failure reaches the consumer like any other."""
+    seq = 0
     try:
         try:
             for item in source:
                 if stop.is_set():
                     return
                 placed, fence = _place_one(place, item, uploader)
+                _emit("place", name, seq)
+                seq += 1
                 # sized here, overlapped with the consumer's compute
                 nbytes = _value_nbytes(placed) if want_nbytes else None
                 if not _stage_put(q, stop, (_ITEM, (placed, fence, nbytes))):
@@ -370,6 +409,7 @@ def _stage_worker(source, place, q: "queue.Queue", stop: threading.Event,
             close = getattr(source, "close", None)
             if close is not None:
                 close()
+        _emit("end", name)
         if on_complete is not None:
             on_complete()
     except BaseException as e:  # any death reaches the consumer
@@ -401,6 +441,7 @@ class StagedStream:
         self._closed = False
         self._on_complete = on_complete
         self._uploader = uploader
+        self._sync_seq = 0
         self.stats = {"chunks": 0, "wait_s": 0.0}
         self._trace = obs.current_trace()
         self._scope = scope
@@ -415,7 +456,7 @@ class StagedStream:
             self._thread = threading.Thread(
                 target=_stage_worker,
                 args=(self._source, place, self._q, self._stop, on_complete,
-                      uploader, self._want_nbytes),
+                      uploader, self._want_nbytes, name),
                 daemon=True, name=f"netsdb-stage-{name}")
             with _stagers_lock:
                 _stagers[:] = [t for t in _stagers if t.is_alive()]
@@ -467,6 +508,7 @@ class StagedStream:
             try:
                 item = next(self._source)
             except StopIteration:
+                _emit("end", self._name)
                 try:
                     if self._on_complete is not None:
                         self._on_complete()
@@ -474,6 +516,8 @@ class StagedStream:
                     self.close()
                 raise
             placed, fence = _place_one(self._place, item, self._uploader)
+            _emit("place", self._name, self._sync_seq)
+            self._sync_seq += 1
             return self._deliver(
                 placed, fence,
                 _value_nbytes(placed) if self._want_nbytes else None, 0.0)
@@ -492,6 +536,9 @@ class StagedStream:
                 raise val
             if kind is _END:
                 self._closed = True
+                # the consumer saw the end: the "stream finished" moment
+                # the overlap test anchors on
+                _emit("close", self._name)
                 raise StopIteration
             return self._deliver(*val, time.perf_counter() - t0)
 
@@ -501,10 +548,13 @@ class StagedStream:
         if self._thread is None:
             if not self._closed:
                 self._closed = True
+                _emit("close", self._name)
                 close = getattr(self._source, "close", None)
                 if close is not None:
                     close()
             return
+        if not self._closed:
+            _emit("close", self._name)
         self._closed = True
         self._stop.set()
         while True:  # drain, so a worker blocked in put() sees the stop
@@ -723,6 +773,7 @@ def _stage_partial(plan: PartialPlan, place, depth: int, name: str,
     epoch, covered = plan.cache.plan_ranges(plan.base_key, plan.ranges)
     gaps = [i for i, r in enumerate(plan.ranges) if r not in covered]
     if not gaps:
+        _emit("cache_hit", name)
         _cached_run_hit()
         return _StitchedStream([("hit", covered[r]) for r in plan.ranges],
                                None, plan.cache, scope)
@@ -768,6 +819,7 @@ def stage_stream(source: Optional[Iterable], place: Callable[[Any], Any],
     if cache is not None and cache_key is not None and cache.enabled:
         hit = cache.get(cache_key)
         if hit is not None:
+            _emit("cache_hit", name)
             _count(chunks=len(hit))
             _cached_run_hit()
             return _CachedRun(hit)

@@ -210,5 +210,6 @@ def main(sf: float = 0.1, iters: int = 10, device=None):
 
 if __name__ == "__main__":
     args = sys.argv[1:]
+    # lint: disable=print-ban -- the module's script entry: its JSON result on stdout is its output
     print(json.dumps(main(float(args[0]) if args else 0.1,
                           int(args[1]) if len(args) > 1 else 10)))

@@ -767,10 +767,10 @@ def ooc_q03(pc: PagedColumns, store: PagedTensorStore,
             start, bmat = store.read_block(build_name, p)
             keys = np.where(bmat[:, 0] > 0, np.arange(
                 bmat.shape[0], dtype=np.int32) + start, -1).astype(np.int32)
-            btab = ColumnTable({
-                "o_orderkey": torch.from_numpy(keys).to(pc.device),
-                "o_orderdate": torch.from_numpy(
-                    np.array(bmat[:, 1])).to(pc.device)})
+            # lint: disable=device-put-loop,device-put-direct -- one build block's two key columns, needed whole before this pass's probe stream starts: no compute of the pass can overlap the copy, and the block is the grace partition, not a cached stored block
+            okey, odate = [torch.from_numpy(c).to(pc.device)
+                           for c in (keys, np.array(bmat[:, 1]))]
+            btab = ColumnTable({"o_orderkey": okey, "o_orderdate": odate})
             state = init(None, pc, btab)
             with contextlib.closing(pc.stream_tables()) as chunks:
                 for chunk in chunks:

@@ -404,6 +404,7 @@ class RemoteClient:
                     send_frame(self._sock, msg_type, payload, codec,
                                chaos=self._chaos)
                 with obs.span("client.wait", "client"):
+                    # lint: disable=lock-blocking-call -- the conn lock exists to serialize one in-flight request per connection; holding it across the reply IS the protocol, and the wait is bounded by the socket timeout set at dial
                     typ, reply = self._recv_reply(self._sock)
                 if io_timeout is not None:
                     self._sock.settimeout(self._timeout)
@@ -872,6 +873,7 @@ class RemoteClient:
                 self._connect()
             try:
                 send_frame(self._sock, MsgType.SHUTDOWN, {})
+                # lint: disable=lock-blocking-call -- shutdown ack wait on the serialized connection; bounded by the socket timeout, and the daemon dying mid-wait is the success path
                 recv_frame(self._sock, allow_pickle=False)
             except (ConnectionError, OSError):
                 pass  # the daemon may die before acking

@@ -2189,14 +2189,16 @@ class ServeController:
                     self._follower_offsets[addr] = (pos[1],
                                                     fc.daemon_incarnation)
                 checkpoint.save_meta(root, step, {"mutlog_offset": pos[1]})
-            self._readmit_follower(addr)
-            checkpoint.prune_steps(root, keep=1)
-            self._idem.prune()
+            # recorded before the readmission: whoever sees the follower
+            # active again also sees how it came back
             self.last_resync = {"mode": "snapshot", "addr": addr,
                                 "seq": step,
                                 "bytes": len(blob), "snapshot_s": t_snap,
                                 "stream_s": t_stream,
                                 "total_s": time.perf_counter() - t0}
+            self._readmit_follower(addr)
+            checkpoint.prune_steps(root, keep=1)
+            self._idem.prune()
             obs.REGISTRY.counter("serve.resync.snapshots").inc()
             obs.REGISTRY.counter("serve.resync.snapshot_bytes").inc(
                 len(blob))
@@ -2238,12 +2240,12 @@ class ServeController:
             with self._followers_mu:
                 self._follower_offsets[addr] = (bound,
                                                 fc.daemon_incarnation)
-            self._readmit_follower(addr)
             self.last_resync = {"mode": "log", "addr": addr,
                                 "seq": next(self._resync_seq),
                                 "frames": frames,
                                 "bytes": bound - offset,
                                 "total_s": time.perf_counter() - t0}
+            self._readmit_follower(addr)
             obs.REGISTRY.counter("serve.resync.log_replays").inc()
             obs.REGISTRY.counter("serve.resync.frames_replayed").inc(frames)
         finally:
@@ -2753,6 +2755,7 @@ class ServeController:
 
     def _on_send_data(self, p):
         with self._write_gate(p.get("db"), p.get("set")):
+            # lint: disable=lock-blocking-call -- the write gate is held across the whole write by design: a rebalancing seal waits on it, so no acknowledged write lands past the seal; the write's upload is part of the write
             return self._send_data_gated(p)
 
     def _send_data_gated(self, p):
@@ -2779,6 +2782,7 @@ class ServeController:
 
     def _on_send_matrix(self, p):
         with self._write_gate(p.get("db"), p.get("set")):
+            # lint: disable=lock-blocking-call -- the write gate is held across the whole write by design: a rebalancing seal waits on it, so no acknowledged write lands past the seal; the write's upload is part of the write
             return self._send_matrix_gated(p)
 
     def _send_matrix_gated(self, p):
@@ -3121,7 +3125,7 @@ class ServeController:
         by a read)."""
         store = self.library.store
         out = {"sets": self.library.collect_stats(),
-               "cache": dict(vars(store.stats)),
+               "cache": store.stats.as_dict(),
                "device_cache": store.device_cache().stats(),
                "metrics": obs.REGISTRY.snapshot(),
                "sessions": self.sessions.stats(),
@@ -3678,6 +3682,7 @@ def run_daemon(config: Configuration, host: str = "127.0.0.1",
                           followers=followers, ha_peers=ha_peers,
                           **kwargs)
     bound = ctl.start()
+    # lint: disable=print-ban -- the bound address on stdout is the daemon process's handshake: launchers read this line for the port
     print(f"serving on {host}:{bound}", flush=True)
     ctl.serve_forever()
     return 0

@@ -518,6 +518,7 @@ class SessionManager:
         for lk in locks:
             lk.acquire()
         try:
+            # lint: disable=lock-blocking-call -- the session locks serialize each batched session's steps, and the step's upload is its own inputs and state: only a later step of the same sessions waits on them
             return self._run_batch_locked(db, reqs)
         finally:
             for lk in reversed(locks):

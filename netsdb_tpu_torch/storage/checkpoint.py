@@ -129,10 +129,12 @@ def _like(value: np.ndarray, template: Any, device=None) -> Any:
     from netsdb_tpu_torch.parallel.mesh import ShardedTensor
 
     if isinstance(template, ShardedTensor):
+        # lint: disable=device-put-direct -- a restored checkpoint value goes back where its template lives; it is not a block the device cache serves
         dense = torch.as_tensor(np.asarray(value)).to(
             template.dtype).to(template.device)
         return ShardedTensor.from_dense(dense, template.mesh, template.spec)
     if isinstance(template, torch.Tensor):
+        # lint: disable=device-put-direct -- a restored checkpoint value goes back where its template lives; it is not a block the device cache serves
         return torch.as_tensor(np.array(value)).to(
             dtype=template.dtype, device=device or template.device)
     if isinstance(template, np.ndarray):

@@ -183,54 +183,63 @@ class PagedObjects:
     @staticmethod
     def ingest(store: "PagedTensorStore", name: str,
                items: list) -> "PagedObjects":
+        """A new relation holding ``items``. Nothing else can reach it
+        before it is returned, so its pages are written without its
+        locks: a caller may ingest under the store lock and never wait
+        on a relation's streams."""
         po = PagedObjects(store, name)
-        po.append(items)
+        po._write(items)
         return po
 
     def append(self, items: list) -> None:
         """Write records as more pickled-batch pages."""
-        import io
-        import pickle
-
         if not items:
             return
         with self._append_mu, self.rw.read():
             if self.dropped:
                 raise KeyError(f"paged object set {self.name!r} was "
                                f"dropped; cannot append")
-            sid = self.store._set_id(self.name)
-            target = max(self.store.config.page_size_bytes, 4096)
-            # the batch is measured as it fills (an incremental pickler
-            # over the batch's own records), so a page never holds much
-            # more than the target, whatever the records' sizes
-            batch: list = []
+            self._write(items)
+
+    def _write(self, items: list) -> None:
+        """Page ``items`` as pickled batches; the caller holds the append
+        lock and the read lock, or owns a relation no one else sees."""
+        import io
+        import pickle
+
+        if not items:
+            return
+        sid = self.store._set_id(self.name)
+        target = max(self.store.config.page_size_bytes, 4096)
+        # the batch is measured as it fills (an incremental pickler over
+        # the batch's own records), so a page never holds much more than
+        # the target, whatever the records' sizes
+        batch: list = []
+        buf = io.BytesIO()
+        measurer = pickle.Pickler(buf, protocol=pickle.HIGHEST_PROTOCOL)
+
+        def flush():
+            nonlocal buf, measurer
+            if not batch:
+                return
+            self.store.backend.write_page(
+                sid, pickle.dumps(batch, protocol=pickle.HIGHEST_PROTOCOL))
+            batch.clear()
             buf = io.BytesIO()
             measurer = pickle.Pickler(buf, protocol=pickle.HIGHEST_PROTOCOL)
 
-            def flush():
-                nonlocal buf, measurer
-                if not batch:
-                    return
-                self.store.backend.write_page(
-                    sid, pickle.dumps(batch,
-                                      protocol=pickle.HIGHEST_PROTOCOL))
-                batch.clear()
-                buf = io.BytesIO()
-                measurer = pickle.Pickler(buf,
-                                          protocol=pickle.HIGHEST_PROTOCOL)
-
-            for it in items:
-                batch.append(it)
-                try:
-                    measurer.dump(it)
-                    full = buf.tell() >= target
-                except (pickle.PicklingError, TypeError, AttributeError):
-                    # the real dumps in flush() raises with the batch
-                    full = True
-                if full:
-                    flush()
-            flush()
-            self.num_items += len(items)
+        for it in items:
+            batch.append(it)
+            try:
+                measurer.dump(it)
+                full = buf.tell() >= target
+            except (pickle.PicklingError, TypeError, AttributeError):
+                # the real dumps in flush() raises with the batch
+                full = True
+            if full:
+                flush()
+        flush()
+        self.num_items += len(items)
 
     def __iter__(self):
         """The records, page by page, under the read lock (held until
@@ -546,6 +555,7 @@ class PagedTensorStore:
             obs.REGISTRY.counter("summa.single_position").inc()
             if stats_out is not None:
                 stats_out.update(participants=1, rounds=0)
+        # lint: disable=device-put-direct -- the caller's right operand, moved once to the streamed matmul's device; the paged blocks themselves go through the device cache
         rhs = rhs.to(device)
         cfg = self.config
         depth = cfg.stage_depth if stage_depth is None else stage_depth

@@ -128,6 +128,9 @@ class CacheStats:
     spills: int = 0
     loads: int = 0
 
+    def as_dict(self) -> Dict[str, int]:
+        return dataclasses.asdict(self)
+
 
 class SetIdentifier(NamedTuple):
     """(database, set) pair — reference ``SetIdentifier``."""
@@ -391,6 +394,10 @@ class SetStore:
         s = self._sets.get(ident)
         return s.storage if s is not None else "memory"
 
+    def exists(self, ident: SetIdentifier) -> bool:
+        """Whether the set is in memory or spilled to ``data_dir``."""
+        return ident in self._sets or os.path.exists(self._spill_path(ident))
+
     def scans_as_list(self, ident: SetIdentifier) -> bool:
         """True when a scan of the set gives its item list whatever it
         holds (a type of ``LIST_SCAN_TYPES``)."""
@@ -442,8 +449,12 @@ class SetStore:
             if isinstance(item, (PagedColumns, PagedObjects)):
                 item.drop()
             elif isinstance(item, _PagedMatrix):
+                # the arena is looked up before the write lock: under it
+                # a store lock would nest inside a relation lock, against
+                # the store -> relation order every other path takes
+                ps = self.page_store()
                 with item.rw.write():
-                    self.page_store().drop(item.name)
+                    ps.drop(item.name)
 
     # --- writes -------------------------------------------------------
     def add_data(self, ident: SetIdentifier, items: List[Any]) -> None:
@@ -490,6 +501,7 @@ class SetStore:
                 self._maybe_evict(exclude=ident)
         if po is not None:
             with s.append_mu:
+                # lint: disable=lock-blocking-call -- append_mu exists to order THIS set's appends behind the relation locks; the global store lock stays released
                 po.append(items)
             with self._lock:
                 if self._sets.get(ident) is s:
@@ -687,6 +699,10 @@ class SetStore:
         if paged:
             self._append_paged(s, table)
             return
+        # the batch uploads before the store lock: a copy under it would
+        # stall every other set's readers and writers for its length
+        # lint: disable=device-put-direct -- an appended batch becomes part of the set's resident relation; it is not a block the device cache serves
+        table = table.to(self.device)
         with self._lock:
             s = self._writable(ident)
             items = self._items_locked(s)
@@ -696,7 +712,6 @@ class SetStore:
                     f"append_table needs a single-relation table set; "
                     f"{ident} holds {len(items)} items ({len(tables)} "
                     f"tables); appending would drop the rest")
-            table = table.to(self.device)
             # a placed relation appends as the relation it lays out and is
             # placed again (a table appended to carries no padding rows)
             base = tables[0]._whole() if tables else None
@@ -819,9 +834,12 @@ class SetStore:
         with self._lock:
             s, pm = self._paged_item(ident)
             ps, version = self.page_store(), s.version
+            # looked up here: under the matrix's read lock a store lock
+            # would nest inside a relation lock, against the hierarchy
+            cache = self.device_cache()
         with pm.rw.read():
             return ps.matmul_streamed(pm.name, rhs, device=self.device,
-                                      devcache=self.device_cache(),
+                                      devcache=cache,
                                       cache_scope=str(ident),
                                       cache_version=version)
 
@@ -1023,16 +1041,19 @@ class SetStore:
                 self._touch(s)
                 return
             if kind == "blocked":
+                # lint: disable=device-put-direct -- an evicted set's reload makes its whole items resident again under the store lock; they are not blocks the device cache serves
                 items.append(BlockedTensor(data[0].to(self.device),
                                            BlockMeta(tuple(data[1]),
                                                      tuple(data[2]))))
             elif kind == "tensor":
+                # lint: disable=device-put-direct -- an evicted set's reload makes its whole items resident again under the store lock; they are not blocks the device cache serves
                 items.append(data[0].to(self.device))
             elif kind == "table":
                 from netsdb_tpu_torch.relational.table import ColumnTable
 
                 table = ColumnTable.__new__(ColumnTable)
                 table.__setstate__(data[0])
+                # lint: disable=device-put-direct -- an evicted set's reload makes its whole items resident again under the store lock; they are not blocks the device cache serves
                 items.append(table.to(self.device))
             else:
                 items.append(data[0])

@@ -4,8 +4,9 @@
 fields; ``obs`` renders an in-process daemon's readouts with the
 reference's renderers' exact text; ``selftest`` passes all 20 steps;
 ``micro-bench`` and ``serve-bench`` run each mode on the CPU at tiny
-sizes and print their JSON; the commands of later ROADMAP.md items exit
-non-zero naming them; and without a card a command fails unless
+sizes and print their JSON; ``lint`` lists the reference's rule ids and
+reports in JSON without a device; the commands of later ROADMAP.md items
+exit non-zero naming them; and without a card a command fails unless
 ``--device cpu`` is given.
 
 The reference's commands are called through their ``_cmd_*`` functions
@@ -105,11 +106,31 @@ def test_selftest_passes_all_twenty_steps():
     assert any(ln.startswith("[ok]   placement-arm") for ln in lines)
 
 
-@pytest.mark.parametrize("cmd,item", [("bench", "A9"),
-                                      ("lint", "A8 item 6")])
+@pytest.mark.parametrize("cmd,item", [("bench", "A9")])
 def test_later_commands_exit_nonzero_naming_their_item(cmd, item, capsys):
     assert cli.main(["--device", "cpu", cmd]) != 0
     assert f"ROADMAP.md {item}" in capsys.readouterr().err
+
+
+def test_lint_list_rules_prints_the_reference_ids(capsys):
+    # no --device: lint touches no device, with or without a card
+    assert cli.main(["lint", "--list-rules"]) == 0
+    port = capsys.readouterr().out.splitlines()
+    assert ref_cli._cmd_lint(argparse.Namespace(list_rules=True)) == 0
+    ref = capsys.readouterr().out.splitlines()
+    assert [ln.split()[0] for ln in port] == [ln.split()[0] for ln in ref]
+    assert len(port) == 18
+
+
+def test_lint_json_reports_a_fixture_cycle_and_exits_one(capsys):
+    fixture = os.path.join(REPO, "tests", "fixtures", "analysis",
+                           "bad_lock_cycle.py")
+    rc = cli.main(["lint", "--json", "--rule", "lock-order", fixture])
+    diags = json.loads(capsys.readouterr().out)
+    assert rc == 1 and [d["rule"] for d in diags] == ["lock-order"]
+    assert set(diags[0]) == {"rule", "path", "line", "col", "message"}
+    assert diags[0]["path"] == "tests/fixtures/analysis/bad_lock_cycle.py"
+    assert cli.main(["lint", "--json", "--rule", "no-such-rule"]) == 2
 
 
 # the benches' tiny sizes for the command-line tests (the benches at these

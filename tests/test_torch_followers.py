@@ -319,6 +319,37 @@ def test_snapshot_resync_leaves_the_follower_store_equal(tmp_path):
         fctl.shutdown()
 
 
+def test_a_readmitted_follower_has_its_resync_recorded(tmp_path,
+                                                      monkeypatch):
+    """``last_resync`` is written before the follower is readmitted, so
+    whoever sees it active again (a waiter, ``follower_status``) also
+    sees how it came back."""
+    fctl = _daemon(tmp_path / "f", PAGED)
+    mctl = _daemon(tmp_path / "m", PAGED, followers=[fctl.advertise_addr],
+                   **LINKS)
+    seen = []
+    readmit = mctl._readmit_follower
+
+    def recording(addr):
+        seen.append(mctl.last_resync)
+        readmit(addr)
+
+    monkeypatch.setattr(mctl, "_readmit_follower", recording)
+    try:
+        c = _remote(mctl.advertise_addr, retry=FAST)
+        _fill(c, np.random.default_rng(1))
+        mctl._evict_follower(fctl.advertise_addr, "test eviction")
+        c.send_data("d", "objs", [{"i": 98, "t": 2}])
+        _wait_reattached(mctl)
+        assert seen and seen[0] is not None
+        assert seen[0]["mode"] == "snapshot"
+        assert seen[0]["addr"] == fctl.advertise_addr
+        c.close()
+    finally:
+        mctl.shutdown()
+        fctl.shutdown()
+
+
 def test_log_replay_resync_leaves_the_follower_store_equal(tmp_path):
     """``ha_mutlog``: a follower killed mid-mirror resumes by replaying
     only the frames after its last ack — the frames it missed, the
