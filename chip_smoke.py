@@ -15,7 +15,8 @@ client, and phase 18; ``--multichip-only``: phases 1 and 19;
 ``--obs-only``: phases 1 and 20; ``--ha-only``: phases 1 and 21;
 ``--pool-rest-only``: phases 1 and 22; ``--cli-only``: phases 1 and 23;
 ``--benches-only``: phases 1 and 24; ``--lint-only``: ``selftest`` under
-the lock witness and phase 25, no kernel build. ``--obs-only --repeat
+the lock witness and phase 25, no kernel build; ``--cluster-only``:
+phases 1 and 26. ``--obs-only --repeat
 N`` runs phase 20 N times, goes on past a failed run and fails at the
 end if any failed.)
 
@@ -444,7 +445,25 @@ Phases (any failure raises and the exit code is non-zero):
    edges, the runtime edges, the untested static edges and the static
    blind spots, printed. Coverage gaps are reported, not failed; a
    witness violation, or a runtime edge that closes a cycle with the
-   static graph, fails the phase.
+   static graph, fails the phase;
+26. processes joined into one cluster (``CLUSTER_SIZES``): two processes
+   on card 0, ``CLUSTER_POSITIONS`` virtual positions each, joined by
+   ``parallel.distributed.initialize_cluster`` over gloo (they share the
+   card; every cross-process copy goes through pinned host memory and
+   is counted), each loading phase 1's library (no nvcc), each under a
+   hard timeout (a hang kills both). In turn: a position-order sum over
+   every process's positions, a placed Q01 at SF 1 through ``Client``
+   and a paged and placed Q01 (both arenas spill), each equal bit for
+   bit to this process's run over all 4 positions and to the oracle's
+   counts; three SP layer requests (embed 1024, 8 heads, batch 2, seq
+   16384 over ("sp", 4)), B2 8 times a request in each process and the
+   output equal to one process's bit for bit, one fold a process held to
+   the plain step; then process 1 becomes the SPMD follower daemon and
+   process 0 its master, driven from here through ``RemoteClient`` (a
+   placed lineitem ingested and read back through LOCAL_SHARDS, Q01, a
+   rowwise filter's non-replicated output read back, two concurrent
+   clients' aggregates). It prints the backend, the bytes staged
+   through host memory and each part's wall time.
 
 The kernels' launch counters are set to 0 just before phase 3 and read
 just after phase 4 (the main path of FF and the layer), set to 0 again
@@ -472,7 +491,10 @@ attention bench's and once a layer forward of the transformer bench's
 timing loops, B2 once a chunk of the ring fold's); phase 24's are the
 bench processes' own counters, each printed as its last line (both 0:
 no bench reaches attention; the daemons those processes spawn serve no
-attention either). The last line is the contract's device record.
+attention either); phase 26's are the two cluster processes' own, set to
+0 just before their SP requests and read just after (B2 8 times a
+request in each, B1 never), summed. The last line is the contract's
+device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -2342,8 +2364,10 @@ def phase_relational(pk: dict, device="cuda", sf=TPCH_SF,
     a CPU client with ``send_table``; per query ``requests`` requests of
     ``suite_sink_for`` through ``run_query``, then the same of the three
     hand-built sinks, each held to the CPU client's same sink (and Q01,
-    Q06 to an f64 oracle). Returns the results and one request of each
-    to profile."""
+    Q06 to an f64 oracle). The CPU client's requests run in a thread of
+    their own beside the card's (and the caller's next phase): the
+    returned state's ``finish()`` waits for them and holds every output.
+    Returns the results and one request of each to profile."""
     import torch
 
     from netsdb_tpu_torch import Client
@@ -2391,36 +2415,37 @@ def phase_relational(pk: dict, device="cuda", sf=TPCH_SF,
             return getattr(dag, q)("tpch")
         return dag.suite_sink_for(client, "tpch", q)
 
-    out, profiled = {}, {}
-    for q in sorted(dag._QUERY_TABLES) + list(TPCH_SINKS):
-        sink = sink_of(card, q)
+    # the CPU client's references run in a thread of their own, beside
+    # the card's requests here and phase 12's; the card's outputs wait
+    # for them, and state["finish"]() holds each to its reference
+    queries = sorted(dag._QUERY_TABLES) + list(TPCH_SINKS)
+    ref_sinks = {q: (dag.q03_sink_for(cpu, "tpch", k=11) if q == "q03_sink_for"
+                     else dag.suite_sink_for(cpu, "tpch", "q03", k=11)
+                     if q == "q03" else sink_of(cpu, q)) for q in queries}
+    pool = ThreadPoolExecutor(max_workers=1)
+    refs = {q: pool.submit(_timed, lambda s=ref_sinks[q]: dag.run_query(
+        cpu, s), "cpu") for q in queries}
+    pool.shutdown(wait=False)
+
+    def hold(q, got, ref):
         if q in ("q03", "q03_sink_for"):
-            ref_sink = (dag.q03_sink_for(cpu, "tpch", k=11) if q != "q03"
-                        else dag.suite_sink_for(cpu, "tpch", "q03", k=11))
-        else:
-            ref_sink = sink_of(cpu, q)
-        ref, cpu_ms = _timed(lambda: dag.run_query(cpu, ref_sink), "cpu")
-        times, worst = [], 0.0
+            return _top10(q, *_q03_parts(q, got), *_q03_parts(q, ref))
+        return _hold(q, got, ref)
+
+    out, profiled, held = {}, {}, {}
+    for q in queries:
+        sink = sink_of(card, q)
+        times, gots = [], []
         for i in range(requests):
             got, ms = _timed(lambda: dag.run_query(card, sink), device)
-            leaves = _leaves(got)
             if any(torch.is_tensor(v) and v.device.type != torch.device(
                     device).type for v in (got if isinstance(got, tuple)
                                            else got.cols.values())):
                 raise RuntimeError(f"{q}: the result left the card")
-            if q in ("q03", "q03_sink_for"):
-                err = _top10(q, *_q03_parts(q, got), *_q03_parts(q, ref))
-            else:
-                err = _hold(q, got, ref)
-            if q.startswith(("q01", "q06")):
-                err = max(err, _hold_f64(q, got, oracle))
-            worst = max(worst, err)
             times.append(ms)
-            print(f"[tpch] {q} request {i}: {ms:.3f} ms, {len(leaves)} "
-                  f"outputs held to the CPU (rel err {err:.3e})")
+            gots.append(got)
         p50 = sorted(times)[len(times) // 2]
-        row = {"ms": times, "p50_ms": p50, "cpu_ms": cpu_ms,
-               "max_rel_err": worst,
+        row = {"ms": times, "p50_ms": p50,
                "lineitem_rows_per_s": n_li / (p50 / 1e3)}
         core = {"q01_sink": "q01", "q06_sink": "q06",
                 "q03_sink_for": "q03"}.get(q, q)
@@ -2428,15 +2453,9 @@ def phase_relational(pk: dict, device="cuda", sf=TPCH_SF,
             nbytes = sum(a.numel() * a.element_size() for a in arrays[core])
             row["bytes_read"] = nbytes
             row["bound_ms"] = nbytes / pk["bytes"] * 1e3
-        line = (f"[tpch] {q}: p50 {p50:.3f} ms, SF-{sf} lineitem rows/s "
-                f"{row['lineitem_rows_per_s']:.4g}")
-        line += (f", columns read {row['bytes_read'] / 2**20:.1f} MiB, "
-                 f"bound {row['bound_ms']:.3f} ms (bytes)")
-        line += f"; CPU {cpu_ms:.0f} ms"
         if q in PUBLISHED:
             row["reference_cluster_s"] = PUBLISHED[q]
-            line += (f"; the reference's cluster {PUBLISHED[q]} s "
-                     f"(BASELINE.md, its scale unrecorded)")
+        lut = None
         if q in TPCH_LUT_AB:
             # the measured crossover against the default LUT joins, one
             # request each, held to the CPU like the others
@@ -2445,22 +2464,48 @@ def phase_relational(pk: dict, device="cuda", sf=TPCH_SF,
             tuning.set_override("join_lut_factor",
                                 tuning._DEFAULTS["join_lut_factor"], kind)
             try:
-                got, row["lut_ms"] = _timed(
+                lut, row["lut_ms"] = _timed(
                     lambda: dag.run_query(card, sink), device)
             finally:
                 tuning.set_override("join_lut_factor", measured, kind)
-            _hold(q, got, ref) if q != "q03" else _top10(
-                q, *_q03_parts(q, got), *_q03_parts(q, ref))
-            line += (f"; with LUT joins (join_lut_factor "
-                     f"{tuning._DEFAULTS['join_lut_factor']:g}) "
-                     f"{row['lut_ms']:.3f} ms")
-        print(line)
+        held[q] = (gots, lut)
         out[q] = row
         profiled[f"tpch {q}"] = (lambda s=sink: dag.run_query(card, s), p50)
+
+    def finish():
+        for q in queries:
+            ref, cpu_ms = refs[q].result()
+            gots, lut = held.pop(q)
+            row, worst = out[q], 0.0
+            for i, got in enumerate(gots):
+                err = hold(q, got, ref)
+                if q.startswith(("q01", "q06")):
+                    err = max(err, _hold_f64(q, got, oracle))
+                worst = max(worst, err)
+                print(f"[tpch] {q} request {i}: {row['ms'][i]:.3f} ms, "
+                      f"{len(_leaves(got))} outputs held to the CPU (rel err "
+                      f"{err:.3e})")
+            if lut is not None:
+                hold(q, lut, ref)
+            row.update(cpu_ms=cpu_ms, max_rel_err=worst)
+            line = (f"[tpch] {q}: p50 {row['p50_ms']:.3f} ms, SF-{sf} "
+                    f"lineitem rows/s {row['lineitem_rows_per_s']:.4g}")
+            line += (f", columns read {row['bytes_read'] / 2**20:.1f} MiB, "
+                     f"bound {row['bound_ms']:.3f} ms (bytes)")
+            line += f"; CPU {cpu_ms:.0f} ms (beside the card's work)"
+            if q in PUBLISHED:
+                line += (f"; the reference's cluster {PUBLISHED[q]} s "
+                         f"(BASELINE.md, its scale unrecorded)")
+            if lut is not None:
+                line += (f"; with LUT joins (join_lut_factor "
+                         f"{tuning._DEFAULTS['join_lut_factor']:g}) "
+                         f"{row['lut_ms']:.3f} ms")
+            print(line)
+
     out["crossovers"] = crossovers
     out["resident_gib"] = resident / 2**30
     out["sf"] = sf
-    return out, profiled, {"card": card, "host": host}
+    return out, profiled, {"card": card, "host": host, "finish": finish}
 
 
 def relational_path(pk: dict) -> tuple:
@@ -7225,6 +7270,11 @@ MC_PP_ATOL = 1e-4       # the pipeline against f64
 MC_MOE_RTOL = 1e-5      # expert-parallel MoE against mesh=None
 MC_DRYRUN_RTOL = 1e-5   # the dry run's sums against its one-position run
 MC_DRYRUN_SP_RTOL = 1e-4  # ... the ring (B2) against one B1 call
+# cuts for time: phase 15 runs pagerank_on_table_set at soc-LiveJournal1's
+# counts and the conv pipeline at a batch of 8; here, placed against one
+# position, the graph at a tenth of them and a batch of 2
+MC_PAGERANK = dict(WL_SIZES["pagerank"], nodes=484_757, edges=6_899_377)
+MC_CONV = dict(WL_SIZES["conv"], n=2)
 _MC_GATHERS: dict = {}
 
 
@@ -7640,7 +7690,7 @@ def _mc_workloads(out, root, card, pk, device) -> None:
     del counts, res, sp, ss
     _wl_free(device)
 
-    s = WL_SIZES["pagerank"]
+    s = MC_PAGERANK
     src, dst = _wl_edges(s["nodes"], s["edges"], device, 4)
     res = []
     for c, pl in _mc_each(root, "pagerank",
@@ -7685,7 +7735,7 @@ def _mc_workloads(out, root, card, pk, device) -> None:
     del scores, res
     _wl_free(device)
 
-    s = WL_SIZES["conv"]
+    s = MC_CONV
     rng = np.random.default_rng(SEED + 7)
     images = rng.standard_normal((s["n"], s["c"], s["h"], s["w"]),
                                  dtype=np.float32)
@@ -10182,12 +10232,13 @@ CLI_SIZES = {"attention": dict(seq_lens=(1024, 2048, 4096, 8192)),
              "distribution": dict(),
              "aot_scale": 1,
              "conv": ["--iters", "5"],
-             "model": []}
+             # phase 8 runs the model families at full size on the card
+             "model": ["--scale", "0.5"]}
 CLI_BUDGET_S = 90.0
-# the benches' slope protocol: a 50 ms delta between the long and the short
+# the benches' slope protocol: a 25 ms delta between the long and the short
 # loop (the reference's 0.2 s is set for its tunnel's noise; CUDA events
 # time the card's own stream)
-CLI_TIMING = dict(min_delta_seconds=0.05)
+CLI_TIMING = dict(min_delta_seconds=0.025)
 CLI_FF_TOL = 1e-5                 # the exported FF against in-process
 CLI_SUITE_TOLS = (1e-5, 1e-4)     # the exported suite: rtol, atol
 
@@ -10606,7 +10657,14 @@ def phase_cli(pk: dict, smi: str, device: str = "cuda",
         procs.append(serve_p)
         t = time.perf_counter()
 
-        # 2. selftest under the witness, while those reach the card
+        # 2. selftest under the witness, while those reach the card. It
+        # holds the planner to the thresholds a fresh process loads: the
+        # crossovers phases 11 and 13 measured into this process go (a
+        # measured join_lut_factor of 0 turns the LUT join off), here and
+        # for every later phase of this process
+        from netsdb_tpu_torch.relational import tuning
+
+        tuning.clear_overrides()
         with witness_scope(raise_on_cycle=True) as w:
             rc, text = _cli_run(dev_args + ["selftest"])
         print("\n".join(f"[cli] selftest {ln}" for ln in text.splitlines()))
@@ -10762,12 +10820,21 @@ BENCH_RUNS = (
 # line that carry a size (the command passes those to the function itself);
 # a bench not named runs at the reference's defaults. Phases 17 and 22
 # run the scale-out and rebalancing pools at full size, so here their
-# depth is cut: 2 timed cold queries a scale-out arm (of 6), rebalancing
-# windows of 3 s and a 2 s settle (of 6 and 4); and to keep the whole
-# script in its time, 3 queries a distributed-fusion arm (of 6), 4 jobs a
-# serving client (of 8) and 20 hedged reads (of 40)
-BENCH_SIZES: dict = {"scale": {"queries": 2},
-                     "rebalance": {"measure_s": 3.0, "settle_s": 2.0},
+# depth is cut: 2 timed cold queries a scale-out arm (of 6) over 3 M rows
+# (of 6 M) and 2 daemons (of 4), rebalancing windows of 2 s and a 1 s
+# settle (of 6 and 4) over 2 daemons (of 4); phase 12 runs the device
+# cache over paged SF 10 lineitems, so the device- and partial-cache
+# benches page 600 000 rows (of 1.2 M); and to keep the whole script in
+# its time, 300 000 rows under the scheduler's 8 clients (of 600 000), 3
+# queries a distributed-fusion arm (of 6), 4 jobs a serving client (of 8)
+# and 20 hedged reads (of 40)
+BENCH_SIZES: dict = {"scale": {"queries": 2, "rows": 3_000_000,
+                               "argv": ["--daemons", "2"]},
+                     "device_cache": {"rows": 600_000},
+                     "partial_cache": {"rows": 600_000},
+                     "scheduler": {"rows": 300_000},
+                     "rebalance": {"measure_s": 2.0, "settle_s": 1.0,
+                                   "argv": ["--daemons", "2"]},
                      "fusion_distributed": {"queries": 3},
                      "serve": {"argv": ["--jobs", "4"]},
                      "data_plane": {"hedge_reads": 20}}
@@ -11209,6 +11276,590 @@ def phase_lint(smi: str, dumps, started: Optional[tuple] = None) -> dict:
     return out
 
 
+CLUSTER_POSITIONS = 2      # virtual positions of card 0 in each process
+CLUSTER_SIZES = {
+    # the placed lineitem (phase 18 runs placed SF 10 in one process)
+    "q01": dict(sf=1),
+    # paged and placed: pages and arena a tenth of phase 12's, so both
+    # processes' arenas spill
+    "paged": dict(sf=1, page_bytes=8 << 20, pool_bytes=64 << 20),
+    # phase 5's layer: embed 1024, 8 heads, batch 2, seq 16384
+    "sp": dict(embed=1024, heads=8, batch=2, seq=16384, requests=3),
+    # the lineitem the daemons ingest through the master
+    "daemon": dict(sf=0.2, rows=50),
+    "timeout_s": 240.0,     # each process: the pair is killed past it
+    "group_timeout_s": 120.0,
+}
+CLUSTER_BUDGET_S = 90.0
+
+_CLUSTER_MAIN = r'''
+import json, os, socket, sys, time
+import numpy as np
+import torch
+from netsdb_tpu_torch.parallel import _transport
+from netsdb_tpu_torch.parallel import distributed as D
+from netsdb_tpu_torch.parallel.mesh import virtual_devices
+
+pid, addr, out, device = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+s = json.loads(sys.argv[5])
+p0, p1 = int(sys.argv[6]), int(sys.argv[7])
+seed = int(sys.argv[8])
+walls, res = {}, {"pid": pid}
+
+
+def log(msg):
+    print(f"[cluster p{pid}] {msg}", file=sys.stderr, flush=True)
+
+
+def part(name, fn):
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn()
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - t0
+    log(f"{name} {walls[name]:.2f} s")
+    return got
+
+
+def save(name, value):
+    np.save(os.path.join(out, f"{name}_{pid}.npy"), np.asarray(value))
+
+
+totals = {}
+
+
+def dump():
+    now = _transport.stats()
+    res["walls"] = walls
+    res["transport"] = {k: now[k] + totals.get(k, 0) for k in now}
+    with open(os.path.join(out, f"result_{pid}.json"), "w") as f:
+        json.dump(res, f)
+
+
+held = virtual_devices(s["positions"], device)  # its exit restores
+held.__enter__()
+t0 = time.perf_counter()
+assert D.initialize_cluster(addr, 2, pid, device=device,
+                            timeout_s=s["group_timeout_s"])
+walls["join"] = time.perf_counter() - t0
+res["info"] = D.cluster_info()
+
+from netsdb_tpu_torch import Client
+from netsdb_tpu_torch.config import Configuration
+from netsdb_tpu_torch.ops.cuda_kernels import (NEG_INF, flash_attention,
+                                               flash_attention_step,
+                                               flash_attention_step_plain)
+from netsdb_tpu_torch.parallel.mesh import (ShardedTensor, make_mesh,
+                                            position_sum)
+from netsdb_tpu_torch.parallel.placement import Placement
+from netsdb_tpu_torch.relational import dag
+from netsdb_tpu_torch.relational.bench import generate_host
+from netsdb_tpu_torch.relational.table import ColumnTable
+
+n = 2 * s["positions"]
+Q01 = ("count", "l_linestatus", "l_returnflag", "sum_base_price",
+       "sum_charge", "sum_disc", "sum_disc_price", "sum_qty")
+
+
+def bringup():
+    mesh = make_mesh((n,), ("data",))
+    x = torch.from_numpy(np.random.default_rng(seed + 60).standard_normal(
+        (n * 1024, 256)).astype(np.float32)).to(device)
+    xs = ShardedTensor.from_dense(x, mesh, ("data",))
+    assert sum(t is not None for t in xs.shards.flat) == s["positions"]
+    parts = [None if t is None else t.sum(0) for t in xs.shards.flat]
+    save("psum", position_sum(parts, owners=list(mesh.owners.flat)).cpu())
+
+
+_tables = {}
+
+
+def lineitem(sf):
+    if sf not in _tables:
+        cols, dicts = generate_host(sf, seed)["lineitem"]
+        _tables[sf] = ColumnTable.from_columns(cols, dicts, device="cpu")
+    return _tables[sf]
+
+
+def q01(name, paged):
+    cfg = (dict(page_size_bytes=s["paged"]["page_bytes"],
+                page_pool_bytes=s["paged"]["pool_bytes"]) if paged else {})
+    c = Client(Configuration(root_dir=os.path.join(out, f"{name}{pid}"),
+                             **cfg), device=device)
+    c.create_database("tpch")
+    c.create_set("tpch", "lineitem", type_name="table",
+                 storage="paged" if paged else "memory",
+                 placement=Placement((("data", n),), ("data",)))
+    c.send_table("tpch", "lineitem",
+                 lineitem(s["paged" if paged else "q01"]["sf"]))
+    if not paged:
+        col = next(iter(c.get_table("tpch", "lineitem").cols.values()))
+        assert col.mesh.spans_processes
+        assert sum(t is not None for t in col.shards.flat) == s["positions"]
+    res_t = part(f"{name}_request", lambda: dag.run_query(c, dag.q01_sink(
+        "tpch")))
+    np.savez(os.path.join(out, f"{name}_{pid}.npz"),
+             **{k: res_t.cols[k].cpu().numpy() for k in Q01})
+    if paged:
+        st = c.store.page_store().stats()
+        res["paged_stats"] = {k: st[k] for k in ("spills", "loads")}
+        assert st["spills"] > 0 and st["loads"] > 0, st
+
+
+def sp():
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    z = s["sp"]
+    c = Client(Configuration(root_dir=os.path.join(out, f"sp{pid}")),
+               device=device)
+    m = TransformerLayerModel(db="cluster_sp", num_heads=z["heads"])
+    axes = (("sp", n),)
+    m.setup(c, placements={w: Placement(axes, (None, None))
+                           for w in TransformerLayerModel.SETS})
+    m.load_random_weights(c, embed=z["embed"], seed=seed)
+    rng = np.random.default_rng(seed + 4)
+    xs = [rng.standard_normal((z["batch"], z["seq"], z["embed"]),
+                              dtype=np.float32) for _ in range(z["requests"])]
+    per, ys, ms = [], [], []
+    for k, v in _transport.stats().items():  # kept for the totals
+        totals[k] = totals.get(k, 0) + v
+    _transport.reset_stats()
+    flash_attention.launches = flash_attention_step.launches = 0
+    for x in xs:
+        m.load_inputs(c, x, placement=Placement(axes, (None, "sp", None)))
+        before = flash_attention_step.launches
+        t0 = time.perf_counter()
+        y = m.serve_forward(c)
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per.append(flash_attention_step.launches - before)
+        ys.append(y)
+    res["sp_launches"] = {"flash_attention": flash_attention.launches,
+                          "flash_attention_step": flash_attention_step.launches,
+                          "per_request": per}
+    res["sp_ms"] = ms
+    # the ring's exchanges alone: k and v each step, (n - 1) steps a
+    # request
+    ring = _transport.stats()
+    steps = z["requests"] * (n - 1)
+    res["ring_step"] = {"ms": ring["exchange_s"] * 1e3 / steps,
+                        "staged_bytes": ring["staged_bytes"] / steps,
+                        "exchanges": ring["exchanges"]}
+    for i, y in enumerate(ys):
+        assert y.mesh.spans_processes
+        dense = y.gather_global()
+        if pid == 0:
+            np.save(os.path.join(out, f"sp_y{i}.npy"), dense.cpu().numpy())
+    # one fold of this process's first position, held to the plain step
+    p = next(i for i, o in enumerate(ys[0].mesh.owners.flat) if o == pid)
+    s_local = z["seq"] // n
+    bh, d = z["batch"] * z["heads"], z["embed"] // z["heads"]
+    g = torch.Generator(device=device).manual_seed(seed + 50 + pid)
+    q, k, v = (torch.randn(bh, s_local, d, generator=g, device=device)
+               for _ in range(3))
+
+    def carry():
+        return (torch.zeros(bh, s_local, d, device=device),
+                torch.zeros(bh, s_local, 1, device=device),
+                torch.full((bh, s_local, 1), NEG_INF, device=device))
+
+    off = p * s_local
+    finished = [acc / l.clamp_min(1e-30) for acc, l, _m in (
+        step(q, k, v, *carry(), off, off, True)
+        for step in (flash_attention_step, flash_attention_step_plain))]
+    res["fold_err"] = float((finished[0] - finished[1]).abs().max())
+    res["fold_position"] = p
+
+
+part("bringup", bringup)
+part("q01", lambda: q01("q01", False))
+part("paged", lambda: q01("paged", True))
+part("sp", sp)
+dump()
+
+from netsdb_tpu_torch.serve.server import ServeController
+
+cfg = Configuration(root_dir=os.path.join(out, f"daemon{pid}"))
+if pid == 1:
+    ctl = ServeController(cfg, port=p1, device=device)
+    ctl.start()
+    ctl.serve_forever()
+else:
+    for _ in range(600):
+        try:
+            socket.create_connection(("127.0.0.1", p1), timeout=1).close()
+            break
+        except OSError:
+            time.sleep(0.05)
+    ctl = ServeController(cfg, port=p0, device=device,
+                          followers=[f"127.0.0.1:{p1}"])
+    ctl.start()
+    print(f"master listening on 127.0.0.1:{p0}", flush=True)
+    ctl.serve_forever()
+dump()
+D.shutdown_cluster()
+log("done")
+'''
+
+
+def _cluster_oracle_counts(table):
+    """Q01's counts from the host columns (the returnflag × linestatus
+    groups, in the output's group order)."""
+    import numpy as np
+
+    li = {k: v.cpu().numpy() for k, v in table.cols.items()}
+    n_ls = len(table.dicts["l_linestatus"])
+    n_g = len(table.dicts["l_returnflag"]) * n_ls
+    seg = li["l_returnflag"].astype(np.int64) * n_ls + li["l_linestatus"]
+    return np.bincount(seg[li["l_shipdate"] <= 19980902], minlength=n_g)
+
+
+def _cluster_daemons(addr: str, follower: str, s, device, card) -> dict:
+    """The master daemon driven through ``RemoteClient``: a placed
+    lineitem ingested, read back through LOCAL_SHARDS, Q01, a rowwise
+    filter's non-replicated output read back, and two concurrent clients'
+    aggregates; then both daemons shut down."""
+    import threading
+
+    import numpy as np
+
+    from netsdb_tpu_torch.parallel.placement import Placement
+    from netsdb_tpu_torch.plan.computations import (Aggregate, Apply,
+                                                    ScanSet, WriteSet)
+    from netsdb_tpu_torch.relational import dag
+    from netsdb_tpu_torch.relational.bench import generate_host
+    from netsdb_tpu_torch.relational.table import ColumnTable
+    from netsdb_tpu_torch.serve.client import RemoteClient
+
+    z = s["daemon"]
+    cols, dicts = generate_host(z["sf"], SEED + 7)["lineitem"]
+    table = ColumnTable.from_columns(cols, dicts, device="cpu")
+    walls = {}
+    c = RemoteClient(addr, timeout=s["timeout_s"])
+    try:
+        t0 = time.perf_counter()
+        c.create_database("tpch")
+        c.create_set("tpch", "lineitem", type_name="table",
+                     placement=Placement((("data", 2 * s["positions"]),),
+                                         ("data",)))
+        c.send_table("tpch", "lineitem", table)
+        walls["ingest"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = c.get_table("tpch", "lineitem")
+        walls["read_back"] = time.perf_counter() - t0
+        keys = np.sort(back["l_orderkey"].numpy()[back.mask().numpy()])
+        if not np.array_equal(keys, np.sort(cols["l_orderkey"])):
+            raise RuntimeError("[cluster] the lineitem read back through "
+                               "LOCAL_SHARDS differs from the rows sent")
+        t0 = time.perf_counter()
+        c.execute_computations(dag.q01_sink("tpch"), job_name="cluster-q01",
+                               fetch_results=False)
+        walls["q01"] = time.perf_counter() - t0
+        q01 = c.get_table("tpch", "q01_out")
+        want = _cluster_oracle_counts(table)
+        if not np.array_equal(q01["count"].numpy(), want):
+            raise RuntimeError(f"[cluster] daemon Q01 counts "
+                               f"{q01['count'].tolist()} != {want.tolist()}")
+        sink = WriteSet(Apply(ScanSet("tpch", "lineitem"),
+                              lambda t: t.filter(t["l_quantity"] > 25),
+                              label="cluster-filter", rowwise=True),
+                        "tpch", "li_high")
+        t0 = time.perf_counter()
+        c.execute_computations(sink, job_name="cluster-filter",
+                               fetch_results=False)
+        high = c.get_table("tpch", "li_high")
+        walls["filter"] = time.perf_counter() - t0
+        got = np.sort(high["l_orderkey"].numpy()[high.mask().numpy()])
+        if not np.array_equal(got, np.sort(
+                cols["l_orderkey"][cols["l_quantity"] > 25])):
+            raise RuntimeError("[cluster] the filter's output read back "
+                               "differs from the rows it keeps")
+        results, errors = {}, []
+
+        def client(tag):
+            try:
+                cc = RemoteClient(addr, timeout=s["timeout_s"])
+                cc.create_database(f"cl{tag}")
+                cc.create_set(f"cl{tag}", "objs", type_name="object")
+                cc.send_data(f"cl{tag}", "objs",
+                             [{"v": i + tag} for i in range(z["rows"])])
+                cc.execute_computations(WriteSet(Aggregate(
+                    ScanSet(f"cl{tag}", "objs"), key=lambda r: 0,
+                    value=lambda r: r["v"], combine=lambda a, b: a + b,
+                    label=f"sum{tag}"), f"cl{tag}", "out"),
+                    job_name=f"cluster-conc-{tag}", fetch_results=False)
+                results[tag] = dict(cc.get_set_iterator(f"cl{tag}",
+                                                        "out"))[0]
+                cc.close()
+            except Exception as e:  # noqa: BLE001 — raised after the join
+                errors.append(f"client {tag}: {e!r}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in (100, 200)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(s["timeout_s"])
+        walls["concurrent"] = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads) or any(
+                results.get(t) != sum(i + t for i in range(z["rows"]))
+                for t in (100, 200)):
+            raise RuntimeError(f"[cluster] concurrent clients: {results} "
+                               f"{errors}")
+    finally:
+        for a in (follower, addr):
+            try:
+                RemoteClient(a, timeout=30.0).shutdown_server()
+            except Exception as e:  # noqa: BLE001 — the processes' own
+                print(f"[cluster] shutdown of {a}: {e!r}")  # deadline
+        c.close()
+    out = {"rows": int(table.num_rows), "walls_s": walls}
+    print(f"[cluster] daemons: {table.num_rows} placed rows ingested, read "
+          f"back equal through LOCAL_SHARDS, Q01 counts equal to the "
+          f"oracle, the filter's {len(got)} rows read back, two concurrent "
+          f"aggregates; " + ", ".join(f"{k} {v:.2f} s"
+                                      for k, v in walls.items())
+          + f" | {card}")
+    return out
+
+
+def _cluster_one_process(s, device, q01_tables) -> dict:
+    """The same requests in this process over 2 × ``positions`` virtual
+    positions of the device: the bits the pair must give."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch import Client
+    from netsdb_tpu_torch.config import Configuration
+    from netsdb_tpu_torch.models.transformer import TransformerLayerModel
+    from netsdb_tpu_torch.parallel.mesh import (ShardedTensor, make_mesh,
+                                                position_sum,
+                                                virtual_devices)
+    from netsdb_tpu_torch.parallel.placement import Placement
+    from netsdb_tpu_torch.relational import dag
+
+    n = 2 * s["positions"]
+    out = {}
+    with virtual_devices(n, device), tempfile.TemporaryDirectory(
+            dir=os.path.dirname(os.path.abspath(__file__))) as root:
+        mesh = make_mesh((n,), ("data",))
+        x = torch.from_numpy(np.random.default_rng(SEED + 60).standard_normal(
+            (n * 1024, 256)).astype(np.float32)).to(device)
+        xs = ShardedTensor.from_dense(x, mesh, ("data",))
+        out["psum"] = position_sum([t.sum(0) for t in xs.shards.flat]
+                                   ).cpu().numpy()
+        for name, paged in (("q01", False), ("paged", True)):
+            cfg = (dict(page_size_bytes=s["paged"]["page_bytes"],
+                        page_pool_bytes=s["paged"]["pool_bytes"])
+                   if paged else {})
+            c = Client(Configuration(root_dir=os.path.join(root, name),
+                                     **cfg), device=device)
+            c.create_database("tpch")
+            c.create_set("tpch", "lineitem", type_name="table",
+                         storage="paged" if paged else "memory",
+                         placement=Placement((("data", n),), ("data",)))
+            c.send_table("tpch", "lineitem", q01_tables[name])
+            res = dag.run_query(c, dag.q01_sink("tpch"))
+            out[name] = {k: v.cpu().numpy() for k, v in res.cols.items()}
+        z = s["sp"]
+        c = Client(Configuration(root_dir=os.path.join(root, "sp")),
+                   device=device)
+        m = TransformerLayerModel(db="cluster_sp", num_heads=z["heads"])
+        axes = (("sp", n),)
+        m.setup(c, placements={w: Placement(axes, (None, None))
+                               for w in TransformerLayerModel.SETS})
+        m.load_random_weights(c, embed=z["embed"], seed=SEED)
+        rng = np.random.default_rng(SEED + 4)
+        out["sp"] = []
+        for _ in range(z["requests"]):
+            x = rng.standard_normal((z["batch"], z["seq"], z["embed"]),
+                                    dtype=np.float32)
+            m.load_inputs(c, x, placement=Placement(axes, (None, "sp", None)))
+            out["sp"].append(m.serve_forward(c).to_dense().cpu().numpy())
+    return out
+
+
+def phase_cluster(pk: dict, smi: str, device: str = "cuda",
+                  sizes: Optional[dict] = None) -> dict:
+    """Phase 26: two processes joined into one cluster on one device
+    (``parallel/distributed.initialize_cluster``, gloo: they share the
+    card), ``positions`` virtual positions each, the library phase 1
+    built loaded again (no nvcc). In turn: the bring-up (a position-order
+    sum over every process's positions), a placed Q01 through ``Client``,
+    a paged and placed Q01 (both arenas spill), ``requests`` SP layer
+    requests (B2 8 times a request in each process: 4 positions × 4
+    steps, split 8/8; one fold a process held to its plain step), and
+    the SPMD follower daemon under a master this process drives through
+    ``RemoteClient``. Meanwhile this process runs the same requests over
+    all the positions alone: Q01, the sum and the layer must give the
+    same bits. Each process has a hard timeout; a hang kills both."""
+    import shutil
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from netsdb_tpu_torch.relational.bench import generate_host
+    from netsdb_tpu_torch.relational.table import ColumnTable
+
+    s = dict(CLUSTER_SIZES, positions=CLUSTER_POSITIONS, **(sizes or {}))
+    t_phase = time.perf_counter()
+    card = smi if device != "cpu" else "cpu"
+    if device != "cpu":
+        device = "cuda:0"
+
+    def free_port():
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    root = tempfile.mkdtemp(prefix="cluster_", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    coord, p0, p1 = free_port(), free_port(), free_port()
+    procs, logs = [], []
+    try:
+        for pid in (0, 1):
+            logs.append(os.path.join(root, f"p{pid}.log"))
+            procs.append(_daemon_popen(_CLUSTER_MAIN, [
+                pid, f"127.0.0.1:{coord}", root, device, json.dumps(s), p0,
+                p1, SEED], logs[-1]))
+        deadline = time.monotonic() + s["timeout_s"]
+        ready = []
+
+        def master_line():
+            for got in procs[0].stdout:
+                if got.startswith("master listening on "):
+                    ready.append(got.split()[-1])
+                    return
+
+        reader = threading.Thread(target=master_line, daemon=True)
+        reader.start()
+        # the one-process requests run while the pair does
+        by_sf = {}
+        for name in ("q01", "paged"):
+            sf = s[name]["sf"]
+            if sf not in by_sf:
+                by_sf[sf] = ColumnTable.from_columns(
+                    *generate_host(sf, SEED)["lineitem"], device="cpu")
+        tables = {name: by_sf[s[name]["sf"]] for name in ("q01", "paged")}
+        t0 = time.perf_counter()
+        one = _cluster_one_process(s, device, tables)
+        one_s = time.perf_counter() - t0
+        reader.join(max(0.0, deadline - time.monotonic()))
+        if not ready:
+            raise RuntimeError("[cluster] the master daemon did not start")
+        daemons = _cluster_daemons(ready[0], f"127.0.0.1:{p1}", s, device,
+                                   card)
+        for p in procs:
+            p.wait(max(1.0, deadline - time.monotonic()))
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait(30)
+        for path in logs:
+            with open(path) as f:
+                print(f"[cluster] {path}:\n{f.read()[-3000:]}")
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    try:
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"[cluster] process exit codes "
+                               f"{[p.returncode for p in procs]}")
+        res = [json.load(open(os.path.join(root, f"result_{pid}.json")))
+               for pid in (0, 1)]
+        n = 2 * s["positions"]
+        want_b2 = (n * n // 2) if device != "cpu" else 0
+        oracle = {name: _cluster_oracle_counts(t)
+                  for name, t in tables.items()}
+        errs = []
+        for pid, r in enumerate(res):
+            info = r["info"]
+            if (info["backend"] != "gloo" or info["process_count"] != 2
+                    or info["global_device_count"] != n):
+                raise RuntimeError(f"[cluster] process {pid}: {info}")
+            if not np.array_equal(np.load(os.path.join(
+                    root, f"psum_{pid}.npy")), one["psum"]):
+                raise RuntimeError(f"[cluster] process {pid}: the "
+                                   f"cross-process sum differs from one "
+                                   f"process's")
+            for name in ("q01", "paged"):
+                got = np.load(os.path.join(root, f"{name}_{pid}.npz"))
+                for k in got.files:
+                    if not np.array_equal(got[k], one[name][k]):
+                        raise RuntimeError(
+                            f"[cluster] process {pid} {name}: {k} differs "
+                            f"from the one-process run")
+                if not np.array_equal(got["count"], oracle[name]):
+                    raise RuntimeError(f"[cluster] {name}: counts differ "
+                                       f"from the oracle")
+            sp = r["sp_launches"]
+            if sp["per_request"] != [want_b2] * s["sp"]["requests"] \
+                    or sp["flash_attention"] != 0:
+                raise RuntimeError(f"[cluster] process {pid}: B2 launches "
+                                   f"{sp['per_request']} (want {want_b2} a "
+                                   f"request), B1 {sp['flash_attention']}")
+            if r["fold_err"] > F32_TOL:
+                raise RuntimeError(f"[cluster] process {pid}: B2 fold "
+                                   f"{r['fold_err']} from its plain step")
+            errs.append(r["fold_err"])
+        for i, want in enumerate(one["sp"]):
+            got = np.load(os.path.join(root, f"sp_y{i}.npy"))
+            if not np.isfinite(got).all() or not np.array_equal(got, want):
+                raise RuntimeError(
+                    f"[cluster] SP request {i}: the pair differs from one "
+                    f"process by {float(np.abs(got - want).max())}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    staged = [r["transport"]["staged_bytes"] for r in res]
+    if device != "cpu" and min(staged) <= 0:
+        raise RuntimeError("[cluster] nothing was staged through host memory")
+    wall = time.perf_counter() - t_phase
+    walls = {f"p{pid}": {k: round(v, 3) for k, v in r["walls"].items()}
+             for pid, r in enumerate(res)}
+    out = {"backend": res[0]["info"]["backend"],
+           "positions": n, "processes": 2,
+           "staged_bytes": staged,
+           "sent_bytes": [r["transport"]["sent_bytes"] for r in res],
+           "messages": [r["transport"]["messages"] for r in res],
+           "paged_stats": [r["paged_stats"] for r in res],
+           "sp_ms": [r["sp_ms"] for r in res],
+           "ring_step": [r["ring_step"] for r in res],
+           "b2_per_request": [r["sp_launches"]["per_request"] for r in res],
+           "fold_max_abs_err": max(errs), "walls_s": walls,
+           "one_process_s": round(one_s, 3), "daemons": daemons,
+           "launches": {"flash_attention": sum(
+               r["sp_launches"]["flash_attention"] for r in res),
+               "flash_attention_step": sum(
+               r["sp_launches"]["flash_attention_step"] for r in res)},
+           "wall_s": round(wall, 1)}
+    print(f"[cluster] backend {out['backend']}, {n} positions over 2 "
+          f"processes; staged through host memory {staged} bytes, sent "
+          f"{out['sent_bytes']} | {card}")
+    print(f"[cluster] bring-up sum, Q01 and paged Q01 (spills "
+          f"{[p['spills'] for p in out['paged_stats']]}) equal to one "
+          f"process bit for bit; SP {out['sp_ms']} ms, B2 launches "
+          f"{out['b2_per_request']} a request, fold max abs err "
+          f"{max(errs):.3e} (limit {F32_TOL}); the pair's layer equal to "
+          f"one process bit for bit | {card}")
+    print(f"[cluster] a ring step's exchanges (k and v, through host "
+          f"memory): " + "; ".join(
+              f"p{pid} {r['ring_step']['ms']:.3f} ms, "
+              f"{r['ring_step']['staged_bytes']:.0f} bytes staged"
+              for pid, r in enumerate(res)) + f" | {card}")
+    print(f"[cluster] walls (s): {json.dumps(walls)}; one process "
+          f"{one_s:.1f} s; phase {wall:.1f} s | {card}")
+    if device != "cpu" and wall > CLUSTER_BUDGET_S:
+        print(f"[cluster] over its {CLUSTER_BUDGET_S} s budget")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -11267,8 +11918,9 @@ def main() -> int:
         return 0
     if "--relational-only" in sys.argv[1:]:
         # phase 11 alone, the same way
-        print(json.dumps({"relational": relational_path(pk)[0],
-                          "card": smi}))
+        out, state = relational_path(pk)
+        state["finish"]()
+        print(json.dumps({"relational": out, "card": smi}))
         return 0
     if "--paged-relations-only" in sys.argv[1:]:
         # phase 12 alone, the same way
@@ -11346,6 +11998,11 @@ def main() -> int:
         print(json.dumps({"multichip": phase_multichip(pk, smi),
                           "card": smi}, default=str))
         return 0
+    if "--cluster-only" in sys.argv[1:]:
+        # phase 26 alone, the same way
+        print(json.dumps({"cluster": phase_cluster(pk, smi), "card": smi},
+                         default=str))
+        return 0
     if "--mesh-only" in sys.argv[1:]:
         # phase 18 alone, the same way, over its own SF 10 tables
         state = _resident_card(TPCH_SF)
@@ -11396,6 +12053,8 @@ def main() -> int:
     relational, rel_state = timed("11", relational_path, pk)
     try:
         paged_relations = timed("12", paged_relations_path, pk, rel_state)
+        # phase 11's CPU references ran beside phase 12: hold them now
+        timed("11b", rel_state.pop("finish"))
         rows = timed("13", rows_path, pk)
         compiled = timed("14", compiled_path, rel_state)
         _close_paged(rel_state.pop("paged", None))
@@ -11421,6 +12080,7 @@ def main() -> int:
         raise
     lint = timed("25", phase_lint, smi, [cli["witness_dump"],
                                          pool["witness_dump"]], started)
+    cluster = timed("26", phase_cluster, pk, smi)
     print(f"[timing] phases (s): {json.dumps(walls)}; all "
           f"{time.perf_counter() - t_main:.1f}")
     pool_launches = {
@@ -11438,7 +12098,8 @@ def main() -> int:
                       "serve": serve, "pool": pool, "mesh": mesh,
                       "multichip": multichip, "obs": observed,
                       "ha": replicated, "pool_rest": rest, "cli": cli,
-                      "benches": benches, "lint": lint, "card": smi},
+                      "benches": benches, "lint": lint,
+                      "cluster": cluster, "card": smi},
                      default=str))
 
     def kernel_row(kname, source, replaces, by_path, row):
@@ -11469,7 +12130,8 @@ def main() -> int:
                         replicated["launches"]["flash_attention"],
                     "pool_rest": rest["launches"]["flash_attention"],
                     "cli": cli["launches"]["flash_attention"],
-                    "benches": benches["launches"]["flash_attention"]},
+                    "benches": benches["launches"]["flash_attention"],
+                    "cluster": cluster["launches"]["flash_attention"]},
                    b1),
         kernel_row("flash_attention_step",
                    "netsdb_tpu_torch/csrc/flash_attention_step.cu",
@@ -11490,7 +12152,9 @@ def main() -> int:
                     "pool_rest": rest["launches"]["flash_attention_step"],
                     "cli": cli["launches"]["flash_attention_step"],
                     "benches":
-                        benches["launches"]["flash_attention_step"]},
+                        benches["launches"]["flash_attention_step"],
+                    "cluster":
+                        cluster["launches"]["flash_attention_step"]},
                    b2)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -56,7 +56,10 @@ SEED_EDGES: Tuple[Tuple[str, str], ...] = (
     # mirrored frames take _mirror_lock then _followers_mu, and append
     # to the durable mutation log INSIDE the mirror critical section
     # (log order must equal link FIFO order); the log's lock is a
-    # strict leaf
+    # strict leaf. In a joined cluster every mirrored frame, and every
+    # read of a set placed over several processes, runs whole under
+    # _collective_lock first
+    ("ServeController._collective_lock", "ServeController._mirror_lock"),
     ("ServeController._set_locks[]", "ServeController._write_gates[]"),
     ("ServeController._write_gates[]", "SetStore._lock"),
     ("ServeController._set_locks[]", "ServeController._mirror_lock"),

@@ -801,6 +801,11 @@ def _cmd_serve(args) -> int:
                  if args.followers else None)
     workers = ([a.strip() for a in args.workers.split(",") if a.strip()]
                if args.workers else None)
+    # a process of a joined cluster joins before it serves (a no-op
+    # without NETSDB_TPU_COORDINATOR in the environment)
+    from netsdb_tpu_torch.parallel.distributed import initialize_cluster
+
+    initialize_cluster(device=device or "cuda")
     return run_daemon(config, host=args.host, port=args.port,
                       token=args.token, max_jobs=args.max_jobs,
                       followers=followers, workers=workers, device=device)
@@ -1342,7 +1347,9 @@ def main(argv=None) -> int:
     p.add_argument("--followers", default=None,
                    help="comma-separated worker daemon addresses: fan "
                         "every mutating/job frame out for multi-host "
-                        "SPMD")
+                        "SPMD (join every process into one cluster: "
+                        "NETSDB_TPU_COORDINATOR, NETSDB_TPU_NUM_PROCESSES "
+                        "and NETSDB_TPU_PROCESS_ID in each)")
     p.add_argument("--workers", default=None,
                    help="comma-separated shard daemon addresses "
                         "forming this leader's partitioned worker "

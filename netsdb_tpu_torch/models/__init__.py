@@ -2,8 +2,8 @@
 (``src/FF``, ``src/LogReg``, ``src/word2vec``, ``src/conv2d_proj``,
 ``src/conv2d_memory_fusion``, ``src/LSTM``) and the transformer layer;
 counterpart of ``netsdb_tpu/models/__init__.py``. The mixture-of-experts
-layer runs on one device (``models.moe``; expert parallelism is
-ROADMAP.md A4 part 3); decode and the served pool are ROADMAP.md A5 and A7."""
+layer (``models.moe``) runs on one device or expert-parallel over a mesh;
+decode and the served pool are ROADMAP.md A5 and A7."""
 
 from netsdb_tpu_torch.models.conv2d import Conv2DModel
 from netsdb_tpu_torch.models.ff import FFModel

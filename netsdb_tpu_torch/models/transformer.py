@@ -92,7 +92,7 @@ def _daemon_mesh(placement: Placement, axis: str, x) -> Optional[Mesh]:
     along ``axis`` (the degraded-hardware rule, as in the process that
     built the DAG)."""
     if isinstance(x, ShardedTensor):
-        dev = next(iter(x.shards.flat)).device
+        dev = x.first().device
     else:
         dev = _dense(x).device
     mesh = placement.mesh(visible_devices(dev.type))
@@ -194,14 +194,15 @@ class TransformerLayerModel:
         Layer norm, the projections and the MLP run per position on that
         position's shard, with that position's copy of the weights; the
         attention core rotates k/v around the ring
-        (:func:`~netsdb_tpu_torch.parallel.ring.ring_attention`).
+        (:func:`~netsdb_tpu_torch.parallel.ring.ring_attention`). Over a
+        mesh several processes own, each runs its own positions (SPMD).
         Returns y with x's sharding."""
         spec = (None, axis, None)
         xs = as_sharded(x, mesh, spec)
         weights = _LocalWeights(mesh)
         qkv = {name: np.empty(mesh.devices.shape, dtype=object)
                for name in "qkv"}
-        for pos in mesh.positions():
+        for pos in mesh.local_positions():
             w = weights.at(p.w_qkv, pos)
             for name, t in zip("qkv", qkv_project(self._ln(xs.shards[pos]),
                                                   w, self.num_heads)):
@@ -212,7 +213,7 @@ class TransformerLayerModel:
                                  head_shape) for name in "qkv")
         out = ring_attention(q, k, v, mesh, axis=axis, causal=causal)
         ys = np.empty(mesh.devices.shape, dtype=object)
-        for pos in mesh.positions():
+        for pos in mesh.local_positions():
             lp = weights.params(p, pos)
             x1 = xs.shards[pos] + merge_project(out.shards[pos], lp.w_out)
             ys[pos] = x1 + self._mlp(self._ln(x1), lp)

@@ -3,11 +3,13 @@
 
 The reference runs each local product under ``shard_map`` and lets one
 ``psum``, ``psum_scatter``, ``all_gather`` or ``all_to_all`` combine the
-positions. Here the positions' tensors are at hand (one process drives
-every position, :mod:`netsdb_tpu_torch.parallel.mesh`), so each
-collective is the explicit function of them: the reduction sums the
-partial products in position order, the gather concatenates, the
-all-to-all splits and concatenates. The local products are
+positions. Here a process holds its own positions' tensors
+(:mod:`netsdb_tpu_torch.parallel.mesh`), so each collective is the
+explicit function of them: the reduction sums the partial products in
+position order, the gather concatenates, the all-to-all splits and
+concatenates. Positions another process owns come through the mesh's
+collectives (every owning process runs the same call), and each process
+keeps its own positions of the output. The local products are
 ``torch.matmul`` in full f32 (TF32 off), as the reference's
 ``Precision.HIGHEST`` ``dot_general`` is.
 
@@ -54,6 +56,20 @@ def _replicated(values: List[torch.Tensor], group) -> dict:
     return out
 
 
+def _local_groups(mesh: Mesh, axis: str):
+    """The axis groups holding a position of this process, each with its
+    positions' owners."""
+    for group in mesh.axis_groups(axis):
+        owners = [int(mesh.owners[p]) for p in group]
+        if mesh.rank in owners:
+            yield group, owners
+
+
+def _local_dots(a: ShardedTensor, b: ShardedTensor, group) -> list:
+    return [None if x is None else _dot(x, y)
+            for x, y in zip(group_shards(a, group), group_shards(b, group))]
+
+
 def matmul_psum(a, b, mesh: Mesh, axis: str = "model") -> ShardedTensor:
     """C = A·B with the CONTRACTION dim sharded over ``axis``: each
     position multiplies its k-slice, then the partial products are
@@ -62,12 +78,11 @@ def matmul_psum(a, b, mesh: Mesh, axis: str = "model") -> ShardedTensor:
     a = as_sharded(a, mesh, (None, axis))
     b = as_sharded(b, mesh, (axis, None))
     out = {}
-    for group in mesh.axis_groups(axis):
-        parts = [_dot(x, y) for x, y in zip(group_shards(a, group),
-                                            group_shards(b, group))]
-        total = position_sum(parts)
+    for group, owners in _local_groups(mesh, axis):
+        total = position_sum(_local_dots(a, b, group), owners=owners)
+        mine = [p for p in group if mesh.is_local(p)]
         out.update(_replicated([move(total, mesh.devices[p])
-                                for p in group], group))
+                                for p in mine], mine))
     return _assemble(mesh, out, (None, None), (a.shape[0], b.shape[1]))
 
 
@@ -79,17 +94,22 @@ def matmul_psum_scatter(a, b, mesh: Mesh,
     a = as_sharded(a, mesh, (None, axis))
     b = as_sharded(b, mesh, (axis, None))
     out = {}
-    for group in mesh.axis_groups(axis):
-        parts = [_dot(x, y) for x, y in zip(group_shards(a, group),
-                                            group_shards(b, group))]
+    for group, owners in _local_groups(mesh, axis):
+        parts = _local_dots(a, b, group)
         n = len(group)
-        if parts[0].shape[0] % n:
-            raise ValueError(f"rows {parts[0].shape[0]} do not scatter over "
+        if a.shape[0] % n:
+            raise ValueError(f"rows {a.shape[0]} do not scatter over "
                              f"{axis}={n}")
-        tiles = [torch.chunk(p, n, dim=0) for p in parts]
+        tiles = [None if p is None else torch.chunk(p, n, dim=0)
+                 for p in parts]
         for j, pos in enumerate(group):
-            out[pos] = position_sum([tiles[i][j] for i in range(n)],
-                                    mesh.devices[pos])
+            # every owner takes part in each tile's sum (SPMD)
+            total = position_sum([None if t is None else t[j]
+                                  for t in tiles],
+                                 mesh.devices[pos] if mesh.is_local(pos)
+                                 else None, owners=owners)
+            if mesh.is_local(pos):
+                out[pos] = total
     return _assemble(mesh, out, (axis, None), (a.shape[0], b.shape[1]))
 
 
@@ -101,13 +121,15 @@ def matmul_allgather(a, b, mesh: Mesh, axis: str = "model") -> ShardedTensor:
     a = as_sharded(a, mesh, (axis, None))
     b = as_sharded(b, mesh, (axis, None))
     out = {}
-    for group in mesh.axis_groups(axis):
+    for group, owners in _local_groups(mesh, axis):
         blocks = group_shards(b, group)
         full = {}
         for pos, x in zip(group, group_shards(a, group)):
+            if x is None:
+                continue
             dev = mesh.devices[pos]
             if dev not in full:
-                full[dev] = position_gather(blocks, 0, dev)
+                full[dev] = position_gather(blocks, 0, dev, owners)
             out[pos] = _dot(x, full[dev])
     return _assemble(mesh, out, (axis, None), (a.shape[0], b.shape[1]))
 
@@ -123,8 +145,8 @@ def all_to_all_resharding(x, mesh: Mesh, axis: str, from_dim: int,
     out_spec[to_dim] = axis
     x = as_sharded(x, mesh, tuple(in_spec))
     out = {}
-    for group in mesh.axis_groups(axis):
+    for group, owners in _local_groups(mesh, axis):
         moved = position_all_to_all(group_shards(x, group), to_dim,
-                                    from_dim)
-        out.update(zip(group, moved))
+                                    from_dim, owners)
+        out.update((p, t) for p, t in zip(group, moved) if t is not None)
     return _assemble(mesh, out, tuple(out_spec), x.shape)

@@ -1,20 +1,24 @@
 """Device mesh and sharded values — counterpart of
 ``netsdb_tpu/parallel/mesh.py``.
 
-A :class:`Mesh` names the axes of an array of device positions. One
-process drives every position, as JAX's ``shard_map`` does: a
-:class:`ShardedTensor` (the counterpart of a ``jax.Array`` under a
-``NamedSharding``) holds one tensor per position, and code that runs
-"per device" loops over the positions, each launching on its own
-position's device. The collectives over an axis are explicit functions
-of the positions' tensors (:func:`position_sum`, :func:`position_gather`,
-:func:`position_scatter`, :func:`position_all_to_all`): a reduction sums
-the partials in position order, a gather concatenates them, an
-all-to-all is a split and a concatenation. Positions on one device
-exchange tensors without a copy; positions on different cards copy with
-``Tensor.to``. Processes joined over NCCL are not ported yet
-(``parallel/distributed.py`` ports the single-process half; ROADMAP.md
-A4 part 3).
+A :class:`Mesh` names the axes of an array of device positions and
+knows which process owns each one. A process drives every position it
+owns, as JAX's ``shard_map`` does: a :class:`ShardedTensor` (the
+counterpart of a ``jax.Array`` under a ``NamedSharding``) holds one
+tensor per position this process owns (None at a position another
+process owns), and code that runs "per device" loops over its own
+positions, each launching on its own position's device. The collectives
+over an axis are explicit functions of the positions' tensors
+(:func:`position_sum`, :func:`position_gather`, :func:`position_scatter`,
+:func:`position_all_to_all`): a reduction sums the partials in position
+order, a gather concatenates them, an all-to-all is a split and a
+concatenation. Positions on one device exchange tensors without a copy;
+positions on different cards copy with ``Tensor.to``; positions owned by
+another process of a joined cluster (``parallel/distributed.py``) come
+through ``parallel/_transport.py``, and every process that owns a
+position of the group runs the same collective (SPMD). A reduction then
+gathers every partial and sums in position order in each process, so a
+cluster's result has the bits of one process over the same positions.
 
 An op over placed operands follows one rule (``parallel/placed_ops.py``):
 per position where the layouts allow it, else a gather onto the first
@@ -49,18 +53,75 @@ Index = Tuple[int, ...]
 
 _virtual: Optional[Tuple[torch.device, ...]] = None
 _default_mesh: Optional["Mesh"] = None
+#: the joined cluster's global positions (set by
+#: ``parallel.distributed.initialize_cluster``), with this process's rank
+_cluster: Optional["Positions"] = None
+
+
+class RemoteShardsError(RuntimeError):
+    """A read of a placed value whose blocks other processes hold: the
+    caller gathers it explicitly (``ShardedTensor.gather_global()``, a
+    collective every owning process runs), as ``np.asarray`` refuses a
+    ``jax.Array`` that spans non-addressable devices."""
+
+
+class Positions(tuple):
+    """A joined cluster's global positions: position ``i`` sits on
+    ``self[i]`` in the process ``owners[i]`` (its rank), and ``rank`` is
+    this process's. A slice keeps its owners."""
+
+    def __new__(cls, devices, owners, rank: int):
+        out = super().__new__(cls, devices)
+        out.owners, out.rank = tuple(owners), int(rank)
+        return out
+
+    def __getitem__(self, i):
+        got = super().__getitem__(i)
+        if isinstance(i, slice):
+            return Positions(got, self.owners[i], self.rank)
+        return got
+
+    def __getnewargs__(self):
+        return tuple(self), self.owners, self.rank
+
+
+def process_rank() -> int:
+    """This process's rank in the joined cluster (0 without one)."""
+    return _cluster.rank if _cluster is not None else 0
 
 
 class Mesh:
     """Axis names over an array of ``torch.device`` positions. The same
-    device may sit at several positions (virtual positions)."""
+    device may sit at several positions (virtual positions). ``owners``
+    (same shape) names the process that owns each position, ``rank`` this
+    process; without them every position is this process's."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 owners: Optional[np.ndarray] = None,
+                 rank: Optional[int] = None):
         self.devices = np.asarray(devices, dtype=object)
         self.axis_names = tuple(axis_names)
         if self.devices.ndim != len(self.axis_names):
             raise ValueError(f"mesh devices of shape {self.devices.shape} "
                              f"do not match axes {self.axis_names}")
+        self.rank = process_rank() if rank is None else int(rank)
+        self.owners = (np.full(self.devices.shape, self.rank, dtype=np.int64)
+                       if owners is None else
+                       np.asarray(owners, dtype=np.int64).reshape(
+                           self.devices.shape))
+        self.spans_processes = bool((self.owners != self.rank).any())
+
+    def is_local(self, idx: Index) -> bool:
+        """True when this process owns position ``idx``."""
+        return int(self.owners[idx]) == self.rank
+
+    def local_positions(self) -> List[Index]:
+        """The positions this process owns, in row-major mesh order."""
+        return [idx for idx in self.positions() if self.is_local(idx)]
+
+    def processes(self) -> List[int]:
+        """The ranks that own a position of the mesh, ascending."""
+        return sorted({int(r) for r in self.owners.flat})
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -84,17 +145,29 @@ class Mesh:
                 for other in np.ndindex(rest)]
 
     def __repr__(self) -> str:
-        devs = ",".join(str(d) for d in self.devices.flat)
+        devs = ",".join(f"{d}" + (f"@p{int(o)}" if self.spans_processes
+                                  else "")
+                        for d, o in zip(self.devices.flat, self.owners.flat))
         return f"Mesh({self.shape}, devices=[{devs}])"
 
 
 def visible_devices(device_type: Optional[str] = None
                     ) -> Tuple[torch.device, ...]:
-    """The device positions a mesh is built over: the virtual positions
-    while :func:`virtual_devices` is active (for ``device_type``, or for
-    any type when none is given), else every visible card for
-    ``"cuda"`` (the default; raises without a card) or the one CPU for
-    ``"cpu"``."""
+    """The device positions a mesh is built over: in a joined cluster the
+    global positions of its device type (:class:`Positions`, every
+    process's in rank order); else the virtual positions while
+    :func:`virtual_devices` is active (for ``device_type``, or for any
+    type when none is given), else every visible card for ``"cuda"``
+    (the default; raises without a card) or the one CPU for ``"cpu"``."""
+    if _cluster is not None and device_type in (None, _cluster[0].type):
+        return _cluster
+    return local_devices(device_type)
+
+
+def local_devices(device_type: Optional[str] = None
+                  ) -> Tuple[torch.device, ...]:
+    """This process's own positions (:func:`visible_devices` outside a
+    joined cluster)."""
     if _virtual is not None and device_type in (None, _virtual[0].type):
         return _virtual
     device_type = device_type or "cuda"
@@ -139,7 +212,10 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
               devices: Optional[Sequence[torch.device]] = None) -> Mesh:
     """A mesh over ``devices`` (default: the visible positions). Default
     shape: every position on the first axis, 1 on the others."""
-    devices = list(devices if devices is not None else visible_devices())
+    devices = devices if devices is not None else visible_devices()
+    owners = getattr(devices, "owners", None)
+    rank = getattr(devices, "rank", None)
+    devices = list(devices)
     n = len(devices)
     if shape is None:
         shape = (n,) + (1,) * (len(axis_names) - 1)
@@ -147,7 +223,9 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
         raise ValueError(f"mesh shape {shape} != {n} devices")
     arr = np.empty(n, dtype=object)
     arr[:] = devices
-    return Mesh(arr.reshape(shape), axis_names)
+    return Mesh(arr.reshape(shape), axis_names,
+                None if owners is None else np.asarray(owners).reshape(shape),
+                rank)
 
 
 def default_mesh() -> Mesh:
@@ -173,7 +251,9 @@ _GATHER_LOG_CAP = 256
 def gather_placed(x: "ShardedTensor", op: str, reason: str) -> torch.Tensor:
     """``x`` gathered onto its first position's device because ``op``
     cannot run per position (``reason`` names the layouts): logged and
-    counted (``mesh.fallbacks``), never silent."""
+    counted (``mesh.fallbacks``), never silent. Over a mesh that spans
+    processes it is the collective :meth:`ShardedTensor.gather_global`,
+    which every owning process runs (SPMD), and each gets the value."""
     from netsdb_tpu_torch import obs
 
     key = (op, reason)
@@ -187,7 +267,7 @@ def gather_placed(x: "ShardedTensor", op: str, reason: str) -> torch.Tensor:
         ent["gathers"] += 1
         ent["bytes"] += math.prod(x.shape) * x.dtype.itemsize
     obs.REGISTRY.counter("mesh.fallbacks").inc()
-    return x.to_dense()
+    return x.gather_global() if x.mesh.spans_processes else x.to_dense()
 
 
 def gather_log() -> List[Dict[str, Any]]:
@@ -217,11 +297,44 @@ def move(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def position_sum(parts: Sequence[torch.Tensor],
-                 device: Optional[torch.device] = None) -> torch.Tensor:
+def _fill(parts: Sequence[Optional[torch.Tensor]],
+          owners: Optional[Sequence[int]]) -> List[torch.Tensor]:
+    """``parts`` (one per position of a group, None where another process
+    owns it) with every remote part received: each owning process sends
+    its parts to every other owner of the group (SPMD: all of them call).
+    The parts share one shape and dtype."""
+    parts = list(parts)
+    rank = process_rank()
+    peers = sorted(set(owners or ()) - {rank})
+    if not peers:
+        if any(p is None for p in parts):
+            raise RemoteShardsError("a collective over positions another "
+                                    "process owns needs their owners")
+        return parts
+    from netsdb_tpu_torch.parallel import _transport
+
+    like = next(p for p in parts if p is not None)
+    mine = [i for i, o in enumerate(owners) if o == rank]
+    theirs = [i for i, o in enumerate(owners) if o != rank]
+    got = _transport.exchange(
+        [(parts[i], q) for q in peers for i in mine],
+        [(tuple(like.shape), like.dtype, like.device, owners[i])
+         for i in theirs])
+    for i, t in zip(theirs, got):
+        parts[i] = t
+    return parts
+
+
+def position_sum(parts: Sequence[Optional[torch.Tensor]],
+                 device: Optional[torch.device] = None,
+                 owners: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The sum of the positions' partials on ``device`` (default: the
-    first position's), added in position order — ``((p0 + p1) + p2) +
-    ...`` — so two runs give the same bits whatever the devices."""
+    first local part's), added in position order — ``((p0 + p1) + p2) +
+    ...`` — so two runs give the same bits whatever the devices and
+    whichever processes own them. ``owners`` names each position's
+    process; the partials of other processes (None here) are gathered
+    first, and every owning process gets the sum."""
+    parts = _fill(parts, owners)
     device = device if device is not None else parts[0].device
     out = move(parts[0], device).clone()
     for p in parts[1:]:
@@ -229,10 +342,13 @@ def position_sum(parts: Sequence[torch.Tensor],
     return out
 
 
-def position_gather(parts: Sequence[torch.Tensor], dim: int = 0,
-                    device: Optional[torch.device] = None) -> torch.Tensor:
+def position_gather(parts: Sequence[Optional[torch.Tensor]], dim: int = 0,
+                    device: Optional[torch.device] = None,
+                    owners: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The positions' blocks concatenated along ``dim`` in position order
-    on ``device`` (default: the first position's)."""
+    on ``device`` (default: the first position's); remote blocks as in
+    :func:`position_sum`."""
+    parts = _fill(parts, owners)
     device = device if device is not None else parts[0].device
     return torch.cat([move(p, device) for p in parts], dim=dim)
 
@@ -249,19 +365,43 @@ def position_scatter(x: torch.Tensor, devices: Sequence[torch.device],
             for b, d in zip(torch.chunk(x, n, dim=dim), devices)]
 
 
-def position_all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
-                        concat_dim: int) -> List[torch.Tensor]:
+def position_all_to_all(parts: Sequence[Optional[torch.Tensor]],
+                        split_dim: int, concat_dim: int,
+                        owners: Optional[Sequence[int]] = None
+                        ) -> List[Optional[torch.Tensor]]:
     """The tiled all-to-all of one axis group: position ``i`` splits its
     block into ``n`` along ``split_dim`` and sends piece ``j`` to position
     ``j``, which concatenates the pieces it receives along
-    ``concat_dim`` in position order."""
+    ``concat_dim`` in position order. With ``owners``, pieces bound for
+    another process's positions go through the transport, and the result
+    holds this process's positions (None at the others)."""
     n = len(parts)
-    pieces = [torch.chunk(p, n, dim=split_dim) for p in parts]
-    if any(p.shape[split_dim] % n for p in parts):
+    if any(p is not None and p.shape[split_dim] % n for p in parts):
         raise ValueError(f"dimension {split_dim} does not split into {n} "
                          f"parts")
-    return [torch.cat([move(pieces[i][j], parts[j].device)
+    pieces = [None if p is None else torch.chunk(p, n, dim=split_dim)
+              for p in parts]
+    rank = process_rank()
+    owners = list(owners) if owners is not None else [rank] * n
+    if any(p is None for i, p in enumerate(parts) if owners[i] == rank):
+        raise ValueError("a local position has no block")
+    remote: Dict[Tuple[int, int], torch.Tensor] = {}
+    if set(owners) != {rank}:
+        from netsdb_tpu_torch.parallel import _transport
+
+        pairs = [(i, j) for i in range(n) for j in range(n)
+                 if (owners[i] == rank) != (owners[j] == rank)]
+        sends = [(pieces[i][j], owners[j]) for i, j in pairs
+                 if owners[i] == rank]
+        wanted = [(i, j) for i, j in pairs if owners[j] == rank]
+        got = _transport.exchange(sends, [
+            (tuple(pieces[j][i].shape), pieces[j][i].dtype,
+             parts[j].device, owners[i]) for i, j in wanted])
+        remote = dict(zip(wanted, got))
+    return [torch.cat([remote[(i, j)] if (i, j) in remote
+                       else move(pieces[i][j], parts[j].device)
                        for i in range(n)], dim=concat_dim).contiguous()
+            if owners[j] == rank else None
             for j in range(n)]
 
 
@@ -284,12 +424,14 @@ def cached_mesh(axes: Tuple[Tuple[str, int], ...],
     if need > len(devices):
         raise ValueError(f"placement axes {axes} need {need} devices, "
                          f"have {len(devices)}")
-    key = (tuple(axes), tuple(devices[:need]))
+    devices = devices[:need]
+    key = (tuple(axes), tuple(devices), getattr(devices, "owners", None),
+           getattr(devices, "rank", None))
     with _mesh_lock:
         mesh = _mesh_cache.get(key)
         if mesh is None:
             mesh = make_mesh(tuple(s for _, s in axes),
-                             tuple(n for n, _ in axes), devices[:need])
+                             tuple(n for n, _ in axes), devices)
             _mesh_cache[key] = mesh
         return mesh
 
@@ -320,8 +462,9 @@ class ShardedTensor:
     split over axes (a1, a2, ...) takes its part index from the
     positions on those axes, a1 major). Positions on one device that
     hold the same block share one tensor, so a replicated value keeps
-    one copy per distinct physical device. Shards are read-only by
-    convention: nothing in the port writes into them."""
+    one copy per distinct physical device. A position another process
+    owns holds None here (that process holds its tensor). Shards are
+    read-only by convention: nothing in the port writes into them."""
 
     def __init__(self, shards: np.ndarray, mesh: Mesh, spec: Sequence[Any],
                  shape: Sequence[int]):
@@ -334,6 +477,11 @@ class ShardedTensor:
         local = self.local_shape
         for idx in mesh.positions():
             t = shards[idx]
+            if not mesh.is_local(idx):
+                if t is not None:
+                    raise ValueError(f"shard at {idx} belongs to process "
+                                     f"{int(mesh.owners[idx])}")
+                continue
             if tuple(t.shape) != local or t.device != mesh.devices[idx]:
                 raise ValueError(
                     f"shard at {idx} is {tuple(t.shape)} on {t.device}; "
@@ -357,7 +505,7 @@ class ShardedTensor:
         out.mesh, out.spec, out.shape = mesh, spec, tuple(x.shape)
         shards = np.empty(mesh.devices.shape, dtype=object)
         made: Dict[Tuple, torch.Tensor] = {}
-        for idx in mesh.positions():
+        for idx in mesh.local_positions():
             dev = mesh.devices[idx]
             region = out.region(idx)
             key = (dev, tuple((s.start, s.stop) for s in region))
@@ -379,8 +527,10 @@ class ShardedTensor:
 
     @property
     def device(self) -> torch.device:
-        """The first position's device (where :meth:`to_dense` gathers)."""
-        return self.mesh.devices.flat[0]
+        """This process's first position's device (where :meth:`to_dense`
+        gathers)."""
+        return self.mesh.devices[self.mesh.local_positions()[0]] \
+            if self.mesh.spans_processes else self.mesh.devices.flat[0]
 
     @property
     def ndim(self) -> int:
@@ -402,7 +552,20 @@ class ShardedTensor:
         return region_of(self.mesh, self.spec, self.shape, idx)
 
     def first(self) -> torch.Tensor:
-        return self.shards.flat[0]
+        """This process's first shard."""
+        if not self.mesh.spans_processes:
+            return self.shards.flat[0]
+        for t in self.shards.flat:
+            if t is not None:
+                return t
+        raise RemoteShardsError(f"a value of shape {self.shape} placed over "
+                                f"{self.mesh!r}: this process owns no "
+                                f"position of its mesh")
+
+    def local_shards(self) -> List[torch.Tensor]:
+        """The distinct tensors this process holds, in position order."""
+        return list({id(t): t for t in self.shards.flat
+                     if t is not None}.values())
 
     def distinct_positions(self) -> List[Index]:
         """One position per distinct block of the logical tensor, in the
@@ -426,7 +589,7 @@ class ShardedTensor:
                                  f"dimension of {self.layout()}")[region]
         cut: Dict[int, torch.Tensor] = {}
         shards = np.empty(self.shards.shape, dtype=object)
-        for idx in self.mesh.positions():
+        for idx in self.mesh.local_positions():
             t = self.shards[idx]
             if id(t) not in cut:
                 cut[id(t)] = t[tuple(
@@ -443,7 +606,7 @@ class ShardedTensor:
             raise ValueError(f"t() of a {self.ndim}-d sharded value")
         views: Dict[int, torch.Tensor] = {}
         shards = np.empty(self.shards.shape, dtype=object)
-        for idx in self.mesh.positions():
+        for idx in self.mesh.local_positions():
             t = self.shards[idx]
             shards[idx] = views.setdefault(id(t), t.t())
         return ShardedTensor(shards, self.mesh, self.spec[::-1],
@@ -460,12 +623,69 @@ class ShardedTensor:
         """The logical tensor, gathered onto the first position's device:
         the caller's explicit read, not logged (an op that gathers calls
         :func:`gather_placed`). A value held whole at each position
-        returns its first shard without a copy."""
+        returns its first shard without a copy. A block that only other
+        processes hold raises :class:`RemoteShardsError`: read it with
+        the collective :meth:`gather_global`."""
         if all(self.parts(d) == 1 for d in range(self.ndim)):
             return self.first()
+        held = self._held_blocks()
+        missing = [idx for idx in self.distinct_positions()
+                   if self._start(idx) not in held]
+        if missing:
+            raise RemoteShardsError(
+                f"{self!r}: the blocks at {missing} are held by processes "
+                f"{sorted({int(self.mesh.owners[i]) for i in missing})}, "
+                f"not this one ({self.mesh.rank}); gather it explicitly "
+                f"with gather_global(), which every owning process runs")
         out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
         for idx in self.distinct_positions():
-            out[self.region(idx)].copy_(self.shards[idx])
+            out[self.region(idx)].copy_(held[self._start(idx)])
+        return out
+
+    def _start(self, idx: Index) -> Tuple[int, ...]:
+        return tuple(s.start for s in self.region(idx))
+
+    def _held_blocks(self) -> Dict[Tuple[int, ...], torch.Tensor]:
+        """This process's tensor for each block it holds, by its start."""
+        held: Dict[Tuple[int, ...], torch.Tensor] = {}
+        for idx in self.mesh.local_positions():
+            held.setdefault(self._start(idx), self.shards[idx])
+        return held
+
+    def gather_global(self) -> torch.Tensor:
+        """The logical tensor on this process's first position's device,
+        assembled from every process's blocks: a collective that every
+        process owning a position of the mesh runs (SPMD). Each block
+        comes from the first process (in position order) that holds it,
+        to every owner that does not; outside a joined mesh it is
+        :meth:`to_dense`."""
+        if not self.mesh.spans_processes:
+            return self.to_dense()
+        from netsdb_tpu_torch.parallel import _transport
+
+        rank, mesh = self.mesh.rank, self.mesh
+        holders: Dict[Tuple[int, ...], set] = {}
+        for idx in mesh.positions():
+            holders.setdefault(self._start(idx), set()).add(
+                int(mesh.owners[idx]))
+        blocks = [(self._start(idx), int(mesh.owners[idx]),
+                   tuple(s.stop - s.start for s in self.region(idx)))
+                  for idx in self.distinct_positions()]
+        held = self._held_blocks()
+        sends, recvs, wanted = [], [], []
+        for start, owner, shape in blocks:
+            for q in mesh.processes():
+                if q in holders[start]:
+                    continue
+                if owner == rank:
+                    sends.append((held[start], q))
+                elif q == rank:
+                    recvs.append((shape, self.dtype, self.device, owner))
+                    wanted.append(start)
+        held.update(zip(wanted, _transport.exchange(sends, recvs)))
+        out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+        for idx in self.distinct_positions():
+            out[self.region(idx)].copy_(held[self._start(idx)])
         return out
 
     def __repr__(self) -> str:

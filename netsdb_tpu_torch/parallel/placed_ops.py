@@ -26,7 +26,10 @@ tensors) runs by this rule, the one place the port decides it:
 
 Positions of one physical device that hold the same output region share
 one result (computed once), as ``ShardedTensor.from_dense`` shares
-blocks.
+blocks. Over a mesh whose positions several processes own, each process
+computes its own positions (SPMD), the psum gathers the partials of the
+other processes first (so every process sums the same terms in the same
+order), and a gather is the collective ``ShardedTensor.gather_global``.
 """
 
 from __future__ import annotations
@@ -141,7 +144,7 @@ def _assemble(mesh: Mesh, fn: Callable, xs: Sequence[Any], spec: Tuple,
               ) -> ShardedTensor:
     shards = np.empty(mesh.devices.shape, dtype=object)
     made: Dict[tuple, torch.Tensor] = {}
-    for idx in mesh.positions():
+    for idx in mesh.local_positions():
         dev = mesh.devices[idx]
         region = region_of(mesh, spec, shape, idx)
         key = (dev, tuple((s.start, s.stop) for s in region))
@@ -222,6 +225,9 @@ def matmul(a: Any, b: Any, fn: Callable, op: str,
     for idx in mesh.positions():
         key = tuple(i for n, i in zip(mesh.axis_names, idx) if n not in k)
         groups.setdefault(key, []).append(idx)
+        if not mesh.is_local(idx):
+            partial[idx] = None
+            continue
         dev = mesh.devices[idx]
         ks = region_of(mesh, (kentry,), (kshape,), idx)[0]
         xa = a.shards[idx] if isinstance(a, ShardedTensor) else a
@@ -236,11 +242,16 @@ def matmul(a: Any, b: Any, fn: Callable, op: str,
     sums: Dict[tuple, torch.Tensor] = {}  # groups of replicas share one
     for group in groups.values():
         group.sort(key=lambda i: _part_index(mesh, kentry, i))
+        owners = [int(mesh.owners[i]) for i in group]
+        if mesh.rank not in owners:
+            continue
         parts = [partial[i] for i in group]
         skey = tuple(id(t) for t in parts)
         if skey not in sums:
-            sums[skey] = cast(position_sum(parts))
+            sums[skey] = cast(position_sum(parts, owners=owners))
         for i in group:
+            if not mesh.is_local(i):
+                continue
             dev = mesh.devices[i]
             shards[i] = sums.setdefault(skey + (dev,),
                                         move(sums[skey], dev))
@@ -260,7 +271,7 @@ def take_rows(table: Any, idx: torch.Tensor, op: str) -> torch.Tensor:
     gathers (counted)."""
     if not isinstance(table, ShardedTensor):
         return table.index_select(0, idx)
-    if not _rows_only(table):
+    if not _rows_only(table) or table.mesh.spans_processes:
         return whole(table, op, "the rows are not the only sharded "
                      "dimension").index_select(0, idx)
     if table.spec[0] is None:
@@ -320,7 +331,7 @@ def row_blocks(t: BlockedTensor, op: str) -> List[torch.Tensor]:
     one-device value; any other placed layout is gathered, counted)."""
     d = t.data
     if not isinstance(d, ShardedTensor) or d.spec[0] is None \
-            or not _rows_only(d):
+            or not _rows_only(d) or d.mesh.spans_processes:
         if isinstance(d, ShardedTensor):
             t = t.with_data(whole(d, op, "the rows are not the only "
                                   "sharded dimension"))

@@ -29,7 +29,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from netsdb_tpu_torch.core.blocked import BlockedTensor
-from netsdb_tpu_torch.parallel.mesh import (Mesh, ShardedTensor, as_sharded,
+from netsdb_tpu_torch.parallel.mesh import (Mesh, RemoteShardsError,
+                                            ShardedTensor, as_sharded,
                                             cached_mesh, shard_blocked,
                                             visible_devices)
 
@@ -103,7 +104,7 @@ class Placement:
 
     def mesh(self, devices: Optional[Sequence[torch.device]] = None) -> Mesh:
         """The mesh over ``devices`` (default: the visible positions)."""
-        devices = tuple(devices if devices is not None else visible_devices())
+        devices = devices if devices is not None else visible_devices()
         return cached_mesh(self.resolved_axes(len(devices)), devices)
 
     def axis_size(self, devices: Optional[Sequence[torch.device]] = None
@@ -226,14 +227,18 @@ def table_layout(table) -> Tuple[Mesh, Tuple[Any, ...]]:
 def local_tables(table, rowid: bool = False) -> list:
     """The placed table's block at each position, in position order: a
     ``ColumnTable`` of the position's tensors (its rows, or a whole copy
-    when replicated). ``rowid`` adds a ``_rowid`` column of GLOBAL row
-    numbers where the table has none (folds arbitrate ties on them)."""
+    when replicated), None at a position another process owns. ``rowid``
+    adds a ``_rowid`` column of GLOBAL row numbers where the table has
+    none (folds arbitrate ties on them)."""
     from netsdb_tpu_torch.relational.table import ColumnTable
 
     first = next(iter(table.cols.values()))
     mesh = first.mesh
     out = []
     for idx in mesh.positions():
+        if not mesh.is_local(idx):
+            out.append(None)
+            continue
         cols = {k: c.shards[idx] for k, c in table.cols.items()}
         valid = table.valid.shards[idx] if table.valid is not None else None
         if rowid and "_rowid" not in cols:
@@ -255,19 +260,29 @@ def row_tables(table) -> list:
         return [table]
     first = next(iter(table.cols.values()))
     local = dict(zip(first.mesh.positions(), local_tables(table)))
-    return [local[idx] for idx in first.distinct_positions()]
+    out = [local[idx] for idx in first.distinct_positions()]
+    if any(t is None for t in out):
+        raise RemoteShardsError(f"row blocks of a table placed over "
+                                f"{first.mesh!r} are held by other "
+                                f"processes")
+    return out
 
 
-def gather_table(table, strip: bool = False):
+def gather_table(table, strip: bool = False, collective: bool = False):
     """A placed table gathered into one ``ColumnTable`` on its first
     position's device (row blocks concatenated in position order), the
     padding rows kept and masked invalid — or cut off with ``strip``
     (the relation as it was sent; its statistics are then collected
-    anew)."""
+    anew). Blocks other processes hold raise ``RemoteShardsError``,
+    unless ``collective``: then every owning process runs the gather
+    (``ShardedTensor.gather_global``, SPMD) and each gets the table."""
     from netsdb_tpu_torch.relational.table import _STATS_ATTR, ColumnTable
 
-    cols = {k: c.to_dense() for k, c in table.cols.items()}
-    valid = table.valid.to_dense() if table.valid is not None else None
+    def whole(c):
+        return c.gather_global() if collective else c.to_dense()
+
+    cols = {k: whole(c) for k, c in table.cols.items()}
+    valid = whole(table.valid) if table.valid is not None else None
     rows = table.__dict__.get("_source_rows")
     if strip and rows is not None:
         cols = {k: c[:rows] for k, c in cols.items()}

@@ -496,6 +496,8 @@ def _run_fold_once(fold, pc: PagedColumns, resident, step_jit=None,
     if placement is not None:
         views = sharded.position_residents(
             resident, placement.mesh(visible_devices(pc.device.type)))
+        # init and finalize read this process's first position's view
+        view0 = next(v for v in views if v is not None)
     else:
         resident = sharded.gathered(resident)
     clock = obs.DeviceClock(pc.device)
@@ -503,7 +505,7 @@ def _run_fold_once(fold, pc: PagedColumns, resident, step_jit=None,
         n = 0
         for init, step in _fold_steps(fold, step_jit):
             state = init(state, pc, *(resident if views is None
-                                      else views[0]))
+                                      else view0))
             # closing: a step that raises releases the stream's read lock
             with contextlib.closing(
                     pc.stream_tables(placement=placement)) as chunks:
@@ -523,7 +525,7 @@ def _run_fold_once(fold, pc: PagedColumns, resident, step_jit=None,
     obs.attrib.account("executor.chunks", n, scope=pc.cache_scope)
     if views is None:
         return fold.finalize(state, pc, *resident)
-    return fold.finalize(sharded.moved(state, pc.device), pc, *views[0])
+    return fold.finalize(sharded.moved(state, pc.device), pc, *view0)
 
 
 def _pad_table_rows(t: ColumnTable, rows: int) -> ColumnTable:

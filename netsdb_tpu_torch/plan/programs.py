@@ -206,15 +206,21 @@ def _flatten(x: Any, leaves: List[torch.Tensor]) -> Any:
         leaves.append(x.data)
         return ("BT", x.meta)
     if isinstance(x, ShardedTensor):
-        # each distinct shard tensor once, positions mapped onto them
+        # each distinct shard tensor once, positions mapped onto them (a
+        # position another process owns maps to -1: such a value is
+        # "XST", which runs eagerly, its exchanges being host work)
         slots: Dict[int, int] = {}
         index = []
         for t in x.shards.flat:
+            if t is None:
+                index.append(-1)
+                continue
             if id(t) not in slots:
                 slots[id(t)] = len(slots)
                 leaves.append(t)
             index.append(slots[id(t)])
-        return ("ST", _Mesh(x.mesh), x.spec, x.shape, tuple(index))
+        return ("XST" if x.mesh.spans_processes else "ST", _Mesh(x.mesh),
+                x.spec, x.shape, tuple(index))
     if isinstance(x, ColumnTable):
         names = tuple(x.cols)
         if any(isinstance(x.cols[n], ShardedTensor) for n in names):
@@ -274,12 +280,12 @@ def _unflatten(tree: Any, it) -> Any:
     if kind == "dc":
         return tree[1](**{n: _unflatten(t, it)
                           for n, t in zip(tree[2], tree[3])})
-    if kind == "ST":
+    if kind in ("ST", "XST"):
         mesh = tree[1].mesh
         distinct = [next(it) for _ in range(max(tree[4]) + 1)]
         shards = np.empty(mesh.devices.shape, dtype=object)
         for flat, slot in enumerate(tree[4]):
-            shards.flat[flat] = distinct[slot]
+            shards.flat[flat] = distinct[slot] if slot >= 0 else None
         out = ShardedTensor.__new__(ShardedTensor)
         out.mesh, out.spec, out.shape, out.shards = (mesh, tree[2], tree[3],
                                                      shards)
@@ -875,11 +881,21 @@ class Program:
                       list(keep), max(nbytes, 0))
 
 
+def _spans_processes(tree: Any) -> bool:
+    """True when a treedef holds a value placed over several processes."""
+    return isinstance(tree, tuple) and (
+        tree[:1] == ("XST",) or any(_spans_processes(p) for p in tree[1:]))
+
+
 def _uncapturable(trees, leaves) -> str:
     for tr in trees:
         opaque = _opaque_types(tr)
         if opaque:
             return f"non-tensor input {opaque[0]}"
+        if _spans_processes(tr):
+            # its collectives exchange through the host with other
+            # processes: no graph can hold them
+            return "input placed over several processes"
     if any(not t.is_cuda for t in leaves):
         return "host tensor input"
     cards = {t.device for t in leaves}

@@ -261,7 +261,7 @@ def _tensors(value) -> Iterator[torch.Tensor]:
         for v in value.values():
             yield from _tensors(v)
     elif getattr(value, "shards", None) is not None:  # ShardedTensor
-        yield from {id(t): t for t in value.shards.flat}.values()
+        yield from value.local_shards()
     elif isinstance(getattr(value, "data", None), torch.Tensor):
         yield value.data  # BlockedTensor
 

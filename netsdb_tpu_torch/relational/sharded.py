@@ -207,7 +207,8 @@ def moved(x: Any, device: torch.device) -> Any:
 def gathered(values: Sequence[Any]) -> Tuple[Any, ...]:
     """The values with every placed table made whole on its first
     position: a replicated one gives that position's copy (no data
-    moves), a row-sharded one is all-gathered (``mesh.all_gathers``)."""
+    moves), a row-sharded one is all-gathered (``mesh.all_gathers``; a
+    collective when other processes hold blocks)."""
     out = []
     for v in values:
         if isinstance(v, tuple):
@@ -215,7 +216,7 @@ def gathered(values: Sequence[Any]) -> Tuple[Any, ...]:
         elif is_placed_table(v):
             if table_layout(v)[1][0] is not None:
                 obs.REGISTRY.counter("mesh.all_gathers").inc()
-            out.append(gather_table(v))
+            out.append(gather_table(v, collective=True))
         else:
             out.append(v)
     return tuple(out)
@@ -229,6 +230,7 @@ def position_residents(resident: Sequence[Any], mesh: Mesh
     inserts for a sharded build side), other values are moved to the
     position's device."""
     per_pos: List[List[Any]] = [[] for _ in range(mesh.size)]
+    local = [mesh.is_local(idx) for idx in mesh.positions()]
     for r in resident:
         if is_placed_table(r):
             _, spec = table_layout(r)
@@ -237,16 +239,35 @@ def position_residents(resident: Sequence[Any], mesh: Mesh
                     per_pos[i].append(t)
                 continue
             obs.REGISTRY.counter("mesh.all_gathers").inc()
-            whole = gather_table(r)
+            whole = gather_table(r, collective=True)
             by_dev: Dict[torch.device, ColumnTable] = {}
             for i, dev in enumerate(mesh.devices.flat):
-                if dev not in by_dev:
+                if local[i] and dev not in by_dev:
                     by_dev[dev] = whole.to(dev)
-                per_pos[i].append(by_dev[dev])
+                per_pos[i].append(by_dev.get(dev) if local[i] else None)
             continue
         for i, dev in enumerate(mesh.devices.flat):
-            per_pos[i].append(moved(r, dev))
-    return [tuple(p) for p in per_pos]
+            per_pos[i].append(moved(r, dev) if local[i] else None)
+    return [tuple(p) if local[i] else None for i, p in enumerate(per_pos)]
+
+
+def _fold_through(state: Any, locs: Sequence[Any], views: Sequence[Any],
+                  owners: Sequence[int], rank: int, step: Callable) -> Any:
+    """``state`` threaded through the positions' tables in order, each a
+    ``step`` chunk: this process steps its own positions, and where the
+    owner changes the state passes to the next process
+    (``_transport.thread_state``); every owner ends with the state."""
+    def at(st, i):
+        return step(moved(st, locs[i].device), locs[i], *views[i])
+
+    if set(owners) == {rank}:
+        for i in range(len(locs)):
+            state = at(state, i)
+        return state
+    from netsdb_tpu_torch.parallel import _transport
+
+    dev = next(t.device for t in locs if t is not None)
+    return _transport.thread_state(state, owners, rank, dev, at)
 
 
 def step_placed(step: Callable, state: Any, chunk, views) -> Any:
@@ -254,12 +275,12 @@ def step_placed(step: Callable, state: Any, chunk, views) -> Any:
     position order, the state carried from position to position (a
     replicated chunk is one position's copy)."""
     obs.REGISTRY.counter("mesh.placed_chunks").inc()
+    mesh, spec = table_layout(chunk)
     locs = local_tables(chunk)
-    if table_layout(chunk)[1][0] is None:  # replicated: one copy is all
-        locs = locs[:1]
-    for loc, r in zip(locs, views):
-        state = step(moved(state, loc.device), loc, *r)
-    return state
+    owners = [int(o) for o in mesh.owners.flat]
+    if spec[0] is None:  # replicated: one copy is all
+        locs, views, owners = locs[:1], views[:1], owners[:1]
+    return _fold_through(state, locs, views, owners, mesh.rank, step)
 
 
 def run_fold_placed(fold, src, resident: Sequence[Any] = ()) -> Any:
@@ -273,24 +294,41 @@ def run_fold_placed(fold, src, resident: Sequence[Any] = ()) -> Any:
     mesh, spec = table_layout(src)
     locs = local_tables(src, rowid=True)
     res = position_residents(resident, mesh)
+    owners = [int(o) for o in mesh.owners.flat]
     if spec[0] is None:  # a replicated source: one copy is the relation
-        locs, res = locs[:1], res[:1]
-    dev0 = mesh.devices.flat[0]
+        locs, res, owners = locs[:1], res[:1], owners[:1]
+    if mesh.rank not in owners:
+        from netsdb_tpu_torch.parallel.mesh import RemoteShardsError
+
+        raise RemoteShardsError(f"process {mesh.rank} owns no position of "
+                                f"the placed relation's mesh {mesh!r}")
+    # this process's first position stands in for position 0 where a
+    # table only shapes the state (init, finalize): the bits come from
+    # position 0's owner, whose state every owner receives
+    first = next(i for i, t in enumerate(locs) if t is not None)
+    dev0 = locs[first].device
     obs.REGISTRY.counter("mesh.placed_folds").inc()
     obs.operators.op_add("positions", len(locs))
     if fold.state_merge is not None and len(fold.passes) == 1:
         init, step = fold.passes[0]
-        states = [step(init(None, loc, *r), loc, *r)
-                  for loc, r in zip(locs, res)]
-        state = _combine_positions(states, fold.state_merge, dev0)
+        mine = {i: step(init(None, loc, *r), loc, *r)
+                for i, (loc, r) in enumerate(zip(locs, res))
+                if loc is not None}
+        if set(owners) != {mesh.rank}:
+            from netsdb_tpu_torch.parallel import _transport
+
+            for got in _transport.share_states(mine, owners, mesh.rank,
+                                               dev0).values():
+                mine.update(got)
+        state = _combine_positions([mine[i] for i in range(len(locs))],
+                                   fold.state_merge, dev0)
     else:
         state = None
         for init, step in fold.passes:
-            state = init(state, locs[0], *res[0])
-            for loc, r in zip(locs, res):
-                state = step(moved(state, loc.device), loc, *r)
+            state = init(state, locs[first], *res[first])
+            state = _fold_through(state, locs, res, owners, mesh.rank, step)
         state = moved(state, dev0)
-    return fold.finalize(state, locs[0], *res[0])
+    return fold.finalize(state, locs[first], *res[first])
 
 
 def _placed_from_locals(outs: List[ColumnTable], mesh: Mesh, spec
@@ -302,14 +340,15 @@ def _placed_from_locals(outs: List[ColumnTable], mesh: Mesh, spec
         shards = np.empty(mesh.devices.shape, dtype=object)
         for idx, b in zip(mesh.positions(), blocks):
             shards[idx] = b
-        rows = sum(b.shape[0] for b in blocks) if spec[0] is not None \
-            else blocks[0].shape[0]
+        like = next(b for b in blocks if b is not None)
+        rows = like.shape[0] * (len(blocks) if spec[0] is not None else 1)
         return ShardedTensor(shards, mesh, spec,
-                             (rows,) + tuple(blocks[0].shape[1:]))
+                             (rows,) + tuple(like.shape[1:]))
 
-    first = outs[0]
-    valid = sharded([o.mask() for o in outs])
-    return ColumnTable({k: sharded([o.cols[k] for o in outs])
+    first = next(o for o in outs if o is not None)
+    valid = sharded([None if o is None else o.mask() for o in outs])
+    return ColumnTable({k: sharded([None if o is None else o.cols[k]
+                                    for o in outs])
                         for k in first.cols}, first.dicts, valid)
 
 
@@ -347,8 +386,9 @@ def dispatch_placed(node, in_vals: List[Any], device, eval_node) -> Any:
                     for v in in_vals[1:])):
         mesh, spec = table_layout(first)
         views = position_residents(in_vals[1:], mesh)
-        outs = [fn(loc, *r) for loc, r in zip(local_tables(first), views)]
-        if all(isinstance(o, ColumnTable) for o in outs):
+        outs = [None if loc is None else fn(loc, *r)
+                for loc, r in zip(local_tables(first), views)]
+        if all(isinstance(o, ColumnTable) for o in outs if o is not None):
             obs.REGISTRY.counter("mesh.rowwise_nodes").inc()
             return _placed_from_locals(outs, mesh, spec)
         raise TypeError(f"rowwise node {label!r} over a placed relation "

@@ -78,8 +78,15 @@ state a worker pushes home). A type registered with its module source
 binds on a daemon that never installed the module
 (:func:`resolve_entry_point`).
 
-The SPMD follower and its LOCAL_SHARDS frame belong to ROADMAP.md A4
-part 3 and raise ``NotImplementedError`` naming it.
+**The SPMD follower.** In a joined cluster (``parallel/distributed.py``)
+the daemon of each process serves the same store over one mesh: the
+master's followers are the other processes' daemons, every mirrored
+frame runs under ``_collective_lock`` (one total order: every process
+must run the collectives of its jobs in the same order), and a read of a
+set whose blocks span processes (``_fetch_global``) fills it from this
+process's blocks and from each follower's LOCAL_SHARDS reply, under the
+same lock. A follower that fails that read is evicted and the read
+raises the typed retryable ``FollowerDegraded``.
 
 **Observability.** A frame carrying a client-minted query id opens a
 query trace on this daemon's own ring (``obs_trace_ring`` profiles):
@@ -128,6 +135,7 @@ import torch
 from netsdb_tpu_torch import obs
 from netsdb_tpu_torch.client import Client
 from netsdb_tpu_torch.config import Configuration
+from netsdb_tpu_torch.parallel.distributed import process_count
 from netsdb_tpu_torch.serve import placement as _placement
 from netsdb_tpu_torch.serve import rebalance as _rebalance
 from netsdb_tpu_torch.serve import sched as _sched
@@ -811,6 +819,11 @@ class ServeController:
         # two conflicting frames the leader's execution order is every
         # follower's receipt order. Reads take none of these.
         self._mirror_lock = TrackedLock("ServeController._mirror_lock")
+        # in a joined cluster (process_count() > 1) every mirrored frame
+        # and every read of a mesh-spanning set hold it: one total order,
+        # since each process runs its jobs' collectives in frame order
+        self._collective_lock = TrackedLock(
+            "ServeController._collective_lock")
         self._order = _RWOrder()
         self._set_locks: Dict[Tuple[str, str], TrackedLock] = {}
         self._set_locks_mu = TrackedLock("ServeController._set_locks_mu")
@@ -1002,18 +1015,8 @@ class ServeController:
             MsgType.RESYNC_FOLLOWER: self._on_resync_follower,
             MsgType.HA_STATE: self._on_ha_state,
             MsgType.TOKEN_ALIAS: self._on_token_alias,
-            # the SPMD follower's read of its placed shards: processes
-            # joined over one mesh (ROADMAP.md A4 part 3)
-            MsgType.LOCAL_SHARDS: self._refuse("A4 part 3",
-                                               MsgType.LOCAL_SHARDS),
+            MsgType.LOCAL_SHARDS: self._on_local_shards,
         }
-
-    @staticmethod
-    def _refuse(item: str, typ: MsgType) -> Callable:
-        def handler(p):
-            raise NotImplementedError(
-                f"{typ.name} is not ported yet: ROADMAP.md {item}")
-        return handler
 
     # --- lifecycle ----------------------------------------------------
     def start(self) -> int:
@@ -2413,6 +2416,13 @@ class ServeController:
             raise FollowerDegraded(
                 f"follower resync in progress (> {self.resync_grace_s}s); "
                 f"retry shortly")
+        if process_count() > 1:
+            # processes joined over one mesh: one total order for every
+            # mirrored frame, since each process runs its jobs'
+            # collectives in the order its frames arrive
+            with self._collective_lock:
+                return self._mirror_once(typ, payload, codec, handler,
+                                         token, qid, client)
         if typ in self.SET_SCOPED_FRAMES and "db" in payload \
                 and "set" in payload:
             self._order.acquire_read()
@@ -2809,9 +2819,144 @@ class ServeController:
         return MsgType.OK, {"data": out.detach().cpu().numpy()}
 
     def _on_get_tensor(self, p):
-        t = self.library.get_tensor(p["db"], p["set"])
+        t = self._fetch_global(p["db"], p["set"],
+                               self.library.get_tensor(p["db"], p["set"]))
         return MsgType.OK, {"data": _dense_host(t),
                             "block_shape": list(t.meta.block_shape)}
+
+    # --- reads of sets placed over several processes -------------------
+    # A block another process holds cannot be read here. A read of such a
+    # set assembles its whole value on the host: this process's blocks,
+    # and each follower's own over LOCAL_SHARDS, as netsDB's frontend
+    # streams every node's local pages (FrontendQueryTestServer.cc:
+    # 785-890). Reads run no collective.
+
+    @staticmethod
+    def _item_leaves(item) -> Optional[Dict[str, Any]]:
+        """A stored item's tensors by name (None for a host object)."""
+        from netsdb_tpu_torch.core.blocked import BlockedTensor
+        from netsdb_tpu_torch.parallel.mesh import ShardedTensor
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        if isinstance(item, ColumnTable):
+            leaves = dict(item.cols)
+            if item.valid is not None:
+                leaves["__valid__"] = item.valid
+            return leaves
+        if isinstance(item, BlockedTensor):
+            return {"data": item.data}
+        if isinstance(item, (torch.Tensor, ShardedTensor)):
+            return {"value": item}
+        return None
+
+    @staticmethod
+    def _local_blocks(leaf) -> List[Tuple[List[List[int]], torch.Tensor]]:
+        """The blocks of one leaf this process holds, as (index ranges,
+        tensor): a placed value's own blocks, a plain tensor whole."""
+        from netsdb_tpu_torch.parallel.mesh import ShardedTensor
+
+        if not isinstance(leaf, ShardedTensor):
+            return [([[0, n] for n in leaf.shape], leaf)]
+        out, seen = [], set()
+        for idx in leaf.mesh.local_positions():
+            region = leaf.region(idx)
+            key = tuple(r.start for r in region)
+            if key not in seen:
+                seen.add(key)
+                out.append(([[r.start, r.stop] for r in region],
+                            leaf.shards[idx]))
+        return out
+
+    def _on_local_shards(self, p):
+        """This process's blocks of one stored item's tensors, each as its
+        index ranges and its host array (the follower's half of
+        ``_fetch_global``)."""
+        leaves = self._item_leaves(self._single_item(p["db"], p["set"]))
+        if leaves is None:
+            return MsgType.OK, {"leaves": None}
+        return MsgType.OK, {
+            "leaves": {name: [{"idx": idx,
+                               "data": t.detach().cpu().numpy()}
+                              for idx, t in self._local_blocks(leaf)]
+                       for name, leaf in leaves.items()},
+            "shapes": {name: list(leaf.shape)
+                       for name, leaf in leaves.items()}}
+
+    def _single_item(self, db: str, set_name: str):
+        items = self.library.store.get_items(SetIdentifier(db, set_name))
+        if len(items) != 1:
+            raise ValueError(f"set {db}:{set_name} holds {len(items)} "
+                             f"items; shard assembly expects 1")
+        return items[0]
+
+    def _fetch_global(self, db: str, set_name: str, item):
+        """``item`` with every tensor placed over several processes
+        replaced by its whole host value (this process's blocks and the
+        followers' LOCAL_SHARDS); any other item as it is."""
+        from netsdb_tpu_torch.core.blocked import BlockedTensor
+        from netsdb_tpu_torch.parallel.mesh import ShardedTensor
+        from netsdb_tpu_torch.relational.table import ColumnTable
+
+        def spans(leaves):
+            return leaves is not None and any(
+                isinstance(a, ShardedTensor) and a.mesh.spans_processes
+                for a in leaves.values())
+
+        if not spans(self._item_leaves(item)):
+            return item
+        # the whole assembly runs under the collective lock, which every
+        # mirrored frame holds in a joined cluster: a write between this
+        # process's copy and a follower's reply would tear the value
+        with self._collective_lock:
+            item = self._single_item(db, set_name)  # replaced meanwhile?
+            leaves = self._item_leaves(item)
+            out: Dict[str, np.ndarray] = {}
+            covered: Dict[str, np.ndarray] = {}
+            for name, leaf in leaves.items():
+                dtype = torch.empty(0, dtype=leaf.dtype).numpy().dtype
+                out[name] = np.empty(leaf.shape, dtype)
+                covered[name] = np.zeros(leaf.shape, np.bool_)
+                for idx, t in self._local_blocks(leaf):
+                    sl = tuple(slice(a, b) for a, b in idx)
+                    out[name][sl] = t.detach().cpu().numpy()
+                    covered[name][sl] = True
+            with self._mirror_lock:
+                self._ensure_followers()
+                with self._followers_mu:
+                    recs = [(addr, link.submit(MsgType.LOCAL_SHARDS,
+                                               {"db": db, "set": set_name},
+                                               CODEC_MSGPACK))
+                            for addr, link in self._links.items()]
+            # a follower that fails or hangs is evicted at the mirror's
+            # ack deadline and the read fails typed retryable
+            failures, _deposed = self._collect_mirror_failures(recs)
+            if failures:
+                raise FollowerDegraded(
+                    "follower shard fetch failed; evicted for resync: "
+                    + "; ".join(f"{a}: {m}" for a, m in failures))
+            for _addr, rec in recs:
+                for name, blocks in (rec["reply"]["leaves"] or {}).items():
+                    for blk in blocks:
+                        sl = tuple(slice(a, b) for a, b in blk["idx"])
+                        out[name][sl] = blk["data"]
+                        covered[name][sl] = True
+            missing = [n for n, c in covered.items() if not c.all()]
+            if missing:
+                raise RuntimeError(
+                    f"set {db}:{set_name}: the blocks of {missing} held here "
+                    f"and by this daemon's followers do not cover them "
+                    f"(read it through the master daemon)")
+        host = {n: torch.from_numpy(a) for n, a in out.items()}
+        if isinstance(item, ColumnTable):
+            valid = host.pop("__valid__", None)
+            rows = item.__dict__.get("_source_rows")
+            if rows is not None:  # the relation as it was sent
+                host = {n: c[:rows] for n, c in host.items()}
+                valid = None if valid is None else valid[:rows]
+            return ColumnTable(host, dict(item.dicts), valid)
+        if isinstance(item, BlockedTensor):
+            return BlockedTensor(host["data"], item.meta)
+        return host["value"]
 
     def _scan_items(self, db: str, set_name: str):
         """A set's items for the wire, on the host: a paged relation as
@@ -2848,7 +2993,7 @@ class ServeController:
             yield items[0].to_host_table()
             return
         for value in self.library.store.scan(ident):
-            yield _to_host(value)
+            yield _to_host(self._fetch_global(db, set_name, value))
 
     def _on_scan_set(self, p):
         items = list(self._scan_items(p["db"], p["set"]))
@@ -2919,7 +3064,8 @@ class ServeController:
     def _on_get_tensor_chunked(self, p):
         """Chunked tensor pull: a meta frame, the dense buffer in
         ``chunk_bytes`` slices riding out of band, then STREAM_END."""
-        t = self.library.get_tensor(p["db"], p["set"])
+        t = self._fetch_global(p["db"], p["set"],
+                               self.library.get_tensor(p["db"], p["set"]))
         dense = _dense_host(t)
         chunk = int(p.get("chunk_bytes") or (8 << 20))
         view = memoryview(dense).cast("B")

@@ -89,8 +89,7 @@ def _value_nbytes(value) -> int:
                                 else ()))
     shards = getattr(value, "shards", None)
     if shards is not None:  # ShardedTensor
-        seen = {id(t): t for t in shards.flat}
-        return sum(int(t.nbytes) for t in seen.values())
+        return sum(int(t.nbytes) for t in value.local_shards())
     if isinstance(value, (tuple, list)):
         return sum(_value_nbytes(v) for v in value)
     if isinstance(value, dict):  # session state records, column maps

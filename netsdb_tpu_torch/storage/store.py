@@ -186,8 +186,7 @@ def _item_nbytes(item: Any) -> int:
     if isinstance(item, torch.Tensor):
         return item.numel() * item.element_size()
     if isinstance(item, ShardedTensor):
-        return sum(t.numel() * t.element_size()
-                   for t in {id(t): t for t in item.shards.flat}.values())
+        return sum(t.numel() * t.element_size() for t in item.local_shards())
     resident = getattr(item, "nbytes_resident", None)  # PooledTensor: its
     if resident is not None:  # slot grid; the shared pool counts once,
         return int(resident)  # in SetStore.live_pool_bytes

@@ -8,8 +8,8 @@ port on as many virtual positions of the CPU (``virtual_devices(n,
 operands within the reference tests' 1e-4 (and the two packages within
 1e-5 of each other), integer-valued ones byte-equal to one product on one
 position. Also here: ``virtual_devices`` defaults to the card and, with no
-card, raises like ``visible_devices("cuda")``; and what waits for ROADMAP.md
-A4 part 3 raises naming it."""
+card, raises like ``visible_devices("cuda")``; and the entry points that
+once raised naming ROADMAP.md A4 part 3, inside a joined cluster."""
 
 import jax
 import jax.numpy as jnp
@@ -166,49 +166,65 @@ def test_virtual_devices_defaults_to_the_card():
     assert M._virtual is None  # nothing was left installed
 
 
-# --- once refused, naming ROADMAP.md A4 part 3 -----------------------------
+# --- once refused, naming ROADMAP.md A4 part 3; now inside a cluster -----
 
 @pytest.mark.parametrize("name", ["initialize_cluster", "hybrid_mesh",
                                   "cluster_info", "pipeline_apply"])
 def test_multi_process_entry_points_raise_naming_a4_part_3(name):
-    """The single-process half of these is ported and exported as the
-    reference exports it (each case holds one against the reference);
-    joining processes (a coordinator or a process count) still raises,
-    naming A4 part 3."""
+    """These once raised naming A4 part 3 when processes joined; they are
+    exported as the reference exports them, and each case holds one
+    against the reference inside a joined cluster (of one process over
+    gloo, its 8 CPU positions: the same mesh the reference's one process
+    sees)."""
+    import socket
+
     from netsdb_tpu import parallel as jparallel
     from netsdb_tpu_torch import parallel
 
     assert name in parallel.__all__ and name in jparallel.__all__
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4 part 3"):
-        parallel.initialize_cluster(num_processes=2, process_id=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4 part 3"):
-        parallel.initialize_cluster("localhost:1234")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    addr = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
     with virtual_devices(8, "cpu"):
-        if name == "initialize_cluster":
-            assert parallel.initialize_cluster() is \
-                jparallel.initialize_cluster() is False
-        elif name == "hybrid_mesh":
-            got, want = (p.hybrid_mesh((2, 4), ("data", "model"))
-                         for p in (parallel, jparallel))
-            assert got.axis_names == tuple(want.axis_names)
-            assert got.shape == dict(want.shape)
-        elif name == "cluster_info":
-            got, want = parallel.cluster_info(), jparallel.cluster_info()
-            assert set(got) == set(want)
-            for key in ("process_index", "process_count",
-                        "global_device_count"):
-                assert got[key] == want[key]
-            assert got["device_kind"] == "cpu"
-        else:
-            x = normal((3, 2, 4), 1)
-            w = normal((8, 4, 4), 2)
-            want = np.asarray(jparallel.pipeline_apply(
-                lambda p, v: v @ p, jnp.asarray(w), jnp.asarray(x),
-                jmake_mesh((8,), ("pp",)), "pp"))
-            got = parallel.pipeline_apply(
-                lambda p, v: v @ p, torch.from_numpy(w), torch.from_numpy(x),
-                make_mesh((8,), ("pp",)), "pp")
-            np.testing.assert_allclose(got.to_dense().numpy(), want, **TOL)
+        assert parallel.initialize_cluster(addr, 1, 0, device="cpu",
+                                           timeout_s=30) is True
+        try:
+            _joined_entry_point(name, parallel, jparallel)
+        finally:
+            parallel.shutdown_cluster()
+
+
+def _joined_entry_point(name, parallel, jparallel):
+    if name == "initialize_cluster":
+        assert parallel.initialize_cluster() is \
+            jparallel.initialize_cluster() is False
+        with pytest.raises(RuntimeError, match="already joined"):
+            parallel.initialize_cluster("127.0.0.1:1", 1, 0,
+                                        device="cpu")
+    elif name == "hybrid_mesh":
+        got, want = (p.hybrid_mesh((2, 4), ("data", "model"))
+                     for p in (parallel, jparallel))
+        assert got.axis_names == tuple(want.axis_names)
+        assert got.shape == dict(want.shape)
+    elif name == "cluster_info":
+        got, want = parallel.cluster_info(), jparallel.cluster_info()
+        assert set(got) == set(want) | {"backend"}
+        assert got["backend"] == "gloo"
+        for key in ("process_index", "process_count",
+                    "global_device_count"):
+            assert got[key] == want[key]
+        assert got["device_kind"] == "cpu"
+    else:
+        x = normal((3, 2, 4), 1)
+        w = normal((8, 4, 4), 2)
+        want = np.asarray(jparallel.pipeline_apply(
+            lambda p, v: v @ p, jnp.asarray(w), jnp.asarray(x),
+            jmake_mesh((8,), ("pp",)), "pp"))
+        got = parallel.pipeline_apply(
+            lambda p, v: v @ p, torch.from_numpy(w), torch.from_numpy(x),
+            make_mesh((8,), ("pp",)), "pp")
+        np.testing.assert_allclose(got.to_dense().numpy(), want, **TOL)
 
 
 def test_expert_parallel_moe_and_model_placements_raise(tmp_path):

@@ -4,8 +4,9 @@ against the JAX package, on the CPU.
 
 ``hybrid_mesh`` and ``cluster_info`` as ``tests/test_attention_parallel.py
 :154-170`` check them, on 8 virtual CPU positions in the port and
-``tests/conftest.py``'s 8 CPU devices in the reference. Joining processes
-(a coordinator or a process count) raises, naming ROADMAP.md A4 part 3.
+``tests/conftest.py``'s 8 CPU devices in the reference. A coordinator
+and a process count join a cluster (here of one process over gloo; two
+processes in ``tests/test_torch_cluster_*.py``).
 
 The dry run at n = 1, 2, 4 and 8 (``tests/test_transformer.py:69-76``):
 its returned scalars against the reference's same calls — the reference
@@ -14,6 +15,8 @@ dry run's sections made again here with its draws in its order, since
 numbers are held exactly, sums within 1e-5 relative (1e-4 for the
 sequence-parallel layer, whose softmax and layer norm differ in the last
 bits between the packages)."""
+
+import socket
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +44,9 @@ def test_single_host_mesh_and_cluster_info_match_the_reference():
     assert mesh.shape == dict(want.shape)
     assert mesh.shape["hosts"] == 1
     jinfo = jdist.cluster_info()
-    assert set(info) == set(jinfo)
+    # the reference's keys, and the backend (None without a cluster)
+    assert set(info) == set(jinfo) | {"backend"}
+    assert info["backend"] is None
     assert info["process_count"] == jinfo["process_count"] == 1
     assert info["process_index"] == jinfo["process_index"] == 0
     assert info["global_device_count"] == jinfo["global_device_count"] == 8
@@ -63,16 +68,56 @@ def test_initialize_cluster_is_a_no_op_for_one_process(monkeypatch):
     assert dist.initialize_cluster() is jdist.initialize_cluster() is False
 
 
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 @pytest.mark.parametrize("how", ["num_processes", "address", "env"])
 def test_joining_processes_raises_naming_a4_part_3(how, monkeypatch):
-    monkeypatch.delenv("NETSDB_TPU_COORDINATOR", raising=False)
-    kwargs = {"num_processes": dict(num_processes=2, process_id=0),
-              "address": dict(coordinator_address="localhost:1234"),
-              "env": {}}[how]
-    if how == "env":
-        monkeypatch.setenv("NETSDB_TPU_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4 part 3"):
-        dist.initialize_cluster(**kwargs)
+    """Joining once raised naming A4 part 3; now a coordinator and a
+    process count join, whether given as arguments or through
+    ``NETSDB_TPU_COORDINATOR`` (and its two siblings): a cluster of one
+    process over 4 CPU positions, gloo, whose mesh is this process's."""
+    for var in ("NETSDB_TPU_COORDINATOR", "NETSDB_TPU_NUM_PROCESSES",
+                "NETSDB_TPU_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    addr = f"127.0.0.1:{_free_port()}"
+    if how == "num_processes":
+        # a process count needs a coordinator to join through
+        with pytest.raises(ValueError, match="NETSDB_TPU_COORDINATOR"):
+            dist.initialize_cluster(num_processes=1, process_id=0,
+                                    device="cpu")
+        kwargs = dict(coordinator_address=addr, num_processes=1,
+                      process_id=0)
+    else:
+        monkeypatch.setenv("NETSDB_TPU_NUM_PROCESSES", "1")
+        monkeypatch.setenv("NETSDB_TPU_PROCESS_ID", "0")
+        kwargs = {}
+        if how == "address":
+            kwargs = dict(coordinator_address=addr)
+        else:
+            monkeypatch.setenv("NETSDB_TPU_COORDINATOR", addr)
+    with virtual_devices(4, "cpu"):
+        assert dist.initialize_cluster(**kwargs, device="cpu",
+                                       timeout_s=30) is True
+        try:
+            info = dist.cluster_info()
+            assert info["backend"] == "gloo"
+            assert info["process_count"] == 1
+            assert info["global_device_count"] == 4
+            mesh = dist.hybrid_mesh((2, 2))
+            assert mesh.shape == {"hosts": 1, "data": 2, "model": 2}
+            assert not mesh.spans_processes
+            with pytest.raises(RuntimeError, match="already joined"):
+                dist.initialize_cluster(addr, 1, 0, device="cpu")
+        finally:
+            dist.shutdown_cluster()
+    assert dist.joined() is None and dist.cluster_info(
+        "cpu")["backend"] is None
 
 
 def test_cluster_info_without_a_card_never_falls_back():

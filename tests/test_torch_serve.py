@@ -110,8 +110,18 @@ def test_object_roundtrip_and_errors(server):
         # type sources and add_worker since the daemon-pool slice)
         assert c._request(MsgType.GET_TRACE, {})["enabled"] is True
         assert c._request(MsgType.HA_STATE, {}) == {"armed": False}
-        with pytest.raises(RemoteError, match="ROADMAP.md A4 part 3"):
-            c._request(MsgType.LOCAL_SHARDS, {})
+        # LOCAL_SHARDS (the SPMD follower's read) answers with this
+        # daemon's blocks of a one-item set, here the whole matrix
+        c.create_set("db", "one")
+        c.send_matrix("db", "one", np.eye(3, dtype=np.float32), (2, 2))
+        rep = c._request(MsgType.LOCAL_SHARDS, {"db": "db", "set": "one"})
+        assert rep["shapes"] == {"data": [4, 4]}
+        (blk,) = rep["leaves"]["data"]
+        assert blk["idx"] == [[0, 4], [0, 4]]
+        np.testing.assert_array_equal(np.asarray(blk["data"])[:3, :3],
+                                      np.eye(3, dtype=np.float32))
+        with pytest.raises(RemoteError, match="shard assembly expects 1"):
+            c._request(MsgType.LOCAL_SHARDS, {"db": "db", "set": "objs"})
         status = c._request(MsgType.RESHARD, {"op": "status"},
                             codec=CODEC_PICKLE)
         assert status["enabled"] is False and status["moves"] == []
