@@ -14,7 +14,9 @@ phase 1, the SF 10 tables made resident on a card client, and phase
 client, and phase 18; ``--multichip-only``: phases 1 and 19;
 ``--obs-only``: phases 1 and 20; ``--ha-only``: phases 1 and 21;
 ``--pool-rest-only``: phases 1 and 22; ``--cli-only``: phases 1 and 23;
-``--benches-only``: phases 1 and 24; ``--lint-only``: ``selftest`` under
+``--benches-only``: phases 1 and 24; ``--kernels-only``: phases 1 and
+2, then the layer's and the SP layer's requests (phases 4 and 5);
+``--lint-only``: ``selftest`` under
 the lock witness and phase 25, no kernel build; ``--cluster-only``:
 phases 1 and 26. ``--obs-only --repeat
 N`` runs phase 20 N times, goes on past a failed run and fails at the
@@ -29,17 +31,21 @@ Phases (any failure raises and the exit code is non-zero):
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``netsdb_tpu_torch/csrc``, one ``nvcc`` per source,
    all started together, each with its ptxas report (registers, shared
-   memory, spills) and its count of tensor-core instructions (``HMMA``
-   in ``cuobjdump -sass``), which must not be 0 for any kernel;
+   memory, spills) and, from ``cuobjdump -sass``, each kernel's counts
+   of ``wgmma`` (``HGMMA``), TMA loads (``UTMALDG``) and ``mma.sync``
+   (``HMMA``) instructions: every fold instantiation must have HGMMA and
+   UTMALDG;
 2. each kernel against its plain PyTorch version on the card, with its
-   time, the plain version's, the library call's and the bounds (f32
-   on the CUDA cores, and as three-pass TF32 on the tensor cores): B1
+   time, the plain version's, the library call's and the bound of the
+   kernels' route (bf16 on the tensor cores, f32 as three-pass TF32 on
+   them; f32 on the CUDA cores beside it, for reference): B1
    (``flash_attention``) at the transformer layer's shape and edge
    shapes (d 64, d 40, d 18, a gcd block), B2 (``flash_attention_step``) as
    the ring's chained fold (bh 16, four chunks of 4096, D 128) and edge
-   cases. Every f32 case is also held against an f64 attention over its
-   first two (b, h) slices: the kernel's error there may be at most
-   ``F64_RATIO`` times the plain version's;
+   cases (a ragged chain at d 128, 40 and 18). Every f32 case is also
+   held against an f64 attention over its first two (b, h) slices: the
+   kernel's error there may be at most ``F64_RATIO`` times the plain
+   version's;
 3. FF inference through ``Client.execute_computations`` at bench.py's
    size (16384 x 1024 -> 4096 -> 1024, 512 x 512 blocks, f32), three
    requests, each checked against an f64 recomputation;
@@ -405,7 +411,8 @@ Phases (any failure raises and the exit code is non-zero):
    (no objective breached) and ``obs --top --iterations 1`` (rendered
    from GET_METRICS); ``bench_attention`` at 1024…8192 (naive, B1 and
    the library's flash kernel, ``flash_vs_sdpa`` printed; the ceiling
-   guard off), ``bench_ring_fold`` (B2, 8 chunks of 1024) and
+   guard on: B1 at 8192 at least ``CEILING_RATIO`` of the library's
+   flash kernel), ``bench_ring_fold`` (B2, 8 chunks of 1024) and
    ``bench_transformer_layer`` at 4096 and 8192, B1's and B2's launches
    equal to the calls their timing loops made, and each kernel held to
    its plain version once at each of those shapes on the benches' own
@@ -571,16 +578,25 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def bounds_ms(flops, nbytes, dtype_name, pk) -> tuple:
-    """(bound ms, what bounds it, three-pass TF32 bound ms or None): the
-    larger of the bytes over the memory rate and the operations over the
-    peak of their type; for f32 once on the CUDA cores and once as three
-    TF32 products on the tensor cores, the route the kernels take."""
+    """(bound ms, what bounds it): the larger of the bytes over the
+    memory rate and the operations over the peak of their type."""
     t_bytes = nbytes / pk["bytes"] * 1e3
     t_ops = flops / pk[dtype_name] * 1e3
-    bound = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
-    tf32 = (max(3 * flops / pk["tf32"] * 1e3, t_bytes)
-            if dtype_name == "float32" else None)
-    return bound + (tf32,)
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def fold_bounds_ms(flops, nbytes, dtype_name, pk) -> tuple:
+    """(bound ms, what bounds it, the route it assumes, f32 CUDA-core
+    bound ms or None) of B1 and B2, which run their products on the
+    tensor cores: bf16 at its peak, f32 as three-pass TF32 (three tf32
+    products for each f32 one, at the tf32 peak). The f32 figure on the
+    CUDA cores is no bound of these kernels and is kept for reference."""
+    if dtype_name != "float32":
+        return bounds_ms(flops, nbytes, dtype_name, pk) + (
+            f"{dtype_name} tensor cores", None)
+    bound = bounds_ms(3 * flops, nbytes, "tf32", pk)
+    return bound + ("three-pass tf32 tensor cores",
+                    bounds_ms(flops, nbytes, dtype_name, pk)[0])
 
 
 def attention_bound_ms(b, h, s, d, causal, dtype_name, pk) -> tuple:
@@ -589,8 +605,8 @@ def attention_bound_ms(b, h, s, d, causal, dtype_name, pk) -> tuple:
     pairs this mask keeps."""
     elem = 2 if dtype_name == "bfloat16" else 4
     pairs = s * (s + 1) // 2 if causal else s * s
-    return bounds_ms(4.0 * b * h * pairs * d, 4.0 * b * h * s * d * elem,
-                     dtype_name, pk)
+    return fold_bounds_ms(4.0 * b * h * pairs * d,
+                          4.0 * b * h * s * d * elem, dtype_name, pk)
 
 
 def attention_f64(q, k, v, q_pos, k_pos, causal, scale):
@@ -633,14 +649,19 @@ def phase_build() -> dict:
     for name, path in built.items():
         for line in path.with_suffix(".log").read_text().splitlines():
             if ("entry function" in line or "registers" in line
-                    or "spill" in line or "smem" in line):
+                    or "spill" in line or "smem" in line
+                    or "setmaxnreg" in line):
                 print(f"[build]   {name}: {line.strip()}")
-        hmma = hmma_counts(tool, path)
-        for func, count in hmma.items():
-            print(f"[build]   {name}: {count} HMMA in {func}")
-        if not hmma or min(hmma.values()) == 0:
-            raise RuntimeError(f"{name}: a kernel without tensor-core "
-                               f"instructions ({hmma})")
+        counts = sass_counts(tool, path)
+        for func, count in counts.items():
+            print(f"[build]   {name}: {json.dumps(count)} in {func}")
+        folds = {f: c for f, c in counts.items() if "fold_kernel" in f}
+        # every fold instantiation runs its products on wgmma and loads
+        # its tiles with TMA
+        if not folds or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
+                            for c in folds.values()):
+            raise RuntimeError(f"{name}: a fold without wgmma (HGMMA) or "
+                               f"TMA loads (UTMALDG): {folds}")
     return built
 
 
@@ -667,9 +688,13 @@ def cuobjdump_path() -> str:
                        "Triton's backends/nvidia/bin")
 
 
-def hmma_counts(tool: str, library) -> dict:
-    """Tensor-core instructions (``HMMA``) in each kernel of a built
-    library, from its SASS."""
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def sass_counts(tool: str, library) -> dict:
+    """Per kernel of a built library, from its SASS: its ``wgmma``
+    instructions (``HGMMA``), its TMA loads (``UTMALDG``) and its
+    ``mma.sync`` ones (``HMMA``)."""
     import re
 
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
@@ -679,9 +704,11 @@ def hmma_counts(tool: str, library) -> dict:
         found = re.search(r"Function : (\S+)", line)
         if found:
             func = found.group(1)
-            counts[func] = 0
-        elif func and re.search(r"\bHMMA\.", line):
-            counts[func] += 1
+            counts[func] = dict.fromkeys(SASS_OPS, 0)
+        elif func:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[func][op] += 1
     return counts
 
 
@@ -738,14 +765,14 @@ def phase_kernels(pk: dict) -> dict:
             q, k, v, causal=causal, block_q=bq, block_k=bk), iters=3)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal))
-        bound, bound_by, bound3 = attention_bound_ms(b, h, s, d, causal,
-                                                     dname, pk)
+        bound, bound_by, route, bound_cc = attention_bound_ms(
+            b, h, s, d, causal, dname, pk)
         row = {"shape": list(shape), "causal": causal, "dtype": dname,
                "max_abs_err": err, "max_row_rel_err": row_err,
                "tol": tol, "row_rel_tol": BF16_ROW_TOL if bf16 else None,
                "ms": ms, "plain_ms": plain_ms,
                "library_ms": lib_ms, "bound_ms": bound, "bound_by": bound_by,
-               "bound_3xtf32_ms": bound3}
+               "bound_route": route, "bound_cuda_cores_ms": bound_cc}
         if not bf16:
             pos = torch.arange(s, device="cuda")
             row.update(check_f64(
@@ -795,7 +822,8 @@ def step_chain_bound_ms(bh, s_q, chunks, d, causal, dtype_name, pk) -> tuple:
     nbytes = (bh * s_q * d * elem
               + sum(2.0 * bh * s_k * d * elem for s_k, _, _ in chunks)
               + len(chunks) * 2.0 * bh * s_q * (d + 2) * 4)
-    return bounds_ms(4.0 * bh * pairs * d, nbytes, dtype_name, pk)
+    return fold_bounds_ms(4.0 * bh * pairs * d, nbytes, dtype_name,
+                          pk)
 
 
 def fold_chain(step, q, chunks, causal):
@@ -819,7 +847,9 @@ def phase_step_kernel(pk: dict) -> dict:
     """B2 against its plain version on the card: the ring's chained fold
     at the SP path's shape (f32 and bf16, causal and not), a chunk
     wholly in the future (the carry must come back bit-identical), and
-    a ragged chain with unaligned offsets and s_q != s_k. The library
+    a ragged chain with unaligned offsets and s_q != s_k, at d 128 and,
+    in f32 and bf16, at d 40 (the fold's head dim 64) and d 18 (rows the
+    wrapper pads for TMA). The library
     yardstick of a chain is one SDPA call of q against the chain's
     concatenated k/v under the chain's mask (timed only: the port never
     calls it). Returns the timings of the f32 causal chain (the path's
@@ -835,20 +865,22 @@ def phase_step_kernel(pk: dict) -> dict:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    bh, s, d, n = 16, 4096, 128, SP_POSITIONS
-    # (label, dtype, causal, s_q, q_offset, [(s_k, k_offset), ...]):
+    bh, s, n = 16, 4096, SP_POSITIONS
+    # (label, dtype, causal, d, s_q, q_offset, [(s_k, k_offset), ...]):
     # the chain of bench_ring_fold (q at the last position, chunks in
     # order), and a ragged chain in ring order (its diagonal chunk first)
-    cases = [("chain", torch.float32, True, s, (n - 1) * s,
-              [(s, i * s) for i in range(n)]),
-             ("chain", torch.bfloat16, True, s, (n - 1) * s,
-              [(s, i * s) for i in range(n)]),
-             ("chain", torch.float32, False, s, (n - 1) * s,
-              [(s, i * s) for i in range(n)]),
-             ("ragged", torch.float32, True, 1000, 2600,
-              [(900, o) for o in (2700, 1800, 900, 0)])]
+    chain = [(s, i * s) for i in range(n)]
+    ragged = [(900, o) for o in (2700, 1800, 900, 0)]
+    cases = [("chain", torch.float32, True, 128, s, (n - 1) * s, chain),
+             ("chain", torch.bfloat16, True, 128, s, (n - 1) * s, chain),
+             ("chain", torch.float32, False, 128, s, (n - 1) * s, chain),
+             ("ragged", torch.float32, True, 128, 1000, 2600, ragged),
+             ("ragged", torch.float32, True, 40, 1000, 2600, ragged),
+             ("ragged", torch.bfloat16, True, 40, 1000, 2600, ragged),
+             ("ragged", torch.float32, True, 18, 1000, 2600, ragged),
+             ("ragged", torch.bfloat16, True, 18, 1000, 2600, ragged)]
     path_row = None
-    for label, dtype, causal, s_q, q_off, spec in cases:
+    for label, dtype, causal, d, s_q, q_off, spec in cases:
         q = randn(bh, s_q, d, dtype=dtype)
         chunks = [(randn(bh, s_k, d, dtype=dtype),
                    randn(bh, s_k, d, dtype=dtype), q_off, k_off)
@@ -871,7 +903,7 @@ def phase_step_kernel(pk: dict) -> dict:
                                               chunks, causal),
                            iters=1 if label == "ragged" else 3,
                            warmup=0 if label == "ragged" else 1)
-        bound, bound_by, bound3 = step_chain_bound_ms(
+        bound, bound_by, route, bound_cc = step_chain_bound_ms(
             bh, s_q, [(s_k, q_off, k_off) for s_k, k_off in spec], d,
             causal, dname, pk)
         # the chain as one attention: q against the concatenated chunks
@@ -890,7 +922,7 @@ def phase_step_kernel(pk: dict) -> dict:
                "row_rel_tol": BF16_ROW_TOL if bf16 else None,
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "bound_ms": bound, "bound_by": bound_by,
-               "bound_3xtf32_ms": bound3}
+               "bound_route": route, "bound_cuda_cores_ms": bound_cc}
         if not bf16:
             row.update(check_f64(
                 f"flash_attention_step {label} causal={causal}", out[:2],
@@ -908,7 +940,7 @@ def phase_step_kernel(pk: dict) -> dict:
 
     # a chunk wholly in the queries' future leaves a live carry exactly
     # as it was, in the kernel and in the plain version
-    q, k, v = randn(bh, s, d), randn(bh, s, d), randn(bh, s, d)
+    q, k, v = (randn(bh, s, 128) for _ in range(3))
     _, carry = fold_chain(flash_attention_step, q, [(k, v, s, s)], True)
     before = [t.clone() for t in carry]
     before_launches = flash_attention_step.launches
@@ -4353,8 +4385,7 @@ def _wl_request(out, profiled, name, run, device, bound, n=WL_REQUESTS):
 
 
 def _wl_bound(flops, nbytes, pk, dtype="float32") -> tuple:
-    b = bounds_ms(flops, nbytes, dtype, pk)
-    return b[0], b[1]
+    return bounds_ms(flops, nbytes, dtype, pk)
 
 
 def _wl_check(name, ok, detail, out=None) -> None:
@@ -10411,7 +10442,7 @@ def _cli_benches(s, device, card) -> dict:
         bench_transformer_layer)
 
     k0 = kernel_launches()
-    att = bench_attention(assert_ceiling=False, device=device,
+    att = bench_attention(device=device,
                           **s["attention"], **CLI_TIMING)
     ring = bench_ring_fold(device=device, **s["ring"], **CLI_TIMING)
     layer = bench_transformer_layer(device=device, **s["transformer"],
@@ -11983,6 +12014,16 @@ def main() -> int:
         print(json.dumps({"benches": phase_benches(pk, smi), "card": smi},
                          default=str))
         return 0
+    if "--kernels-only" in sys.argv[1:]:
+        # phase 2, then phases 4 and 5, the same way
+        b1, b2 = phase_kernels(pk), phase_step_kernel(pk)
+        tf = phase_transformer(Client())
+        with virtual_devices(SP_POSITIONS, "cuda:0"):
+            sp = phase_sp(Client())
+        print(json.dumps({"b1": b1, "b2": b2, "transformer": tf,
+                          "sp": sp,
+                          "card": smi}, default=str))
+        return 0
     if "--cli-only" in sys.argv[1:]:
         # phase 23 alone, the same way
         print(json.dumps({"cli": phase_cli(pk, smi), "card": smi},
@@ -12109,7 +12150,8 @@ def main() -> int:
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "bound_3xtf32_ms": row["bound_3xtf32_ms"],
+                "bound_route": row["bound_route"],
+                "bound_cuda_cores_ms": row["bound_cuda_cores_ms"],
                 "library_ms": row["library_ms"]}
 
     print(json.dumps({"kernels": [

@@ -10,11 +10,17 @@ wrapper                    replaces (``netsdb_tpu/ops/pallas_kernels.py``)
 =========================  ==============================================
 
 Both are built by :mod:`netsdb_tpu_torch.ops.cuda_build` and
-instantiate one fold, ``csrc/flash_fold_mma.cuh``, as the reference's
+instantiate one fold, ``csrc/flash_fold_wgmma.cuh``, as the reference's
 two kernels share ``_fold_block``: B2's is B1's with the carry read and
-written. The fold runs its products on the tensor cores (``mma.sync``):
-bf16 natively, float32 as three-pass TF32, which keeps float32's
-accuracy. On a CUDA tensor a wrapper
+written. The fold is compute-bound on this card and is built for its
+tensor cores: a producer warp streams Q, K and V tiles with TMA through
+a ring of stages guarded by mbarriers, and two consumer warpgroups run
+the products on ``wgmma`` with S and the output held in its register
+fragments. bf16 runs natively; float32 runs as three-pass TF32, which
+keeps float32's accuracy, on K and V split once a launch into scratch
+the wrapper allocates (:func:`split_scratch_bytes`). TMA takes rows of
+whole 16 bytes from 16-byte-aligned bases: an operand without them is
+copied, zero-padded, by :func:`tma_operand`. On a CUDA tensor a wrapper
 launches its kernel or raises; on a CPU tensor it runs its plain
 version, which repeats the reference kernel's blocking and exp2-domain
 online-softmax carry in plain PyTorch. Each wrapper counts its kernel
@@ -157,14 +163,61 @@ def _check_cuda_operands(q, k, v) -> None:
 # each library's entry point: (symbol, argtypes)
 _ENTRY = {
     "flash_attention": ("netsdb_flash_attention_fwd",
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                        [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                        + [ctypes.c_int] * 5
                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]),
     "flash_attention_step": ("netsdb_flash_attention_step",
-                             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                             [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                             + [ctypes.c_int] * 6
                              + [ctypes.c_float] + [ctypes.c_int] * 4
                              + [ctypes.c_void_p]),
 }
+
+
+def tma_pitch(d: int, itemsize: int) -> int:
+    """The row length, in elements, of an operand the kernels load with
+    TMA: ``d`` rounded up to whole 16 bytes."""
+    per = 16 // itemsize
+    return -(-d // per) * per
+
+
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous, rows of length ``t.shape[-1]``) as TMA takes it:
+    itself when its rows are whole 16 bytes and it starts on a 16-byte
+    boundary, else a copy whose last dimension is zero-padded to
+    :func:`tma_pitch`."""
+    d = t.shape[-1]
+    ld = tma_pitch(d, t.element_size())
+    if ld == d and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((*t.shape[:-1], ld))
+    out[..., :d] = t
+    return out
+
+
+def split_scratch_bytes(bh: int, s_k: int, d: int) -> int:
+    """Bytes of the float32 scratch a launch splits k and v into: the
+    tf32 hi and lo of k (bh, s_k, dp) and of v transposed (bh, dp, s_kp),
+    with dp and s_kp = d and s_k rounded up to 8 (the kernel's
+    ``netsdb_fold::scratch_bytes``)."""
+    dp, s_kp = -(-d // 8) * 8, -(-s_k // 8) * 8
+    return 4 * 2 * bh * (s_k * dp + dp * s_kp)
+
+
+def _kernel_operands(q, k, v):
+    """(q, k, v, scratch) as the kernel takes them: q through
+    :func:`tma_operand`, and k and v too in bf16 (with an empty scratch);
+    float32 k and v are read by the split, which takes any row length,
+    into a scratch of :func:`split_scratch_bytes`."""
+    q = tma_operand(q)
+    if k.dtype == torch.bfloat16:
+        return (q, tma_operand(k), tma_operand(v),
+                k.new_empty(0, dtype=torch.uint8))
+    bh = k.numel() // (k.shape[-2] * k.shape[-1])
+    scratch = torch.empty(split_scratch_bytes(bh, k.shape[-2], k.shape[-1]),
+                          dtype=torch.uint8, device=k.device)
+    return q, k, v, scratch
 
 
 @functools.lru_cache(maxsize=None)
@@ -225,11 +278,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require_sm90("flash_attention", q.device)
     fn, error_string = _kernel("flash_attention")
     out = torch.empty_like(q)
+    qt, kt, vt, scratch = _kernel_operands(q, k, v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b * h, s, d, scale * _LOG2E, int(causal),
-                int(q.dtype == torch.bfloat16), stream)
+        rc = fn(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), scratch.numel(),
+                b * h, s, d, qt.shape[-1], kt.shape[-1], scale * _LOG2E,
+                int(causal), int(q.dtype == torch.bfloat16), stream)
     _raise_on_error("flash_attention", rc, error_string)
     flash_attention.launches += 1
     return out
@@ -398,10 +453,13 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{_MAX_D}, got {d}")
     _require_sm90("flash_attention_step", q.device)
     fn, error_string = _kernel("flash_attention_step")
+    qt, kt, vt, scratch = _kernel_operands(q, k, v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
-                l.data_ptr(), m.data_ptr(), bh, s_q, k.shape[1], d,
+        rc = fn(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), acc.data_ptr(),
+                l.data_ptr(), m.data_ptr(),
+                scratch.data_ptr(), scratch.numel(),
+                bh, s_q, k.shape[1], d, qt.shape[-1], kt.shape[-1],
                 scale * _LOG2E, int(q_offset), int(k_offset), int(causal),
                 int(q.dtype == torch.bfloat16), stream)
     _raise_on_error("flash_attention_step", rc, error_string)

@@ -27,7 +27,7 @@ def _paths():
 def test_both_kernels_include_the_shared_fold():
     for name in KERNELS:
         text = (cuda_build.SRC_DIR / f"{name}.cu").read_text()
-        assert '#include "flash_fold_mma.cuh"' in text
+        assert '#include "flash_fold_wgmma.cuh"' in text
 
 
 def test_path_is_stable(csrc):
@@ -44,7 +44,7 @@ def test_path_is_stable(csrc):
 ])
 def test_header_change_rebuilds_every_kernel(csrc, edit):
     before = _paths()
-    header = csrc / "flash_fold_mma.cuh"
+    header = csrc / "flash_fold_wgmma.cuh"
     if edit == "edit the shared header":
         header.write_text(header.read_text() + "\n// edited\n")
     elif edit == "add a header":
