@@ -33,8 +33,8 @@ Phases (any failure raises and the exit code is non-zero):
    all started together, each with its ptxas report (registers, shared
    memory, spills) and, from ``cuobjdump -sass``, each kernel's counts
    of ``wgmma`` (``HGMMA``), TMA loads (``UTMALDG``) and ``mma.sync``
-   (``HMMA``) instructions: every fold instantiation must have HGMMA and
-   UTMALDG;
+   (``HMMA``) instructions: every fold and GEMM instantiation must have
+   HGMMA and UTMALDG;
 2. each kernel against its plain PyTorch version on the card, with its
    time, the plain version's, the library call's and the bound of the
    kernels' route (bf16 on the tensor cores, f32 as three-pass TF32 on
@@ -45,7 +45,10 @@ Phases (any failure raises and the exit code is non-zero):
    cases (a ragged chain at d 128, 40 and 18). Every f32 case is also
    held against an f64 attention over its first two (b, h) slices: the
    kernel's error there may be at most ``F64_RATIO`` times the plain
-   version's;
+   version's. Then the three-pass TF32 product (``gemm_tf32x3``) at the
+   cells' six product shapes, held the same way against an f64 product,
+   with its time, the plain version's, ``torch.matmul``'s and the bound
+   (``phase_gemm``);
 3. FF inference through ``Client.execute_computations`` at bench.py's
    size (16384 x 1024 -> 4096 -> 1024, 512 x 512 blocks, f32), three
    requests, each checked against an f64 recomputation;
@@ -500,8 +503,13 @@ bench processes' own counters, each printed as its last line (both 0:
 no bench reaches attention; the daemons those processes spawn serve no
 attention either); phase 26's are the two cluster processes' own, set to
 0 just before their SP requests and read just after (B2 8 times a
-request in each, B1 never), summed. The last line is the contract's
-device record.
+request in each, B1 never), summed. ``gemm_tf32x3``, which takes
+every large f32 product, is held to one launch a product in phase 2,
+to 2 a FF request in phase 3 and 4 a layer request in phase 4 (the
+request alone, around each); its launches by path in the last record
+are this process's over each later phase, checks included, plus the
+daemons' own where a phase reads their counters. The last line is the
+contract's device record.
 Without a CUDA card, or without the package beside it, it exits 2.
 """
 
@@ -541,6 +549,9 @@ PCIE_GBPS = 64.0  # PCIe Gen5 x16, nominal per direction
 # most this many times the plain version's. Three-pass TF32 is about as
 # accurate as f32 (PERF.md); one pass would read about 1000 times.
 F64_RATIO = 4.0
+# the hand-written attention kernels (B1, B2); the paths that must not
+# launch them may launch gemm_tf32x3, which takes every large f32 product
+ATTENTION_KERNELS = ("flash_attention", "flash_attention_step")
 
 # data-sheet peaks (dense) and memory rates; the PCIe card is chosen by name
 # (float32 on the CUDA cores, tf32 and bfloat16 on the tensor cores)
@@ -655,13 +666,14 @@ def phase_build() -> dict:
         counts = sass_counts(tool, path)
         for func, count in counts.items():
             print(f"[build]   {name}: {json.dumps(count)} in {func}")
-        folds = {f: c for f, c in counts.items() if "fold_kernel" in f}
-        # every fold instantiation runs its products on wgmma and loads
-        # its tiles with TMA
+        # every fold and GEMM instantiation runs its products on wgmma and
+        # loads its tiles with TMA
+        main = "gemm_kernel" if name == "gemm_tf32x3" else "fold_kernel"
+        folds = {f: c for f, c in counts.items() if main in f}
         if not folds or any(c["HGMMA"] == 0 or c["UTMALDG"] == 0
                             for c in folds.values()):
-            raise RuntimeError(f"{name}: a fold without wgmma (HGMMA) or "
-                               f"TMA loads (UTMALDG): {folds}")
+            raise RuntimeError(f"{name}: a {main} without wgmma (HGMMA) "
+                               f"or TMA loads (UTMALDG): {folds}")
     return built
 
 
@@ -713,6 +725,75 @@ def sass_counts(tool: str, library) -> dict:
 
 
 # --- phase 2 -------------------------------------------------------------
+# the cells' float32 products (ff.score16k, xformer.s16k): (name, m, k, n,
+# how the model hands the right operand over)
+GEMM_PRODUCTS = [("ff matmul_t: W1 X^T", 4096, 1024, 16384, "t"),
+                 ("ff matmul: Wo H", 1024, 4096, 16384, "n"),
+                 ("layer qkv", 16384, 1024, 3072, "n"),
+                 ("layer out", 16384, 1024, 1024, "n"),
+                 ("layer up", 16384, 1024, 4096, "n"),
+                 ("layer down", 16384, 4096, 1024, "n")]
+
+
+def phase_gemm(pk: dict) -> dict:
+    """The three-pass TF32 product at the cells' six product shapes: the
+    kernel against its plain version and an f64 product (error at most
+    F64_RATIO times the plain version's), its time beside its bound (3 x
+    2mnk operations at the tf32 peak, or the bytes of a, b and c), the
+    plain version's and ``torch.matmul``'s in f32 with TF32 off (the
+    library, what the route replaced). Returns a row a product."""
+    import torch
+
+    from netsdb_tpu_torch.ops.common import full_f32_precision
+    from netsdb_tpu_torch.ops.cuda_kernels import (gemm_layout, gemm_tf32x3,
+                                                   gemm_tf32x3_plain)
+
+    full_f32_precision()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    rows = []
+    for name, m, k, n, how in GEMM_PRODUCTS:
+        a = rn(m, k) * k ** -0.5
+        b = rn(n, k).t() if how == "t" else rn(k, n)
+        before = gemm_tf32x3.launches
+        out = gemm_tf32x3(a, b)
+        plain = gemm_tf32x3_plain(a, b)
+        torch.cuda.synchronize()
+        if gemm_tf32x3.launches != before + 1:
+            raise RuntimeError(f"gemm_tf32x3 {name}: no launch counted")
+        exact = a.double() @ b.double()
+        err = (out.double() - exact).abs().max().item()
+        plain_err = (plain.double() - exact).abs().max().item()
+        lib_err = ((a @ b).double() - exact).abs().max().item()
+        del exact
+        flop = 2.0 * m * n * k
+        bound, bound_by = bounds_ms(3 * flop, 4.0 * (m * k + k * n + m * n),
+                                    "tf32", pk)
+        lay = gemm_layout(a, b)
+        row = {"product": name, "m": m, "k": k, "n": n,
+               "p_rmajor": lay.p_rmajor, "transposed": lay.transposed,
+               "max_abs_err": err, "plain_f64_err": plain_err,
+               "library_f64_err": lib_err,
+               "ms": time_ms(lambda: gemm_tf32x3(a, b), iters=20),
+               "plain_ms": time_ms(lambda: gemm_tf32x3_plain(a, b), iters=3),
+               "library_ms": time_ms(lambda: a @ b, iters=10),
+               "bound_ms": bound, "bound_by": bound_by,
+               "bound_route": "f32 as three-pass TF32",
+               "bound_cuda_cores_ms": flop / pk["float32"] * 1e3}
+        row["pct_of_bound"] = 100 * bound / row["ms"]
+        print(f"[kernel] gemm_tf32x3 {json.dumps(row)}")
+        if not err <= F64_RATIO * plain_err:
+            raise RuntimeError(f"gemm_tf32x3 {name}: error against f64 "
+                               f"{err} is over {F64_RATIO} x the plain "
+                               f"version's {plain_err}")
+        rows.append(row)
+        del a, b, out, plain
+    return rows
+
+
 def phase_kernels(pk: dict) -> dict:
     """Kernel vs plain at the main path's shape and the edge shapes.
     Returns the timings at the path's shape (causal f32 (2,8,4096,128))."""
@@ -968,6 +1049,7 @@ def phase_ff(client) -> dict:
     import torch
 
     from netsdb_tpu_torch.models.ff import FFModel
+    from netsdb_tpu_torch.ops.cuda_kernels import gemm_tf32x3
 
     features, hidden, labels = 1024, 4096, 1024
     model = FFModel(block=(512, 512))
@@ -980,11 +1062,15 @@ def phase_ff(client) -> dict:
     for batch in (16384, 16384, 16000):
         x = rng.standard_normal((batch, features), dtype=np.float32)
         model.load_inputs(client, x)
+        before = gemm_tf32x3.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model.inference(client)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        if gemm_tf32x3.launches != before + 2:
+            raise RuntimeError(f"a FF request launched gemm_tf32x3 "
+                               f"{gemm_tf32x3.launches - before} times")
         if out.shape != (labels, batch) or out.device.type != "cuda":
             raise RuntimeError(f"FF output {out!r}")
         xd = torch.as_tensor(x, device="cuda").double()
@@ -1001,20 +1087,23 @@ def phase_ff(client) -> dict:
         errs.append(err)
         print(f"[ff] batch {batch} padded={out.is_padded} {dt * 1e3:.3f} ms "
               f"{batch / dt:.1f} rows/s max_abs_err {err:.3e}")
-    return {"rows_per_s": rates, "max_abs_err": max(errs), "ms": dt * 1e3}
+    return {"rows_per_s": rates, "max_abs_err": max(errs), "ms": dt * 1e3,
+            "gemm_launches": 2 * len(rates)}
 
 
 # --- phase 4 -------------------------------------------------------------
 def phase_transformer(client) -> dict:
     """Three serve_forward requests at transformer_bench.py's size; each
-    must launch the flash kernel exactly once."""
+    must launch the flash kernel exactly once and gemm_tf32x3 four times
+    (QKV, out, up, down)."""
     import numpy as np
     import torch
 
     from netsdb_tpu_torch.models.transformer import TransformerLayerModel
     from netsdb_tpu_torch.ops.attention import merge_project, qkv_project
     from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
-                                                   flash_attention_plain)
+                                                   flash_attention_plain,
+                                                   gemm_tf32x3)
 
     embed, heads, batch, seq = 1024, 8, 2, 4096
     model = TransformerLayerModel(num_heads=heads)
@@ -1026,6 +1115,7 @@ def phase_transformer(client) -> dict:
         x = rng.standard_normal((batch, seq, embed), dtype=np.float32)
         model.load_inputs(client, x)
         before = flash_attention.launches
+        gemm_before = gemm_tf32x3.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         y = model.serve_forward(client)
@@ -1034,6 +1124,10 @@ def phase_transformer(client) -> dict:
         if flash_attention.launches != before + 1:
             raise RuntimeError(f"serve_forward launched the flash kernel "
                                f"{flash_attention.launches - before} times")
+        if gemm_tf32x3.launches != gemm_before + 4:
+            raise RuntimeError(f"serve_forward launched gemm_tf32x3 "
+                               f"{gemm_tf32x3.launches - gemm_before} "
+                               f"times")
         if tuple(y.shape) != (batch, seq, embed) or y.device.type != "cuda" \
                 or not torch.isfinite(y).all():
             raise RuntimeError(f"transformer output {tuple(y.shape)} on "
@@ -1055,7 +1149,7 @@ def phase_transformer(client) -> dict:
         print(f"[transformer] {dt * 1e3:.3f} ms {batch * seq / dt:.1f} "
               f"tokens/s max_abs_err {err:.3e}")
     return {"tokens_per_s": rates, "max_abs_err": max(errs),
-            "ms": dt * 1e3}
+            "ms": dt * 1e3, "gemm_launches": 4 * len(rates)}
 
 
 # --- phase 5 -------------------------------------------------------------
@@ -1524,8 +1618,10 @@ def drive_paged(client, name, run_paged, run_resident, tol, units,
 
 # --- phase 8 -------------------------------------------------------------
 # each model's request output against its f64 recomputation: a one-hot
-# product with TF32 off and a gather pick table rows exactly; conv
-# outputs are about 12 in magnitude (unit-scale images and filters)
+# product (cuBLAS with TF32 off, or the three-pass TF32 kernel, whose
+# split of the table sums to it exactly) and a gather pick table rows
+# exactly; conv outputs are about 12 in magnitude (unit-scale images and
+# filters)
 MODEL_TOLS = {"word2vec": 0.0, "word2vec_sparse": 1e-5, "logreg": 1e-5,
               "text_classifier": 1e-4, "lstm": 1e-4, "lstm_bf16": 5e-2,
               "conv2d": 2e-3}
@@ -6555,8 +6651,10 @@ def phase_pool(pk: dict, smi: str, device: str = "cuda",
                   f"{d['max_memory_reserved_mib']:.0f} MiB ({card})")
         print(f"[pool] card memory used, total: {out['card_memory']}; "
               f"daemon kernel launches {launches} ({card})")
-        if any(launches.values()):
-            raise RuntimeError(f"the pool paths launched a hand-written "
+        # FF's products run on gemm_tf32x3 here as everywhere; no
+        # attention kernel lies on the pool's paths
+        if any(launches.get(k, 0) for k in ATTENTION_KERNELS):
+            raise RuntimeError(f"the pool paths launched an attention "
                                f"kernel: {launches}")
         for c in daemon_clients:
             c.close()
@@ -10202,9 +10300,9 @@ def phase_pool_rest(pk: dict, smi: str, device: str = "cuda",
             addrs["tl"], addrs["tf"], out["types"], card))
         out["types"].pop("want")
         out["part_s"] = part_s
-        if any(pool_kernels.values()):
-            raise RuntimeError(f"the rebalancing pool launched a "
-                               f"hand-written kernel: {pool_kernels}")
+        if any(pool_kernels.get(k, 0) for k in ATTENTION_KERNELS):
+            raise RuntimeError(f"the rebalancing pool launched an "
+                               f"attention kernel: {pool_kernels}")
         out["launches"] = dict(out["sp"]["launches"])
         out["wall_s"] = time.perf_counter() - t0
         print(f"[rest] phase 22 wall {out['wall_s']:.1f} s, by part "
@@ -11891,6 +11989,29 @@ def phase_cluster(pk: dict, smi: str, device: str = "cuda",
     return out
 
 
+def gemm_row(kernel_row, rows, ff, tf, in_process, phases) -> dict:
+    """The last record's row of ``gemm_tf32x3``: phase 2's figures a cell
+    product (``phase_gemm``'s rows), the launches of phases 3 and 4's
+    requests (2 a FF request, 4 a layer request), this process's over
+    each phase besides them, and the daemons' own where a phase read
+    their counters (``launches`` with a ``gemm_tf32x3`` entry)."""
+    by_product = {f: {r["product"]: r[f] for r in rows}
+                  for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "bound_cuda_cores_ms", "library_ms")}
+    row = kernel_row(
+        "gemm_tf32x3", "netsdb_tpu_torch/csrc/gemm_tf32x3.cu", "none",
+        {"inference": ff["gemm_launches"] + tf["gemm_launches"],
+         **{f"phase {n}": c for n, c in in_process.items()}},
+        {**by_product, "bound_route": rows[0]["bound_route"],
+         "max_abs_err": max(r["max_abs_err"] for r in rows)})
+    row["daemon_launches"] = {
+        f"phase {n}": out["launches"]["gemm_tf32x3"]
+        for n, out in phases.items()
+        if isinstance(out, dict) and isinstance(out.get("launches"), dict)
+        and "gemm_tf32x3" in out["launches"]}
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -11910,7 +12031,8 @@ def main() -> int:
     from netsdb_tpu_torch.models.ff import FFModel
     from netsdb_tpu_torch.models.transformer import TransformerLayerModel
     from netsdb_tpu_torch.ops.cuda_kernels import (flash_attention,
-                                                   flash_attention_step)
+                                                   flash_attention_step,
+                                                   gemm_tf32x3)
     from netsdb_tpu_torch.parallel.mesh import virtual_devices
 
     smi = nvidia_smi()
@@ -12017,11 +12139,12 @@ def main() -> int:
     if "--kernels-only" in sys.argv[1:]:
         # phase 2, then phases 4 and 5, the same way
         b1, b2 = phase_kernels(pk), phase_step_kernel(pk)
+        gemm = phase_gemm(pk)
         tf = phase_transformer(Client())
         with virtual_devices(SP_POSITIONS, "cuda:0"):
             sp = phase_sp(Client())
-        print(json.dumps({"b1": b1, "b2": b2, "transformer": tf,
-                          "sp": sp,
+        print(json.dumps({"b1": b1, "b2": b2, "gemm": gemm,
+                          "transformer": tf, "sp": sp,
                           "card": smi}, default=str))
         return 0
     if "--cli-only" in sys.argv[1:]:
@@ -12051,19 +12174,25 @@ def main() -> int:
                          default=str))
         return 0
     walls = {}  # seconds of each phase (or group of phases), printed
+    # gemm_tf32x3's launches in this process over each phase, checks
+    # included (the products of any path take it by shape)
+    gemm_launches = {}
 
     def timed(name, fn, *args, **kw):
-        t0 = time.perf_counter()
+        t0, g0 = time.perf_counter(), gemm_tf32x3.launches
         try:
             return fn(*args, **kw)
         finally:
             walls[name] = round(time.perf_counter() - t0, 1)
+            gemm_launches[name] = gemm_tf32x3.launches - g0
 
     t_main = time.perf_counter()
     b1 = timed("2", phase_kernels, pk)
     b2 = timed("2b", phase_step_kernel, pk)
+    gemm = timed("2c", phase_gemm, pk)
 
     client = Client()
+    g0 = gemm_tf32x3.launches
     flash_attention.launches = flash_attention_step.launches = 0
     ff = phase_ff(client)
     tf = phase_transformer(client)
@@ -12086,7 +12215,10 @@ def main() -> int:
                    sp["ms"])})
 
     walls["3-6"] = round(time.perf_counter() - t_main - walls["2"]
-                         - walls["2b"], 1)
+                         - walls["2b"] - walls["2c"], 1)
+    # beside phases 3 and 4's requests, counted as "inference"
+    gemm_launches["3-6"] = (gemm_tf32x3.launches - g0 - ff["gemm_launches"]
+                            - tf["gemm_launches"])
     paged = timed("7", phase_paged)
     models = timed("8", models_path)
     train = timed("9", train_path)
@@ -12197,7 +12329,11 @@ def main() -> int:
                         benches["launches"]["flash_attention_step"],
                     "cluster":
                         cluster["launches"]["flash_attention_step"]},
-                   b2)]}))
+                   b2),
+        gemm_row(kernel_row, gemm, ff, tf, gemm_launches, {
+            "14": compiled, "16": serve, "17": pool, "19": multichip,
+            "20": observed, "21": replicated, "22": rest, "23": cli,
+            "24": benches, "26": cluster})]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

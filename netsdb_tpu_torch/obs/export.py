@@ -42,10 +42,15 @@ ATTRIB_METRICS = (
 )
 
 
-#: counters the port mints that the reference does not (its follower
-#: resync and applied log, the in-process mesh, the shuffle and the
-#: single-position SUMMA): catalogued so the scrape exports them
+#: counters the port mints that the reference does not (its float32
+#: product route, its follower resync and applied log, the in-process
+#: mesh, the shuffle and the single-position SUMMA): catalogued so the
+#: scrape exports them
 PORT_ONLY_COUNTERS = (
+    ("matmul.cublas_f32", "float32 products on an sm_90 card left on "
+                          "cuBLAS (ops/common.tf32x3_route)"),
+    ("matmul.tf32x3", "float32 products on an sm_90 card sent to the "
+                      "three-pass TF32 kernel"),
     ("mesh.all_gathers", "row-sharded relations all-gathered for a "
                          "non-rowwise node"),
     ("mesh.fallbacks", "placed operands gathered by an op with no "

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 from typing import Callable, Iterator, List, Optional
 
 import torch
@@ -68,6 +69,74 @@ def full_f32_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+#: The smallest float32 product, in multiply-adds (m n k), that runs on
+#: the three-pass TF32 kernel: on an H100, at 2^30 it lost to cuBLAS's
+#: SGEMM on a skinny shape (65536 x 128 x 128), at 2^31 it took 0.59-0.94
+#: of the SGEMM's time on every shape tried (PERF.md, the crossover).
+TF32X3_MIN_MACS = 1 << 31
+
+
+def _as_rows(a: torch.Tensor) -> Optional[torch.Tensor]:
+    """``a`` (..., K) as one (rows, K) matrix without a copy, or None
+    when its leading dimensions do not fold into one."""
+    if a.dim() < 2:
+        return None
+    lead = [(n, s) for n, s in zip(a.shape[:-1], a.stride()[:-1]) if n != 1]
+    if any(s0 != s1 * n1 for (_, s0), (n1, s1) in zip(lead, lead[1:])):
+        return None
+    return a.view(-1, a.shape[-1])
+
+
+def tf32x3_route(a: torch.Tensor, b: torch.Tensor,
+                 compute_dtype: Optional[str] = None,
+                 out_dtype=torch.float32, matrix: bool = True
+                 ) -> Optional[str]:
+    """Where the product ``a @ b`` (a (..., K), b (K, N)) runs: None when
+    the three-pass TF32 kernel (``cuda_kernels.gemm_tf32x3``) takes it,
+    else why cuBLAS (or the CPU) keeps it. The kernel takes a product on
+    an sm_90 card whose operands and output are float32 at full precision
+    (``compute_dtype`` None), with no operand requiring grad under grad
+    mode, that folds into one 2-D product with strides the kernel reads,
+    of at least :data:`TF32X3_MIN_MACS` multiply-adds. ``matrix=False``
+    says the operands are no such product (an einsum of another form).
+    Counts the float32 full-precision products it routes on an sm_90 card
+    in the registry: ``matmul.tf32x3`` those the kernel takes,
+    ``matmul.cublas_f32`` those left on cuBLAS (a captured graph's replay
+    repeats neither count)."""
+    if not (on_sm90(a.device) and b.device == a.device):
+        return "not on an sm_90 card"
+    if compute_dtype is not None:
+        return "reduced-precision compute"
+    if not a.dtype == b.dtype == as_torch_dtype(out_dtype) == torch.float32:
+        return "not float32"
+    from netsdb_tpu_torch import obs
+    from netsdb_tpu_torch.ops.cuda_kernels import gemm_layout
+
+    rows = _as_rows(a)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        why = "an operand requires grad"
+    elif not matrix or rows is None or b.dim() != 2 \
+            or a.shape[-1] != b.shape[0]:
+        why = "not one 2-D product"
+    elif rows.shape[0] * a.shape[-1] * b.shape[1] < TF32X3_MIN_MACS:
+        why = "below the crossover"
+    elif gemm_layout(rows, b) is None:
+        why = "strides the kernel does not read"
+    else:
+        obs.REGISTRY.counter("matmul.tf32x3").inc()
+        return None
+    obs.REGISTRY.counter("matmul.cublas_f32").inc()
+    return why
+
+
+def _tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` on the kernel, for a product :func:`tf32x3_route` took."""
+    from netsdb_tpu_torch.ops.cuda_kernels import gemm_tf32x3
+
+    out = gemm_tf32x3(_as_rows(a), b)
+    return out.view(*a.shape[:-1], b.shape[1])
+
+
 def mxu_dot(a: torch.Tensor, b: torch.Tensor,
             compute_dtype: Optional[str] = None,
             accum_dtype=torch.float32) -> torch.Tensor:
@@ -75,7 +144,8 @@ def mxu_dot(a: torch.Tensor, b: torch.Tensor,
     ``accum_dtype`` (f32 unless the caller overrides it).
 
     ``compute_dtype=None`` means full input-dtype accuracy: f32 inputs
-    run as true f32 products. ``compute_dtype="bfloat16"`` is the
+    run as true f32 products, on the three-pass TF32 kernel where
+    :func:`tf32x3_route` sends them. ``compute_dtype="bfloat16"`` is the
     reduced-precision opt-in: inputs are rounded to bf16 and the card
     accumulates in f32 inside the product."""
     accum = as_torch_dtype(accum_dtype) or torch.float32
@@ -84,14 +154,31 @@ def mxu_dot(a: torch.Tensor, b: torch.Tensor,
         out = torch.matmul(a.to(cd), b.to(cd))
     else:
         full_f32_precision()
-        out = torch.matmul(a, b)
+        out = (_tf32x3(a, b) if tf32x3_route(a, b, None, accum) is None
+               else torch.matmul(a, b))
     return out.to(accum)
+
+
+@functools.lru_cache(maxsize=None)
+def _is_weight_product(eq: str) -> bool:
+    """True for an equation ``<lead>k,kn-><lead>n``: the left operand's
+    last dimension against a matrix (``bse,ef->bsf``)."""
+    ins, _, out = eq.replace(" ", "").partition("->")
+    left, _, right = ins.partition(",")
+    return (len(right) == 2 and len(left) >= 2 and left[-1] == right[0]
+            and out == left[:-1] + right[1]
+            and len(set(left + right[1])) == len(left) + 1)
 
 
 def hi_einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` at full f32 precision (the reference's
-    ``jnp.einsum(..., precision=HIGHEST)``)."""
+    ``jnp.einsum(..., precision=HIGHEST)``); a product of the left
+    operand's last dimension with a matrix runs on the three-pass TF32
+    kernel where :func:`tf32x3_route` sends it."""
     full_f32_precision()
+    if len(operands) == 2 and tf32x3_route(
+            *operands, matrix=_is_weight_product(eq)) is None:
+        return _tf32x3(*operands)
     return torch.einsum(eq, *operands)
 
 

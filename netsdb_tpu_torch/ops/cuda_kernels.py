@@ -7,25 +7,35 @@ wrapper                    replaces (``netsdb_tpu/ops/pallas_kernels.py``)
                            source ``csrc/flash_attention.cu``
 ``flash_attention_step``   ``flash_attention_step`` (B2, the ring step),
                            source ``csrc/flash_attention_step.cu``
+``gemm_tf32x3``            none: the reference leaves its float32
+                           products to XLA at ``Precision.HIGHEST``;
+                           source ``csrc/gemm_tf32x3.cu``
 =========================  ==============================================
 
-Both are built by :mod:`netsdb_tpu_torch.ops.cuda_build` and
-instantiate one fold, ``csrc/flash_fold_wgmma.cuh``, as the reference's
-two kernels share ``_fold_block``: B2's is B1's with the carry read and
-written. The fold is compute-bound on this card and is built for its
-tensor cores: a producer warp streams Q, K and V tiles with TMA through
-a ring of stages guarded by mbarriers, and two consumer warpgroups run
-the products on ``wgmma`` with S and the output held in its register
-fragments. bf16 runs natively; float32 runs as three-pass TF32, which
-keeps float32's accuracy, on K and V split once a launch into scratch
-the wrapper allocates (:func:`split_scratch_bytes`). TMA takes rows of
-whole 16 bytes from 16-byte-aligned bases: an operand without them is
-copied, zero-padded, by :func:`tma_operand`. On a CUDA tensor a wrapper
-launches its kernel or raises; on a CPU tensor it runs its plain
-version, which repeats the reference kernel's blocking and exp2-domain
-online-softmax carry in plain PyTorch. Each wrapper counts its kernel
-launches in ``<wrapper>.launches``; :func:`kernel_launches` is the
-registry's ``kernels`` section of them.
+All three are built by :mod:`netsdb_tpu_torch.ops.cuda_build`. The two
+attention kernels instantiate one fold, ``csrc/flash_fold_wgmma.cuh``,
+as the reference's two kernels share ``_fold_block``: B2's is B1's with
+the carry read and written. The fold is compute-bound on this card and
+is built for its tensor cores: a producer warp streams Q, K and V tiles
+with TMA through a ring of stages guarded by mbarriers, and two consumer
+warpgroups run the products on ``wgmma`` with S and the output held in
+its register fragments. bf16 runs natively; float32 runs as three-pass
+TF32, which keeps float32's accuracy, on K and V split once a launch
+into scratch the wrapper allocates (:func:`split_scratch_bytes`). TMA
+takes rows of whole 16 bytes from 16-byte-aligned bases: an operand
+without them is copied, zero-padded, by :func:`tma_operand`. On a CUDA
+tensor a wrapper launches its kernel or raises; on a CPU tensor it runs
+its plain version, which repeats the reference kernel's blocking and
+exp2-domain online-softmax carry in plain PyTorch. Each wrapper counts
+its kernel launches in ``<wrapper>.launches``; :func:`kernel_launches`
+is the registry's ``kernels`` section of them.
+
+``gemm_tf32x3`` is a float32 matrix product as three-pass TF32 on the
+same tensor cores, built from the fold's helpers: tf32 products of the
+operands' parts (:func:`split_tf32`, and :func:`split_q_exact` for the
+operand split once a launch) for each float32 one, which keeps float32's
+accuracy where cuBLAS, with TF32 off, runs SIMT SGEMMs on the CUDA cores.
+``ops.common.tf32x3_route`` decides which products take it.
 
 Gradients: neither Pallas kernel of the reference has a backward (JAX
 differentiates the attention it calls). :class:`FlashAttentionFunction`
@@ -42,7 +52,7 @@ import ctypes
 import functools
 import math
 import warnings
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -172,6 +182,12 @@ _ENTRY = {
                              + [ctypes.c_int] * 6
                              + [ctypes.c_float] + [ctypes.c_int] * 4
                              + [ctypes.c_void_p]),
+    "gemm_tf32x3": ("netsdb_gemm_tf32x3",
+                    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                     ctypes.c_void_p, ctypes.c_longlong,
+                     ctypes.c_void_p, ctypes.c_longlong]
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
 }
 
 
@@ -470,11 +486,168 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_step.launches = 0
 
 
+# ------------------------------------------------ float32 matrix product
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``x``, bit for bit as the kernels' ``split_tf32``
+    (``csrc/flash_fold_wgmma.cuh``): hi is x rounded to tf32, to nearest
+    with ties away from zero as ``cvt.rna`` rounds (half of the 13 dropped
+    mantissa bits added, then cleared), and lo = x - hi, exact in f32."""
+    hi = ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """Float32 ``x`` as the tensor core reads an f32 register as tf32: its
+    13 low mantissa bits dropped."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def split_q_exact(x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(hi, mid, lo2) of float32 ``x``: three tf32 values that sum to x
+    exactly, bit for bit as ``csrc/gemm_tf32x3.cu``'s ``split_q_exact``.
+    hi is :func:`split_tf32`'s, or x cut to tf32 where rounding would
+    carry it into the next binade, so that hi keeps x's exponent; mid and
+    lo2 are :func:`split_tf32` of the remainder x - hi."""
+    hi, _ = split_tf32(x)
+    carried = ((hi.view(torch.int32) ^ x.view(torch.int32))
+               & 0x7F800000) != 0
+    hi = torch.where(carried, tf32_truncate(x), hi)
+    mid, lo2 = split_tf32(x - hi)
+    return hi, mid, lo2
+
+
+def gemm_tf32x3_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for float32 a (m, k) and b (k, n) as the kernel computes
+    it: the operand the kernel splits once (Q, the smaller, as
+    :func:`gemm_layout` picks it) into hi + mid + lo2 by
+    :func:`split_q_exact`, the other (P) into hi + lo by
+    :func:`split_tf32` with lo read as tf32 (:func:`tf32_truncate`); then
+    lo·hi + hi·lo2 + hi·mid + hi·hi, the small terms first, each product
+    in float32 with TF32 off. The kernel adds in another order, in 32-deep
+    chains, so the two agree to float32 rounding, not bit for bit."""
+    full_f32_precision()
+    q_left = b.numel() > a.numel()
+    p_hi, p_lo = split_tf32(b if q_left else a)
+    q_hi, q_mid, q_lo2 = split_q_exact(a if q_left else b)
+
+    def mul(p, q):
+        return q @ p if q_left else p @ q
+
+    small = (mul(tf32_truncate(p_lo), q_hi) + mul(p_hi, q_lo2)
+             + mul(p_hi, q_mid))
+    return small + mul(p_hi, q_hi)
+
+
+class GemmLayout(NamedTuple):
+    """How the kernel takes C = a @ b: it computes D = P Q, with Q the
+    smaller operand (split into scratch by its pre-pass, read at any
+    strides) and P the other, read as it lies by TMA: K-major (element
+    (r, k) at ``p + r ldp + k``) or R-major (``p + k ldp + r``). When Q is
+    a, P is bᵀ and D = Cᵀ, stored transposed."""
+    p: torch.Tensor       # the operand P is a view of
+    ldp: int
+    p_rmajor: bool
+    q: torch.Tensor       # the operand Q is a view of
+    q_strides: Tuple[int, int]  # Q's element (k, c) at k sk + c sc
+    transposed: bool
+    rows: int             # R
+    cols: int             # C
+
+
+def gemm_layout(a: torch.Tensor, b: torch.Tensor) -> Optional[GemmLayout]:
+    """The kernel's :class:`GemmLayout` for 2-D ``a @ b``, or None when the
+    operand read by TMA has no unit stride, a row pitch that is no whole
+    16 bytes, or a base off a 16-byte boundary."""
+    (m, k), n = a.shape, b.shape[1]
+    transposed = b.numel() > a.numel()
+    if transposed:
+        p, (p_ks, p_rs), q, qs, rows, cols = (
+            b, b.stride(), a, a.stride()[::-1], n, m)
+    else:
+        p, (p_rs, p_ks), q, qs, rows, cols = (
+            a, a.stride(), b, b.stride(), m, n)
+    if p.data_ptr() % 16:
+        return None
+    if p_ks == 1 and p_rs % 4 == 0 and p_rs >= k:
+        ldp, rmajor = p_rs, False
+    elif p_rs == 1 and p_ks % 4 == 0 and p_ks >= rows:
+        ldp, rmajor = p_ks, True
+    else:
+        return None
+    return GemmLayout(p, ldp, rmajor, q, tuple(qs), transposed, rows, cols)
+
+
+def gemm_scratch_bytes(cols: int, k: int) -> int:
+    """Bytes of the float32 scratch Q is split into: hi, mid and lo2,
+    (cols, k rounded up to 32) each (the kernel's
+    ``netsdb_gemm::scratch_bytes``)."""
+    return 4 * 3 * cols * (-(-k // 32) * 32)
+
+
+def gemm_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = a @ b for float32 a (m, k) and b (k, n), as three-pass TF32.
+
+    CUDA tensors on an sm_90 card run the hand-written kernel on the
+    current stream: a pre-pass splits the smaller operand into scratch of
+    :func:`gemm_scratch_bytes` (freed when this returns), then the GEMM
+    reads the other as it lies (:func:`gemm_layout`; other strides
+    raise). CPU tensors run :func:`gemm_tf32x3_plain`. Operands that
+    require grad under grad mode raise on the card: the kernel has no
+    autograd node. ``gemm_tf32x3.launches`` counts kernel launches (the
+    pre-pass and the GEMM of one product count once)."""
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"gemm_tf32x3 wants a (m, k) and b (k, n); got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"gemm_tf32x3 takes float32, got {a.dtype} and "
+                        f"{b.dtype}")
+    if b.device != a.device:
+        raise ValueError(f"b on {b.device}, a on {a.device}")
+    if a.device.type == "cpu":
+        return gemm_tf32x3_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"gemm_tf32x3 runs on cuda or cpu, not {a.device}")
+    if _needs_grad(a, b):
+        raise RuntimeError("gemm_tf32x3 has no autograd node; products "
+                           "that require grad stay on cuBLAS")
+    _require_sm90("gemm_tf32x3", a.device)
+    (m, k), n = a.shape, b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if not (m and n and k):
+        return out.zero_()
+    lay = gemm_layout(a, b)
+    if lay is None:
+        raise ValueError(
+            f"gemm_tf32x3 reads its larger operand with TMA, which needs a "
+            f"unit stride, a row pitch of whole 16 bytes and a 16-byte-"
+            f"aligned base; got a {tuple(a.shape)} strides {a.stride()}, "
+            f"b {tuple(b.shape)} strides {b.stride()}")
+    fn, error_string = _kernel("gemm_tf32x3")
+    scratch = torch.empty(gemm_scratch_bytes(lay.cols, k) // 4,
+                          dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(lay.p.data_ptr(), lay.ldp, int(lay.p_rmajor),
+                lay.q.data_ptr(), *lay.q_strides,
+                scratch.data_ptr(), 4 * scratch.numel(),
+                out.data_ptr(), n, int(lay.transposed),
+                lay.rows, lay.cols, k, stream)
+    _raise_on_error("gemm_tf32x3", rc, error_string)
+    gemm_tf32x3.launches += 1
+    return out
+
+
+gemm_tf32x3.launches = 0
+
+
 def kernel_launches():
     """``{wrapper name: launches}`` — the registry's ``kernels`` section,
     so a daemon's launch counts reach its clients through COLLECT_STATS."""
     return {"flash_attention": flash_attention.launches,
-            "flash_attention_step": flash_attention_step.launches}
+            "flash_attention_step": flash_attention_step.launches,
+            "gemm_tf32x3": gemm_tf32x3.launches}
 
 
 def _register_collector() -> None:

@@ -549,7 +549,8 @@ def _pool_touch(prog, sig) -> None:
 def _kernel_wrappers() -> List[Any]:
     from netsdb_tpu_torch.ops import cuda_kernels
 
-    return [cuda_kernels.flash_attention, cuda_kernels.flash_attention_step]
+    return [cuda_kernels.flash_attention, cuda_kernels.flash_attention_step,
+            cuda_kernels.gemm_tf32x3]
 
 
 # --- the capture stream -------------------------------------------------
